@@ -1,0 +1,542 @@
+"""R-base-like matrix API on GenOps (paper Table III), PyTorch port of
+repro.core.rlike.
+
+`FM` wraps an FMMatrix handle with R's operator vocabulary; every method
+lowers to a GenOp, so a chain of calls builds one lazy DAG that
+``fm.materialize`` fuses.
+
+    >>> X = fm.runif_matrix(1_000_000, 16)
+    >>> Z = (X - fm.colMeans(X)) / fm.colSds(X)   # lazy: moment + sweep passes
+    >>> (G,) = fm.materialize(fm.crossprod(Z))
+
+Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
+that brings them: the host and disk tiers and the named-matrix registry
+(A7), sparse factors (A9), ``explain`` (A10), ``batch`` (A11), ``serve``
+(A12).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+
+from . import genops, materialize as mat_mod, matrix as matrix_mod
+from .matrix import FMMatrix
+
+
+class FM:
+    """R-flavoured wrapper around an FMMatrix handle (virtual or physical)."""
+
+    __slots__ = ("m",)
+
+    def __init__(self, m: FMMatrix):
+        self.m = m
+
+    @property
+    def shape(self):
+        return self.m.shape
+
+    @property
+    def nrow(self):
+        return self.m.nrow
+
+    @property
+    def ncol(self):
+        return self.m.ncol
+
+    @property
+    def dtype(self):
+        return self.m.dtype
+
+    @property
+    def is_virtual(self):
+        return self.m.is_virtual
+
+    def __repr__(self):
+        return f"FM({self.m!r})"
+
+    # -- element-wise binary (auto row/col recycling like R sweep) -----------
+    def _bin(self, other, op):
+        if isinstance(other, FM):
+            if other.shape == self.shape:
+                return FM(genops.mapply(self.m, other.m, op))
+            return self._recycle(other, op)
+        return FM(genops.mapply(self.m, other, op))
+
+    def _rbin(self, other, op):
+        return FM(genops.mapply(other, self.m, op))
+
+    def _recycle(self, other: "FM", op):
+        """R-style recycling of a vector across a matrix: length ncol pairs
+        with each column index (mapply.row), length nrow with each row index
+        (mapply.col; also the square case, R being column-major).  A virtual
+        length-ncol vector stays lazy (the multi-pass schedule)."""
+        n = max(other.shape)
+        if min(other.shape) != 1:
+            raise ValueError(
+                f"recycling needs a vector (an n×1 or 1×n matrix); got "
+                f"shape {other.shape} against {self.shape} — for "
+                f"elementwise matrix∘matrix the shapes must match exactly")
+        if n == self.ncol and n != self.nrow:
+            vec = other.m if other.m.is_virtual else _vec_data(other.m)
+            return FM(genops.mapply_row(self.m, vec, op))
+        if n == self.nrow:
+            return FM(genops.mapply_col(self.m, other.m, op))
+        raise ValueError(
+            f"cannot recycle a length-{n} vector across a "
+            f"{self.nrow}×{self.ncol} matrix: R recycling needs length "
+            f"{self.nrow} (pairs with each row index, mapply.col) or "
+            f"{self.ncol} (pairs with each column index, mapply.row)")
+
+    def __add__(self, o):
+        return self._bin(o, "add")
+
+    def __radd__(self, o):
+        return self._rbin(o, "add")
+
+    def __sub__(self, o):
+        return self._bin(o, "sub")
+
+    def __rsub__(self, o):
+        return self._rbin(o, "sub")
+
+    def __mul__(self, o):
+        return self._bin(o, "mul")
+
+    def __rmul__(self, o):
+        return self._rbin(o, "mul")
+
+    def __truediv__(self, o):
+        return self._bin(o, "div")
+
+    def __rtruediv__(self, o):
+        return self._rbin(o, "div")
+
+    def __pow__(self, o):
+        if isinstance(o, (int, float)) and o == 2:
+            return FM(genops.sapply(self.m, "sq"))
+        return self._bin(o, "pow")
+
+    def __neg__(self):
+        return FM(genops.sapply(self.m, "neg"))
+
+    def __eq__(self, o):  # noqa: A003 - R semantics, not identity
+        return self._bin(o, "eq")
+
+    def __ne__(self, o):
+        return self._bin(o, "neq")
+
+    def __lt__(self, o):
+        return self._bin(o, "lt")
+
+    def __le__(self, o):
+        return self._bin(o, "le")
+
+    def __gt__(self, o):
+        return self._bin(o, "gt")
+
+    def __ge__(self, o):
+        return self._bin(o, "ge")
+
+    def __hash__(self):
+        return id(self)
+
+    def __matmul__(self, o):
+        """%*%: matrix multiplication with the (mul, sum) semiring."""
+        rhs = o.m if isinstance(o, FM) else o
+        return FM(genops.inner_prod(self.m, rhs, "mul", "sum"))
+
+    def t(self) -> "FM":
+        return FM(self.m.transpose())
+
+    @property
+    def T(self) -> "FM":
+        return self.t()
+
+
+def _vec_data(m: FMMatrix):
+    if m.is_virtual:
+        (m,) = mat_mod.materialize(m)
+    return m.logical_data().reshape(-1)
+
+
+def _fm(x) -> FMMatrix:
+    return x.m if isinstance(x, FM) else x
+
+
+def _later(what: str, item: str):
+    raise NotImplementedError(f"{what} comes with ROADMAP {item}")
+
+
+# ---------------------------------------------------------------------------
+# Free functions (R vocabulary)
+# ---------------------------------------------------------------------------
+
+def sapply(x, f) -> FM:
+    return FM(genops.sapply(_fm(x), f))
+
+
+def mapply(a, b, f) -> FM:
+    return FM(genops.mapply(_fm(a), _fm(b) if isinstance(b, FM) else b, f))
+
+
+def mapply_row(a, vec, f) -> FM:
+    return FM(genops.mapply_row(_fm(a), _fm(vec) if isinstance(vec, FM) else vec, f))
+
+
+def mapply_col(a, vec, f) -> FM:
+    return FM(genops.mapply_col(_fm(a), _fm(vec) if isinstance(vec, FM) else vec, f))
+
+
+def inner_prod(a, b, f1="mul", f2="sum") -> FM:
+    return FM(genops.inner_prod(_fm(a), _fm(b) if isinstance(b, FM) else b, f1, f2))
+
+
+def agg(x, f) -> FM:
+    return FM(genops.agg(_fm(x), f))
+
+
+def agg_row(x, f) -> FM:
+    return FM(genops.agg_row(_fm(x), f))
+
+
+def agg_col(x, f) -> FM:
+    return FM(genops.agg_col(_fm(x), f))
+
+
+def groupby_row(x, labels, f, num_groups: int) -> FM:
+    return FM(genops.groupby_row(_fm(x), _fm(labels) if isinstance(labels, FM)
+                                 else labels, f, num_groups))
+
+
+def groupby_col(x, labels, f, num_groups: int) -> FM:
+    return FM(genops.groupby_col(_fm(x), labels, f, num_groups))
+
+
+def cbind(*xs) -> FM:
+    return FM(genops.cbind(*[_fm(x) for x in xs]))
+
+
+def sqrt(x) -> FM:
+    return sapply(x, "sqrt")
+
+
+def exp(x) -> FM:
+    return sapply(x, "exp")
+
+
+def log(x) -> FM:
+    return sapply(x, "log")
+
+
+def log1p(x) -> FM:
+    return sapply(x, "log1p")
+
+
+def sigmoid(x) -> FM:
+    """1 / (1 + exp(-x)) — the logistic link inverse (GLM/IRLS)."""
+    return sapply(x, "sigmoid")
+
+
+def abs_(x) -> FM:
+    return sapply(x, "abs")
+
+
+def pmin(a, b) -> FM:
+    return mapply(a, b, "pmin")
+
+
+def pmax(a, b) -> FM:
+    return mapply(a, b, "pmax")
+
+
+def ifelse0(x, mask) -> FM:
+    return mapply(x, mask, "ifelse0")
+
+
+def is_na(x) -> FM:
+    return sapply(x, "isna")
+
+
+def sum_(x) -> FM:
+    return agg(x, "sum")
+
+
+def rowSums(x) -> FM:
+    return agg_row(x, "sum")
+
+
+def colSums(x) -> FM:
+    return agg_col(x, "sum")
+
+
+def rowMins(x) -> FM:
+    return agg_row(x, "min")
+
+
+def colMins(x) -> FM:
+    return agg_col(x, "min")
+
+
+def rowMaxs(x) -> FM:
+    return agg_row(x, "max")
+
+
+def colMaxs(x) -> FM:
+    return agg_col(x, "max")
+
+
+def which_min_row(x) -> FM:
+    """R's apply(X, 1, which.min), zero-based."""
+    return agg_row(x, "which.min")
+
+
+def which_max_row(x) -> FM:
+    return agg_row(x, "which.max")
+
+
+def any_(x) -> FM:
+    return agg(x, "any")
+
+
+def all_(x) -> FM:
+    return agg(x, "all")
+
+
+def colMeans(x) -> FM:
+    """R colMeans: the colSums sink divided by n in the plan epilogue."""
+    return colSums(x) / float(_fm(x).nrow)
+
+
+def rowMeans(x) -> FM:
+    """R rowMeans: row-local and lazy."""
+    return rowSums(x) / float(_fm(x).ncol)
+
+
+def colSds(x) -> FM:
+    """Column standard deviations, fully lazy: two co-materialized sinks
+    and an epilogue chain."""
+    n = float(_fm(x).nrow)
+    s, s2 = colSums(x), colSums(x ** 2)
+    var = (s2 - s * s / n) / (n - 1.0)
+    return sqrt(pmax(var, 0.0))
+
+
+def mean_(x) -> FM:
+    """R mean(): grand mean over all elements, a lazy 1×1 epilogue value."""
+    m = _fm(x)
+    return agg(x, "sum") / float(m.nrow * m.ncol)
+
+
+def sweep(x, margin: int, stat, fun: str = "sub") -> FM:
+    """R sweep(): ``margin=2`` pairs ``stat`` with each column index,
+    ``margin=1`` with each row index; ``stat`` may be lazy."""
+    if margin == 2:
+        return mapply_row(x, stat, fun)
+    if margin == 1:
+        return mapply_col(x, stat, fun)
+    raise ValueError(f"sweep margin must be 1 (rows) or 2 (columns), "
+                     f"got {margin!r}")
+
+
+def scale(x, center=True, scale=True, save: Optional[str] = None) -> FM:
+    """R scale(): a pure lazy chain that materializes as moment pass →
+    sweep pass (``exec_stats()['passes'] == 2``)."""
+    z = x if isinstance(x, FM) else FM(x)
+    if center:
+        z = mapply_row(z, colMeans(x), "sub")
+    if scale:
+        z = mapply_row(z, colSds(x), "div")
+    if save is not None and z.m.is_virtual:
+        persist(z, tier=save)
+    return z
+
+
+def crossprod(x, y: Optional[FM] = None) -> FM:
+    """R crossprod: t(x) %*% y (y defaults to x) — the Gram sink."""
+    y = x if y is None else y
+    return FM(genops.inner_prod(_fm(x).transpose(), _fm(y), "mul", "sum"))
+
+
+def diag(x) -> FM:
+    """R diag(): the diagonal of a small matrix, or a diagonal matrix from a
+    vector (small-tier math on the host)."""
+    arr = conv_FM2R(x) if isinstance(x, FM) else np.asarray(x)
+    if arr.ndim == 2 and min(arr.shape) == 1:
+        arr = arr.reshape(-1)
+    if arr.ndim <= 1:
+        return conv_R2FM(np.diag(arr.reshape(-1)))
+    return conv_R2FM(np.diag(arr).copy())
+
+
+def solve(a, b=None) -> FM:
+    """R solve(): lazy epilogue op on virtual operands (non-finite values
+    propagate on singular systems); physical operands solve eagerly on the
+    host in float64 and raise ``LinAlgError``."""
+    a_virtual = isinstance(a, FM) and a.is_virtual
+    b_virtual = isinstance(b, FM) and b.is_virtual
+    if a_virtual or b_virtual:
+        return FM(genops.solve(_fm(a), _fm(b) if isinstance(b, FM) else b))
+    A = np.asarray(conv_FM2R(a) if isinstance(a, FM) else a, np.float64)
+    if b is None:
+        return conv_R2FM(np.linalg.inv(A))
+    B = np.asarray(conv_FM2R(b) if isinstance(b, FM) else b, np.float64)
+    if B.ndim <= 1:
+        B = B.reshape(-1, 1)
+    return conv_R2FM(np.linalg.solve(A, B))
+
+
+def rowsum(x, groups, num_groups: int) -> FM:
+    """R rowsum: sum rows by group label."""
+    return groupby_row(x, groups, "sum", num_groups)
+
+
+def table_(groups, num_groups: int) -> FM:
+    """R table() over integer labels: per-group counts."""
+    g = _fm(groups)
+    return FM(genops.groupby_row(g, g, "count", num_groups))
+
+
+# -- construction / conversion ------------------------------------------------
+def runif_matrix(nrow, ncol, **kw) -> FM:
+    return FM(matrix_mod.runif_matrix(nrow, ncol, **kw))
+
+
+def rnorm_matrix(nrow, ncol, **kw) -> FM:
+    return FM(matrix_mod.rnorm_matrix(nrow, ncol, **kw))
+
+
+def rep_int(value, n, **kw) -> FM:
+    return FM(matrix_mod.rep_int(value, n, **kw))
+
+
+def seq_int(n, **kw) -> FM:
+    return FM(matrix_mod.seq_int(n, **kw))
+
+
+def conv_R2FM(arr, host: bool = False) -> FM:
+    return FM(matrix_mod.conv_R2FM(arr, host=host))
+
+
+def conv_FM2R(x) -> np.ndarray:
+    return matrix_mod.conv_FM2R(_fm(x))
+
+
+def persist(x, tier: str = "device", *, name: Optional[str] = None) -> FM:
+    """fm.persist: keep a matrix on a tier.  This slice has the device tier;
+    'host' and 'disk' come with ROADMAP A7."""
+    if tier in ("host", "disk"):
+        _later(f"fm.persist(tier={tier!r}) (the host and disk tiers)", "A7")
+    if tier != "device":
+        raise ValueError(
+            f"unknown tier {tier!r}: expected 'device', 'host' or 'disk'")
+    m = _fm(x)
+    if m.is_virtual:
+        genops.set_mate_level(m, tier)
+        if name:
+            m.name = name
+        return x if isinstance(x, FM) else FM(m)
+    return FM(matrix_mod.conv_store(m, tier, name=name or ""))
+
+
+def set_conf(**kw) -> dict:
+    """fm.set.conf: the reference's knobs plus ``device`` ('cuda' default,
+    or 'cpu'); see repro_torch.storage.registry."""
+    from ..storage import registry
+    return registry.set_conf(**kw)
+
+
+def conf(**kw):
+    """fm.conf: scoped configuration override (a context manager)."""
+    from ..storage import registry
+    return registry.conf(**kw)
+
+
+def get_dense_matrix(name: str) -> FM:
+    _later("the named-matrix registry (fm.get_dense_matrix)", "A7")
+
+
+def load_dense_matrix(src, name: str, **kw) -> FM:
+    _later("ingest into the disk tier (fm.load_dense_matrix)", "A7")
+
+
+def save_dense_matrix(x, name: Optional[str] = None, **kw) -> FM:
+    _later("the disk tier (fm.save_dense_matrix)", "A7")
+
+
+def load_factor_matrix(src, name: str, *, num_levels, **kw) -> FM:
+    _later("the sparse tier (fm.load_factor_matrix)", "A9")
+
+
+def one_hot(*factors, **kw) -> FM:
+    _later("the sparse tier (fm.one_hot)", "A9")
+
+
+def materialize(*xs, **kw) -> list[FM]:
+    """fm.materialize: fused evaluation of every argument in one pass."""
+    mats = mat_mod.materialize(*[_fm(x) for x in xs], **kw)
+    return [FM(m) for m in mats]
+
+
+def batch(*request_groups, **kw):
+    _later("cross-materialize stream fusion (fm.batch)", "A11")
+
+
+def serve(**kw):
+    _later("the serving layer (fm.serve)", "A12")
+
+
+def explain(*xs, backend: Optional[str] = None) -> str:
+    _later("fm.explain", "A10")
+
+
+def explain_batch(*request_groups, backend: Optional[str] = None) -> str:
+    _later("fm.explain_batch", "A10")
+
+
+def inspect_iterations():
+    """fm.inspect_iterations: declare an iterative driver's loop."""
+    return mat_mod.iteration_scope()
+
+
+def as_scalar(x) -> float:
+    (r,) = materialize(x) if _fm(x).is_virtual else (x,)
+    return float(conv_FM2R(r).reshape(()))
+
+
+def as_np(x) -> np.ndarray:
+    return conv_FM2R(x)
+
+
+# -- observability ---------------------------------------------------------
+
+def trace(export: Optional[str] = None, *, reset: bool = True):
+    """fm.trace: enable span tracing over a with-block; device steps
+    synchronize only while it is on."""
+    from ..observability.trace import TRACER
+    return TRACER.recording(export, reset=reset)
+
+
+def trace_export(path) -> str:
+    from ..observability.trace import TRACER
+    return TRACER.export(path)
+
+
+def trace_events() -> list:
+    from ..observability.trace import TRACER
+    return TRACER.events()
+
+
+def collect_stats(name: str = ""):
+    """fm.collect.stats: a metrics scope isolating this thread's activity."""
+    from ..observability import metrics
+    return metrics.collect(name)
+
+
+def exec_stats() -> dict:
+    """fm.exec.stats: the engine's execution counters."""
+    return mat_mod.exec_stats()
+
+
+def reset_exec_stats():
+    mat_mod.reset_exec_stats()

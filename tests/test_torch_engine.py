@@ -1,0 +1,254 @@
+"""The port's engine held against the JAX package's: the same ``fm``
+programs on the same numpy inputs give the same outputs, the same plan
+counters (passes, partition_steps, epilogue_launches, plan-cache hits and
+misses) and the same kernel dispatch — ``pallas`` in the reference, ``cuda``
+in the port (whose kernel wrappers run their plain versions on the CPU) —
+plus the port's own contracts: no JAX inside it, CUDA by default and never a
+silent fall back to the CPU."""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import fm as jfm
+from repro.core import materialize as jmz
+from repro.core.fusion import Plan as JPlan
+from repro.algorithms.glm import glm_irls_outputs as j_glm_outputs
+from repro.observability import metrics as jmetrics
+from repro_torch.algorithms.glm import glm_irls_outputs as t_glm_outputs
+from repro_torch.core import fm as tfm
+from repro_torch.core import lowering as tlowering
+from repro_torch.core import materialize as tmz
+from repro_torch.core.fusion import Plan as TPlan
+from repro_torch.observability import metrics as tmetrics
+
+RNG = np.random.default_rng(17)
+
+COUNTERS = ("materialize_calls", "passes", "partition_steps",
+            "epilogue_launches", "epilogue_host_inputs", "plan_cache_hits",
+            "plan_cache_misses")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _cpu_engine():
+    with tfm.conf(device="cpu"):
+        yield
+    tmetrics.REGISTRY.reset()
+    tmz.clear_plan_cache()
+
+
+@pytest.fixture(autouse=True)
+def _fresh():
+    jmz.clear_plan_cache()
+    tmz.clear_plan_cache()
+    jmetrics.REGISTRY.reset()
+    tmetrics.REGISTRY.reset()
+    yield
+
+
+# -- the programs: fm → (list of lazy outputs), over the same numpy inputs --
+
+def _scale_gram(fm, X, y, C):
+    return [fm.crossprod(fm.scale(X))]
+
+
+def _summary_sinks(fm, X, y, C):
+    return [fm.colMins(X), fm.colMaxs(X), fm.colSums(X),
+            fm.colSums(fm.abs_(X)), fm.colSums(X ** 2),
+            fm.agg_col(X, "count_nonzero")]
+
+
+def _correlation_sinks(fm, X, y, C):
+    return [fm.crossprod(X), fm.colSums(X)]
+
+
+def _lloyd_step(fm, X, y, C):
+    D = fm.inner_prod(X, C.T, "squared_diff", "sum")
+    labels = fm.which_min_row(D)
+    return [fm.rowsum(X, labels, C.shape[0]), fm.table_(labels, C.shape[0]),
+            fm.sum_(fm.rowMins(D)), labels]
+
+
+def _glm_iteration(fm, X, y, C):
+    outputs = t_glm_outputs if fm is tfm else j_glm_outputs
+    beta = np.linspace(-0.5, 0.5, X.ncol)
+    beta_next, ll, _, _ = outputs(X, y, beta, "logistic")
+    return [beta_next, ll]
+
+
+def _glm_iteration_ridge(fm, X, y, C):
+    outputs = t_glm_outputs if fm is tfm else j_glm_outputs
+    beta_next, ll, _, _ = outputs(X, y, np.zeros(X.ncol), "logistic",
+                                  ridge=1e-2)
+    return [beta_next, ll]
+
+
+def _xty(fm, X, y, C):
+    return [fm.crossprod(X, y), fm.colSums(X)]
+
+
+PROGRAMS = {"scale_gram": (_scale_gram, 2), "summary": (_summary_sinks, 1),
+            "correlation": (_correlation_sinks, 1),
+            "lloyd": (_lloyd_step, 1), "glm": (_glm_iteration, 1),
+            "glm_ridge": (_glm_iteration_ridge, 1), "xty": (_xty, 1)}
+
+
+def _inputs():
+    X = (RNG.normal(size=(512, 6)) * 2 + 0.5).astype(np.float32)
+    y = (RNG.uniform(size=512) < 0.4).astype(np.float32)
+    C = X[[3, 100, 400]].copy()
+    return X, y, C
+
+
+def _run(fm, program, backend, X, y, C, repeats=2):
+    outs = None
+    for _ in range(repeats):
+        lazy = program(fm, fm.conv_R2FM(X), fm.conv_R2FM(y), C)
+        outs = [fm.as_np(o) for o in fm.materialize(*lazy, backend=backend)]
+    return outs
+
+
+def _kernels(fm, Plan, program, backend, X, y, C):
+    lazy = program(fm, fm.conv_R2FM(X), fm.conv_R2FM(y), C)
+    return sorted(u.kernel for u in
+                  Plan([o.m for o in lazy]).program(backend).kernel_units)
+
+
+@pytest.mark.parametrize("name", sorted(PROGRAMS))
+@pytest.mark.parametrize("backends", [("pallas", "cuda"), ("xla", "torch")],
+                         ids=["kernels", "generic"])
+def test_same_program_same_outputs_counters_and_dispatch(name, backends):
+    program, passes = PROGRAMS[name]
+    jb, tb = backends
+    X, y, C = _inputs()
+    ref = _run(jfm, program, jb, X, y, C)
+    got = _run(tfm, program, tb, X, y, C)
+    for r, g in zip(ref, got):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        np.testing.assert_allclose(g, r, rtol=1e-4, atol=1e-4)
+    js, ts = jmz.exec_stats(), tmz.exec_stats()
+    assert {k: ts[k] for k in COUNTERS} == {k: js[k] for k in COUNTERS}
+    assert ts["passes"] == 2 * passes
+    jk = _kernels(jfm, JPlan, program, jb, X, y, C)
+    tk = _kernels(tfm, TPlan, program, tb, X, y, C)
+    if name == "xty" and jb == "pallas":
+        # crossprod of two distinct sources: the reference's xty kernel is
+        # a later slice of the port, which runs the generic rules instead.
+        assert jk == ["fused_apply_agg", "xty"] and tk == ["fused_apply_agg"]
+    else:
+        assert tk == jk
+
+
+def test_dispatch_report_names_kernels_and_declines():
+    X, y, C = _inputs()
+    Xt = tfm.conv_R2FM(X)
+    plan = TPlan([tfm.crossprod(Xt, tfm.conv_R2FM(X[:, :2])).m,
+                  tfm.colSums(tfm.abs_(Xt)).m])
+    report = tlowering.dispatch_report(plan, plan.ir, "cuda")
+    text = " | ".join(report[s] for s in sorted(report))
+    assert "cuda:fused_apply_agg (claimed by match_apply_agg)" in text
+    assert "declined: crossprod of two distinct sources" in text
+    assert "ROADMAP B2" in text
+    generic = tlowering.dispatch_report(plan, plan.ir, "torch")
+    assert set(generic.values()) == {"torch generic rules"}
+
+
+def test_lloyd_iterations_reuse_one_cached_plan():
+    X, y, _ = _inputs()
+    Xt = tfm.conv_R2FM(X)
+    for it in range(3):
+        C = RNG.normal(size=(3, 6)).astype(np.float32)
+        tfm.materialize(*_lloyd_step(tfm, Xt, None, C), backend="cuda")
+    st = tmz.exec_stats()
+    assert (st["plan_cache_misses"], st["plan_cache_hits"]) == (1, 2)
+
+
+def test_later_slices_raise_with_their_roadmap_item():
+    X, _, _ = _inputs()
+    Xt = tfm.conv_R2FM(X)
+    for call, item in ((lambda: tfm.materialize(tfm.colSums(Xt),
+                                                 mode="stream"), "A7"),
+                       (lambda: tfm.conv_R2FM(X, host=True), "A7"),
+                       (lambda: tfm.persist(tfm.colSums(Xt), tier="disk"),
+                        "A7"),
+                       (lambda: tfm.batch(tfm.colSums(Xt)), "A11"),
+                       (lambda: tfm.explain(tfm.colSums(Xt)), "A10"),
+                       (lambda: tfm.serve(), "A12"),
+                       (lambda: tfm.set_conf(mesh=object()), "A13")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+
+
+def test_conf_knobs_mirror_the_reference():
+    from repro.storage import registry as jreg
+    from repro_torch.storage import registry as treg
+    assert set(treg.KNOWN_KNOBS) == set(jreg.KNOWN_KNOBS) | {"device"}
+    with pytest.raises(ValueError, match="did you mean 'backend'"):
+        tfm.set_conf(backnd="cuda")
+    with tfm.conf(backend="torch", vmem_partition_bytes=1 << 16):
+        assert treg.get_conf("backend") == "torch"
+        assert tlowering.resolve_backend("auto") == "torch"
+    assert treg.get_conf("backend") == "auto"
+
+
+def test_auto_backend_follows_the_device():
+    assert tlowering.resolve_backend("auto") == "torch"   # device is cpu here
+    if not torch.cuda.is_available():
+        with tfm.conf(device="cuda"):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                tlowering.resolve_backend("auto")
+
+
+def test_default_device_without_cuda_raises():
+    """With no card and no request for the CPU, conv_R2FM and materialize
+    raise instead of carrying on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    X = np.ones((8, 2), np.float32)
+    lazy = tfm.colSums(tfm.conv_R2FM(X))
+    with tfm.conf(device="cuda"):
+        with pytest.raises(RuntimeError, match="is_available"):
+            tfm.conv_R2FM(X)
+        with pytest.raises(RuntimeError, match="is_available"):
+            tfm.materialize(lazy)
+
+
+def test_dtype_canon_matches_the_reference():
+    from repro.core import dtypes as jd
+    from repro_torch.core import dtypes as td
+    for name in ("bool", "int8", "int16", "int32", "int64", "uint8",
+                 "float16", "bfloat16", "float32", "float64"):
+        assert td.name(td.canon(name)) == jd.canon(name).name, name
+        assert td.np_equiv(name) == jd.np_equiv(name), name
+    for a in ("bool", "int32", "bfloat16", "float64"):
+        for b in ("int8", "float32", "int64"):
+            assert td.name(td.promote(a, b)) == jd.promote(a, b).name
+    X = np.arange(12, dtype=np.int64).reshape(6, 2)
+    assert tfm.conv_R2FM(X).dtype == torch.int32
+    assert tfm.conv_R2FM(X.astype(np.float64)).dtype == torch.float32
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        from repro_torch.core import fm
+        from repro_torch.algorithms import correlation, glm, kmeans, summary
+        from repro_torch.kernels import (build, fused_apply_agg, gram,
+                                         kmeans_assign, weighted_gram)
+        bad = sorted(m for m in sys.modules
+                     if m == "repro" or m.startswith("repro.")
+                     or m.startswith("jax"))
+        assert not [m for m in bad if sys.modules[m] is not None], bad
+        print("clean")
+    """)
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
