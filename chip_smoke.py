@@ -7,29 +7,47 @@ Phases, each printing one JSON line:
 
 1. build   — compile every kernel of ``src/repro_torch/kernels/csrc`` with
              nvcc (all sources at once) and report the seconds.
-2. kernel  — each of the four kernels at the main path's full shapes
-             (X = 65,608,366 × 32 float32, the paper's Friendster-32 input,
-             generated on the card from a seeded ``torch.Generator``), held
-             against its plain PyTorch version on the same inputs — the
-             float32 one, and for the sums of gram, wgram and kmeans_assign
-             a float64 one, entry by entry — and timed with CUDA events
-             beside its plain version, its roofline bound and, where one
-             PyTorch call computes the same function, that call.  Each
-             kernel's line is printed before its checks are applied.
-3. small   — summary and correlation on a 4096-row slice against numpy.
-4. main    — ``summary``, ``correlation``, ``glm(family="logistic",
-             max_iter=8)`` and ``kmeans(k=10, max_iter=5)`` through
-             ``repro_torch.core.fm`` with backend ``cuda`` (once to warm,
-             then with the kernel launch counters set to 0 just before and
-             read just after: every kernel must have launched, and every
-             materialize must be one pass), then the same with backend
-             ``torch``, and the two compared.  Wall times are the warm runs.
+2. kernel  — each dense kernel at the main paths' full shapes (X =
+             65,608,366 × 32 float32, the paper's Friendster-32 input,
+             generated on the card from a seeded ``torch.Generator``; xty at
+             NMF's and GMM's shapes), held against its plain PyTorch version
+             on the same inputs — the float32 one, and for the sums a
+             float64 one, entry by entry — and timed with CUDA events beside
+             its plain version, its roofline bound and, where one PyTorch
+             call computes the same function, that call.  Each kernel's line
+             is printed before its checks are applied.
+3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
+             slice against numpy.
+4. main    — three paths through ``repro_torch.core.fm``, each with the
+             kernel launch counters set to 0 just before it and read just
+             after (every kernel of the path must have launched):
+             a. ``summary``, ``correlation``, ``glm(family="logistic",
+                max_iter=8)`` and ``kmeans(k=10, max_iter=5)`` with backend
+                ``cuda`` (once to warm, then counted; every materialize is
+                one pass), then with backend ``torch``, compared;
+             b. ``svd_tall(k=10, compute_u=True)``, ``pca(k=10)``,
+                ``nmf(|X|, k=8, max_iter=3)``, ``gmm(k=10, max_iter=3)`` on
+                the 10 blobs and ``naive_bayes`` + ``nb_predict`` on the
+                blobs' labels, on ``cuda`` (every materialize one pass but
+                pca's two; GMM's peak memory printed), then on ``torch``,
+                compared;
+             c. after the dense data is freed, the sparse path at the scale
+                of the Criteo Display Advertising Challenge train set
+                (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
+                each hashed to 64 buckets (ncol = 1,664, a cut: the kernels
+                hold a dense ncol × ncol Gram), codes drawn per column from
+                a Zipf-like law and y from a logistic model; first the SpMM
+                kernel rows (as phase 2), then ``glm(Xs, y, "logistic",
+                ridge=1e-3, max_iter=8)`` and one ``crossprod(Xs)`` on
+                ``cuda``, checked for convergence and exact level counts;
+                ``torch``, which densifies, is compared with ``cuda`` on the
+                first 2^18 rows.
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit as
-``nvidia-smi`` prints them, and last the line
-``{"ok": true, "device": {...}}``.  Any failed check exits non-zero before
-the last line.  TF32 is switched off for matmul and cuDNN, so every plain
-version and library call computes in full float32.
+Then one ``{"kernels": [...]}`` line (launches summed over the three
+paths), the card's name and power limit as ``nvidia-smi`` prints them, and
+last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
+non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
+so every plain version and library call computes in full float32.
 """
 from __future__ import annotations
 
@@ -42,7 +60,14 @@ import time
 N_ROWS = 65_608_366      # Friendster-32: rows of the paper's dense input
 N_COLS = 32
 K_CLUSTERS = 10
+NMF_K = 8
 SEED = 2016
+CRITEO_ROWS = 45_840_617  # Criteo Display Advertising Challenge train set
+CRITEO_FACTORS = 26       # its categorical columns
+CRITEO_BUCKETS = 64       # hash buckets a column (a cut, see the docstring)
+ZIPF_S = 1.1              # P(bucket k) ∝ (k + 1)^-s
+SPARSE_CMP_ROWS = 1 << 18  # rows on which the densifying torch backend runs
+DEVICE = "cuda"
 HBM_BYTES_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 CHUNK_ROWS = 1 << 22     # rows per chunk of a float64 plain version
@@ -60,9 +85,51 @@ F64_TOL_OFFDIAG = 2e-8
 
 REPO = pathlib.Path(__file__).resolve().parent
 
+#: Each kernel's launch counter: (module of repro_torch.kernels, attribute).
+COUNTERS = {
+    "gram": ("gram", "launches"),
+    "xty": ("gram", "xty_launches"),
+    "fused_apply_agg": ("fused_apply_agg", "launches"),
+    "wgram": ("weighted_gram", "launches"),
+    "kmeans_assign": ("kmeans_assign", "launches"),
+    "spmm_gram": ("spmm", "gram_launches"),
+    "spmm_xty": ("spmm", "xty_launches"),
+    "spmm_wgram": ("spmm", "wgram_launches"),
+}
+
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def _counter(name):
+    import importlib
+    mod, attr = COUNTERS[name]
+    return importlib.import_module(f"repro_torch.kernels.{mod}"), attr
+
+
+def zero_counts():
+    for name in COUNTERS:
+        mod, attr = _counter(name)
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(*_counter(name)) for name in COUNTERS}
+
+
+def counted(torch, path, kernels, run):
+    """Drive one main path with every launch counter set to 0 just before
+    and read just after; each of ``kernels`` must have launched."""
+    torch.cuda.synchronize()
+    zero_counts()
+    out = run()
+    torch.cuda.synchronize()
+    got = read_counts()
+    check(all(got[k] > 0 for k in kernels),
+          f"a kernel of the {path} path never launched: "
+          f"{ {k: got[k] for k in kernels} }")
+    return out, got
 
 
 class CheckFailed(Exception):
@@ -150,9 +217,10 @@ def lloyd64(torch, x, c, lab):
 
 
 def make_data(torch):
-    """X ~ N(0, 1); y from a logistic model with a fixed β; Xk: 10 blobs."""
+    """X ~ N(0, 1); y from a logistic model with a fixed β; Xk: 10 blobs
+    and their labels."""
     import numpy as np
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     x = torch.randn((N_ROWS, N_COLS), generator=gen, device=dev)
@@ -167,9 +235,8 @@ def make_data(torch):
     lab = torch.randint(0, K_CLUSTERS, (N_ROWS,), generator=gen, device=dev)
     xk = torch.randn((N_ROWS, N_COLS), generator=gen, device=dev)
     xk += centers[lab]
-    del lab
     torch.cuda.synchronize()
-    return x, y, xk
+    return x, y, xk, lab.to(torch.int32)
 
 
 def kernel_phase(torch, x, xk):
@@ -332,14 +399,75 @@ def kernel_phase(torch, x, xk):
     check(not failed, "; ".join(failed))
     rows.append(row)
     del lab, sums, cnts, wss, rlab, rsums, rcnts, rwss
+
+    # xty at NMF's pass-A shape, WᵀX with W (n, 8) ≥ 0 and |X|, and at
+    # GMM's, Xᵀr with r (n, 1) the responsibilities of one component.
+    gen.manual_seed(SEED + 2)
+    w_nmf = torch.rand((n, NMF_K), generator=gen, device=x.device)
+    xa = x.abs()
+    row = xty_row(torch, w_nmf, xa, "nmf")
+    del w_nmf, xa
+    r = torch.rand((n, 1), generator=gen, device=x.device)
+    row["at_gmm_shape"] = xty_row(torch, xk, r, "gmm")
+    rows.append(row)
+    del r
     torch.cuda.empty_cache()
     return rows
 
 
-def small_phase(x):
-    """summary and correlation on 4096 rows against numpy."""
+def xty64(torch, x, y):
+    """XᵀY in float64, a chunk of rows at a time, and the units of its
+    entries: sqrt(Σx_i² · Σy_j²)."""
+    g = torch.zeros((x.shape[1], y.shape[1]), dtype=torch.float64,
+                    device=x.device)
+    nx = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    ny = torch.zeros(y.shape[1], dtype=torch.float64, device=x.device)
+    for s, e in row_chunks(x.shape[0]):
+        xc, yc = x[s:e].double(), y[s:e].double()
+        g += xc.T @ yc
+        nx += (xc * xc).sum(0)
+        ny += (yc * yc).sum(0)
+    return g, torch.outer(nx.sqrt(), ny.sqrt()).clamp_min(1e-300)
+
+
+def xty_row(torch, x, y, shape):
+    """The xty kernel on (x, y) against its plain versions; returns its
+    row after printing it."""
+    from repro_torch.kernels import gram as gram_mod, ref
+    n, p = x.shape
+    q = y.shape[1]
+    g = gram_mod.xty(x, y)
+    plain = ref.xty_ref(x, y)
+    err = rel_err(torch, g, plain)
+    g64, units = xty64(torch, x, y)
+    e64 = float(((g.double() - g64).abs() / units).max())
+    plain64 = float(((plain.double() - g64).abs() / units).max())
+    b = bound(n * (p + q) * 4 + p * q * 4, 2 * n * p * q)
+    row = dict(
+        name="xty", shape=f"{shape}: ({n}, {p})ᵀ·({n}, {q})", route="cuda",
+        source="src/repro_torch/kernels/csrc/gram.cu",
+        replaces="src/repro/kernels/gram.py:92",
+        max_abs_err=float((g.double() - g64).abs().max()),
+        rel_err=err, tol=1e-4, err_f64=e64, tol_f64=F64_TOL,
+        plain_f32_err_f64=plain64,
+        ms=time_ms(torch, lambda: gram_mod.xty(x, y)),
+        plain_ms=time_ms(torch, lambda: ref.xty_ref(x, y)),
+        bound_ms=b[0], bound_by=b[1],
+        library_ms=time_ms(torch, lambda: torch.matmul(x.T, y)))
+    emit({"phase": "kernel", **row})
+    check(err <= 1e-4, f"xty ({shape}) rel err {err} against the f32 plain "
+          "version")
+    check(e64 <= F64_TOL, f"xty ({shape}) err {e64} against the f64 plain "
+          "version")
+    return row
+
+
+def small_phase(x, xk, lab):
+    """summary, correlation, SVD, PCA and naive Bayes on 4096 rows against
+    numpy."""
     import numpy as np
-    from repro_torch.algorithms import correlation, summary
+    from repro_torch.algorithms import (correlation, naive_bayes, pca,
+                                        summary, svd_tall)
     from repro_torch.core import fm
     xs = x[:4096].cpu().numpy()
     X = fm.conv_R2FM(xs)
@@ -352,6 +480,19 @@ def small_phase(x):
     np.testing.assert_array_equal(s.nnz, (xs != 0).sum(0))
     c = correlation(X)
     np.testing.assert_allclose(c, np.corrcoef(xs.T), rtol=2e-2, atol=2e-3)
+    r = svd_tall(X, k=6)
+    np.testing.assert_allclose(
+        r.s, np.linalg.svd(xs.astype(np.float64), compute_uv=False)[:6],
+        rtol=1e-3)
+    xc = xs.astype(np.float64) - xs.mean(0)
+    np.testing.assert_allclose(
+        pca(X, k=4).sdev, np.linalg.svd(xc, compute_uv=False)[:4]
+        / np.sqrt(xs.shape[0] - 1), rtol=1e-3)
+    xks, ls = xk[:4096].cpu().numpy(), lab[:4096].cpu().numpy()
+    m = naive_bayes(fm.conv_R2FM(xks), fm.conv_R2FM(ls), K_CLUSTERS)
+    for j in range(K_CLUSTERS):
+        np.testing.assert_allclose(m.means[j], xks[ls == j].mean(0),
+                                   rtol=1e-4, atol=1e-4)
     emit({"phase": "small", "rows": xs.shape[0], "ok": True})
 
 
@@ -375,20 +516,14 @@ def run_algorithms(torch, x, y, xk):
 def main_phase(torch, x, y, xk):
     import numpy as np
     from repro_torch.core import fm
-    from repro_torch.kernels import (fused_apply_agg as faa, gram as gram_mod,
-                                     kmeans_assign as ka, weighted_gram as wg)
-    mods = {"gram": gram_mod, "wgram": wg, "fused_apply_agg": faa,
-            "kmeans_assign": ka}
     with fm.conf(backend="cuda"):
         run_algorithms(torch, x, y, xk)  # warm: plan cache, libraries
         fm.reset_exec_stats()
-        for m in mods.values():
-            m.launches = 0
-        res, wall = run_algorithms(torch, x, y, xk)
-    launches = {k: m.launches for k, m in mods.items()}
+        (res, wall), launches = counted(
+            torch, "dense main", ("gram", "wgram", "fused_apply_agg",
+                                  "kmeans_assign"),
+            lambda: run_algorithms(torch, x, y, xk))
     st = fm.exec_stats()
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel of the main path never launched: {launches}")
     check(st["passes"] == st["materialize_calls"],
           f"passes {st['passes']} != materialize calls "
           f"{st['materialize_calls']}")
@@ -427,6 +562,354 @@ def main_phase(torch, x, y, xk):
     return launches
 
 
+def run_a8(torch, x, xk, lab):
+    """The rest of the dense algorithms, each timed by the host clock around
+    a call that ends in a synchronize; GMM's peak device memory with it."""
+    from repro_torch.algorithms import (gmm, naive_bayes, nb_predict, nmf,
+                                        pca, svd_tall)
+    from repro_torch.core import fm, materialize
+    X, XK, L = fm.conv_R2FM(x), fm.conv_R2FM(xk), fm.conv_R2FM(lab)
+    out, wall = {}, {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+
+    timed("svd_tall", lambda: svd_tall(X, k=10, compute_u=True))
+    # keep what the comparison reads; drop the full-height results
+    out["svd_tall"].U = fm._fm(out["svd_tall"].U).logical_data()[:4096].cpu()
+    timed("pca", lambda: pca(X, k=10))
+    XA = fm.conv_R2FM(x.abs())
+    timed("nmf", lambda: nmf(XA, k=NMF_K, max_iter=3))
+    out["nmf"].W = None
+    del XA
+    # cached plans hold their source matrices: drop them with |X|
+    materialize.clear_plan_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    timed("gmm", lambda: gmm(XK, k=K_CLUSTERS, max_iter=3))
+    peak = torch.cuda.max_memory_allocated()
+    timed("naive_bayes", lambda: naive_bayes(XK, L, K_CLUSTERS))
+    timed("nb_predict", lambda: nb_predict(out["naive_bayes"], XK))
+    return out, wall, peak
+
+
+def algorithms_phase(torch, x, xk, lab):
+    """Path b: svd_tall, pca, nmf, gmm and naive Bayes on cuda (counted),
+    then on torch, compared."""
+    import numpy as np
+    from repro_torch.core import fm
+    with fm.conf(backend="cuda"):
+        fm.reset_exec_stats()
+        (res, wall, peak), launches = counted(
+            torch, "algorithms", ("gram", "xty", "wgram", "fused_apply_agg"),
+            lambda: run_a8(torch, x, xk, lab))
+    st = fm.exec_stats()
+    # every materialize is one pass, but pca's two
+    check(st["passes"] == st["materialize_calls"] + 1,
+          f"passes {st['passes']} != materialize calls "
+          f"{st['materialize_calls']} + 1 (pca)")
+    emit({"phase": "main", "path": "algorithms", "backend": "cuda",
+          "wall_s": wall, "launches": launches, "passes": st["passes"],
+          "materialize_calls": st["materialize_calls"],
+          "gmm_rows": N_ROWS, "gmm_max_memory_allocated": peak,
+          "gmm_max_memory_gib": peak / 2**30,
+          "nmf_iters": res["nmf"].iters, "gmm_iters": res["gmm"].iters})
+    with fm.conf(backend="torch"):
+        ref, ref_wall, ref_peak = run_a8(torch, x, xk, lab)
+    emit({"phase": "main", "path": "algorithms", "backend": "torch",
+          "wall_s": ref_wall, "gmm_max_memory_allocated": ref_peak})
+
+    # X ~ N(0, 1): XᵀX ≈ n·I, so its eigenvalues are close together and the
+    # eigenvectors move with float32 noise in the Gram; the singular values
+    # do not.  Each backend's U is held to its own V: U = X V Σ⁻¹.
+    s, r = res["svd_tall"], ref["svd_tall"]
+    check(np.isfinite(s.s).all() and s.V.shape == (N_COLS, 10), "svd")
+    np.testing.assert_allclose(s.s, r.s, rtol=1e-4)
+    x0 = x[:4096].double().cpu().numpy()
+    for v in (s, r):
+        np.testing.assert_allclose(v.U.double().numpy(), x0 @ v.V / v.s,
+                                   rtol=1e-3, atol=1e-7)
+    a, b = res["pca"], ref["pca"]
+    np.testing.assert_allclose(a.sdev, b.sdev, rtol=1e-4)
+    np.testing.assert_allclose(a.center, b.center, rtol=1e-4, atol=1e-6)
+    a, b = res["nmf"], ref["nmf"]
+    check(np.isfinite(a.H).all() and a.H.shape == (NMF_K, N_COLS), "nmf H")
+    np.testing.assert_allclose(a.objective_trace, b.objective_trace,
+                               rtol=1e-3)
+    np.testing.assert_allclose(a.H, b.H, rtol=1e-2, atol=1e-4)
+    a, b = res["gmm"], ref["gmm"]
+    check(np.isfinite(a.means).all() and a.covs.shape == (
+        K_CLUSTERS, N_COLS, N_COLS), "gmm")
+    t = np.array(a.loglik_trace)
+    check((np.diff(t) > -1e-2 * np.abs(t[:-1])).all(), f"gmm loglik {t}")
+    np.testing.assert_allclose(a.loglik_trace, b.loglik_trace, rtol=1e-4)
+    np.testing.assert_allclose(a.weights, b.weights, atol=1e-4)
+    a, b = res["naive_bayes"], ref["naive_bayes"]
+    np.testing.assert_allclose(a.means, b.means, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(a.variances, b.variances, rtol=1e-3)
+    pa, pb = (fm._fm(v).logical_data() for v in (res["nb_predict"],
+                                                 ref["nb_predict"]))
+    agree = float((pa == pb).float().mean())
+    acc = float((pa.reshape(-1) == lab).float().mean())
+    check(agree >= 0.9999, f"nb_predict agreement {agree}")
+    check(acc > 0.9, f"nb_predict accuracy {acc} on the blobs")
+    emit({"phase": "compare", "path": "algorithms", "ok": True,
+          "svd_s0": [float(s.s[0]), float(r.s[0])],
+          "gmm_loglik": [res["gmm"].loglik, ref["gmm"].loglik],
+          "nmf_objective": [res["nmf"].objective, ref["nmf"].objective],
+          "nb_predict_agreement": agree, "nb_accuracy": acc})
+    return launches
+
+
+def make_criteo(torch):
+    """The Criteo-shaped slab on the card: per column, a bucket drawn from
+    P(k) ∝ (k + 1)^-ZIPF_S over CRITEO_BUCKETS buckets, offset to the
+    column's block; y ~ Bernoulli(sigmoid(Σ β[col])) with β from the seed."""
+    import numpy as np
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    n, f, b = CRITEO_ROWS, CRITEO_FACTORS, CRITEO_BUCKETS
+    w = np.arange(1, b + 1, dtype=np.float64) ** -ZIPF_S
+    cdf = torch.as_tensor(np.cumsum(w) / w.sum(), device=dev)
+    beta = torch.as_tensor(np.random.default_rng(SEED).normal(0.0, 0.3, f * b),
+                           dtype=torch.float32, device=dev)
+    cols = torch.empty((n, f), dtype=torch.int32, device=dev)
+    eta = torch.zeros(n, device=dev)
+    for j in range(f):
+        u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+        c = torch.searchsorted(cdf, u).clamp_max_(b - 1) + j * b
+        cols[:, j] = c
+        eta += beta[c]
+        del u, c
+    vals = torch.ones((n, f), device=dev)
+    eta -= eta.mean()
+    y = (torch.rand(n, generator=gen, device=dev)
+         < torch.sigmoid(eta)).float().reshape(-1, 1)
+    del eta
+    torch.cuda.synchronize()
+    return cols, vals, y
+
+
+def sparse_fm(cols, vals):
+    """The slab as an fm matrix: the device-tier store fm.one_hot builds."""
+    import torch
+    from repro_torch.core import fm
+    from repro_torch.core.matrix import FMMatrix
+    from repro_torch.storage import SparseEllStore
+    n, f = cols.shape
+    store = SparseEllStore(cols, vals, f * CRITEO_BUCKETS, nnz=n * f)
+    return fm.FM(FMMatrix(store.shape, torch.float32, store=store))
+
+
+def spmm_rows(torch, cols, vals):
+    """The three SpMM kernels at the Criteo shape against their plain
+    versions (float32 and float64, both a chunk of rows at a time)."""
+    from repro_torch.kernels import ref, spmm
+    n, kmax = cols.shape
+    ncol = CRITEO_FACTORS * CRITEO_BUCKETS
+    gen = torch.Generator(device=cols.device)
+    gen.manual_seed(SEED + 3)
+    w = torch.rand(n, generator=gen, device=cols.device) * 0.25 + 1e-6
+    z = torch.randn((n, 1), generator=gen, device=cols.device)
+    slab = n * kmax * 8
+    rows = []
+
+    def finish(row, err, e64s, extra_checks=()):
+        emit({"phase": "kernel", **row})
+        check(err <= 1e-4, f"{row['name']} rel err {err} against the f32 "
+              "plain version")
+        for what, e in e64s:
+            check(e <= F64_TOL, f"{row['name']} {what} err {e} against the "
+                  "f64 plain version")
+        for ok, what in extra_checks:
+            check(ok, f"{row['name']}: {what}")
+        rows.append(row)
+
+    # spmm_gram: crossprod(Xs).  For a one-hot slab the diagonal is the
+    # level counts, integers a float32 sum holds exactly (< 2^24).
+    g = spmm.spmm_gram(cols, vals, ncol=ncol)
+    gp = ref.spmm_gram_ref(cols, vals, ncol)
+    g64 = ref.spmm_gram_ref(cols, vals, ncol, torch.float64)
+    counts = torch.bincount(cols.reshape(-1).long(), minlength=ncol).double()
+    d64, o64 = corr_err(torch, g, g64)
+    b = bound(slab + ncol * ncol * 4, 2 * n * kmax * kmax)
+    row = dict(
+        name="spmm_gram", route="cuda",
+        source="src/repro_torch/kernels/csrc/spmm.cu",
+        replaces="src/repro/kernels/spmm.py:77",
+        max_abs_err=float((g.double() - g64).abs().max()),
+        rel_err=rel_err(torch, g, gp), tol=1e-4, diag_err_f64=d64,
+        offdiag_err_f64=o64, tol_f64=F64_TOL,
+        plain_f32_diag_offdiag_err_f64=corr_err(torch, gp, g64),
+        diag_equals_level_counts=bool(torch.equal(g.diagonal().double(),
+                                                  counts)),
+        ms=time_ms(torch, lambda: spmm.spmm_gram(cols, vals, ncol=ncol),
+                   reps=3),
+        plain_ms=time_ms(torch, lambda: ref.spmm_gram_ref(cols, vals, ncol),
+                         reps=1),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_note="no single PyTorch call: torch.sparse.mm(Xᵀ, X) "
+                     "returns a sparse product whose intermediate pair "
+                     "products (3.1e10) exceed the card")
+    finish(row, row["rel_err"], (("diagonal", d64), ("off-diagonal", o64)),
+           ((row["diag_equals_level_counts"], "diagonal is not the level "
+             "counts"),))
+    units = g64.diagonal().clamp_min(1e-300).sqrt()
+    del g, gp, g64
+
+    # spmm_xty: the sparse IRLS XᵀWz (q = 1), against a float64 version in
+    # the units sqrt(Σ_r X_rc² · Σ_r z_r²).
+    zn = float(z.double().pow(2).sum().sqrt())
+    g = spmm.spmm_xty(cols, vals, z, ncol=ncol)
+    gp = ref.spmm_xty_ref(cols, vals, z, ncol)
+    g64 = ref.spmm_xty_ref(cols, vals, z, ncol, torch.float64)
+    e64 = float(((g.double() - g64).abs().reshape(-1) / (units * zn)).max())
+    b = bound(slab + n * 4 + ncol * 4, 2 * n * kmax)
+    library_ms, note = None, None
+    try:
+        crow = torch.arange(0, n + 1, dtype=torch.int32,
+                            device=cols.device) * kmax
+        x_csr = torch.sparse_csr_tensor(crow, cols.reshape(-1),
+                                        vals.reshape(-1), size=(n, ncol),
+                                        check_invariants=False)
+        lib = torch.sparse.mm(x_csr.t(), z)
+        note = (f"torch.sparse.mm(Xᵀ, z) over a CSR view of the slab, "
+                f"rel err {rel_err(torch, lib, g64)}")
+        library_ms = time_ms(torch, lambda: torch.sparse.mm(x_csr.t(), z),
+                             reps=1)
+        del lib, x_csr, crow
+    except (RuntimeError, NotImplementedError) as exc:
+        note = f"torch.sparse.mm(Xᵀ, z) failed: {str(exc)[:200]}"
+    torch.cuda.empty_cache()
+    row = dict(
+        name="spmm_xty", route="cuda",
+        source="src/repro_torch/kernels/csrc/spmm.cu",
+        replaces="src/repro/kernels/spmm.py:121",
+        max_abs_err=float((g.double() - g64).abs().max()),
+        rel_err=rel_err(torch, g, gp), tol=1e-4, err_f64=e64,
+        tol_f64=F64_TOL,
+        ms=time_ms(torch, lambda: spmm.spmm_xty(cols, vals, z, ncol=ncol)),
+        plain_ms=time_ms(torch, lambda: ref.spmm_xty_ref(cols, vals, z, ncol),
+                         reps=1),
+        bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
+        library_note=note)
+    finish(row, row["rel_err"], (("entry", e64),))
+    del g, gp, g64
+
+    # spmm_wgram: the sparse IRLS XᵀWX with weights in (0, 0.25].
+    g = spmm.spmm_wgram(cols, vals, w, ncol=ncol)
+    gp = ref.spmm_wgram_ref(cols, vals, w, ncol)
+    g64 = ref.spmm_wgram_ref(cols, vals, w, ncol, torch.float64)
+    d64, o64 = corr_err(torch, g, g64)
+    b = bound(slab + n * 4 + ncol * ncol * 4, 2 * n * kmax * kmax + n * kmax)
+    row = dict(
+        name="spmm_wgram", route="cuda",
+        source="src/repro_torch/kernels/csrc/spmm.cu",
+        replaces="src/repro/kernels/spmm.py:168",
+        max_abs_err=float((g.double() - g64).abs().max()),
+        rel_err=rel_err(torch, g, gp), tol=1e-4, diag_err_f64=d64,
+        offdiag_err_f64=o64, tol_f64=F64_TOL,
+        plain_f32_diag_offdiag_err_f64=corr_err(torch, gp, g64),
+        ms=time_ms(torch, lambda: spmm.spmm_wgram(cols, vals, w, ncol=ncol),
+                   reps=3),
+        plain_ms=time_ms(torch,
+                         lambda: ref.spmm_wgram_ref(cols, vals, w, ncol),
+                         reps=1),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_note="no single PyTorch call computes XᵀWX on a sparse X")
+    finish(row, row["rel_err"], (("diagonal", d64), ("off-diagonal", o64)))
+    del g, gp, g64, w, z
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sparse_phase(torch, cols, vals, y):
+    """Path c: sparse logistic regression and crossprod over the Criteo
+    slab on cuda (counted), then cuda against torch on a prefix."""
+    import numpy as np
+    from repro_torch.algorithms import glm
+    from repro_torch.core import fm
+    Xs, Y = sparse_fm(cols, vals), fm.conv_R2FM(y)
+    ncol = Xs.ncol
+
+    def run():
+        wall = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = glm(Xs, Y, "logistic", ridge=1e-3, max_iter=8)
+        torch.cuda.synchronize()
+        wall["glm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (G,) = fm.materialize(fm.crossprod(Xs))
+        torch.cuda.synchronize()
+        wall["crossprod"] = time.perf_counter() - t0
+        return g, G, wall
+
+    with fm.conf(backend="cuda"):
+        fm.reset_exec_stats()
+        (g, G, wall), launches = counted(
+            torch, "sparse", ("spmm_gram", "spmm_xty", "spmm_wgram"), run)
+    st = fm.exec_stats()
+    check(st["passes"] == st["materialize_calls"],
+          f"passes {st['passes']} != materialize calls "
+          f"{st['materialize_calls']}")
+    t = np.array(g.loglik_trace)
+    step = abs(t[-1] - t[-2]) / abs(t[-2]) if len(t) > 1 else 0.0
+    check(np.isfinite(g.beta).all() and g.beta.shape == (ncol,), "glm beta")
+    check((np.diff(t) > -1e-6 * np.abs(t[:-1])).all(),
+          f"sparse glm log-likelihood fell: {t}")
+    check(g.converged or step <= 1e-6, f"sparse glm did not converge: {t}")
+    gd = fm._fm(G).logical_data()
+    counts = torch.bincount(cols.reshape(-1).long(), minlength=ncol).float()
+    block = torch.block_diag(*[torch.ones(CRITEO_BUCKETS, CRITEO_BUCKETS,
+                                          device=gd.device)] * CRITEO_FACTORS)
+    check(torch.equal(gd.diagonal(), counts), "crossprod diagonal is not the "
+          "level counts")
+    check(bool((gd * (block - torch.eye(ncol, device=gd.device)) == 0).all()),
+          "crossprod has non-zero entries between levels of one column")
+    emit({"phase": "main", "path": "sparse", "backend": "cuda",
+          "wall_s": wall, "launches": launches, "passes": st["passes"],
+          "materialize_calls": st["materialize_calls"], "glm_iters": g.iters,
+          "glm_converged": g.converged, "glm_loglik_trace": list(t),
+          "rows": CRITEO_ROWS, "ncol": ncol,
+          "slab_gib": (cols.nbytes + vals.nbytes) / 2**30})
+    del G, gd, block
+
+    m = SPARSE_CMP_ROWS
+    Xp, Yp = sparse_fm(cols[:m], vals[:m]), fm.conv_R2FM(y[:m])
+    fits, pwall = {}, {}
+    for backend in ("cuda", "torch"):
+        with fm.conf(backend=backend):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fits[backend] = glm(Xp, Yp, "logistic", ridge=1e-3, max_iter=8)
+            torch.cuda.synchronize()
+            pwall[backend] = time.perf_counter() - t0
+    a, b = fits["cuda"], fits["torch"]
+    # A one-hot design is rank-deficient — each column's 64 levels sum to
+    # the same all-ones vector — so beta is fixed only up to that null space,
+    # there by the tiny ridge alone, and float32 sums taken in another order
+    # move it along it.  The linear predictor Xβ and the log-likelihood are
+    # identifiable: those are compared.
+    eta = [fm._fm(fm.materialize(Xp @ f.beta.astype(np.float32).reshape(
+        -1, 1))[0]).logical_data() for f in (a, b)]
+    eta_diff = float((eta[0] - eta[1]).abs().max())
+    beta_diff = float(np.abs(a.beta - b.beta).max())
+    ll_rel = abs(a.loglik - b.loglik) / abs(b.loglik)
+    emit({"phase": "compare", "path": "sparse", "rows": m, "wall_s": pwall,
+          "loglik": [a.loglik, b.loglik], "loglik_rel_diff": ll_rel,
+          "eta_max_abs_diff": eta_diff, "beta_max_abs_diff": beta_diff})
+    check(eta_diff < 1e-2, f"sparse glm linear predictor differs by "
+          f"{eta_diff}")
+    check(ll_rel < 1e-5, f"sparse glm log-likelihood differs by {ll_rel}")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -450,14 +933,28 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(build.SOURCES), "tf32": False})
 
-    x, y, xk = make_data(torch)
+    x, y, xk, lab = make_data(torch)
     emit({"phase": "data", "shape": [N_ROWS, N_COLS], "dtype": "float32",
           "gib": x.numel() * 4 / 2**30, "seed": SEED})
     rows = kernel_phase(torch, x, xk)
-    small_phase(x)
-    launches = main_phase(torch, x, y, xk)
+    small_phase(x, xk, lab)
+    paths = [main_phase(torch, x, y, xk),
+             algorithms_phase(torch, x, xk, lab)]
+    from repro_torch.core import materialize
+    materialize.clear_plan_cache()   # cached plans hold their sources
+    del x, y, xk, lab
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cols, vals, ys = make_criteo(torch)
+    emit({"phase": "data", "shape": [CRITEO_ROWS, CRITEO_FACTORS],
+          "ncol": CRITEO_FACTORS * CRITEO_BUCKETS, "zipf_s": ZIPF_S,
+          "slab_gib": (cols.nbytes + vals.nbytes) / 2**30, "seed": SEED,
+          "seconds": time.perf_counter() - t0})
+    rows += spmm_rows(torch, cols, vals)
+    paths.append(sparse_phase(torch, cols, vals, ys))
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})

@@ -20,6 +20,7 @@ import torch
 
 from . import dtypes, vudf as vudf_mod
 from .matrix import FMMatrix
+from .sparse import SparseBlock
 
 _ids = itertools.count()
 
@@ -210,7 +211,16 @@ def _inner_prod_block(a_blk, b_small, mul: vudf_mod.BinaryVUDF,
                       add: vudf_mod.AggVUDF, out_dtype):
     """inner.prod(tall, small): t = f1(A_ik, B_kj); C_ij = f2-reduce_k t.
     The (mul, sum) semiring on floats is a matrix product; other semirings
-    evaluate f1 on a broadcast (rows, k, q) tile, row chunk by row chunk."""
+    evaluate f1 on a broadcast (rows, k, q) tile, row chunk by row chunk.
+
+    A sparse (ELL) left operand with the (mul, sum) semiring takes the gather
+    path — out[i,j] = Σ_k vals[i,k]·B[cols[i,k], j] — so ``X @ beta`` over a
+    one-hot matrix does nnz-proportional work; other semirings densify the
+    block first (implicit zeros take part in, say, a min reduction)."""
+    if isinstance(a_blk, SparseBlock):
+        if mul.name == "mul" and add.name == "sum":
+            return a_blk.matmul_small(b_small, out_dtype, _BROADCAST_ELEMS)
+        a_blk = a_blk.todense()
     if mul.name == "mul" and add.name == "sum" and dtypes.is_floating(out_dtype):
         return torch.matmul(a_blk, b_small).to(out_dtype)
     n = a_blk.shape[0]

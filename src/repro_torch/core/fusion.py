@@ -20,6 +20,7 @@ from . import dtypes, plan_ir
 from .dag import (LeafNode, Node, SinkNode, Small, as_node, long_dim_of,
                   schedule_passes)
 from .matrix import FMMatrix, io_partition_rows
+from .sparse import effective_ncol
 
 
 class PassSchedule:
@@ -161,7 +162,9 @@ class PassSchedule:
                      + len(self.saves))
         widths = [1]
         for node, mat in self.sources:
-            widths.append(mat.ncol)
+            # A sparse source budgets at what it streams (2·kmax scalars a
+            # row), not its logical ncol.
+            widths.append(effective_ncol(mat))
         for n in self.order:
             if (not is_src(n) and not n.is_sink
                     and n.id not in self.epilogue_ids):
@@ -348,6 +351,14 @@ class Plan:
             ng = getattr(n, "num_groups", "")
             if self._is_source(n):
                 role = "q" + "+".join(src_tag.get(n.id, []))
+                mat = n.mat if isinstance(n, LeafNode) \
+                    else getattr(n, "cached_store", None)
+                store = getattr(mat, "store", None)
+                if getattr(store, "sparse", False):
+                    # A sparse source stages an ELL block whose width is
+                    # kmax: a dense cut of the same shapes must not share
+                    # the lowered program.
+                    role += f"~csr:{store.max_row_nnz}"
             elif self.roles[n.id] == "epi":
                 role = f"e{self.passno[n.id]}"
             elif n.is_sink:

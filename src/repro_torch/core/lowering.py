@@ -8,19 +8,22 @@ Backends:
 
 * ``torch`` — the twin of the reference's ``xla``: every segment runs node by
   node through the generic ``block_eval`` / ``block_update`` rules.
-* ``cuda``  — the twin of ``pallas``: the same matchers, in the reference's
-  order (minus the sparse-tier ``_match_spmm``), claim segments for the
-  hand-written Hopper kernels in `repro_torch/kernels/` — the Lloyd pattern
-  → ``kmeans_assign``, ``crossprod(X * w, X)`` → ``wgram``, ``crossprod(X)``
-  → ``gram``, apply→agg.col chains over one source → ``fused_apply_agg``.
-  Unclaimed segments run the generic rules.  A kernel wrapper handed a CUDA
-  tensor launches its kernel or raises; it takes its plain PyTorch version
-  only for a tensor on the CPU, so the CPU tests drive the real matchers
-  and units.
+* ``cuda``  — the twin of ``pallas``: the same matchers claim segments for
+  the hand-written Hopper kernels in `repro_torch/kernels/` — contractions
+  over a sparse (ELL) source → ``spmm_gram`` / ``spmm_xty`` /
+  ``spmm_wgram`` (matched first, so a dense kernel never sees an ELL
+  block), the Lloyd pattern → ``kmeans_assign``, ``crossprod(X * w, X)`` →
+  ``wgram``, ``crossprod(X)`` → ``gram``, ``crossprod(X, Y)`` → ``xty``,
+  apply→agg.col chains over one source → ``fused_apply_agg``.  Unclaimed
+  segments run the generic rules.  A kernel wrapper handed a CUDA tensor
+  launches its kernel or raises; it takes its plain PyTorch version only for
+  a tensor on the CPU, so the CPU tests drive the real matchers and units.
 
 ``'auto'`` resolves to ``cuda`` when the engine's device is a CUDA device
 and to ``torch`` on the CPU.  PyTorch runs eagerly: there is no counterpart
-of the reference's ``jax.jit`` and buffer donation.
+of the reference's ``jax.jit`` and buffer donation, so the step frees each
+full-height value itself after the last unit that reads it
+(``LoweredProgram.release``) — XLA frees them in the reference.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import torch
 from . import dtypes
 from .dag import (AggFullNode, GroupByRowNode, InnerProdContractNode,
                   MapNode, Node, Small)
+from .sparse import SparseBlock, is_sparse_mat
 
 # ---------------------------------------------------------------------------
 # Backend registry + selection
@@ -69,7 +73,14 @@ class LoweredProgram:
     """An executable lowering of ONE PASS of a plan: per-partition ``step``,
     the sink-partial ``combine`` merge, and — when the pass has post-sink
     lazy math — an ``epilogue`` the executor invokes exactly once after the
-    merge: ``epilogue(merged_sinks, epilogue_sources, smalls, bindings)``."""
+    merge: ``epilogue(merged_sinks, epilogue_sources, smalls, bindings)``.
+
+    ``release`` is the step's liveness rule: after each generic node (key
+    ``("node", id)``) or kernel unit (key ``("unit", index)``), the values
+    that nothing later in the pass reads and that are not outputs of the
+    pass.  In whole mode a value is full height (GMM at 65.6M rows makes
+    three 8.4 GB temporaries per component); keeping them all to the end of
+    the pass would need hundreds of GB."""
 
     def __init__(self, plan, ir, backend: str, units):
         self.plan = plan
@@ -78,6 +89,8 @@ class LoweredProgram:
         self.units = units
         self._sinks_by_id = {n.id: n for n in plan.sinks}
         self.epilogue = self._epilogue if plan.epilogue_nodes else None
+        self.release = _release_plan(
+            units, {n.id for n in plan.row_local_roots + plan.saves})
 
     @property
     def kernel_units(self):
@@ -101,8 +114,13 @@ class LoweredProgram:
                   for nid, canon in self.plan.source_aliases.items()}
         values.update(bindings)
         partials = {n.id: n.identity() for n in self.plan.sinks}
-        for unit in self.units:
+        for i, unit in enumerate(self.units):
+            if unit.kernel is None:
+                unit.run(values, partials, smalls, offset, self.release)
+                continue
             unit.run(values, partials, smalls, offset)
+            for vid in self.release.get(("unit", i), ()):
+                values.pop(vid, None)
         outputs = {n.id: values[n.id]
                    for n in self.plan.row_local_roots + self.plan.saves}
         return partials, outputs
@@ -157,6 +175,33 @@ class MultiPassProgram:
         return "\n".join(lines)
 
 
+def _release_plan(units, keep: set) -> dict:
+    """{step key: value ids to drop after that step}: each value goes after
+    its last reader (a generic node, or a kernel unit as a whole); a generic
+    node's value that nothing reads goes right after it is made.  Values in
+    ``keep`` (the pass's outputs) stay."""
+    last: dict[int, tuple] = {}
+    made: list[tuple] = []
+    for i, unit in enumerate(units):
+        if unit.kernel is None:
+            for n in unit.nodes:
+                for p in n.parents:
+                    if not isinstance(p, Small):
+                        last[p.id] = ("node", n.id)
+                if not n.is_sink:
+                    made.append((n.id, ("node", n.id)))
+        else:
+            for vid in unit.reads():
+                last[vid] = ("unit", i)
+    for vid, key in made:
+        last.setdefault(vid, key)
+    release: dict[tuple, list] = {}
+    for vid, key in last.items():
+        if vid not in keep:
+            release.setdefault(key, []).append(vid)
+    return release
+
+
 class Backend:
     name = "?"
 
@@ -183,15 +228,35 @@ class GenericUnit:
         return (f"generic seg#{self.segment.sid} [{self.segment.kind}] "
                 f"root={self.segment.root.name}")
 
-    def run(self, values, partials, smalls, offset):
+    def run(self, values, partials, smalls, offset, release=None):
+        # A sparse (ELL) block densifies into a LOCAL cache: only node rules
+        # with no sparse path see the dense form, and the shared ``values``
+        # keeps the SparseBlock for a kernel unit reading the same leaf.
+        # matmul_small keeps its gather path (dag._inner_prod_block takes a
+        # SparseBlock left operand).
+        dense: dict[int, object] = {}
+
+        def block_of(n, pos, p):
+            v = values[p.id]
+            if isinstance(v, SparseBlock) and not (
+                    n.kind == "matmul_small" and pos == 0):
+                if p.id not in dense:
+                    dense[p.id] = v.todense()
+                v = dense[p.id]
+            return v
+
         for n in self.nodes:
             blocks = [smalls[self.plan._small_pos[id(p)]]
-                      if isinstance(p, Small) else values[p.id]
-                      for p in n.parents]
+                      if isinstance(p, Small) else block_of(n, i, p)
+                      for i, p in enumerate(n.parents)]
             if n.is_sink:
                 partials[n.id] = n.block_update(partials[n.id], blocks, offset)
             else:
                 values[n.id] = n.block_eval(blocks, offset)
+            del blocks
+            for vid in (release or {}).get(("node", n.id), ()):
+                values.pop(vid, None)
+                dense.pop(vid, None)
 
 
 class _KernelUnit:
@@ -210,16 +275,25 @@ class _KernelUnit:
 
 
 class ContractionUnit(_KernelUnit):
-    """crossprod(X): an (mul, sum) contraction of one source → kernels.gram."""
+    """An (mul, sum) contraction → kernels.gram when both operands are one
+    source (``crossprod(X)`` wraps one physical matrix in two LeafNodes:
+    one read), kernels.xty for two (``crossprod(W, X)``)."""
 
     def __init__(self, node: InnerProdContractNode):
-        super().__init__("gram")
+        left, right = node.parents
+        super().__init__("gram" if _same_source(left, right) else "xty")
         self.node = node
-        self.left_id = node.parents[0].id
+        self.left_id, self.right_id = left.id, right.id
+
+    def reads(self):
+        return [self.left_id, self.right_id]
 
     def run(self, values, partials, smalls, offset):
         from ..kernels import gram as gram_mod
-        self._merge(partials, self.node, gram_mod.gram(values[self.left_id]))
+        x = values[self.left_id]
+        part = (gram_mod.gram(x) if self.kernel == "gram"
+                else gram_mod.xty(x, values[self.right_id]))
+        self._merge(partials, self.node, part)
 
 
 class WeightedGramUnit(_KernelUnit):
@@ -231,6 +305,9 @@ class WeightedGramUnit(_KernelUnit):
         self.node = node
         self.x_id = x_id
         self.w_id = w_id
+
+    def reads(self):
+        return [self.x_id, self.w_id]
 
     def run(self, values, partials, smalls, offset):
         from ..kernels import weighted_gram as wg
@@ -250,6 +327,9 @@ class ApplyAggUnit(_KernelUnit):
     def describe(self) -> str:
         return (f"cuda:{self.kernel} chains={len(self.chains)} "
                 f"sinks={[s.name for s in self.sinks]}")
+
+    def reads(self):
+        return [self.source_id]
 
     def run(self, values, partials, smalls, offset):
         from ..kernels import fused_apply_agg as faa
@@ -275,6 +355,9 @@ class KMeansUnit(_KernelUnit):
         outs += [n.name for n in (self.counts, self.wss) if n is not None]
         return f"cuda:{self.kernel} outs={outs}"
 
+    def reads(self):
+        return [self.x_id]
+
     def run(self, values, partials, smalls, offset):
         from ..kernels import kmeans_assign as ka
         x = values[self.x_id]
@@ -286,6 +369,57 @@ class KMeansUnit(_KernelUnit):
             self._merge(partials, self.counts, cnts.reshape(-1, 1))
         if self.wss is not None:
             self._merge(partials, self.wss, wss.reshape(()))
+
+
+class SpmmUnit(_KernelUnit):
+    """A contraction over a sparse (ELL) source → the kernels.spmm family:
+    the staged SparseBlock goes to the kernel as it is (nnz-proportional
+    traffic).  ``prefix`` holds an absorbed row-local chain computing the
+    dense right operand (the IRLS ``w·z`` of XᵀWz), evaluated generically
+    first; it never reads the sparse leaf (the matcher declines otherwise).
+    A sparse operand that arrives dense raises: there is no dense detour."""
+
+    def __init__(self, kernel: str, node: InnerProdContractNode, *, plan,
+                 seg, x_id: int, y_id: int | None = None,
+                 w_id: int | None = None, absorb=()):
+        super().__init__(kernel)
+        self.plan = plan
+        self.node = node
+        self.x_id = x_id
+        self.y_id = y_id
+        self.w_id = w_id
+        # ``absorb``: segment nodes the kernel computes itself (the wgram
+        # reweighting mapply), never evaluated generically.
+        self.prefix = tuple(n for n in seg.nodes
+                            if n is not node and n not in absorb)
+
+    def reads(self):
+        ids = [p.id for n in self.prefix for p in n.parents
+               if not isinstance(p, Small)]
+        return ids + [i for i in (self.x_id, self.y_id, self.w_id)
+                      if i is not None]
+
+    def run(self, values, partials, smalls, offset):
+        from ..kernels import spmm
+        for n in self.prefix:
+            blocks = [smalls[self.plan._small_pos[id(p)]]
+                      if isinstance(p, Small) else values[p.id]
+                      for p in n.parents]
+            values[n.id] = n.block_eval(blocks, offset)
+        x = values[self.x_id]
+        if not isinstance(x, SparseBlock):
+            raise TypeError(
+                f"{self.kernel}: the sparse operand arrived as a dense "
+                f"{type(x).__name__}; the spmm kernels take its ELL block")
+        if self.kernel == "spmm_gram":
+            part = spmm.spmm_gram(x.cols, x.vals, ncol=x.ncol)
+        elif self.kernel == "spmm_xty":
+            part = spmm.spmm_xty(x.cols, x.vals, values[self.y_id],
+                                 ncol=x.ncol)
+        else:
+            part = spmm.spmm_wgram(x.cols, x.vals, values[self.w_id],
+                                   ncol=x.ncol)
+        self._merge(partials, self.node, part)
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +443,12 @@ class TorchBackend(Backend):
 
 def _f32_acc(node) -> bool:
     return dtypes.canon(node.acc_dtype) == torch.float32
+
+
+def _sparse_leaf(p) -> bool:
+    """True when an operand is a leaf over a sparse store: its staged block
+    is a SparseBlock, which the dense kernels must never consume."""
+    return is_sparse_mat(getattr(p, "mat", None))
 
 
 def _decline(reasons, seg, msg: str):
@@ -346,6 +486,97 @@ def _is_pure_unary_chain(seg):
     return tuple(reversed(names))
 
 
+def _match_spmm(plan, ir, claimed, reasons=None):
+    """Contraction over a sparse (ELL) source → kernels.spmm; runs first, so
+    a SparseBlock never reaches the dense gram/xty/wgram kernels.  Shapes:
+
+    * ``crossprod(Xs)``         — one-node segment, both operands one sparse
+      source → ``spmm_gram``;
+    * ``crossprod(Xs * w, Xs)`` — the absorbed ``mapply_col`` reweighting of
+      the contraction's own sparse source → ``spmm_wgram`` (sparse IRLS
+      XᵀWX);
+    * ``crossprod(Xs, Y)``      — sparse left against a dense right; the
+      segment may have absorbed a row-local prefix computing Y (IRLS
+      XᵀWz's ``w·z``), which the unit evaluates generically first.
+    """
+    units = {}
+    for seg in ir.segments:
+        if seg.sid in claimed or seg.kind != "contraction":
+            continue
+        node = seg.root
+        if not isinstance(node, InnerProdContractNode):
+            continue
+        left, right = node.parents
+        l_sp, r_sp = _sparse_leaf(left), _sparse_leaf(right)
+        if not (l_sp or r_sp):
+            continue
+        if node.mul.name != "mul" or node.add.name != "sum":
+            _decline(reasons, seg,
+                     f"sparse operand under a ({node.mul.name},"
+                     f"{node.add.name}) semiring: spmm covers (mul,sum) "
+                     "only")
+            continue
+        if not _f32_acc(node):
+            _decline(reasons, seg, "sparse operand with 64-bit "
+                     "accumulation: spmm kernels accumulate in f32")
+            continue
+        if len(seg.nodes) == 1:
+            if l_sp and r_sp and _same_source(left, right):
+                claimed.add(seg.sid)
+                units[seg.sid] = SpmmUnit("spmm_gram", node, plan=plan,
+                                          seg=seg, x_id=left.id)
+                continue
+            if l_sp and r_sp:
+                _decline(reasons, seg, "two distinct sparse operands: "
+                         "spmm expects one sparse source")
+                continue
+            if l_sp and not isinstance(right, Small) \
+                    and dtypes.is_floating(right.dtype):
+                claimed.add(seg.sid)
+                units[seg.sid] = SpmmUnit("spmm_xty", node, plan=plan,
+                                          seg=seg, x_id=left.id,
+                                          y_id=right.id)
+                continue
+            _decline(reasons, seg,
+                     "sparse right operand: spmm computes sparseᵀ·dense "
+                     "(put the sparse matrix on the left)" if r_sp else
+                     "sparse left against a non-float right operand")
+            continue
+        # Multi-node segment: the wgram shape, or an absorbed dense prefix
+        # computing the right operand of an xty.
+        if len(seg.nodes) == 2:
+            m = seg.nodes[0]
+            other = right if left is m else left if right is m else None
+            if (isinstance(m, MapNode) and m.kind == "mapply_col"
+                    and m.fn_info["vudf"].name == "mul"
+                    and other is not None
+                    and not isinstance(other, Small)):
+                xx, ww = m.parents
+                if (_sparse_leaf(xx) and not _sparse_leaf(ww)
+                        and not isinstance(ww, Small)
+                        and _same_source(xx, other)
+                        and dtypes.is_floating(ww.dtype)):
+                    claimed.add(seg.sid)
+                    units[seg.sid] = SpmmUnit("spmm_wgram", node, plan=plan,
+                                              seg=seg, x_id=xx.id,
+                                              w_id=ww.id, absorb=(m,))
+                    continue
+        if l_sp and not isinstance(right, Small):
+            prefix = [n for n in seg.nodes if n is not node]
+            if any(_sparse_leaf(p) for n in prefix for p in n.parents):
+                _decline(reasons, seg, "absorbed prefix reads the sparse "
+                         "source: spmm feeds the leaf to the kernel "
+                         "unseen")
+                continue
+            claimed.add(seg.sid)
+            units[seg.sid] = SpmmUnit("spmm_xty", node, plan=plan, seg=seg,
+                                      x_id=left.id, y_id=right.id)
+            continue
+        _decline(reasons, seg, "sparse contraction shape not covered by "
+                 "spmm (gram / xty / weighted-gram)")
+    return units
+
+
 def _match_contractions(plan, ir, claimed, reasons=None):
     units = {}
     for seg in ir.segments:
@@ -354,10 +585,14 @@ def _match_contractions(plan, ir, claimed, reasons=None):
         node = seg.root
         if len(seg.nodes) != 1 or not isinstance(node, InnerProdContractNode):
             continue
+        if any(_sparse_leaf(p) for p in node.parents):
+            _decline(reasons, seg, "sparse operand: dense gram/xty "
+                     "kernels read dense tiles")
+            continue
         if node.mul.name != "mul" or node.add.name != "sum":
             _decline(reasons, seg,
                      f"({node.mul.name},{node.add.name}) semiring: "
-                     "gram covers (mul,sum) only")
+                     "gram/xty cover (mul,sum) only")
             continue
         if not _f32_acc(node):
             continue
@@ -366,19 +601,8 @@ def _match_contractions(plan, ir, claimed, reasons=None):
                      "stream through the contraction kernel")
             continue
         if not all(dtypes.is_floating(p.dtype) for p in node.parents):
-            _decline(reasons, seg, "non-float operand: gram is a "
-                     "floating kernel")
-            continue
-        left, right = node.parents
-        # crossprod(X) wraps one physical matrix in two LeafNodes: the
-        # shared backing lowers to gram (one read).
-        same = left is right or (
-            getattr(left, "mat", None) is not None
-            and left.mat is getattr(right, "mat", None))
-        if not same:
-            _decline(reasons, seg, "crossprod of two distinct sources: the "
-                     "xty kernel comes with the algorithms slice "
-                     "(ROADMAP B2)")
+            _decline(reasons, seg, "non-float operand: gram/xty are "
+                     "floating kernels")
             continue
         claimed.add(seg.sid)
         units[seg.sid] = ContractionUnit(node)
@@ -396,6 +620,10 @@ def _match_weighted_gram(plan, ir, claimed, reasons=None):
         m, node = seg.nodes
         if not isinstance(node, InnerProdContractNode) or \
                 not isinstance(m, MapNode) or m.kind != "mapply_col":
+            continue
+        if any(_sparse_leaf(p) for p in node.parents + m.parents):
+            _decline(reasons, seg, "sparse operand: the dense wgram "
+                     "kernel reads dense tiles")
             continue
         if node.mul.name != "mul" or node.add.name != "sum":
             continue
@@ -461,6 +689,11 @@ def _match_apply_agg(plan, ir, claimed, reasons=None):
         source = seg.nodes[0].parents[0]
         if isinstance(source, Small) or not _chain_source_ok(source):
             continue
+        if _sparse_leaf(source):
+            _decline(reasons, seg, "sparse source: fused_apply_agg "
+                     "streams dense tiles (implicit zeros take part in "
+                     "the reduction through the generic rules)")
+            continue
         by_source.setdefault(_source_key(source), []).append(
             (seg, source.id, (unaries, _AGG_MAP[node.agg.name], acc)))
     units = {}
@@ -506,6 +739,10 @@ def _match_kmeans(plan, ir, claimed, reasons=None):
         centers = d.parents[1]
         if (isinstance(x, Small) or not isinstance(centers, Small)
                 or not dtypes.is_floating(x.dtype)):
+            continue
+        if _sparse_leaf(x):
+            _decline(reasons, seg, "sparse source: kmeans_assign reads "
+                     "dense tiles")
             continue
         d_seg = _single_node_seg(ir, d)
         if d_seg is None or d_seg.sid in claimed:
@@ -619,8 +856,10 @@ class CudaBackend(Backend):
     the rest.  Matchers run in order and claim segments by sid."""
 
     name = "cuda"
-    MATCHERS = [_match_kmeans, _match_weighted_gram, _match_contractions,
-                _match_apply_agg]
+    # _match_spmm runs first: a sparse segment either lowers onto the spmm
+    # kernels or records why not — the dense kernels never see an ELL block.
+    MATCHERS = [_match_spmm, _match_kmeans, _match_weighted_gram,
+                _match_contractions, _match_apply_agg]
 
     def lower(self, plan, ir) -> LoweredProgram:
         claimed: set[int] = set()

@@ -193,10 +193,12 @@ def iteration_scope():
 
 def _run_whole_group(ps, prog, sources, smalls, epi_sources, bindings):
     """Whole-mode sweep of one pass: its staged sources are the device
-    tensors themselves, and the step consumes them as one partition (offset
+    tensors themselves — a sparse source its ELL slab as one ``SparseBlock``,
+    never densified — and the step consumes them as one partition (offset
     0).  Returns (finalized sinks, long-dimension outputs, epilogue outputs).
     """
-    blocks = {nid: mat.logical_data()
+    blocks = {nid: (mat.block(0, mat.nrow) if mat.is_sparse
+                    else mat.logical_data())
               for nid, mat in ps.staged_sources(sources)}
     long_dim = ps.long_dim
     metrics.inc("streams")

@@ -2,8 +2,9 @@
 repro.core.matrix).
 
 ``FMMatrix`` is an immutable handle; physical storage lives behind the
-``MatrixStore`` protocol.  This slice has the device tier only: a
-``DenseStore`` over a tensor on the engine's device.  The host-RAM and disk
+``MatrixStore`` protocol.  The port has the device tier: a ``DenseStore``
+over a tensor on the engine's device, and the sparse
+``storage.sparse.SparseEllStore`` over an ELL slab.  The host-RAM and disk
 tiers come with ROADMAP A7.  The partition-size rules are the reference's,
 bit for bit, so plans, signatures and counters match.
 """
@@ -171,7 +172,14 @@ class FMMatrix:
     def on_disk(self) -> bool:
         return self.store is not None and self.store.on_disk
 
+    @property
+    def is_sparse(self) -> bool:
+        """True for a physical matrix on the sparse (ELL) tier."""
+        return self.store is not None and getattr(self.store, "sparse", False)
+
     def nbytes(self) -> int:
+        """Bytes a pass moves for this matrix: the store's own count (on the
+        sparse tier the slab's, not nrow·ncol·itemsize)."""
         if self.store is not None:
             return int(self.store.nbytes())
         return self.nrow * self.ncol * dtypes.nbytes(self.dtype)
@@ -220,7 +228,8 @@ class FMMatrix:
         return self.store.block(start, stop)
 
     def __repr__(self):
-        kind = "virtual" if self.is_virtual else "device"
+        kind = ("virtual" if self.is_virtual
+                else "sparse device" if self.is_sparse else "device")
         return (f"FMMatrix({self.nrow}x{self.ncol}, "
                 f"{dtypes.name(self.dtype)}, {kind}"
                 + (f", name={self.name!r}" if self.name else "") + ")")
@@ -309,7 +318,15 @@ def conv_FM2R(mat: FMMatrix) -> np.ndarray:
 
 
 def conv_store(mat: FMMatrix, where: str, *, name: str = "") -> FMMatrix:
-    """fm.conv.store: only the device tier exists in this slice."""
+    """fm.conv.store: only the device tier exists in this slice.  A sparse
+    matrix moves in its sparse form: only its cols/vals migrate."""
+    if where == "device" and mat.is_sparse:
+        from ..storage.sparse import SparseEllStore  # deferred: storage imports core
+        blk = mat.store.block(0, mat.nrow)
+        store = SparseEllStore(to_device(blk.cols), to_device(blk.vals),
+                               mat.ncol, nnz=getattr(mat.store, "nnz", None))
+        return FMMatrix(mat.shape, mat.dtype, store=store,
+                        name=name or mat.name)
     if where == "device":
         return FMMatrix.from_array(mat.logical_data(), name=name or mat.name)
     if where in ("host", "disk"):

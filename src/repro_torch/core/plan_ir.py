@@ -1,5 +1,5 @@
 """Plan IR: the DAG cut compiled into typed fused segments (PyTorch port of
-repro.core.plan_ir, without the sparse tier).
+repro.core.plan_ir).
 
 Segments are ``row_local``, ``sink_update``, ``contraction`` and
 ``epilogue``, each with width/dtype/FLOP metadata and a processor-level
@@ -14,6 +14,7 @@ from typing import List
 from . import dtypes
 from .dag import LeafNode, Node, Small
 from .matrix import proc_partition_rows
+from .sparse import effective_ncol, is_sparse_mat
 
 
 def _is_source(n: Node) -> bool:
@@ -33,13 +34,19 @@ class Segment:
     flops_per_row: float
     n_live: int               # live arrays per row while the segment runs
     block_rows: int = 0       # processor-level tile rows
+    # nnz / (nrow·ncol) of the sparsest sparse source feeding the segment;
+    # 1.0 when every input is dense.
+    density: float = 1.0
 
     def describe(self) -> str:
-        return (f"seg#{self.sid} [{self.kind}] root={self.root.name} "
+        base = (f"seg#{self.sid} [{self.kind}] root={self.root.name} "
                 f"nodes={len(self.nodes)} width={self.width} "
                 f"dtype={dtypes.name(self.dtype)} "
                 f"flops/row={self.flops_per_row:.1f} "
                 f"block_rows={self.block_rows}")
+        if self.density < 1.0:
+            base += f" density={self.density:.2e}"
+        return base
 
 
 @dataclasses.dataclass
@@ -137,6 +144,7 @@ def _with_metadata(seg: Segment) -> Segment:
     ext_inputs: set[int] = set()
     widest = seg.root.dtype
     flops = 0.0
+    density = 1.0
     for n in seg.nodes:
         flops += n.flops_per_row()
         if dtypes.rank(n.dtype) > dtypes.rank(widest):
@@ -148,10 +156,19 @@ def _with_metadata(seg: Segment) -> Segment:
                 continue
             if dtypes.rank(p.dtype) > dtypes.rank(widest):
                 widest = p.dtype
-            widths.append(p.ncol)
+            if isinstance(p, LeafNode) and is_sparse_mat(p.mat):
+                # A sparse source streams 2·kmax scalars a row, not ncol.
+                widths.append(effective_ncol(p.mat))
+                nnz = getattr(p.mat.store, "nnz", None)
+                if nnz is not None and p.mat.nrow * p.mat.ncol:
+                    density = min(density,
+                                  nnz / float(p.mat.nrow * p.mat.ncol))
+            else:
+                widths.append(p.ncol)
             if p.id not in inside:
                 ext_inputs.add(p.id)
     seg.width = max(widths)
+    seg.density = density
     seg.dtype = dtypes.canon(widest)
     seg.flops_per_row = flops
     seg.n_live = max(1, len(ext_inputs)) + 1

@@ -10,8 +10,8 @@ lowers to a GenOp, so a chain of calls builds one lazy DAG that
     >>> (G,) = fm.materialize(fm.crossprod(Z))
 
 Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them: the host and disk tiers and the named-matrix registry
-(A7), sparse factors (A9), ``explain`` (A10), ``batch`` (A11), ``serve``
+that brings them: the host and disk tiers, the named-matrix registry and
+factor ingest from files (A7), ``explain`` (A10), ``batch`` (A11), ``serve``
 (A12).
 """
 from __future__ import annotations
@@ -19,8 +19,9 @@ from __future__ import annotations
 from typing import Optional
 
 import numpy as np
+import torch
 
-from . import genops, materialize as mat_mod, matrix as matrix_mod
+from . import dtypes, genops, materialize as mat_mod, matrix as matrix_mod
 from .matrix import FMMatrix
 
 
@@ -465,11 +466,82 @@ def save_dense_matrix(x, name: Optional[str] = None, **kw) -> FM:
 
 
 def load_factor_matrix(src, name: str, *, num_levels, **kw) -> FM:
-    _later("the sparse tier (fm.load_factor_matrix)", "A9")
+    _later("factor ingest into the disk tier (fm.load_factor_matrix)", "A7")
 
 
-def one_hot(*factors, **kw) -> FM:
-    _later("the sparse tier (fm.one_hot)", "A9")
+class Factor:
+    """A factor vector (paper Table III ``fm.as.factor``): integer codes in
+    ``[0, num_levels)`` plus the level count — what ``fm.one_hot`` consumes
+    to build the sparse design-matrix columns."""
+
+    __slots__ = ("codes", "num_levels")
+
+    def __init__(self, codes: np.ndarray, num_levels: int):
+        self.codes = codes
+        self.num_levels = int(num_levels)
+
+    def __len__(self):
+        return int(self.codes.shape[0])
+
+    def __repr__(self):
+        return f"Factor(n={len(self)}, num_levels={self.num_levels})"
+
+
+def as_factor(x, num_levels: Optional[int] = None) -> Factor:
+    """fm.as.factor: integer labels → a factor vector.  ``x`` is an FM,
+    FMMatrix or array of integer-valued labels (one column); ``num_levels``
+    defaults to ``max(code) + 1``; codes must lie in ``[0, num_levels)``."""
+    if isinstance(x, Factor):
+        return x if num_levels is None else Factor(x.codes, num_levels)
+    arr = np.asarray(conv_FM2R(x) if isinstance(x, (FM, FMMatrix)) else x)
+    codes = arr.reshape(-1)
+    if not np.issubdtype(codes.dtype, np.integer):
+        rounded = np.rint(codes)
+        if not np.array_equal(rounded, codes):
+            raise ValueError(
+                "as_factor needs integer-valued labels; got non-integer "
+                "values (bin or hash continuous features first)")
+        codes = rounded
+    codes = codes.astype(np.int64)
+    if codes.size and codes.min() < 0:
+        raise ValueError("as_factor: negative label codes")
+    if num_levels is None:
+        num_levels = int(codes.max()) + 1 if codes.size else 1
+    elif codes.size and codes.max() >= num_levels:
+        raise ValueError(
+            f"as_factor: label code {int(codes.max())} out of range for "
+            f"num_levels={num_levels}")
+    return Factor(codes, num_levels)
+
+
+def one_hot(*factors, dtype=np.float32, host: bool = True) -> FM:
+    """One-hot encode factor(s) into ONE sparse matrix (the ELL tier): k
+    factors cbind with running column offsets, so every row has exactly k
+    ones.  ``host=False`` builds the slab on the engine's device (the only
+    tier of this slice); ``host=True``, the reference's default, places it
+    in host RAM, which comes with ROADMAP A7."""
+    if host:
+        _later("the host tier (fm.one_hot(host=True); pass host=False for "
+               "the device tier)", "A7")
+    if not factors:
+        raise ValueError("one_hot needs at least one factor")
+    fs = [as_factor(f) for f in factors]
+    n = len(fs[0])
+    if any(len(f) != n for f in fs):
+        raise ValueError(
+            f"one_hot: factor lengths differ ({[len(f) for f in fs]})")
+    ncol, offset = 0, []
+    for f in fs:
+        offset.append(ncol)
+        ncol += f.num_levels
+    cols = np.stack([f.codes + off for f, off in zip(fs, offset)],
+                    axis=1).astype(np.int32)
+    from ..storage.sparse import SparseEllStore  # deferred: storage imports core
+    cols_t = matrix_mod.to_device(cols)
+    vals_t = torch.ones(cols.shape, dtype=dtypes.canon(dtype),
+                        device=cols_t.device)
+    store = SparseEllStore(cols_t, vals_t, ncol, nnz=n * len(fs))
+    return FM(FMMatrix((n, ncol), vals_t.dtype, store=store))
 
 
 def materialize(*xs, **kw) -> list[FM]:

@@ -22,7 +22,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram", "fused_apply_agg", "kmeans_assign")
+SOURCES = ("gram", "fused_apply_agg", "kmeans_assign", "spmm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -108,6 +108,12 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     "fm_gram": (_P, _P, _P, _L, _I, _L, _I, _P),
     "fm_wgram": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
+    "fm_xty": (_P, _P, _P, _P, _L, _I, _I, _L, _I, _P),
+    # cols, vals, [y | w], ws, out, n, kmax, ncol, [q, qc,] tile, tpr,
+    # splits, stream
+    "fm_spmm_gram": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _P),
+    "fm_spmm_wgram": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _L, _P),
+    "fm_spmm_xty": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _P),
     "fm_fused_apply_agg": (_P, _P, _P, _L, _I, _L, _P, _P),
     "fm_kmeans_assign": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                          _I, _P),

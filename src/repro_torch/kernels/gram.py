@@ -1,6 +1,7 @@
-"""Tall-skinny Gram kernel G = XᵀX on Hopper (csrc/gram.cu).
+"""Tall-skinny Gram kernel G = XᵀX and its two-operand form XᵀY on Hopper
+(csrc/gram.cu).
 
-Replaces repro/kernels/gram.py:gram (Pallas, `_gram_kernel`).  Bound on an
+``gram`` replaces repro/kernels/gram.py:gram (Pallas, `_gram_kernel`).  Bound on an
 H100 at the main path's 65,608,366 × 32 f32: reading X is 8.4 GB, about
 2.5 ms at 3.35 TB/s, and 2np² = 1.34e11 FLOP is about 2.0 ms at the
 67 TFLOP/s non-tensor f32 rate — the two are close, so the kernel has to
@@ -10,6 +11,18 @@ shared memory, a 4×4 register tile per thread (two 16-byte shared loads feed
 16 FMAs), per-block partials to a workspace, and a second launch that sums
 them in a fixed order (deterministic).  Full f32 FMA; no TF32, no tensor
 cores (the reference tests hold f32 at 1e-4).
+
+``xty`` replaces repro/kernels/gram.py:xty (Pallas, `_xty_kernel`).  Two
+operands both wider than ``THIN`` columns take the gram design with the
+right tile staged from Y (n, q) and the (p, q) output tiled 32×32.  The main
+path's shapes are thin — NMF's WᵀX with W (n, 8) and X (n, 32), GMM's Xᵀr
+with X (n, 32) and r (n, 1) — and bound by reading both operands once:
+n·(p + q)·4 bytes, 3.1 ms and 2.6 ms at 65,608,366 rows and 3.35 TB/s.
+There a 32×32 tile would mostly multiply masked zeros, so a thin path takes
+them: a warp per row, lanes across the wide operand's columns, the narrow
+operand (at most ``THIN`` columns) staged through shared memory and read by
+all lanes into per-lane register sums, warps and splits added in a fixed
+order.
 """
 from __future__ import annotations
 
@@ -19,8 +32,11 @@ from . import build, ref
 from .common import route, splits_for
 
 TILE = 32
-#: Launches of the CUDA kernel (the plain CPU path does not count).
+#: xty's thin path takes one operand at most this many columns wide.
+THIN = 16
+#: Launches of the CUDA kernels (the plain CPU path does not count).
 launches = 0
+xty_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -32,9 +48,9 @@ def check_x(x: torch.Tensor, what: str):
         raise TypeError(f"{what}: X must be float32 or bfloat16, got {x.dtype}")
 
 
-def gram_splits(n: int, p: int) -> int:
-    tiles = -(-p // TILE)
-    return splits_for(n, 256, tiles * tiles)
+def gram_splits(n: int, p: int, q: int | None = None) -> int:
+    tiles = -(-p // TILE) * -(-(p if q is None else q) // TILE)
+    return splits_for(n, 256, tiles)
 
 
 def gram(x: torch.Tensor) -> torch.Tensor:
@@ -55,4 +71,44 @@ def gram(x: torch.Tensor) -> torch.Tensor:
                       _DTYPES[x.dtype], build.stream_handle(x))
     build.check(err, "gram")
     launches += 1
+    return out
+
+
+def xty_plan(n: int, p: int, q: int) -> tuple[int, int]:
+    """(splits, workspace floats) of an xty launch: the thin path when
+    min(p, q) ≤ THIN (one block per 32 wide columns and split), else the
+    32×32 tiles."""
+    if min(p, q) <= THIN:
+        wide_tiles = -(-max(p, q) // TILE)
+        splits = splits_for(n, 1024, wide_tiles)
+        return splits, splits * wide_tiles * THIN * TILE
+    splits = gram_splits(n, p, q)
+    return splits, splits * -(-p // TILE) * -(-q // TILE) * TILE * TILE
+
+
+def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """XᵀY for row-aligned tall X (n, p) and Y (n, q) of one dtype (float32
+    or bfloat16); (p, q) float32."""
+    global xty_launches
+    check_x(x, "xty")
+    check_x(y, "xty")
+    if y.shape[0] != x.shape[0]:
+        raise ValueError(f"xty: X {tuple(x.shape)} and Y {tuple(y.shape)} "
+                         "are not row-aligned")
+    if y.dtype != x.dtype:
+        raise TypeError(f"xty: X and Y must share a dtype, got {x.dtype} "
+                        f"and {y.dtype}")
+    if route(x, y) == "cpu":
+        return ref.xty_ref(x, y)
+    x, y = x.contiguous(), y.contiguous()
+    n, p = x.shape
+    q = y.shape[1]
+    splits, ws_floats = xty_plan(n, p, q)
+    ws = torch.empty(ws_floats, dtype=torch.float32, device=x.device)
+    out = torch.empty((p, q), dtype=torch.float32, device=x.device)
+    lib = build.load("gram")
+    err = lib.fm_xty(x.data_ptr(), y.data_ptr(), ws.data_ptr(), out.data_ptr(),
+                     n, p, q, splits, _DTYPES[x.dtype], build.stream_handle(x))
+    build.check(err, "xty")
+    xty_launches += 1
     return out

@@ -2,11 +2,14 @@
 
 The wrappers use these for tensors on the CPU (the CPU tests), and
 ``chip_smoke.py`` holds each kernel against them on the card.  They repeat
-the reference oracles of repro/kernels/ref.py in PyTorch, except
-``kmeans_assign_ref``, which forms distances by the kernel's expansion
-(‖x‖² − 2x·c + ‖c‖², repro/kernels/kmeans_assign.py:48-52) so that it stays
-within memory at the main path's size: the direct (n, k, p) difference
-tensor would not.
+the reference oracles of repro/kernels/ref.py in PyTorch, except that a few
+are shaped to stay within memory at the main path's size:
+``kmeans_assign_ref`` forms distances by the kernel's expansion
+(‖x‖² − 2x·c + ‖c‖², repro/kernels/kmeans_assign.py:48-52), since the direct
+(n, k, p) difference tensor would not fit, and the SpMM versions densify the
+ELL slab a chunk of rows at a time (``SPMM_CHUNK_ELEMS``) where the reference
+densifies it whole — a dense copy of the Criteo slab is 305 GB.  The SpMM
+versions take ``dtype`` (float64 for the checks on the card).
 """
 from __future__ import annotations
 
@@ -22,6 +25,10 @@ SUMMARY_CHAINS = (((), "sum"), (("sq",), "sum"), ((), "min"), ((), "max"),
 def gram_ref(x):
     x = x.to(torch.float32)
     return x.T @ x
+
+
+def xty_ref(x, y):
+    return x.to(torch.float32).T @ y.to(torch.float32)
 
 
 def wgram_ref(x, w):
@@ -80,3 +87,49 @@ def kmeans_assign_ref(x, centers):
     onehot = torch.nn.functional.one_hot(lab, c.shape[0]).to(torch.float32)
     return (lab.to(torch.int32), onehot.T @ x, onehot.sum(0),
             mind.sum().reshape(1))
+
+
+#: Elements of the dense row chunk an SpMM plain version forms at once.
+SPMM_CHUNK_ELEMS = 1 << 26
+
+
+def spmm_dense_ref(cols, vals, ncol, dtype=torch.float32):
+    """ELL slab → dense (rows, ncol): the densify every SpMM version shares.
+    Padding (col 0, val 0) adds nothing; columns outside [0, ncol) are
+    dropped, as the kernels drop them."""
+    c = cols.to(torch.int64)
+    keep = (c >= 0) & (c < ncol)
+    v = torch.where(keep, vals.to(dtype), torch.zeros((), dtype=dtype,
+                                                      device=vals.device))
+    out = torch.zeros((cols.shape[0], ncol), dtype=dtype, device=vals.device)
+    return out.scatter_add_(1, torch.where(keep, c, 0), v)
+
+
+def _spmm_chunks(n, ncol):
+    step = max(1, SPMM_CHUNK_ELEMS // max(1, ncol))
+    return ((s, min(n, s + step)) for s in range(0, n, step))
+
+
+def spmm_gram_ref(cols, vals, ncol, dtype=torch.float32):
+    acc = torch.zeros((ncol, ncol), dtype=dtype, device=vals.device)
+    for s, e in _spmm_chunks(cols.shape[0], ncol):
+        x = spmm_dense_ref(cols[s:e], vals[s:e], ncol, dtype)
+        acc += x.T @ x
+    return acc
+
+
+def spmm_xty_ref(cols, vals, y, ncol, dtype=torch.float32):
+    acc = torch.zeros((ncol, y.shape[1]), dtype=dtype, device=vals.device)
+    for s, e in _spmm_chunks(cols.shape[0], ncol):
+        acc += spmm_dense_ref(cols[s:e], vals[s:e], ncol, dtype).T \
+            @ y[s:e].to(dtype)
+    return acc
+
+
+def spmm_wgram_ref(cols, vals, w, ncol, dtype=torch.float32):
+    w = w.reshape(-1, 1)
+    acc = torch.zeros((ncol, ncol), dtype=dtype, device=vals.device)
+    for s, e in _spmm_chunks(cols.shape[0], ncol):
+        x = spmm_dense_ref(cols[s:e], vals[s:e], ncol, dtype)
+        acc += (x * w[s:e].to(dtype)).T @ x
+    return acc

@@ -1,7 +1,8 @@
-"""The port's algorithms (summary, correlation, logistic/gaussian/poisson
-GLM, k-means) on the fixtures of tests/test_algorithms.py, at that file's
-tolerances, under both of the port's backends on the CPU — and against the
-JAX package's own results on the same numpy inputs."""
+"""The port's algorithms (summary, correlation, tall SVD, PCA,
+logistic/gaussian/poisson GLM, k-means, GMM, NMF, naive Bayes) on the
+fixtures of tests/test_algorithms.py, at that file's tolerances, under both
+of the port's backends on the CPU — and against the JAX package's own
+results on the same numpy inputs."""
 import numpy as np
 import pytest
 import torch
@@ -9,7 +10,8 @@ import torch
 from repro import algorithms as jalg
 from repro.core import fm as jfm
 from repro_torch.algorithms import (correlation, glm, glm_iteration_plan,
-                                    glm_predict, kmeans, summary)
+                                    glm_predict, gmm, kmeans, naive_bayes,
+                                    nb_predict, nmf, pca, summary, svd_tall)
 from repro_torch.algorithms.kmeans import _init_centers, kmeans_iteration
 from repro_torch.core import fm
 from repro_torch.kernels import kmeans_assign as ka
@@ -191,3 +193,122 @@ def test_glm_predict(logit_data):
     (mu,) = fm.materialize(glm_predict(res, fm.conv_R2FM(X)))
     acc = ((fm.as_np(mu).reshape(-1) > 0.5) == (y > 0.5)).mean()
     assert acc > 0.8
+
+
+def test_svd(X_np, backend):
+    r = svd_tall(fm.conv_R2FM(X_np), k=6, compute_u=True)
+    ref = np.linalg.svd(X_np.astype(np.float64), compute_uv=False)[:6]
+    np.testing.assert_allclose(r.s, ref, rtol=1e-3)
+    U = fm.as_np(r.U)
+    np.testing.assert_allclose(U.T @ U, np.eye(6), atol=2e-2)
+    np.testing.assert_allclose(X_np @ r.V, U @ np.diag(r.s),
+                               rtol=1e-2, atol=1e-2)
+    j = jalg.svd_tall(jfm.conv_R2FM(X_np), k=6)
+    np.testing.assert_allclose(r.s, j.s, rtol=1e-5)
+
+
+def test_pca_matches_numpy(X_np, backend):
+    fm.reset_exec_stats()
+    r = pca(fm.conv_R2FM(X_np), k=4, compute_scores=True)
+    Xc = X_np.astype(np.float64) - X_np.mean(0)
+    ref_s = np.linalg.svd(Xc, compute_uv=False)[:4]
+    np.testing.assert_allclose(r.sdev, ref_s / np.sqrt(X_np.shape[0] - 1),
+                               rtol=1e-3)
+    np.testing.assert_allclose(r.center, X_np.mean(0), rtol=1e-3, atol=1e-3)
+    scores = fm.as_np(r.scores)
+    ref_scores = Xc @ r.rotation
+    sign = np.sign((scores * ref_scores).sum(0))
+    np.testing.assert_allclose(scores * sign, ref_scores * sign,
+                               rtol=1e-2, atol=1e-2)
+    j = jalg.pca(jfm.conv_R2FM(X_np), k=4)
+    np.testing.assert_allclose(r.sdev, j.sdev, rtol=1e-4)
+    # moment pass + sweep/Gram pass, then the scores pass and its rescale
+    assert fm.exec_stats()["passes"] == 4
+
+
+def test_pca_scaled_matches_correlation_eigs(X_np, backend):
+    r = pca(fm.conv_R2FM(X_np), k=10, scale=True)
+    evals = np.sort(np.linalg.eigvalsh(np.corrcoef(X_np.T)))[::-1]
+    np.testing.assert_allclose(np.sort(r.sdev ** 2)[::-1], evals,
+                               rtol=2e-2, atol=1e-3)
+
+
+def test_nmf_reconstructs(backend):
+    rng = np.random.default_rng(23)
+    W0 = np.abs(rng.normal(size=(1500, 4))).astype(np.float32)
+    H0 = np.abs(rng.normal(size=(4, 9))).astype(np.float32)
+    Xn = (W0 @ H0).astype(np.float32)
+    res = nmf(fm.conv_R2FM(Xn), k=4, max_iter=60, seed=3)
+    t = np.array(res.objective_trace)
+    assert (np.diff(t) <= 1e-3 * np.maximum(np.abs(t[:-1]), 1.0)).all()
+    rel = res.objective / float((Xn.astype(np.float64) ** 2).sum())
+    assert rel < 0.01, f"relative reconstruction error {rel}"
+    recon = fm.as_np(res.W).astype(np.float64) @ res.H
+    direct = float(((Xn - recon) ** 2).sum())
+    assert direct <= res.objective_trace[-1] * 1.5 + 1e-6
+    j = jalg.nmf(jfm.conv_R2FM(Xn), k=4, max_iter=5, seed=3)
+    r5 = nmf(fm.conv_R2FM(Xn), k=4, max_iter=5, seed=3)
+    np.testing.assert_allclose(r5.objective_trace, j.objective_trace,
+                               rtol=1e-3)
+    np.testing.assert_allclose(r5.H, j.H, rtol=1e-3, atol=1e-5)
+
+
+def test_gmm_loglik_monotone(blobs, backend):
+    pts, _ = blobs
+    res = gmm(fm.conv_R2FM(pts), k=5, max_iter=6, seed=1)
+    t = np.array(res.loglik_trace)
+    assert (np.diff(t) > -1e-2 * np.abs(t[:-1])).all()
+    np.testing.assert_allclose(res.weights.sum(), 1.0, rtol=1e-6)
+    j = jalg.gmm(jfm.conv_R2FM(pts), k=5, max_iter=6, seed=1)
+    np.testing.assert_allclose(res.loglik_trace, j.loglik_trace, rtol=1e-4)
+    np.testing.assert_allclose(res.means, j.means, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def nb_data(blobs):
+    pts, _ = blobs
+    labels = np.repeat(np.arange(5), 400).astype(np.float32)
+    perm = np.random.default_rng(29).permutation(len(pts))
+    return pts[perm], labels[perm]
+
+
+def test_gaussian_nb_matches_numpy(nb_data, backend):
+    Xn, yn = nb_data
+    model = naive_bayes(fm.conv_R2FM(Xn), fm.conv_R2FM(yn), 5)
+    for j in range(5):
+        sel = Xn[yn == j].astype(np.float64)
+        np.testing.assert_allclose(model.means[j], sel.mean(0), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(model.variances[j], sel.var(0),
+                                   rtol=1e-3, atol=1e-3)
+    pred = fm.as_np(nb_predict(model, fm.conv_R2FM(Xn))).reshape(-1)
+    assert (pred == yn.astype(np.int32)).mean() > 0.95
+    jm = jalg.naive_bayes(jfm.conv_R2FM(Xn), jfm.conv_R2FM(yn), 5)
+    # var = s2/n − mu² cancels (blob means ≈ 12, variances ≈ 1): the two
+    # packages' f32 sums taken in other orders agree to the reference
+    # test's own variance tolerance.
+    np.testing.assert_allclose(model.means, jm.means, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(model.variances, jm.variances, rtol=1e-3,
+                               atol=1e-3)
+    jp = jfm.as_np(jalg.nb_predict(jm, jfm.conv_R2FM(Xn))).reshape(-1)
+    np.testing.assert_array_equal(pred, jp)
+
+
+def test_multinomial_nb(backend):
+    rng = np.random.default_rng(5)
+    k, p, n_per = 3, 12, 500
+    probs = rng.dirichlet(np.ones(p) * 0.3, size=k)
+    X = np.concatenate([rng.multinomial(40, probs[j], size=n_per)
+                        for j in range(k)]).astype(np.int32)
+    y = np.repeat(np.arange(k), n_per).astype(np.int32)
+    model = naive_bayes(fm.conv_R2FM(X), fm.conv_R2FM(y), k,
+                        kind="multinomial")
+    counts = np.stack([X[y == j].sum(0) for j in range(k)]) + 1.0
+    expected = np.log(counts / counts.sum(1, keepdims=True))
+    np.testing.assert_allclose(model.feature_log_prob, expected, rtol=1e-5)
+    pred = fm.as_np(nb_predict(model, fm.conv_R2FM(X))).reshape(-1)
+    assert (pred == y).mean() > 0.9
+    jm = jalg.naive_bayes(jfm.conv_R2FM(X), jfm.conv_R2FM(y), k,
+                          kind="multinomial")
+    np.testing.assert_allclose(model.feature_log_prob, jm.feature_log_prob,
+                               rtol=1e-5)

@@ -8,15 +8,18 @@ with a card and nvcc:
 
 The shapes cover ragged row counts, column counts below, at and across the
 32-wide tiles, bf16 sources, every chain unary, integer accumulators, NaN
-and all-negative min/max edges, more chains than one launch takes, and
-k-means layouts whose centers or row tile do not fit in shared memory.
+and all-negative min/max edges, more chains than one launch takes,
+k-means layouts whose centers or row tile do not fit in shared memory, xty
+at thin and wide second operands, and ELL slabs with padding rows,
+duplicate columns, kmax = 1 and kmax past one 32-entry mask window, over
+one and many output tiles.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import (fused_apply_agg as faa, gram as gram_mod,
-                                 kmeans_assign as ka, ref,
+                                 kmeans_assign as ka, ref, spmm,
                                  weighted_gram as wg)
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +72,79 @@ def test_gram_and_wgram(dev, n, p, dtype):
     _close_gram(wg.wgram(x, w.reshape(-1, 1)), x, w)
     torch.cuda.synchronize()
     assert (gram_mod.launches, wg.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("n", [1, 1000, 70001])
+@pytest.mark.parametrize("p,q", [(8, 32), (32, 1), (33, 70), (1, 1),
+                                 (16, 40), (40, 17)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xty(dev, n, p, q, dtype):
+    x, y = _x(n, p, dtype, dev), _x(n, q, dtype, dev)
+    before = gram_mod.xty_launches
+    got = gram_mod.xty(x, y)
+    want = x.double().T @ y.double()
+    torch.cuda.synchronize()
+    assert gram_mod.xty_launches == before + 1 and got.shape == (p, q)
+    # entry by entry in the units of sqrt(Σx_i² · Σy_j²)
+    scale = torch.outer(x.double().pow(2).sum(0).sqrt(),
+                        y.double().pow(2).sum(0).sqrt()).clamp_min(1e-300)
+    assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
+
+
+def _ell(n, kmax, ncol, dev, dtype=torch.float32):
+    """A random slab with all-padding rows, rows with padding at the end and
+    duplicate columns inside rows."""
+    cols = torch.as_tensor(RNG.integers(0, ncol, size=(n, kmax)),
+                           dtype=torch.int32)
+    vals = torch.as_tensor(RNG.uniform(0.5, 1.5, size=(n, kmax)),
+                           dtype=torch.float32)
+    pad = torch.as_tensor(RNG.uniform(size=(n, kmax)) < 0.2)
+    pad[::7] = True
+    cols[pad] = 0
+    vals[pad] = 0.0
+    if kmax > 1 and n > 3:
+        cols[3, 1] = cols[3, 0]
+    return cols.to(dev), vals.to(dtype).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 255, 5000])
+@pytest.mark.parametrize("kmax,ncol", [(1, 5), (3, 23), (26, 300), (40, 1664)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spmm(dev, n, kmax, ncol, dtype):
+    cols, vals = _ell(n, kmax, ncol, dev, dtype)
+    w = torch.rand(n, device=dev) * 0.25
+    y = _x(n, 3, torch.float32, dev)
+    before = (spmm.gram_launches, spmm.xty_launches, spmm.wgram_launches)
+    got = (spmm.spmm_gram(cols, vals, ncol=ncol),
+           spmm.spmm_xty(cols, vals, y, ncol=ncol),
+           spmm.spmm_wgram(cols, vals, w.reshape(-1, 1), ncol=ncol))
+    want = (ref.spmm_gram_ref(cols, vals, ncol, torch.float64),
+            ref.spmm_xty_ref(cols, vals, y, ncol, torch.float64),
+            ref.spmm_wgram_ref(cols, vals, w, ncol, torch.float64))
+    torch.cuda.synchronize()
+    assert (spmm.gram_launches, spmm.xty_launches, spmm.wgram_launches) == \
+        tuple(b + 1 for b in before)
+    for g, r in zip(got, want):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        _close(g, r, 1e-5)
+
+
+@pytest.mark.parametrize("q", [1, 40])
+def test_spmm_criteo_layout(dev, q):
+    """The main path's tiling (ncol = 1664, kmax = 26: 36 triangle tiles, two
+    threads a row, xty in one or several column stripes) on 20,000 rows."""
+    cols = torch.as_tensor(
+        RNG.integers(0, 64, size=(20000, 26)) + 64 * np.arange(26),
+        dtype=torch.int32).to(dev)
+    vals = torch.ones(cols.shape, device=dev)
+    w = torch.rand(20000, device=dev) * 0.25
+    y = _x(20000, q, torch.float32, dev)
+    _close(spmm.spmm_gram(cols, vals, ncol=1664),
+           ref.spmm_gram_ref(cols, vals, 1664, torch.float64), 1e-6)
+    _close(spmm.spmm_wgram(cols, vals, w, ncol=1664),
+           ref.spmm_wgram_ref(cols, vals, w, 1664, torch.float64), 1e-5)
+    _close(spmm.spmm_xty(cols, vals, y, ncol=1664),
+           ref.spmm_xty_ref(cols, vals, y, 1664, torch.float64), 1e-5)
 
 
 _ALL_UNARY_CHAINS = tuple(((u,), "sum", "float32")
@@ -205,3 +281,39 @@ def test_engine_reaches_every_kernel_on_cuda(dev):
     np.testing.assert_allclose(c, c2, rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(g.beta, g2.beta, rtol=1e-3, atol=1e-4)
     np.testing.assert_allclose(k.wss, k2.wss, rtol=1e-3)
+
+
+def test_engine_reaches_xty_and_spmm_on_cuda(dev):
+    """NMF and GMM reach xty (and gram, wgram), sparse logistic regression
+    and crossprod over a one-hot design reach the three SpMM kernels; each
+    agrees with backend torch."""
+    from repro_torch.algorithms import glm, gmm, nmf
+    from repro_torch.core import fm
+    centers = RNG.normal(size=(3, 6)) * 8
+    X = np.concatenate([c + RNG.normal(size=(3000, 6)) for c in centers]
+                       ).astype(np.float32)
+    codes = [RNG.integers(0, lv, 9000) for lv in (7, 5, 11)]
+    yb = (RNG.uniform(size=9000) < 0.3).astype(np.float32)
+    counters = ((gram_mod, "xty_launches"), (spmm, "gram_launches"),
+                (spmm, "xty_launches"), (spmm, "wgram_launches"))
+    res = {}
+    with fm.conf(device="cuda"):
+        for backend in ("cuda", "torch"):
+            before = [getattr(m, a) for m, a in counters]
+            with fm.conf(backend=backend):
+                Xf = fm.conv_R2FM(X)
+                Xs = fm.one_hot(*[fm.as_factor(c) for c in codes], host=False)
+                (G,) = fm.materialize(fm.crossprod(Xs))
+                res[backend] = (nmf(fm.conv_R2FM(np.abs(X)), k=3,
+                                    max_iter=4),
+                                gmm(Xf, k=3, max_iter=4, seed=1),
+                                glm(Xs, fm.conv_R2FM(yb), ridge=1e-3),
+                                fm.as_np(G))
+            grew = [getattr(m, a) > b for (m, a), b in zip(counters, before)]
+            assert all(grew) if backend == "cuda" else not any(grew)
+    (n1, g1, l1, G1), (n2, g2, l2, G2) = res["cuda"], res["torch"]
+    np.testing.assert_allclose(n1.objective_trace, n2.objective_trace,
+                               rtol=1e-4)
+    np.testing.assert_allclose(g1.loglik_trace, g2.loglik_trace, rtol=1e-5)
+    np.testing.assert_allclose(l1.loglik, l2.loglik, rtol=1e-5)
+    np.testing.assert_array_equal(G1, G2)

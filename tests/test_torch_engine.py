@@ -18,8 +18,10 @@ from repro.core import fm as jfm
 from repro.core import materialize as jmz
 from repro.core.fusion import Plan as JPlan
 from repro.algorithms.glm import glm_irls_outputs as j_glm_outputs
+from repro.algorithms.gmm import gmm_iteration as j_gmm_iteration
 from repro.observability import metrics as jmetrics
 from repro_torch.algorithms.glm import glm_irls_outputs as t_glm_outputs
+from repro_torch.algorithms.gmm import gmm_moment_outputs
 from repro_torch.core import fm as tfm
 from repro_torch.core import lowering as tlowering
 from repro_torch.core import materialize as tmz
@@ -91,10 +93,79 @@ def _xty(fm, X, y, C):
     return [fm.crossprod(X, y), fm.colSums(X)]
 
 
+def _nmf_pass_a(fm, X, y, C):
+    """nmf's pass A (algorithms/nmf.py): WᵀX and WᵀW over a tall W."""
+    W = fm.conv_R2FM(np.abs(fm.as_np(X)[:, :3]) + 0.1)
+    return [fm.crossprod(W, fm.abs_(X)), fm.crossprod(W)]
+
+
+def _gmm_moments(fm, X, y, C):
+    """gmm's E-step sinks at k = 3 (algorithms/gmm.py)."""
+    means = np.asarray(C, np.float64)
+    covs = np.tile(np.eye(X.ncol) * 4.0, (3, 1, 1))
+    weights = np.array([0.2, 0.3, 0.5])
+    if fm is tfm:
+        return gmm_moment_outputs(X, weights, means, covs)
+    return _j_gmm_sinks(X, weights, means, covs)
+
+
+def _j_gmm_sinks(X, weights, means, covs):
+    """The reference's gmm_iteration builds its sinks inline: capture them
+    by running it with fm.materialize swapped for a recorder."""
+    captured = []
+
+    def grab(*outs, **kw):
+        captured.extend(outs)
+        raise _Captured
+
+    real = jfm.materialize
+    jfm.materialize = grab
+    try:
+        j_gmm_iteration(X, weights, means, covs)
+    except _Captured:
+        pass
+    finally:
+        jfm.materialize = real
+    return captured
+
+
+class _Captured(Exception):
+    pass
+
+
+def _one_hot(fm, n):
+    """The same one-hot design in both packages, on the device tier."""
+    rng = np.random.default_rng(31)
+    levels = (7, 5, 11)
+    codes = [rng.integers(0, lv, n) for lv in levels]
+    return fm.one_hot(*[fm.as_factor(c, lv) for c, lv in zip(codes, levels)],
+                      host=False)
+
+
+def _sparse_glm(fm, X, y, C):
+    outputs = t_glm_outputs if fm is tfm else j_glm_outputs
+    Xs = _one_hot(fm, y.nrow)
+    beta = np.linspace(-0.3, 0.3, Xs.ncol)
+    # A one-hot design is rank-deficient (each factor's columns sum to 1):
+    # at a tiny ridge the Newton step along the null space is set by the
+    # ridge alone and f32 sums taken in another order move it by ~1e-3.  A
+    # unit ridge keeps the step well conditioned for the 1e-4 comparison.
+    beta_next, ll, _, _ = outputs(Xs, y, beta, "logistic", ridge=1.0)
+    return [beta_next, ll]
+
+
+def _sparse_gram(fm, X, y, C):
+    Xs = _one_hot(fm, y.nrow)
+    return [fm.crossprod(Xs), fm.crossprod(Xs, X)]
+
+
 PROGRAMS = {"scale_gram": (_scale_gram, 2), "summary": (_summary_sinks, 1),
             "correlation": (_correlation_sinks, 1),
             "lloyd": (_lloyd_step, 1), "glm": (_glm_iteration, 1),
-            "glm_ridge": (_glm_iteration_ridge, 1), "xty": (_xty, 1)}
+            "glm_ridge": (_glm_iteration_ridge, 1), "xty": (_xty, 1),
+            "nmf_pass_a": (_nmf_pass_a, 1), "gmm_moments": (_gmm_moments, 1),
+            "sparse_glm": (_sparse_glm, 1),
+            "sparse_gram": (_sparse_gram, 1)}
 
 
 def _inputs():
@@ -135,26 +206,72 @@ def test_same_program_same_outputs_counters_and_dispatch(name, backends):
     assert ts["passes"] == 2 * passes
     jk = _kernels(jfm, JPlan, program, jb, X, y, C)
     tk = _kernels(tfm, TPlan, program, tb, X, y, C)
-    if name == "xty" and jb == "pallas":
-        # crossprod of two distinct sources: the reference's xty kernel is
-        # a later slice of the port, which runs the generic rules instead.
-        assert jk == ["fused_apply_agg", "xty"] and tk == ["fused_apply_agg"]
-    else:
-        assert tk == jk
+    assert tk == jk
 
 
 def test_dispatch_report_names_kernels_and_declines():
     X, y, C = _inputs()
     Xt = tfm.conv_R2FM(X)
     plan = TPlan([tfm.crossprod(Xt, tfm.conv_R2FM(X[:, :2])).m,
-                  tfm.colSums(tfm.abs_(Xt)).m])
+                  tfm.colSums(tfm.abs_(Xt)).m,
+                  tfm.inner_prod(Xt.T, Xt, "squared_diff", "sum").m])
     report = tlowering.dispatch_report(plan, plan.ir, "cuda")
     text = " | ".join(report[s] for s in sorted(report))
     assert "cuda:fused_apply_agg (claimed by match_apply_agg)" in text
-    assert "declined: crossprod of two distinct sources" in text
-    assert "ROADMAP B2" in text
+    assert "cuda:xty (claimed by match_contractions)" in text
+    assert "declined: (squared_diff,sum) semiring" in text
     generic = tlowering.dispatch_report(plan, plan.ir, "torch")
     assert set(generic.values()) == {"torch generic rules"}
+
+
+def test_dispatch_report_names_spmm_claims_and_sparse_declines():
+    n = 200
+    Xs = _one_hot(tfm, n)
+    y = tfm.conv_R2FM(np.ones((n, 1), np.float32))
+    beta_next, ll, _, _ = t_glm_outputs(Xs, y, np.zeros(Xs.ncol), "logistic")
+    plan = TPlan([beta_next.m, ll.m, tfm.crossprod(Xs).m])
+    text = " | ".join(tlowering.dispatch_report(plan, plan.ir, "cuda").values())
+    for kernel in ("spmm_gram", "spmm_xty", "spmm_wgram"):
+        assert f"cuda:{kernel} (claimed by match_spmm)" in text
+    plan = TPlan([tfm.inner_prod(Xs.T, Xs, "mul", "max").m,
+                  tfm.colSums(Xs).m])
+    text = " | ".join(tlowering.dispatch_report(plan, plan.ir, "cuda").values())
+    assert "spmm covers (mul,sum) only" in text
+    assert "sparse source: fused_apply_agg" in text
+
+
+def test_step_frees_values_after_their_last_reader(monkeypatch):
+    """The liveness rule: the GMM E-step's full-height temporaries (Z_j, Y_j,
+    Y_j², …) leave the step's values as soon as nothing later reads them,
+    and dropping them changes neither the outputs nor the counters."""
+    X, y, C = _inputs()
+    Xt = tfm.conv_R2FM(X)
+    for backend in ("cuda", "torch"):
+        outs = _gmm_moments(tfm, Xt, None, C)
+        prog = TPlan([o.m for o in outs]).program(backend)
+        keep = {n.id for n in prog.plan.row_local_roots + prog.plan.saves}
+        made = {n.id for u in prog.units if u.kernel is None
+                for n in u.nodes if not n.is_sink}
+        freed = [v for ids in prog.release.values() for v in ids]
+        assert len(freed) == len(set(freed))
+        assert made - keep <= set(freed)
+        got = []
+        for keep_all in (False, True):
+            tmz.clear_plan_cache()
+            tmetrics.REGISTRY.reset()
+            with monkeypatch.context() as m:
+                if keep_all:
+                    m.setattr(tlowering, "_release_plan", lambda *a: {})
+                res = tfm.materialize(*_gmm_moments(tfm, Xt, None, C),
+                                      backend=backend)
+                assert bool(tmz._PLANS) and all(
+                    bool(pl.program(backend).release) != keep_all
+                    for pl in tmz._PLANS.values())
+            got.append(([tfm.as_np(r) for r in res], tmz.exec_stats()))
+        (a, sa), (b, sb) = got
+        assert sa == sb
+        for u, v in zip(a, b):
+            np.testing.assert_array_equal(u, v)
 
 
 def test_lloyd_iterations_reuse_one_cached_plan():
@@ -173,6 +290,10 @@ def test_later_slices_raise_with_their_roadmap_item():
     for call, item in ((lambda: tfm.materialize(tfm.colSums(Xt),
                                                  mode="stream"), "A7"),
                        (lambda: tfm.conv_R2FM(X, host=True), "A7"),
+                       (lambda: tfm.one_hot(tfm.as_factor(np.arange(4))),
+                        "A7"),
+                       (lambda: tfm.load_factor_matrix("f.csv", "f",
+                                                       num_levels=[3]), "A7"),
                        (lambda: tfm.persist(tfm.colSums(Xt), tier="disk"),
                         "A7"),
                        (lambda: tfm.batch(tfm.colSums(Xt)), "A11"),
@@ -237,9 +358,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         import sys
         sys.modules["jax"] = None
         from repro_torch.core import fm
-        from repro_torch.algorithms import correlation, glm, kmeans, summary
+        from repro_torch import algorithms
         from repro_torch.kernels import (build, fused_apply_agg, gram,
-                                         kmeans_assign, weighted_gram)
+                                         kmeans_assign, spmm, weighted_gram)
+        from repro_torch.storage import sparse
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro.")
                      or m.startswith("jax"))
