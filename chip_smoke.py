@@ -41,9 +41,27 @@ Phases, each printing one JSON line:
                 ridge=1e-3, max_iter=8)`` and one ``crossprod(Xs)`` on
                 ``cuda``, checked for convergence and exact level counts;
                 ``torch``, which densifies, is compared with ``cuda`` on the
-                first 2^18 rows.
+                first 2^18 rows;
+             d. after the Criteo data is freed, the LM serving path
+                (``repro_torch.launch.steps``) at llama3.2-3b's published
+                width — 28 layers, d_model 3072, 24 heads over 8 KV heads,
+                head dim 128, d_ff 8192, vocab 128,256 — with bf16 parameters
+                drawn from seed 2016: first the ``flash_attention`` kernel
+                row (B 4, 24 q heads, 8 KV heads, S = T = 4096, bf16, causal,
+                held within one bf16 rounding of its f32 plain version and of
+                float64 on a few heads, and an f32 case), then 4 prompts of
+                4096 random tokens prefilled (the kernel must launch once per
+                layer) and 32 greedy decode steps, counted; then the checks,
+                at the same shape with the same weights and activations
+                widened to float32 (in bf16 both read the rounding noise of
+                these random weights, PERF.md; those readings are printed):
+                (a) the last-position logits against the same prefill with
+                the plain attention (``attn_impl="ref"``); (b) prefill + one
+                decode step against a prefill one token longer (the twin of
+                tests/test_archs.py); (c) is (a) in float32, which (a) now
+                is at the full shape; (d) every logit finite.
 
-Then one ``{"kernels": [...]}`` line (launches summed over the three
+Then one ``{"kernels": [...]}`` line (launches summed over the four
 paths), the card's name and power limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
@@ -51,6 +69,7 @@ so every plain version and library call computes in full float32.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import subprocess
@@ -70,6 +89,14 @@ SPARSE_CMP_ROWS = 1 << 18  # rows on which the densifying torch backend runs
 DEVICE = "cuda"
 HBM_BYTES_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
+BF16_FLOP_S = 989e12     # H100 SXM data sheet, dense bf16 tensor cores
+LM_ARCH = "llama3.2-3b"  # the serving path's model, at its published width
+LM_BATCH = 4             # prompts a prefill
+LM_PROMPT = 4096         # tokens a prompt
+LM_DECODE = 32           # greedy decode steps
+#: Limit of the serving checks (a) and (b), in float32: max |diff| over
+#: max |logit|.  The JAX package's bf16 limit (tests/test_archs.py) is 2e-2.
+LM_F32_TOL = 1e-3
 CHUNK_ROWS = 1 << 22     # rows per chunk of a float64 plain version
 #: Limits on a float32 kernel's error against its float64 plain version,
 #: per entry, in units of that entry's condition: sqrt(G_ii·G_jj) for a Gram
@@ -95,6 +122,7 @@ COUNTERS = {
     "spmm_gram": ("spmm", "gram_launches"),
     "spmm_xty": ("spmm", "xty_launches"),
     "spmm_wgram": ("spmm", "wgram_launches"),
+    "flash_attention": ("flash_attention", "launches"),
 }
 
 
@@ -162,9 +190,9 @@ def time_ms(torch, fn, reps=5):
     return start.elapsed_time(stop) / reps
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flop_s=F32_FLOP_S):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = ops / F32_FLOP_S * 1e3
+    t_ops = ops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -910,6 +938,189 @@ def sparse_phase(torch, cols, vals, y):
     return launches
 
 
+def flash_row(torch):
+    """The flash kernel at the serving path's shape — B 4, 24 q heads over
+    8 KV heads, S = T = 4096, head dim 128, bf16, causal — against its plain
+    version (f32 math, a chunk of heads at a time) and float64 on a few
+    heads, each within one bf16 rounding of the output, and in float32
+    within 2e-3.
+
+    The bf16 kernel computes in f32 and rounds once to bf16: at most half a
+    bf16 ulp, 2^-8·|o|, off the f32 plain version's unrounded output.  It
+    is held to 2e-3 + 1e-2·|o| of that (2.5 times the rounding, room for
+    f32 sums in another order) and to 1e-5 + 2^-7·|o| of float64 (one ulp
+    or more).  The JAX tests' atol = rtol = 3e-2 would pass nearly any
+    output at this shape, where a typical |o| is about 0.03."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa, ref
+    cfg = get_config(LM_ARCH)
+    B, nh, nkv, S, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, cfg.hd
+    g = nh // nkv
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 4)
+    q = torch.randn((B, nh, S, d), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, nkv, S, d), generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o = fa.flash_attention(q, k, v, causal=True)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    pf = ref.flash_attention_ref(qf, kf, vf, causal=True)   # f32, unrounded
+    diff = (o.float() - pf).abs()
+    excess = float((diff - 2e-3 - 1e-2 * pf.abs()).max())
+    err64 = excess64 = -float("inf")
+    for b, h in ((0, 0), (B // 2, g + 1), (B - 1, nh - 1)):
+        o64 = ref.flash_attention_ref(qf[b:b + 1, h:h + 1].double(),
+                                      kf[b:b + 1, h // g:h // g + 1].double(),
+                                      vf[b:b + 1, h // g:h // g + 1].double(),
+                                      causal=True, dtype=torch.float64)[0, 0]
+        d64 = (o[b, h].double() - o64).abs()
+        err64 = max(err64, float(d64.max()))
+        excess64 = max(excess64,
+                       float((d64 - 1e-5 - 2.0 ** -7 * o64.abs()).max()))
+    of = fa.flash_attention(qf, kf, vf, causal=True)
+    excess32 = float(((of - pf).abs() - 2e-3 - 2e-3 * pf.abs()).max())
+    ops = 2 * B * nh * S * S * d                  # causal: half of 4·B·nh·S²·d
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v once, bf16
+    b = bound(nbytes, ops, BF16_FLOP_S)
+    row = dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:101",
+        shape=f"q ({B}, {nh}, {S}, {d}), k/v ({B}, {nkv}, {S}, {d}) bf16, "
+              "causal",
+        max_abs_err=float(diff.max()),
+        tol="|o - plain| <= 2e-3 + 1e-2·|plain|, plain the f32 plain version",
+        tol_excess=excess, max_abs_err_f64=err64,
+        tol_f64="|o - o64| <= 1e-5 + 2^-7·|o64| (one bf16 ulp)",
+        tol_f64_excess=excess64,
+        f32_max_abs_err=float((of - pf).abs().max()),
+        f32_tol="atol = rtol = 2e-3", f32_tol_excess=excess32,
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+        f32_ms=time_ms(torch, lambda: fa.flash_attention(qf, kf, vf,
+                                                         causal=True)),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=True), reps=2),
+        bound_ms=b[0], bound_by=b[1], bound_rate="bf16 tensor, 989 TFLOP/s",
+        bound_f32_ms=ops / F32_FLOP_S * 1e3, ops=ops, bytes=nbytes,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        library="torch.nn.functional.scaled_dot_product_attention("
+                "is_causal=True, enable_gqa=True)")
+    emit({"phase": "kernel", **row})
+    check(excess <= 0, f"flash_attention bf16 exceeds 2e-3 + 1e-2·|plain| "
+          f"of the f32 plain version by {excess}")
+    check(excess64 <= 0, f"flash_attention bf16 exceeds one bf16 ulp of "
+          f"float64 by {excess64}")
+    check(excess32 <= 0, f"flash_attention f32 exceeds atol = rtol = 2e-3 "
+          f"of the plain version by {excess32}")
+    del q, k, v, o, diff, qf, kf, vf, of, pf
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_phase(torch, flash_ms):
+    """Path d: llama3.2-3b prefill + greedy decode on the card, counted,
+    then checks (a)-(d)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg = get_config(LM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    resident = torch.cuda.memory_allocated()
+    model = steps.serving_model(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in zoo.flatten(params))
+    max_len = S + LM_DECODE
+    prefill = steps.build_prefill_step(model, max_len)
+    decode = steps.build_decode_step(model)
+    batch = {"tokens": toks[:, :S]}
+    prefill(params, batch)                       # warm: cuBLAS, the kernel
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        t0 = time.perf_counter()
+        cache, logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs, tok = [logits], logits.argmax(-1).to(torch.int32)
+        for _ in range(LM_DECODE):
+            cache, logits = decode(params, cache, tok)
+            outs.append(logits)
+            tok = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        return outs, t1 - t0, time.perf_counter() - t1
+
+    (outs, pre_s, dec_s), launches = counted(
+        torch, "lm", ("flash_attention",), run)
+    peak = torch.cuda.max_memory_allocated()
+    greedy = torch.stack([o.argmax(-1)[:, 0] for o in outs], 1)
+    emit({"phase": "main", "path": "lm", "arch": LM_ARCH,
+          "n_params": n_params, "param_dtype": "bfloat16",
+          "init_s": init_s, "batch": B, "prompt": S, "decode_steps": LM_DECODE,
+          "prefill_ms": pre_s * 1e3, "prefill_tokens_s": B * S / pre_s,
+          "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
+          "decode_tokens_s": B * LM_DECODE / dec_s,
+          "flash_launches": launches["flash_attention"],
+          "flash_share_of_prefill": cfg.n_layers * flash_ms / (pre_s * 1e3),
+          "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
+          "resident_before_gib": resident / 2**30,
+          "kv_cache_gib": 2 * cfg.n_layers * B * max_len * cfg.n_kv_heads
+          * cfg.hd * 2 / 2**30,
+          "greedy_tokens_row0": greedy[0].tolist()})
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"flash_attention launched {launches['flash_attention']} times in "
+          f"one prefill, not once per layer ({cfg.n_layers})")
+
+    def a_and_b(model_, params_):
+        """(a) last-position logits of the kernel prefill against the same
+        prefill with the plain attention; (b) prefill + one decode step
+        against a prefill one token longer.  Both at the main shape."""
+        pre = steps.build_prefill_step(model_, max_len)
+        cache, got = pre(params_, batch)
+        _, want = steps.build_prefill_step(model_, max_len, attn_impl="ref")(
+            params_, batch)
+        _, dec = steps.build_decode_step(model_)(params_, cache,
+                                                 toks[:, S:S + 1])
+        del cache
+        _, full = pre(params_, {"tokens": toks})
+        logits = [got, want, dec, full]
+        return rel_err(torch, got, want), rel_err(torch, dec, full), logits
+
+    # In bf16 both read the rounding noise of these random weights (printed
+    # only); the checks run on the same weights and activations in float32.
+    a16, b16, logits16 = a_and_b(model, params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = zoo.tree_map(lambda _, t: t.float(), params)
+    del params
+    a, b, logits32 = a_and_b(zoo.build(cfg32, DEVICE), params32)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in outs + logits16 + logits32)
+    emit({"phase": "compare", "path": "lm", "dtype": "float32",
+          "batch": B, "prompt": S,
+          "a_kernel_vs_plain_prefill": a, "a_tol": LM_F32_TOL,
+          "b_prefill_decode_vs_longer_prefill": b, "b_tol": LM_F32_TOL,
+          "c": "(a) in float32, which (a) is",
+          "d_all_logits_finite": finite,
+          "a_bf16_not_checked": a16, "b_bf16_not_checked": b16})
+    check(a < LM_F32_TOL, f"lm (a): float32 kernel prefill vs plain {a}")
+    check(b < LM_F32_TOL, f"lm (b): float32 prefill + decode vs longer "
+          f"prefill {b}")
+    check(finite, "lm (d): a logit is not finite")
+    del params32, outs, logits16, logits32
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -943,6 +1154,7 @@ def main() -> int:
     from repro_torch.core import materialize
     materialize.clear_plan_cache()   # cached plans hold their sources
     del x, y, xk, lab
+    gc.collect()                     # reference cycles in the engine hold them
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -953,6 +1165,13 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     rows += spmm_rows(torch, cols, vals)
     paths.append(sparse_phase(torch, cols, vals, ys))
+    materialize.clear_plan_cache()   # cached plans hold the slab
+    del cols, vals, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    rows.append(flash_row(torch))
+    paths.append(lm_phase(torch, rows[-1]["ms"]))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

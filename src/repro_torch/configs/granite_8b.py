@@ -1,0 +1,9 @@
+"""granite-8b [dense]: llama-arch code model. 36L d_model=4096 32H (GQA
+kv=8) d_ff=14336 vocab=49152 [arXiv:2405.04324; hf]."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b", family="dense",
+    n_layers=36, d_model=4096, n_heads=32, n_kv_heads=8, head_dim=128,
+    d_ff=14336, vocab=49152, grad_accum=2,
+)

@@ -22,7 +22,8 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent / "_build"
-SOURCES = ("gram", "fused_apply_agg", "kmeans_assign", "spmm")
+SOURCES = ("gram", "fused_apply_agg", "kmeans_assign", "spmm",
+           "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -104,6 +105,7 @@ def load(name: str) -> ctypes.CDLL:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 
 _SIGNATURES = {
     "fm_gram": (_P, _P, _P, _L, _I, _L, _I, _P),
@@ -117,6 +119,9 @@ _SIGNATURES = {
     "fm_fused_apply_agg": (_P, _P, _P, _L, _I, _L, _P, _P),
     "fm_kmeans_assign": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                          _I, _P),
+    # q, k, v, o, bh, nh, group, S, T, d, scale, causal, dtype, stream
+    "fm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _I, _I,
+                           _P),
 }
 
 

@@ -10,6 +10,17 @@ are shaped to stay within memory at the main path's size:
 ELL slab a chunk of rows at a time (``SPMM_CHUNK_ELEMS``) where the reference
 densifies it whole — a dense copy of the Criteo slab is 305 GB.  The SpMM
 versions take ``dtype`` (float64 for the checks on the card).
+
+Attention has two plain versions, kept apart on purpose because they differ
+when causal and S != T: ``flash_attention_ref`` is the Pallas kernel's
+function (repro/kernels/flash_attention.py: causal by absolute ids
+q_id >= k_id, the finite -1e30, l clamped at 1e-30), which the port's kernel
+computes; ``attention_ref`` is the twin of repro/kernels/ref.py's
+``attention_ref`` (a bottom-right ``tril(k=T-S)`` mask, -inf).  Both take
+(BH, S, D) tensors or (B, nh, S, D) with K/V (B, nkv, T, D), nh a multiple
+of nkv (GQA without repeating KV), and form the scores a chunk of heads and
+rows at a time (``ATTN_CHUNK_ELEMS``): one layer of the serving path in one
+piece would be a 6.4 GB score tensor.
 """
 from __future__ import annotations
 
@@ -133,3 +144,66 @@ def spmm_wgram_ref(cols, vals, w, ncol, dtype=torch.float32):
         x = spmm_dense_ref(cols[s:e], vals[s:e], ncol, dtype)
         acc += (x * w[s:e].to(dtype)).T @ x
     return acc
+
+
+#: Scores an attention plain version forms at once.
+ATTN_CHUNK_ELEMS = 1 << 26
+#: The Pallas kernel's finite mask value (repro/kernels/flash_attention.py:30).
+NEG_INF = -1e30
+
+
+def _heads4(q, k, v):
+    """(BH, S, D) → (BH, 1, S, D); (B, nh, S, D) as it is; with the group
+    factor g = nh / nkv."""
+    if q.ndim == 3:
+        q, k, v = q[:, None], k[:, None], v[:, None]
+    return q, k, v, q.shape[1] // k.shape[1]
+
+
+def _attention_chunks(q, k, v, scale, softmax_chunk, dtype):
+    q4, k4, v4, g = _heads4(q, k, v)
+    B, nh, S, D = q4.shape
+    T = k4.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    out = torch.empty(q4.shape, dtype=q.dtype, device=q.device)
+    rows = max(1, min(S, ATTN_CHUNK_ELEMS // max(1, T)))
+    heads = max(1, min(nh, ATTN_CHUNK_ELEMS // max(1, rows * T)))
+    kid = torch.arange(T, device=q.device)
+    for b in range(B):
+        for h0 in range(0, nh, heads):
+            h1 = min(nh, h0 + heads)
+            kvh = torch.arange(h0, h1, device=q.device) // g
+            kc = k4[b].index_select(0, kvh).to(dtype)
+            vc = v4[b].index_select(0, kvh).to(dtype)
+            for r0 in range(0, S, rows):
+                r1 = min(S, r0 + rows)
+                s = (q4[b, h0:h1, r0:r1].to(dtype) @ kc.transpose(1, 2)) * scale
+                qid = torch.arange(r0, r1, device=q.device)[:, None]
+                out[b, h0:h1, r0:r1] = softmax_chunk(s, qid, kid, S, T, vc).to(
+                    q.dtype)
+    return out.reshape(q.shape)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None,
+                        dtype=torch.float32):
+    """The Pallas flash kernel's function: masked scores at -1e30, a full
+    softmax with l clamped at 1e-30, (P·V) / l; ``dtype`` float32 as the
+    kernel computes (float64 for the checks on the card)."""
+    def chunk(s, qid, kid, S, T, vc):
+        if causal:
+            s = s.masked_fill(qid < kid, NEG_INF)
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return (p @ vc) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return _attention_chunks(q, k, v, scale, chunk, dtype)
+
+
+def attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """Twin of repro/kernels/ref.py:attention_ref: causal is the
+    bottom-right mask tril(k = T - S) at -inf, softmax normalized before
+    the product with V."""
+    def chunk(s, qid, kid, S, T, vc):
+        if causal:
+            s = s.masked_fill(kid > qid + (T - S), float("-inf"))
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return (p / p.sum(-1, keepdim=True)) @ vc
+    return _attention_chunks(q, k, v, scale, chunk, torch.float32)

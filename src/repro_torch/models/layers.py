@@ -1,0 +1,239 @@
+"""Transformer building blocks of the dense LM: norms, RoPE, GQA attention,
+GLU MLPs, embedding — the port of repro/models/layers.py's dense parts.
+
+Plain functions over dicts of tensors with the reference's keys, shapes and
+(in, out) weight layout, computing what the reference computes step by step
+(the same f32 upcasts, the same casts back to the activation dtype).
+
+Attention:
+  * prefill (full sequence) goes through ``kernels.ops.attention`` — the
+    hand-written flash kernel on the card — with q (B, nh, S, hd) and k, v
+    (B, nkv, T, hd), GQA read in the kernel.  The reference computes the same
+    causal softmax attention in jnp (``_grouped_attention``, or its
+    blockwise scan for long sequences); its mask compares positions, the
+    kernel's compares indices, which is the same for a prefill's positions
+    0 .. S-1.
+  * one-token decode against the static-length KV cache stays plain
+    PyTorch, as the reference computes it outside any kernel: write at
+    ``cur_len``, attend over positions <= ``cur_len``.  The port writes the
+    new K/V into the cache tensors in place (the reference returns a new
+    cache; in place saves copying it every step).
+
+Left out (training, other families): blockwise attention and its VJP,
+cross-attention, sinusoidal encodings, the cross-entropy loss (ROADMAP A14).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from .base import param
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _pdt(cfg) -> torch.dtype:
+    return dtype_of(cfg.param_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def init_norm(cfg, gen, stack: int = 0) -> dict:
+    kw = dict(dtype=_pdt(cfg), stack=stack)
+    p = {"scale": param(gen, (cfg.d_model,), init="ones", **kw)}
+    if cfg.norm == "layernorm":
+        p["bias"] = param(gen, (cfg.d_model,), init="zeros", **kw)
+    return p
+
+
+def apply_norm(cfg, p, x):
+    xf = x.float()
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + 1e-5)
+        out = out * p["scale"].float() + p["bias"].float()
+    else:
+        var = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(var + cfg.rms_eps)
+        out = out * p["scale"].float()
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x, positions, theta: float):
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).  Half-split
+    rotation with the reference's f32 frequencies, exactly as written
+    there: exp(-log θ · arange(half) / half)."""
+    half = x.shape[-1] // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs             # (..., S, half)
+    sin, cos = torch.sin(ang)[..., None, :], torch.cos(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def init_attention(cfg, gen, stack: int = 0) -> dict:
+    d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kw = dict(dtype=_pdt(cfg), stack=stack)
+    p = {"wq": param(gen, (d, nh * hd), **kw),
+         "wk": param(gen, (d, nkv * hd), **kw),
+         "wv": param(gen, (d, nkv * hd), **kw),
+         "wo": param(gen, (nh * hd, d), **kw)}
+    if cfg.qkv_bias:
+        p["bq"] = param(gen, (nh * hd,), init="zeros", **kw)
+        p["bk"] = param(gen, (nkv * hd,), init="zeros", **kw)
+        p["bv"] = param(gen, (nkv * hd,), init="zeros", **kw)
+    return p
+
+
+def _proj(x, w, b=None):
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def _qkv(cfg, p, x):
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, S = x.shape[:2]
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, nh, hd)
+    k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, nkv, hd)
+    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, nkv, hd)
+    return q, k, v
+
+
+def _grouped_attention(q, k, v, mask):
+    """q: (B,S,nh,hd), k/v: (B,T,nkv,hd), mask broadcastable to (B,1,1,S,T).
+
+    Per KV-head group, KV not repeated; scores in f32 from the operands
+    (the reference's preferred_element_type=f32), the probabilities cast to
+    v's dtype before the product with V, as the reference does."""
+    B, S, nh, hd = q.shape
+    nkv = k.shape[2]
+    g = nh // nkv
+    qg = q.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4)  # (B,kv,g,S,hd)
+    kg = k.permute(0, 2, 1, 3).unsqueeze(2)                   # (B,kv,1,T,hd)
+    vg = v.permute(0, 2, 1, 3).unsqueeze(2)
+    scores = (qg.float() @ kg.float().transpose(-1, -2)) * (hd ** -0.5)
+    scores = torch.where(mask, scores, -1e30)
+    w = torch.softmax(scores, dim=-1)
+    out = w.to(v.dtype) @ vg                                  # (B,kv,g,S,hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh * hd)
+
+
+def apply_attention(cfg, p, x, positions, *, causal: bool = True,
+                    impl: str = "auto"):
+    """Full-sequence self-attention (prefill) through ``ops.attention``;
+    returns (out, (k, v)) with the roped k and v as (B, S, nkv, hd).  The
+    causal mask is by index, so ``positions`` must be 0 .. S-1 per row (a
+    prefill's)."""
+    q, k, v = _qkv(cfg, p, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    B, S = x.shape[:2]
+    out = ops.attention(q.transpose(1, 2).contiguous(),
+                        k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous(), causal=causal,
+                        impl=impl)                            # (B,nh,S,hd)
+    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
+    return out @ p["wo"].to(out.dtype), (k, v)
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
+    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def apply_attention_decode(cfg, p, x, cache: dict, cur_len):
+    """One-token decode: x is (B, 1, d); cache holds k, v (B, T, nkv, hd).
+
+    ``cur_len`` (0-d int32 tensor) is the number of valid positions already
+    in the cache; the new token writes at index cur_len, in place, and
+    attends over [0, cur_len]."""
+    B = x.shape[0]
+    pos = cur_len.reshape(1, 1).expand(B, 1)
+    q, k_new, v_new = _qkv(cfg, p, x)
+    q = rope(q, pos, cfg.rope_theta)
+    k_new = rope(k_new, pos, cfg.rope_theta)
+    at = cur_len.reshape(1).long()
+    k, v = cache["k"], cache["v"]
+    k.index_copy_(1, at, k_new.to(k.dtype))
+    v.index_copy_(1, at, v_new.to(v.dtype))
+    kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
+    out = _grouped_attention(q, k, v, kpos <= cur_len)
+    return out @ p["wo"].to(out.dtype), cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def init_mlp(cfg, gen, stack: int = 0, d_ff: Optional[int] = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    kw = dict(dtype=_pdt(cfg), stack=stack)
+    p = {"wi": param(gen, (d, f), **kw), "wo": param(gen, (f, d), **kw)}
+    if cfg.act in ("swiglu", "geglu"):
+        p["wg"] = param(gen, (d, f), **kw)
+    return p
+
+
+def apply_mlp(cfg, p, x):
+    h = x @ p["wi"].to(x.dtype)
+    if cfg.act == "swiglu":
+        g = x @ p["wg"].to(x.dtype)
+        h = F.silu(g.float()).to(x.dtype) * h
+    elif cfg.act == "geglu":
+        g = x @ p["wg"].to(x.dtype)
+        h = F.gelu(g.float(), approximate="tanh").to(x.dtype) * h
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ p["wo"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+def init_embed(cfg, gen) -> dict:
+    p = {"tok": param(gen, (cfg.vocab, cfg.d_model), dtype=_pdt(cfg),
+                      init="embed")}
+    if not cfg.tie_embeddings:
+        p["out"] = param(gen, (cfg.d_model, cfg.vocab), dtype=_pdt(cfg))
+    return p
+
+
+def embed_tokens(cfg, p, tokens):
+    """tokens: int32 (B, S) → (B, S, d) in the activation dtype."""
+    dt = dtype_of(cfg.dtype)
+    emb = p["tok"].index_select(0, tokens.reshape(-1)).to(dt)
+    emb = emb.reshape(*tokens.shape, cfg.d_model)
+    if cfg.tie_embeddings:
+        # gemma-style scaled tied embedding; the factor is rounded to the
+        # activation dtype first, as the reference's weakly typed scalar is
+        emb = emb * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    return emb
+
+
+def logits_out(cfg, p, x):
+    if cfg.tie_embeddings:
+        return x @ p["tok"].to(x.dtype).T
+    return x @ p["out"].to(x.dtype)

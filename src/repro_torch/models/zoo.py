@@ -1,0 +1,147 @@
+"""Model zoo: the facade over the ported architecture families — the port
+of repro/models/zoo.py for the dense family.
+
+``build(cfg)`` returns a ``Model`` whose serving functions share the
+reference's signatures:
+
+    init(gen)                                   -> params
+    prefill(params, batch, max_len)             -> (cache, logits)
+    decode(params, cache, token)                -> (cache, logits)
+    init_cache(batch, max_len)                  -> cache
+
+on the model's device: ``cuda`` unless the caller asks for the CPU (the
+``device`` argument, else the engine's ``device`` knob, ``fm.set_conf(device=
+...)``); with no card and no such request, ``build`` raises.  Other
+families, and training (``forward``), raise ``NotImplementedError`` naming
+ROADMAP A14.  ``params_from_numpy`` carries a JAX parameter tree across, so
+both packages compute the same thing.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig, ShapeSpec
+from . import transformer
+from .layers import dtype_of
+
+#: Families ``build`` serves.
+FAMILIES = ("dense",)
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` if given, else the engine's device knob; a CUDA device with
+    no card raises (nothing falls back to the CPU unasked)."""
+    if device is None:
+        from ..storage import registry
+        return registry.device()
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} was asked for and torch.cuda.is_available() is "
+            "False; ask for the CPU with device='cpu'")
+    return dev
+
+
+@dataclasses.dataclass
+class Model:
+    cfg: ArchConfig
+    device: torch.device
+
+    def init(self, gen) -> dict:
+        """Parameters drawn from ``gen``: a ``torch.Generator`` on the
+        model's device, or an int seed for one."""
+        if isinstance(gen, int):
+            seed, gen = gen, torch.Generator(device=self.device)
+            gen.manual_seed(seed)
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        return transformer.init(self.cfg, gen)
+
+    def prefill(self, params, batch: dict, max_len: int, *,
+                attn_impl: str = "auto"):
+        return transformer.prefill(self.cfg, params, batch["tokens"], max_len,
+                                   attn_impl=attn_impl)
+
+    def decode(self, params, cache, token):
+        return transformer.decode(self.cfg, params, cache, token)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+
+    def forward(self, params, batch):
+        raise NotImplementedError("training (forward / loss): ROADMAP A14")
+
+
+def build(cfg: ArchConfig, device=None) -> Model:
+    if cfg.family not in FAMILIES or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
+            f"port serves {FAMILIES} (ROADMAP A14)")
+    return Model(cfg, resolve_device(device))
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
+    """Meta-device stand-ins for one (arch × shape) serving cell's inputs:
+    prefill takes tokens (B, S) with max_len S, decode one token (B, 1)
+    against a cache of max_len S."""
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.family} inputs: ROADMAP A14")
+
+    def tok(shape_):
+        return torch.empty(shape_, dtype=torch.int32, device="meta")
+
+    if shape.kind == "prefill":
+        return {"kind": "prefill", "batch": {"tokens": tok((B, S))},
+                "max_len": S}
+    if shape.kind == "decode":
+        return {"kind": "decode", "batch": {"token": tok((B, 1))},
+                "max_len": S, "cache_batch": B}
+    raise NotImplementedError(f"{shape.kind} inputs: ROADMAP A14")
+
+
+def flatten(tree, prefix=""):
+    """(dotted name, leaf) of every leaf of a parameter tree."""
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            yield from flatten(v, name + ".")
+        else:
+            yield name, v
+
+
+def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> dict:
+    """The port's parameters from the reference's tree as numpy arrays
+    (``tree_unbox(model.init(key))[0]`` mapped through ``np.asarray``): the
+    same keys, the same (in, out) layouts and the same stacked layer axis,
+    each leaf checked against the port's shape and cast to
+    ``cfg.param_dtype`` on ``device``."""
+    dev = resolve_device(device)
+    want = dict(flatten(transformer.init(cfg, None)))
+    got = dict(flatten(tree))
+    if set(got) != set(want):
+        raise ValueError(f"parameter tree keys differ: missing "
+                         f"{sorted(set(want) - set(got))}, unexpected "
+                         f"{sorted(set(got) - set(want))}")
+
+    def leaf(name, a):
+        a = np.asarray(a)
+        if tuple(a.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {a.shape}, expected "
+                             f"{tuple(want[name].shape)}")
+        if a.dtype.name == "bfloat16":          # ml_dtypes: via float32
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a)).to(
+            device=dev, dtype=dtype_of(cfg.param_dtype))
+
+    return tree_map(leaf, tree)
+
+
+def tree_map(fn, tree, prefix=""):
+    """The tree with every leaf replaced by fn(dotted name, leaf)."""
+    return {k: tree_map(fn, v, f"{prefix}{k}.") if isinstance(v, dict)
+            else fn(f"{prefix}{k}", v) for k, v in tree.items()}

@@ -12,13 +12,18 @@ and all-negative min/max edges, more chains than one launch takes,
 k-means layouts whose centers or row tile do not fit in shared memory, xty
 at thin and wide second operands, and ELL slabs with padding rows,
 duplicate columns, kmax = 1 and kmax past one 32-entry mask window, over
-one and many output tiles.
+one and many output tiles; flash attention over ragged S and T (S below,
+equal to and above T), every head dim the kernel is built for, GQA group
+factors 1, 3 and 8, causal and not, bf16 and f32, one case whose element
+offsets pass 2³¹, and a reduced LM prefill and decode on the card against
+the same on the CPU.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (fused_apply_agg as faa, gram as gram_mod,
+from repro_torch.kernels import (flash_attention as fa,
+                                 fused_apply_agg as faa, gram as gram_mod,
                                  kmeans_assign as ka, ref, spmm,
                                  weighted_gram as wg)
 
@@ -317,3 +322,93 @@ def test_engine_reaches_xty_and_spmm_on_cuda(dev):
     np.testing.assert_allclose(g1.loglik_trace, g2.loglik_trace, rtol=1e-5)
     np.testing.assert_allclose(l1.loglik, l2.loglik, rtol=1e-5)
     np.testing.assert_array_equal(G1, G2)
+
+
+_ATTN_LENGTHS = [(1, 1), (37, 37), (100, 100), (130, 70), (70, 200),
+                 (257, 257)]
+
+
+@pytest.mark.parametrize("d", fa.HEAD_DIMS)
+@pytest.mark.parametrize("g", [1, 3, 8])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention(dev, d, g, causal, dtype):
+    """Against the float64 plain version (the Pallas kernel's function: top-
+    left causal mask by absolute ids): f32 within 1e-4 of max(|O|, 1), bf16
+    within 1e-2 (one bf16 rounding of the output)."""
+    B, nkv = 2, 2
+    for S, T in _ATTN_LENGTHS:
+        q = _x(B * nkv * g * S, d, dtype, dev).reshape(B, nkv * g, S, d)
+        k = _x(B * nkv * T, d, dtype, dev).reshape(B, nkv, T, d)
+        v = _x(B * nkv * T, d, dtype, dev).reshape(B, nkv, T, d)
+        before = fa.launches
+        got = fa.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        assert got.shape == q.shape and got.dtype == dtype
+        want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                       dtype=torch.float64)
+        _close(got, want, 1e-4 if dtype == torch.float32 else 1e-2)
+
+
+def test_flash_attention_matched_heads_and_scale(dev):
+    """The Pallas kernel's own layout (BH, S, D) and an explicit scale."""
+    q = _x(3 * 150, 64, torch.float32, dev).reshape(3, 150, 64)
+    k = _x(3 * 90, 64, torch.float32, dev).reshape(3, 90, 64)
+    v = _x(3 * 90, 64, torch.float32, dev).reshape(3, 90, 64)
+    for causal in (True, False):
+        _close(fa.flash_attention(q, k, v, causal=causal, scale=0.3),
+               ref.flash_attention_ref(q, k, v, causal=causal, scale=0.3,
+                                       dtype=torch.float64), 1e-4)
+
+
+def test_flash_attention_offsets_past_2_31(dev):
+    """16,448 heads × 1024 rows × 128: q has 2.16e9 elements, so the last
+    heads sit past 2³¹ elements; they agree with the plain version."""
+    bh, S, d = 16448, 1024, 128
+    assert bh * S * d > 2 ** 31
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    q, k, v = (torch.randn((bh, S, d), generator=gen, device=dev,
+                           dtype=torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    for h in (slice(0, 4), slice(bh - 4, bh)):
+        _close(out[h], ref.flash_attention_ref(q[h], k[h], v[h], causal=True,
+                                               dtype=torch.float64), 1e-2)
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-0.5b"])
+@pytest.mark.parametrize("serve_dtype,tol", [("float32", 1e-4),
+                                             ("bfloat16", 2e-2)])
+def test_lm_prefill_and_decode_on_the_card_match_the_cpu(dev, arch,
+                                                         serve_dtype, tol):
+    """A reduced model's prefill (one kernel launch a layer) and a decode
+    step on the card against the same parameters on the CPU, where the
+    attention is the kernel's plain version; float32 to 1e-4 of the largest
+    logit, bf16 serving parameters and activations to 2e-2."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)),
+                              dtype=serve_dtype)
+    on = {d: steps.serving_model(cfg, serve_dtype=serve_dtype, device=d)
+          for d in ("cpu", dev)}
+    params = {"cpu": on["cpu"].init(0)}
+    params[dev] = zoo.tree_map(lambda _, t: t.to(dev), params["cpu"])
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 101)),
+                           dtype=torch.int32)
+    out = {}
+    for d in ("cpu", dev):
+        before = fa.launches
+        cache, logits = steps.build_prefill_step(on[d], 110)(
+            params[d], {"tokens": toks[:, :100].to(d)})
+        _, dec = steps.build_decode_step(on[d])(params[d], cache,
+                                                toks[:, 100:].to(d))
+        launched = fa.launches - before
+        assert launched == (cfg.n_layers if d == dev else 0)
+        out[d] = (logits, dec, cache["kv"]["k"])
+    for a, b in zip(out[dev], out["cpu"]):
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())

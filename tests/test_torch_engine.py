@@ -359,9 +359,15 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         sys.modules["jax"] = None
         from repro_torch.core import fm
         from repro_torch import algorithms
-        from repro_torch.kernels import (build, fused_apply_agg, gram,
-                                         kmeans_assign, spmm, weighted_gram)
+        from repro_torch.kernels import (build, flash_attention,
+                                         fused_apply_agg, gram,
+                                         kmeans_assign, ops, spmm,
+                                         weighted_gram)
         from repro_torch.storage import sparse
+        from repro_torch import configs, models
+        from repro_torch.launch import steps
+        from repro_torch.models import layers, transformer, zoo
+        configs.get_config("llama3.2-3b")
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro.")
                      or m.startswith("jax"))

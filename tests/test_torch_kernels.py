@@ -3,7 +3,10 @@ against the JAX package's Pallas kernels run in interpret mode, as
 tests/test_kernels.py runs them: the same numpy inputs, the same tolerances
 (f32 1e-4, bf16 2e-2, exact k-means labels).  The SpMM kernels, which the
 reference file does not sweep, are held against the reference's Pallas
-kernels in interpret mode too.  The CUDA kernels themselves are held against
+kernels in interpret mode too, and so is flash attention (the JAX tests'
+S, causal and dtype sweep and tolerances 2e-3 / 3e-2, cross lengths, a
+causal S != T case that pins the kernel's top-left mask, GQA against the
+Pallas kernel on repeated KV).  The CUDA kernels themselves are held against
 these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 import jax.numpy as jnp
@@ -13,11 +16,13 @@ import torch
 
 from repro.core import matrix as jmatrix
 from repro.kernels import ops
+from repro.kernels import ref as jref
 from repro.kernels import spmm as jspmm
 from repro_torch.core import fm, matrix
-from repro_torch.kernels import (common, fused_apply_agg as faa,
-                                 gram as gram_mod, kmeans_assign as ka,
-                                 spmm, weighted_gram as wg)
+from repro_torch.kernels import (common, flash_attention as fa,
+                                 fused_apply_agg as faa, gram as gram_mod,
+                                 kmeans_assign as ka, ops as tops, ref, spmm,
+                                 weighted_gram as wg)
 from repro_torch.observability import metrics
 
 RNG = np.random.default_rng(3)
@@ -127,7 +132,6 @@ def test_spmm_plain_versions_work_in_row_chunks(monkeypatch):
     """The plain versions densify a chunk of rows at a time (a dense copy
     of the main path's slab would not fit): many small chunks give the
     one-chunk result."""
-    from repro_torch.kernels import ref
     cols, vals = _ell_case(300, 4, 17)
     ct, vt = torch.from_numpy(cols), torch.from_numpy(vals)
     y = torch.from_numpy(RNG.normal(size=(300, 3)).astype(np.float32))
@@ -269,7 +273,7 @@ def test_wrappers_count_only_kernel_launches():
     counters = ((gram_mod, "launches"), (gram_mod, "xty_launches"),
                 (wg, "launches"), (faa, "launches"), (ka, "launches"),
                 (spmm, "gram_launches"), (spmm, "xty_launches"),
-                (spmm, "wgram_launches"))
+                (spmm, "wgram_launches"), (fa, "launches"))
     before = [getattr(m, a) for m, a in counters]
     x = torch.randn(64, 4)
     cols, vals = torch.zeros(64, 2, dtype=torch.int32), torch.ones(64, 2)
@@ -281,6 +285,10 @@ def test_wrappers_count_only_kernel_launches():
     spmm.spmm_gram(cols, vals, ncol=3)
     spmm.spmm_xty(cols, vals, x, ncol=3)
     spmm.spmm_wgram(cols, vals, torch.rand(64), ncol=3)
+    fa.flash_attention(x.reshape(1, 16, 16), x.reshape(1, 16, 16),
+                       x.reshape(1, 16, 16))
+    tops.attention(x.reshape(1, 16, 16), x.reshape(1, 16, 16),
+                   x.reshape(1, 16, 16))
     assert [getattr(m, a) for m, a in counters] == before
 
 
@@ -310,6 +318,19 @@ def test_wrappers_validate_inputs():
         spmm.spmm_wgram(cols, torch.ones(8, 2), torch.ones(7), ncol=3)
     with pytest.raises(ValueError):
         spmm.spmm_xty(cols, torch.ones(8, 2), torch.ones(7, 1), ncol=3)
+    q = torch.zeros(2, 4, 8, 16)
+    for bad in ((q, q[:, :3], q[:, :3]),                     # 4 % 3 heads
+                (q[..., :8], q[..., :8], q[..., :8]),        # head dim 8
+                (q, q[:, :2, :0], q[:, :2, :0]),             # no keys
+                (q, q[:1, :2], q[:1, :2])):                  # batch
+        with pytest.raises(ValueError):
+            fa.flash_attention(*bad)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(TypeError):
+        fa.flash_attention(*(q.half(),) * 3)
+    with pytest.raises(ValueError):
+        tops.attention(q, q, q, impl="pallas")
 
 
 def test_chain_program_encodes_type_changes():
@@ -330,3 +351,89 @@ def test_chain_program_encodes_type_changes():
     assert [faa.CHAIN_UNARIES[o] for o in ops_] == [
         "sq", "sqrt", "cast_int32", "cast_bfloat16"]
     assert types == [0, 0, 1, 0]
+
+
+def _attn(shape_q, shape_kv, dtype):
+    q = RNG.normal(size=shape_q)
+    k, v = RNG.normal(size=shape_kv), RNG.normal(size=shape_kv)
+    return [_pair(a, dtype) for a in (q, k, v)]
+
+
+def _attn_tol(dtype):
+    return dict(rtol=3e-2, atol=3e-2) if dtype == "bfloat16" \
+        else dict(rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("s", [32, 100, 160])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_matches_pallas(s, causal, dtype):
+    """tests/test_kernels.py's sweep: (2, S, 16), Pallas blocks 32 × 48."""
+    (qj, qt), (kj, kt), (vj, vt) = _attn((2, s, 16), (2, s, 16), dtype)
+    got = fa.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = ops.flash_attention(qj, kj, vj, causal=causal, bq=32, bk=48,
+                               interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("sq,sk,causal", [(40, 100, False), (100, 40, False),
+                                          (40, 100, True), (100, 40, True)])
+def test_flash_attention_cross_lengths_match_pallas(sq, sk, causal):
+    """Cross lengths; causal with S != T pins the top-left mask by absolute
+    ids (q_id >= k_id), where the reference's attention_ref, bottom-right,
+    differs."""
+    (qj, qt), (kj, kt), (vj, vt) = _attn((1, sq, 16), (1, sk, 16), "float32")
+    got = fa.flash_attention(qt, kt, vt, causal=causal)
+    want = np.asarray(ops.flash_attention(qj, kj, vj, causal=causal, bq=16,
+                                          bk=32, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
+    if causal and sq < sk:
+        bottom_right = np.asarray(jref.attention_ref(qj, kj, vj, causal=True))
+        assert np.abs(bottom_right - want).max() > 0.5
+
+
+@pytest.mark.parametrize("g", [2, 3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_gqa_matches_pallas_on_repeated_kv(g, causal):
+    """(B, nh, S, D) over (B, nkv, T, D) with nh = g·nkv, KV read per group
+    (never repeated), against the Pallas kernel on KV repeated g times."""
+    B, nkv, S, d = 2, 2, 50, 32
+    q = RNG.normal(size=(B, nkv * g, S, d)).astype(np.float32)
+    k = RNG.normal(size=(B, nkv, S, d)).astype(np.float32)
+    v = RNG.normal(size=(B, nkv, S, d)).astype(np.float32)
+    got = fa.flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                             causal=causal)
+    rep = [np.repeat(a, g, axis=1).reshape(B * nkv * g, S, d) for a in (k, v)]
+    want = ops.flash_attention(jnp.asarray(q.reshape(-1, S, d)),
+                               *(jnp.asarray(a) for a in rep), causal=causal,
+                               interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(q.shape),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("sq,sk", [(32, 32), (40, 100), (100, 40)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_matches_reference_ref(sq, sk, causal):
+    """The twin of repro/kernels/ref.py:attention_ref (bottom-right causal
+    mask, -inf), NaN rows included where S > T and causal."""
+    (qj, qt), (kj, kt), (vj, vt) = _attn((2, sq, 16), (2, sk, 16), "float32")
+    got = ref.attention_ref(qt, kt, vt, causal=causal).numpy()
+    want = np.asarray(jref.attention_ref(qj, kj, vj, causal=causal))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_attention_plain_versions_work_in_chunks(monkeypatch):
+    """The plain versions form the scores a chunk of heads and rows at a
+    time (one serving layer whole would be 6.4 GB): small chunks give the
+    one-chunk result, and ops.attention's impls agree on the CPU."""
+    (_, q), (_, k), (_, v) = _attn((2, 6, 70, 32), (2, 2, 70, 32), "float32")
+    whole = [f(q, k, v, causal=True) for f in (ref.flash_attention_ref,
+                                               ref.attention_ref)]
+    assert torch.equal(tops.attention(q, k, v, impl="ref"), whole[0])
+    assert torch.equal(tops.attention(q, k, v), whole[0])
+    monkeypatch.setattr(ref, "ATTN_CHUNK_ELEMS", 70 * 9)
+    for w, f in zip(whole, (ref.flash_attention_ref, ref.attention_ref)):
+        np.testing.assert_allclose(f(q, k, v, causal=True).numpy(), w.numpy(),
+                                   rtol=1e-6, atol=1e-6)

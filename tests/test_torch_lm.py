@@ -1,0 +1,286 @@
+"""The port's dense LM serving path on the CPU against the JAX package.
+
+Reduced llama3.2-3b and qwen2-0.5b (``reduced_for_smoke``: 2 layers,
+d_model 128, 4 heads over 2 KV heads, head dim 32, vocab 512, float32): the
+reference's parameters from ``model.init(PRNGKey(0))``, their norm scales
+and QKV biases redrawn from a seeded numpy RNG so that those leaves matter,
+carried across with ``params_from_numpy``.  Prefill logits and the KV cache
+agree with ``repro.models.zoo.build(cfg).prefill`` within 1e-4 of their
+largest value, one decode step with ``decode`` likewise, and prefill + decode
+with a prefill one token longer within 2e-2 (the twin of
+tests/test_archs.py's serving check).  Attention runs the flash kernel's
+plain version here; the kernel itself is held against it on the card
+(tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SHAPES as JSHAPES
+from repro.configs import get_config as jget_config
+from repro.configs import reduced_for_smoke as jreduced
+from repro.models import layers as jlayers
+from repro.models import zoo as jzoo
+from repro.models.base import tree_unbox
+from repro_torch.configs import (ARCH_IDS, PORTED_IDS, SHAPES, get_config,
+                                 reduced_for_smoke)
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch import steps
+from repro_torch.models import layers, transformer, zoo
+
+ARCHS = ["llama3.2-3b", "qwen2-0.5b"]
+B, S = 2, 33
+MAX_LEN = S + 8
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def case(request):
+    """One reduced arch through both packages: the JAX prefill of S and
+    S + 1 tokens and one decode step, the port's parameters."""
+    arch = request.param
+    jcfg, cfg = jreduced(jget_config(arch)), reduced_for_smoke(get_config(arch))
+    jm = jzoo.build(jcfg)
+    params, _ = tree_unbox(jm.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(11)
+    tree = jax.tree_util.tree_map(np.asarray, params)
+
+    def redraw(path, a):
+        name = jax.tree_util.keystr(path)
+        if "scale" in name or "'b" in name:          # ones / zeros at init
+            return (1.0 + 0.2 * rng.normal(size=a.shape)).astype(a.dtype) \
+                if "scale" in name else \
+                (0.1 * rng.normal(size=a.shape)).astype(a.dtype)
+        return a
+    tree = jax.tree_util.tree_map_with_path(redraw, tree)
+    jparams = jax.tree_util.tree_map(jnp.asarray, tree)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    prefill = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, MAX_LEN))
+    jcache, jlogits = prefill(jparams, jnp.asarray(toks[:, :S]))
+    _, jfull = prefill(jparams, jnp.asarray(toks))
+    jcache2, jdec = jax.jit(jm.decode)(jparams, jcache,
+                                       jnp.asarray(toks[:, S:]))
+    model = zoo.build(cfg, device="cpu")
+    return dict(arch=arch, cfg=cfg, model=model, toks=toks,
+                params=zoo.params_from_numpy(cfg, tree, "cpu"),
+                jcache=jax.tree_util.tree_map(np.asarray, jcache),
+                jlogits=np.asarray(jlogits), jfull=np.asarray(jfull),
+                jcache2=jax.tree_util.tree_map(np.asarray, jcache2),
+                jdec=np.asarray(jdec))
+
+
+def _prefill(case, toks):
+    step = steps.build_prefill_step(case["model"], MAX_LEN)
+    return step(case["params"], {"tokens": torch.from_numpy(toks)})
+
+
+def test_prefill_logits_and_cache_match_reference(case):
+    cache, logits = _prefill(case, case["toks"][:, :S])
+    assert logits.shape == (B, 1, case["cfg"].vocab)
+    assert _rel(logits.numpy(), case["jlogits"]) < 1e-4
+    for kv in ("k", "v"):
+        got, want = cache["kv"][kv].numpy(), case["jcache"]["kv"][kv]
+        assert got.shape == want.shape == (case["cfg"].n_layers, B, MAX_LEN,
+                                           case["cfg"].n_kv_heads,
+                                           case["cfg"].hd)
+        assert _rel(got, want) < 1e-4
+    assert int(cache["len"]) == int(case["jcache"]["len"]) == S
+
+
+def test_decode_step_matches_reference(case):
+    cache, _ = _prefill(case, case["toks"][:, :S])
+    decode = steps.build_decode_step(case["model"])
+    cache, logits = decode(case["params"], cache,
+                           torch.from_numpy(case["toks"][:, S:]))
+    assert _rel(logits.numpy(), case["jdec"]) < 1e-4
+    for kv in ("k", "v"):
+        assert _rel(cache["kv"][kv].numpy(), case["jcache2"]["kv"][kv]) < 1e-4
+    assert int(cache["len"]) == int(case["jcache2"]["len"]) == S + 1
+
+
+def test_prefill_decode_matches_longer_prefill(case):
+    """Prefill S then decode the token at S against prefill of S + 1 (the
+    port's twin of tests/test_archs.py::test_prefill_decode_matches_forward),
+    and the reference's own prefill of S + 1."""
+    cache, _ = _prefill(case, case["toks"][:, :S])
+    _, dec = steps.build_decode_step(case["model"])(
+        case["params"], cache, torch.from_numpy(case["toks"][:, S:]))
+    _, full = _prefill(case, case["toks"])
+    assert _rel(dec.numpy(), full.numpy()) < 2e-2
+    assert _rel(full.numpy(), case["jfull"]) < 1e-4
+
+
+def test_prefill_with_ref_attention_matches_auto(case):
+    """impl='ref' (the plain version, explicitly) gives the path's result;
+    on the CPU 'auto' takes that plain version too, and counts no launch."""
+    before = fa.launches
+    _, a = _prefill(case, case["toks"][:, :S])
+    step = steps.build_prefill_step(case["model"], MAX_LEN, attn_impl="ref")
+    _, r = step(case["params"], {"tokens": torch.from_numpy(
+        case["toks"][:, :S])})
+    assert torch.equal(a, r) and fa.launches == before
+
+
+@pytest.mark.parametrize("theta", [1e4, 5e5, 1e6])
+def test_rope_matches_reference(theta):
+    """Half-split RoPE with the reference's f32 frequencies, out to the
+    positions of a 32k prefill.  The formula is the reference's; XLA's f32
+    exp and PyTorch's differ by one ulp on some frequencies, which moves an
+    angle by up to pos · 2⁻²³ radians (2e-3 at 32767), so the limit grows
+    with the position."""
+    import math
+    half = 64
+    ar = np.arange(half, dtype=np.float32)
+    f_t = torch.exp(-math.log(theta) * torch.from_numpy(ar) / half).numpy()
+    f_j = np.asarray(jnp.exp(-math.log(theta) * jnp.asarray(ar) / half))
+    assert np.abs(f_t.view(np.int32) - f_j.view(np.int32)).max() <= 1
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 5, 3, 2 * half)).astype(np.float32)
+    pos = np.array([[0, 1, 4095, 4096, 32767], [7, 100, 2047, 20000, 30000]],
+                   np.int32)
+    got = layers.rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    want = np.asarray(jlayers.rope(jnp.asarray(x), jnp.asarray(pos), theta))
+    err = np.abs(got.numpy() - want).max(axis=(2, 3))
+    assert (err <= (1e-5 + pos * 2.0 ** -22) * np.abs(x).max()).all()
+
+
+@pytest.mark.parametrize("norm,act", [("rmsnorm", "swiglu"),
+                                      ("layernorm", "geglu"),
+                                      ("rmsnorm", "gelu")])
+def test_norm_and_mlp_match_reference(norm, act):
+    import dataclasses
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                              norm=norm, act=act)
+    jcfg = dataclasses.replace(jreduced(jget_config("llama3.2-3b")),
+                               norm=norm, act=act)
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 7, cfg.d_model)).astype(np.float32)
+    pn = {"scale": rng.normal(size=cfg.d_model).astype(np.float32)}
+    if norm == "layernorm":
+        pn["bias"] = rng.normal(size=cfg.d_model).astype(np.float32)
+    pm = {k: (rng.normal(size=s) * 0.1).astype(np.float32) for k, s in (
+        ("wi", (cfg.d_model, cfg.d_ff)), ("wg", (cfg.d_model, cfg.d_ff)),
+        ("wo", (cfg.d_ff, cfg.d_model)))}
+    t = {k: torch.from_numpy(v) for k, v in pn.items()}
+    j = {k: jnp.asarray(v) for k, v in pn.items()}
+    np.testing.assert_allclose(
+        layers.apply_norm(cfg, t, torch.from_numpy(x)).numpy(),
+        np.asarray(jlayers.apply_norm(jcfg, j, jnp.asarray(x))),
+        rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        layers.apply_mlp(cfg, {k: torch.from_numpy(v) for k, v in pm.items()},
+                         torch.from_numpy(x)).numpy(),
+        np.asarray(jlayers.apply_mlp(jcfg, {k: jnp.asarray(v)
+                                            for k, v in pm.items()},
+                                     jnp.asarray(x))), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", PORTED_IDS)
+def test_parameter_tree_matches_reference_at_full_width(arch):
+    """The port's tree (meta device: nothing allocated) has the reference's
+    keys and shapes at the published widths, and its count is the config's
+    ``n_params``."""
+    cfg = get_config(arch)
+    jshapes, _ = jzoo.build(jget_config(arch)).abstract_params()
+    want = dict(zoo.flatten(jax.tree_util.tree_map(lambda s: s.shape,
+                                                    jshapes)))
+    tree = transformer.init(cfg, None)
+    got = {k: tuple(v.shape) for k, v in zoo.flatten(tree)}
+    assert got == {k: tuple(v) for k, v in want.items()}
+    count = sum(int(np.prod(s)) for s in got.values())
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
+        if cfg.qkv_bias else 0
+    assert count - norms - biases == cfg.n_params()
+
+
+def test_init_law_and_serving_dtype():
+    """Each weight is N(0, fan_in^-1): fan_in = shape[0] of one layer's
+    matrix, the last dim for the embedding; norm scales are ones.  Serving
+    parameters are all bf16, norm scales included."""
+    cfg = reduced_for_smoke(get_config("llama3.2-3b"))
+    gen = torch.Generator().manual_seed(0)
+    p = zoo.build(cfg, device="cpu").init(gen)
+    wi = p["layers"]["mlp"]["wi"]
+    assert wi.shape == (cfg.n_layers, cfg.d_model, cfg.d_ff)
+    assert abs(float(wi.std()) * cfg.d_model ** 0.5 - 1) < 0.05
+    tok = p["embed"]["tok"]
+    assert abs(float(tok.std()) * cfg.d_model ** 0.5 - 1) < 0.05
+    assert torch.equal(p["final_norm"]["scale"], torch.ones(cfg.d_model))
+    sp = steps.serving_model(cfg, device="cpu").init(2016)
+    assert {t.dtype for _, t in zoo.flatten(sp)} == {torch.bfloat16}
+    again = steps.serving_model(cfg, device="cpu").init(2016)
+    assert all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(zoo.flatten(sp), zoo.flatten(again)))
+
+
+def test_input_specs_match_reference():
+    cfg, jcfg = get_config("llama3.2-3b"), jget_config("llama3.2-3b")
+    for name in ("prefill_32k", "decode_32k"):
+        got = zoo.input_specs(cfg, SHAPES[name])
+        want = jzoo.input_specs(jcfg, JSHAPES[name])
+        assert got["kind"] == want["kind"]
+        assert got["max_len"] == want["max_len"]
+        for k, v in want["batch"].items():
+            assert tuple(got["batch"][k].shape) == v.shape
+            assert got["batch"][k].dtype == torch.int32
+    with pytest.raises(NotImplementedError, match="A14"):
+        zoo.input_specs(cfg, SHAPES["train_4k"])
+
+
+def test_unported_families_and_bad_inputs_raise():
+    for arch in ARCH_IDS:
+        if arch not in PORTED_IDS:
+            with pytest.raises(NotImplementedError, match="A14"):
+                get_config(arch)
+    with pytest.raises(NotImplementedError, match="A14"):
+        zoo.build(jget_config("mamba2-1.3b"), device="cpu")
+    cfg = reduced_for_smoke(get_config("qwen2-0.5b"))
+    model = zoo.build(cfg, device="cpu")
+    tree = model.init(0)
+    tree["final_norm"]["scale"] = np.ones(3, np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        zoo.params_from_numpy(cfg, tree, "cpu")
+    with pytest.raises(ValueError, match="keys"):
+        zoo.params_from_numpy(cfg, {"embed": {}}, "cpu")
+    with pytest.raises(ValueError, match="max_len"):
+        model.prefill(model.init(0),
+                      {"tokens": torch.zeros(1, 9, dtype=torch.int64)}, 8)
+
+
+def test_building_without_asking_for_the_cpu_raises_without_a_card():
+    """zoo.build with no device takes the engine's knob, cuda by default;
+    with no card it raises rather than run on the CPU unasked.  Run in a
+    fresh process so no test's fm.conf(device='cpu') is in effect."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    code = ("from repro_torch.configs import get_config, reduced_for_smoke\n"
+            "from repro_torch.models import zoo\n"
+            "cfg = reduced_for_smoke(get_config('llama3.2-3b'))\n"
+            "for dev in (None, 'cuda'):\n"
+            "    try:\n"
+            "        zoo.build(cfg, device=dev)\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'is_available' in str(e), e\n"
+            "    else:\n"
+            "        raise SystemExit(f'built on {dev} without a card')\n"
+            "from repro_torch.core import fm\n"
+            "fm.set_conf(device='cpu')\n"
+            "assert zoo.build(cfg).device.type == 'cpu'\n"
+            "print('raised')\n")
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "src")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "raised"
