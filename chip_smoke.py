@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
 2. kernel  — each dense kernel at the main paths' full shapes (X =
              65,608,366 × 32 float32, the paper's Friendster-32 input,
              generated on the card from a seeded ``torch.Generator``; xty at
-             NMF's and GMM's shapes), held against its plain PyTorch version
+             NMF's and GMM's shapes, its rows naming the thin body's width,
+             splits, registers and spills), held against its plain PyTorch version
              on the same inputs — the float32 one, and for the sums a
              float64 one, entry by entry — and timed with CUDA events beside
              its plain version, its roofline bound and, where one PyTorch
@@ -49,7 +50,9 @@ Phases, each printing one JSON line:
                 drawn from seed 2016: first the ``flash_attention`` kernel
                 row (B 4, 24 q heads, 8 KV heads, S = T = 4096, bf16, causal,
                 held within one bf16 rounding of its f32 plain version and of
-                float64 on a few heads, and an f32 case), then 4 prompts of
+                float64 on a few heads, and an f32 case; the row names the
+                kernel body that ran, its design bound and its registers and
+                spills from the build log), then 4 prompts of
                 4096 random tokens prefilled (the kernel must launch once per
                 layer) and 32 greedy decode steps, counted; then the checks,
                 at the same shape with the same weights and activations
@@ -461,7 +464,7 @@ def xty64(torch, x, y):
 def xty_row(torch, x, y, shape):
     """The xty kernel on (x, y) against its plain versions; returns its
     row after printing it."""
-    from repro_torch.kernels import gram as gram_mod, ref
+    from repro_torch.kernels import build, gram as gram_mod, ref
     n, p = x.shape
     q = y.shape[1]
     g = gram_mod.xty(x, y)
@@ -471,10 +474,14 @@ def xty_row(torch, x, y, shape):
     e64 = float(((g.double() - g64).abs() / units).max())
     plain64 = float(((plain.double() - g64).abs() / units).max())
     b = bound(n * (p + q) * 4 + p * q * 4, 2 * n * p * q)
+    na = gram_mod.thin_width(min(p, q))
     row = dict(
         name="xty", shape=f"{shape}: ({n}, {p})ᵀ·({n}, {q})", route="cuda",
         source="src/repro_torch/kernels/csrc/gram.cu",
         replaces="src/repro/kernels/gram.py:92",
+        body=f"thin, narrow width {na}, 16-byte loads",
+        splits=gram_mod.xty_plan(n, p, q)[0],
+        ptxas=build.ptxas_report("gram", f"xty_thin_partialsIfLi{na}ELb1E"),
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=err, tol=1e-4, err_f64=e64, tol_f64=F64_TOL,
         plain_f32_err_f64=plain64,
@@ -953,7 +960,7 @@ def flash_row(torch):
     output at this shape, where a typical |o| is about 0.03."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa, ref
+    from repro_torch.kernels import build, flash_attention as fa, ref
     cfg = get_config(LM_ARCH)
     B, nh, nkv, S, d = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, cfg.hd
     g = nh // nkv
@@ -989,6 +996,9 @@ def flash_row(torch):
         replaces="src/repro/kernels/flash_attention.py:101",
         shape=f"q ({B}, {nh}, {S}, {d}), k/v ({B}, {nkv}, {S}, {d}) bf16, "
               "causal",
+        body=fa.body_for(q.dtype, d), f32_body=fa.body_for(qf.dtype, d),
+        ptxas=build.ptxas_report("flash_attention",
+                                 f"flash_fwd_wgmmaILi{d}ELb1E"),
         max_abs_err=float(diff.max()),
         tol="|o - plain| <= 2e-3 + 1e-2·|plain|, plain the f32 plain version",
         tol_excess=excess, max_abs_err_f64=err64,
@@ -1002,6 +1012,9 @@ def flash_row(torch):
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
             q, k, v, causal=True), reps=2),
         bound_ms=b[0], bound_by=b[1], bound_rate="bf16 tensor, 989 TFLOP/s",
+        design_bound_ms=1.5 * ops / BF16_FLOP_S * 1e3,
+        design_bound_note="the wgmma body's QKᵀ plus P·V as two products "
+                          "(P split into bf16 hi + lo): 1.5× the operations",
         bound_f32_ms=ops / F32_FLOP_S * 1e3, ops=ops, bytes=nbytes,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True)),

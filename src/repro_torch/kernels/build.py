@@ -15,6 +15,7 @@ import fcntl
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -122,6 +123,8 @@ _SIGNATURES = {
     # q, k, v, o, bh, nh, group, S, T, d, scale, causal, dtype, stream
     "fm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _I, _I,
                            _P),
+    "fm_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F,
+                                 _I, _P),
 }
 
 
@@ -133,6 +136,33 @@ def _declare(lib: ctypes.CDLL):
         if entry is not None:
             entry.argtypes = list(args)
             entry.restype = ctypes.c_int
+
+
+def ptxas_report(name: str, function: str) -> list[dict]:
+    """Registers and spill bytes of each kernel of ``csrc/<name>.cu`` whose
+    mangled name contains ``function``, read from its build log
+    (``-Xptxas -v``); [] when the log is missing."""
+    log = BUILD_DIR / f"{name}.log"
+    if not log.exists():
+        return []
+    out, cur = [], None
+    for line in log.read_text(errors="replace").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1) if function in m.group(1) else None
+            spills = (0, 0)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append({"function": cur, "registers": int(m.group(1)),
+                        "spill_stores": spills[0], "spill_loads": spills[1]})
+            cur = None
+    return out
 
 
 def check(err: int, what: str):

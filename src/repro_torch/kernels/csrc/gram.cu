@@ -24,15 +24,28 @@
 //
 // xty's thin path: when one operand is at most THIN columns wide (the main
 // path's shapes: NMF's WᵀX with W (n, 8), GMM's Xᵀr with r (n, 1)), a 32×32
-// tile would waste most of its FMAs and staging on masked columns.  Instead
-// each warp walks rows of its split: lane l holds wide column 32·tile + l
-// (one coalesced load of the row), the narrow operand's few values are
-// staged 32 rows at a time in shared memory and read by all lanes at once,
-// and each lane keeps the narrow width of sums in registers; the block's 8
-// warps are added in order in shared memory and the splits by
-// xty_thin_reduce, in order.  Offsets are 64-bit:
-// n·p reaches 2^31 at the sizes this runs at.  Plain f32 FMA, no tensor
-// cores: the reference tests hold f32 at 1e-4.
+// tile would waste most of its FMAs and staging on masked columns.  Its
+// bound is bytes: both operands read once (2.6 ms at GMM's shape, 3.1 ms at
+// NMF's, at 3.35 TB/s).  The design streams them at that rate:
+//   * the narrow width is a template parameter NA ∈ {1, 2, 4, 8, 16} (na
+//     rounded up, the missing columns read as zeros), so a row costs
+//     exactly NA·4 FMAs a thread and no guarded loop runs per element;
+//   * eight threads read a row's 32 wide values as 16-byte loads, a warp
+//     four rows a load; the narrow values of a row come as one or a few
+//     vector loads that the row's eight threads share (one transaction);
+//   * bytes in flight come from register batches: each thread issues the
+//     loads of its next U rows (8, 4 or 2 as NA grows) together before it
+//     multiplies them, and launch bounds keep 2-4 blocks an SM resident:
+//     96-128 KB of loads in flight an SM at the main path's widths.  A
+//     cp.async / TMA ring was the other route; it needs each block's rows
+//     to be one contiguous slab, which holds only for a wide operand of
+//     exactly 32 columns, while register batches serve every width with
+//     the same code.  The same staging may later serve gram / wgram
+//     (ROADMAP §B);
+//   * lanes, warps and then splits (xty_thin_reduce) are added in a fixed
+//     order: deterministic, no atomics.
+// Offsets are 64-bit: n·p reaches 2^31 at the sizes this runs at.  Plain
+// f32 FMA, no tensor cores: the reference tests hold f32 at 1e-4.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -53,7 +66,6 @@ __device__ __forceinline__ float load_f(const __nv_bfloat16* x, int64_t i) {
 enum Mode { GRAM = 0, WGRAM = 1, XTY = 2 };
 
 constexpr int THIN = 16;    // widest narrow operand of xty's thin path
-constexpr int UNROLL = 8;   // rows in flight per warp on the thin path
 
 // Load one chunk's share of this thread: rows r0.. of the left (X's columns
 // from i0) and right (columns from j0 of X, or of Y for xty) tiles, zero past
@@ -173,85 +185,186 @@ __global__ void tile_reduce(const float* __restrict__ ws, float* __restrict__ ou
   out[e] = s;
 }
 
-// XᵀY with the narrow operand (X when NARROW_X, else Y) at most THIN wide.
-// A warp takes 32 consecutive rows at a time: their narrow values (one
-// coalesced read of 32·na values) go to the warp's slice of shared memory,
-// then each row's wide value is loaded per lane (UNROLL rows in flight) and
-// multiplied by the row's narrow values, read by all lanes at once.
-template <typename T, bool NARROW_X>
-__global__ void __launch_bounds__(THREADS)
-xty_thin_partials(const T* __restrict__ x, const T* __restrict__ y,
-                  float* __restrict__ ws, int64_t n, int p, int q,
+// Σ_r nar[r][i]·wid[r][j] over one split's rows for the narrow operand
+// (na ≤ NA columns, NA ∈ {1, 2, 4, 8, 16} a compile-time width; columns past
+// na read as zeros and are never stored) and one 32-column tile of the wide
+// operand (nw columns).  Thread t owns wide columns 4·(t % 8) .. +3 of the
+// tile and rows t / 8, +32, +64, ... of the split: eight threads read one
+// row's 32 wide values as 16-byte loads, a warp reads four rows, the block
+// 32.  The narrow values of a row are read as vectors (the eight threads of
+// a row read the same bytes: one transaction, broadcast).  Each thread
+// issues the loads of its next U rows together and then multiplies them;
+// with MINB blocks an SM that keeps 256·MINB·U·16 bytes of the wide
+// operand in flight (128 KB an SM at NA = 1).  MINB is the launch bound
+// alone (the registers a thread may take); the split count, and so the
+// blocks a launch gives an SM, is gram.py's THIN_BLOCKS.  U and MINB were
+// tuned at NA = 1 and 8 on the H100 (PERF.md); NA = 2, 4 and 16
+// were not timed, their U and MINB set so that ptxas fits the FAST body
+// without spills.  FAST: na == NA, nw a multiple of 4 and both bases
+// aligned, so every load is a vector (columns past nw read as zeros, never
+// loaded); else every value is a guarded scalar load.  The 32 row lanes
+// are added by shuffles, then the warps, in a fixed order; the block's
+// NA × 32 partial goes to ws[split][tile] (THIN × 32 floats a tile).
+template <int NA>
+struct ThinCfg {
+  static constexpr int U = NA <= 2 ? 8 : NA <= 8 ? 4 : 2;   // rows a batch
+  static constexpr int MINB = NA == 1 ? 4 : NA <= 4 ? 3 : 2;  // blocks an SM
+};
+
+template <bool FAST, int NA>
+__device__ __forceinline__ void load_narrow(const float* __restrict__ p, int na,
+                                            float (&v)[NA]) {
+  if constexpr (FAST && NA % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < NA; i += 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p) + i / 4);
+      v[i] = f.x; v[i + 1] = f.y; v[i + 2] = f.z; v[i + 3] = f.w;
+    }
+  } else if constexpr (FAST && NA == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = f.x; v[1] = f.y;
+  } else if constexpr (FAST) {
+    v[0] = __ldg(p);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) v[i] = i < na ? __ldg(p + i) : 0.f;
+  }
+}
+
+template <bool FAST, int NA>
+__device__ __forceinline__ void load_narrow(const __nv_bfloat16* __restrict__ p,
+                                            int na, float (&v)[NA]) {
+#pragma unroll
+  for (int i = 0; i < NA; ++i) v[i] = i < na ? __bfloat162float(p[i]) : 0.f;
+}
+
+// The 4 wide values at columns c .. c+3 of one row (zeros past nw).  FAST
+// has nw a multiple of 4, so c < nw covers all four.
+template <bool FAST>
+__device__ __forceinline__ void load_wide(const float* __restrict__ p, int c,
+                                          int nw, float (&v)[4]) {
+  if constexpr (FAST) {
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < nw) f = __ldg(reinterpret_cast<const float4*>(p + c));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = c + e < nw ? __ldg(p + c + e) : 0.f;
+  }
+}
+
+template <bool FAST>
+__device__ __forceinline__ void load_wide(const __nv_bfloat16* __restrict__ p,
+                                          int c, int nw, float (&v)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = c + e < nw ? __bfloat162float(p[c + e]) : 0.f;
+}
+
+template <typename T, int NA, bool FAST>
+__global__ void __launch_bounds__(THREADS, ThinCfg<NA>::MINB)
+xty_thin_partials(const T* __restrict__ nar, const T* __restrict__ wid,
+                  float* __restrict__ ws, int64_t n, int na, int nw,
                   int64_t rows_per_split) {
+  constexpr int U = ThinCfg<NA>::U;
   constexpr int WARPS = THREADS / 32;
-  __shared__ float nar_s[WARPS][32 * THIN];
-  __shared__ float red[WARPS][THIN][32];
-  const T* nar = NARROW_X ? x : y;
-  const T* wid = NARROW_X ? y : x;
-  const int na = NARROW_X ? p : q, nw = NARROW_X ? q : p;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c = blockIdx.x * 32 + lane;
-  const bool cv = c < nw;
+  constexpr int RSTEP = THREADS / 8;  // rows a block reads per step
+  __shared__ float red[WARPS][NA][32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int sub = tid & 7;
+  const int c = blockIdx.x * 32 + sub * 4;
   const int64_t split = blockIdx.y;
   const int64_t r_begin = split * rows_per_split;
   const int64_t r_end = min64(n, r_begin + rows_per_split);
-  float* sh = nar_s[warp];
+  // FAST: na == NA (compile-time row strides help the address arithmetic).
+  const int nstride = FAST ? NA : na;
 
-  float acc[THIN];
+  float acc[NA][4];
 #pragma unroll
-  for (int i = 0; i < THIN; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
-  for (int64_t g0 = r_begin + 32 * warp; g0 < r_end; g0 += 32 * WARPS) {
-    const int rows = (int)min64(32, r_end - g0);
-    for (int e = lane; e < rows * na; e += 32)
-      sh[e] = load_f(nar, g0 * na + e);
-    __syncwarp();
-    int t = 0;
-    for (; t + UNROLL <= rows; t += UNROLL) {
-      float wv[UNROLL];
+  for (int64_t r = r_begin + (tid >> 3); r < r_end; r += (int64_t)U * RSTEP) {
+    float nv[U][NA], wv[U][4];
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        wv[u] = cv ? load_f(wid, (g0 + t + u) * nw + c) : 0.f;
+    for (int u = 0; u < U; ++u) {  // rows at or past r_end read as zeros
+      const int64_t row = r + (int64_t)u * RSTEP;
+      if (row < r_end) {
+        load_narrow<FAST, NA>(nar + row * nstride, na, nv[u]);
+        load_wide<FAST>(wid + row * nw, c, nw, wv[u]);
+      } else {
 #pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
+        for (int i = 0; i < NA; ++i) nv[u][i] = 0.f;
 #pragma unroll
-        for (int i = 0; i < THIN; ++i)
-          if (i < na) acc[i] = fmaf(sh[(t + u) * na + i], wv[u], acc[i]);
+        for (int e = 0; e < 4; ++e) wv[u][e] = 0.f;
+      }
     }
-    for (; t < rows; ++t) {
-      const float w1 = cv ? load_f(wid, (g0 + t) * nw + c) : 0.f;
 #pragma unroll
-      for (int i = 0; i < THIN; ++i)
-        if (i < na) acc[i] = fmaf(sh[t * na + i], w1, acc[i]);
-    }
-    __syncwarp();
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int i = 0; i < NA; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(nv[u][i], wv[u][e], acc[i][e]);
   }
 
+  // Lanes l, l+8, l+16, l+24 share columns: add them (fixed order), then
+  // the warps in order.
 #pragma unroll
-  for (int i = 0; i < THIN; ++i) red[warp][i][lane] = acc[i];
+  for (int i = 0; i < NA; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float v = acc[i][e];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      acc[i][e] = v;
+    }
+  if (lane < 8) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[warp][i][sub * 4 + e] = acc[i][e];
+  }
   __syncthreads();
   float* out = ws + (split * gridDim.x + blockIdx.x) * (int64_t)(THIN * 32);
-  for (int e = threadIdx.x; e < THIN * 32; e += THREADS) {
+  for (int e = tid; e < na * 32; e += THREADS) {
     float s = 0.f;
+#pragma unroll
     for (int w = 0; w < WARPS; ++w) s += red[w][e / 32][e % 32];
     out[e] = s;
   }
 }
 
-// out (p, q) = Σ_s thin partials, in split order.
+// out (p, q) = Σ_s thin partials: a warp an output element, lane l adding
+// splits l, l + 32, ... in order, then the lanes by a fixed shuffle tree
+// (deterministic; a thousand splits are 33 loads a lane, not a thousand
+// dependent ones).
 __global__ void xty_thin_reduce(const float* __restrict__ ws,
                                 float* __restrict__ out, int p, int q,
                                 int64_t splits, bool narrow_x) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (int64_t)p * q) return;
+  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (e >= (int64_t)p * q) return;  // whole warps leave together
   const int i = (int)(e / q), j = (int)(e % q);
   const int ni = narrow_x ? i : j, wi = narrow_x ? j : i;
   const int nw = narrow_x ? q : p;
   const int64_t stride = (int64_t)((nw + 31) / 32) * THIN * 32;
   const int64_t off = ((int64_t)(wi / 32) * THIN + ni) * 32 + (wi % 32);
   float s = 0.f;
-  for (int64_t k = 0; k < splits; ++k) s += ws[k * stride + off];
-  out[e] = s;
+  for (int64_t k = lane; k < splits; k += 32) s += ws[k * stride + off];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+  if (lane == 0) out[e] = s;
+}
+
+template <typename T, int NA>
+void launch_thin_na(const T* nar, const T* wid, float* ws, int64_t n, int na,
+                    int nw, int64_t splits, bool fast, cudaStream_t st) {
+  const int64_t rps = (n + splits - 1) / splits;
+  dim3 grid((nw + 31) / 32, (unsigned)splits);
+  if (fast)
+    xty_thin_partials<T, NA, true><<<grid, THREADS, 0, st>>>(nar, wid, ws, n, na, nw, rps);
+  else
+    xty_thin_partials<T, NA, false><<<grid, THREADS, 0, st>>>(nar, wid, ws, n, na, nw, rps);
 }
 
 template <typename T>
@@ -259,21 +372,27 @@ int launch_thin(const void* x, const void* y, void* ws, void* out, int64_t n,
                 int p, int q, int64_t splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool narrow_x = p <= q;
-  const int nw = narrow_x ? q : p;
-  const int64_t rps = (n + splits - 1) / splits;
-  dim3 grid((nw + 31) / 32, (unsigned)splits);
-  if (narrow_x)
-    xty_thin_partials<T, true><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y),
-        static_cast<float*>(ws), n, p, q, rps);
-  else
-    xty_thin_partials<T, false><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(x), static_cast<const T*>(y),
-        static_cast<float*>(ws), n, p, q, rps);
+  const T* nar = static_cast<const T*>(narrow_x ? x : y);
+  const T* wid = static_cast<const T*>(narrow_x ? y : x);
+  const int na = narrow_x ? p : q, nw = narrow_x ? q : p;
+  const int NA = na <= 1 ? 1 : na <= 2 ? 2 : na <= 4 ? 4 : na <= 8 ? 8 : 16;
+  // Vector loads need every row start aligned: float32, na a built width,
+  // nw a multiple of 4 and aligned bases.
+  const bool fast = sizeof(T) == 4 && na == NA && nw % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(wid) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(nar) % (NA >= 4 ? 16 : 4 * NA) == 0;
+  float* w = static_cast<float*>(ws);
+  switch (NA) {
+    case 1: launch_thin_na<T, 1>(nar, wid, w, n, na, nw, splits, fast, st); break;
+    case 2: launch_thin_na<T, 2>(nar, wid, w, n, na, nw, splits, fast, st); break;
+    case 4: launch_thin_na<T, 4>(nar, wid, w, n, na, nw, splits, fast, st); break;
+    case 8: launch_thin_na<T, 8>(nar, wid, w, n, na, nw, splits, fast, st); break;
+    default: launch_thin_na<T, 16>(nar, wid, w, n, na, nw, splits, fast, st); break;
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)p * q;
-  xty_thin_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+  const int64_t warps = (int64_t)p * q;  // one an output element
+  xty_thin_reduce<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<float*>(out), p, q, splits,
       narrow_x);
   return (int)cudaGetLastError();

@@ -10,17 +10,30 @@ The serving path calls it once per prefill layer (``ops.attention``).
 Bound on an H100 at that path's B 4, 24 heads, S = T = 4096, D 128, bf16,
 causal: 2·B·nh·S²·D = 4.12e11 operations against 268 MB of bytes, so
 operations bound it — 0.42 ms at the 989 TFLOP/s bf16 tensor rate, 6.15 ms
-at the 67 TFLOP/s f32 rate.  The design: one block per (head, 64-row q
-tile) walks the kv tiles with (m, l, acc) in registers; Q, then each K and V
-tile, staged through shared memory (masked while staging, never padded by
-a copy); QKᵀ of bf16 inputs on the tensor cores (``mma.sync``, exact
-products, f32 sums), P·V in f32 FMA as the Pallas kernel has it (so the f32
-rate bounds this design at 3.1 ms), f32 inputs all in FMA; kv tiles above
-the causal diagonal skipped; GQA by reading K/V head h // g, never
-repeating KV; 64-bit offsets.
+at the 67 TFLOP/s f32 rate.  Two bodies, picked here from the dtype and
+head dim alone (``body_for``), both counted in ``launches``:
+
+* ``"wgmma"`` — bf16 at head dims 64 and 128, the serving path: one block
+  per (head, 128-row q tile), a producer warp feeding 128-key K/V tiles by
+  TMA into an mbarrier ring, two consumer warpgroups running QKᵀ on
+  ``wgmma`` with the softmax on the accumulators in registers, and P·V as
+  two ``wgmma`` products, P split into bf16 hi + lo terms so that P keeps
+  the f32 precision the Pallas kernel gives it (one bf16 rounding of P
+  would miss one bf16 ulp of the float64 output;
+  tests/test_torch_kernels.py shows it).  That split costs 1.5× the tensor
+  work: 0.63 ms is this design's bound.
+* ``"fma"`` — f32 inputs, and bf16 at head dims 16 and 32 (the tests and
+  reduced configs): one block per (head, 64-row q tile), all f32 FMA (6.15
+  ms bound at the serving shape), bf16 values widened as they are staged.
+
+Both: masks by absolute id (after the scale, so any scale), GQA by reading
+K/V head h // g (never repeating KV), kv tiles above the causal diagonal
+skipped, heaviest q tiles first, 64-bit offsets.
 
 Layout: q (B, nh, S, D) with k, v (B, nkv, T, D), nh a multiple of nkv, or
-the Pallas kernel's (BH, S, D) with k, v (BH, T, D); all contiguous.
+the Pallas kernel's (BH, S, D) with k, v (BH, T, D); all contiguous, each
+starting at a 16-byte-aligned address (both bodies read 16 bytes at a time,
+and TMA takes no other base).
 """
 from __future__ import annotations
 
@@ -32,7 +45,8 @@ from .common import route
 #: Head dims the kernel is built for (tests 16, reduced configs 32, qwen2
 #: 64, llama / granite 128).
 HEAD_DIMS = (16, 32, 64, 128)
-#: Query rows a block owns.
+#: Query rows a block of the FMA body owns (the wgmma body's 128-row blocks
+#: need fewer): ceil(S / BQ) must fit the grid.
 BQ = 64
 #: Launches of the CUDA kernel (the plain CPU path does not count).
 launches = 0
@@ -73,6 +87,11 @@ def _check(q, k, v) -> tuple[int, int, int, int, int]:
     return bh, nh, nh // nkv, S, T
 
 
+def body_for(dtype: torch.dtype, d: int) -> str:
+    """The kernel body that serves q/k/v of this dtype and head dim."""
+    return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "fma"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None
                     ) -> torch.Tensor:
@@ -86,6 +105,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k, v must start at 16-byte-"
+                         "aligned addresses (a view at an element offset "
+                         "that is not a multiple of 16 bytes is not)")
     if -(-S // BQ) > 65535:
         raise ValueError(f"flash_attention: S = {S} exceeds the grid "
                          f"({65535 * BQ} rows)")
@@ -93,10 +116,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if S == 0 or bh == 0:
         return out
     lib = build.load("flash_attention")
-    err = lib.fm_flash_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), bh, nh, group, S, T, d, scale,
-                                 int(causal), _DTYPES[q.dtype],
-                                 build.stream_handle(q))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, nh,
+            group, S, T, d, scale, int(causal))
+    if body_for(q.dtype, d) == "wgmma":
+        err = lib.fm_flash_attention_wgmma(*args, build.stream_handle(q))
+    else:
+        err = lib.fm_flash_attention(*args, _DTYPES[q.dtype],
+                                     build.stream_handle(q))
     build.check(err, "flash_attention")
     launches += 1
     return out

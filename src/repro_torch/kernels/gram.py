@@ -19,21 +19,31 @@ path's shapes are thin — NMF's WᵀX with W (n, 8) and X (n, 32), GMM's Xᵀr
 with X (n, 32) and r (n, 1) — and bound by reading both operands once:
 n·(p + q)·4 bytes, 3.1 ms and 2.6 ms at 65,608,366 rows and 3.35 TB/s.
 There a 32×32 tile would mostly multiply masked zeros, so a thin path takes
-them: a warp per row, lanes across the wide operand's columns, the narrow
-operand (at most ``THIN`` columns) staged through shared memory and read by
-all lanes into per-lane register sums, warps and splits added in a fixed
-order.
+them (csrc/gram.cu's note has the design): the narrow width a compile-time
+``thin_width(na)`` ∈ ``THIN_WIDTHS``, 16-byte loads of the wide operand
+(eight threads a 32-column row), the narrow values of a row read as
+vectors, the next rows prefetched into registers while the current ones are
+multiplied, and lanes, warps and splits added in a fixed order.
 """
 from __future__ import annotations
 
 import torch
 
 from . import build, ref
-from .common import route, splits_for
+from .common import SM_COUNT, route, splits_for
 
 TILE = 32
 #: xty's thin path takes one operand at most this many columns wide.
 THIN = 16
+#: Narrow widths the thin path is built for (a narrower operand takes the
+#: next one up, its missing columns read as zeros; ``fm_xty`` dispatches),
+#: each with the blocks a launch gives an SM (the splits are this many
+#: times the SM count over the wide tiles): the fastest on the H100 at
+#: GMM's width 1 (8) and NMF's width 8 (12) (PERF.md); widths 2, 4
+#: and 16 were not measured and take 8.  How many blocks are resident at
+#: once is the kernel's launch bound (``ThinCfg::MINB`` in csrc/gram.cu).
+THIN_BLOCKS = {1: 8, 2: 8, 4: 8, 8: 12, 16: 8}
+THIN_WIDTHS = tuple(THIN_BLOCKS)
 #: Launches of the CUDA kernels (the plain CPU path does not count).
 launches = 0
 xty_launches = 0
@@ -74,13 +84,23 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def thin_width(na: int) -> int:
+    """The built narrow width that serves an operand ``na`` columns wide
+    (1 ≤ na ≤ THIN), as ``launch_thin`` in csrc/gram.cu picks it."""
+    if not 1 <= na <= THIN:
+        raise ValueError(f"xty thin path: narrow width {na} outside 1..{THIN}")
+    return next(w for w in THIN_WIDTHS if w >= na)
+
+
 def xty_plan(n: int, p: int, q: int) -> tuple[int, int]:
-    """(splits, workspace floats) of an xty launch: the thin path when
-    min(p, q) ≤ THIN (one block per 32 wide columns and split), else the
-    32×32 tiles."""
+    """(splits, workspace floats) of an xty launch, a function of the shape
+    only: the thin path when min(p, q) ≤ THIN (one block per 32 wide
+    columns and split, ``THIN_BLOCKS`` blocks an SM), else the 32×32
+    tiles."""
     if min(p, q) <= THIN:
         wide_tiles = -(-max(p, q) // TILE)
-        splits = splits_for(n, 1024, wide_tiles)
+        blocks = THIN_BLOCKS[thin_width(min(p, q))]
+        splits = splits_for(n, 1024, wide_tiles, blocks * SM_COUNT)
         return splits, splits * wide_tiles * THIN * TILE
     splits = gram_splits(n, p, q)
     return splits, splits * -(-p // TILE) * -(-q // TILE) * TILE * TILE

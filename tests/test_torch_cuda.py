@@ -12,11 +12,14 @@ and all-negative min/max edges, more chains than one launch takes,
 k-means layouts whose centers or row tile do not fit in shared memory, xty
 at thin and wide second operands, and ELL slabs with padding rows,
 duplicate columns, kmax = 1 and kmax past one 32-entry mask window, over
-one and many output tiles; flash attention over ragged S and T (S below,
-equal to and above T), every head dim the kernel is built for, GQA group
-factors 1, 3 and 8, causal and not, bf16 and f32, one case whose element
-offsets pass 2³¹, and a reduced LM prefill and decode on the card against
-the same on the CPU.
+one and many output tiles; xty's thin path at every narrow width 1..16;
+flash attention over ragged S and T (S below, equal to and above T), every
+head dim the kernel is built for, GQA group factors 1, 3 and 8, causal and
+not, bf16 (held within one bf16 ulp of float64) and f32, the wgmma body
+over many kv tiles, zero and negative scales, unaligned bases (refused),
+one case whose element offsets pass 2³¹, and a reduced LM prefill and
+decode on the card against the same on the CPU; xty's 16-byte loads over
+a ragged last column tile at the end of whole allocator segments.
 """
 import numpy as np
 import pytest
@@ -94,6 +97,54 @@ def test_xty(dev, n, p, q, dtype):
     scale = torch.outer(x.double().pow(2).sum(0).sqrt(),
                         y.double().pow(2).sum(0).sqrt()).clamp_min(1e-300)
     assert float(((got.double() - want).abs() / scale).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("na", range(1, 17))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_xty_thin_widths(dev, na, dtype):
+    """The thin path at every narrow width 1..16 (each served by the built
+    width thin_width(na)), as X and as Y, over wide operands of 32 columns
+    (16-byte loads) and 37 (scalar loads), for n below one block step (32
+    rows), across a few and not a multiple of the rows a block prefetches,
+    and from a base that is not 16-byte aligned; entry by entry against
+    float64 in the units of sqrt(Σx_i² · Σy_j²)."""
+    for n in (5, 1000, 70001):
+        for nw in (32, 37):
+            narrow = _x(n, na, dtype, dev)
+            wide = _x(n * nw + 1, 1, dtype, dev).reshape(-1)[1:].reshape(n, nw)
+            for x, y in ((narrow, wide), (wide, narrow)):
+                before = gram_mod.xty_launches
+                got = gram_mod.xty(x, y)
+                torch.cuda.synchronize()
+                assert gram_mod.xty_launches == before + 1
+                want = x.double().T @ y.double()
+                scale = torch.outer(x.double().pow(2).sum(0).sqrt(),
+                                    y.double().pow(2).sum(0).sqrt())
+                err = (got.double() - want).abs() / scale.clamp_min(1e-300)
+                assert got.shape == want.shape and float(err.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("nw", [36, 40, 44])
+@pytest.mark.parametrize("na", [1, 8])
+def test_xty_thin_vector_loads_stop_at_the_last_column(dev, nw, na):
+    """The thin path's 16-byte loads with nw a multiple of 4 but not of 32:
+    the last column tile is ragged, its threads past nw load nothing.  The
+    wide operand is 131,072 rows, 18, 20 or 22 MiB: whole 2 MiB segments of
+    the caching allocator, so a read past its end would leave its
+    allocation."""
+    n = 131_072
+    assert (n * nw * 4) % (2 << 20) == 0
+    narrow, wide = _x(n, na, torch.float32, dev), _x(n, nw, torch.float32, dev)
+    for x, y in ((narrow, wide), (wide, narrow)):
+        before = gram_mod.xty_launches
+        got = gram_mod.xty(x, y)
+        torch.cuda.synchronize()
+        assert gram_mod.xty_launches == before + 1
+        want = x.double().T @ y.double()
+        scale = torch.outer(x.double().pow(2).sum(0).sqrt(),
+                            y.double().pow(2).sum(0).sqrt())
+        err = (got.double() - want).abs() / scale.clamp_min(1e-300)
+        assert got.shape == want.shape and float(err.max()) <= 1e-5
 
 
 def _ell(n, kmax, ncol, dev, dtype=torch.float32):
@@ -349,6 +400,43 @@ def test_flash_attention(dev, d, g, causal, dtype):
         want = ref.flash_attention_ref(q, k, v, causal=causal,
                                        dtype=torch.float64)
         _close(got, want, 1e-4 if dtype == torch.float32 else 1e-2)
+        if dtype == torch.bfloat16:
+            _within_one_ulp(got, want)
+
+
+def _within_one_ulp(got, want):
+    """bf16 output within one bf16 ulp, 1e-5 + 2⁻⁷·|o64|, of the float64
+    plain version, element by element (chip_smoke.py's rule): a kernel that
+    rounded P to bf16 once would miss it."""
+    want = want.double().cpu()
+    excess = (got.double().cpu() - want).abs() - 1e-5 - 2.0 ** -7 * want.abs()
+    assert float(excess.max()) <= 0
+
+
+@pytest.mark.parametrize("S,T,d,g,causal", [
+    (1024, 1024, 128, 3, True), (1024, 1024, 128, 3, False),
+    (1024, 1024, 64, 3, True), (1000, 1000, 128, 1, True),
+    (300, 1000, 64, 8, False), (50, 50, 128, 3, True), (50, 300, 64, 1, False),
+    (200, 130, 128, 3, True)])
+def test_flash_attention_hopper_body(dev, S, T, d, g, causal):
+    """The wgmma body (bf16, head dims 64 and 128) across many kv tiles and
+    wrap-arounds of its ring (2 stages at d 128, 4 at d 64; T = 1024 is 8
+    tiles of 128 keys), T not a multiple of the 128-key tile, S below one
+    64-row warpgroup and below the 128-row block: one launch, within one
+    bf16 ulp of float64."""
+    assert fa.body_for(torch.bfloat16, d) == "wgmma"
+    B, nkv = 2, 2
+    q = _x(B * nkv * g * S, d, torch.bfloat16, dev).reshape(B, nkv * g, S, d)
+    k = _x(B * nkv * T, d, torch.bfloat16, dev).reshape(B, nkv, T, d)
+    v = _x(B * nkv * T, d, torch.bfloat16, dev).reshape(B, nkv, T, d)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=causal,
+                                   dtype=torch.float64)
+    _close(got, want, 1e-2)
+    _within_one_ulp(got, want)
 
 
 def test_flash_attention_matched_heads_and_scale(dev):
@@ -360,6 +448,48 @@ def test_flash_attention_matched_heads_and_scale(dev):
         _close(fa.flash_attention(q, k, v, causal=causal, scale=0.3),
                ref.flash_attention_ref(q, k, v, causal=causal, scale=0.3,
                                        dtype=torch.float64), 1e-4)
+
+
+@pytest.mark.parametrize("d,dtype", [(128, torch.bfloat16), (64, torch.bfloat16),
+                                     (32, torch.bfloat16), (64, torch.float32)])
+@pytest.mark.parametrize("scale", [0.0, -0.3])
+def test_flash_attention_zero_and_negative_scale(dev, d, dtype, scale):
+    """Both bodies mask after the scale: at scale 0 a row averages its
+    unmasked values, at a negative scale the masked keys still drop out;
+    bf16 within one bf16 ulp of float64, f32 within 1e-4."""
+    B, nh, nkv, S = 2, 6, 2, 300
+    q = _x(B * nh * S, d, dtype, dev).reshape(B, nh, S, d)
+    k = _x(B * nkv * S, d, dtype, dev).reshape(B, nkv, S, d)
+    v = _x(B * nkv * S, d, dtype, dev).reshape(B, nkv, S, d)
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        torch.cuda.synchronize()
+        want = ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                       dtype=torch.float64)
+        if dtype == torch.bfloat16:
+            _within_one_ulp(got, want)
+        else:
+            _close(got, want, 1e-4)
+
+
+def test_flash_attention_unaligned_base_raises(dev):
+    """A contiguous view that starts off a 16-byte boundary is refused by
+    name, before any launch (both bodies read 16 bytes at a time; TMA takes
+    no other base)."""
+    for dtype, d in ((torch.bfloat16, 128), (torch.bfloat16, 32),
+                     (torch.float32, 64)):
+        flat = _x(2 * 100 * d + 1, 1, dtype, dev).reshape(-1)
+        q = flat[1:].reshape(2, 100, d)
+        k = v = _x(2 * 100, d, dtype, dev).reshape(2, 100, d)
+        before = fa.launches
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(q, k, v)
+        with pytest.raises(ValueError, match="16-byte"):
+            fa.flash_attention(k, q, v)
+        assert fa.launches == before
+        got = fa.flash_attention(q.clone(), k, v)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1 and torch.isfinite(got.float()).all()
 
 
 def test_flash_attention_offsets_past_2_31(dev):
@@ -374,8 +504,10 @@ def test_flash_attention_offsets_past_2_31(dev):
     out = fa.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     for h in (slice(0, 4), slice(bh - 4, bh)):
-        _close(out[h], ref.flash_attention_ref(q[h], k[h], v[h], causal=True,
-                                               dtype=torch.float64), 1e-2)
+        want = ref.flash_attention_ref(q[h], k[h], v[h], causal=True,
+                                       dtype=torch.float64)
+        _close(out[h], want, 1e-2)
+        _within_one_ulp(out[h], want)
 
 
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2-0.5b"])

@@ -6,7 +6,10 @@ reference file does not sweep, are held against the reference's Pallas
 kernels in interpret mode too, and so is flash attention (the JAX tests'
 S, causal and dtype sweep and tolerances 2e-3 / 3e-2, cross lengths, a
 causal S != T case that pins the kernel's top-left mask, GQA against the
-Pallas kernel on repeated KV).  The CUDA kernels themselves are held against
+Pallas kernel on repeated KV, and the precision decision of the wgmma body:
+P·V from P split into two bf16 terms holds one bf16 ulp of float64 where a
+single rounding of P does not).  xty's launch plan is checked from the
+shapes alone.  The CUDA kernels themselves are held against
 these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
 import jax.numpy as jnp
@@ -333,6 +336,40 @@ def test_wrappers_validate_inputs():
         tops.attention(q, q, q, impl="pallas")
 
 
+@pytest.mark.parametrize("n,p,q", [(65_608_366, 8, 32), (65_608_366, 32, 1),
+                                   (5, 3, 40), (70_001, 40, 16),
+                                   (1_000_000, 16, 17)])
+def test_xty_plan_and_thin_geometry(n, p, q):
+    """xty's splits and workspace are functions of (n, p, q) alone, equal
+    on every call; the thin path's narrow width maps to a built width, the
+    smallest at or above it; and the workspace covers every block's partial
+    (Friendster-32's NMF and GMM shapes among them): computed from the
+    shapes, nothing allocated."""
+    splits, ws = gram_mod.xty_plan(n, p, q)
+    assert (splits, ws) == gram_mod.xty_plan(n, p, q)
+    assert 1 <= splits <= 65535 and -(-n // splits) * splits >= n
+    na, nw = min(p, q), max(p, q)
+    assert na <= gram_mod.THIN
+    width = gram_mod.thin_width(na)
+    assert width in gram_mod.THIN_WIDTHS and width >= na
+    assert all(w < na for w in gram_mod.THIN_WIDTHS if w < width)
+    tiles = -(-nw // gram_mod.TILE)
+    # the last block's partial: (split · tiles + tile) · THIN · 32 + na · 32
+    last = ((splits - 1) * tiles + tiles - 1) * gram_mod.THIN * 32 + na * 32
+    assert last <= ws == splits * tiles * gram_mod.THIN * 32
+    if n > 10 ** 6:  # the blocks a launch gives an SM, capped by rows
+        assert splits == min(gram_mod.THIN_BLOCKS[width] * common.SM_COUNT
+                             // tiles, -(-n // 1024))
+
+
+def test_xty_thin_widths_cover_every_narrow_width():
+    assert [gram_mod.thin_width(na) for na in range(1, 17)] == \
+        [1, 2, 4, 4] + [8] * 4 + [16] * 8
+    for bad in (0, 17):
+        with pytest.raises(ValueError):
+            gram_mod.thin_width(bad)
+
+
 def test_chain_program_encodes_type_changes():
     """The int program the kernel reads: opcodes and the value type entering
     each step (0 int, 1 f32, 2 bf16) follow the reference chain's casts;
@@ -411,6 +448,72 @@ def test_flash_attention_gqa_matches_pallas_on_repeated_kv(g, causal):
                                interpret=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want).reshape(q.shape),
                                rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.3])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_zero_and_negative_scale_match_pallas(scale, causal):
+    """The Pallas kernel masks after the scale, so a zero scale averages the
+    unmasked keys and a negative one still drops the masked ones; the port
+    (here its plain version, on the card both bodies) does the same.  The
+    Pallas kernel is called unjitted: its jit takes no explicit scale."""
+    (qj, qt), (kj, kt), (vj, vt) = _attn((2, 70, 16), (2, 70, 16), "float32")
+    got = fa.flash_attention(qt, kt, vt, causal=causal, scale=scale)
+    want = ops.flash_attention.__wrapped__(qj, kj, vj, causal=causal,
+                                           scale=scale, bq=32, bk=48,
+                                           interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-3,
+                               atol=2e-3)
+
+
+def _split_p_attention(q, k, v, terms):
+    """The wgmma body's arithmetic in plain PyTorch, causal over S = T, GQA:
+    scores and P = exp(s - max) in f32, P·V from bf16 terms of P (hi, or
+    hi + lo with lo = bf16(P - hi)) times bf16 V, products exact and sums
+    in f32, divided by the f32 row sum, rounded once to bf16."""
+    g = q.shape[1] // k.shape[1]
+    kr, vr = (t.repeat_interleave(g, 1).float() for t in (k, v))
+    S = q.shape[2]
+    s = (q.float() @ kr.transpose(-1, -2)) * q.shape[-1] ** -0.5
+    s = s.masked_fill(torch.arange(S)[:, None] < torch.arange(S)[None, :],
+                      ref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    o = hi @ vr
+    if terms == 2:
+        o = o + (p - hi).bfloat16().float() @ vr
+    return (o / p.sum(-1, keepdim=True)).bfloat16()
+
+
+def _ulp_excess(o, o64):
+    """max(|o - o64| - (1e-5 + 2⁻⁷·|o64|)): above 0 is more than one bf16
+    ulp off float64."""
+    return float(((o.double() - o64).abs() - 1e-5 - 2.0 ** -7 * o64.abs())
+                 .max())
+
+
+@pytest.mark.parametrize("S,d,g", [(70, 64, 3), (128, 128, 3), (257, 64, 1)])
+def test_flash_attention_split_p_holds_one_bf16_ulp(S, d, g):
+    """Why the wgmma body splits P: on bf16 q/k/v from N(0, 1), causal,
+    P·V from P_hi + P_lo stays within one bf16 ulp of the float64 function
+    (chip_smoke.py's limit), while a single bf16 rounding of P, as
+    FlashAttention and SDPA do, misses it on the early rows, which average
+    a few keys.  The split emulation, rounded once, also agrees with the
+    Pallas kernel (interpret mode, f32 P) within one bf16 ulp: each
+    rounds once."""
+    B, nkv = 1, 2
+    (qj, q), (kj, k), (vj, v) = _attn((B, nkv * g, S, d), (B, nkv, S, d),
+                                      "bfloat16")
+    o64 = ref.flash_attention_ref(q, k, v, causal=True, dtype=torch.float64)
+    split = _split_p_attention(q, k, v, terms=2)
+    assert _ulp_excess(split, o64) <= 0
+    assert _ulp_excess(_split_p_attention(q, k, v, terms=1), o64) > 1e-4
+    rep = [jnp.repeat(a, g, axis=1).reshape(-1, S, d) for a in (kj, vj)]
+    pallas = ops.flash_attention(qj.reshape(-1, S, d), *rep, causal=True,
+                                 bq=64, bk=64, interpret=True)
+    pallas = torch.from_numpy(np.asarray(pallas, np.float32)).reshape(
+        split.shape).double()
+    assert _ulp_excess(split, pallas) <= 0
 
 
 @pytest.mark.parametrize("sq,sk", [(32, 32), (40, 100), (100, 40)])
