@@ -40,7 +40,12 @@ Phases, each printing one JSON line:
                 a Zipf-like law and y from a logistic model; first the SpMM
                 kernel rows (as phase 2), then ``glm(Xs, y, "logistic",
                 ridge=1e-3, max_iter=8)`` and one ``crossprod(Xs)`` on
-                ``cuda``, checked for convergence and exact level counts;
+                ``cuda``, checked for convergence and exact level counts
+                (the ``spmm_gram`` / ``spmm_wgram`` rows also print the
+                kernel's design — threads, tile edge, tiles, splits, body,
+                registers and spills — and ``pair_products``, the in-tile
+                shared-memory atomics of one call, counted on the card from
+                each row's per-stripe entry counts);
                 ``torch``, which densifies, is compared with ``cuda`` on the
                 first 2^18 rows;
              d. after the Criteo data is freed, the LM serving path
@@ -52,7 +57,9 @@ Phases, each printing one JSON line:
                 held within one bf16 rounding of its f32 plain version and of
                 float64 on a few heads, and an f32 case; the row names the
                 kernel body that ran, its design bound and its registers and
-                spills from the build log), then 4 prompts of
+                spills from the build log, and a head-dim-112 case — zamba2-
+                7b's 32 heads, S = 4096, bf16, causal, on the FMA body —
+                held to the same rule, its time printed), then 4 prompts of
                 4096 random tokens prefilled (the kernel must launch once per
                 layer) and 32 greedy decode steps, counted; then the checks,
                 at the same shape with the same weights and activations
@@ -741,10 +748,30 @@ def sparse_fm(cols, vals):
     return fm.FM(FMMatrix(store.shape, torch.float32, store=store))
 
 
+def tile_pairs(torch, cols, vals, ts):
+    """The shared-memory atomics one spmm_gram / spmm_wgram call makes: per
+    row, h_I stored non-zero entries in stripe I of ts columns, and tile
+    (I, J), I <= J, takes h_I·h_J of its pairs, so a row adds
+    ((Σ h_I)² + Σ h_I²) / 2; counted on the card a chunk of rows at a
+    time."""
+    ncol = CRITEO_FACTORS * CRITEO_BUCKETS
+    nst = -(-ncol // ts)
+    total = 0
+    for a, b in row_chunks(cols.shape[0]):
+        c = cols[a:b].long()
+        ok = ((vals[a:b] != 0) & (c >= 0) & (c < ncol)).double()
+        h = torch.zeros((b - a, nst + 1), dtype=torch.float64,
+                        device=cols.device)
+        h.scatter_add_(1, torch.where(ok > 0, c // ts, nst), ok)
+        h = h[:, :nst]
+        total += int(((h.sum(1) ** 2 + (h * h).sum(1)) / 2).sum())
+    return total
+
+
 def spmm_rows(torch, cols, vals):
     """The three SpMM kernels at the Criteo shape against their plain
     versions (float32 and float64, both a chunk of rows at a time)."""
-    from repro_torch.kernels import ref, spmm
+    from repro_torch.kernels import build, ref, spmm
     n, kmax = cols.shape
     ncol = CRITEO_FACTORS * CRITEO_BUCKETS
     gen = torch.Generator(device=cols.device)
@@ -753,6 +780,14 @@ def spmm_rows(torch, cols, vals):
     z = torch.randn((n, 1), generator=gen, device=cols.device)
     slab = n * kmax * 8
     rows = []
+    ts, tiles, splits = spmm.gram_layout(n, ncol)
+    design = dict(threads=spmm.GRAM_THREADS, ts=ts, tiles=tiles,
+                  splits=splits, rows_in_flight_per_warp=3,
+                  body="warp per row; a warp step per in-tile entry of the "
+                       "row's I side, the J side's lanes adding (kept over "
+                       "numbering the pairs on the lanes, PERF.md)",
+                  pair_products=tile_pairs(torch, cols, vals, ts),
+                  ptxas=build.ptxas_report("spmm", "spmm_gram_partials"))
 
     def finish(row, err, e64s, extra_checks=()):
         emit({"phase": "kernel", **row})
@@ -776,7 +811,7 @@ def spmm_rows(torch, cols, vals):
     row = dict(
         name="spmm_gram", route="cuda",
         source="src/repro_torch/kernels/csrc/spmm.cu",
-        replaces="src/repro/kernels/spmm.py:77",
+        replaces="src/repro/kernels/spmm.py:77", design=design,
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=rel_err(torch, g, gp), tol=1e-4, diag_err_f64=d64,
         offdiag_err_f64=o64, tol_f64=F64_TOL,
@@ -845,7 +880,7 @@ def spmm_rows(torch, cols, vals):
     row = dict(
         name="spmm_wgram", route="cuda",
         source="src/repro_torch/kernels/csrc/spmm.cu",
-        replaces="src/repro/kernels/spmm.py:168",
+        replaces="src/repro/kernels/spmm.py:168", design=design,
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=rel_err(torch, g, gp), tol=1e-4, diag_err_f64=d64,
         offdiag_err_f64=o64, tol_f64=F64_TOL,
@@ -1020,7 +1055,11 @@ def flash_row(torch):
             q, k, v, is_causal=True, enable_gqa=True)),
         library="torch.nn.functional.scaled_dot_product_attention("
                 "is_causal=True, enable_gqa=True)")
+    row["d112"] = flash_d112(torch)
     emit({"phase": "kernel", **row})
+    check(row["d112"]["tol_excess"] <= 0, "flash_attention at head dim 112 "
+          "exceeds 2e-3 + 1e-2·|plain| of the f32 plain version by "
+          f"{row['d112']['tol_excess']}")
     check(excess <= 0, f"flash_attention bf16 exceeds 2e-3 + 1e-2·|plain| "
           f"of the f32 plain version by {excess}")
     check(excess64 <= 0, f"flash_attention bf16 exceeds one bf16 ulp of "
@@ -1030,6 +1069,30 @@ def flash_row(torch):
     del q, k, v, o, diff, qf, kf, vf, of, pf
     torch.cuda.empty_cache()
     return row
+
+
+def flash_d112(torch):
+    """Head dim 112 (zamba2-7b's attention: 32 heads, no GQA), bf16, causal,
+    S = T = 4096 on the FMA body, against the f32 plain version under the
+    serving row's rule; its time is printed, not checked."""
+    from repro_torch.kernels import build, flash_attention as fa, ref
+    B, nh, S, d = 1, 32, LM_PROMPT, 112
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 5)
+    q, k, v = (torch.randn((B, nh, S, d), generator=gen, device=DEVICE,
+                           dtype=torch.bfloat16) for _ in range(3))
+    o = fa.flash_attention(q, k, v, causal=True)
+    pf = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    diff = (o.float() - pf).abs()
+    out = dict(shape=f"q, k, v ({B}, {nh}, {S}, {d}) bf16, causal",
+               body=fa.body_for(q.dtype, d), max_abs_err=float(diff.max()),
+               tol_excess=float((diff - 2e-3 - 1e-2 * pf.abs()).max()),
+               ms=time_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                            causal=True)),
+               ptxas=build.ptxas_report("flash_attention",
+                                        f"flash_fwdI13__nv_bfloat16Li{d}E"))
+    del q, k, v, o, pf, diff
+    return out
 
 
 def lm_phase(torch, flash_ms):

@@ -16,10 +16,10 @@
 //     granite 128): the Hopper body, namespace hopper below — TMA into an
 //     mbarrier ring, QKᵀ and both terms of P·V on wgmma; its note has the
 //     design.
-//   * f32 inputs, and bf16 at head dims 16 and 32 (tests, reduced configs):
-//     the FMA body that follows, f32 throughout (bf16 values are widened as
-//     they are staged; their products are exact in f32).  One block owns a
-//     64-row q tile:
+//   * f32 inputs, and bf16 at the other head dims (16 and 32 in tests and
+//     reduced configs; 80, 96, 112 and 256): the FMA body that follows, f32
+//     throughout (bf16 values are widened as they are staged; their
+//     products are exact in f32).  One block owns a 64-row q tile:
 //
 //   * S = QKᵀ of a 64 × 64 tile in f32 FMA: Q staged transposed, thread
 //     (ty, tx) a 4 × 4 register tile fed by float4 shared loads.
@@ -28,7 +28,8 @@
 //     the 16 lanes of a half-warp, the row sum l stays a per-thread partial
 //     until the end.  P goes to shared memory transposed.
 //   * O += P·V in f32 FMA, as the Pallas kernel has it: thread (ty, tx)
-//     owns rows ty·4 .. +3 and D/16 output columns, V staged as f32.
+//     owns rows ty·4 .. +3 and D/16 output columns, in chunks of VEC
+//     adjacent columns read by one shared load, V staged as f32.
 //   * Ragged S and T are masked while staging (zeros), never padded by a copy.
 //   * GQA: block (b, h) reads K/V head b·nkv + h / g, so KV is never
 //     repeated (g = 1 is the Pallas kernel's matched heads).  Both bodies.
@@ -37,7 +38,9 @@
 //     heaviest q tiles are scheduled first (blockIdx.y counts down).  Both
 //     bodies.
 //   * Offsets are 64-bit: B·nh·S·D passes 2³¹ at the repo's prefill_32k.
-//   * Shared memory: 86,016 bytes a block at D = 128: two blocks an SM.
+//   * Shared memory: 86,016 bytes a block at D = 128: two blocks an SM;
+//     153,600 at D = 256: one.  Row strides D + 4 floats keep every row
+//     16-byte aligned at each D (a multiple of 16).
 //
 // Bound on the card: 2·B·nh·S²·D operations causal (4.12e11 at the serving
 // path's B 4, 24 heads, S 4096, D 128) against 268 MB of bytes, so it is
@@ -132,15 +135,20 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int64_t r0
   }
 }
 
+// Two blocks an SM fit in shared memory up to D = 128, one at D = 256 (whose
+// registers the bound then leaves free).
 template <typename T, int D>
-__global__ void __launch_bounds__(THREADS, 2)
+__global__ void __launch_bounds__(THREADS, D > 128 ? 1 : 2)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int nh, int group, int64_t S, int64_t Tk, float scale,
           int causal, int n_qt) {
   constexpr int KS = D + 4;                  // f32 row stride of K / V
-  constexpr int VEC = D >= 64 ? 4 : D / 16;  // output columns a thread per chunk
-  constexpr int NCH = D / (16 * VEC);        // chunks of 16·VEC columns
-  constexpr int DC = VEC * NCH;              // = D / 16 output columns a thread
+  constexpr int DC = D / 16;                 // output columns a thread
+  // Output columns a thread per chunk: the largest of 4, 2, 1 dividing
+  // D / 16, so that 16·VEC·NCH = D (VEC 1 at D 80 and 112, 2 at 96).
+  constexpr int VEC = DC % 4 == 0 ? 4 : DC % 2 == 0 ? 2 : 1;
+  constexpr int NCH = DC / VEC;              // chunks of 16·VEC columns
+  static_assert(D % 16 == 0 && 16 * VEC * NCH == D, "head dim");
   extern __shared__ __align__(16) float smem[];
   // qt (D × QS, Q transposed) | kv (BK × KS: K, then V) | pt (BK × PS)
   float* qt = smem;
@@ -320,7 +328,11 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int bh, int n
     case 16: return launch<T, 16>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
     case 32: return launch<T, 32>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
     case 64: return launch<T, 64>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
+    case 80: return launch<T, 80>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
+    case 96: return launch<T, 96>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
+    case 112: return launch<T, 112>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
     case 128: return launch<T, 128>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
+    case 256: return launch<T, 256>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -828,19 +840,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh, int nh,
 extern "C" {
 
 // The FMA body.  q, o: (bh, S, d) with bh = B·nh; k, v: (B·nh/group, T,
-// d); all contiguous and 16-byte aligned, float32 (dtype 0, d ∈ {16, 32,
-// 64, 128}) or bfloat16 (dtype 1, d ∈ {16, 32}: 64 and 128 take
+// d); all contiguous and 16-byte aligned, d ∈ {16, 32, 64, 80, 96, 112,
+// 128, 256}, float32 (dtype 0) or bfloat16 (dtype 1; d 64 and 128 take
 // fm_flash_attention_wgmma).  S ≥ 1, T ≥ 1, ceil(S / 64) ≤ 65535.
 int fm_flash_attention(const void* q, const void* k, const void* v, void* o, int bh,
                        int nh, int group, int64_t S, int64_t Tk, int d, float scale,
                        int causal, int dtype, void* stream) {
   if (dtype == 0)
     return dispatch<float>(q, k, v, o, bh, nh, group, S, Tk, d, scale, causal, stream);
-  switch (d) {
-    case 16: return launch<__nv_bfloat16, 16>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
-    case 32: return launch<__nv_bfloat16, 32>(q, k, v, o, bh, nh, group, S, Tk, scale, causal, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (d == 64 || d == 128) return (int)cudaErrorInvalidValue;  // the wgmma body's
+  return dispatch<__nv_bfloat16>(q, k, v, o, bh, nh, group, S, Tk, d, scale, causal,
+                                 stream);
 }
 
 // The Hopper body (namespace hopper): q, k, v, o bfloat16, d ∈ {64, 128};

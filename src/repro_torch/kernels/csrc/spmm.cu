@@ -11,25 +11,31 @@
 // times the work, so each kernel adds the products of a row's stored entries
 // straight into an output tile held in shared memory:
 //
-//   launch 1 (*_partials): grid (tiles, splits).  The output is cut into
-//     tiles that fit in shared memory — for XᵀX/XᵀWX square tiles (I, J) of
-//     ts×ts with I ≤ J (the rest is the mirror image), for XᵀY stripes of cs
-//     rows × qc columns.  Block (t, s) owns tile t over the row range of split
-//     s: chunks of rows are copied into shared memory with cp.async, double
-//     buffered (the next chunk is in flight while this one is computed); each
-//     row is taken by tpr threads, each of which builds bit masks of the
-//     row's entries that fall in the tile's row range (its own share of them)
-//     and column range, and adds v_a·v_b (·w_r) for every pair of set bits
-//     into the tile with shared-memory atomics.  The blocks of one split are
-//     launched next to each other, so they read the same rows from L2 at
-//     about the same time: the slab comes from device memory about once.
+//   launch 1 (*_partials): grid (tiles, splits), tiles fastest.  The output
+//     is cut into tiles that fit in shared memory; block (t, s) owns tile t
+//     over the row range of split s and adds every product that falls into
+//     it with shared-memory atomics.  The blocks of one split are launched
+//     next to each other, so they read the same rows from L2 at about the
+//     same time: the slab comes from device memory about once.
+//       XᵀX / XᵀWX: square tiles (I, J) of ts×ts with I ≤ J (the rest is
+//     the mirror image), 1,024 threads and the whole of the block's shared
+//     memory for the tile (ts = 240, 28 tiles at ncol = 1,664).  A warp takes
+//     a row, its lanes the row's entries, read straight from global memory
+//     (no staging), the next rows' loads in flight; two ballots mark the
+//     entries in the tile's row and column ranges, and each in-tile entry
+//     of the I side takes one warp step, the J side's lanes adding its
+//     products.  Rows wider than 32 entries go in 32-entry chunks, each I
+//     chunk against each J chunk, so any kmax is taken.
+//       XᵀY: stripes of cs rows × qc columns.  Chunks of rows are copied
+//     into shared memory with cp.async, double buffered; tpr threads take a
+//     row, build bit masks of its entries in the stripe and add v_a·y_j.
 //   launch 2 (*_reduce): one thread per output element sums the splits'
 //     partial tiles in split order (and mirrors the I < J tiles).
 //
 // Shared-memory float atomics compile to compare-and-swap loops
-// (ATOMS.CAST.SPIN) on sm_90a; at the Criteo shape spmm_gram makes about 380
-// of them a row, and each block scans its rows' masks once per tile — these,
-// not the slab's bytes, set its time.
+// (ATOMS.CAST.SPIN) on sm_90a; at the Criteo shape spmm_gram makes about 390
+// of them a row over its 28 tiles, and each tile reads every row once from
+// L2 — these, not the slab's bytes, set its time.
 //
 // Accuracy: f32 throughout, as the reference.  A frequent level's entry sums
 // millions of terms; each split's partial sums only its own rows (the wrapper
@@ -132,17 +138,73 @@ __device__ __forceinline__ void tile_of(int t, int nst, int& I, int& J) {
   J = I + t;
 }
 
+constexpr int GRAM_THREADS = 1024;           // 32 warps, one block an SM
+constexpr int GRAM_WARPS = GRAM_THREADS / 32;
+constexpr int AHEAD = 3;                      // rows a warp has in flight
+constexpr unsigned FULL = 0xffffffffu;
+
+// *(float*)a += v at the 32-bit shared address a; no value returned.
+__device__ __forceinline__ void shared_add(unsigned a, float v) {
+  asm volatile("red.shared.add.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
+
+// Entry (c, v) of the row at c_ptr / v_ptr (this lane's entry, lane <
+// kmax), the row's weight w; (-1, 0, 1) when there is no such row or entry.
 template <bool WEIGHTED>
-__global__ void __launch_bounds__(THREADS, 1)
+__device__ __forceinline__ void fetch_row(bool row, bool entry,
+                                          const int* c_ptr, const float* v_ptr,
+                                          const float* w_ptr, int& c, float& v,
+                                          float& w) {
+  c = -1;
+  v = 0.f;
+  w = 1.f;
+  if (row) {
+    if (entry) {
+      c = __ldg(c_ptr);
+      v = __ldg(v_ptr);
+    }
+    if (WEIGHTED) w = __ldg(w_ptr);
+  }
+}
+
+// Add the products of one 32-entry chunk pair of a row into the tile at
+// shared address acc (row stride rb = 4·ts bytes): lane a holds entry
+// (ca, va·w_r) of the I side, lane b (cb, vb) of the J side; mI, mJ mark the
+// entries in the tile's row / column range.  One warp step per set bit a
+// of mI: its entry is broadcast by two shuffles and the lanes of mJ add
+// va·vb at (ca − i0, cb − j0).  Distinct columns give distinct addresses;
+// duplicates stay right because the add is atomic.
+__device__ __forceinline__ void add_pairs(unsigned acc, int rb, int i0, int j0,
+                                          unsigned mI, int ca, float va,
+                                          unsigned mJ, int cb, float vb) {
+  const bool mine = (mJ >> (threadIdx.x & 31)) & 1u;
+  const unsigned col = acc + 4u * (unsigned)(cb - j0) - (unsigned)(i0 * rb);
+  for (unsigned m = mI; m; m &= m - 1) {
+    const int a = __ffs(m) - 1;
+    const int c = __shfl_sync(FULL, ca, a);
+    const float v = __shfl_sync(FULL, va, a);
+    if (mine) shared_add(col + (unsigned)(c * rb), v * vb);
+  }
+}
+
+// Block (t, s) adds, over the rows of split s, every product x_ra·x_rb (·w_r)
+// whose (col_a, col_b) falls in square tile t of the upper triangle into
+// that tile in shared memory, then writes the tile to its workspace slot.
+// Warp w takes rows r_begin + w, + 32, …; lane k holds the row's entry k,
+// so a row is two coalesced loads of 4·kmax bytes and a broadcast of w_r.
+// Two ballots mark the row's entries in the tile's row and column ranges;
+// a row with none on either side costs nothing more.  The next AHEAD rows
+// are loaded before the current one is worked, so each warp keeps that
+// many rows' loads in flight.  WIDE (kmax > 32): the prefetched registers
+// hold a row's first 32 entries, and its other 32-entry chunks are loaded
+// as each I chunk meets each J chunk.
+template <bool WEIGHTED, bool WIDE>
+__global__ void __launch_bounds__(GRAM_THREADS, 1)
 spmm_gram_partials(const int* __restrict__ cols, const float* __restrict__ vals,
                    const float* __restrict__ w, float* __restrict__ ws,
-                   int64_t n, int kmax, int ncol, int ts, int nst, int tpr,
+                   int64_t n, int kmax, int ncol, int ts, int nst,
                    int64_t rows_per_split) {
-  extern __shared__ __align__(16) float smem[];
-  const int ch = THREADS / tpr, kp = kmax | 1, ex = WEIGHTED ? 1 : 0;
-  float* acc = smem;
-  float* stage_base = smem + ts * ts;
-
+  extern __shared__ __align__(16) float tile[];
   int I, J;
   tile_of(blockIdx.x, nst, I, J);
   const int i0 = I * ts, i1 = min(ncol, i0 + ts);
@@ -150,64 +212,78 @@ spmm_gram_partials(const int* __restrict__ cols, const float* __restrict__ vals,
   const int64_t split = blockIdx.y;
   const int64_t r_begin = split * rows_per_split;
   const int64_t r_end = min64(n, r_begin + rows_per_split);
-  const int rr = threadIdx.x % ch, sub = threadIdx.x / ch;
+  const int lane = threadIdx.x & 31;
+  const unsigned acc = static_cast<unsigned>(__cvta_generic_to_shared(tile));
+  const int rb = 4 * ts;
 
-  for (int e = threadIdx.x; e < ts * ts; e += THREADS) acc[e] = 0.f;
+  for (int e = threadIdx.x; e < ts * ts; e += GRAM_THREADS) tile[e] = 0.f;
+  __syncthreads();
 
-  int buf = 0;
-  if (r_begin < r_end) {
-    Stage st = stage_at(stage_base, 0, ch, kp, ex);
-    const int rows = (int)min64(ch, r_end - r_begin);
-    stage_rows(cols, vals, st, r_begin, rows, kmax, kp);
-    if (WEIGHTED)
-      for (int e = threadIdx.x; e < rows; e += THREADS)
-        cp_async4(st.x + e, w + r_begin + e);
+  // This warp's rows are r0 + 32·i, i < nr; f* point at row i + AHEAD's
+  // entry `lane` (and weight), r* at row i's.
+  const int64_t r0 = r_begin + (threadIdx.x >> 5);
+  const int nr = r0 < r_end ? (int)((r_end - r0 + GRAM_WARPS - 1) / GRAM_WARPS) : 0;
+  const int64_t step = (int64_t)GRAM_WARPS * kmax;
+  const bool entry = lane < kmax;
+  const int* fc = cols + r0 * kmax + lane;
+  const float* fv = vals + r0 * kmax + lane;
+  const float* fw = WEIGHTED ? w + r0 : nullptr;
+  const int* rc = fc;
+  const float* rv = fv;
+  int qc[AHEAD];
+  float qv[AHEAD], qw[AHEAD];
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {
+    fetch_row<WEIGHTED>(s < nr, entry, fc, fv, fw, qc[s], qv[s], qw[s]);
+    fc += step;
+    fv += step;
+    if (WEIGHTED) fw += GRAM_WARPS;
   }
-  cp_async_commit();
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += ch) {
-    const int rows = (int)min64(ch, r_end - r0);
-    const int64_t nx = r0 + ch;
-    if (nx < r_end) {
-      Stage st = stage_at(stage_base, buf ^ 1, ch, kp, ex);
-      const int nrows = (int)min64(ch, r_end - nx);
-      stage_rows(cols, vals, st, nx, nrows, kmax, kp);
-      if (WEIGHTED)
-        for (int e = threadIdx.x; e < nrows; e += THREADS)
-          cp_async4(st.x + e, w + nx + e);
+  for (int i = 0; i < nr; ++i) {
+    const int c0 = qc[0];
+    const float v0 = qv[0], wr = qw[0];
+#pragma unroll
+    for (int s = 0; s + 1 < AHEAD; ++s) {
+      qc[s] = qc[s + 1];
+      qv[s] = qv[s + 1];
+      qw[s] = qw[s + 1];
     }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (rr < rows) {
-      const Stage st = stage_at(stage_base, buf, ch, kp, ex);
-      const int* rc = st.c + rr * kp;
-      const float* rv = st.v + rr * kp;
-      const float wr = WEIGHTED ? st.x[rr] : 1.f;
+    fetch_row<WEIGHTED>(i + AHEAD < nr, entry, fc, fv, fw, qc[AHEAD - 1],
+                        qv[AHEAD - 1], qw[AHEAD - 1]);
+    fc += step;
+    fv += step;
+    if (WEIGHTED) fw += GRAM_WARPS;
+    if (!WIDE) {
+      const bool live = v0 != 0.f;
+      const unsigned mI = __ballot_sync(FULL, live && c0 >= i0 && c0 < i1);
+      const unsigned mJ = __ballot_sync(FULL, live && c0 >= j0 && c0 < j1);
+      if (mI && mJ) add_pairs(acc, rb, i0, j0, mI, c0, v0 * wr, mJ, c0, v0);
+    } else {
       for (int a0 = 0; a0 < kmax; a0 += 32) {
-        const unsigned ma = row_mask(rc, rv, a0, kmax, i0, i1, tpr, sub);
-        if (!ma) continue;
+        int ca = c0;
+        float va = v0, unused;
+        if (a0) fetch_row<false>(true, a0 + lane < kmax, rc + a0, rv + a0,
+                                 nullptr, ca, va, unused);
+        const unsigned mI = __ballot_sync(FULL, va != 0.f && ca >= i0 && ca < i1);
+        if (!mI) continue;
         for (int b0 = 0; b0 < kmax; b0 += 32) {
-          const unsigned mb = row_mask(rc, rv, b0, kmax, j0, j1, 1, 0);
-          if (!mb) continue;
-          for (unsigned m = ma; m; m &= m - 1) {
-            const int a = a0 + __ffs(m) - 1;
-            const float va = rv[a] * wr;
-            float* row = acc + (rc[a] - i0) * ts - j0;
-            for (unsigned mm = mb; mm; mm &= mm - 1) {
-              const int b = b0 + __ffs(mm) - 1;
-              atomicAdd(row + rc[b], va * rv[b]);
-            }
-          }
+          int cb = b0 ? ca : c0;
+          float vb = b0 ? va : v0;
+          if (b0 && b0 != a0)
+            fetch_row<false>(true, b0 + lane < kmax, rc + b0, rv + b0, nullptr,
+                             cb, vb, unused);
+          const unsigned mJ =
+              __ballot_sync(FULL, vb != 0.f && cb >= j0 && cb < j1);
+          if (mJ) add_pairs(acc, rb, i0, j0, mI, ca, va * wr, mJ, cb, vb);
         }
       }
     }
-    __syncthreads();
-    buf ^= 1;
+    rc += step;
+    rv += step;
   }
-  cp_async_wait<0>();
   __syncthreads();
   float* out = ws + (split * gridDim.x + blockIdx.x) * (int64_t)ts * ts;
-  for (int e = threadIdx.x; e < ts * ts; e += THREADS) out[e] = acc[e];
+  for (int e = threadIdx.x; e < ts * ts; e += GRAM_THREADS) out[e] = tile[e];
 }
 
 // out (ncol, ncol) = Σ_s partial tiles, in split order; entry (i, j) of a
@@ -324,23 +400,23 @@ cudaError_t allow_smem(K kern, int64_t bytes) {
                               (int)bytes);
 }
 
-template <bool WEIGHTED>
+template <bool WEIGHTED, bool WIDE>
 int launch_gram(const void* cols, const void* vals, const void* w, void* ws,
-                void* out, int64_t n, int kmax, int ncol, int ts, int tpr,
+                void* out, int64_t n, int kmax, int ncol, int ts,
                 int64_t splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nst = (ncol + ts - 1) / ts;
   const int ntiles = nst * (nst + 1) / 2;
-  const int64_t smem = smem_bytes(ts * ts, kmax, tpr, WEIGHTED ? 1 : 0);
-  auto kern = spmm_gram_partials<WEIGHTED>;
+  const int64_t smem = 4 * (int64_t)ts * ts;
+  auto kern = spmm_gram_partials<WEIGHTED, WIDE>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   const int64_t rps = (n + splits - 1) / splits;
   dim3 grid((unsigned)ntiles, (unsigned)splits);
-  kern<<<grid, THREADS, smem, st>>>(
+  kern<<<grid, GRAM_THREADS, smem, st>>>(
       static_cast<const int*>(cols), static_cast<const float*>(vals),
       static_cast<const float*>(w), static_cast<float*>(ws), n, kmax, ncol, ts,
-      nst, tpr, rps);
+      nst, rps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t total = (int64_t)ncol * ncol;
@@ -354,20 +430,25 @@ int launch_gram(const void* cols, const void* vals, const void* w, void* ws,
 
 extern "C" {
 
-// ws holds splits · nst(nst+1)/2 · ts² floats, nst = ceil(ncol / ts).
+// ws holds splits · nst(nst+1)/2 · ts² floats, nst = ceil(ncol / ts);
+// ts² floats fit one block's shared memory.
 int fm_spmm_gram(const void* cols, const void* vals, void* ws, void* out,
-                 int64_t n, int kmax, int ncol, int ts, int tpr, int64_t splits,
+                 int64_t n, int kmax, int ncol, int ts, int64_t splits,
                  void* stream) {
-  return launch_gram<false>(cols, vals, nullptr, ws, out, n, kmax, ncol, ts,
-                            tpr, splits, stream);
+  return kmax > 32 ? launch_gram<false, true>(cols, vals, nullptr, ws, out, n,
+                                              kmax, ncol, ts, splits, stream)
+                   : launch_gram<false, false>(cols, vals, nullptr, ws, out, n,
+                                               kmax, ncol, ts, splits, stream);
 }
 
 // w is float32 (n,).
 int fm_spmm_wgram(const void* cols, const void* vals, const void* w, void* ws,
-                  void* out, int64_t n, int kmax, int ncol, int ts, int tpr,
+                  void* out, int64_t n, int kmax, int ncol, int ts,
                   int64_t splits, void* stream) {
-  return launch_gram<true>(cols, vals, w, ws, out, n, kmax, ncol, ts, tpr,
-                           splits, stream);
+  return kmax > 32 ? launch_gram<true, true>(cols, vals, w, ws, out, n, kmax,
+                                             ncol, ts, splits, stream)
+                   : launch_gram<true, false>(cols, vals, w, ws, out, n, kmax,
+                                              ncol, ts, splits, stream);
 }
 
 // y is float32 (n, q); ws holds splits · ceil(ncol/cs) · ceil(q/qc) · cs·qc

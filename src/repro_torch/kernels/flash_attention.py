@@ -22,18 +22,21 @@ head dim alone (``body_for``), both counted in ``launches``:
   would miss one bf16 ulp of the float64 output;
   tests/test_torch_kernels.py shows it).  That split costs 1.5× the tensor
   work: 0.63 ms is this design's bound.
-* ``"fma"`` — f32 inputs, and bf16 at head dims 16 and 32 (the tests and
-  reduced configs): one block per (head, 64-row q tile), all f32 FMA (6.15
-  ms bound at the serving shape), bf16 values widened as they are staged.
+* ``"fma"`` — f32 inputs, and bf16 at every other head dim (16 and 32 in
+  the tests and reduced configs, 80, 96, 112 and 256 in the hybrid and VLM
+  families): one block per (head, 64-row q tile), all f32 FMA (6.15 ms
+  bound at the serving shape), bf16 values widened as they are staged.
 
 Both: masks by absolute id (after the scale, so any scale), GQA by reading
 K/V head h // g (never repeating KV), kv tiles above the causal diagonal
 skipped, heaviest q tiles first, 64-bit offsets.
 
 Layout: q (B, nh, S, D) with k, v (B, nkv, T, D), nh a multiple of nkv, or
-the Pallas kernel's (BH, S, D) with k, v (BH, T, D); all contiguous, each
-starting at a 16-byte-aligned address (both bodies read 16 bytes at a time,
-and TMA takes no other base).
+the Pallas kernel's (BH, S, D) with k, v (BH, T, D); all contiguous.  Both
+bodies read 16 bytes at a time and TMA takes no other base, so an operand
+that starts off a 16-byte boundary (a view at an odd element offset) is
+copied into a fresh buffer first.  The plain CPU path takes any head dim,
+as the Pallas kernel does; the card takes ``HEAD_DIMS``.
 """
 from __future__ import annotations
 
@@ -43,8 +46,9 @@ from . import build, ref
 from .common import route
 
 #: Head dims the kernel is built for (tests 16, reduced configs 32, qwen2
-#: 64, llama / granite 128).
-HEAD_DIMS = (16, 32, 64, 128)
+#: 64, zamba2 112, llama / granite 128, paligemma 256; 80 and 96 for the
+#: other multiples of 16 the FMA body's column split takes).
+HEAD_DIMS = (16, 32, 64, 80, 96, 112, 128, 256)
 #: Query rows a block of the FMA body owns (the wgmma body's 128-row blocks
 #: need fewer): ceil(S / BQ) must fit the grid.
 BQ = 64
@@ -66,9 +70,8 @@ def _check(q, k, v) -> tuple[int, int, int, int, int]:
                         f"float32 or bfloat16; got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
     d = q.shape[-1]
-    if k.shape[-1] != d or d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} (k: {k.shape[-1]}); "
-                         f"the kernel takes {HEAD_DIMS}")
+    if k.shape[-1] != d:
+        raise ValueError(f"flash_attention: q head dim {d}, k {k.shape[-1]}")
     if q.ndim == 3:
         bh, S = q.shape[:2]
         nh, nkv, T = 1, 1, k.shape[1]
@@ -103,12 +106,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = d ** -0.5 if scale is None else float(scale)
     if route(q, k, v) == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d}; the kernel takes "
+                         f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must start at 16-byte-"
-                         "aligned addresses (a view at an element offset "
-                         "that is not a multiple of 16 bytes is not)")
+    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
     if -(-S // BQ) > 65535:
         raise ValueError(f"flash_attention: S = {S} exceeds the grid "
                          f"({65535 * BQ} rows)")

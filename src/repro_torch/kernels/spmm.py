@@ -12,14 +12,20 @@ bytes of w or Y: 2.90 ms for spmm_wgram and spmm_xty at q = 1); the
 n·kmax² = 3.1e10 pair products are 0.93 ms at the f32 rate.  What sets their
 time is neither: the (ncol, ncol) output (11.1 MB) does not fit in shared
 memory, so every pair product is an atomic add into an output tile that does.
-The design (see the source): the output is cut into shared-memory tiles
-(upper-triangle tiles of XᵀX and XᵀWX, mirrored at the end), one block per
-(tile, split of the rows) adds the pair products that fall into its tile,
-the blocks of a split run side by side so the slab is read from device
-memory about once (from L2 once per tile), and a second launch adds the
-splits' partial tiles in a fixed order.  Rows per split and the workspace
-are capped (``WS_CAP_BYTES``), so no f32 accumulator sums more than one
-split's rows.
+The output is cut into shared-memory tiles (upper-triangle square tiles of
+XᵀX and XᵀWX, mirrored at the end; stripes of XᵀY), one block per (tile,
+split of the rows) adds the products that fall into its tile, the blocks of
+a split run side by side so the slab is read from device memory about once
+(from L2 once per tile), and a second launch adds the splits' partial tiles
+in a fixed order.  Rows per split and the workspace are capped
+(``WS_CAP_BYTES``), so no f32 accumulator sums more than one split's rows.
+
+XᵀX and XᵀWX (``gram_tile``): 1,024 threads a block and the whole of its
+shared memory for one tile (ts = 240 at Criteo: 28 tiles), a warp per row,
+the row's entries on its lanes straight from global memory, any kmax.  XᵀY
+(``xty_tile``) stages chunks of rows in shared memory beside its stripe, so
+its rows are capped (about 14,500 entries at q = 1): the engine's matcher
+declines a wider source, and a direct call raises.
 
 On CPU tensors each wrapper runs its plain version in ``ref``.
 """
@@ -38,9 +44,11 @@ xty_launches = 0
 wgram_launches = 0
 
 THREADS = 256
+#: Threads of a gram / wgram block: 32 warps, one block an SM.
+GRAM_THREADS = 1024
 #: Shared memory a block may take on an H100 (227 KB).
 SMEM_LIMIT = 232448
-#: Shared memory for the two staging buffers of row chunks.
+#: Shared memory for the two staging buffers of row chunks (xty).
 STAGE_LIMIT = 64 * 1024
 #: Cap on the workspace of per-split partial tiles.
 WS_CAP_BYTES = 1 << 30
@@ -72,37 +80,28 @@ def _rows(t: torch.Tensor, n: int, what: str, name: str) -> torch.Tensor:
     return t.to(torch.float32).contiguous()
 
 
-def layout(kmax: int, extra: int) -> tuple[int, int]:
-    """(tpr, shared floats left for the output tile): tpr threads share a row
-    so that two staging buffers of THREADS/tpr rows — kmax (rounded up to odd)
-    cols and vals plus ``extra`` floats a row — fit STAGE_LIMIT."""
-    kp = kmax | 1
-    tpr = 1
-    while tpr < THREADS and 2 * (THREADS // tpr) * (2 * kp + extra) * 4 \
-            > STAGE_LIMIT:
-        tpr *= 2
-    stage = 2 * (THREADS // tpr) * (2 * kp + extra) * 4
-    left = (SMEM_LIMIT - stage) // 4
-    if left < 64:
-        raise ValueError(f"spmm: kmax={kmax} leaves no shared memory for the "
-                         "output tile")
-    return tpr, left
-
-
-def gram_tile(ncol: int, kmax: int, weighted: bool) -> tuple[int, int]:
-    """(ts, tpr): the square tile edge (a multiple of 8, at most ncol rounded
-    up to 8) and the threads per row."""
-    tpr, left = layout(kmax, 1 if weighted else 0)
-    ts = min(math.isqrt(left) // 8 * 8, -(-ncol // 8) * 8)
-    return ts, tpr
+def gram_tile(ncol: int) -> int:
+    """The square tile edge of spmm_gram / spmm_wgram: a multiple of 8 whose
+    tile fills one block's shared memory, at most ncol rounded up to 8."""
+    return min(math.isqrt(SMEM_LIMIT // 4) // 8 * 8, -(-ncol // 8) * 8)
 
 
 def xty_tile(ncol: int, q: int, kmax: int) -> tuple[int, int, int]:
-    """(cs, qc, tpr): stripes of cs output rows × qc of Y's columns."""
+    """(cs, qc, tpr): stripes of cs output rows × qc of Y's columns, tpr
+    threads a row, so that two staging buffers of THREADS/tpr rows — kmax
+    (rounded up to odd) cols and vals plus qc floats a row — fit
+    STAGE_LIMIT and the stripe the shared memory left."""
     qc = min(q, 32)
-    tpr, left = layout(kmax, qc)
-    cs = min(ncol, left // qc)
-    return cs, qc, tpr
+    kp = kmax | 1
+    tpr = 1
+    while tpr < THREADS and 2 * (THREADS // tpr) * (2 * kp + qc) * 4 \
+            > STAGE_LIMIT:
+        tpr *= 2
+    left = (SMEM_LIMIT - 2 * (THREADS // tpr) * (2 * kp + qc) * 4) // 4
+    if left < 64:
+        raise ValueError(f"spmm: kmax={kmax} leaves no shared memory for the "
+                         "output tile")
+    return min(ncol, left // qc), qc, tpr
 
 
 def spmm_splits(n: int, tiles: int, tile_floats: int) -> int:
@@ -116,12 +115,17 @@ def spmm_splits(n: int, tiles: int, tile_floats: int) -> int:
                           65535)))
 
 
-def _gram(cols, vals, w, ncol: int, what: str):
-    n, kmax = cols.shape
-    ts, tpr = gram_tile(ncol, kmax, w is not None)
+def gram_layout(n: int, ncol: int) -> tuple[int, int, int]:
+    """(ts, tiles, splits) of a spmm_gram / spmm_wgram launch."""
+    ts = gram_tile(ncol)
     nst = -(-ncol // ts)
     tiles = nst * (nst + 1) // 2
-    splits = spmm_splits(n, tiles, ts * ts)
+    return ts, tiles, spmm_splits(n, tiles, ts * ts)
+
+
+def _gram(cols, vals, w, ncol: int, what: str):
+    n, kmax = cols.shape
+    ts, tiles, splits = gram_layout(n, ncol)
     dev = cols.device
     ws = torch.empty(splits * tiles * ts * ts, dtype=torch.float32, device=dev)
     out = torch.empty((ncol, ncol), dtype=torch.float32, device=dev)
@@ -129,12 +133,12 @@ def _gram(cols, vals, w, ncol: int, what: str):
     stream = build.stream_handle(cols)
     if w is None:
         err = lib.fm_spmm_gram(cols.data_ptr(), vals.data_ptr(), ws.data_ptr(),
-                               out.data_ptr(), n, kmax, ncol, ts, tpr, splits,
+                               out.data_ptr(), n, kmax, ncol, ts, splits,
                                stream)
     else:
         err = lib.fm_spmm_wgram(cols.data_ptr(), vals.data_ptr(), w.data_ptr(),
                                 ws.data_ptr(), out.data_ptr(), n, kmax, ncol,
-                                ts, tpr, splits, stream)
+                                ts, splits, stream)
     build.check(err, what)
     return out
 

@@ -11,12 +11,15 @@ The shapes cover ragged row counts, column counts below, at and across the
 and all-negative min/max edges, more chains than one launch takes,
 k-means layouts whose centers or row tile do not fit in shared memory, xty
 at thin and wide second operands, and ELL slabs with padding rows,
-duplicate columns, kmax = 1 and kmax past one 32-entry mask window, over
-one and many output tiles; xty's thin path at every narrow width 1..16;
+duplicate columns, kmax = 1 and kmax past one 32-entry chunk (up to
+20,000, wider than xty's staging takes), negative values and rows of
+weight 0, over one and many output tiles; xty's thin path at every narrow
+width 1..16;
 flash attention over ragged S and T (S below, equal to and above T), every
-head dim the kernel is built for, GQA group factors 1, 3 and 8, causal and
-not, bf16 (held within one bf16 ulp of float64) and f32, the wgmma body
-over many kv tiles, zero and negative scales, unaligned bases (refused),
+head dim the kernel is built for (80, 96, 112 and 256 among them), GQA
+group factors 1, 3 and 8, causal and not, bf16 (held within one bf16 ulp
+of float64) and f32, the wgmma body over many kv tiles, zero and negative
+scales, unaligned bases (copied, then equal to the aligned result),
 one case whose element offsets pass 2³¹, and a reduced LM prefill and
 decode on the card against the same on the CPU; xty's 16-byte loads over
 a ragged last column tile at the end of whole allocator segments.
@@ -185,10 +188,39 @@ def test_spmm(dev, n, kmax, ncol, dtype):
         _close(g, r, 1e-5)
 
 
+@pytest.mark.parametrize("kmax", [1, 3, 26, 33, 40, 20000])
+def test_spmm_gram_warp_per_row_body(dev, kmax):
+    """The gram / wgram body over one 32-entry chunk, a chunk and a bit, and
+    625 chunks a row (kmax = 20,000, wider than xty's staging takes): 64
+    rows, ncol = 1,664 (28 tiles), duplicate columns, negative values, and
+    rows of weight 0, against the float64 plain version."""
+    n, ncol = 64, 1664
+    cols, vals = _ell(n, kmax, ncol, dev)
+    cols[5, :64] = int(cols[5, 0])              # one column, up to 64 times
+    # Values in ±{0.5, 1, 1.5}: every f32 partial sum is exact, so the
+    # kernel must hit float64 whatever the order of its atomics.
+    vals = (vals * 2).round() / 2 * torch.where(
+        torch.rand(vals.shape, device=dev) < 0.3, -1.0, 1.0)
+    w = torch.rand(n, device=dev)
+    w[::3] = 0.0
+    before = (spmm.gram_launches, spmm.wgram_launches)
+    got = (spmm.spmm_gram(cols, vals, ncol=ncol),
+           spmm.spmm_wgram(cols, vals, w, ncol=ncol))
+    torch.cuda.synchronize()
+    assert (spmm.gram_launches, spmm.wgram_launches) == tuple(
+        b + 1 for b in before)
+    for g, r in zip(got, (ref.spmm_gram_ref(cols, vals, ncol, torch.float64),
+                          ref.spmm_wgram_ref(cols, vals, w, ncol,
+                                             torch.float64))):
+        assert g.shape == (ncol, ncol) and g.dtype == torch.float32
+        _close(g, r, 1e-5)
+
+
 @pytest.mark.parametrize("q", [1, 40])
 def test_spmm_criteo_layout(dev, q):
-    """The main path's tiling (ncol = 1664, kmax = 26: 36 triangle tiles, two
-    threads a row, xty in one or several column stripes) on 20,000 rows."""
+    """The main path's tiling (ncol = 1664, kmax = 26: 28 triangle tiles of
+    240, a warp a row; xty in one or several column stripes) on 20,000
+    rows."""
     cols = torch.as_tensor(
         RNG.integers(0, 64, size=(20000, 26)) + 64 * np.arange(26),
         dtype=torch.int32).to(dev)
@@ -473,23 +505,24 @@ def test_flash_attention_zero_and_negative_scale(dev, d, dtype, scale):
 
 
 def test_flash_attention_unaligned_base_raises(dev):
-    """A contiguous view that starts off a 16-byte boundary is refused by
-    name, before any launch (both bodies read 16 bytes at a time; TMA takes
-    no other base)."""
+    """A contiguous view that starts off a 16-byte boundary (both bodies read
+    16 bytes at a time; TMA takes no other base) is copied to a fresh buffer
+    and computes, one launch, equal to the same values from an aligned
+    base — it no longer raises."""
     for dtype, d in ((torch.bfloat16, 128), (torch.bfloat16, 32),
-                     (torch.float32, 64)):
+                     (torch.float32, 64), (torch.float32, 112)):
         flat = _x(2 * 100 * d + 1, 1, dtype, dev).reshape(-1)
         q = flat[1:].reshape(2, 100, d)
+        assert q.data_ptr() % 16
         k = v = _x(2 * 100, d, dtype, dev).reshape(2, 100, d)
-        before = fa.launches
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.flash_attention(q, k, v)
-        with pytest.raises(ValueError, match="16-byte"):
-            fa.flash_attention(k, q, v)
-        assert fa.launches == before
-        got = fa.flash_attention(q.clone(), k, v)
-        torch.cuda.synchronize()
-        assert fa.launches == before + 1 and torch.isfinite(got.float()).all()
+        for args, aligned in (((q, k, v), (q.clone(), k, v)),
+                              ((k, q, v), (k, q.clone(), v)),
+                              ((k, k, q), (k, k, q.clone()))):
+            before = fa.launches
+            got = fa.flash_attention(*args)
+            torch.cuda.synchronize()
+            assert fa.launches == before + 1
+            assert torch.equal(got, fa.flash_attention(*aligned))
 
 
 def test_flash_attention_offsets_past_2_31(dev):

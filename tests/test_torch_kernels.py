@@ -152,23 +152,83 @@ def test_spmm_plain_versions_work_in_row_chunks(monkeypatch):
 
 
 @pytest.mark.parametrize("kmax,ncol,weighted,want", [
-    (26, 1664, True, (208, 2)), (26, 1664, False, (208, 2)),
-    (1, 5, False, (8, 1)), (40, 100, True, (104, 4))])
+    (26, 1664, True, (240, 28)), (26, 1664, False, (240, 28)),
+    (1, 5, False, (8, 1)), (40, 100, True, (104, 1))])
 def test_spmm_tile_layout_fits_shared_memory(kmax, ncol, weighted, want):
-    """The square tile and threads a row the wrapper picks: the staging
-    buffers and the tile fit one block's 227 KB, as csrc/spmm.cu computes."""
-    ts, tpr = spmm.gram_tile(ncol, kmax, weighted)
-    assert (ts, tpr) == want
-    kp = kmax | 1
-    smem = 4 * (ts * ts + 2 * (spmm.THREADS // tpr) * (2 * kp + weighted))
-    assert smem <= spmm.SMEM_LIMIT
-    cs, qc, tpr = spmm.xty_tile(ncol, 1, kmax)
-    assert cs == ncol and qc == 1
+    """The square tile the gram / wgram wrapper picks fills one block's 227
+    KB alone (no staging: 240 and 28 upper-triangle tiles at Criteo), and
+    the workspace of the splits' partial tiles stays under its cap; xty's
+    staged layout still fits its stripe."""
     n = 45_840_617
-    nst = -(-ncol // ts)
-    tiles = nst * (nst + 1) // 2
-    splits = spmm.spmm_splits(n, tiles, ts * ts)
+    ts, tiles, splits = spmm.gram_layout(n, ncol)
+    assert (ts, tiles) == want and ts == spmm.gram_tile(ncol)
+    assert 4 * ts * ts <= spmm.SMEM_LIMIT and ts % 8 == 0 and ts >= min(
+        ncol, 8)
     assert 4 * splits * tiles * ts * ts <= spmm.WS_CAP_BYTES
+    cs, qc, tpr = spmm.xty_tile(ncol, 1 + weighted, kmax)
+    kp = kmax | 1
+    stage = 2 * (spmm.THREADS // tpr) * (2 * kp + qc)
+    assert cs == ncol and qc == 1 + weighted
+    assert 4 * (cs * qc + stage) <= spmm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("d", [80, 96, 112, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_wide_head_dims_match_pallas(d, causal, dtype):
+    """The head dims of the hybrid (112) and VLM (256) families and the
+    other multiples of 16 the card takes: the plain path computes them as
+    the Pallas kernel does, at its tolerances."""
+    (qj, qt), (kj, kt), (vj, vt) = _attn((2, 70, d), (2, 70, d), dtype)
+    got = fa.flash_attention(qt, kt, vt, causal=causal)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    want = ops.flash_attention(qj, kj, vj, causal=causal, bq=32, bk=48,
+                               interpret=True)
+    np.testing.assert_allclose(_np(got), np.asarray(want, np.float32),
+                               **_attn_tol(dtype))
+    assert d in fa.HEAD_DIMS
+
+
+def test_spmm_xty_declines_rows_too_wide_for_its_tile():
+    """A sparse source of kmax = 20,000 (8 rows): spmm_xty's staged rows
+    leave its stripe no shared memory, so the matcher declines the XᵀY
+    segment by name and it runs the generic rules, equal to the JAX
+    package's result; spmm_gram, which stages nothing, still claims XᵀX,
+    and the wrapper called directly keeps its ValueError."""
+    from repro.core import fm as jfm
+    from repro.core.matrix import FMMatrix as JFMMatrix
+    from repro.storage.sparse import SparseEllStore as JStore
+    from repro_torch.core import lowering
+    from repro_torch.core.fusion import Plan
+    from repro_torch.core.matrix import FMMatrix
+    from repro_torch.storage import SparseEllStore
+    n, kmax, ncol = 8, 20_000, 64
+    cols, vals = _ell_case(n, kmax, ncol)
+    y = RNG.normal(size=(n, 2)).astype(np.float32)
+    ct, vt = torch.from_numpy(cols), torch.from_numpy(vals)
+    X = fm.FM(FMMatrix((n, ncol), torch.float32,
+                       store=SparseEllStore(ct, vt, ncol)))
+    xty = fm.crossprod(X, fm.conv_R2FM(y))
+    plan = Plan([xty.m, fm.crossprod(X).m])
+    text = " | ".join(lowering.dispatch_report(plan, plan.ir,
+                                               "cuda").values())
+    assert "declined: sparse source of kmax=20000: spmm_xty" in text
+    assert "cuda:spmm_gram (claimed by match_spmm)" in text
+    assert "cuda:spmm_xty" not in text
+    (got,) = fm.materialize(xty, backend="cuda")
+    J = jfm.FM(JFMMatrix((n, ncol), np.float32,
+                         store=JStore(cols, vals, ncol)))
+    (want,) = jfm.materialize(jfm.crossprod(J, jfm.conv_R2FM(y)),
+                              backend="xla")
+    dense = np.zeros((n, ncol))
+    np.add.at(dense, (np.repeat(np.arange(n), kmax), cols.reshape(-1)),
+              vals.reshape(-1))
+    np.testing.assert_allclose(fm.as_np(got), jfm.as_np(want), rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_allclose(fm.as_np(got), dense.T @ y, rtol=1e-4,
+                               atol=1e-3)
+    with pytest.raises(ValueError, match="kmax=20000"):
+        spmm.xty_tile(ncol, 2, kmax)
 
 
 @pytest.mark.parametrize("n", ROWS)
@@ -323,7 +383,7 @@ def test_wrappers_validate_inputs():
         spmm.spmm_xty(cols, torch.ones(8, 2), torch.ones(7, 1), ncol=3)
     q = torch.zeros(2, 4, 8, 16)
     for bad in ((q, q[:, :3], q[:, :3]),                     # 4 % 3 heads
-                (q[..., :8], q[..., :8], q[..., :8]),        # head dim 8
+                (q, q[..., :8], q[..., :8]),                 # q 16, k 8
                 (q, q[:, :2, :0], q[:, :2, :0]),             # no keys
                 (q, q[:1, :2], q[:1, :2])):                  # batch
         with pytest.raises(ValueError):
