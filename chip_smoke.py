@@ -11,7 +11,9 @@ Phases, each printing one JSON line:
              65,608,366 × 32 float32, the paper's Friendster-32 input,
              generated on the card from a seeded ``torch.Generator``; xty at
              NMF's and GMM's shapes, its rows naming the thin body's width,
-             splits, registers and spills), held against its plain PyTorch version
+             splits, registers and spills; wgram's row naming the body
+             that ran, its chunk rows, stages, splits and shared bytes,
+             registers and spills), held against its plain PyTorch version
              on the same inputs — the float32 one, and for the sums a
              float64 one, entry by entry — and timed with CUDA events beside
              its plain version, its roofline bound and, where one PyTorch
@@ -45,7 +47,10 @@ Phases, each printing one JSON line:
                 kernel's design — threads, tile edge, tiles, splits, body,
                 registers and spills — and ``pair_products``, the in-tile
                 shared-memory atomics of one call, counted on the card from
-                each row's per-stripe entry counts);
+                each row's per-stripe entry counts; the ``spmm_xty`` row its
+                design — warps, stripe, tiles, splits, rows in flight,
+                swizzle, registers and spills — and ``deterministic``, two
+                calls equal bit for bit, checked);
                 ``torch``, which densifies, is compared with ``cuda`` on the
                 first 2^18 rows;
              d. after the Criteo data is freed, the LM serving path
@@ -282,9 +287,9 @@ def kernel_phase(torch, x, xk):
     from repro_torch.core import fm
     from repro_torch.algorithms.kmeans import _init_centers
     from repro_torch.core.fusion import Plan
-    from repro_torch.kernels import (fused_apply_agg as faa, gram as gram_mod,
-                                     kmeans_assign as ka, ref,
-                                     weighted_gram as wg)
+    from repro_torch.kernels import (build, fused_apply_agg as faa,
+                                     gram as gram_mod, kmeans_assign as ka,
+                                     ref, weighted_gram as wg)
     n, p = x.shape
     rows = []
 
@@ -319,7 +324,10 @@ def kernel_phase(torch, x, xk):
     gen = torch.Generator(device=x.device)
     gen.manual_seed(SEED + 1)
     w = torch.rand(n, generator=gen, device=x.device) * 0.25 + 1e-6
+    tri_before = wg.tri_launches
     g = wg.wgram(x, w)
+    plan = gram_mod.wgram_plan(n, p, x.dtype)
+    body = "tri" if wg.tri_launches > tri_before else "tile"
     err = rel_err(torch, g, ref.wgram_ref(x, w))
     g64 = gram64(torch, x, w)
     diag64, off64 = corr_err(torch, g, g64)
@@ -327,7 +335,13 @@ def kernel_phase(torch, x, xk):
     b = bound(n * p * 4 + n * 4 + p * p * 4, 2 * n * p * p + n * p)
     row = dict(
         name="wgram", route="cuda", source="src/repro_torch/kernels/csrc/gram.cu",
-        replaces="src/repro/kernels/weighted_gram.py:63",
+        replaces="src/repro/kernels/weighted_gram.py:63", body=body,
+        design=dict(chunk_rows=plan.chunk_rows, stages=plan.stages,
+                    splits=plan.splits, rows_per_split=plan.rows_per_split,
+                    smem_bytes=plan.smem_bytes,
+                    threads=gram_mod.TRI_THREADS,
+                    blocks_per_sm=gram_mod.TRI_BLOCKS_PER_SM),
+        ptxas=build.ptxas_report("gram", "wgram_tri_partials"),
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=err, tol=1e-4, diag_err_f64=diag64, tol_f64=F64_TOL,
         offdiag_err_f64=off64, tol_offdiag_f64=F64_TOL_OFFDIAG,
@@ -338,6 +352,8 @@ def kernel_phase(torch, x, xk):
         library_ms=time_ms(torch, lambda: torch.einsum("ni,n,nj->ij", x, w, x),
                            reps=2))
     emit({"phase": "kernel", **row})
+    check(body == plan.body, f"wgram ran the {body} body, its plan says "
+          f"{plan.body}")
     check(err <= 1e-4, f"wgram rel err {err} against the f32 plain version")
     check(diag64 <= F64_TOL and off64 <= F64_TOL_OFFDIAG,
           f"wgram err {diag64} on the diagonal, {off64} off it (correlation "
@@ -836,6 +852,16 @@ def spmm_rows(torch, cols, vals):
     # the units sqrt(Σ_r X_rc² · Σ_r z_r²).
     zn = float(z.double().pow(2).sum().sqrt())
     g = spmm.spmm_xty(cols, vals, z, ncol=ncol)
+    deterministic = bool(torch.equal(g, spmm.spmm_xty(cols, vals, z,
+                                                      ncol=ncol)))
+    cs, qc, warps, xtiles, xsplits = spmm.xty_layout(n, ncol, z.shape[1])
+    xdesign = dict(warps=warps, stripe_rows=cs, stripe_cols=qc,
+                   tiles=xtiles, splits=xsplits,
+                   rows_in_flight_per_warp=spmm.XTY_AHEAD,
+                   smem_bytes=4 * warps * spmm.xty_copy_floats(cs * qc),
+                   swizzle="e + (e >> 6)",
+                   body="warp per row, a private stripe a warp, no atomics",
+                   ptxas=build.ptxas_report("spmm", "spmm_xty_partials"))
     gp = ref.spmm_xty_ref(cols, vals, z, ncol)
     g64 = ref.spmm_xty_ref(cols, vals, z, ncol, torch.float64)
     e64 = float(((g.double() - g64).abs().reshape(-1) / (units * zn)).max())
@@ -859,7 +885,8 @@ def spmm_rows(torch, cols, vals):
     row = dict(
         name="spmm_xty", route="cuda",
         source="src/repro_torch/kernels/csrc/spmm.cu",
-        replaces="src/repro/kernels/spmm.py:121",
+        replaces="src/repro/kernels/spmm.py:121", design=xdesign,
+        deterministic=deterministic,
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=rel_err(torch, g, gp), tol=1e-4, err_f64=e64,
         tol_f64=F64_TOL,
@@ -868,7 +895,8 @@ def spmm_rows(torch, cols, vals):
                          reps=1),
         bound_ms=b[0], bound_by=b[1], library_ms=library_ms,
         library_note=note)
-    finish(row, row["rel_err"], (("entry", e64),))
+    finish(row, row["rel_err"], (("entry", e64),),
+           ((deterministic, "two calls differ"),))
     del g, gp, g64
 
     # spmm_wgram: the sparse IRLS XᵀWX with weights in (0, 0.25].

@@ -486,20 +486,6 @@ def _is_pure_unary_chain(seg):
     return tuple(reversed(names))
 
 
-def _xty_layout_refused(x: Node, y: Node) -> str | None:
-    """Why spmm_xty cannot lay out a sparse source ``x`` against ``y``, or
-    None: rows wider than its staging buffers leave no shared memory for the
-    output stripe (``spmm.xty_tile`` raises)."""
-    from ..kernels import spmm
-    kmax = int(x.mat.store.max_row_nnz)
-    try:
-        spmm.xty_tile(x.ncol, y.ncol, kmax)
-    except ValueError:
-        return (f"sparse source of kmax={kmax}: spmm_xty's staged rows leave "
-                "no shared memory for its output stripe")
-    return None
-
-
 def _match_spmm(plan, ir, claimed, reasons=None):
     """Contraction over a sparse (ELL) source → kernels.spmm; runs first, so
     a SparseBlock never reaches the dense gram/xty/wgram kernels.  Shapes:
@@ -511,8 +497,7 @@ def _match_spmm(plan, ir, claimed, reasons=None):
       XᵀWX);
     * ``crossprod(Xs, Y)``      — sparse left against a dense right; the
       segment may have absorbed a row-local prefix computing Y (IRLS
-      XᵀWz's ``w·z``), which the unit evaluates generically first; a
-      source whose rows are too wide for the kernel's tile is declined.
+      XᵀWz's ``w·z``), which the unit evaluates generically first.
     """
     units = {}
     for seg in ir.segments:
@@ -547,10 +532,6 @@ def _match_spmm(plan, ir, claimed, reasons=None):
                 continue
             if l_sp and not isinstance(right, Small) \
                     and dtypes.is_floating(right.dtype):
-                why = _xty_layout_refused(left, right)
-                if why:
-                    _decline(reasons, seg, why)
-                    continue
                 claimed.add(seg.sid)
                 units[seg.sid] = SpmmUnit("spmm_xty", node, plan=plan,
                                           seg=seg, x_id=left.id,
@@ -586,10 +567,6 @@ def _match_spmm(plan, ir, claimed, reasons=None):
                 _decline(reasons, seg, "absorbed prefix reads the sparse "
                          "source: spmm feeds the leaf to the kernel "
                          "unseen")
-                continue
-            why = _xty_layout_refused(left, right)
-            if why:
-                _decline(reasons, seg, why)
                 continue
             claimed.add(seg.sid)
             units[seg.sid] = SpmmUnit("spmm_xty", node, plan=plan, seg=seg,

@@ -111,11 +111,13 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "fm_gram": (_P, _P, _P, _L, _I, _L, _I, _P),
     "fm_wgram": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
+    # x, w, ws, out, n, p, R, stages, rows_per_split, splits, dtype, stream
+    "fm_wgram_tri": (_P, _P, _P, _P, _L, _I, _I, _I, _L, _L, _I, _P),
     "fm_xty": (_P, _P, _P, _P, _L, _I, _I, _L, _I, _P),
     # cols, vals, [w], ws, out, n, kmax, ncol, ts, splits, stream
     "fm_spmm_gram": (_P, _P, _P, _P, _L, _I, _I, _I, _L, _P),
     "fm_spmm_wgram": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _P),
-    # cols, vals, y, ws, out, n, kmax, ncol, q, qc, cs, tpr, splits, stream
+    # cols, vals, y, ws, out, n, kmax, ncol, q, qc, cs, warps, splits, stream
     "fm_spmm_xty": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _P),
     "fm_fused_apply_agg": (_P, _P, _P, _L, _I, _L, _P, _P),
     "fm_kmeans_assign": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,

@@ -1,5 +1,7 @@
 // G = XᵀX (gram), G = XᵀWX (wgram) for a tall row-major X (n, p), and
-// G = XᵀY (xty) for a second row-aligned operand Y (n, q).
+// G = XᵀY (xty) for a second row-aligned operand Y (n, q).  wgram at p ≤ 32
+// takes its own body (wgram_tri_partials, whose note is below); the tile
+// body described here serves gram, xty's wide operands and wgram at p > 32.
 //
 // Replaces the Pallas kernels repro/kernels/gram.py:_gram_kernel and
 // _xty_kernel, and repro/kernels/weighted_gram.py:_wgram_kernel.  The TPU
@@ -416,6 +418,304 @@ int launch(const void* x, const void* y, const void* w, void* ws, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// wgram for p ≤ 32 (wgram_tri_partials).  The tile body above computes all
+// p² products of a row in one 32×32 tile (1,024 FMAs a row at p = 32, though
+// XᵀWX is symmetric), feeds each 16 FMAs with two 16-byte shared loads
+// (2 KB of shared reads a row), multiplies the weight into every staged
+// element (32 loads of w a row), and stages with scalar loads and two
+// __syncthreads a 64-row chunk.  At Friendster-32 it ran at 4× the bytes
+// bound (10.4 ms against 2.59).  This body:
+//   * Only the upper triangle, in 8×8 register tiles: the columns fall in
+//     nb = ceil(p / 8) blocks of 8 and the nb(nb+1)/2 block pairs (I ≤ J)
+//     are the tiles of a row (10 at p = 32: 640 FMAs a row, not 1,024).
+//     A lane owns one tile of one row slot: a warp takes 32 / tiles rows a
+//     step (3 at p = 32; lanes 30 and 31 repeat a tile and are dropped).
+//     The diagonal tiles compute all 64 products and keep those with a ≤ b.
+//   * The row side is multiplied by w[r] in registers, once per operand
+//     value (8 FMULs a lane a row); w is read once a row (a broadcast).
+//   * Rows arrive by bulk asynchronous copies: X is row-major and a block
+//     takes all p columns, so a split's rows are one contiguous slab, and
+//     each chunk of R rows (with its R weights) is one cp.async.bulk of
+//     R·p elements into a ring of `stages` stages in shared memory,
+//     completing on the stage's mbarrier.  Thread 0 refills a stage once
+//     every thread has passed the __syncthreads after reading it, so
+//     stages − 1 chunks are in flight while one is computed (64 KB a
+//     block at 3 stages of up to 32 KB, two blocks an SM) and no register
+//     holds a load.  R is a multiple of 8 and of the rows a block takes a
+//     step (24 at p = 32: a __syncthreads every 10 steps), so a chunk of
+//     f32 or bf16 rows at any p is a multiple of 16 bytes; rows_per_split is a multiple of R, so
+//     every full chunk starts 16-byte aligned when X and w do (the wrapper
+//     copies a base that does not).  The split's last, partial chunk is
+//     read with plain loads.
+//   * FAST (p a multiple of 8, so every 8-column block lies inside p): a
+//     block is two 16-byte shared loads of f32 (one of bf16, widened in
+//     registers); else guarded scalar loads, zero past p.
+//   * The row slots of a warp are added by shuffles in slot order, the
+//     warps in warp order, the splits (wgram_tri_reduce) in split order,
+//     and the lower triangle is the mirror: deterministic, no atomics.
+// Geometry (R, stages, splits, shared bytes) is gram.py's wgram_plan, a
+// function of (n, p, dtype) alone.
+constexpr int TRI_THREADS = 256;
+constexpr int TRI_WARPS = TRI_THREADS / 32;
+constexpr int TRI_BARS = 64;  // bytes before the ring: one mbarrier a stage (≤ 8)
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// bytes (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, counted on the mbarrier bar.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The tile (I, J), I ≤ J, of index t in row-major order of the upper
+// triangle of an nb × nb grid of 8-column blocks.
+__device__ __forceinline__ void tri_tile(int t, int nb, int& I, int& J) {
+  I = 0;
+  while (t >= nb - I) {
+    t -= nb - I;
+    ++I;
+  }
+  J = I + t;
+}
+
+// v = row[c0 .. c0 + 7] widened to f32, zeros at or past p.  FAST: p % 8
+// == 0 and the row 16-byte aligned, so c0 + 8 <= p.
+template <bool FAST>
+__device__ __forceinline__ void load8(const float* row, int p, int c0,
+                                      float (&v)[8]) {
+  if (FAST) {
+    const float4 a = *reinterpret_cast<const float4*>(row + c0);
+    const float4 b = *reinterpret_cast<const float4*>(row + c0 + 4);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = c0 + k < p ? row[c0 + k] : 0.f;
+  }
+}
+
+template <bool FAST>
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int p, int c0,
+                                      float (&v)[8]) {
+  if (FAST) {
+    const uint4 u = *reinterpret_cast<const uint4*>(row + c0);
+    const unsigned h[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // element 2k is the low half
+      v[2 * k] = __uint_as_float(h[k] << 16);
+      v[2 * k + 1] = __uint_as_float(h[k] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      v[k] = c0 + k < p ? __bfloat162float(row[c0 + k]) : 0.f;
+  }
+}
+
+// acc += (w_r · x_r[I block])ᵀ x_r[J block] over the staged rows first,
+// first + stride, … < rows.
+template <typename T, bool FAST>
+__device__ __forceinline__ void tri_rows(const T* sx, const float* sw, int rows,
+                                         int p, int I, int J, int first,
+                                         int stride, float (&acc)[8][8]) {
+  for (int r = first; r < rows; r += stride) {
+    float a[8], b[8];
+    load8<FAST>(sx + r * p, p, 8 * I, a);
+    load8<FAST>(sx + r * p, p, 8 * J, b);
+    const float wr = sw[r];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) a[i] *= wr;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Thread 0: chunk k of the split (R rows from r0) into stage k % stages.
+template <typename T>
+__device__ __forceinline__ void tri_issue(const T* x, const float* w,
+                                          int64_t r0, int p, int R, int stages,
+                                          int k, uint32_t ring, int sbytes,
+                                          uint32_t bars) {
+  const int s = k % stages;
+  const uint32_t xbytes = (uint32_t)R * p * sizeof(T);
+  const uint32_t dst = ring + (uint32_t)s * sbytes;
+  mbar_expect_tx(bars + 8 * s, (uint32_t)sbytes);
+  bulk_load(dst, x + r0 * p, xbytes, bars + 8 * s);
+  bulk_load(dst + xbytes, w + r0, (uint32_t)R * 4, bars + 8 * s);
+}
+
+template <typename T, bool FAST>
+__global__ void __launch_bounds__(TRI_THREADS, 2)
+wgram_tri_partials(const T* __restrict__ x, const float* __restrict__ w,
+                   float* __restrict__ ws, int64_t n, int p, int R, int stages,
+                   int64_t rows_per_split) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nb = (p + 7) / 8, tiles = nb * (nb + 1) / 2, rps = 32 / tiles;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane % tiles, slot = min(lane / tiles, rps - 1);
+  int I, J;
+  tri_tile(t, nb, I, J);
+  const int xbytes = R * p * (int)sizeof(T), sbytes = xbytes + R * 4;
+  const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const uint32_t ring = bars + TRI_BARS;
+  const int64_t r_begin = (int64_t)blockIdx.x * rows_per_split;
+  const int64_t r_end = min64(n, r_begin + rows_per_split);
+  const int64_t rows = r_end > r_begin ? r_end - r_begin : 0;
+  const int nfull = (int)(rows / R), tail = (int)(rows - (int64_t)nfull * R);
+  const int first = warp * rps + slot, stride = TRI_WARPS * rps;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int k = 0; k < min(stages, nfull); ++k)
+      tri_issue(x, w, r_begin + (int64_t)k * R, p, R, stages, k, ring, sbytes,
+                bars);
+  }
+  __syncthreads();
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k = 0; k < nfull; ++k) {
+    const int s = k % stages;
+    mbar_wait(bars + 8 * s, (uint32_t)(k / stages) & 1u);
+    const unsigned char* st = smem + TRI_BARS + s * sbytes;
+    tri_rows<T, FAST>(reinterpret_cast<const T*>(st),
+                      reinterpret_cast<const float*>(st + xbytes), R, p, I, J,
+                      first, stride, acc);
+    __syncthreads();  // every thread is done with stage s
+    if (threadIdx.x == 0 && k + stages < nfull)
+      tri_issue(x, w, r_begin + (int64_t)(k + stages) * R, p, R, stages,
+                k + stages, ring, sbytes, bars);
+  }
+  if (tail) {  // plain loads into stage 0: every copy has landed and been read
+    T* sx = reinterpret_cast<T*>(smem + TRI_BARS);
+    float* sw = reinterpret_cast<float*>(smem + TRI_BARS + xbytes);
+    const int64_t r0 = r_begin + (int64_t)nfull * R;
+    for (int e = threadIdx.x; e < tail * p; e += TRI_THREADS) sx[e] = x[r0 * p + e];
+    for (int e = threadIdx.x; e < tail; e += TRI_THREADS) sw[e] = w[r0 + e];
+    __syncthreads();
+    tri_rows<T, FAST>(sx, sw, tail, p, I, J, first, stride, acc);
+  }
+
+  // Row slots in slot order (lane t collects lanes t + tiles·s), then the
+  // warps in warp order through the ring, now free.
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float v = acc[i][j];
+      for (int s = 1; s < rps; ++s)
+        v += __shfl_sync(0xffffffffu, acc[i][j], min(lane + s * tiles, 31));
+      acc[i][j] = v;
+    }
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + TRI_BARS);
+  if (lane < tiles) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) red[(warp * tiles + lane) * 64 + i * 8 + j] = acc[i][j];
+  }
+  __syncthreads();
+  float* out = ws + (int64_t)blockIdx.x * p * p;
+  for (int e = threadIdx.x; e < tiles * 64; e += TRI_THREADS) {
+    int I2, J2;
+    tri_tile(e >> 6, nb, I2, J2);
+    const int i = 8 * I2 + ((e >> 3) & 7), j = 8 * J2 + (e & 7);
+    if (i < p && j < p && i <= j) {
+      float sum = 0.f;
+      for (int v = 0; v < TRI_WARPS; ++v) sum += red[(v * tiles + (e >> 6)) * 64 + (e & 63)];
+      out[i * p + j] = sum;
+    }
+  }
+}
+
+// out (p, p) = Σ_s upper-triangle partials, mirrored: a warp an output
+// element, lane l adding splits l, l + 32, … in order, then the lanes by a
+// fixed shuffle tree.
+__global__ void wgram_tri_reduce(const float* __restrict__ ws,
+                                 float* __restrict__ out, int p,
+                                 int64_t splits) {
+  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (e >= (int64_t)p * p) return;  // whole warps leave together
+  const int a = (int)(e / p), b = (int)(e % p);
+  const int64_t off = (int64_t)min(a, b) * p + max(a, b);
+  float s = 0.f;
+  for (int64_t k = lane; k < splits; k += 32) s += ws[k * p * p + off];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(0xffffffffu, s, d);
+  if (lane == 0) out[e] = s;
+}
+
+// Shared bytes of a wgram_tri block: the barriers, then the larger of the
+// ring and the warps' tile partials (gram.py wgram_plan says the same).
+int64_t tri_smem(int p, int R, int stages, int elem) {
+  const int nb = (p + 7) / 8, tiles = nb * (nb + 1) / 2;
+  const int64_t ring = (int64_t)stages * R * (p * elem + 4);
+  const int64_t red = (int64_t)TRI_WARPS * tiles * 64 * 4;
+  return TRI_BARS + (ring > red ? ring : red);
+}
+
+template <typename T>
+int launch_tri(const void* x, const void* w, void* ws, void* out, int64_t n,
+               int p, int R, int stages, int64_t rows_per_split, int64_t splits,
+               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p < 1 || p > 32 || R % 8 != 0 || stages < 1 || stages > TRI_BARS / 8 ||
+      rows_per_split % R != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t smem = tri_smem(p, R, stages, (int)sizeof(T));
+  const bool fast = p % 8 == 0;
+  auto kern = fast ? wgram_tri_partials<T, true> : wgram_tri_partials<T, false>;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)splits, TRI_THREADS, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(w),
+      static_cast<float*>(ws), n, p, R, stages, rows_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t warps = (int64_t)p * p;  // one an output element
+  wgram_tri_reduce<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<float*>(out), p, splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -428,12 +728,25 @@ int fm_gram(const void* x, void* ws, void* out, int64_t n, int p, int64_t splits
       : launch<__nv_bfloat16, GRAM>(x, x, nullptr, ws, out, n, p, p, splits, stream);
 }
 
-// w is float32 (n,).
+// w is float32 (n,).  The tile body: any p (p > 32 takes it).
 int fm_wgram(const void* x, const void* w, void* ws, void* out, int64_t n, int p,
              int64_t splits, int dtype, void* stream) {
   return dtype == 0
       ? launch<float, WGRAM>(x, x, w, ws, out, n, p, p, splits, stream)
       : launch<__nv_bfloat16, WGRAM>(x, x, w, ws, out, n, p, p, splits, stream);
+}
+
+// The triangle body for p ≤ 32: x and w (float32 (n,)) 16-byte aligned,
+// rows_per_split a multiple of R (a multiple of 8); ws holds splits·p²
+// floats.  Geometry from gram.py wgram_plan.
+int fm_wgram_tri(const void* x, const void* w, void* ws, void* out, int64_t n,
+                 int p, int R, int stages, int64_t rows_per_split,
+                 int64_t splits, int dtype, void* stream) {
+  return dtype == 0
+      ? launch_tri<float>(x, w, ws, out, n, p, R, stages, rows_per_split,
+                          splits, stream)
+      : launch_tri<__nv_bfloat16>(x, w, ws, out, n, p, R, stages,
+                                  rows_per_split, splits, stream);
 }
 
 // X (n, p) and Y (n, q) of one dtype; out is (p, q).  ws holds

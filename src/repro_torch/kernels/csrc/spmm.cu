@@ -26,25 +26,27 @@
 //     of the I side takes one warp step, the J side's lanes adding its
 //     products.  Rows wider than 32 entries go in 32-entry chunks, each I
 //     chunk against each J chunk, so any kmax is taken.
-//       XᵀY: stripes of cs rows × qc columns.  Chunks of rows are copied
-//     into shared memory with cp.async, double buffered; tpr threads take a
-//     row, build bit masks of its entries in the stripe and add v_a·y_j.
-//   launch 2 (*_reduce): one thread per output element sums the splits'
-//     partial tiles in split order (and mirrors the I < J tiles).
+//       XᵀY: stripes of cs rows × qc of Y's columns (one stripe of all
+//     ncol rows at Criteo).  A warp takes a row, its lanes the row's entries
+//     straight from global memory, and adds v·y_j into a copy of the stripe
+//     that is its own: no atomics (see spmm_xty_partials).
+//   launch 2 (*_reduce): the splits' partial tiles summed in split order
+//     (and the I < J tiles mirrored for XᵀX).
 //
 // Shared-memory float atomics compile to compare-and-swap loops
 // (ATOMS.CAST.SPIN) on sm_90a; at the Criteo shape spmm_gram makes about 390
 // of them a row over its 28 tiles, and each tile reads every row once from
-// L2 — these, not the slab's bytes, set its time.
+// L2 — these, not the slab's bytes, set its time.  XᵀY makes none.
 //
 // Accuracy: f32 throughout, as the reference.  A frequent level's entry sums
 // millions of terms; each split's partial sums only its own rows (the wrapper
 // caps rows per split and the workspace), and the splits are combined in a
 // fixed order, so no single f32 accumulator takes all n rows.  Shared-memory
-// atomics make the order inside a split vary from run to run.
+// atomics make the order inside a split of XᵀX vary from run to run; XᵀY
+// adds in a fixed order and is the same bit for bit on every call.
 //
 // Zero entries (the padding) are skipped: for finite values they add
-// nothing, and (col 0, val 0) padding would otherwise pile atomics onto
+// nothing, and (col 0, val 0) padding would otherwise pile adds onto
 // column 0.  Column indices outside [0, ncol) fall in no tile and are
 // dropped.  Offsets are 64-bit: n·kmax reaches 1.2e9 at Criteo scale.
 #include <cuda_runtime.h>
@@ -52,80 +54,7 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The staging buffers of one chunk: ch rows × kp (kmax rounded up to odd, so
-// a warp reading one entry of 32 consecutive rows hits 32 banks) cols and
-// vals, plus ch·ex floats of the row's weight (wgram) or of Y's columns (xty).
-struct Stage {
-  int* c;
-  float* v;
-  float* x;
-};
-
-__device__ __forceinline__ Stage stage_at(float* base, int buf, int ch, int kp,
-                                          int ex) {
-  const int64_t per = (int64_t)ch * (2 * kp + ex);
-  float* b = base + buf * per;
-  Stage st;
-  st.c = reinterpret_cast<int*>(b);
-  st.v = b + (int64_t)ch * kp;
-  st.x = b + (int64_t)2 * ch * kp;
-  return st;
-}
-
-// Issue the copies of rows [r0, r0 + rows) into a staging buffer.  Element
-// e of the chunk is row e / kmax, entry e % kmax; a thread's elements step
-// by THREADS, so its (row, entry) pair is advanced without dividing.
-__device__ __forceinline__ void stage_rows(const int* __restrict__ cols,
-                                           const float* __restrict__ vals,
-                                           Stage st, int64_t r0, int rows,
-                                           int kmax, int kp) {
-  const int total = rows * kmax;
-  const int64_t base = r0 * kmax;
-  const int dr = THREADS / kmax, dk = THREADS % kmax;
-  int rr = threadIdx.x / kmax, k = threadIdx.x % kmax;
-  for (int e = threadIdx.x; e < total; e += THREADS) {
-    cp_async4(st.c + rr * kp + k, cols + base + e);
-    cp_async4(st.v + rr * kp + k, vals + base + e);
-    rr += dr;
-    k += dk;
-    if (k >= kmax) {
-      k -= kmax;
-      ++rr;
-    }
-  }
-}
-
-// Bits of the entries [a0, a0 + 32) of a staged row whose column lies in
-// [lo, hi) and whose value is not zero; when tpr > 1 (a power of two: the
-// row's entries shared out among its threads) only the entries a with
-// a ≡ sub (mod tpr).
-__device__ __forceinline__ unsigned row_mask(const int* rc, const float* rv,
-                                             int a0, int kmax, int lo, int hi,
-                                             int tpr, int sub) {
-  unsigned m = 0;
-  const int na = min(32, kmax - a0);
-  for (int a = ((sub - a0) & (tpr - 1)); a < na; a += tpr) {
-    const int c = rc[a0 + a];
-    if (c >= lo && c < hi && rv[a0 + a] != 0.f) m |= 1u << a;
-  }
-  return m;
-}
 
 // The square tile (I, J), I ≤ J, of linear index t in row-major order of the
 // upper triangle of an nst × nst grid of tiles.
@@ -309,90 +238,6 @@ __global__ void spmm_gram_reduce(const float* __restrict__ ws,
   out[e] = s;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
-spmm_xty_partials(const int* __restrict__ cols, const float* __restrict__ vals,
-                  const float* __restrict__ y, float* __restrict__ ws,
-                  int64_t n, int kmax, int ncol, int q, int qc, int cs,
-                  int tpr, int64_t rows_per_split) {
-  extern __shared__ __align__(16) float smem[];
-  const int ch = THREADS / tpr, kp = kmax | 1;
-  float* acc = smem;
-  float* stage_base = smem + cs * qc;
-
-  const int tq = (q + qc - 1) / qc;
-  const int c0 = (blockIdx.x / tq) * cs, c1 = min(ncol, c0 + cs);
-  const int q0 = (blockIdx.x % tq) * qc, nq = min(qc, q - q0);
-  const int64_t split = blockIdx.y;
-  const int64_t r_begin = split * rows_per_split;
-  const int64_t r_end = min64(n, r_begin + rows_per_split);
-  const int rr = threadIdx.x % ch, sub = threadIdx.x / ch;
-
-  for (int e = threadIdx.x; e < cs * qc; e += THREADS) acc[e] = 0.f;
-
-  int buf = 0;
-  for (int64_t r0 = r_begin - ch; r0 < r_end; r0 += ch) {
-    // Stage the chunk after r0 (on the first pass, the first chunk), then
-    // compute r0 once its copies have landed.
-    const int64_t nx = r0 + ch;
-    if (nx < r_end) {
-      Stage st = stage_at(stage_base, r0 < r_begin ? 0 : buf ^ 1, ch, kp, qc);
-      const int nrows = (int)min64(ch, r_end - nx);
-      stage_rows(cols, vals, st, nx, nrows, kmax, kp);
-      for (int e = threadIdx.x; e < nrows * nq; e += THREADS) {
-        const int r = e / nq, j = e - r * nq;
-        cp_async4(st.x + r * qc + j, y + (nx + r) * (int64_t)q + q0 + j);
-      }
-    }
-    cp_async_commit();
-    if (r0 < r_begin) continue;
-    cp_async_wait<1>();
-    __syncthreads();
-    const int rows = (int)min64(ch, r_end - r0);
-    if (rr < rows) {
-      const Stage st = stage_at(stage_base, buf, ch, kp, qc);
-      const int* rc = st.c + rr * kp;
-      const float* rv = st.v + rr * kp;
-      const float* ry = st.x + rr * qc;
-      for (int a0 = 0; a0 < kmax; a0 += 32) {
-        for (unsigned m = row_mask(rc, rv, a0, kmax, c0, c1, tpr, sub); m;
-             m &= m - 1) {
-          const int a = a0 + __ffs(m) - 1;
-          const float va = rv[a];
-          float* row = acc + (rc[a] - c0) * qc;
-          for (int j = 0; j < nq; ++j) atomicAdd(row + j, va * ry[j]);
-        }
-      }
-    }
-    __syncthreads();
-    buf ^= 1;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  float* out = ws + (split * gridDim.x + blockIdx.x) * (int64_t)cs * qc;
-  for (int e = threadIdx.x; e < cs * qc; e += THREADS) out[e] = acc[e];
-}
-
-// out (ncol, q) = Σ_s partial stripes, in split order.
-__global__ void spmm_xty_reduce(const float* __restrict__ ws,
-                                float* __restrict__ out, int ncol, int q,
-                                int qc, int cs, int64_t splits) {
-  const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (int64_t)ncol * q) return;
-  const int i = (int)(e / q), j = (int)(e % q);
-  const int tq = (q + qc - 1) / qc, tc = (ncol + cs - 1) / cs;
-  const int64_t tile = (int64_t)(i / cs) * tq + j / qc;
-  const int64_t tt = (int64_t)cs * qc;
-  const int64_t off = tile * tt + (int64_t)(i % cs) * qc + (j % qc);
-  float s = 0.f;
-  for (int64_t k = 0; k < splits; ++k) s += ws[k * tc * tq * tt + off];
-  out[e] = s;
-}
-
-int64_t smem_bytes(int acc_floats, int kmax, int tpr, int ex) {
-  const int64_t ch = THREADS / tpr, kp = kmax | 1;
-  return 4 * ((int64_t)acc_floats + 2 * ch * (2 * kp + ex));
-}
-
 template <typename K>
 cudaError_t allow_smem(K kern, int64_t bytes) {
   if (bytes > 232448) return cudaErrorInvalidValue;   // 227 KB a block
@@ -426,6 +271,237 @@ int launch_gram(const void* cols, const void* vals, const void* w, void* ws,
   return (int)cudaGetLastError();
 }
 
+// XᵀY: block (t, s) adds, over the rows of split s, v·y_j for every stored
+// entry (c, v) of a row whose c falls in stripe t's rows [c0, c1), for Y's
+// columns [q0, q0 + nq) of the stripe.
+//
+// Bound: reading the slab and Y once, 2.9 ms at Criteo (q = 1).  A stripe
+// shared by the block would take every one of the 1.19e9 entries through a
+// shared-memory atomic (a CAS loop on sm_90a, the Zipf codes sending a
+// warp's rows to the same few addresses), and staging rows beside it
+// would leave a wide row no room.  So:
+//   * A warp takes a row (rows r_begin + warp, + warps, …), lane a its
+//     entry a0 + a, loaded straight from global memory; XTY_AHEAD rows of
+//     loads are in flight a warp (a ring of registers, each slot refilled
+//     once its row is added).  Lane j < nq loads Y's value of column q0 + j
+//     once a row and the add takes it by a shuffle; for q = 1 (ONE) every
+//     lane loads the one value, a single broadcast transaction.  (ptxas
+//     turns the ring into a queue shifted by MOVs, and a MOV waits for the
+//     load it copies, issued one row earlier: each row waits out a load's
+//     latency, which sets this body's 6.9 ms at Criteo — PERF.md §6.)
+//   * Each warp adds into a copy of the stripe (cs·qc floats) of its own in
+//     shared memory, so the add is a plain load, FMA and store — no atomic —
+//     as long as the 32 lanes of a step hold distinct columns.  A one-hot
+//     row never repeats a column and fm.one_hot writes its columns in
+//     increasing order, so one shuffle and one vote test "the non-zero
+//     entries of this 32-entry chunk are lanes 0.. with strictly increasing
+//     columns"; only a chunk that fails it (a duplicate, an unsorted row,
+//     padding between entries) groups equal columns with __match_any_sync,
+//     and the group's lowest lane sums its values in lane order before the
+//     add.  __syncwarp orders one step's stores before the next step's
+//     loads.
+//   * Rows wider than 32 entries go in 32-entry chunks one after another
+//     (WIDE), so any kmax is taken: no staging buffer competes with the
+//     stripe for shared memory.
+//   * Banks: a one-hot column is factor·64 + code, and Zipf codes crowd
+//     near 0, so in a plain layout the lanes of a row meet on bank 0.  The
+//     copy is indexed by skew(e) = e + (e >> 6): one float of padding every
+//     64, which moves factor f's block by f banks, so one level of the 26
+//     factors lands on 26 different banks.  (c ^ ((c >> 5) & 31) puts f and
+//     f + 16 on one bank.)
+//   * The block adds its warps' copies in warp order into the split's
+//     partial, spmm_xty_reduce the splits in split order: the same result
+//     bit for bit on every call.
+// Shapes (spmm.py xty_tile): qc = min(q, 32) and the most warps (≤ 32)
+// whose copies of all ncol rows fit 227 KB: 32 warps × 6,756 bytes at
+// Criteo, one stripe.  A stripe that would leave fewer than XTY_MIN_WARPS
+// warps is cut into rows that fit that many.
+constexpr int XTY_AHEAD = 6;  // rows a warp has in flight
+
+__host__ __device__ __forceinline__ int skew(int e) { return e + (e >> 6); }
+
+// Entry (c, v) of this lane (lane < kmax) and Y's value y of the row; (-1,
+// 0, 0) when there is no such row or entry.
+__device__ __forceinline__ void fetch_xty(bool row, bool entry, bool ylane,
+                                          const int* c_ptr, const float* v_ptr,
+                                          const float* y_ptr, int& c, float& v,
+                                          float& y) {
+  c = -1;
+  v = 0.f;
+  y = 0.f;
+  if (row) {
+    if (entry) {
+      c = __ldg(c_ptr);
+      v = __ldg(v_ptr);
+    }
+    if (ylane) y = __ldg(y_ptr);
+  }
+}
+
+// Add one 32-entry chunk of a row into the warp's copy acc: lane a holds
+// entry (c, v); yl is Y's value (ONE: the one column, on every lane; else
+// lane j holds column q0 + j).
+template <bool ONE>
+__device__ __forceinline__ void xty_chunk(float* acc, int c0, int c1, int qc,
+                                          int nq, int c, float v, float yl) {
+  const int lane = threadIdx.x & 31;
+  const bool nz = v != 0.f;
+  bool live = nz && c >= c0 && c < c1;
+  // Non-zero entries must be lanes 0.. with strictly increasing columns: a
+  // non-zero lane after a zero one, or not above its left neighbour, fails.
+  const int key = nz ? c : 0x7fffffff;
+  const int left = __shfl_up_sync(FULL, key, 1);
+  if (__any_sync(FULL, nz && lane > 0 && c <= left)) {
+    const unsigned group = __match_any_sync(FULL, live ? c : -1 - lane);
+    const int leader = __ffs(group) - 1;
+    unsigned rest = lane == leader ? group & (group - 1) : 0u;
+    while (__any_sync(FULL, rest != 0u)) {
+      const int src = rest ? __ffs(rest) - 1 : lane;
+      const float x = __shfl_sync(FULL, v, src);
+      if (rest) {
+        v += x;
+        rest &= rest - 1;
+      }
+    }
+    live = live && lane == leader;
+  }
+  const int e = (c - c0) * qc;
+  for (int j = 0; j < (ONE ? 1 : nq); ++j) {
+    const float yj = ONE ? yl : __shfl_sync(FULL, yl, j);
+    if (live) {
+      float* a = acc + skew(e + j);
+      *a = fmaf(v, yj, *a);
+    }
+  }
+  __syncwarp();
+}
+
+template <bool WIDE, bool ONE>
+__global__ void __launch_bounds__(GRAM_THREADS, 1)
+spmm_xty_partials(const int* __restrict__ cols, const float* __restrict__ vals,
+                  const float* __restrict__ y, float* __restrict__ ws,
+                  int64_t n, int kmax, int ncol, int q, int qc, int cs,
+                  int copy, int64_t rows_per_split) {
+  extern __shared__ __align__(16) float smem[];
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int tq = (q + qc - 1) / qc;
+  const int c0 = (blockIdx.x / tq) * cs, c1 = min(ncol, c0 + cs);
+  const int q0 = (blockIdx.x % tq) * qc, nq = min(qc, q - q0);
+  const int64_t split = blockIdx.y;
+  const int64_t r_begin = split * rows_per_split;
+  const int64_t r_end = min64(n, r_begin + rows_per_split);
+  float* acc = smem + warp * copy;
+
+  for (int e = threadIdx.x; e < warps * copy; e += blockDim.x) smem[e] = 0.f;
+  __syncthreads();
+
+  // This warp's rows are r0 + warps·i, i < nr; ring slot s holds row i with
+  // i % XTY_AHEAD == s.  f* point at the next row to fetch, r* at the row
+  // being added (WIDE reads its later chunks there).
+  const int64_t r0 = r_begin + warp;
+  const int nr = r0 < r_end ? (int)((r_end - r0 + warps - 1) / warps) : 0;
+  const int64_t step = (int64_t)warps * kmax, ystep = (int64_t)warps * q;
+  const bool entry = lane < kmax, ylane = ONE || lane < nq;
+  const int* fc = cols + r0 * kmax + lane;
+  const float* fv = vals + r0 * kmax + lane;
+  const float* fy = y + r0 * q + q0 + (ONE ? 0 : lane);
+  const int* rc = fc;
+  const float* rv = fv;
+  int qcol[XTY_AHEAD];
+  float qv[XTY_AHEAD], qy[XTY_AHEAD];
+#pragma unroll
+  for (int s = 0; s < XTY_AHEAD; ++s) {
+    fetch_xty(s < nr, entry, ylane, fc, fv, fy, qcol[s], qv[s], qy[s]);
+    fc += step;
+    fv += step;
+    fy += ystep;
+  }
+  for (int i0 = 0; i0 < nr; i0 += XTY_AHEAD) {
+#pragma unroll
+    for (int s = 0; s < XTY_AHEAD; ++s) {
+      if (i0 + s >= nr) break;
+      const int c = qcol[s];
+      const float v = qv[s], yl = qy[s];
+      fetch_xty(i0 + s + XTY_AHEAD < nr, entry, ylane, fc, fv, fy, qcol[s],
+                qv[s], qy[s]);
+      fc += step;
+      fv += step;
+      fy += ystep;
+      xty_chunk<ONE>(acc, c0, c1, qc, nq, c, v, yl);
+      if (WIDE) {
+        for (int a0 = 32; a0 < kmax; a0 += 32) {
+          int ca = -1;
+          float va = 0.f;
+          if (a0 + lane < kmax) {
+            ca = __ldg(rc + a0);
+            va = __ldg(rv + a0);
+          }
+          xty_chunk<ONE>(acc, c0, c1, qc, nq, ca, va, yl);
+        }
+      }
+      rc += step;
+      rv += step;
+    }
+  }
+  __syncthreads();
+  float* out = ws + (split * gridDim.x + blockIdx.x) * (int64_t)cs * qc;
+  for (int e = threadIdx.x; e < cs * qc; e += blockDim.x) {
+    const int k = skew(e);
+    float sum = 0.f;
+    for (int w = 0; w < warps; ++w) sum += smem[w * copy + k];
+    out[e] = sum;
+  }
+}
+
+// out (ncol, q) = Σ_s partial stripes: a warp an output element, lane l
+// adding splits l, l + 32, … in order, then the lanes by a fixed shuffle
+// tree (deterministic; 528 splits are 17 loads a lane, not 528 dependent
+// ones).
+__global__ void spmm_xty_reduce(const float* __restrict__ ws,
+                                float* __restrict__ out, int ncol, int q,
+                                int qc, int cs, int64_t splits) {
+  const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int lane = threadIdx.x & 31;
+  if (e >= (int64_t)ncol * q) return;  // whole warps leave together
+  const int i = (int)(e / q), j = (int)(e % q);
+  const int tq = (q + qc - 1) / qc, tc = (ncol + cs - 1) / cs;
+  const int64_t tt = (int64_t)cs * qc;
+  const int64_t off = ((int64_t)(i / cs) * tq + j / qc) * tt
+                      + (int64_t)(i % cs) * qc + (j % qc);
+  float s = 0.f;
+  for (int64_t k = lane; k < splits; k += 32) s += ws[k * tc * tq * tt + off];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) s += __shfl_xor_sync(FULL, s, d);
+  if (lane == 0) out[e] = s;
+}
+
+template <bool WIDE, bool ONE>
+int launch_xty(const void* cols, const void* vals, const void* y, void* ws,
+               void* out, int64_t n, int kmax, int ncol, int q, int qc, int cs,
+               int warps, int64_t splits, cudaStream_t st) {
+  if (warps < 1 || 32 * warps > GRAM_THREADS) return (int)cudaErrorInvalidValue;
+  const int tiles = ((ncol + cs - 1) / cs) * ((q + qc - 1) / qc);
+  const int copy = skew(cs * qc - 1) + 1;
+  const int64_t smem = 4 * (int64_t)warps * copy;
+  auto kern = spmm_xty_partials<WIDE, ONE>;
+  cudaError_t err = allow_smem(kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t rps = (n + splits - 1) / splits;
+  dim3 grid((unsigned)tiles, (unsigned)splits);
+  kern<<<grid, 32 * warps, smem, st>>>(
+      static_cast<const int*>(cols), static_cast<const float*>(vals),
+      static_cast<const float*>(y), static_cast<float*>(ws), n, kmax, ncol, q,
+      qc, cs, copy, rps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int64_t total_warps = (int64_t)ncol * q;  // one an output element
+  spmm_xty_reduce<<<(unsigned)((total_warps + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(ws), static_cast<float*>(out), ncol, q, qc, cs,
+      splits);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,28 +528,17 @@ int fm_spmm_wgram(const void* cols, const void* vals, const void* w, void* ws,
 }
 
 // y is float32 (n, q); ws holds splits · ceil(ncol/cs) · ceil(q/qc) · cs·qc
-// floats; out is (ncol, q).
+// floats; out is (ncol, q).  warps · (skew(cs·qc − 1) + 1) floats fit one
+// block's shared memory (spmm.py xty_tile).
 int fm_spmm_xty(const void* cols, const void* vals, const void* y, void* ws,
                 void* out, int64_t n, int kmax, int ncol, int q, int qc, int cs,
-                int tpr, int64_t splits, void* stream) {
+                int warps, int64_t splits, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = ((ncol + cs - 1) / cs) * ((q + qc - 1) / qc);
-  const int64_t smem = smem_bytes(cs * qc, kmax, tpr, qc);
-  cudaError_t err = allow_smem(spmm_xty_partials, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int64_t rps = (n + splits - 1) / splits;
-  dim3 grid((unsigned)tiles, (unsigned)splits);
-  spmm_xty_partials<<<grid, THREADS, smem, st>>>(
-      static_cast<const int*>(cols), static_cast<const float*>(vals),
-      static_cast<const float*>(y), static_cast<float*>(ws), n, kmax, ncol, q,
-      qc, cs, tpr, rps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int64_t total = (int64_t)ncol * q;
-  spmm_xty_reduce<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
-      static_cast<const float*>(ws), static_cast<float*>(out), ncol, q, qc, cs,
-      splits);
-  return (int)cudaGetLastError();
+  const bool wide = kmax > 32, one = q == 1;
+  auto go = wide ? (one ? launch_xty<true, true> : launch_xty<true, false>)
+                 : (one ? launch_xty<false, true> : launch_xty<false, false>);
+  return go(cols, vals, y, ws, out, n, kmax, ncol, q, qc, cs, warps, splits,
+            st);
 }
 
 }  // extern "C"

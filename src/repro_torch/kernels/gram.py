@@ -27,6 +27,9 @@ multiplied, and lanes, warps and splits added in a fixed order.
 """
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 from . import build, ref
@@ -104,6 +107,61 @@ def xty_plan(n: int, p: int, q: int) -> tuple[int, int]:
         return splits, splits * wide_tiles * THIN * TILE
     splits = gram_splits(n, p, q)
     return splits, splits * -(-p // TILE) * -(-q // TILE) * TILE * TILE
+
+
+#: wgram's triangle body (csrc/gram.cu wgram_tri_partials): the widest p it
+#: takes, its threads, blocks an SM (its launch bound), ring stages and the
+#: bytes a stage aims at.
+TRI_MAX_P = 32
+TRI_THREADS = 256
+TRI_BLOCKS_PER_SM = 2
+TRI_STAGES = 3
+TRI_STAGE_BYTES = 32 * 1024
+#: Shared bytes before the ring (one mbarrier a stage), TRI_BARS in gram.cu.
+TRI_BARS = 64
+
+
+class WgramPlan(NamedTuple):
+    """The launch of one wgram call.  body "tri": p ≤ TRI_MAX_P, chunks of
+    chunk_rows rows bulk-copied into ``stages`` stages of shared memory,
+    one block a split of rows_per_split rows; "tile": the 32×32 tile body
+    (gram_partials<WGRAM>), which stages through static shared memory
+    (chunk_rows, stages and smem_bytes 0)."""
+    body: str
+    splits: int
+    rows_per_split: int
+    chunk_rows: int
+    stages: int
+    smem_bytes: int
+    ws_floats: int
+
+
+def wgram_plan(n: int, p: int, dtype: torch.dtype) -> WgramPlan:
+    """wgram's geometry, a function of (n, p, dtype) alone.  The triangle
+    body's chunk is the most rows, a multiple of 8 (so a chunk of f32 or
+    bf16 rows is a multiple of 16 bytes at any p) and of the rows a block
+    takes a step, whose values and weights fit TRI_STAGE_BYTES; its splits
+    are TRI_BLOCKS_PER_SM blocks an SM or one a chunk, whichever is fewer,
+    each a whole number of chunks."""
+    if p > TRI_MAX_P:
+        splits = gram_splits(n, p)
+        tiles = -(-p // TILE)
+        return WgramPlan("tile", splits, -(-n // splits), 0, 0, 0,
+                         splits * tiles * tiles * TILE * TILE)
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nb = -(-p // 8)
+    step = TRI_THREADS // 32 * (32 // (nb * (nb + 1) // 2))
+    unit = math.lcm(8, step)
+    rows = max(unit, TRI_STAGE_BYTES // (p * elem + 4) // unit * unit)
+    red = TRI_THREADS // 32 * nb * (nb + 1) // 2 * 64 * 4
+    smem = TRI_BARS + max(TRI_STAGES * rows * (p * elem + 4), red)
+    chunks = -(-n // rows)
+    per = max(1, -(-chunks // max(1, min(TRI_BLOCKS_PER_SM * SM_COUNT,
+                                         chunks))))
+    rps = per * rows
+    splits = max(1, -(-n // rps))
+    return WgramPlan("tri", splits, rps, rows, TRI_STAGES, smem,
+                     splits * p * p)
 
 
 def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -23,9 +23,10 @@ in a fixed order.  Rows per split and the workspace are capped
 XᵀX and XᵀWX (``gram_tile``): 1,024 threads a block and the whole of its
 shared memory for one tile (ts = 240 at Criteo: 28 tiles), a warp per row,
 the row's entries on its lanes straight from global memory, any kmax.  XᵀY
-(``xty_tile``) stages chunks of rows in shared memory beside its stripe, so
-its rows are capped (about 14,500 entries at q = 1): the engine's matcher
-declines a wider source, and a direct call raises.
+(``xty_tile``) takes a warp a row the same way, but each warp adds into a
+copy of the stripe of its own (32 copies of all 1,664 rows at Criteo, one
+stripe), so it needs no atomics, adds in a fixed order (the same bits on
+every call) and takes any kmax.
 
 On CPU tensors each wrapper runs its plain version in ``ref``.
 """
@@ -43,13 +44,15 @@ gram_launches = 0
 xty_launches = 0
 wgram_launches = 0
 
-THREADS = 256
 #: Threads of a gram / wgram block: 32 warps, one block an SM.
 GRAM_THREADS = 1024
 #: Shared memory a block may take on an H100 (227 KB).
 SMEM_LIMIT = 232448
-#: Shared memory for the two staging buffers of row chunks (xty).
-STAGE_LIMIT = 64 * 1024
+#: Most and fewest warps of an xty block (each holds a copy of the stripe).
+XTY_MAX_WARPS = 32
+XTY_MIN_WARPS = 8
+#: Rows a warp of xty has in flight (XTY_AHEAD in csrc/spmm.cu).
+XTY_AHEAD = 6
 #: Cap on the workspace of per-split partial tiles.
 WS_CAP_BYTES = 1 << 30
 #: Fewest rows a split takes (more splits than n allows leave blocks idle).
@@ -86,22 +89,27 @@ def gram_tile(ncol: int) -> int:
     return min(math.isqrt(SMEM_LIMIT // 4) // 8 * 8, -(-ncol // 8) * 8)
 
 
-def xty_tile(ncol: int, q: int, kmax: int) -> tuple[int, int, int]:
-    """(cs, qc, tpr): stripes of cs output rows × qc of Y's columns, tpr
-    threads a row, so that two staging buffers of THREADS/tpr rows — kmax
-    (rounded up to odd) cols and vals plus qc floats a row — fit
-    STAGE_LIMIT and the stripe the shared memory left."""
+def xty_copy_floats(floats: int) -> int:
+    """Floats of one warp's copy of a stripe of ``floats`` outputs, indexed
+    by skew(e) = e + (e >> 6) (csrc/spmm.cu: one float of padding every 64
+    spreads the one-hot levels over the banks)."""
+    return floats + (floats - 1) // 64
+
+
+def xty_tile(ncol: int, q: int) -> tuple[int, int, int]:
+    """(cs, qc, warps): stripes of cs output rows × qc of Y's columns and
+    the warps of a block, each with a copy of the stripe, all inside one
+    block's shared memory.  The whole of ncol is one stripe when it leaves
+    room for XTY_MIN_WARPS copies, with as many warps as fit (at most
+    XTY_MAX_WARPS); else the stripe is cut to the rows XTY_MIN_WARPS copies
+    leave.  Rows are read from global memory, so kmax plays no part."""
     qc = min(q, 32)
-    kp = kmax | 1
-    tpr = 1
-    while tpr < THREADS and 2 * (THREADS // tpr) * (2 * kp + qc) * 4 \
-            > STAGE_LIMIT:
-        tpr *= 2
-    left = (SMEM_LIMIT - 2 * (THREADS // tpr) * (2 * kp + qc) * 4) // 4
-    if left < 64:
-        raise ValueError(f"spmm: kmax={kmax} leaves no shared memory for the "
-                         "output tile")
-    return min(ncol, left // qc), qc, tpr
+    floats = SMEM_LIMIT // 4
+    warps = min(XTY_MAX_WARPS, floats // xty_copy_floats(ncol * qc))
+    if warps >= XTY_MIN_WARPS:
+        return ncol, qc, warps
+    per = floats // XTY_MIN_WARPS
+    return per * 64 // 65 // qc, qc, XTY_MIN_WARPS
 
 
 def spmm_splits(n: int, tiles: int, tile_floats: int) -> int:
@@ -113,6 +121,13 @@ def spmm_splits(n: int, tiles: int, tile_floats: int) -> int:
     by_ws = max(1, WS_CAP_BYTES // (4 * tiles * tile_floats))
     return int(max(1, min(max(by_card, -(-n // (1 << 18))), by_rows, by_ws,
                           65535)))
+
+
+def xty_layout(n: int, ncol: int, q: int) -> tuple[int, int, int, int, int]:
+    """(cs, qc, warps, tiles, splits) of a spmm_xty launch."""
+    cs, qc, warps = xty_tile(ncol, q)
+    tiles = -(-ncol // cs) * -(-q // qc)
+    return cs, qc, warps, tiles, spmm_splits(n, tiles, cs * qc)
 
 
 def gram_layout(n: int, ncol: int) -> tuple[int, int, int]:
@@ -189,9 +204,7 @@ def spmm_xty(cols: torch.Tensor, vals: torch.Tensor, y: torch.Tensor, *,
     y = _rows(y, n, "spmm_xty", "y")
     q = y.shape[1]
     ncol = int(ncol)
-    cs, qc, tpr = xty_tile(ncol, q, kmax)
-    tiles = -(-ncol // cs) * -(-q // qc)
-    splits = spmm_splits(n, tiles, cs * qc)
+    cs, qc, warps, tiles, splits = xty_layout(n, ncol, q)
     cols = cols.contiguous()
     vals = vals.to(torch.float32).contiguous()
     dev = cols.device
@@ -200,7 +213,7 @@ def spmm_xty(cols: torch.Tensor, vals: torch.Tensor, y: torch.Tensor, *,
     lib = build.load("spmm")
     err = lib.fm_spmm_xty(cols.data_ptr(), vals.data_ptr(), y.data_ptr(),
                           ws.data_ptr(), out.data_ptr(), n, kmax, ncol, q, qc,
-                          cs, tpr, splits, build.stream_handle(cols))
+                          cs, warps, splits, build.stream_handle(cols))
     build.check(err, "spmm_xty")
     xty_launches += 1
     return out

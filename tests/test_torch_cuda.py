@@ -12,9 +12,11 @@ and all-negative min/max edges, more chains than one launch takes,
 k-means layouts whose centers or row tile do not fit in shared memory, xty
 at thin and wide second operands, and ELL slabs with padding rows,
 duplicate columns, kmax = 1 and kmax past one 32-entry chunk (up to
-20,000, wider than xty's staging takes), negative values and rows of
-weight 0, over one and many output tiles; xty's thin path at every narrow
-width 1..16;
+20,000), negative values and rows of weight 0, over one and many output
+tiles, spmm_xty held to float64 exactly and bit for bit from call to call;
+wgram's triangle body (p ≤ 32) and tile body (p > 32) told apart by their
+launch counters, from bases off 16 bytes too; xty's thin path at every
+narrow width 1..16;
 flash attention over ragged S and T (S below, equal to and above T), every
 head dim the kernel is built for (80, 96, 112 and 256 among them), GQA
 group factors 1, 3 and 8, causal and not, bf16 (held within one bf16 ulp
@@ -83,6 +85,35 @@ def test_gram_and_wgram(dev, n, p, dtype):
     _close_gram(wg.wgram(x, w.reshape(-1, 1)), x, w)
     torch.cuda.synchronize()
     assert (gram_mod.launches, wg.launches) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 70001])
+@pytest.mark.parametrize("p", [1, 7, 12, 31, 32, 33, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgram_bodies(dev, n, p, dtype):
+    """wgram's triangle body (p ≤ 32: bulk-copied chunks, a plain-loaded
+    tail chunk, 8×8 tiles of the upper triangle) and the tile body (p > 32),
+    told apart by the launch counters, against float64 in correlation
+    units; X and w views whose bases are off a 16-byte boundary are copied
+    first and give the aligned result bit for bit; the triangle body's
+    result is its own mirror, exactly."""
+    x = _x(n, p, dtype, dev)
+    w = torch.rand(n, device=dev)
+    x_off = _x(n * p + 1, 1, dtype, dev).reshape(-1)[1:].reshape(n, p)
+    w_off = torch.rand(n + 1, device=dev)[1:]
+    assert x_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    tri = p <= gram_mod.TRI_MAX_P
+    before = (wg.launches, wg.tri_launches)
+    got = wg.wgram(x, w)
+    off = wg.wgram(x_off, w_off)
+    again = wg.wgram(x_off.clone(), w_off.clone())
+    torch.cuda.synchronize()
+    assert (wg.launches, wg.tri_launches) == (before[0] + 3,
+                                              before[1] + 3 * tri)
+    _close_gram(got, x, w)
+    _close_gram(off, x_off, w_off)
+    assert torch.equal(off, again)
+    assert torch.equal(got, got.T) or not tri
 
 
 @pytest.mark.parametrize("n", [1, 1000, 70001])
@@ -214,6 +245,57 @@ def test_spmm_gram_warp_per_row_body(dev, kmax):
                                              torch.float64))):
         assert g.shape == (ncol, ncol) and g.dtype == torch.float32
         _close(g, r, 1e-5)
+
+
+def _halves(shape, dev):
+    """Values in ±{0.5, 1, 1.5}: products and sums of a few thousand of
+    them are exact in f32, whatever the order."""
+    v = torch.as_tensor(RNG.integers(1, 4, size=shape) / 2.0,
+                        dtype=torch.float32)
+    return (v * torch.where(torch.as_tensor(RNG.uniform(size=shape)) < 0.3,
+                            -1.0, 1.0)).to(dev)
+
+
+@pytest.mark.parametrize("kmax", [1, 3, 26, 33, 40, 20000])
+@pytest.mark.parametrize("q", [1, 3, 32])
+def test_spmm_xty_warp_per_row_body(dev, kmax, q):
+    """The xty body over one 32-entry chunk, a chunk and a bit, and 625
+    chunks a row (kmax = 20,000, which the old staged body could not take),
+    ncol = 1,664: even rows one-hot-like (each 32-entry chunk distinct
+    columns in increasing order, some padded at the end: the vote's fast
+    path), odd rows drawn at random (unsorted, duplicate columns: the
+    __match_any_sync path), one row a single column up to 64 times, padding
+    between entries, negative values.  Every product and partial sum is
+    exact in f32, so the kernel must equal float64, and two calls must be
+    equal bit for bit."""
+    n, ncol = (64 if kmax > 40 else 3000), 1664
+    cols = torch.as_tensor(RNG.integers(0, ncol, size=(n, kmax)),
+                           dtype=torch.int32)
+    for r in range(0, n, 2):
+        for a0 in range(0, kmax, 32):
+            k = min(32, kmax - a0)
+            cols[r, a0:a0 + k] = torch.as_tensor(
+                np.sort(RNG.choice(ncol, size=k, replace=False)))
+    vals = _halves((n, kmax), "cpu")
+    tail = torch.as_tensor(RNG.uniform(size=n) < 0.3)[:, None] & (
+        torch.arange(kmax) >= max(1, kmax - 5))
+    mid = torch.as_tensor(RNG.uniform(size=(n, kmax)) < 0.05)
+    mid[::2] = False
+    pad = tail | mid
+    cols[pad] = 0
+    vals[pad] = 0.0
+    cols[5, :64] = int(cols[5, 0])              # one column, up to 64 times
+    cols, vals = cols.to(dev), vals.to(dev)
+    y = _halves((n, q), dev)
+    before = spmm.xty_launches
+    got = spmm.spmm_xty(cols, vals, y, ncol=ncol)
+    again = spmm.spmm_xty(cols, vals, y, ncol=ncol)
+    torch.cuda.synchronize()
+    assert spmm.xty_launches == before + 2
+    want = ref.spmm_xty_ref(cols, vals, y, ncol, torch.float64)
+    assert got.shape == (ncol, q) and got.dtype == torch.float32
+    assert torch.equal(got.double(), want)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("q", [1, 40])

@@ -158,18 +158,45 @@ def test_spmm_tile_layout_fits_shared_memory(kmax, ncol, weighted, want):
     """The square tile the gram / wgram wrapper picks fills one block's 227
     KB alone (no staging: 240 and 28 upper-triangle tiles at Criteo), and
     the workspace of the splits' partial tiles stays under its cap; xty's
-    staged layout still fits its stripe."""
+    warps' copies of its stripe fit beside nothing else, all ncol rows in
+    one stripe at these shapes, whatever kmax (its rows are read from
+    global memory, not staged)."""
     n = 45_840_617
     ts, tiles, splits = spmm.gram_layout(n, ncol)
     assert (ts, tiles) == want and ts == spmm.gram_tile(ncol)
     assert 4 * ts * ts <= spmm.SMEM_LIMIT and ts % 8 == 0 and ts >= min(
         ncol, 8)
     assert 4 * splits * tiles * ts * ts <= spmm.WS_CAP_BYTES
-    cs, qc, tpr = spmm.xty_tile(ncol, 1 + weighted, kmax)
-    kp = kmax | 1
-    stage = 2 * (spmm.THREADS // tpr) * (2 * kp + qc)
+    cs, qc, warps = spmm.xty_tile(ncol, 1 + weighted)
     assert cs == ncol and qc == 1 + weighted
-    assert 4 * (cs * qc + stage) <= spmm.SMEM_LIMIT
+    assert spmm.XTY_MIN_WARPS <= warps <= spmm.XTY_MAX_WARPS
+    assert 4 * warps * spmm.xty_copy_floats(cs * qc) <= spmm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("ncol,q,want", [
+    (1664, 1, (1664, 1, 32, 1)), (1664, 2, (1664, 2, 17, 1)),
+    (1664, 40, (223, 32, 8, 16)), (5, 3, (5, 3, 32, 1)),
+    (100_000, 1, (7152, 1, 8, 14)), (7152, 1, (7152, 1, 8, 1)),
+    (7264, 1, (7152, 1, 8, 2))])
+def test_spmm_xty_stripe_fits_shared_memory(ncol, q, want):
+    """xty's layout, a function of (n, ncol, q) alone: every warp's skewed
+    copy of the stripe inside 227 KB together, the stripes and Y's column
+    tiles covering the output, one stripe of all ncol rows whenever 8
+    copies of it fit (Criteo's 1,664 × 1: 32 warps), the workspace under its
+    cap; the same at kmax 1 or 20,000, since no row is staged."""
+    n = 45_840_617
+    cs, qc, warps, tiles, splits = spmm.xty_layout(n, ncol, q)
+    assert (cs, qc, warps, tiles) == want
+    assert (cs, qc, warps) == spmm.xty_tile(ncol, q)
+    assert spmm.XTY_MIN_WARPS <= warps <= spmm.XTY_MAX_WARPS
+    copy = spmm.xty_copy_floats(cs * qc)
+    assert copy - 1 == (cs * qc - 1) + (cs * qc - 1) // 64  # skew(last) + 1
+    assert 4 * warps * copy <= spmm.SMEM_LIMIT
+    assert cs == ncol or 4 * spmm.XTY_MIN_WARPS * spmm.xty_copy_floats(
+        ncol * qc) > spmm.SMEM_LIMIT
+    assert tiles == -(-ncol // cs) * -(-q // qc) and qc == min(q, 32)
+    assert 4 * splits * tiles * cs * qc <= spmm.WS_CAP_BYTES
+    assert splits == spmm.xty_layout(n, ncol, q)[4] >= 1
 
 
 @pytest.mark.parametrize("d", [80, 96, 112, 256])
@@ -190,11 +217,12 @@ def test_flash_attention_wide_head_dims_match_pallas(d, causal, dtype):
 
 
 def test_spmm_xty_declines_rows_too_wide_for_its_tile():
-    """A sparse source of kmax = 20,000 (8 rows): spmm_xty's staged rows
-    leave its stripe no shared memory, so the matcher declines the XᵀY
-    segment by name and it runs the generic rules, equal to the JAX
-    package's result; spmm_gram, which stages nothing, still claims XᵀX,
-    and the wrapper called directly keeps its ValueError."""
+    """A sparse source of kmax = 20,000 (8 rows), which spmm_xty's old
+    staged body had no room for and the matcher declined: since the warp-
+    per-row body (no staging, any kmax) nothing is declined for its width,
+    so spmm_xty claims the XᵀY segment, as spmm_gram claims XᵀX, no
+    decline names kmax, and the result equals the JAX package's (its
+    Pallas kernel in interpret mode and the engine) and numpy's."""
     from repro.core import fm as jfm
     from repro.core.matrix import FMMatrix as JFMMatrix
     from repro.storage.sparse import SparseEllStore as JStore
@@ -212,23 +240,26 @@ def test_spmm_xty_declines_rows_too_wide_for_its_tile():
     plan = Plan([xty.m, fm.crossprod(X).m])
     text = " | ".join(lowering.dispatch_report(plan, plan.ir,
                                                "cuda").values())
-    assert "declined: sparse source of kmax=20000: spmm_xty" in text
+    assert "cuda:spmm_xty (claimed by match_spmm)" in text
     assert "cuda:spmm_gram (claimed by match_spmm)" in text
-    assert "cuda:spmm_xty" not in text
+    assert "kmax" not in text and "declined" not in text
     (got,) = fm.materialize(xty, backend="cuda")
     J = jfm.FM(JFMMatrix((n, ncol), np.float32,
                          store=JStore(cols, vals, ncol)))
     (want,) = jfm.materialize(jfm.crossprod(J, jfm.conv_R2FM(y)),
                               backend="xla")
+    pallas = jspmm.spmm_xty(jnp.asarray(cols), jnp.asarray(vals),
+                            jnp.asarray(y), ncol=ncol, interpret=True)
     dense = np.zeros((n, ncol))
     np.add.at(dense, (np.repeat(np.arange(n), kmax), cols.reshape(-1)),
               vals.reshape(-1))
     np.testing.assert_allclose(fm.as_np(got), jfm.as_np(want), rtol=1e-5,
                                atol=1e-4)
+    np.testing.assert_allclose(fm.as_np(got), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-4)
     np.testing.assert_allclose(fm.as_np(got), dense.T @ y, rtol=1e-4,
                                atol=1e-3)
-    with pytest.raises(ValueError, match="kmax=20000"):
-        spmm.xty_tile(ncol, 2, kmax)
+    assert spmm.xty_tile(ncol, 2) == (ncol, 2, spmm.XTY_MAX_WARPS)
 
 
 @pytest.mark.parametrize("n", ROWS)
@@ -334,7 +365,8 @@ def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run their plain versions: no launch is
     counted, and a CUDA tensor is the only way to the kernel."""
     counters = ((gram_mod, "launches"), (gram_mod, "xty_launches"),
-                (wg, "launches"), (faa, "launches"), (ka, "launches"),
+                (wg, "launches"), (wg, "tri_launches"), (faa, "launches"),
+                (ka, "launches"),
                 (spmm, "gram_launches"), (spmm, "xty_launches"),
                 (spmm, "wgram_launches"), (fa, "launches"))
     before = [getattr(m, a) for m, a in counters]
@@ -420,6 +452,45 @@ def test_xty_plan_and_thin_geometry(n, p, q):
     if n > 10 ** 6:  # the blocks a launch gives an SM, capped by rows
         assert splits == min(gram_mod.THIN_BLOCKS[width] * common.SM_COUNT
                              // tiles, -(-n // 1024))
+
+
+@pytest.mark.parametrize("p", [1, 7, 12, 31, 32, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgram_plan_geometry(p, dtype):
+    """wgram's plan from the shape alone: p ≤ 32 takes the triangle body,
+    whose chunks (rows and their weights) are whole multiples of 16 bytes at
+    every p and dtype (what cp.async.bulk moves), whose ring and tile
+    partials fit beside two blocks an SM, whose chunk is a whole number of
+    the rows a block takes a step, and whose splits cover n in whole
+    chunks, at most two blocks an SM; p > 32 stays on the tile body.  Equal
+    on every call, nothing allocated."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for n in (1, 3, 1000, 70_001, 65_608_366):
+        plan = gram_mod.wgram_plan(n, p, dtype)
+        assert plan == gram_mod.wgram_plan(n, p, dtype)
+        assert 1 <= plan.splits <= 65535
+        assert plan.splits * plan.rows_per_split >= n
+        assert (plan.splits - 1) * plan.rows_per_split < n
+        if p > gram_mod.TRI_MAX_P:
+            assert plan.body == "tile"
+            assert plan.splits == gram_mod.gram_splits(n, p)
+            assert plan.ws_floats == plan.splits * 4 * gram_mod.TILE ** 2
+            continue
+        R = plan.chunk_rows
+        nb = -(-p // 8)
+        step = gram_mod.TRI_THREADS // 32 * (32 // (nb * (nb + 1) // 2))
+        assert plan.body == "tri" and R % 8 == 0 and R % step == 0
+        assert (R * p * elem) % 16 == 0 and (R * 4) % 16 == 0
+        assert plan.rows_per_split % R == 0
+        assert R * (p * elem + 4) <= gram_mod.TRI_STAGE_BYTES
+        assert plan.smem_bytes == gram_mod.TRI_BARS + max(
+            plan.stages * R * (p * elem + 4),
+            gram_mod.TRI_THREADS // 32 * nb * (nb + 1) // 2 * 256)
+        assert 8 * plan.stages <= gram_mod.TRI_BARS
+        assert gram_mod.TRI_BLOCKS_PER_SM * (plan.smem_bytes + 1024) \
+            <= 228 * 1024
+        assert plan.splits <= gram_mod.TRI_BLOCKS_PER_SM * common.SM_COUNT
+        assert plan.ws_floats == plan.splits * p * p
 
 
 def test_xty_thin_widths_cover_every_narrow_width():
