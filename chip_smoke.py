@@ -13,7 +13,10 @@ Phases, each printing one JSON line:
              NMF's and GMM's shapes, its rows naming the thin body's width,
              splits, registers and spills; wgram's row naming the body
              that ran, its chunk rows, stages, splits and shared bytes,
-             registers and spills), held against its plain PyTorch version
+             registers and spills; fused_apply_agg's and kmeans_assign's
+             rows the same for their ring and TMA bodies, and
+             ``deterministic``, two calls equal bit for bit, checked), held
+             against its plain PyTorch version
              on the same inputs — the float32 one, and for the sums a
              float64 one, entry by entry — and timed with CUDA events beside
              its plain version, its roofline bound and, where one PyTorch
@@ -370,7 +373,13 @@ def kernel_phase(torch, x, xk):
     check([u.kernel for u in units] == ["fused_apply_agg"],
           f"summary plan lowers to {[u.kernel for u in units]}")
     chains = units[0].chains
+    ring_before = faa.ring_launches
     got = faa.fused_apply_agg(x, chains)
+    body = "ring" if faa.ring_launches > ring_before else "tile"
+    plan = faa.chain_plan(n, p, x.dtype)
+    deterministic = all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(got, faa.fused_apply_agg(x, chains)))
     want = ref.fused_apply_agg_ref(x, chains)
     err = 0.0
     max_abs = 0.0
@@ -385,17 +394,32 @@ def kernel_phase(torch, x, xk):
             if e > 1e-4:
                 failed.append(f"fused_apply_agg {unaries} {agg} rel err {e}")
             err = max(err, e)
+    if not body == plan.body == "ring":
+        failed.append(f"fused_apply_agg ran the {body} body, its plan says "
+                      f"{plan.body}; the main path's shape takes the ring")
+    if not deterministic:
+        failed.append("fused_apply_agg: two calls differ")
     n_ops = sum(len(u) + 1 for u, _, _ in chains)
     b = bound(n * p * 4 + len(chains) * p * 4, n * p * n_ops)
     row = dict(
         name="fused_apply_agg", route="cuda",
         source="src/repro_torch/kernels/csrc/fused_apply_agg.cu",
-        replaces="src/repro/kernels/fused_apply_agg.py:177",
+        replaces="src/repro/kernels/fused_apply_agg.py:177", body=body,
+        design=dict(chunk_rows=plan.chunk_rows, stages=plan.stages,
+                    splits=plan.splits, rows_per_split=plan.rows_per_split,
+                    lanes=plan.lanes, values_a_decode=faa.RING_V,
+                    smem_bytes=plan.smem_bytes, threads=faa.RING_THREADS,
+                    blocks_per_sm=faa.RING_BLOCKS_PER_SM),
+        ptxas=build.ptxas_report("fused_apply_agg", "chain_ring_partialsILi1E"),
+        deterministic=deterministic,
         max_abs_err=max_abs, rel_err=err, tol=1e-4,
         ms=time_ms(torch, lambda: faa.fused_apply_agg(x, chains)),
         plain_ms=time_ms(torch, lambda: ref.fused_apply_agg_ref(x, chains),
                          reps=2),
-        bound_ms=b[0], bound_by=b[1], library_ms=None)
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_note="no single PyTorch call computes several column "
+                     "statistics of transformed values in one read; "
+                     "torch.aminmax gives min and max alone")
     emit({"phase": "kernel", **row})
     check(not failed, "; ".join(failed))
     rows.append(row)
@@ -404,9 +428,20 @@ def kernel_phase(torch, x, xk):
     # kmeans_assign: the first Lloyd step of kmeans(k=10) on the blobs.
     c = torch.as_tensor(_init_centers(fm.conv_R2FM(xk), K_CLUSTERS, 0),
                         device=x.device)
+    tma_before = ka.tma_launches
     lab, sums, cnts, wss = ka.kmeans_assign(xk, c)
+    body = "tma" if ka.tma_launches > tma_before else "staged"
+    plan = ka.lloyd_plan(n, p, c.shape[0], xk.dtype)
+    deterministic = all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip((lab, sums, cnts, wss), ka.kmeans_assign(xk, c)))
     rlab, rsums, rcnts, rwss = ref.kmeans_assign_ref(xk, c)
     failed = []
+    if not body == plan.body == "tma":
+        failed.append(f"kmeans_assign ran the {body} body, its plan says "
+                      f"{plan.body}; the main path's shape takes the TMA one")
+    if not deterministic:
+        failed.append("kmeans_assign: two calls differ")
     bad = (lab != rlab).nonzero().reshape(-1)
     if bad.numel():
         xb = xk[bad].double()
@@ -440,7 +475,16 @@ def kernel_phase(torch, x, xk):
     row = dict(
         name="kmeans_assign", route="cuda",
         source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
-        replaces="src/repro/kernels/kmeans_assign.py:96",
+        replaces="src/repro/kernels/kmeans_assign.py:96", body=body,
+        design=dict(box_rows=plan.box_rows, stages=plan.stages,
+                    blocks=plan.blocks, blocks_per_sm=plan.blocks_per_sm,
+                    lanes=plan.lanes, part_smem=plan.part_smem,
+                    smem_bytes=plan.smem_bytes, threads=ka.TMA_THREADS,
+                    centers_a_pass=ka.TMA_KB, swizzle="128B"),
+        ptxas=build.ptxas_report(
+            "kmeans_assign",
+            f"lloyd_tma_partialsIfLi{p * 4 // 16}ELb{int(plan.part_smem)}E"),
+        deterministic=deterministic,
         max_abs_err=max(float((sums.double() - s64).abs().max()),
                         float((wss.double() - w64).abs().max())),
         rel_err=max(e_s, e_w), tol=1e-4, label_mismatches_at_ties=mism,
@@ -448,7 +492,10 @@ def kernel_phase(torch, x, xk):
         tol_f64=F64_TOL, wss=[float(wss), float(rwss), float(w64)],
         ms=time_ms(torch, lambda: ka.kmeans_assign(xk, c)),
         plain_ms=time_ms(torch, lambda: ref.kmeans_assign_ref(xk, c), reps=2),
-        bound_ms=b[0], bound_by=b[1], library_ms=None)
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        library_note="no single PyTorch call gives labels with their "
+                     "cluster sums, counts and wss; torch.cdist + argmin "
+                     "gives the labels alone")
     emit({"phase": "kernel", **row})
     check(not failed, "; ".join(failed))
     rows.append(row)

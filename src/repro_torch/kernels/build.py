@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` source compiles with ``nvcc`` into a shared library with a
 plain C interface, loaded with ``ctypes`` (no PyTorch headers, so a build
 takes seconds).  The first call that needs a kernel builds every source —
 one ``nvcc`` per source, all started together — into ``_build/`` beside this
-file, under names keyed by a hash of the sources and flags, so an edited
-source rebuilds and concurrent processes share one build (a file lock
-serializes them).  No ``nvcc``, or a failed build, raises: nothing falls back.
+file, under names keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source or header rebuilds and
+concurrent processes share one build (a file lock serializes them).  No
+``nvcc``, or a failed build, raises: nothing falls back.
 """
 from __future__ import annotations
 
@@ -48,8 +49,13 @@ def _nvcc() -> str:
 
 
 def _digest(name: str) -> str:
+    """Hash of ``<name>.cu``, every shared header ``csrc/*.cuh`` (a source
+    may include any of them) and the flags: an edit to any rebuilds."""
     h = hashlib.sha256()
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -120,8 +126,14 @@ _SIGNATURES = {
     # cols, vals, y, ws, out, n, kmax, ncol, q, qc, cs, warps, splits, stream
     "fm_spmm_xty": (_P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _L, _P),
     "fm_fused_apply_agg": (_P, _P, _P, _L, _I, _L, _P, _P),
+    # x, ws, out, n, p, R, stages, rows_per_split, splits, prog, stream
+    "fm_fused_apply_agg_ring": (_P, _P, _P, _L, _I, _I, _I, _L, _L, _P, _P),
     "fm_kmeans_assign": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                          _I, _P),
+    # x, c, labels, ws, sums, cnts, wss, n, p, k, blocks, stages, lanes,
+    # part_smem, dtype, stream
+    "fm_kmeans_assign_tma": (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                             _I, _I, _I, _P),
     # q, k, v, o, bh, nh, group, S, T, d, scale, causal, dtype, stream
     "fm_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _L, _L, _I, _F, _I, _I,
                            _P),

@@ -52,6 +52,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper_async.cuh"  // mbar_*, bulk_load
+
 namespace {
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
@@ -459,39 +461,6 @@ int launch(const void* x, const void* y, const void* w, void* ws, void* out,
 constexpr int TRI_THREADS = 256;
 constexpr int TRI_WARPS = TRI_THREADS / 32;
 constexpr int TRI_BARS = 64;  // bytes before the ring: one mbarrier a stage (≤ 8)
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of this parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-// bytes (a multiple of 16) from global src to shared dst, both 16-byte
-// aligned, counted on the mbarrier bar.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
 
 // The tile (I, J), I ≤ J, of index t in row-major order of the upper
 // triangle of an nb × nb grid of 8-column blocks.

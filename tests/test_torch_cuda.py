@@ -16,7 +16,10 @@ duplicate columns, kmax = 1 and kmax past one 32-entry chunk (up to
 tiles, spmm_xty held to float64 exactly and bit for bit from call to call;
 wgram's triangle body (p ≤ 32) and tile body (p > 32) told apart by their
 launch counters, from bases off 16 bytes too; xty's thin path at every
-narrow width 1..16;
+narrow width 1..16; fused_apply_agg's ring body (p ≤ 256) and kmeans_assign's
+TMA body (rows of 16 to 128 bytes) over ragged n, int32 / f32 / bf16 /
+int8 sources, bases off 16 bytes, bit for bit from call to call, their
+counters naming the body;
 flash attention over ragged S and T (S below, equal to and above T), every
 head dim the kernel is built for (80, 96, 112 and 256 among them), GQA
 group factors 1, 3 and 8, causal and not, bf16 (held within one bf16 ulp
@@ -389,6 +392,101 @@ def test_fused_apply_agg_nan_negative_and_narrow_sources(dev):
                 _close(g, w, 1e-4)
 
 
+#: The chain specs of tests/test_torch_kernels.py's _CHAIN_CASES (that file
+#: imports jax, which the card's machine need not have), by the source they
+#: take: int sources the int-accumulator and cast chains (10 chains, two
+#: launches), float sources summary's six, every float unary (12) and the
+#: domain-restricted ones (21 chains, three launches).
+_INT_CHAINS = faa.normalize_chains((
+    ((), "sum", "int32"), (("sq",), "sum", "int32"),
+    (("abs", "neg"), "min", "int32"), ((), "max", "int32"),
+    ((), "count", "int32"), ((), "count_nonzero", "int32"),
+    (("cast_float32", "sqrt"), "sum", "float32"),
+    (("cast_float32", "sq"), "max", "float32"),
+    (("cast_bfloat16", "sq"), "sum", "float32"),
+    (("abs", "sqrt", "cast_int32"), "sum", "int32")))
+_FLOAT_CHAINS = faa.normalize_chains(ref.SUMMARY_CHAINS + tuple(
+    ((u,), "sum") for u in (
+        "identity", "abs", "sq", "exp", "neg", "sigmoid", "floor", "ceil",
+        "round", "sign", "cast_float32", "cast_bfloat16")) + (
+    (("abs", "sqrt"), "sum"), (("abs", "log1p"), "max"),
+    (("abs", "exp", "log"), "min")))
+
+
+def _ring_source(n, p, dtype, dev):
+    """A seeded (n, p) source: ints in [-60, 60) (int8 too), or floats
+    N(0, 9) with column 0 all negative and, at p > 1, a NaN in column 1."""
+    if dtype in (torch.int32, torch.int8):
+        return torch.as_tensor(RNG.integers(-60, 60, size=(n, p)),
+                               dtype=dtype).to(dev)
+    x = _x(n, p, torch.float32, dev, scale=3.0)
+    x[:, 0] = -x[:, 0].abs() - 0.5
+    if p > 1:
+        x[n // 2, 1] = float("nan")
+    return x.to(dtype)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_or_close(u, agg, acc, got, want):
+    """min, max, counts and int32 sums exact (NaN where the plain version
+    has NaN), float sums within 1e-5 of the largest |entry|."""
+    nan = torch.isnan(want) if want.is_floating_point() else None
+    if nan is not None:
+        assert torch.equal(torch.isnan(got), nan), (u, agg)
+        got, want = got[~nan], want[~nan]
+    if agg in ("min", "max", "count", "count_nonzero") or acc == "int32":
+        assert torch.equal(got, want), (u, agg, acc)
+    elif want.numel():
+        _close(got, want, 1e-5)
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 70001])
+@pytest.mark.parametrize("p", [1, 5, 12, 32, 33, 100, 256, 257])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16, torch.int8])
+def test_fused_apply_agg_ring_body(dev, n, p, dtype):
+    """The ring body (p ≤ 256; p = 257 stays on the tile body) against the
+    plain version: every chain spec of the CPU tests, more than 8 chains a
+    call, NaN and all-negative columns; two calls equal bit for bit, and
+    the counters name the body that ran."""
+    x = _ring_source(n, p, dtype, dev)
+    chains = _FLOAT_CHAINS if x.is_floating_point() else _INT_CHAINS
+    launches = -(-len(chains) // faa.MAX_CHAINS)
+    before = (faa.launches, faa.ring_launches)
+    got = faa.fused_apply_agg(x, chains)
+    again = faa.fused_apply_agg(x, chains)
+    torch.cuda.synchronize()
+    ring = faa.chain_plan(n, p, faa._widen(x).dtype).body == "ring"
+    assert ring == (p <= faa.RING_MAX_P)
+    assert (faa.launches, faa.ring_launches) == (
+        before[0] + 2 * launches, before[1] + 2 * launches * ring)
+    want = ref.fused_apply_agg_ref(faa._widen(x), chains)
+    for (u, agg, acc), g, a, w in zip(chains, got, again, want):
+        assert g.dtype == w.dtype and g.shape == (p,)
+        assert torch.equal(_bits(g), _bits(a)), (u, agg)
+        _same_or_close(u, agg, acc, g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32,
+                                   torch.bfloat16])
+def test_fused_apply_agg_ring_unaligned_view(dev, dtype):
+    """A view whose base is off a 16-byte boundary (what cp.async.bulk
+    needs) is copied first: the same bits as the aligned source."""
+    n, p = 1000, 32
+    x = _ring_source(n, p, dtype, dev)
+    buf = torch.zeros(n * p + 1, dtype=dtype, device=dev)
+    view = buf[1:].view(n, p)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    chains = _FLOAT_CHAINS if x.is_floating_point() else _INT_CHAINS
+    for g, w in zip(faa.fused_apply_agg(view, chains),
+                    faa.fused_apply_agg(x, chains)):
+        assert torch.equal(_bits(g), _bits(w))
+
+
 def _check_lloyd(x, c):
     lab, sums, cnts, wss = ka.kmeans_assign(x, c)
     rl, rs, rc, rw = ref.kmeans_assign_ref(x, c)
@@ -421,6 +519,63 @@ def test_kmeans_assign_global_layouts(dev, k, p):
     x = _x(3000, p, torch.float32, dev)
     c = _x(k, p, torch.float32, dev)
     _check_lloyd(x, c)
+
+
+@pytest.mark.parametrize("n", [1, 255, 256, 257, 70001])
+@pytest.mark.parametrize("k", [1, 2, 10, 64, 500])
+@pytest.mark.parametrize("p", [4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_assign_tma_body(dev, n, k, p, dtype):
+    """The TMA body (rows of 16 to 128 bytes; bf16 p = 4, 8 bytes, stays on
+    the staged body) against the plain version, with two centers equal
+    (ties go to the first index); two calls equal bit for bit, and the
+    counters name the body that ran."""
+    x = _x(n, p, dtype, dev)
+    c = _x(k, p, torch.float32, dev)
+    if k > 2:
+        c[k - 1] = c[1]
+    tma = ka.lloyd_plan(n, p, k, dtype).body == "tma"
+    assert tma == (p * x.element_size() % 16 == 0)
+    before = (ka.launches, ka.tma_launches)
+    first = ka.kmeans_assign(x, c)
+    second = ka.kmeans_assign(x, c)
+    torch.cuda.synchronize()
+    assert (ka.launches, ka.tma_launches) == (before[0] + 2,
+                                              before[1] + 2 * tma)
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b))
+    if k > 2:
+        assert not bool((first[0] == k - 1).any())
+    _check_lloyd(x, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_assign_tma_partials_in_workspace(dev, dtype):
+    """k = 1000 at p = 32: the centers fit beside the ring but no lane of
+    partials does, so the TMA body gathers into the block's workspace."""
+    n, p, k = 3000, 32, 1000
+    plan = ka.lloyd_plan(n, p, k, dtype)
+    assert plan.body == "tma" and not plan.part_smem
+    x = _x(n, p, dtype, dev)
+    c = _x(k, p, torch.float32, dev)
+    before = ka.tma_launches
+    _check_lloyd(x, c)
+    assert ka.tma_launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kmeans_assign_tma_unaligned_view(dev, dtype):
+    """A view off a 16-byte boundary (a TMA base must be on one) is copied
+    first: the same bits as the aligned source."""
+    n, p, k = 1000, 32, 10
+    x = _x(n, p, dtype, dev)
+    buf = torch.zeros(n * p + 1, dtype=dtype, device=dev)
+    view = buf[1:].view(n, p)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0
+    c = _x(k, p, torch.float32, dev)
+    for a, b in zip(ka.kmeans_assign(view, c), ka.kmeans_assign(x, c)):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_engine_reaches_every_kernel_on_cuda(dev):

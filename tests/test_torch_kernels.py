@@ -12,6 +12,8 @@ single rounding of P does not).  xty's launch plan is checked from the
 shapes alone.  The CUDA kernels themselves are held against
 these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py)."""
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -366,7 +368,7 @@ def test_wrappers_count_only_kernel_launches():
     counted, and a CUDA tensor is the only way to the kernel."""
     counters = ((gram_mod, "launches"), (gram_mod, "xty_launches"),
                 (wg, "launches"), (wg, "tri_launches"), (faa, "launches"),
-                (ka, "launches"),
+                (faa, "ring_launches"), (ka, "launches"), (ka, "tma_launches"),
                 (spmm, "gram_launches"), (spmm, "xty_launches"),
                 (spmm, "wgram_launches"), (fa, "launches"))
     before = [getattr(m, a) for m, a in counters]
@@ -491,6 +493,107 @@ def test_wgram_plan_geometry(p, dtype):
             <= 228 * 1024
         assert plan.splits <= gram_mod.TRI_BLOCKS_PER_SM * common.SM_COUNT
         assert plan.ws_floats == plan.splits * p * p
+
+
+@pytest.mark.parametrize("p", [1, 5, 12, 32, 33, 100, 256, 257])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32, torch.bfloat16])
+def test_chain_plan_geometry(p, dtype):
+    """fused_apply_agg's plan from the shape alone: p ≤ 256 takes the ring
+    body, whose chunks are whole multiples of 16 bytes (what cp.async.bulk
+    moves) and of lanes × RING_V rows (so a full chunk needs no row mask),
+    whose lanes of p threads fit the block, whose stages (and the lanes'
+    partials) fit beside two blocks an SM, and whose splits cover n in
+    whole chunks, at most two blocks an SM; p > 256 stays on the tile body.
+    Equal on every call, nothing allocated."""
+    elem = 2 if dtype == torch.bfloat16 else 4
+    for n in (0, 1, 7, 1000, 70_001, 65_608_366):
+        plan = faa.chain_plan(n, p, dtype)
+        assert plan == faa.chain_plan(n, p, dtype)
+        assert 1 <= plan.splits <= 65535
+        assert plan.splits * plan.rows_per_split >= n
+        assert n == 0 or (plan.splits - 1) * plan.rows_per_split < n
+        if p > faa.RING_MAX_P:
+            assert plan.body == "tile" and plan.chunk_rows == 0
+            assert plan.splits == common.splits_for(n, 512, -(-p // 32))
+            continue
+        R, L = plan.chunk_rows, plan.lanes
+        assert plan.body == "ring" and L == faa.RING_THREADS // p >= 1
+        assert L * p <= faa.RING_THREADS
+        assert (R * p * elem) % 16 == 0 and R % (L * faa.RING_V) == 0
+        assert plan.rows_per_split % R == 0
+        assert R * p * elem <= faa.RING_STAGE_BYTES
+        assert plan.smem_bytes == faa.RING_BARS + max(
+            plan.stages * R * p * elem, L * faa.MAX_CHAINS * p * 4)
+        assert 8 * plan.stages <= faa.RING_BARS
+        assert faa.RING_BLOCKS_PER_SM * (plan.smem_bytes + 1024) \
+            <= 228 * 1024
+        assert plan.splits <= faa.RING_BLOCKS_PER_SM * common.SM_COUNT
+
+
+@pytest.mark.parametrize("p,k,dtype,body", [
+    (4, 1, torch.float32, "tma"), (8, 2, torch.float32, "tma"),
+    (16, 64, torch.float32, "tma"), (32, 10, torch.float32, "tma"),
+    (32, 500, torch.float32, "tma"), (24, 10, torch.float32, "tma"),
+    (32, 1000, torch.float32, "tma"),
+    (8, 10, torch.bfloat16, "tma"), (32, 500, torch.bfloat16, "tma"),
+    (3, 10, torch.float32, "staged"), (300, 3, torch.float32, "staged"),
+    (32, 60_000, torch.float32, "staged"), (4, 10, torch.bfloat16, "staged"),
+    (33, 10, torch.float32, "staged"), (1, 60_000, torch.float32, "staged")])
+def test_lloyd_plan_geometry(p, k, dtype, body):
+    """kmeans_assign's plan from the shape alone: p ≤ 32 in rows of 16 to
+    128 bytes takes the TMA body when the centers fit, with boxes of at most
+    256 rows (TMA's limit) and the ring (every row at the swizzle's 128-byte
+    pitch), centers, ‖c‖² and any shared partials inside one block's 227
+    KB (two blocks an SM only when two fit), the partials in shared lanes of
+    p / 4 threads or, when no lane fits, in the workspace; every other shape
+    takes the staged body.  The workspace holds every block's sums, counts
+    and wss."""
+    for n in (1, 255, 256, 257, 70_001, 65_608_366):
+        plan = ka.lloyd_plan(n, p, k, dtype)
+        assert plan == ka.lloyd_plan(n, p, k, dtype)
+        assert plan.body == body
+        assert 1 <= plan.blocks <= min(-(-n // 256), 4 * common.SM_COUNT)
+        assert plan.box_rows <= 256 and plan.box_rows == ka.TMA_THREADS
+        if body == "staged":
+            assert plan.ws_floats == plan.blocks * (k * p + k + 1) + k
+            continue
+        assert plan.stages in ka.TMA_STAGES
+        assert plan.smem_bytes == ka.tma_smem(p, k, plan.stages, plan.lanes,
+                                              plan.part_smem)
+        assert plan.smem_bytes >= plan.stages * 256 * ka.TMA_PITCH \
+            + -(-k // ka.TMA_KB) * ka.TMA_KB * (p + 1) * 4
+        assert plan.smem_bytes <= ka.SMEM_LIMIT
+        assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= ka.SM_SMEM
+        assert plan.blocks <= plan.blocks_per_sm * common.SM_COUNT
+        assert 1 <= plan.lanes
+        assert plan.lanes * (p // ka.TMA_GATHER_COLS) <= ka.TMA_THREADS
+        assert plan.part_smem or plan.lanes == 1
+        assert plan.ws_floats == plan.blocks * (k * p + k + 1)
+    if (p, k, dtype) == (32, 10, torch.float32):   # the main path
+        plan = ka.lloyd_plan(65_608_366, p, k, dtype)
+        assert (plan.stages, plan.blocks_per_sm, plan.lanes,
+                plan.part_smem) == (2, 2, 32, True)
+
+
+def test_build_digest_covers_headers(tmp_path, monkeypatch):
+    """A library is keyed by its source, every shared csrc/*.cuh header and
+    the flags: an edit to the header gives every source a new digest (so no
+    stale kernel is loaded), and an edit to one source only that one."""
+    from repro_torch.kernels import build
+    src = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, src)
+    monkeypatch.setattr(build, "CSRC", src)
+    assert list(src.glob("*.cuh"))
+    before = {name: build._digest(name) for name in build.SOURCES}
+    header = src / "hopper_async.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: build._digest(name) for name in build.SOURCES}
+    assert all(after[name] != before[name] for name in build.SOURCES)
+    cu = src / "gram.cu"
+    cu.write_text(cu.read_text() + "\n// edited\n")
+    again = {name: build._digest(name) for name in build.SOURCES}
+    assert [name for name in build.SOURCES if again[name] != after[name]] \
+        == ["gram"]
 
 
 def test_xty_thin_widths_cover_every_narrow_width():
