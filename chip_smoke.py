@@ -11,10 +11,12 @@ Phases, each printing one JSON line:
              65,608,366 × 32 float32, the paper's Friendster-32 input,
              generated on the card from a seeded ``torch.Generator``; xty at
              NMF's and GMM's shapes, its rows naming the thin body's width,
-             splits, registers and spills; wgram's row naming the body
-             that ran, its chunk rows, stages, splits and shared bytes,
-             registers and spills; fused_apply_agg's and kmeans_assign's
-             rows the same for their ring and TMA bodies, and
+             splits, registers and spills; gram's and wgram's rows naming
+             the body that ran (the triangle body, checked against the
+             plan), its chunk rows, stages, splits, threads and shared
+             bytes, registers and spills; fused_apply_agg's and
+             kmeans_assign's rows the same for their ring and TMA bodies;
+             gram's, fused_apply_agg's and kmeans_assign's rows also
              ``deterministic``, two calls equal bit for bit, checked), held
              against its plain PyTorch version
              on the same inputs — the float32 one, and for the sums a
@@ -30,7 +32,8 @@ Phases, each printing one JSON line:
              a. ``summary``, ``correlation``, ``glm(family="logistic",
                 max_iter=8)`` and ``kmeans(k=10, max_iter=5)`` with backend
                 ``cuda`` (once to warm, then counted; every materialize is
-                one pass), then with backend ``torch``, compared;
+                one pass; gram must have run its triangle body), then with
+                backend ``torch``, compared;
              b. ``svd_tall(k=10, compute_u=True)``, ``pca(k=10)``,
                 ``nmf(|X|, k=8, max_iter=3)``, ``gmm(k=10, max_iter=3)`` on
                 the 10 blobs and ``naive_bayes`` + ``nb_predict`` on the
@@ -297,7 +300,12 @@ def kernel_phase(torch, x, xk):
     rows = []
 
     # gram: correlation's crossprod(X).
+    tri_before = gram_mod.tri_launches
     g = gram_mod.gram(x)
+    plan = gram_mod.tri_plan(n, p, x.dtype, weighted=False)
+    body = "tri" if gram_mod.tri_launches > tri_before else "tile"
+    deterministic = torch.equal(g.view(torch.int32),
+                                gram_mod.gram(x).view(torch.int32))
     err = rel_err(torch, g, ref.gram_ref(x))
     g64 = gram64(torch, x)
     diag64, off64 = corr_err(torch, g, g64)
@@ -305,7 +313,14 @@ def kernel_phase(torch, x, xk):
     b = bound(n * p * 4 + p * p * 4, 2 * n * p * p)
     row = dict(
         name="gram", route="cuda", source="src/repro_torch/kernels/csrc/gram.cu",
-        replaces="src/repro/kernels/gram.py:54",
+        replaces="src/repro/kernels/gram.py:54", body=body,
+        design=dict(chunk_rows=plan.chunk_rows, stages=plan.stages,
+                    splits=plan.splits, rows_per_split=plan.rows_per_split,
+                    smem_bytes=plan.smem_bytes,
+                    threads=gram_mod.TRI_THREADS,
+                    blocks_per_sm=gram_mod.TRI_BLOCKS_PER_SM),
+        ptxas=build.ptxas_report("gram", "tri_partialsIfLb1ELb0E"),
+        deterministic=deterministic,
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=err, tol=1e-4, diag_err_f64=diag64, tol_f64=F64_TOL,
         offdiag_err_f64=off64, tol_offdiag_f64=F64_TOL_OFFDIAG,
@@ -315,6 +330,9 @@ def kernel_phase(torch, x, xk):
         bound_ms=b[0], bound_by=b[1],
         library_ms=time_ms(torch, lambda: torch.matmul(x.T, x)))
     emit({"phase": "kernel", **row})
+    check(body == plan.body == "tri", f"gram ran the {body} body, its plan "
+          f"says {plan.body}; the main path's shape takes the triangle")
+    check(deterministic, "gram: two calls differ")
     check(err <= 1e-4, f"gram rel err {err} against the f32 plain version")
     check(diag64 <= F64_TOL and off64 <= F64_TOL_OFFDIAG,
           f"gram err {diag64} on the diagonal, {off64} off it (correlation "
@@ -329,7 +347,7 @@ def kernel_phase(torch, x, xk):
     w = torch.rand(n, generator=gen, device=x.device) * 0.25 + 1e-6
     tri_before = wg.tri_launches
     g = wg.wgram(x, w)
-    plan = gram_mod.wgram_plan(n, p, x.dtype)
+    plan = gram_mod.tri_plan(n, p, x.dtype, weighted=True)
     body = "tri" if wg.tri_launches > tri_before else "tile"
     err = rel_err(torch, g, ref.wgram_ref(x, w))
     g64 = gram64(torch, x, w)
@@ -344,7 +362,7 @@ def kernel_phase(torch, x, xk):
                     smem_bytes=plan.smem_bytes,
                     threads=gram_mod.TRI_THREADS,
                     blocks_per_sm=gram_mod.TRI_BLOCKS_PER_SM),
-        ptxas=build.ptxas_report("gram", "wgram_tri_partials"),
+        ptxas=build.ptxas_report("gram", "tri_partialsIfLb1ELb1E"),
         max_abs_err=float((g.double() - g64).abs().max()),
         rel_err=err, tol=1e-4, diag_err_f64=diag64, tol_f64=F64_TOL,
         offdiag_err_f64=off64, tol_offdiag_f64=F64_TOL_OFFDIAG,
@@ -621,13 +639,17 @@ def run_algorithms(torch, x, y, xk):
 def main_phase(torch, x, y, xk):
     import numpy as np
     from repro_torch.core import fm
+    from repro_torch.kernels import gram as gram_mod
     with fm.conf(backend="cuda"):
         run_algorithms(torch, x, y, xk)  # warm: plan cache, libraries
         fm.reset_exec_stats()
+        gram_mod.tri_launches = 0
         (res, wall), launches = counted(
             torch, "dense main", ("gram", "wgram", "fused_apply_agg",
                                   "kmeans_assign"),
             lambda: run_algorithms(torch, x, y, xk))
+    check(gram_mod.tri_launches > 0, "gram never ran its triangle body on "
+          "the dense main path")
     st = fm.exec_stats()
     check(st["passes"] == st["materialize_calls"],
           f"passes {st['passes']} != materialize calls "

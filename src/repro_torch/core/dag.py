@@ -434,6 +434,26 @@ def wrap(node: Node, name: str = "") -> FMMatrix:
     return FMMatrix(node.shape, node.dtype, node=node, name=name or node.name)
 
 
+def toposort(roots: Sequence[Node]) -> list[Node]:
+    """Every node reachable from ``roots``, parents before children, in
+    depth-first post-order (no cut at persisted nodes: that is
+    ``fusion.Plan._cut_toposort``)."""
+    seen: dict[int, Node] = {}
+    order: list[Node] = []
+
+    def visit(n: Node):
+        if n.id in seen:
+            return
+        seen[n.id] = n
+        for p in n.parent_nodes():
+            visit(p)
+        order.append(n)
+
+    for r in roots:
+        visit(r)
+    return order
+
+
 def schedule_passes(order: Sequence[Node], is_source, long_dim: int):
     """Multi-pass schedule of a DAG cut: every executable node gets a role
     ('loop' | 'epi') and a pass number (see repro.core.dag.schedule_passes).

@@ -50,10 +50,15 @@ def _as_torch(dtype) -> torch.dtype:
 
 
 def kind(dtype) -> str:
-    """numpy-style kind letter: 'b', 'i' or 'f'."""
+    """numpy-style kind letter: 'b', 'i', 'f', or 'V' for bfloat16 — the
+    kind numpy gives ml_dtypes' bfloat16, which the reference reads: there
+    bf16 is not ``is_floating`` (a float-valued op on it promotes to
+    float32, and no kernel matcher claims a bf16 operand)."""
     dt = _as_torch(dtype)
     if dt == torch.bool:
         return "b"
+    if dt == torch.bfloat16:
+        return "V"
     return "f" if dt.is_floating_point else "i"
 
 
@@ -103,7 +108,7 @@ def is_floating(dtype) -> bool:
 def to_floating(dtype) -> torch.dtype:
     """The dtype arithmetic means (e.g. division) promotes to."""
     dt = canon(dtype)
-    return dt if dt.is_floating_point else torch.float32
+    return dt if kind(dt) == "f" else torch.float32
 
 
 def nbytes(dtype) -> int:

@@ -317,6 +317,22 @@ def conv_FM2R(mat: FMMatrix) -> np.ndarray:
     return data.detach().cpu().numpy()
 
 
+def conv_layout(mat: FMMatrix, layout: str) -> FMMatrix:
+    """fm.conv.layout: physically convert row/col majority.  The device
+    tier's half: a DenseStore over a tensor laid out as asked (a 'col'
+    store holds the transposed buffer, contiguous); a matrix already in
+    that layout is returned as it is.  Host and disk matrices come with
+    ROADMAP A7 (``fm.conv_layout`` refuses them)."""
+    if layout not in ("row", "col"):
+        raise ValueError(f"unknown layout {layout!r}: expected 'row' or 'col'")
+    data = mat.logical_data()
+    if layout == mat.store.layout:
+        return mat
+    buf = (data.T if layout == "col" else data).contiguous()
+    return FMMatrix(mat.shape, mat.dtype, store=DenseStore(buf, layout),
+                    name=mat.name)
+
+
 def conv_store(mat: FMMatrix, where: str, *, name: str = "") -> FMMatrix:
     """fm.conv.store: only the device tier exists in this slice.  A sparse
     matrix moves in its sparse form: only its cols/vals migrate."""

@@ -440,6 +440,16 @@ def persist(x, tier: str = "device", *, name: Optional[str] = None) -> FM:
     return FM(matrix_mod.conv_store(m, tier, name=name or ""))
 
 
+def conv_layout(x, layout: str) -> FM:
+    """fm.conv.layout: physically convert row/col majority ('row' or
+    'col').  Device tier only in this slice; a host or disk matrix comes
+    with ROADMAP A7."""
+    m = _fm(x)
+    if m.on_host or m.on_disk:
+        _later("fm.conv_layout of a host or disk matrix", "A7")
+    return FM(matrix_mod.conv_layout(m, layout))
+
+
 def set_conf(**kw) -> dict:
     """fm.set.conf: the reference's knobs plus ``device`` ('cuda' default,
     or 'cpu'); see repro_torch.storage.registry."""

@@ -119,6 +119,8 @@ _SIGNATURES = {
     "fm_wgram": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
     # x, w, ws, out, n, p, R, stages, rows_per_split, splits, dtype, stream
     "fm_wgram_tri": (_P, _P, _P, _P, _L, _I, _I, _I, _L, _L, _I, _P),
+    # x, ws, out, n, p, R, stages, rows_per_split, splits, dtype, stream
+    "fm_gram_tri": (_P, _P, _P, _L, _I, _I, _I, _L, _L, _I, _P),
     "fm_xty": (_P, _P, _P, _P, _L, _I, _I, _L, _I, _P),
     # cols, vals, [w], ws, out, n, kmax, ncol, ts, splits, stream
     "fm_spmm_gram": (_P, _P, _P, _P, _L, _I, _I, _I, _L, _P),

@@ -37,3 +37,9 @@ def splits_for(n: int, min_rows: int, blocks_per_split: int = 1,
     by_rows = max(1, -(-n // max(1, min_rows)))
     by_card = max(1, target_blocks // max(1, blocks_per_split))
     return int(min(by_rows, by_card, 65535))
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy of it when its base is off a 16-byte boundary
+    (the bulk copies and TMA loads need one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

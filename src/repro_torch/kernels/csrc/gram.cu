@@ -1,12 +1,22 @@
 // G = XᵀX (gram), G = XᵀWX (wgram) for a tall row-major X (n, p), and
-// G = XᵀY (xty) for a second row-aligned operand Y (n, q).  wgram at p ≤ 32
-// takes its own body (wgram_tri_partials, whose note is below); the tile
-// body described here serves gram, xty's wide operands and wgram at p > 32.
+// G = XᵀY (xty) for a second row-aligned operand Y (n, q).  Which body serves
+// which call:
+//   gram:  the triangle body (tri_partials<T, FAST, false>, note below) at
+//          p ≤ 32, the tile body (gram_partials<GRAM>) at p > 32;
+//   wgram: the triangle body (tri_partials<T, FAST, true>) at p ≤ 32, the
+//          tile body (gram_partials<WGRAM>) at p > 32;
+//   xty:   the thin path (xty_thin_partials) at min(p, q) ≤ 16, the tile body
+//          (gram_partials<XTY>) otherwise.
+// What bounds them at the main path's 65,608,366 × 32 f32: gram reads X once,
+// 8.40 GB, 2.51 ms at 3.35 TB/s; the triangle does 640 FMAs a row at p = 32,
+// 8.4e10 FLOP, 1.25 ms at the 67 TFLOP/s f32 rate.  So gram is bound by
+// bytes, and wgram (X and w, 8.66 GB, 2.59 ms) too.
 //
 // Replaces the Pallas kernels repro/kernels/gram.py:_gram_kernel and
 // _xty_kernel, and repro/kernels/weighted_gram.py:_wgram_kernel.  The TPU
 // grid walked the row blocks in order and kept one (p, q) accumulator in VMEM;
-// here the n rows are split over many blocks that run in parallel:
+// here the n rows are split over many blocks that run in parallel.  The tile
+// body:
 //
 //   launch 1 (gram_partials): grid (tiles_p, tiles_q, splits).  Block
 //     (ti, tj, s) computes the 32×32 output tile (ti, tj) over its row range:
@@ -42,8 +52,8 @@
 //     cp.async / TMA ring was the other route; it needs each block's rows
 //     to be one contiguous slab, which holds only for a wide operand of
 //     exactly 32 columns, while register batches serve every width with
-//     the same code.  The same staging may later serve gram / wgram
-//     (ROADMAP §B);
+//     the same code (gram and wgram, whose one operand is such a slab, take
+//     the ring: the triangle body below);
 //   * lanes, warps and then splits (xty_thin_reduce) are added in a fixed
 //     order: deterministic, no atomics.
 // Offsets are 64-bit: n·p reaches 2^31 at the sizes this runs at.  Plain
@@ -421,43 +431,49 @@ int launch(const void* x, const void* y, const void* w, void* ws, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// wgram for p ≤ 32 (wgram_tri_partials).  The tile body above computes all
-// p² products of a row in one 32×32 tile (1,024 FMAs a row at p = 32, though
-// XᵀWX is symmetric), feeds each 16 FMAs with two 16-byte shared loads
-// (2 KB of shared reads a row), multiplies the weight into every staged
-// element (32 loads of w a row), and stages with scalar loads and two
-// __syncthreads a 64-row chunk.  At Friendster-32 it ran at 4× the bytes
-// bound (10.4 ms against 2.59).  This body:
+// gram and wgram for p ≤ 32 (tri_partials<T, FAST, WEIGHTED>, one source for
+// both).  The tile body above computes all p² products of a row in one 32×32
+// tile (1,024 FMAs a row at p = 32, though XᵀX and XᵀWX are symmetric), feeds
+// each 16 FMAs with two 16-byte shared loads (2 KB of shared reads a row),
+// and stages with scalar loads and two __syncthreads a 64-row chunk (for
+// wgram it also multiplies the weight into every staged element).  At
+// Friendster-32 it ran gram at 2.6× the bytes bound (6.42 ms against 2.51)
+// and wgram at 4× (10.4 ms against 2.59).  This body:
 //   * Only the upper triangle, in 8×8 register tiles: the columns fall in
 //     nb = ceil(p / 8) blocks of 8 and the nb(nb+1)/2 block pairs (I ≤ J)
 //     are the tiles of a row (10 at p = 32: 640 FMAs a row, not 1,024).
 //     A lane owns one tile of one row slot: a warp takes 32 / tiles rows a
 //     step (3 at p = 32; lanes 30 and 31 repeat a tile and are dropped).
 //     The diagonal tiles compute all 64 products and keep those with a ≤ b.
-//   * The row side is multiplied by w[r] in registers, once per operand
-//     value (8 FMULs a lane a row); w is read once a row (a broadcast).
+//   * WEIGHTED (wgram): the row side is multiplied by w[r] in registers,
+//     once per operand value (8 FMULs a lane a row); w is read once a row
+//     (a broadcast).  gram has neither the FMULs nor the read.
 //   * Rows arrive by bulk asynchronous copies: X is row-major and a block
 //     takes all p columns, so a split's rows are one contiguous slab, and
-//     each chunk of R rows (with its R weights) is one cp.async.bulk of
-//     R·p elements into a ring of `stages` stages in shared memory,
-//     completing on the stage's mbarrier.  Thread 0 refills a stage once
-//     every thread has passed the __syncthreads after reading it, so
-//     stages − 1 chunks are in flight while one is computed (64 KB a
-//     block at 3 stages of up to 32 KB, two blocks an SM) and no register
-//     holds a load.  R is a multiple of 8 and of the rows a block takes a
-//     step (24 at p = 32: a __syncthreads every 10 steps), so a chunk of
-//     f32 or bf16 rows at any p is a multiple of 16 bytes; rows_per_split is a multiple of R, so
-//     every full chunk starts 16-byte aligned when X and w do (the wrapper
-//     copies a base that does not).  The split's last, partial chunk is
-//     read with plain loads.
+//     each chunk of R rows is one cp.async.bulk of R·p elements (and, when
+//     WEIGHTED, a second of its R weights) into a ring of `stages` stages in
+//     shared memory, completing on the stage's mbarrier, whose expected
+//     bytes are the stage's (R·p·elem, + 4R when WEIGHTED).  Thread 0
+//     refills a stage once every thread has passed the __syncthreads after
+//     reading it, so stages − 1 chunks are in flight while one is computed
+//     (up to 64 KB a block at 3 stages of up to 32 KB, two blocks an SM) and
+//     no register holds a load.  R is a multiple of 8 and of the rows a block
+//     takes a step (24 at p = 32: a __syncthreads every 10 steps), so a chunk
+//     of f32 or bf16 rows at any p is a multiple of 16 bytes; rows_per_split
+//     is a multiple of R, so every full chunk starts 16-byte aligned when X
+//     and w do (the wrappers copy a base that does not).  The split's last,
+//     partial chunk is read with plain loads (rows, and weights when
+//     WEIGHTED).
 //   * FAST (p a multiple of 8, so every 8-column block lies inside p): a
 //     block is two 16-byte shared loads of f32 (one of bf16, widened in
 //     registers); else guarded scalar loads, zero past p.
 //   * The row slots of a warp are added by shuffles in slot order, the
-//     warps in warp order, the splits (wgram_tri_reduce) in split order,
-//     and the lower triangle is the mirror: deterministic, no atomics.
-// Geometry (R, stages, splits, shared bytes) is gram.py's wgram_plan, a
-// function of (n, p, dtype) alone.
+//     warps in warp order, the splits (tri_reduce) in split order, and the
+//     lower triangle is the mirror: deterministic, no atomics.
+// Geometry (R, stages, splits, shared bytes) is gram.py's tri_plan, a
+// function of (n, p, dtype, weighted) alone: at p = 32 f32, R = 240 rows for
+// both, a stage of 30 KB for gram (92,224 shared bytes) and of 30.9 KB with
+// the weights for wgram (95,104).
 constexpr int TRI_THREADS = 256;
 constexpr int TRI_WARPS = TRI_THREADS / 32;
 constexpr int TRI_BARS = 64;  // bytes before the ring: one mbarrier a stage (≤ 8)
@@ -508,8 +524,8 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* row, int p, int c0,
 }
 
 // acc += (w_r · x_r[I block])ᵀ x_r[J block] over the staged rows first,
-// first + stride, … < rows.
-template <typename T, bool FAST>
+// first + stride, … < rows (w_r = 1 and sw unread unless WEIGHTED).
+template <typename T, bool FAST, bool WEIGHTED>
 __device__ __forceinline__ void tri_rows(const T* sx, const float* sw, int rows,
                                          int p, int I, int J, int first,
                                          int stride, float (&acc)[8][8]) {
@@ -517,9 +533,11 @@ __device__ __forceinline__ void tri_rows(const T* sx, const float* sw, int rows,
     float a[8], b[8];
     load8<FAST>(sx + r * p, p, 8 * I, a);
     load8<FAST>(sx + r * p, p, 8 * J, b);
-    const float wr = sw[r];
+    if constexpr (WEIGHTED) {
+      const float wr = sw[r];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] *= wr;
+      for (int i = 0; i < 8; ++i) a[i] *= wr;
+    }
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -527,8 +545,9 @@ __device__ __forceinline__ void tri_rows(const T* sx, const float* sw, int rows,
   }
 }
 
-// Thread 0: chunk k of the split (R rows from r0) into stage k % stages.
-template <typename T>
+// Thread 0: chunk k of the split (R rows from r0, and their R weights when
+// WEIGHTED) into stage k % stages; sbytes is what the stage's copies bring.
+template <typename T, bool WEIGHTED>
 __device__ __forceinline__ void tri_issue(const T* x, const float* w,
                                           int64_t r0, int p, int R, int stages,
                                           int k, uint32_t ring, int sbytes,
@@ -538,21 +557,23 @@ __device__ __forceinline__ void tri_issue(const T* x, const float* w,
   const uint32_t dst = ring + (uint32_t)s * sbytes;
   mbar_expect_tx(bars + 8 * s, (uint32_t)sbytes);
   bulk_load(dst, x + r0 * p, xbytes, bars + 8 * s);
-  bulk_load(dst + xbytes, w + r0, (uint32_t)R * 4, bars + 8 * s);
+  if constexpr (WEIGHTED)
+    bulk_load(dst + xbytes, w + r0, (uint32_t)R * 4, bars + 8 * s);
 }
 
-template <typename T, bool FAST>
+template <typename T, bool FAST, bool WEIGHTED>
 __global__ void __launch_bounds__(TRI_THREADS, 2)
-wgram_tri_partials(const T* __restrict__ x, const float* __restrict__ w,
-                   float* __restrict__ ws, int64_t n, int p, int R, int stages,
-                   int64_t rows_per_split) {
+tri_partials(const T* __restrict__ x, const float* __restrict__ w,
+             float* __restrict__ ws, int64_t n, int p, int R, int stages,
+             int64_t rows_per_split) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nb = (p + 7) / 8, tiles = nb * (nb + 1) / 2, rps = 32 / tiles;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int t = lane % tiles, slot = min(lane / tiles, rps - 1);
   int I, J;
   tri_tile(t, nb, I, J);
-  const int xbytes = R * p * (int)sizeof(T), sbytes = xbytes + R * 4;
+  const int xbytes = R * p * (int)sizeof(T);
+  const int sbytes = xbytes + (WEIGHTED ? R * 4 : 0);
   const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const uint32_t ring = bars + TRI_BARS;
   const int64_t r_begin = (int64_t)blockIdx.x * rows_per_split;
@@ -565,8 +586,8 @@ wgram_tri_partials(const T* __restrict__ x, const float* __restrict__ w,
     for (int s = 0; s < stages; ++s) mbar_init(bars + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     for (int k = 0; k < min(stages, nfull); ++k)
-      tri_issue(x, w, r_begin + (int64_t)k * R, p, R, stages, k, ring, sbytes,
-                bars);
+      tri_issue<T, WEIGHTED>(x, w, r_begin + (int64_t)k * R, p, R, stages, k,
+                             ring, sbytes, bars);
   }
   __syncthreads();
 
@@ -580,22 +601,23 @@ wgram_tri_partials(const T* __restrict__ x, const float* __restrict__ w,
     const int s = k % stages;
     mbar_wait(bars + 8 * s, (uint32_t)(k / stages) & 1u);
     const unsigned char* st = smem + TRI_BARS + s * sbytes;
-    tri_rows<T, FAST>(reinterpret_cast<const T*>(st),
-                      reinterpret_cast<const float*>(st + xbytes), R, p, I, J,
-                      first, stride, acc);
+    tri_rows<T, FAST, WEIGHTED>(reinterpret_cast<const T*>(st),
+                                reinterpret_cast<const float*>(st + xbytes), R,
+                                p, I, J, first, stride, acc);
     __syncthreads();  // every thread is done with stage s
     if (threadIdx.x == 0 && k + stages < nfull)
-      tri_issue(x, w, r_begin + (int64_t)(k + stages) * R, p, R, stages,
-                k + stages, ring, sbytes, bars);
+      tri_issue<T, WEIGHTED>(x, w, r_begin + (int64_t)(k + stages) * R, p, R,
+                             stages, k + stages, ring, sbytes, bars);
   }
   if (tail) {  // plain loads into stage 0: every copy has landed and been read
     T* sx = reinterpret_cast<T*>(smem + TRI_BARS);
     float* sw = reinterpret_cast<float*>(smem + TRI_BARS + xbytes);
     const int64_t r0 = r_begin + (int64_t)nfull * R;
     for (int e = threadIdx.x; e < tail * p; e += TRI_THREADS) sx[e] = x[r0 * p + e];
-    for (int e = threadIdx.x; e < tail; e += TRI_THREADS) sw[e] = w[r0 + e];
+    if constexpr (WEIGHTED)
+      for (int e = threadIdx.x; e < tail; e += TRI_THREADS) sw[e] = w[r0 + e];
     __syncthreads();
-    tri_rows<T, FAST>(sx, sw, tail, p, I, J, first, stride, acc);
+    tri_rows<T, FAST, WEIGHTED>(sx, sw, tail, p, I, J, first, stride, acc);
   }
 
   // Row slots in slot order (lane t collects lanes t + tiles·s), then the
@@ -634,9 +656,8 @@ wgram_tri_partials(const T* __restrict__ x, const float* __restrict__ w,
 // out (p, p) = Σ_s upper-triangle partials, mirrored: a warp an output
 // element, lane l adding splits l, l + 32, … in order, then the lanes by a
 // fixed shuffle tree.
-__global__ void wgram_tri_reduce(const float* __restrict__ ws,
-                                 float* __restrict__ out, int p,
-                                 int64_t splits) {
+__global__ void tri_reduce(const float* __restrict__ ws,
+                           float* __restrict__ out, int p, int64_t splits) {
   const int64_t e = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
   if (e >= (int64_t)p * p) return;  // whole warps leave together
@@ -649,27 +670,30 @@ __global__ void wgram_tri_reduce(const float* __restrict__ ws,
   if (lane == 0) out[e] = s;
 }
 
-// Shared bytes of a wgram_tri block: the barriers, then the larger of the
-// ring and the warps' tile partials (gram.py wgram_plan says the same).
-int64_t tri_smem(int p, int R, int stages, int elem) {
+// Shared bytes of a tri_partials block: the barriers, then the larger of the
+// ring and the warps' tile partials (gram.py tri_plan says the same).
+int64_t tri_smem(int p, int R, int stages, int elem, bool weighted) {
   const int nb = (p + 7) / 8, tiles = nb * (nb + 1) / 2;
-  const int64_t ring = (int64_t)stages * R * (p * elem + 4);
+  const int64_t ring = (int64_t)stages * R * (p * elem + (weighted ? 4 : 0));
   const int64_t red = (int64_t)TRI_WARPS * tiles * 64 * 4;
   return TRI_BARS + (ring > red ? ring : red);
 }
 
-template <typename T>
+// w is read only when WEIGHTED (gram passes none).
+template <typename T, bool WEIGHTED>
 int launch_tri(const void* x, const void* w, void* ws, void* out, int64_t n,
                int p, int R, int stages, int64_t rows_per_split, int64_t splits,
                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p < 1 || p > 32 || R % 8 != 0 || stages < 1 || stages > TRI_BARS / 8 ||
-      rows_per_split % R != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+  if (p < 1 || p > 32 || R < 8 || R % 8 != 0 || stages < 1 ||
+      stages > TRI_BARS / 8 || rows_per_split % R != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      (WEIGHTED && reinterpret_cast<uintptr_t>(w) % 16 != 0))
     return (int)cudaErrorInvalidValue;
-  const int64_t smem = tri_smem(p, R, stages, (int)sizeof(T));
+  const int64_t smem = tri_smem(p, R, stages, (int)sizeof(T), WEIGHTED);
   const bool fast = p % 8 == 0;
-  auto kern = fast ? wgram_tri_partials<T, true> : wgram_tri_partials<T, false>;
+  auto kern = fast ? tri_partials<T, true, WEIGHTED>
+                   : tri_partials<T, false, WEIGHTED>;
   if (smem > 232448) return (int)cudaErrorInvalidValue;  // 227 KB a block
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -680,7 +704,7 @@ int launch_tri(const void* x, const void* w, void* ws, void* out, int64_t n,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t warps = (int64_t)p * p;  // one an output element
-  wgram_tri_reduce<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
+  tri_reduce<<<(unsigned)((warps + 7) / 8), 256, 0, st>>>(
       static_cast<const float*>(ws), static_cast<float*>(out), p, splits);
   return (int)cudaGetLastError();
 }
@@ -689,7 +713,8 @@ int launch_tri(const void* x, const void* w, void* ws, void* out, int64_t n,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  ws holds splits·tiles²·1024 floats.
+// dtype: 0 = float32, 1 = bfloat16.  The tile body: any p (p > 32 takes
+// it).  ws holds splits·tiles²·1024 floats.
 int fm_gram(const void* x, void* ws, void* out, int64_t n, int p, int64_t splits,
             int dtype, void* stream) {
   return dtype == 0
@@ -707,15 +732,28 @@ int fm_wgram(const void* x, const void* w, void* ws, void* out, int64_t n, int p
 
 // The triangle body for p ≤ 32: x and w (float32 (n,)) 16-byte aligned,
 // rows_per_split a multiple of R (a multiple of 8); ws holds splits·p²
-// floats.  Geometry from gram.py wgram_plan.
+// floats.  Geometry from gram.py tri_plan(weighted=True).
 int fm_wgram_tri(const void* x, const void* w, void* ws, void* out, int64_t n,
                  int p, int R, int stages, int64_t rows_per_split,
                  int64_t splits, int dtype, void* stream) {
   return dtype == 0
-      ? launch_tri<float>(x, w, ws, out, n, p, R, stages, rows_per_split,
-                          splits, stream)
-      : launch_tri<__nv_bfloat16>(x, w, ws, out, n, p, R, stages,
-                                  rows_per_split, splits, stream);
+      ? launch_tri<float, true>(x, w, ws, out, n, p, R, stages, rows_per_split,
+                                splits, stream)
+      : launch_tri<__nv_bfloat16, true>(x, w, ws, out, n, p, R, stages,
+                                        rows_per_split, splits, stream);
+}
+
+// gram's triangle body for p ≤ 32, the same kernel without weights: x
+// 16-byte aligned, rows_per_split a multiple of R (a multiple of 8); ws
+// holds splits·p² floats.  Geometry from gram.py tri_plan(weighted=False).
+int fm_gram_tri(const void* x, void* ws, void* out, int64_t n, int p, int R,
+                int stages, int64_t rows_per_split, int64_t splits, int dtype,
+                void* stream) {
+  return dtype == 0
+      ? launch_tri<float, false>(x, nullptr, ws, out, n, p, R, stages,
+                                 rows_per_split, splits, stream)
+      : launch_tri<__nv_bfloat16, false>(x, nullptr, ws, out, n, p, R, stages,
+                                         rows_per_split, splits, stream);
 }
 
 // X (n, p) and Y (n, q) of one dtype; out is (p, q).  ws holds

@@ -1,5 +1,5 @@
 // Hopper's asynchronous copies, shared by the kernels that use them
-// (gram.cu's wgram_tri_partials, fused_apply_agg.cu's chain_ring_partials,
+// (gram.cu's tri_partials, fused_apply_agg.cu's chain_ring_partials,
 // kmeans_assign.cu's lloyd_tma_partials, flash_attention.cu's Hopper body):
 //
 //   * mbarrier helpers on 32-bit shared addresses: init (and the fence that

@@ -43,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .common import route
+from .common import aligned, route
 
 #: Head dims the kernel is built for (tests 16, reduced configs 32, qwen2
 #: 64, zamba2 112, llama / granite 128, paligemma 256; 80 and 96 for the
@@ -111,7 +111,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    q, k, v = (t.clone() if t.data_ptr() % 16 else t for t in (q, k, v))
+    q, k, v = (aligned(t) for t in (q, k, v))
     if -(-S // BQ) > 65535:
         raise ValueError(f"flash_attention: S = {S} exceeds the grid "
                          f"({65535 * BQ} rows)")

@@ -33,8 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, route, splits_for
-from .weighted_gram import _aligned
+from .common import SM_COUNT, aligned, route, splits_for
 
 #: Aggregations a chain can end in.
 CHAIN_AGGS = ("sum", "min", "max", "count", "count_nonzero")
@@ -209,7 +208,7 @@ def fused_apply_agg(x: torch.Tensor, chains, *, acc_dtype: str = "float32"):
     plan = chain_plan(n, p, xw.dtype)
     ring = plan.body == "ring"
     if ring:
-        xw = _aligned(xw)
+        xw = aligned(xw)
     lib = build.load("fused_apply_agg")
     stream = build.stream_handle(xw)
     outs = []

@@ -2,14 +2,22 @@
 (csrc/gram.cu).
 
 ``gram`` replaces repro/kernels/gram.py:gram (Pallas, `_gram_kernel`).  Bound on an
-H100 at the main path's 65,608,366 × 32 f32: reading X is 8.4 GB, about
-2.5 ms at 3.35 TB/s, and 2np² = 1.34e11 FLOP is about 2.0 ms at the
-67 TFLOP/s non-tensor f32 rate — the two are close, so the kernel has to
-stream rows at full bandwidth AND keep the FMA pipes busy.  The design:
-32×32 output tiles × a row split over ~4 blocks per SM, rows staged through
-shared memory, a 4×4 register tile per thread (two 16-byte shared loads feed
-16 FMAs), per-block partials to a workspace, and a second launch that sums
-them in a fixed order (deterministic).  Full f32 FMA; no TF32, no tensor
+H100 at the main path's 65,608,366 × 32 f32: reading X is 8.40 GB, 2.51 ms
+at 3.35 TB/s; the upper triangle is 640 FMAs a row, 8.4e10 FLOP, 1.25 ms at
+the 67 TFLOP/s non-tensor f32 rate — so the kernel is bound by bytes.  Two
+bodies, chosen by ``tri_plan`` from the shape:
+
+* p ≤ ``TRI_MAX_P`` (the main path), ``fm_gram_tri``: wgram's triangle body
+  without the weights (one source, ``tri_partials<T, FAST, WEIGHTED>``): the
+  upper triangle in 8×8 register tiles, rows bulk-copied (``cp.async.bulk``)
+  into an mbarrier ring of shared memory (csrc/gram.cu's note has the
+  design).  X must start on a 16-byte boundary; a view that does not is
+  copied first.  Counted in ``tri_launches`` as well as ``launches``.
+* p > 32, ``fm_gram``: 32×32 output tiles × a row split over ~4 blocks per
+  SM, rows staged through shared memory, a 4×4 register tile per thread.
+
+Both write per-block partials to a workspace and sum them in a second
+launch in a fixed order (deterministic).  Full f32 FMA; no TF32, no tensor
 cores (the reference tests hold f32 at 1e-4).
 
 ``xty`` replaces repro/kernels/gram.py:xty (Pallas, `_xty_kernel`).  Two
@@ -33,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, route, splits_for
+from .common import SM_COUNT, aligned, route, splits_for
 
 TILE = 32
 #: xty's thin path takes one operand at most this many columns wide.
@@ -47,8 +55,11 @@ THIN = 16
 #: once is the kernel's launch bound (``ThinCfg::MINB`` in csrc/gram.cu).
 THIN_BLOCKS = {1: 8, 2: 8, 4: 8, 8: 12, 16: 8}
 THIN_WIDTHS = tuple(THIN_BLOCKS)
-#: Launches of the CUDA kernels (the plain CPU path does not count).
+#: Launches of the CUDA kernels (the plain CPU path does not count):
+#: ``launches`` counts every gram call that launched, ``tri_launches`` those
+#: that ran the triangle body (p ≤ TRI_MAX_P).
 launches = 0
+tri_launches = 0
 xty_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,22 +79,29 @@ def gram_splits(n: int, p: int, q: int | None = None) -> int:
 
 def gram(x: torch.Tensor) -> torch.Tensor:
     """G = XᵀX for tall (n, p) X (float32 or bfloat16); (p, p) float32."""
-    global launches
+    global launches, tri_launches
     check_x(x, "gram")
     if route(x) == "cpu":
         return ref.gram_ref(x)
     x = x.contiguous()
     n, p = x.shape
-    tiles = -(-p // TILE)
-    splits = gram_splits(n, p)
-    ws = torch.empty(splits * tiles * tiles * TILE * TILE, dtype=torch.float32,
-                     device=x.device)
+    plan = tri_plan(n, p, x.dtype, weighted=False)
+    ws = torch.empty(plan.ws_floats, dtype=torch.float32, device=x.device)
     out = torch.empty((p, p), dtype=torch.float32, device=x.device)
     lib = build.load("gram")
-    err = lib.fm_gram(x.data_ptr(), ws.data_ptr(), out.data_ptr(), n, p, splits,
-                      _DTYPES[x.dtype], build.stream_handle(x))
+    stream = build.stream_handle(x)
+    if plan.body == "tri":
+        x = aligned(x)
+        err = lib.fm_gram_tri(x.data_ptr(), ws.data_ptr(), out.data_ptr(), n,
+                              p, plan.chunk_rows, plan.stages,
+                              plan.rows_per_split, plan.splits,
+                              _DTYPES[x.dtype], stream)
+    else:
+        err = lib.fm_gram(x.data_ptr(), ws.data_ptr(), out.data_ptr(), n, p,
+                          plan.splits, _DTYPES[x.dtype], stream)
     build.check(err, "gram")
     launches += 1
+    tri_launches += plan.body == "tri"
     return out
 
 
@@ -109,9 +127,9 @@ def xty_plan(n: int, p: int, q: int) -> tuple[int, int]:
     return splits, splits * -(-p // TILE) * -(-q // TILE) * TILE * TILE
 
 
-#: wgram's triangle body (csrc/gram.cu wgram_tri_partials): the widest p it
-#: takes, its threads, blocks an SM (its launch bound), ring stages and the
-#: bytes a stage aims at.
+#: The triangle body of gram and wgram (csrc/gram.cu tri_partials): the
+#: widest p it takes, its threads, blocks an SM (its launch bound), ring
+#: stages and the bytes a stage aims at.
 TRI_MAX_P = 32
 TRI_THREADS = 256
 TRI_BLOCKS_PER_SM = 2
@@ -121,12 +139,13 @@ TRI_STAGE_BYTES = 32 * 1024
 TRI_BARS = 64
 
 
-class WgramPlan(NamedTuple):
-    """The launch of one wgram call.  body "tri": p ≤ TRI_MAX_P, chunks of
-    chunk_rows rows bulk-copied into ``stages`` stages of shared memory,
-    one block a split of rows_per_split rows; "tile": the 32×32 tile body
-    (gram_partials<WGRAM>), which stages through static shared memory
-    (chunk_rows, stages and smem_bytes 0)."""
+class TriPlan(NamedTuple):
+    """The launch of one gram or wgram call.  body "tri": p ≤ TRI_MAX_P,
+    chunks of chunk_rows rows (and their weights, for wgram) bulk-copied
+    into ``stages`` stages of shared memory, one block a split of
+    rows_per_split rows; "tile": the 32×32 tile body (gram_partials), which
+    stages through static shared memory (chunk_rows, stages and smem_bytes
+    0)."""
     body: str
     splits: int
     rows_per_split: int
@@ -136,32 +155,32 @@ class WgramPlan(NamedTuple):
     ws_floats: int
 
 
-def wgram_plan(n: int, p: int, dtype: torch.dtype) -> WgramPlan:
-    """wgram's geometry, a function of (n, p, dtype) alone.  The triangle
-    body's chunk is the most rows, a multiple of 8 (so a chunk of f32 or
-    bf16 rows is a multiple of 16 bytes at any p) and of the rows a block
-    takes a step, whose values and weights fit TRI_STAGE_BYTES; its splits
-    are TRI_BLOCKS_PER_SM blocks an SM or one a chunk, whichever is fewer,
-    each a whole number of chunks."""
+def tri_plan(n: int, p: int, dtype: torch.dtype, weighted: bool) -> TriPlan:
+    """gram's (``weighted`` False) or wgram's geometry, a function of (n, p,
+    dtype, weighted) alone.  A row in shared memory is p values, and its
+    f32 weight when ``weighted``.  The triangle body's chunk is the most
+    rows, a multiple of 8 (so a chunk of f32 or bf16 rows is a multiple of
+    16 bytes at any p) and of the rows a block takes a step, that fit
+    TRI_STAGE_BYTES; its splits are TRI_BLOCKS_PER_SM blocks an SM or one a
+    chunk, whichever is fewer, each a whole number of chunks."""
     if p > TRI_MAX_P:
         splits = gram_splits(n, p)
         tiles = -(-p // TILE)
-        return WgramPlan("tile", splits, -(-n // splits), 0, 0, 0,
-                         splits * tiles * tiles * TILE * TILE)
-    elem = 2 if dtype == torch.bfloat16 else 4
+        return TriPlan("tile", splits, -(-n // splits), 0, 0, 0,
+                       splits * tiles * tiles * TILE * TILE)
+    row_bytes = p * (2 if dtype == torch.bfloat16 else 4) + 4 * weighted
     nb = -(-p // 8)
     step = TRI_THREADS // 32 * (32 // (nb * (nb + 1) // 2))
     unit = math.lcm(8, step)
-    rows = max(unit, TRI_STAGE_BYTES // (p * elem + 4) // unit * unit)
+    rows = max(unit, TRI_STAGE_BYTES // row_bytes // unit * unit)
     red = TRI_THREADS // 32 * nb * (nb + 1) // 2 * 64 * 4
-    smem = TRI_BARS + max(TRI_STAGES * rows * (p * elem + 4), red)
+    smem = TRI_BARS + max(TRI_STAGES * rows * row_bytes, red)
     chunks = -(-n // rows)
     per = max(1, -(-chunks // max(1, min(TRI_BLOCKS_PER_SM * SM_COUNT,
                                          chunks))))
     rps = per * rows
     splits = max(1, -(-n // rps))
-    return WgramPlan("tri", splits, rps, rows, TRI_STAGES, smem,
-                     splits * p * p)
+    return TriPlan("tri", splits, rps, rows, TRI_STAGES, smem, splits * p * p)
 
 
 def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

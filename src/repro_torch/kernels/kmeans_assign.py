@@ -31,8 +31,7 @@ from typing import NamedTuple
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, route
-from .weighted_gram import _aligned
+from .common import SM_COUNT, aligned, route
 
 #: Launches of the CUDA kernels (the plain CPU path does not count):
 #: ``launches`` counts every call that launched, ``tma_launches`` those that
@@ -155,7 +154,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
     lib = build.load("kmeans_assign")
     stream = build.stream_handle(x)
     if plan.body == "tma":
-        x = _aligned(x)
+        x = aligned(x)
         err = lib.fm_kmeans_assign_tma(
             x.data_ptr(), c.data_ptr(), labels.data_ptr(), ws.data_ptr(),
             sums.data_ptr(), cnts.data_ptr(), wss.data_ptr(), n, p, k,

@@ -14,8 +14,8 @@ at thin and wide second operands, and ELL slabs with padding rows,
 duplicate columns, kmax = 1 and kmax past one 32-entry chunk (up to
 20,000), negative values and rows of weight 0, over one and many output
 tiles, spmm_xty held to float64 exactly and bit for bit from call to call;
-wgram's triangle body (p ≤ 32) and tile body (p > 32) told apart by their
-launch counters, from bases off 16 bytes too; xty's thin path at every
+gram's and wgram's triangle body (p ≤ 32) and tile body (p > 32) told
+apart by their launch counters, from bases off 16 bytes too; xty's thin path at every
 narrow width 1..16; fused_apply_agg's ring body (p ≤ 256) and kmeans_assign's
 TMA body (rows of 16 to 128 bytes) over ragged n, int32 / f32 / bf16 /
 int8 sources, bases off 16 bytes, bit for bit from call to call, their
@@ -90,33 +90,54 @@ def test_gram_and_wgram(dev, n, p, dtype):
     assert (gram_mod.launches, wg.launches) == (before[0] + 1, before[1] + 2)
 
 
-@pytest.mark.parametrize("n", [1, 3, 1000, 70001])
-@pytest.mark.parametrize("p", [1, 7, 12, 31, 32, 33, 70])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wgram_bodies(dev, n, p, dtype):
-    """wgram's triangle body (p ≤ 32: bulk-copied chunks, a plain-loaded
-    tail chunk, 8×8 tiles of the upper triangle) and the tile body (p > 32),
-    told apart by the launch counters, against float64 in correlation
-    units; X and w views whose bases are off a 16-byte boundary are copied
-    first and give the aligned result bit for bit; the triangle body's
-    result is its own mirror, exactly."""
+def _tri_bodies(dev, n, p, dtype, weighted):
+    """gram's or wgram's triangle body (p ≤ 32: bulk-copied chunks, a
+    plain-loaded tail chunk, 8×8 tiles of the upper triangle) and tile body
+    (p > 32), told apart by the launch counters, against float64 in
+    correlation units; an X (and w) view whose base is off a 16-byte
+    boundary is copied first and gives the aligned result bit for bit; the
+    triangle body's result is its own mirror, exactly."""
+    mod = wg if weighted else gram_mod
     x = _x(n, p, dtype, dev)
     w = torch.rand(n, device=dev)
     x_off = _x(n * p + 1, 1, dtype, dev).reshape(-1)[1:].reshape(n, p)
     w_off = torch.rand(n + 1, device=dev)[1:]
     assert x_off.data_ptr() % 16 and w_off.data_ptr() % 16
+    if not weighted:
+        w = w_off = None
+
+    def call(a, b):
+        return wg.wgram(a, b) if weighted else gram_mod.gram(a)
+
     tri = p <= gram_mod.TRI_MAX_P
-    before = (wg.launches, wg.tri_launches)
-    got = wg.wgram(x, w)
-    off = wg.wgram(x_off, w_off)
-    again = wg.wgram(x_off.clone(), w_off.clone())
+    before = (mod.launches, mod.tri_launches)
+    got = call(x, w)
+    off = call(x_off, w_off)
+    again = call(x_off.clone(), None if w_off is None else w_off.clone())
     torch.cuda.synchronize()
-    assert (wg.launches, wg.tri_launches) == (before[0] + 3,
-                                              before[1] + 3 * tri)
+    assert (mod.launches, mod.tri_launches) == (before[0] + 3,
+                                                before[1] + 3 * tri)
     _close_gram(got, x, w)
     _close_gram(off, x_off, w_off)
     assert torch.equal(off, again)
     assert torch.equal(got, got.T) or not tri
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 70001])
+@pytest.mark.parametrize("p", [1, 7, 12, 31, 32, 33, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wgram_bodies(dev, n, p, dtype):
+    """wgram's two bodies (``_tri_bodies``, with the weights)."""
+    _tri_bodies(dev, n, p, dtype, weighted=True)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 70001])
+@pytest.mark.parametrize("p", [1, 7, 12, 31, 32, 33, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_bodies(dev, n, p, dtype):
+    """gram's two bodies (``_tri_bodies``, without weights): the same
+    triangle kernel as wgram's, with no weights copied or multiplied."""
+    _tri_bodies(dev, n, p, dtype, weighted=False)
 
 
 @pytest.mark.parametrize("n", [1, 1000, 70001])

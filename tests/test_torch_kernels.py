@@ -366,8 +366,8 @@ def test_block_rows_and_padding_match_reference(n, p, dtype, live):
 def test_wrappers_count_only_kernel_launches():
     """On CPU tensors the wrappers run their plain versions: no launch is
     counted, and a CUDA tensor is the only way to the kernel."""
-    counters = ((gram_mod, "launches"), (gram_mod, "xty_launches"),
-                (wg, "launches"), (wg, "tri_launches"), (faa, "launches"),
+    counters = ((gram_mod, "launches"), (gram_mod, "tri_launches"),
+                (gram_mod, "xty_launches"), (wg, "launches"), (wg, "tri_launches"), (faa, "launches"),
                 (faa, "ring_launches"), (ka, "launches"), (ka, "tma_launches"),
                 (spmm, "gram_launches"), (spmm, "xty_launches"),
                 (spmm, "wgram_launches"), (fa, "launches"))
@@ -456,20 +456,23 @@ def test_xty_plan_and_thin_geometry(n, p, q):
                              // tiles, -(-n // 1024))
 
 
+@pytest.mark.parametrize("weighted", [True, False])
 @pytest.mark.parametrize("p", [1, 7, 12, 31, 32, 33])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_wgram_plan_geometry(p, dtype):
-    """wgram's plan from the shape alone: p ≤ 32 takes the triangle body,
-    whose chunks (rows and their weights) are whole multiples of 16 bytes at
-    every p and dtype (what cp.async.bulk moves), whose ring and tile
-    partials fit beside two blocks an SM, whose chunk is a whole number of
-    the rows a block takes a step, and whose splits cover n in whole
-    chunks, at most two blocks an SM; p > 32 stays on the tile body.  Equal
-    on every call, nothing allocated."""
+def test_wgram_plan_geometry(p, dtype, weighted):
+    """wgram's plan (``weighted``) and gram's from the shape alone: p ≤ 32
+    takes the triangle body, whose chunks (rows, and their weights for
+    wgram) are whole multiples of 16 bytes at every p and dtype (what
+    cp.async.bulk moves), whose ring and tile partials fit beside two
+    blocks an SM, whose chunk is a whole number of the rows a block takes a
+    step, and whose splits cover n in whole chunks, at most two blocks an
+    SM; p > 32 stays on the tile body.  Equal on every call, nothing
+    allocated."""
     elem = 2 if dtype == torch.bfloat16 else 4
+    row_bytes = p * elem + 4 * weighted
     for n in (1, 3, 1000, 70_001, 65_608_366):
-        plan = gram_mod.wgram_plan(n, p, dtype)
-        assert plan == gram_mod.wgram_plan(n, p, dtype)
+        plan = gram_mod.tri_plan(n, p, dtype, weighted)
+        assert plan == gram_mod.tri_plan(n, p, dtype, weighted)
         assert 1 <= plan.splits <= 65535
         assert plan.splits * plan.rows_per_split >= n
         assert (plan.splits - 1) * plan.rows_per_split < n
@@ -482,17 +485,20 @@ def test_wgram_plan_geometry(p, dtype):
         nb = -(-p // 8)
         step = gram_mod.TRI_THREADS // 32 * (32 // (nb * (nb + 1) // 2))
         assert plan.body == "tri" and R % 8 == 0 and R % step == 0
-        assert (R * p * elem) % 16 == 0 and (R * 4) % 16 == 0
+        assert (R * p * elem) % 16 == 0 and (R * row_bytes) % 16 == 0
         assert plan.rows_per_split % R == 0
-        assert R * (p * elem + 4) <= gram_mod.TRI_STAGE_BYTES
+        assert R * row_bytes <= gram_mod.TRI_STAGE_BYTES
         assert plan.smem_bytes == gram_mod.TRI_BARS + max(
-            plan.stages * R * (p * elem + 4),
+            plan.stages * R * row_bytes,
             gram_mod.TRI_THREADS // 32 * nb * (nb + 1) // 2 * 256)
         assert 8 * plan.stages <= gram_mod.TRI_BARS
         assert gram_mod.TRI_BLOCKS_PER_SM * (plan.smem_bytes + 1024) \
             <= 228 * 1024
         assert plan.splits <= gram_mod.TRI_BLOCKS_PER_SM * common.SM_COUNT
         assert plan.ws_floats == plan.splits * p * p
+    if (p, dtype, weighted) == (32, torch.float32, False):
+        # gram at the main path's width: 240 rows (30 KB) a stage, 3 stages
+        assert (R, plan.stages, plan.smem_bytes) == (240, 3, 92_224)
 
 
 @pytest.mark.parametrize("p", [1, 5, 12, 32, 33, 100, 256, 257])
