@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — three paths through ``repro_torch.core.fm``, each with the
+4. main    — five paths through ``repro_torch.core.fm``, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -40,6 +40,23 @@ Phases, each printing one JSON line:
                 blobs' labels, on ``cuda`` (every materialize one pass but
                 pca's two; GMM's peak memory printed), then on ``torch``,
                 compared;
+             e. after path b, the stream and ooc modes: first one 1 GiB
+                host→device copy from pageable and one from pinned memory,
+                timed (``h2d``);
+                then X, y and the blobs copied to host RAM
+                (``fm.conv_R2FM(host=True)``) and path a's four calls run
+                ``ooc`` from there, partitions staged synchronously
+                (``prefetch=False``), and ``crossprod(X)`` with XᵀY and
+                ``summary`` in ``stream`` mode over the device-resident X,
+                on ``cuda``, traced and counted (gram, xty, wgram,
+                fused_apply_agg and kmeans_assign must launch); each call
+                prints its wall ms, partition rows, passes, partition
+                steps, bytes read from the host and each pass's ms beside
+                its read floor (its staged bytes over the pageable rate;
+                the pinned one printed too), and must run a pass per
+                materialize, as whole mode, of ⌈n / partition rows⌉ > 1
+                steps; results against path a's (the crossprods against
+                whole mode's);
              c. after the dense data is freed, the sparse path at the scale
                 of the Criteo Display Advertising Challenge train set
                 (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
@@ -48,7 +65,12 @@ Phases, each printing one JSON line:
                 a Zipf-like law and y from a logistic model; first the SpMM
                 kernel rows (as phase 2), then ``glm(Xs, y, "logistic",
                 ridge=1e-3, max_iter=8)`` and one ``crossprod(Xs)`` on
-                ``cuda``, checked for convergence and exact level counts
+                ``cuda``, checked for convergence and exact level counts,
+                then ``crossprod`` and, on the first 2^22 rows,
+                ``glm(max_iter=2)`` in ``stream`` mode over the device slab
+                (counted: every SpMM kernel per partition; the Gram equal
+                to whole mode's bit for bit, the log-likelihoods to a
+                whole-mode fit's within 1e-4)
                 (the ``spmm_gram`` / ``spmm_wgram`` rows also print the
                 kernel's design — threads, tile edge, tiles, splits, body,
                 registers and spills — and ``pair_products``, the in-tile
@@ -82,7 +104,7 @@ Phases, each printing one JSON line:
                 tests/test_archs.py); (c) is (a) in float32, which (a) now
                 is at the full shape; (d) every logit finite.
 
-Then one ``{"kernels": [...]}`` line (launches summed over the four
+Then one ``{"kernels": [...]}`` line (launches summed over the five
 paths), the card's name and power limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
@@ -107,6 +129,10 @@ CRITEO_FACTORS = 26       # its categorical columns
 CRITEO_BUCKETS = 64       # hash buckets a column (a cut, see the docstring)
 ZIPF_S = 1.1              # P(bucket k) ∝ (k + 1)^-s
 SPARSE_CMP_ROWS = 1 << 18  # rows on which the densifying torch backend runs
+#: Rows of the slab the streamed sparse fit reads: its passes are cut into
+#: 4,096-row partitions (a 1,664-wide row-local value sets the width), so
+#: the whole slab would be 11,192 steps a pass.
+SPARSE_STREAM_ROWS = 1 << 22
 DEVICE = "cuda"
 HBM_BYTES_S = 3.35e12    # H100 SXM data sheet
 F32_FLOP_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
@@ -686,6 +712,156 @@ def main_phase(torch, x, y, xk):
     emit({"phase": "compare", "ok": True,
           "glm_loglik": [g.loglik, gr.loglik],
           "kmeans_wss": [km.wss, kr.wss]})
+    return launches, res
+
+
+def h2d_rates(torch):
+    """Host→device copy rates of one 1 GiB copy from pageable memory (what
+    ``stage_block``'s synchronous copy of a numpy block pays) and one from
+    pinned memory, in bytes/s."""
+    import numpy as np
+    n = 1 << 28                                   # 2^28 float32: 1 GiB
+    dev = torch.device(DEVICE)
+    pageable = torch.from_numpy(np.ones(n, np.float32))
+    pinned = torch.ones(n, dtype=torch.float32).pin_memory()
+    rates = {}
+    for name, src in (("pageable", pageable), ("pinned", pinned)):
+        src.to(dev)                               # warm: allocate, map
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = src.to(dev, non_blocking=name == "pinned")
+        torch.cuda.synchronize()
+        rates[name] = n * 4 / (time.perf_counter() - t0)
+        check(bool(out[-1] == 1), f"{name} copy")
+        del out
+    del pageable, pinned
+    return rates
+
+
+def run_ooc(torch, calls):
+    """Each ``(name, mode, fn)`` of ``calls`` traced, with its counters:
+    wall time (host clock around a call that ends in a synchronize), the
+    passes and their partition rows from the ``pass`` spans, partition
+    steps and the bytes read from the host tier."""
+    from repro_torch.core import fm
+    from repro_torch.observability import metrics
+    from repro_torch.observability.trace import TRACER
+    out, info = {}, {}
+    for name, mode, fn in calls:
+        st0 = fm.exec_stats()
+        read0 = metrics.root_counter("stage_bytes_read")
+        torch.cuda.synchronize()
+        with fm.trace():
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            passes = [e for e in fm.trace_events() if e["name"] == "pass"]
+        TRACER.reset()  # a span a partition: drop them, keep the passes
+        st = fm.exec_stats()
+        info[name] = {
+            "mode": mode, "wall_ms": wall * 1e3,
+            "materialize_calls": st["materialize_calls"]
+            - st0["materialize_calls"],
+            "passes": st["passes"] - st0["passes"],
+            "partition_steps": st["partition_steps"] - st0["partition_steps"],
+            "stage_bytes_read": int(metrics.root_counter("stage_bytes_read")
+                                    - read0),
+            "partition_rows": sorted({e["args"]["partition_rows"]
+                                      for e in passes}),
+            "pass_ms": [e["dur"] / 1e3 for e in passes],
+            "pass_rows": [e["args"]["partition_rows"] for e in passes]}
+    return out, info
+
+
+def ooc_phase(torch, x, y, xk, res_a):
+    """Path e: the stream and ooc modes.  X, y and the blobs copied to host
+    RAM (``fm.conv_R2FM(host=True)``, 8.4 GB each of X and the blobs) and
+    streamed out of core, a partition at a time staged synchronously
+    (``prefetch=False``), by summary, correlation, glm and kmeans; then
+    crossprod (with XᵀY) and summary in ``stream`` mode over the
+    device-resident X.  Counted; results against path a's (and for the
+    crossprods the same call in whole mode); each call's passes as in
+    whole mode, ⌈n / partition rows⌉ steps a pass, and each pass's time
+    against its read floor, the bytes it stages over the measured
+    pageable copy rate."""
+    import numpy as np
+    from repro_torch.algorithms import correlation, glm, kmeans, summary
+    from repro_torch.core import fm
+    rates = h2d_rates(torch)
+    emit({"phase": "h2d", "bytes": 1 << 30,
+          "pageable_gb_s": rates["pageable"] / 1e9,
+          "pinned_gb_s": rates["pinned"] / 1e9})
+    t0 = time.perf_counter()
+    XH = fm.conv_R2FM(x.cpu().numpy(), host=True)
+    YH = fm.conv_R2FM(y.cpu().numpy(), host=True)
+    XKH = fm.conv_R2FM(xk.cpu().numpy(), host=True)
+    check(XH.m.on_host and XKH.m.on_host and XH.m.nbytes() == x.nbytes,
+          "the host slabs")
+    emit({"phase": "data", "path": "ooc", "host_gib":
+          (XH.m.nbytes() + YH.m.nbytes() + XKH.m.nbytes()) / 2**30,
+          "seconds": time.perf_counter() - t0})
+    X, Y = fm.conv_R2FM(x), fm.conv_R2FM(y)
+    calls = (
+        ("summary", "ooc", lambda: summary(XH)),
+        ("correlation", "ooc", lambda: correlation(XH)),
+        ("glm", "ooc", lambda: glm(XH, YH, family="logistic", max_iter=8)),
+        ("kmeans", "ooc", lambda: kmeans(XKH, k=K_CLUSTERS, max_iter=5)),
+        ("crossprod", "stream", lambda: fm.materialize(
+            fm.crossprod(X), fm.crossprod(X, Y), mode="stream")),
+        ("summary_stream", "stream", lambda: summary(X, mode="stream")))
+    with fm.conf(backend="cuda", prefetch=False):
+        fm.reset_exec_stats()
+        (res, info), launches = counted(
+            torch, "stream/ooc", ("gram", "xty", "wgram", "fused_apply_agg",
+                                  "kmeans_assign"),
+            lambda: run_ooc(torch, calls))
+        whole = fm.materialize(fm.crossprod(X), fm.crossprod(X, Y))
+    for name, d in info.items():
+        d["read_floor_ms"] = (d["stage_bytes_read"] / max(1, d["passes"])
+                              / rates["pageable"] * 1e3)
+        d["read_floor_pinned_ms"] = (d["stage_bytes_read"]
+                                     / max(1, d["passes"])
+                                     / rates["pinned"] * 1e3)
+        emit({"phase": "main", "path": "ooc", "call": name, **d})
+        # one pass per materialize, as in whole mode; ⌈n / rows⌉ steps each
+        check(d["passes"] == d["materialize_calls"] and d["passes"] > 0,
+              f"{name}: passes {d['passes']} != materialize calls "
+              f"{d['materialize_calls']}")
+        check(d["partition_steps"] == sum(-(-N_ROWS // r)
+                                          for r in d["pass_rows"]),
+              f"{name}: {d['partition_steps']} partition steps for passes "
+              f"of {d['pass_rows']} rows over {N_ROWS}")
+        check(all(-(-N_ROWS // r) > 1 for r in d["pass_rows"]),
+              f"{name}: a pass ran as one partition")
+        check((d["stage_bytes_read"] > 0) == (d["mode"] == "ooc"),
+              f"{name}: {d['stage_bytes_read']} bytes read from the host")
+
+    r = res_a["summary"]
+    for s in (res["summary"], res["summary_stream"]):
+        np.testing.assert_allclose(s.mean, r.mean, rtol=1e-3, atol=1e-3)
+        np.testing.assert_allclose(s.var, r.var, rtol=1e-2)
+        np.testing.assert_allclose(s.col_min, r.col_min)
+        np.testing.assert_allclose(s.col_max, r.col_max)
+        np.testing.assert_allclose(s.l1, r.l1, rtol=1e-3)
+        np.testing.assert_array_equal(s.nnz, r.nnz)
+    np.testing.assert_allclose(res["correlation"], res_a["correlation"],
+                               rtol=2e-2, atol=2e-3)
+    g, gr = res["glm"], res_a["glm"]
+    check(np.isfinite(g.beta).all() and g.beta.shape == (N_COLS,), "glm beta")
+    np.testing.assert_allclose(g.beta, gr.beta, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(g.loglik, gr.loglik, rtol=1e-5)
+    km, kr = res["kmeans"], res_a["kmeans"]
+    check(np.isfinite(km.centers).all(), "kmeans centers")
+    np.testing.assert_allclose(km.wss, kr.wss, rtol=1e-3)
+    for a, b in zip(res["crossprod"], whole):
+        a, b = (fm._fm(v).logical_data().double() for v in (a, b))
+        err = float((a - b).abs().max() / b.abs().max())
+        check(err <= 1e-4, f"stream crossprod against whole: {err}")
+    emit({"phase": "compare", "path": "ooc", "ok": True,
+          "launches": launches, "glm_loglik": [g.loglik, gr.loglik],
+          "glm_iters": [g.iters, gr.iters], "kmeans_wss": [km.wss, kr.wss]})
+    del XH, YH, XKH
     return launches
 
 
@@ -1045,7 +1221,50 @@ def sparse_phase(torch, cols, vals, y):
           "glm_converged": g.converged, "glm_loglik_trace": list(t),
           "rows": CRITEO_ROWS, "ncol": ncol,
           "slab_gib": (cols.nbytes + vals.nbytes) / 2**30})
-    del G, gd, block
+
+    # The slab streamed from the device tier a partition at a time: each
+    # SpMM kernel per partition, the Gram equal to whole mode's bit for bit
+    # (integer sums under 2^24); a fit on the first SPARSE_STREAM_ROWS rows,
+    # its log-likelihoods as a whole-mode fit's within 1e-4: each is a
+    # float32 sum of ~1,000 partition partials, every addition rounding at
+    # the sum's own ulp.
+    m = SPARSE_STREAM_ROWS
+    Xm, Ym = sparse_fm(cols[:m], vals[:m]), fm.conv_R2FM(y[:m])
+
+    def run_stream():
+        wall = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g2 = glm(Xm, Ym, "logistic", ridge=1e-3, max_iter=2, mode="stream")
+        torch.cuda.synchronize()
+        wall["glm"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (Gs,) = fm.materialize(fm.crossprod(Xs), mode="stream")
+        torch.cuda.synchronize()
+        wall["crossprod"] = time.perf_counter() - t0
+        return g2, Gs, wall
+
+    with fm.conf(backend="cuda"):
+        fm.reset_exec_stats()
+        (gs, Gs, swall), slaunches = counted(
+            torch, "sparse stream", ("spmm_gram", "spmm_xty", "spmm_wgram"),
+            run_stream)
+        sst = fm.exec_stats()
+        gw = glm(Xm, Ym, "logistic", ridge=1e-3, max_iter=2)
+    emit({"phase": "main", "path": "sparse", "mode": "stream",
+          "backend": "cuda", "wall_s": swall, "launches": slaunches,
+          "passes": sst["passes"], "partition_steps": sst["partition_steps"],
+          "materialize_calls": sst["materialize_calls"], "glm_rows": m,
+          "glm_loglik_trace": [gs.loglik_trace, gw.loglik_trace]})
+    check(sst["passes"] == sst["materialize_calls"]
+          and sst["partition_steps"] > sst["passes"],
+          f"sparse stream: {sst['passes']} passes, "
+          f"{sst['partition_steps']} partition steps")
+    check(torch.equal(fm._fm(Gs).logical_data(), gd),
+          "the streamed crossprod differs from whole mode's")
+    np.testing.assert_allclose(gs.loglik_trace, gw.loglik_trace, rtol=1e-4)
+    launches = {k: launches[k] + slaunches[k] for k in launches}
+    del G, Gs, gd, block, Xm, Ym
 
     m = SPARSE_CMP_ROWS
     Xp, Yp = sparse_fm(cols[:m], vals[:m]), fm.conv_R2FM(y[:m])
@@ -1322,8 +1541,11 @@ def main() -> int:
           "gib": x.numel() * 4 / 2**30, "seed": SEED})
     rows = kernel_phase(torch, x, xk)
     small_phase(x, xk, lab)
-    paths = [main_phase(torch, x, y, xk),
-             algorithms_phase(torch, x, xk, lab)]
+    launches_a, res_a = main_phase(torch, x, y, xk)
+    res_a["kmeans"].labels = None    # path e compares centers and wss
+    paths = [launches_a, algorithms_phase(torch, x, xk, lab)]
+    paths.append(ooc_phase(torch, x, y, xk, res_a))
+    del res_a
     from repro_torch.core import materialize
     materialize.clear_plan_cache()   # cached plans hold their sources
     del x, y, xk, lab

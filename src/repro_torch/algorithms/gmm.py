@@ -23,9 +23,9 @@ import dataclasses
 import math
 
 import numpy as np
-import torch
 
 from ..core import fm
+from .kmeans import _rows
 
 
 @dataclasses.dataclass
@@ -110,9 +110,7 @@ def gmm(X: fm.FM, k: int = 10, *, max_iter: int = 30, tol: float = 1e-5,
     n, p = X.shape
     rng = np.random.default_rng(seed)
     idx = np.sort(rng.choice(n, size=k, replace=False))
-    data = fm._fm(X).logical_data()
-    rows = data[torch.as_tensor(idx, device=data.device)]
-    means = rows.to(torch.float32).cpu().numpy().astype(np.float64)
+    means = _rows(fm._fm(X).logical_data(), idx)
     covs = np.tile(np.eye(p), (k, 1, 1))
     weights = np.full(k, 1.0 / k)
 

@@ -32,15 +32,22 @@ class KMeansResult:
     iters: int
 
 
+def _rows(data, idx: np.ndarray) -> np.ndarray:
+    """Rows ``idx`` of a matrix's data (a device tensor or a host numpy
+    array) as a float64 numpy array."""
+    if isinstance(data, np.ndarray):
+        return np.asarray(data[idx], dtype=np.float64)
+    rows = data[torch.as_tensor(idx, device=data.device)]
+    return rows.to(torch.float32).cpu().numpy().astype(np.float64)
+
+
 def _init_centers(X: fm.FM, k: int, seed: int) -> np.ndarray:
     """k-means++ on a uniform row subsample (≤16k rows), on the host."""
     rng = np.random.default_rng(seed)
     n = X.nrow
     m = min(n, 16384)
     idx = np.sort(rng.choice(n, size=m, replace=False))
-    data = X.m.logical_data()
-    rows = data[torch.as_tensor(idx, device=data.device)]
-    S = rows.to(torch.float32).cpu().numpy().astype(np.float64)
+    S = _rows(X.m.logical_data(), idx)
     centers = [S[rng.integers(m)]]
     d2 = ((S - centers[0]) ** 2).sum(1)
     for _ in range(1, k):

@@ -11,8 +11,9 @@ Each iteration is exactly TWO passes, each reading X (and W) once: pass A
 co-materializes WᵀX and WᵀW — on the cuda backend ``kernels.xty`` and
 ``kernels.gram`` — and pass B is a row-local chain writing the new W.  The
 Frobenius objective ‖X−WH‖² = ‖X‖² − 2·tr(HᵀWᵀX) + tr(WᵀW·HHᵀ) falls out of
-pass A's sinks.  ``save='disk'`` (write-through spill of W) comes with the
-disk tier (ROADMAP A7).
+pass A's sinks.  W lives on the tier of X, as in the reference: in host RAM
+for a host X.  ``save='disk'`` (write-through spill of W) comes with the
+disk tier (ROADMAP A7b).
 """
 from __future__ import annotations
 
@@ -51,7 +52,8 @@ def nmf(X: fm.FM, k: int = 8, *, max_iter: int = 30, tol: float = 1e-4,
     x_mean = float(fm.as_scalar(xs_m)) / float(n * p)
     scale = np.sqrt(max(x_mean, _EPS) / k)
     W = fm.conv_R2FM(
-        (rng.uniform(size=(n, k)) * scale + _EPS).astype(np.float32))
+        (rng.uniform(size=(n, k)) * scale + _EPS).astype(np.float32),
+        host=fm._fm(X).on_host)
     H = (rng.uniform(size=(k, p)) * scale + _EPS).astype(np.float64)
 
     trace: list[float] = []

@@ -222,7 +222,11 @@ def _inner_prod_block(a_blk, b_small, mul: vudf_mod.BinaryVUDF,
             return a_blk.matmul_small(b_small, out_dtype, _BROADCAST_ELEMS)
         a_blk = a_blk.todense()
     if mul.name == "mul" and add.name == "sum" and dtypes.is_floating(out_dtype):
-        return torch.matmul(a_blk, b_small).to(out_dtype)
+        # Promote both operands as jnp.matmul does: a float op on a bf16
+        # source declares float32 but computes its block in bf16, while
+        # genops cast the small operand to the declared float32.
+        dt = torch.promote_types(a_blk.dtype, b_small.dtype)
+        return torch.matmul(a_blk.to(dt), b_small.to(dt)).to(out_dtype)
     n = a_blk.shape[0]
     per_row = a_blk.shape[1] * b_small.shape[1]
     outs = []

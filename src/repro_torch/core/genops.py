@@ -297,14 +297,15 @@ def solve(a: MatLike, b=None) -> FMMatrix:
 
 def set_mate_level(mat: FMMatrix, level: str) -> FMMatrix:
     """fm.set.mate.level: ask the next materialization to keep this virtual
-    matrix.  Only the device tier exists in this slice."""
+    matrix ('device' = the device tier, 'host' = host RAM).  'disk', the
+    write-through spill into an on-disk matrix, comes with ROADMAP A7b."""
     if not mat.is_virtual:
         return mat
-    if level in ("host", "disk"):
+    if level == "disk":
         raise NotImplementedError(
-            "the host-RAM and disk tiers come with the disk-tier slice "
-            "(ROADMAP A7)")
-    if level != "device":
+            "save='disk' (write-through spill to the disk tier) comes with "
+            "ROADMAP A7b")
+    if level not in ("device", "host"):
         raise ValueError(f"bad materialization level {level!r}")
     mat.node.save = level
     return mat

@@ -1,17 +1,35 @@
 """Materialization engine (paper §III-F), PyTorch port of
-repro.core.materialize — ``whole`` mode over the device tier.
+repro.core.materialize.
 
-``whole`` runs the entire long dimension as one partition through each
-pass's lowered step: the kernels stream the rows themselves.  It is what
-``mode="auto"`` resolves to for device-resident data.  Sinks merge with the
-aggregation VUDFs' ``combine``, each pass runs its epilogue once after the
-merge, and results register only after every pass has run.  The plan cache
-(LRU, under locks), the execution counters and the iteration scope are the
-reference's.
+Executes a fused `fusion.Plan` in one of three modes:
 
-Not in this slice: ``stream``/``ooc`` modes, host-tier staging and prefetch
-(ROADMAP A7), co-scheduled groups (``fm.batch``, ROADMAP A11) and shards
-(ROADMAP A13).
+* ``whole``  — the entire long dimension as one partition through each
+  pass's lowered step: the kernels stream the rows themselves.  What
+  ``mode="auto"`` resolves to for device-resident data.
+* ``stream`` — the explicit I/O-level partition loop on the device: each
+  power-of-two partition of rows (``core/matrix.py``) runs the pass's step,
+  and its sink partials fold into the running accumulators with the
+  aggregation VUDFs' ``combine``.
+* ``ooc``    — the same loop over sources in host RAM: each partition is
+  read from the host tier and copied to the device
+  (``storage.prefetch.stage_block``), and long-dimension outputs are
+  written to preallocated host buffers.  ``mode="auto"`` resolves to it
+  when any source is on the host.
+
+Partitions are staged synchronously (``_inline_partitions``, the
+reference's prefetch-off path); the background prefetcher comes with
+ROADMAP A7a-ii, and where ``prefetch`` resolves True the executor raises
+rather than run this path in its place.  Each pass runs its epilogue once
+after the merge, and results register only after every pass has run.  The
+final staged partition of a streaming pass stays resident for the next
+pass with the same partition schedule (``prefetch_reuse_hits``), across
+materializes inside an ``iteration_scope``.  The plan cache (LRU, under
+locks) and the execution counters are the reference's.
+
+Not in this slice: the disk tier (ROADMAP A7b), co-scheduled groups
+(``fm.batch``, A11), mid-stream admission (A12) and shards (A13).  The
+group runners take a list of members so that A11 slots in; a materialize
+runs them with one.
 """
 from __future__ import annotations
 
@@ -24,15 +42,17 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import lowering
-from .dag import Node, wrap
+from . import dtypes, lowering, matrix as matrix_mod
+from .dag import LeafNode, Node, wrap
 from .fusion import Plan
 from .matrix import DenseStore, FMMatrix
 from ..observability import metrics
 from ..observability.trace import TRACER
 
-_STREAM_MODES = ("the stream and ooc modes, with host-tier staging and "
-                 "prefetch, come with the disk-tier slice (ROADMAP A7)")
+_PREFETCHER = ("prefetch=True: the background partition prefetcher (pinned "
+               "staging on a side CUDA stream) comes with ROADMAP A7a-ii; "
+               "pass prefetch=False or set fm.set_conf(prefetch=False) for "
+               "synchronous staging")
 
 # Plan cache: structurally identical DAG cuts (k-means iteration N+1, IRLS
 # steps) reuse one lowered program.  Keyed by signature + partition
@@ -46,8 +66,11 @@ PLAN_CACHE_LIMIT = 256
 _PLANS_LOCK = threading.Lock()
 _DAG_LOCK = threading.RLock()
 
-#: The counters ``exec_stats()`` exposes (the reference's list; the stream,
-#: shard and admission counters stay 0 in whole mode).
+#: The counters ``exec_stats()`` exposes (the reference's list; the shard
+#: and admission counters stay 0 in this slice).  ``streams`` counts
+#: physical sweeps over the sources, ``passes`` each member's logical pass
+#: (equal for a solo materialize); ``prefetch_reuse_hits`` counts staged
+#: blocks served from the previous pass's resident final partition.
 EXEC_COUNTERS = (
     "materialize_calls",
     "plan_cache_hits",
@@ -90,11 +113,20 @@ def _sync():
 
 
 def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
-                mesh=None, reuse_plans: bool = True,
+                mesh=None, donate: bool = True, reuse_plans: bool = True,
+                prefetch: Optional[bool] = None,
                 backend: Optional[str] = None) -> list[FMMatrix]:
     """fm.materialize: force computation of virtual matrices; one physical
     FMMatrix per argument (physical arguments pass through).  Multiple
-    arguments materialize together in one fused pass.  ``backend`` is
+    arguments materialize together in one fused pass.
+
+    ``mode`` is 'auto' | 'whole' | 'stream' | 'ooc'.  ``prefetch`` picks
+    the partition staging of the streaming modes: None = the conf default
+    (``fm.set_conf(prefetch=...)``, on for a host source of more than one
+    partition), False = synchronous staging; a prefetch that resolves True
+    raises until ROADMAP A7a-ii.  ``donate`` is the reference's knob:
+    PyTorch has no buffer donation, and a staged partition is dropped as
+    soon as every step has consumed it, with either value.  ``backend`` is
     'torch' | 'cuda' | 'auto' (None = ``fm.set_conf(backend=...)``)."""
     if mesh is not None:
         raise NotImplementedError(
@@ -113,7 +145,7 @@ def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
         with TRACER.span("materialize", backend=backend, fuse=False,
                          outputs=len(virtuals)):
             _materialize_eager([m.node for m in virtuals], mode=mode,
-                               backend=backend)
+                               prefetch=prefetch, backend=backend)
         return [_result_of(m) for m in mats]
 
     with _DAG_LOCK:
@@ -125,11 +157,12 @@ def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
     with TRACER.span("materialize", backend=backend,
                      passes=plan.n_passes, outputs=len(virtuals),
                      cached=exec_plan is not plan):
-        _execute_passes(exec_plan, onto=plan, mode=mode,
-                        sources=[m for _, m in plan.sources],
-                        bc_sources=[m for _, m in plan.broadcast_sources],
-                        epi_sources=[m for _, m in plan.epilogue_sources],
-                        smalls=plan.small_values(), backend=backend)
+        _execute(exec_plan, onto=plan, mode=mode,
+                 sources=[m for _, m in plan.sources],
+                 bc_sources=[m for _, m in plan.broadcast_sources],
+                 epi_sources=[m for _, m in plan.epilogue_sources],
+                 smalls=plan.small_values(), prefetch=prefetch,
+                 backend=backend)
     return [_result_of(m) for m in mats]
 
 
@@ -162,7 +195,7 @@ def _acquire_exec_plan(plan: Plan, backend: str, reuse_plans: bool):
 
 
 # ---------------------------------------------------------------------------
-# Iteration inspector
+# Iteration inspector: cross-materialize partition residency
 # ---------------------------------------------------------------------------
 
 _INSPECT = threading.local()
@@ -175,64 +208,335 @@ def inspecting() -> bool:
 
 @contextlib.contextmanager
 def iteration_scope():
-    """fm.inspect_iterations: declare an iterative driver's loop.  In whole
-    mode every pass reads the resident source itself, so there is no staged
-    partition to keep across calls; the scope is tracked so the drivers run
-    with their default ``inspect=True`` (partition reuse across calls comes
-    with the streaming modes, ROADMAP A11)."""
+    """fm.inspect_iterations: declare an iterative driver's loop.  Inside
+    the scope the final staged partition of every streaming pass stays
+    resident across materialize calls, so iteration i+1's first pass reuses
+    it instead of re-reading it (``prefetch_reuse_hits``).  On exit the
+    resident blocks are dropped."""
     _INSPECT.depth = getattr(_INSPECT, "depth", 0) + 1
     try:
         yield
     finally:
         _INSPECT.depth -= 1
+        if _INSPECT.depth == 0:
+            _INSPECT.residents = None
+
+
+def _tls_residents():
+    return getattr(_INSPECT, "residents", None) if inspecting() else None
+
+
+def _set_tls_residents(residents):
+    if inspecting():
+        _INSPECT.residents = residents
+
+
+class _Resident:
+    """The final staged partition of a streaming pass, kept for a following
+    pass with the same partition schedule (rows, long_dim: the same final
+    row range).  Blocks are keyed by physical-matrix identity; ``mats``
+    holds the matrices so an ``id()`` is not reissued while it lives."""
+
+    __slots__ = ("rows", "long_dim", "blocks", "mats")
+
+    def __init__(self, rows: int, long_dim: int, blocks: dict, mats: list):
+        self.rows = rows
+        self.long_dim = long_dim
+        self.blocks = blocks  # {id(mat): staged device block}
+        self.mats = mats
+
+    def matches(self, rows: int, long_dim: int) -> bool:
+        return self.rows == rows and self.long_dim == long_dim
+
+
+def _reuse_from(residents, group_pairs, rows: int, long_dim: int):
+    """{group key: resident block} for every source of ``group_pairs``
+    whose final partition is resident under the same schedule, or None."""
+    out = {}
+    for entry in residents or ():
+        if not entry.matches(rows, long_dim):
+            continue
+        for key, mat in group_pairs:
+            if key not in out and id(mat) in entry.blocks:
+                out[key] = entry.blocks[id(mat)]
+    return out or None
+
+
+# ---------------------------------------------------------------------------
+# Group runners: one partition sweep, each member's step per partition
+# ---------------------------------------------------------------------------
+
+class _PassExec:
+    """Executor state of ONE member pass inside a stream group: its
+    program, inputs, running accumulators and long-dimension output
+    targets.  ``out_nodes`` pairs each output's template node (whose id
+    keys the step's outputs) with the node describing where the result
+    goes; ``scopes`` are metrics scopes a batch member adopts (A11)."""
+
+    __slots__ = ("ps", "prog", "sources", "smalls", "epi_sources",
+                 "bindings", "out_nodes", "scopes", "accs", "out_parts",
+                 "host_bufs", "finals", "epi_outs")
+
+    def __init__(self, ps, prog, sources, smalls, epi_sources, bindings, *,
+                 out_nodes=None, scopes=()):
+        self.ps = ps
+        self.prog = prog
+        self.sources = sources
+        self.smalls = smalls
+        self.epi_sources = epi_sources
+        self.bindings = bindings
+        if out_nodes is None:
+            outs = ps.row_local_roots + ps.saves
+            out_nodes = list(zip(outs, outs))
+        self.out_nodes = out_nodes
+        self.scopes = tuple(scopes)
+        self.accs = ps.init_accs()
+        self.out_parts = {tmpl.id: [] for tmpl, _ in out_nodes}
+        self.host_bufs: dict[int, np.ndarray] = {}
+        self.finals = None
+        self.epi_outs = None
+
+    def route_outputs(self, start: int, stop: int, outputs: dict):
+        """A partition's long-dimension outputs: into their host buffers
+        (``ooc``), or kept on the device in partition order."""
+        for nid, val in outputs.items():
+            if nid in self.host_bufs:
+                self.host_bufs[nid][start:stop] = matrix_mod.to_host(val)
+            else:
+                self.out_parts[nid].append(val)
+
+
+def _member_stack(member: _PassExec):
+    """The metrics-scope stack to adopt around this member's compute: the
+    executor thread's open scopes plus the member's captured ones; None
+    when nothing extra is captured."""
+    if not member.scopes:
+        return None
+    cur = metrics.current_scopes()
+    extra = [s for s in member.scopes if s not in set(cur)]
+    return tuple(cur) + tuple(extra) if extra else None
+
+
+def _in_stack(stack):
+    return metrics.use_scopes(stack) if stack else contextlib.nullcontext()
+
+
+def _group_staging(members):
+    """One ``(key, mat)`` per distinct physical matrix across the members
+    (key = the matrix's identity), and per member the canonical-node-id →
+    key map that fans a staged block back out to its step."""
+    group_pairs: list[tuple[int, object]] = []
+    seen: set[int] = set()
+    maps: list[dict[int, int]] = []
+    for m in members:
+        mp = {}
+        for nid, mat in m.ps.staged_sources(m.sources):
+            if id(mat) not in seen:
+                seen.add(id(mat))
+                group_pairs.append((id(mat), mat))
+            mp[nid] = id(mat)
+        maps.append(mp)
+    return group_pairs, maps
+
+
+def _count_member_scopes(member, ambient, stream_scopes: list):
+    """A member's request scopes record its own pass and bytes (what a solo
+    run of it would read), where they are not already ambient."""
+    own = None
+    for sc in member.scopes:
+        if sc in ambient:
+            continue
+        if own is None:
+            own = member.ps.bytes_in(member.sources)
+        sc.inc("passes", 1)
+        sc.inc("bytes_streamed", own)
+        if sc not in stream_scopes:
+            stream_scopes.append(sc)
+
+
+def _count_stream(members, union_bytes: int):
+    """One physical sweep: one stream, the union bytes read once, one
+    logical pass per member."""
+    metrics.inc("streams")
+    metrics.inc("bytes_streamed", union_bytes)
+    metrics.inc("passes", len(members))
+    ambient = set(metrics.REGISTRY.scopes())
+    stream_scopes: list = []
+    for m in members:
+        _count_member_scopes(m, ambient, stream_scopes)
+    for sc in stream_scopes:
+        sc.inc("streams", 1)
+
+
+def _member_step(member, blocks, key_map, start, stop, *, idx):
+    """One member's step + combine over the staged partition."""
+    mblocks = {nid: blocks[key] for nid, key in key_map.items()}
+    metrics.inc("partition_steps")
+    t0 = time.perf_counter()
+    with TRACER.span("device_step", rows=stop - start, member=idx):
+        partials, outputs = member.prog.step(mblocks, member.smalls,
+                                             member.bindings, start)
+        _sync()
+    metrics.inc("device_step_seconds", time.perf_counter() - t0)
+    # The paper's partial merge: the partition's sink partials fold into the
+    # member's running accumulators with the aggregation VUDFs' combine.
+    t0 = time.perf_counter()
+    with TRACER.span("combine", member=idx):
+        member.accs = member.prog.combine(member.accs, partials)
+        _sync()
+    metrics.inc("combine_seconds", time.perf_counter() - t0)
+    return outputs
+
+
+def _finish_members(members, stacks):
+    """Finalize + epilogue for every member once the sweep completes."""
+    for m, stack in zip(members, stacks):
+        with _in_stack(stack):
+            m.finals = m.ps.finalize_accs(m.accs)
+            m.epi_outs = _run_epilogue(m.ps, m.prog, m.finals,
+                                       m.epi_sources, m.smalls, m.bindings)
+        for nid, buf in m.host_bufs.items():
+            m.out_parts[nid] = [buf]
+
+
+def _run_whole_group(members):
+    """Whole-mode sweep of a group: the union of the members' sources is
+    staged once — a device source is its own tensor (a sparse one its ELL
+    slab as one ``SparseBlock``, never densified), a host source is copied
+    whole to the device — then every member's step consumes it as one
+    partition (offset 0)."""
+    group_pairs, maps = _group_staging(members)
+    long_dim = members[0].ps.long_dim
+    blocks = {key: (mat.block(0, mat.nrow) if mat.is_sparse
+                    else _stage_whole(mat))
+              for key, mat in group_pairs}
+    _count_stream(members, sum(mat.nbytes() for _, mat in group_pairs))
+    stacks = [_member_stack(m) for m in members]
+    with TRACER.span("stream", members=len(members), mode="whole"):
+        with TRACER.span("partition", start=0, stop=long_dim):
+            for i, (m, mp, stack) in enumerate(zip(members, maps, stacks)):
+                with _in_stack(stack):
+                    outputs = _member_step(m, blocks, mp, 0, long_dim, idx=i)
+                for nid, val in outputs.items():
+                    m.out_parts[nid].append(val)
+    _finish_members(members, stacks)
+
+
+def _inline_partitions(src_pairs, rows: int, n: int, reuse=None):
+    """Synchronous partition staging over rows [0, n) in ``rows``-row
+    partitions: each source's block is staged on the compute thread
+    (``storage.prefetch.stage_block``).  ``reuse`` maps source keys to the
+    previous pass's resident final-partition blocks, served in place of the
+    last re-read."""
+    from ..storage.prefetch import stage_block
+    start = 0
+    while start < n:
+        stop = min(start + rows, n)
+        blocks = {}
+        for key, mat in src_pairs:
+            if stop >= n and reuse and key in reuse:
+                blocks[key] = reuse[key]
+                metrics.inc("prefetch_reuse_hits")
+            else:
+                blocks[key] = stage_block(mat, start, stop)
+        yield start, stop, blocks
+        start = stop
+
+
+def _alloc_out_targets(member, to_host: bool):
+    """Allocate a member's host buffers for its long-dimension outputs
+    (``ooc``, or a ``save='host'`` flag) before its first partition."""
+    for tmpl, spec in member.out_nodes:
+        if (spec.save or ("host" if to_host else "device")) == "host":
+            member.host_bufs[tmpl.id] = np.empty(
+                (spec.nrow, spec.ncol), dtypes.np_equiv(spec.dtype))
+
+
+def _resolve_prefetch(prefetch, group_pairs, rows: int, n: int) -> bool:
+    """The reference's rule: an explicit ``prefetch``, else the conf
+    default for a host source of more than one partition."""
+    if prefetch is not None:
+        return bool(prefetch)
+    from ..storage import registry
+    return bool(registry.get_conf("prefetch") and n > rows
+                and any(mat.on_host for _, mat in group_pairs))
+
+
+def _run_stream_group(members, *, to_host: bool,
+                      prefetch: Optional[bool] = None, residents=None,
+                      capture: bool = False):
+    """Stream ONE group of member passes partition by partition: one
+    staging sweep over the union of the members' sources, every member's
+    step consuming each staged partition (1 stream × k steps; a solo
+    materialize is the one-member case).
+
+    ``residents`` holds the previous pass's resident final partition(s):
+    matching blocks are served instead of re-staged.  With ``capture`` the
+    sweep's own final partition is returned as a `_Resident`.  A staging or
+    step error propagates unchanged; nothing is registered."""
+    n = members[0].ps.long_dim
+    # Partition schedules in one group are power-of-two row counts over the
+    # same long dimension: the min is a common partitioning for all members.
+    rows = min(m.ps.partition_rows for m in members)
+    group_pairs, maps = _group_staging(members)
+    if _resolve_prefetch(prefetch, group_pairs, rows, n):
+        raise NotImplementedError(_PREFETCHER)
+    _count_stream(members, sum(mat.nbytes() for _, mat in group_pairs))
+    for m in members:
+        _alloc_out_targets(m, to_host)
+
+    reuse_map = _reuse_from(residents, group_pairs, rows, n)
+    stacks = [_member_stack(m) for m in members]
+    captured = None
+    parts = _inline_partitions(group_pairs, rows, n, reuse=reuse_map)
+    with TRACER.span("stream", members=len(members), rows=rows,
+                     reused=len(reuse_map or ())):
+        for start, stop, blocks in parts:
+            with TRACER.span("partition", start=start, stop=stop):
+                for i, (m, mp, stack) in enumerate(zip(members, maps,
+                                                       stacks)):
+                    with _in_stack(stack):
+                        outputs = _member_step(m, blocks, mp, start, stop,
+                                               idx=i)
+                    m.route_outputs(start, stop, outputs)
+                if capture and stop >= n:
+                    captured = _Resident(
+                        rows, n, {key: blocks[key] for key, _ in group_pairs},
+                        [mat for _, mat in group_pairs])
+    _finish_members(members, stacks)
+    return captured
 
 
 # ---------------------------------------------------------------------------
 # Fused execution
 # ---------------------------------------------------------------------------
 
-def _run_whole_group(ps, prog, sources, smalls, epi_sources, bindings):
-    """Whole-mode sweep of one pass: its staged sources are the device
-    tensors themselves — a sparse source its ELL slab as one ``SparseBlock``,
-    never densified — and the step consumes them as one partition (offset
-    0).  Returns (finalized sinks, long-dimension outputs, epilogue outputs).
-    """
-    blocks = {nid: (mat.block(0, mat.nrow) if mat.is_sparse
-                    else mat.logical_data())
-              for nid, mat in ps.staged_sources(sources)}
-    long_dim = ps.long_dim
-    metrics.inc("streams")
-    metrics.inc("bytes_streamed", sum(mat.nbytes() for _, mat in
-                                      ps.staged_sources(sources)))
-    metrics.inc("passes")
-    accs = ps.init_accs()
-    with TRACER.span("stream", members=1, mode="whole"):
-        with TRACER.span("partition", start=0, stop=long_dim):
-            metrics.inc("partition_steps")
-            t0 = time.perf_counter()
-            with TRACER.span("device_step", rows=long_dim, member=0):
-                partials, outputs = prog.step(blocks, smalls, bindings, 0)
-                _sync()
-            metrics.inc("device_step_seconds", time.perf_counter() - t0)
-            t0 = time.perf_counter()
-            with TRACER.span("combine", member=0):
-                accs = prog.combine(accs, partials)
-                _sync()
-            metrics.inc("combine_seconds", time.perf_counter() - t0)
-    finals = ps.finalize_accs(accs)
-    epi_outs = _run_epilogue(ps, prog, finals, epi_sources, smalls, bindings)
-    return finals, outputs, epi_outs
+def _execute(plan: Plan, **kw):
+    """`_execute_passes`, clearing the thread's resident partition when an
+    execution fails: after a partial run it matches no upcoming schedule,
+    and keeping it would hold device memory for the rest of the scope."""
+    try:
+        return _execute_passes(plan, **kw)
+    except BaseException:
+        _set_tls_residents(None)
+        raise
 
 
 def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
                     mode: str = "auto", sources=None, smalls=None,
+                    prefetch: Optional[bool] = None,
                     backend: Optional[str] = None,
                     epi_sources=None, bc_sources=None):
     """Run every pass of ``plan`` in order, carrying each pass's merged
     sinks and epilogue outputs forward as the next pass's bindings, then
-    register the results (only after every pass has succeeded).  ``onto``
-    is the caller's own equal-signature plan when ``plan`` is a borrowed
-    cached template."""
+    register the results — only after every pass has succeeded, so an
+    interrupted pass leaves no partial sinks.  ``onto`` is the caller's own
+    equal-signature plan when ``plan`` is a borrowed cached template.
+
+    A streaming pass keeps its final staged partition resident when the
+    next pass — of this plan, or inside an ``iteration_scope`` the next
+    materialize's first — runs the same partition schedule over a shared
+    physical matrix."""
     own = onto if onto is not None else plan
     if sources is None:
         sources = [m for _, m in own.sources]
@@ -242,44 +546,90 @@ def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
         epi_sources = [m for _, m in own.epilogue_sources]
     if smalls is None:
         smalls = own.small_values()
-    if mode not in ("auto", "whole"):
-        if mode in ("stream", "ooc"):
-            raise NotImplementedError(_STREAM_MODES)
+    mode = _pick_mode_src(sources, mode)
+    if mode not in ("whole", "stream", "ooc"):
         raise ValueError(f"unknown mode {mode!r}")
     prog = plan.program(lowering.resolve_backend(backend))
     pass_progs = getattr(prog, "passes", None) or [prog]
 
     carried: dict[int, object] = {}
     finals_all: dict[int, object] = {}
-    outs_all: dict[int, object] = {}
+    parts_all: dict[int, list] = {}
     epi_all: dict[int, object] = {}
     pass_bytes: list[int] = []
+    residents = _tls_residents()
     src_i = bc_i = epi_i = 0
-    for ps, pprog in zip(plan.passes, pass_progs):
+    for k, (ps, pprog) in enumerate(zip(plan.passes, pass_progs)):
         ns, nb, ne = (len(ps.sources), len(ps.broadcast_sources),
                       len(ps.epilogue_sources))
         ps_src = sources[src_i:src_i + ns]
         ps_bc = bc_sources[bc_i:bc_i + nb]
         ps_epi = epi_sources[epi_i:epi_i + ne]
         src_i, bc_i, epi_i = src_i + ns, bc_i + nb, epi_i + ne
+        # Pass bindings: earlier passes' merged values, plus this pass's
+        # whole-staged small physical sources.
         bindings = {nid: carried[nid] for nid in ps.binding_ids}
         for nid, mat in ps.broadcast_source_pairs(ps_bc):
-            bindings[nid] = mat.logical_data()
+            bindings[nid] = _stage_whole(mat)
+        out_nodes = None
+        if own is not plan:
+            own_ps = own.passes[k]
+            out_nodes = list(zip(ps.row_local_roots + ps.saves,
+                                 own_ps.row_local_roots + own_ps.saves))
+        member = _PassExec(ps, pprog, ps_src, smalls, ps_epi, bindings,
+                           out_nodes=out_nodes)
         t_pass = time.perf_counter()
-        with TRACER.span("pass", idx=ps.idx, mode="whole",
+        with TRACER.span("pass", idx=ps.idx, mode=mode,
                          partition_rows=ps.partition_rows):
-            finals, outputs, epi_outs = _run_whole_group(
-                ps, pprog, ps_src, smalls, ps_epi, bindings)
+            if mode == "whole":
+                _run_whole_group([member])
+                residents = None
+            else:
+                capture = inspecting()
+                nxt = plan.passes[k + 1] if k + 1 < len(plan.passes) else None
+                if (not capture and nxt is not None
+                        and nxt.partition_rows == ps.partition_rows):
+                    cur_ids = {id(mat)
+                               for _, mat in ps.staged_sources(ps_src)}
+                    nxt_src = sources[src_i:src_i + len(nxt.sources)]
+                    capture = any(
+                        id(mat) in cur_ids
+                        for _, mat in nxt.staged_sources(nxt_src))
+                entry = _run_stream_group(
+                    [member], to_host=(mode == "ooc"), prefetch=prefetch,
+                    residents=residents, capture=capture)
+                residents = [entry] if entry is not None else None
         metrics.inc("pass_seconds", time.perf_counter() - t_pass)
         pass_bytes.append(ps.bytes_in(ps_src))
-        finals_all.update(finals)
-        outs_all.update(outputs)
-        epi_all.update(epi_outs)
-        carried.update(finals)
-        carried.update(epi_outs)
+        finals_all.update(member.finals)
+        parts_all.update(member.out_parts)
+        epi_all.update(member.epi_outs)
+        carried.update(member.finals)
+        carried.update(member.epi_outs)
+    _set_tls_residents(residents)
     metrics.put("pass_bytes_in", tuple(pass_bytes))
-    _store_results(plan, finals_all, outs_all, epi_all, onto=own)
+    _store_results(plan, finals_all, parts_all, to_host=(mode == "ooc"),
+                   epilogue_outs=epi_all, onto=own)
     return plan
+
+
+def _pick_mode_src(sources, mode: str) -> str:
+    if mode != "auto":
+        return mode
+    if any(mat.on_host for mat in sources):
+        return "ooc"
+    return "whole"
+
+
+def _stage_whole(mat):
+    """A physical matrix's logical data on the device: a host matrix is
+    copied whole (broadcast and epilogue sources, pass bindings and whole
+    mode's sources never hand a host buffer to a step)."""
+    data = mat.logical_data()
+    if not isinstance(data, np.ndarray):
+        return data
+    from ..storage import registry
+    return torch.from_numpy(np.ascontiguousarray(data)).to(registry.device())
 
 
 def _run_epilogue(ps, prog, sink_finals, epi_sources, smalls, bindings):
@@ -288,7 +638,7 @@ def _run_epilogue(ps, prog, sink_finals, epi_sources, smalls, bindings):
     are not)."""
     if prog.epilogue is None:
         return {}
-    epi_vals = {nid: mat.logical_data()
+    epi_vals = {nid: _stage_whole(mat)
                 for nid, mat in ps.epilogue_source_pairs(epi_sources)}
     leaves = list(sink_finals.values()) + list(epi_vals.values())
     metrics.inc("epilogue_host_inputs", sum(
@@ -302,24 +652,34 @@ def _run_epilogue(ps, prog, sink_finals, epi_sources, smalls, bindings):
     return outs
 
 
-def _store_results(plan: Plan, sink_finals, outputs, epilogue_outs, *,
-                   onto: Plan):
+def _store_results(plan: Plan, sink_finals, out_parts, *, to_host: bool,
+                   epilogue_outs=None, onto: Plan = None):
     """Register the execution's values as each result node's cached store,
     on ``onto``'s nodes (positionally aligned with the template's), under
-    _DAG_LOCK."""
+    _DAG_LOCK.  Sinks and epilogue results stay on the device in every
+    mode; a long-dimension output goes to the host in ``ooc`` mode or
+    under a ``save='host'`` flag."""
+    onto = onto if onto is not None else plan
     with _DAG_LOCK:
         for node, dst in zip(plan.sinks, onto.sinks):
             dst.cached_store = FMMatrix(
                 dst.shape, dst.dtype, store=DenseStore(sink_finals[node.id]),
                 name=dst.name)
-        values = dict(outputs)
-        values.update(epilogue_outs)
+        out_parts = dict(out_parts)
+        for node in plan.epilogue_roots:
+            out_parts[node.id] = [epilogue_outs[node.id]]
+        epi_ids = {n.id for n in plan.epilogue_roots}
         tmpl_outs = plan.row_local_roots + plan.saves + plan.epilogue_roots
         own_outs = onto.row_local_roots + onto.saves + onto.epilogue_roots
         for node, dst in zip(tmpl_outs, own_outs):
+            parts = out_parts[node.id]
+            data = parts[0] if len(parts) == 1 else torch.cat(parts, 0)
+            target = dst.save or (
+                "host" if to_host and node.id not in epi_ids else None)
+            if target == "host" and not isinstance(data, np.ndarray):
+                data = matrix_mod.to_host(data)
             dst.cached_store = FMMatrix(
-                dst.shape, dst.dtype, store=DenseStore(values[node.id]),
-                name=dst.name)
+                dst.shape, dst.dtype, store=DenseStore(data), name=dst.name)
             dst.save = None
 
 
@@ -328,13 +688,22 @@ def _store_results(plan: Plan, sink_finals, outputs, epilogue_outs, *,
 # ---------------------------------------------------------------------------
 
 def _materialize_eager(nodes: Sequence[Node], *, mode: str = "auto",
+                       prefetch: Optional[bool] = None,
                        backend: Optional[str] = None):
     """Materialize every DAG node separately, each intermediate written out
-    in full before the next operation reads it (the ``fuse=False`` arm)."""
+    in full before the next operation reads it (the ``fuse=False`` arm).
+    Out of core, every intermediate round-trips the host tier, as an
+    unfused engine must."""
     order = Plan._cut_toposort(list(nodes))
+    ooc = any(isinstance(n, LeafNode) and n.mat.on_host for n in order)
     for n in order:
         with _DAG_LOCK:
             if Plan._is_source(n):
                 continue
             sub = Plan([wrap(n)])
-        _execute_passes(sub, mode=mode, backend=backend)
+            if ooc and not n.is_sink:
+                n.save = "host"
+        sub_mode = mode
+        if mode == "auto":
+            sub_mode = "ooc" if ooc else "whole"
+        _execute(sub, mode=sub_mode, prefetch=prefetch, backend=backend)

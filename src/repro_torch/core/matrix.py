@@ -2,11 +2,13 @@
 repro.core.matrix).
 
 ``FMMatrix`` is an immutable handle; physical storage lives behind the
-``MatrixStore`` protocol.  The port has the device tier: a ``DenseStore``
+``MatrixStore`` protocol.  The port has the device tier (a ``DenseStore``
 over a tensor on the engine's device, and the sparse
-``storage.sparse.SparseEllStore`` over an ELL slab.  The host-RAM and disk
-tiers come with ROADMAP A7.  The partition-size rules are the reference's,
-bit for bit, so plans, signatures and counters match.
+``storage.sparse.SparseEllStore`` over an ELL slab) and the host-RAM tier:
+a ``DenseStore`` over a numpy array, staged onto the device a partition at
+a time by the streaming executor.  The disk tier comes with ROADMAP A7b.
+The partition-size rules are the reference's, bit for bit, so plans,
+signatures and counters match.
 """
 from __future__ import annotations
 
@@ -33,9 +35,6 @@ IO_PARTITION_BYTES = 64 * 1024 * 1024
 VMEM_PARTITION_BYTES = 4 * 1024 * 1024
 
 ROW_ALIGN = 8
-
-_HOST_TIER = ("the host-RAM and disk tiers come with the disk-tier slice "
-              "(ROADMAP A7)")
 
 
 def _pow2_rows(ncol: int, dtype, n_live: int, budget_bytes: int) -> int:
@@ -98,7 +97,9 @@ class MatrixStore(abc.ABC):
 
 @dataclasses.dataclass
 class DenseStore(MatrixStore):
-    """Device-tier backing: ``data`` is a tensor on the engine's device.  A
+    """In-memory backing: ``data`` is a tensor on the engine's device (the
+    device tier) or a numpy array in host RAM (the host tier, in the host
+    staging type of its dtype: bf16 as float32, as in the reference).  A
     'col'-layout store holds the transposed buffer, shape (ncol, nrow)."""
 
     data: Any
@@ -106,7 +107,7 @@ class DenseStore(MatrixStore):
 
     @property
     def on_host(self) -> bool:
-        return False
+        return isinstance(self.data, np.ndarray)
 
     def logical(self):
         return self.data.T if self.layout == "col" else self.data
@@ -117,7 +118,7 @@ class DenseStore(MatrixStore):
         return self.data[start:stop]
 
     def nbytes(self) -> int:
-        return int(self.data.numel() * self.data.element_size())
+        return int(self.data.nbytes)
 
     def transposed(self) -> "DenseStore":
         return DenseStore(self.data, "col" if self.layout == "row" else "row")
@@ -185,16 +186,25 @@ class FMMatrix:
         return self.nrow * self.ncol * dtypes.nbytes(self.dtype)
 
     @staticmethod
-    def from_array(arr, *, layout: str = "row", name: str = "") -> "FMMatrix":
-        """Wrap a tensor or numpy array on the engine's device (1-D arrays
-        become one-column matrices), in its canonical dtype."""
-        data = to_device(arr)
+    def from_array(arr, *, layout: str = "row", name: str = "",
+                   host: bool = False) -> "FMMatrix":
+        """Wrap a tensor or numpy array on the engine's device, or with
+        ``host=True`` in host RAM as numpy (1-D arrays become one-column
+        matrices), in its canonical dtype."""
+        if host:
+            if not isinstance(arr, torch.Tensor):
+                arr = np.asarray(arr)
+            dtype = dtypes.canon(arr.dtype)
+            data = to_host(arr)
+        else:
+            data = to_device(arr)
+            dtype = data.dtype
         if data.ndim == 1:
             data = data.reshape(-1, 1)
         shape = tuple(data.shape)
         if layout == "col":
             data = data.T
-        return FMMatrix(shape, data.dtype, store=DenseStore(data, layout),
+        return FMMatrix(shape, dtype, store=DenseStore(data, layout),
                         name=name)
 
     def transpose(self) -> "FMMatrix":
@@ -229,7 +239,8 @@ class FMMatrix:
 
     def __repr__(self):
         kind = ("virtual" if self.is_virtual
-                else "sparse device" if self.is_sparse else "device")
+                else "sparse device" if self.is_sparse
+                else "host" if self.on_host else "device")
         return (f"FMMatrix({self.nrow}x{self.ncol}, "
                 f"{dtypes.name(self.dtype)}, {kind}"
                 + (f", name={self.name!r}" if self.name else "") + ")")
@@ -248,6 +259,21 @@ def to_device(arr) -> torch.Tensor:
         a = a.astype(dtypes.np_equiv(dtypes.canon(a.dtype)), copy=False)
         t = torch.from_numpy(np.ascontiguousarray(a))
     return dtypes.to_canon(t).to(dev)
+
+
+def to_host(arr) -> np.ndarray:
+    """A numpy array in host RAM in the host staging type of its canonical
+    dtype (``dtypes.np_equiv``: float64 → float32, int64 → int32, bf16 →
+    float32); a numpy input already in that type is not copied, as in the
+    reference."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.to(torch.float32)
+        return np.asarray(t.cpu().numpy(),
+                          dtype=dtypes.np_equiv(dtypes.canon(arr.dtype)))
+    a = np.asarray(arr)
+    return np.asarray(a, dtype=dtypes.np_equiv(dtypes.canon(a.dtype)))
 
 
 # ---------------------------------------------------------------------------
@@ -298,11 +324,14 @@ def rnorm_matrix(nrow: int, ncol: int, *, seed: int = 0,
 
 def conv_R2FM(arr, *, host: bool = False) -> FMMatrix:
     """fm.conv.R2FM: wrap an external array (numpy or tensor) on the
-    engine's device.  It takes exactly what ``repro``'s ``fm.as_np``
-    returns, with the same dtype canon."""
-    if host:
-        raise NotImplementedError(_HOST_TIER)
-    return FMMatrix.from_array(arr)
+    engine's device, or with ``host=True`` in host RAM (the out-of-core
+    tier the ``ooc`` mode streams from).  It takes exactly what ``repro``'s
+    ``fm.as_np`` returns, with the same dtype canon.  Like ``materialize``,
+    it raises when the engine's device is a CUDA device and no card is
+    present, whichever tier is asked for."""
+    from ..storage import registry  # deferred: storage imports core
+    registry.device()
+    return FMMatrix.from_array(arr, host=host)
 
 
 def conv_FM2R(mat: FMMatrix) -> np.ndarray:
@@ -312,39 +341,54 @@ def conv_FM2R(mat: FMMatrix) -> np.ndarray:
         from . import materialize as _mat
         mat = _mat.materialize(mat)[0]
     data = mat.logical_data()
+    if isinstance(data, np.ndarray):
+        return np.asarray(data)
     if data.dtype == torch.bfloat16:
         data = data.to(torch.float32)
     return data.detach().cpu().numpy()
 
 
 def conv_layout(mat: FMMatrix, layout: str) -> FMMatrix:
-    """fm.conv.layout: physically convert row/col majority.  The device
-    tier's half: a DenseStore over a tensor laid out as asked (a 'col'
-    store holds the transposed buffer, contiguous); a matrix already in
-    that layout is returned as it is.  Host and disk matrices come with
-    ROADMAP A7 (``fm.conv_layout`` refuses them)."""
+    """fm.conv.layout: physically convert row/col majority: a DenseStore
+    over a buffer laid out as asked (a 'col' store holds the transposed
+    buffer, contiguous), on the matrix's own tier; a matrix already in that
+    layout is returned as it is.  Disk matrices come with ROADMAP A7b
+    (``fm.conv_layout`` refuses them)."""
     if layout not in ("row", "col"):
         raise ValueError(f"unknown layout {layout!r}: expected 'row' or 'col'")
     data = mat.logical_data()
     if layout == mat.store.layout:
         return mat
-    buf = (data.T if layout == "col" else data).contiguous()
+    buf = data.T if layout == "col" else data
+    buf = (np.ascontiguousarray(buf) if isinstance(buf, np.ndarray)
+           else buf.contiguous())
     return FMMatrix(mat.shape, mat.dtype, store=DenseStore(buf, layout),
                     name=mat.name)
 
 
 def conv_store(mat: FMMatrix, where: str, *, name: str = "") -> FMMatrix:
-    """fm.conv.store: only the device tier exists in this slice.  A sparse
-    matrix moves in its sparse form: only its cols/vals migrate."""
-    if where == "device" and mat.is_sparse:
+    """fm.conv.store: move a physical matrix between the device tier and
+    the host-RAM tier ('device' | 'host'; ``fm.persist`` refuses 'disk',
+    which comes with ROADMAP A7b).  A sparse matrix moves to the device in
+    its sparse form (only its cols/vals migrate); a host ELL slab comes
+    with ROADMAP A7a-ii."""
+    if where not in ("host", "device"):
+        raise ValueError(f"unknown store {where!r}")
+    if mat.is_sparse:
+        if where == "host":
+            raise NotImplementedError(
+                "the host-RAM ELL slab comes with ROADMAP A7a-ii")
         from ..storage.sparse import SparseEllStore  # deferred: storage imports core
         blk = mat.store.block(0, mat.nrow)
         store = SparseEllStore(to_device(blk.cols), to_device(blk.vals),
                                mat.ncol, nnz=getattr(mat.store, "nnz", None))
         return FMMatrix(mat.shape, mat.dtype, store=store,
                         name=name or mat.name)
-    if where == "device":
-        return FMMatrix.from_array(mat.logical_data(), name=name or mat.name)
-    if where in ("host", "disk"):
-        raise NotImplementedError(_HOST_TIER)
-    raise ValueError(f"unknown store {where!r}")
+    # As in the reference, a move takes the dtype of the buffer it moves:
+    # a host bf16 matrix (a float32 buffer) reaches the device as float32.
+    data = mat.logical_data()
+    if where == "host":
+        return FMMatrix.from_array(data, name=name or mat.name, host=True)
+    if isinstance(data, np.ndarray):
+        data = torch.from_numpy(np.ascontiguousarray(data))
+    return FMMatrix.from_array(data, name=name or mat.name)

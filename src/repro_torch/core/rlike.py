@@ -10,9 +10,9 @@ lowers to a GenOp, so a chain of calls builds one lazy DAG that
     >>> (G,) = fm.materialize(fm.crossprod(Z))
 
 Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them: the host and disk tiers, the named-matrix registry and
-factor ingest from files (A7), ``explain`` (A10), ``batch`` (A11), ``serve``
-(A12).
+that brings them: the host-RAM ELL slab (A7a-ii), the disk tier, the
+named-matrix registry and factor ingest from files (A7b), ``explain``
+(A10), ``batch`` (A11), ``serve`` (A12).
 """
 from __future__ import annotations
 
@@ -424,13 +424,14 @@ def conv_FM2R(x) -> np.ndarray:
 
 
 def persist(x, tier: str = "device", *, name: Optional[str] = None) -> FM:
-    """fm.persist: keep a matrix on a tier.  This slice has the device tier;
-    'host' and 'disk' come with ROADMAP A7."""
-    if tier in ("host", "disk"):
-        _later(f"fm.persist(tier={tier!r}) (the host and disk tiers)", "A7")
-    if tier != "device":
+    """fm.persist: keep a matrix on a tier, 'device' or 'host' (RAM); a
+    virtual ``x`` is marked so its next materialization keeps it there, a
+    physical one moves now.  'disk' comes with ROADMAP A7b."""
+    if tier not in ("device", "host", "disk"):
         raise ValueError(
             f"unknown tier {tier!r}: expected 'device', 'host' or 'disk'")
+    if tier == "disk":
+        _later("fm.persist(tier='disk') (the disk tier)", "A7b")
     m = _fm(x)
     if m.is_virtual:
         genops.set_mate_level(m, tier)
@@ -442,11 +443,11 @@ def persist(x, tier: str = "device", *, name: Optional[str] = None) -> FM:
 
 def conv_layout(x, layout: str) -> FM:
     """fm.conv.layout: physically convert row/col majority ('row' or
-    'col').  Device tier only in this slice; a host or disk matrix comes
-    with ROADMAP A7."""
+    'col'), on the device or the host tier; a disk matrix comes with
+    ROADMAP A7b."""
     m = _fm(x)
-    if m.on_host or m.on_disk:
-        _later("fm.conv_layout of a host or disk matrix", "A7")
+    if m.on_disk:
+        _later("fm.conv_layout of a disk matrix", "A7b")
     return FM(matrix_mod.conv_layout(m, layout))
 
 
@@ -464,19 +465,19 @@ def conf(**kw):
 
 
 def get_dense_matrix(name: str) -> FM:
-    _later("the named-matrix registry (fm.get_dense_matrix)", "A7")
+    _later("the named-matrix registry (fm.get_dense_matrix)", "A7b")
 
 
 def load_dense_matrix(src, name: str, **kw) -> FM:
-    _later("ingest into the disk tier (fm.load_dense_matrix)", "A7")
+    _later("ingest into the disk tier (fm.load_dense_matrix)", "A7b")
 
 
 def save_dense_matrix(x, name: Optional[str] = None, **kw) -> FM:
-    _later("the disk tier (fm.save_dense_matrix)", "A7")
+    _later("the disk tier (fm.save_dense_matrix)", "A7b")
 
 
 def load_factor_matrix(src, name: str, *, num_levels, **kw) -> FM:
-    _later("factor ingest into the disk tier (fm.load_factor_matrix)", "A7")
+    _later("factor ingest into the disk tier (fm.load_factor_matrix)", "A7b")
 
 
 class Factor:
@@ -527,12 +528,12 @@ def as_factor(x, num_levels: Optional[int] = None) -> Factor:
 def one_hot(*factors, dtype=np.float32, host: bool = True) -> FM:
     """One-hot encode factor(s) into ONE sparse matrix (the ELL tier): k
     factors cbind with running column offsets, so every row has exactly k
-    ones.  ``host=False`` builds the slab on the engine's device (the only
-    tier of this slice); ``host=True``, the reference's default, places it
-    in host RAM, which comes with ROADMAP A7."""
+    ones.  ``host=False`` builds the slab on the engine's device;
+    ``host=True``, the reference's default, places it in host RAM, which
+    comes with ROADMAP A7a-ii (staging a host ELL slab)."""
     if host:
-        _later("the host tier (fm.one_hot(host=True); pass host=False for "
-               "the device tier)", "A7")
+        _later("the host-RAM ELL slab (fm.one_hot(host=True); pass "
+               "host=False for the device tier)", "A7a-ii")
     if not factors:
         raise ValueError("one_hot needs at least one factor")
     fs = [as_factor(f) for f in factors]

@@ -8,7 +8,7 @@ asks for the CPU (``fm.set_conf(device="cpu")`` or ``fm.conf(device=
 than carry on quietly on the CPU.
 
 The named-matrix registry and the disk tier (``data_dir`` is accepted and
-recorded) come with the disk-tier slice (ROADMAP A7); ``mesh`` with the
+recorded) come with the disk-tier slice (ROADMAP A7b); ``mesh`` with the
 multi-GPU slice (ROADMAP A13).
 """
 from __future__ import annotations
@@ -23,10 +23,10 @@ from ..core import lowering as lowering_mod
 from ..core import matrix as matrix_mod
 
 _CONF = {
-    "data_dir": None,       # recorded; the disk tier is ROADMAP A7
-    "prefetch": True,       # default for ooc execution (ROADMAP A7)
-    "prefetch_depth": 2,    # bounded-queue depth (ROADMAP A7)
-    "direct_io": False,     # page-cache bypass on partition reads (ROADMAP A7)
+    "data_dir": None,       # recorded; the disk tier is ROADMAP A7b
+    "prefetch": True,       # default for ooc execution (ROADMAP A7a-ii)
+    "prefetch_depth": 2,    # bounded-queue depth (ROADMAP A7a-ii)
+    "direct_io": False,     # page-cache bypass on partition reads (A7b)
     "mesh": None,           # sharded execution (ROADMAP A13)
     "device": "cuda",       # where matrices, partials and results live
 }

@@ -4,9 +4,10 @@ of repro.storage.sparse).
 ``SparseEllStore`` holds one ELL slab — ``cols`` int32 and ``vals``, both
 (nrow, kmax) tensors on the engine's device — and is what
 ``fm.one_hot(..., host=False)`` builds.  ``whole`` mode stages it as a
-single ``SparseBlock``; it is never densified on the way.  The CSR ``.fmat``
-file and its memory-mapped store (``CsrMmapStore``) come with the disk tier
-(ROADMAP A7).
+single ``SparseBlock`` and ``stream`` mode a row range a partition; it is
+never densified on the way.  A host-RAM slab comes with ROADMAP A7a-ii; the
+CSR ``.fmat`` file and its memory-mapped store (``CsrMmapStore``) with the
+disk tier (A7b).
 """
 from __future__ import annotations
 

@@ -10,8 +10,10 @@ port on ``torch`` or ``cuda`` (whose kernel wrappers take their plain
 versions on CPU tensors).  ``both`` materializes it on each side and
 checks, exactly, what the two packages must share:
 
-* the plan counters ``passes``, ``partition_steps`` and
-  ``epilogue_launches`` of the call;
+* the plan counters of the call: ``passes``, ``partition_steps``,
+  ``epilogue_launches``, ``streams``, ``prefetch_reuse_hits``, the bytes
+  a pass streams (``bytes_streamed``; ``pass_bytes_in``, per pass) and the
+  bytes read from the host tier (``stage_bytes_read``);
 * the kernels the kernel backend dispatches: the ``kernel_units`` of
   ``Plan(outputs).program("pallas")`` in the reference against those of
   ``Plan(outputs).program("cuda")`` in the port;
@@ -25,16 +27,28 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import pytest
+
+import helpers_cache
 
 from repro.core import fm as jfm
 from repro.core import materialize as jmz
 from repro.core.fusion import Plan as JPlan
+from repro.observability import metrics as jmetrics
 from repro_torch.core import fm as tfm
 from repro_torch.core import materialize as tmz
 from repro_torch.core.fusion import Plan as TPlan
+from repro_torch.core.matrix import DenseStore as TDenseStore
+from repro_torch.core.matrix import FMMatrix as TFMMatrix
+from repro_torch.observability import metrics as tmetrics
 
-COUNTERS = ("passes", "partition_steps", "epilogue_launches")
+COUNTERS = ("passes", "partition_steps", "epilogue_launches", "streams",
+            "prefetch_reuse_hits", "bytes_streamed", "stage_bytes_read",
+            "pass_bytes_in")
+
+#: Counters of the metrics registry that ``exec_stats()`` does not list.
+_METRICS = ("bytes_streamed", "stage_bytes_read")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,10 +58,11 @@ class Side:
     mz: object
     Plan: type
     kernel_backend: str
+    metrics: object
 
 
-REF = Side("repro", jfm, jmz, JPlan, "pallas")
-PORT = Side("repro_torch", tfm, tmz, TPlan, "cuda")
+REF = Side("repro", jfm, jmz, JPlan, "pallas", jmetrics)
+PORT = Side("repro_torch", tfm, tmz, TPlan, "cuda", tmetrics)
 
 
 @pytest.fixture(autouse=True)
@@ -69,16 +84,24 @@ def both_conf(**kw):
         yield
 
 
+def _stats(side: Side) -> dict:
+    st = side.mz.exec_stats()
+    st.update({k: int(side.metrics.root_counter(k)) for k in _METRICS})
+    return st
+
+
 @contextlib.contextmanager
 def counting(side: Side, names=COUNTERS):
-    """Deltas of ``exec_stats()`` counters over a with-block."""
-    before = side.mz.exec_stats()
+    """Deltas of the engine's counters over a with-block (``pass_bytes_in``,
+    a per-pass tuple of the last execution, as it stands at the end)."""
+    before = _stats(side)
     got: dict = {}
     try:
         yield got
     finally:
-        after = side.mz.exec_stats()
-        got.update({k: after[k] - before[k] for k in names})
+        after = _stats(side)
+        got.update({k: after[k] if k == "pass_bytes_in"
+                    else after[k] - before[k] for k in names})
 
 
 def kernels(side: Side, program) -> list:
@@ -90,16 +113,18 @@ def kernels(side: Side, program) -> list:
 
 
 def both(program, *, backend: str = "torch", mode: str = "whole",
-         fuse: bool = True):
+         fuse: bool = True, prefetch=None):
     """Materialize ``program`` in both packages — the reference on
-    ``xla``, the port on ``backend`` ('torch' or 'cuda') — and check the
-    counters, the kernel dispatch and the outputs' shapes and dtypes.
-    Returns ``(reference outputs, port outputs)`` as numpy arrays."""
+    ``xla``, the port on ``backend`` ('torch' or 'cuda') — in ``mode``,
+    and check the counters, the kernel dispatch and the outputs' shapes
+    and dtypes.  Returns ``(reference outputs, port outputs)`` as numpy
+    arrays."""
     got = {}
     for side, be in ((REF, "xla"), (PORT, backend)):
         with counting(side) as c:
             outs = side.fm.materialize(*program(side.fm), mode=mode,
-                                       backend=be, fuse=fuse)
+                                       backend=be, fuse=fuse,
+                                       prefetch=prefetch)
         got[side.name] = ([side.fm.as_np(o) for o in outs],
                           [str(o.dtype).removeprefix("torch.") for o in outs],
                           c)
@@ -115,3 +140,41 @@ def both(program, *, backend: str = "torch", mode: str = "whole",
         bf16 = "bfloat16" in (dt, r.dtype.name)
         assert t.shape == r.shape and (bf16 or t.dtype == r.dtype)
     return ref, port
+
+
+# ---------------------------------------------------------------------------
+# Staging fault injection: the port's twin of helpers_cache.FlakyStore
+# ---------------------------------------------------------------------------
+
+class FlakyStore(TDenseStore):
+    """A host-tier store of the port whose ``block()`` raises
+    ``helpers_cache.StagingFault`` after ``fail_after`` partition reads,
+    as the reference's ``helpers_cache.FlakyStore`` does; ``heal()`` turns
+    the fault off."""
+
+    def __init__(self, data: np.ndarray, fail_after: int):
+        super().__init__(np.asarray(data))
+        self.fail_after = int(fail_after)
+        self.reads = 0
+        self.failed = False
+
+    def block(self, start: int, stop: int):
+        if self.fail_after >= 0 and self.reads >= self.fail_after:
+            self.failed = True
+            raise helpers_cache.StagingFault(
+                f"injected staging failure after {self.reads} reads")
+        self.reads += 1
+        return super().block(start, stop)
+
+    def heal(self):
+        self.fail_after = -1
+
+
+def flaky_matrix(side: Side, arr: np.ndarray, fail_after: int):
+    """``(matrix, store)``: a host-tier matrix of ``side`` whose partition
+    staging fails after ``fail_after`` block reads."""
+    if side is REF:
+        return helpers_cache.flaky_matrix(arr, fail_after)
+    arr = np.asarray(arr)
+    store = FlakyStore(arr, fail_after)
+    return TFMMatrix(arr.shape, arr.dtype, store=store, name="flaky"), store

@@ -2,12 +2,22 @@
 logistic/gaussian/poisson GLM, k-means, GMM, NMF, naive Bayes) on the
 fixtures of tests/test_algorithms.py, at that file's tolerances, under both
 of the port's backends on the CPU — and against the JAX package's own
-results on the same numpy inputs."""
+results on the same numpy inputs.
+
+The reference's ``host=True`` cells (its inputs in host RAM, streamed out
+of core) are ``test_host_tier_cells``: the same test bodies with the
+inputs on the host tier in both packages, staged synchronously
+(``fm.conf(prefetch=False)`` on both sides; the reference's results do not
+depend on it).  ``test_host_tier_counters_equal_the_reference`` holds the
+plan counters of each algorithm's run from host RAM to the reference's."""
+import inspect
+
 import numpy as np
 import pytest
 import torch
 
 from repro import algorithms as jalg
+from repro_torch import algorithms as talg
 from repro.core import fm as jfm
 from repro_torch.algorithms import (correlation, glm, glm_iteration_plan,
                                     glm_predict, gmm, kmeans, naive_bayes,
@@ -16,6 +26,8 @@ from repro_torch.algorithms.kmeans import _init_centers, kmeans_iteration
 from repro_torch.core import fm
 from repro_torch.kernels import kmeans_assign as ka
 from repro_torch.observability import metrics
+
+from helpers_twin import PORT, REF, both_conf, counting
 
 RNG = np.random.default_rng(11)
 BACKENDS = ["torch", "cuda"]
@@ -56,34 +68,34 @@ def logit_data():
     return X, y
 
 
-def test_summary(X_np, backend):
-    s = summary(fm.conv_R2FM(X_np))
+def test_summary(X_np, backend, host=False):
+    s = summary(fm.conv_R2FM(X_np, host=host))
     np.testing.assert_allclose(s.mean, X_np.mean(0), rtol=1e-3, atol=1e-3)
     np.testing.assert_allclose(s.var, X_np.var(0, ddof=1), rtol=1e-2)
     np.testing.assert_allclose(s.col_min, X_np.min(0))
     np.testing.assert_allclose(s.col_max, X_np.max(0))
     np.testing.assert_allclose(s.l1, np.abs(X_np).sum(0), rtol=1e-3)
     np.testing.assert_array_equal(s.nnz, (X_np != 0).sum(0))
-    r = jalg.summary(jfm.conv_R2FM(X_np))
+    r = jalg.summary(jfm.conv_R2FM(X_np, host=host))
     for f in ("col_min", "col_max", "mean", "l1", "l2", "nnz", "var"):
         np.testing.assert_allclose(getattr(s, f), getattr(r, f), rtol=1e-5)
 
 
 @pytest.mark.parametrize("two_pass", [False, True])
-def test_correlation(X_np, backend, two_pass):
-    c = correlation(fm.conv_R2FM(X_np), two_pass=two_pass)
+def test_correlation(X_np, backend, two_pass, host=False):
+    c = correlation(fm.conv_R2FM(X_np, host=host), two_pass=two_pass)
     np.testing.assert_allclose(c, np.corrcoef(X_np.T), rtol=2e-2, atol=2e-3)
-    r = jalg.correlation(jfm.conv_R2FM(X_np), two_pass=two_pass)
+    r = jalg.correlation(jfm.conv_R2FM(X_np, host=host), two_pass=two_pass)
     np.testing.assert_allclose(c, r, rtol=1e-4, atol=1e-5)
 
 
-def test_kmeans_recovers_blobs(blobs, backend):
+def test_kmeans_recovers_blobs(blobs, backend, host=False):
     pts, centers = blobs
-    res = kmeans(fm.conv_R2FM(pts), k=5, max_iter=30, seed=1)
+    res = kmeans(fm.conv_R2FM(pts, host=host), k=5, max_iter=30, seed=1)
     d = np.linalg.norm(res.centers[:, None] - centers[None], axis=-1)
     assert (d.min(1) < 1.0).all()
     assert res.wss < pts.shape[0] * 8 * 2.0
-    r = jalg.kmeans(jfm.conv_R2FM(pts), k=5, max_iter=30, seed=1)
+    r = jalg.kmeans(jfm.conv_R2FM(pts, host=host), k=5, max_iter=30, seed=1)
     np.testing.assert_allclose(res.centers, r.centers, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(res.wss, r.wss, rtol=1e-4)
     np.testing.assert_array_equal(fm.as_np(res.labels), jfm.as_np(r.labels))
@@ -121,15 +133,17 @@ def _numpy_irls_logistic(X, y, max_iter=25, tol=1e-8, w_eps=1e-6):
     return beta
 
 
-def test_glm_logistic_matches_numpy_irls(logit_data, backend):
+def test_glm_logistic_matches_numpy_irls(logit_data, backend, host=False):
     X, y = logit_data
-    res = glm(fm.conv_R2FM(X), fm.conv_R2FM(y), family="logistic")
+    res = glm(fm.conv_R2FM(X, host=host), fm.conv_R2FM(y, host=host),
+              family="logistic")
     ref = _numpy_irls_logistic(X, y)
     np.testing.assert_allclose(res.beta, ref, rtol=1e-5, atol=1e-6)
     assert res.converged
     t = np.array(res.loglik_trace)
     assert (np.diff(t) > -1e-6 * np.abs(t[:-1])).all()
-    r = jalg.glm(jfm.conv_R2FM(X), jfm.conv_R2FM(y), family="logistic")
+    r = jalg.glm(jfm.conv_R2FM(X, host=host), jfm.conv_R2FM(y, host=host),
+                 family="logistic")
     np.testing.assert_allclose(res.beta, r.beta, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(res.loglik, r.loglik, rtol=1e-6)
 
@@ -195,21 +209,21 @@ def test_glm_predict(logit_data):
     assert acc > 0.8
 
 
-def test_svd(X_np, backend):
-    r = svd_tall(fm.conv_R2FM(X_np), k=6, compute_u=True)
+def test_svd(X_np, backend, host=False):
+    r = svd_tall(fm.conv_R2FM(X_np, host=host), k=6, compute_u=True)
     ref = np.linalg.svd(X_np.astype(np.float64), compute_uv=False)[:6]
     np.testing.assert_allclose(r.s, ref, rtol=1e-3)
     U = fm.as_np(r.U)
     np.testing.assert_allclose(U.T @ U, np.eye(6), atol=2e-2)
     np.testing.assert_allclose(X_np @ r.V, U @ np.diag(r.s),
                                rtol=1e-2, atol=1e-2)
-    j = jalg.svd_tall(jfm.conv_R2FM(X_np), k=6)
+    j = jalg.svd_tall(jfm.conv_R2FM(X_np, host=host), k=6)
     np.testing.assert_allclose(r.s, j.s, rtol=1e-5)
 
 
-def test_pca_matches_numpy(X_np, backend):
+def test_pca_matches_numpy(X_np, backend, host=False):
     fm.reset_exec_stats()
-    r = pca(fm.conv_R2FM(X_np), k=4, compute_scores=True)
+    r = pca(fm.conv_R2FM(X_np, host=host), k=4, compute_scores=True)
     Xc = X_np.astype(np.float64) - X_np.mean(0)
     ref_s = np.linalg.svd(Xc, compute_uv=False)[:4]
     np.testing.assert_allclose(r.sdev, ref_s / np.sqrt(X_np.shape[0] - 1),
@@ -220,7 +234,7 @@ def test_pca_matches_numpy(X_np, backend):
     sign = np.sign((scores * ref_scores).sum(0))
     np.testing.assert_allclose(scores * sign, ref_scores * sign,
                                rtol=1e-2, atol=1e-2)
-    j = jalg.pca(jfm.conv_R2FM(X_np), k=4)
+    j = jalg.pca(jfm.conv_R2FM(X_np, host=host), k=4)
     np.testing.assert_allclose(r.sdev, j.sdev, rtol=1e-4)
     # moment pass + sweep/Gram pass, then the scores pass and its rescale
     assert fm.exec_stats()["passes"] == 4
@@ -233,12 +247,12 @@ def test_pca_scaled_matches_correlation_eigs(X_np, backend):
                                rtol=2e-2, atol=1e-3)
 
 
-def test_nmf_reconstructs(backend):
+def test_nmf_reconstructs(backend, host=False):
     rng = np.random.default_rng(23)
     W0 = np.abs(rng.normal(size=(1500, 4))).astype(np.float32)
     H0 = np.abs(rng.normal(size=(4, 9))).astype(np.float32)
     Xn = (W0 @ H0).astype(np.float32)
-    res = nmf(fm.conv_R2FM(Xn), k=4, max_iter=60, seed=3)
+    res = nmf(fm.conv_R2FM(Xn, host=host), k=4, max_iter=60, seed=3)
     t = np.array(res.objective_trace)
     assert (np.diff(t) <= 1e-3 * np.maximum(np.abs(t[:-1]), 1.0)).all()
     rel = res.objective / float((Xn.astype(np.float64) ** 2).sum())
@@ -246,20 +260,20 @@ def test_nmf_reconstructs(backend):
     recon = fm.as_np(res.W).astype(np.float64) @ res.H
     direct = float(((Xn - recon) ** 2).sum())
     assert direct <= res.objective_trace[-1] * 1.5 + 1e-6
-    j = jalg.nmf(jfm.conv_R2FM(Xn), k=4, max_iter=5, seed=3)
-    r5 = nmf(fm.conv_R2FM(Xn), k=4, max_iter=5, seed=3)
+    j = jalg.nmf(jfm.conv_R2FM(Xn, host=host), k=4, max_iter=5, seed=3)
+    r5 = nmf(fm.conv_R2FM(Xn, host=host), k=4, max_iter=5, seed=3)
     np.testing.assert_allclose(r5.objective_trace, j.objective_trace,
                                rtol=1e-3)
     np.testing.assert_allclose(r5.H, j.H, rtol=1e-3, atol=1e-5)
 
 
-def test_gmm_loglik_monotone(blobs, backend):
+def test_gmm_loglik_monotone(blobs, backend, host=False):
     pts, _ = blobs
-    res = gmm(fm.conv_R2FM(pts), k=5, max_iter=6, seed=1)
+    res = gmm(fm.conv_R2FM(pts, host=host), k=5, max_iter=6, seed=1)
     t = np.array(res.loglik_trace)
     assert (np.diff(t) > -1e-2 * np.abs(t[:-1])).all()
     np.testing.assert_allclose(res.weights.sum(), 1.0, rtol=1e-6)
-    j = jalg.gmm(jfm.conv_R2FM(pts), k=5, max_iter=6, seed=1)
+    j = jalg.gmm(jfm.conv_R2FM(pts, host=host), k=5, max_iter=6, seed=1)
     np.testing.assert_allclose(res.loglik_trace, j.loglik_trace, rtol=1e-4)
     np.testing.assert_allclose(res.means, j.means, rtol=1e-3, atol=1e-3)
 
@@ -272,9 +286,10 @@ def nb_data(blobs):
     return pts[perm], labels[perm]
 
 
-def test_gaussian_nb_matches_numpy(nb_data, backend):
+def test_gaussian_nb_matches_numpy(nb_data, backend, host=False):
     Xn, yn = nb_data
-    model = naive_bayes(fm.conv_R2FM(Xn), fm.conv_R2FM(yn), 5)
+    model = naive_bayes(fm.conv_R2FM(Xn, host=host),
+                        fm.conv_R2FM(yn, host=host), 5)
     for j in range(5):
         sel = Xn[yn == j].astype(np.float64)
         np.testing.assert_allclose(model.means[j], sel.mean(0), rtol=1e-4,
@@ -283,7 +298,8 @@ def test_gaussian_nb_matches_numpy(nb_data, backend):
                                    rtol=1e-3, atol=1e-3)
     pred = fm.as_np(nb_predict(model, fm.conv_R2FM(Xn))).reshape(-1)
     assert (pred == yn.astype(np.int32)).mean() > 0.95
-    jm = jalg.naive_bayes(jfm.conv_R2FM(Xn), jfm.conv_R2FM(yn), 5)
+    jm = jalg.naive_bayes(jfm.conv_R2FM(Xn, host=host),
+                          jfm.conv_R2FM(yn, host=host), 5)
     # var = s2/n − mu² cancels (blob means ≈ 12, variances ≈ 1): the two
     # packages' f32 sums taken in other orders agree to the reference
     # test's own variance tolerance.
@@ -312,3 +328,76 @@ def test_multinomial_nb(backend):
                           kind="multinomial")
     np.testing.assert_allclose(model.feature_log_prob, jm.feature_log_prob,
                                rtol=1e-5)
+
+
+#: The reference's tests that take ``host`` (tests/test_algorithms.py),
+#: with their other parameters.
+_HOST_CELLS = [
+    (test_summary, {}),
+    (test_correlation, {"two_pass": False}),
+    (test_correlation, {"two_pass": True}),
+    (test_svd, {}),
+    (test_kmeans_recovers_blobs, {}),
+    (test_gmm_loglik_monotone, {}),
+    (test_glm_logistic_matches_numpy_irls, {}),
+    (test_pca_matches_numpy, {}),
+    (test_nmf_reconstructs, {}),
+    (test_gaussian_nb_matches_numpy, {}),
+]
+
+
+@pytest.mark.parametrize(
+    "test,kw", _HOST_CELLS,
+    ids=[t.__name__ + "".join(f"-{k}={v}" for k, v in kw.items())
+         for t, kw in _HOST_CELLS])
+def test_host_tier_cells(test, kw, backend, request):
+    """The reference's ``host=True`` cells: the test's inputs in host RAM
+    in both packages, the partitions staged synchronously."""
+    args = {name: request.getfixturevalue(name)
+            for name in inspect.signature(test).parameters
+            if name not in ("backend", "host", *kw)}
+    with both_conf(prefetch=False):
+        test(backend=backend, host=True, **args, **kw)
+
+
+_COUNTERS = ("materialize_calls", "passes", "partition_steps", "streams",
+             "bytes_streamed", "stage_bytes_read", "prefetch_reuse_hits",
+             "epilogue_launches", "epilogue_host_inputs")
+
+#: One call of each algorithm the reference runs from host RAM, as
+#: ``(name, call(algorithms, fm, X, y))``.
+_HOST_RUNS = [
+    ("summary", lambda a, fm, X, y: a.summary(X)),
+    ("correlation", lambda a, fm, X, y: a.correlation(X)),
+    ("svd_tall", lambda a, fm, X, y: a.svd_tall(X, k=3, compute_u=True)),
+    ("pca", lambda a, fm, X, y: a.pca(X, k=3, compute_scores=True)),
+    ("kmeans", lambda a, fm, X, y: a.kmeans(X, k=3, max_iter=4, seed=1)),
+    ("gmm", lambda a, fm, X, y: a.gmm(X, k=3, max_iter=3, seed=1)),
+    ("glm", lambda a, fm, X, y: a.glm(X, y, family="logistic",
+                                      max_iter=4)),
+    ("nmf", lambda a, fm, X, y: a.nmf(fm.abs_(X), k=3, max_iter=3,
+                                      seed=1)),
+    ("naive_bayes", lambda a, fm, X, y: a.naive_bayes(X, y, 2)),
+]
+
+
+@pytest.mark.parametrize("name,run", _HOST_RUNS,
+                         ids=[n for n, _ in _HOST_RUNS])
+def test_host_tier_counters_equal_the_reference(name, run):
+    """Each algorithm from host RAM, many 4 KiB partitions a pass: the
+    port's plan counters (passes, partition steps, streams, bytes streamed
+    and read from the host, resident-partition reuse, epilogues) equal the
+    reference's exactly."""
+    rng = np.random.default_rng(4)
+    Xn = (rng.normal(size=(1200, 5)) + 1).astype(np.float32)
+    yn = (rng.uniform(size=1200) < 0.5).astype(np.float32)
+    got = []
+    with both_conf(prefetch=False, io_partition_bytes=4096):
+        for side, alg in ((REF, jalg), (PORT, talg)):
+            X = side.fm.conv_R2FM(Xn, host=True)
+            y = side.fm.conv_R2FM(yn, host=True)
+            with counting(side, _COUNTERS) as c:
+                run(alg, side.fm, X, y)
+            got.append(c)
+    assert got[0]["partition_steps"] > got[0]["passes"]  # many partitions
+    assert got[1] == got[0], f"port {got[1]}, reference {got[0]}"

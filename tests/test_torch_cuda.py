@@ -835,3 +835,56 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(dev, arch,
     for a, b in zip(out[dev], out["cpu"]):
         a, b = a.double().cpu(), b.double()
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_stream_and_ooc_reach_every_kernel_per_partition_on_cuda(dev):
+    """The stream and ooc modes on the card: summary, correlation, glm and
+    kmeans from host RAM (``ooc``, staged synchronously) and a crossprod
+    with XᵀY and a one-hot crossprod streamed from the device, in 8 KiB
+    partitions with a ragged last one — each kernel launched once a
+    partition, the results as whole mode's."""
+    from repro_torch.algorithms import correlation, glm, kmeans, summary
+    from repro_torch.core import fm
+    n = 20001
+    X = (RNG.normal(size=(n, 8)) * 2 + 1).astype(np.float32)
+    beta = RNG.uniform(-1, 1, 8)
+    y = (RNG.uniform(size=n) < 1 / (1 + np.exp(-(X - 1) @ beta))
+         ).astype(np.float32)
+    codes = [RNG.integers(0, lv, n) for lv in (7, 5, 11)]
+    mods = (gram_mod, wg, faa, ka)
+    res = {}
+    with fm.conf(device="cuda", backend="cuda", prefetch=False,
+                 io_partition_bytes=8192):
+        for mode, host in (("whole", False), ("ooc", True)):
+            before = [m.launches for m in mods]
+            Xf, yf = fm.conv_R2FM(X, host=host), fm.conv_R2FM(y, host=host)
+            fm.reset_exec_stats()
+            res[mode] = (summary(Xf), correlation(Xf), glm(Xf, yf, max_iter=4),
+                         kmeans(Xf, k=4, max_iter=3))
+            st = fm.exec_stats()
+            grew = [m.launches - b for m, b in zip(mods, before)]
+            steps = st["partition_steps"] if host else st["passes"]
+            assert min(grew) > 0 and sum(grew) >= steps
+        Xd, Yd = fm.conv_R2FM(X), fm.conv_R2FM(y)
+        Xs = fm.one_hot(*[fm.as_factor(c) for c in codes], host=False)
+        grams = {}
+        for mode in ("whole", "stream"):
+            before = (gram_mod.launches, gram_mod.xty_launches,
+                      spmm.gram_launches)
+            fm.reset_exec_stats()
+            grams[mode] = [fm.as_np(g) for g in fm.materialize(
+                fm.crossprod(Xd), fm.crossprod(Xd, Yd), fm.crossprod(Xs),
+                mode=mode)]
+            steps = fm.exec_stats()["partition_steps"]
+            after = (gram_mod.launches, gram_mod.xty_launches,
+                     spmm.gram_launches)
+            assert all(a - b == steps for a, b in zip(after, before))
+            assert (steps > 1) == (mode == "stream")
+    (s, c, g, k), (s2, c2, g2, k2) = res["ooc"], res["whole"]
+    np.testing.assert_allclose(s.mean, s2.mean, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(s.col_min, s2.col_min)
+    np.testing.assert_allclose(c, c2, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(g.beta, g2.beta, rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(k.wss, k2.wss, rtol=1e-3)
+    for a, b in zip(grams["stream"], grams["whole"]):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)

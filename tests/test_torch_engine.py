@@ -287,15 +287,17 @@ def test_lloyd_iterations_reuse_one_cached_plan():
 def test_later_slices_raise_with_their_roadmap_item():
     X, _, _ = _inputs()
     Xt = tfm.conv_R2FM(X)
-    for call, item in ((lambda: tfm.materialize(tfm.colSums(Xt),
-                                                 mode="stream"), "A7"),
-                       (lambda: tfm.conv_R2FM(X, host=True), "A7"),
+    Xh = tfm.conv_R2FM(X, host=True)
+    for call, item in ((lambda: tfm.materialize(tfm.colSums(Xh), mode="ooc",
+                                                 prefetch=True), "A7a-ii"),
                        (lambda: tfm.one_hot(tfm.as_factor(np.arange(4))),
-                        "A7"),
+                        "A7a-ii"),
                        (lambda: tfm.load_factor_matrix("f.csv", "f",
-                                                       num_levels=[3]), "A7"),
+                                                       num_levels=[3]),
+                        "A7b"),
                        (lambda: tfm.persist(tfm.colSums(Xt), tier="disk"),
-                        "A7"),
+                        "A7b"),
+                       (lambda: tfm.persist(Xt, tier="disk"), "A7b"),
                        (lambda: tfm.batch(tfm.colSums(Xt)), "A11"),
                        (lambda: tfm.explain(tfm.colSums(Xt)), "A10"),
                        (lambda: tfm.serve(), "A12"),
@@ -331,11 +333,18 @@ def test_default_device_without_cuda_raises():
         pytest.skip("a CUDA card is present: the default device works")
     X = np.ones((8, 2), np.float32)
     lazy = tfm.colSums(tfm.conv_R2FM(X))
+    lazy_host = tfm.colSums(tfm.conv_R2FM(X, host=True))
     with tfm.conf(device="cuda"):
         with pytest.raises(RuntimeError, match="is_available"):
             tfm.conv_R2FM(X)
         with pytest.raises(RuntimeError, match="is_available"):
             tfm.materialize(lazy)
+        # the host tier too: its partitions would stage to the card
+        with pytest.raises(RuntimeError, match="is_available"):
+            tfm.conv_R2FM(X, host=True)
+        for mode in ("ooc", "stream", "auto"):
+            with pytest.raises(RuntimeError, match="is_available"):
+                tfm.materialize(lazy_host, mode=mode, prefetch=False)
 
 
 def test_dtype_canon_matches_the_reference():
@@ -363,7 +372,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                                          fused_apply_agg, gram,
                                          kmeans_assign, ops, spmm,
                                          weighted_gram)
-        from repro_torch.storage import sparse
+        from repro_torch.storage import prefetch, sparse
         from repro_torch import configs, models
         from repro_torch.launch import steps
         from repro_torch.models import layers, transformer, zoo

@@ -6,13 +6,14 @@ Post-sink lazy math — ``colSums(X)/n``, ``sqrt(ss/n − mean²)``,
 pass, one epilogue launch, one plan-cache entry, in both packages on the
 same numpy inputs (``helpers_twin.both``: equal counters, kernel dispatch,
 shapes and dtypes), each held to the reference test's oracle.  Streams are
-cut into 4 KiB partitions, as in the reference.  The reference's stream
-and ooc cells — ``test_colmeans_colsds_one_plan_one_epilogue`` in stream
-mode, ``test_glm_style_solve_in_plan``,
-``test_cached_plan_reuse_with_epilogue_iteration``,
-``test_ooc_epilogue_inputs_on_device`` and
-``test_ooc_ridge_eye_is_epilogue_source`` — come with the port's stream
-mode and disk tier (ROADMAP A7).
+cut into 4 KiB partitions, as in the reference, and stream in ``stream``
+and ``ooc`` mode too: ``test_colmeans_colsds_one_plan_one_epilogue`` in
+stream mode, ``test_glm_style_solve_in_plan``,
+``test_cached_plan_reuse_with_epilogue_iteration`` and
+``test_ooc_ridge_eye_is_epilogue_source`` (its X in host RAM in place of
+the reference's disk matrix, staged synchronously).
+``test_ooc_epilogue_inputs_on_device`` reads a disk matrix and waits for
+the disk tier (ROADMAP A7b).
 """
 import numpy as np
 import pytest
@@ -51,7 +52,7 @@ def test_sink_consumer_only_output_materializes():
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
-def test_colmeans_colsds_one_plan_one_epilogue(backend):
+def test_colmeans_colsds_one_plan_one_epilogue(backend, mode="whole"):
     """colMeans + colSds co-materialize: ONE pass over X, ONE epilogue
     launch, one plan-cache miss, parity with numpy."""
     a = _x()
@@ -68,17 +69,104 @@ def test_colmeans_colsds_one_plan_one_epilogue(backend):
     acts = []
     for side, be in ((REF, "xla"), (PORT, backend)):
         with counting(side, _CACHE) as act:
-            side.fm.materialize(*program(side.fm), backend=be)
+            side.fm.materialize(*program(side.fm), backend=be, mode=mode)
         assert (act["plan_cache_misses"], act["plan_cache_hits"],
                 act["epilogue_launches"], act["materialize_calls"]) \
             == (1, 0, 1, 1)
         acts.append(act)
     assert acts[1] == acts[0]
-    for mu, sd in both(program, backend=backend):
+    for mu, sd in both(program, backend=backend, mode=mode):
         np.testing.assert_allclose(mu.reshape(-1), a.mean(0), rtol=1e-4,
                                    atol=1e-5)
         np.testing.assert_allclose(sd.reshape(-1), a.std(0, ddof=1),
                                    rtol=1e-3)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_colmeans_colsds_one_plan_one_epilogue_stream(backend):
+    """The reference's stream cell: the merge runs once per partition, the
+    epilogue once."""
+    test_colmeans_colsds_one_plan_one_epilogue(backend, mode="stream")
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_glm_style_solve_in_plan(backend):
+    """The IRLS shape: XᵀWX and XᵀWz sinks and the epilogue solve in one
+    plan, streamed; ``cuda`` claims the weighted Gram per partition."""
+    a = _x(800, 4)
+    wv = np.abs(RNG.normal(size=(800,))).astype(np.float32) + 0.1
+    zv = RNG.normal(size=(800, 1)).astype(np.float32)
+
+    def program(fm):
+        X, w, z = fm.conv_R2FM(a), fm.conv_R2FM(wv), fm.conv_R2FM(zv)
+        return [fm.solve(fm.crossprod(fm.mapply_col(X, w, "mul"), X),
+                         fm.crossprod(X, w * z))]
+
+    for side in (REF, PORT):
+        (beta,) = program(side.fm)
+        assert beta.is_virtual
+        plan = side.Plan([beta.m])
+        assert plan.bytes_in() == a.nbytes + wv.nbytes + zv.nbytes
+        assert "wgram" in [u.kernel for u in
+                           plan.program(side.kernel_backend).kernel_units]
+    A = (a * wv[:, None]).T.astype(np.float64) @ a
+    rhs = a.T.astype(np.float64) @ (wv[:, None] * zv)
+    for (b,) in both(program, backend=backend, mode="stream"):
+        np.testing.assert_allclose(b, np.linalg.solve(A, rhs), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_cached_plan_reuse_with_epilogue_iteration():
+    """IRLS-style loop in stream mode: iteration N+1 (a new small beta)
+    borrows the cached program, its epilogue included."""
+    a = _x(500, 3)
+    yv = RNG.normal(size=(500, 1)).astype(np.float32)
+    G = a.T.astype(np.float64) @ a
+    acts = []
+    for side in (REF, PORT):
+        fm = side.fm
+        X, y = fm.conv_R2FM(a), fm.conv_R2FM(yv)
+        with counting(side, _CACHE) as act:
+            for it in range(3):
+                r = y - X @ np.full((3, 1), float(it), np.float32)
+                beta = fm.solve(fm.crossprod(X), fm.crossprod(X, r))
+                (b_m,) = fm.materialize(beta, mode="stream")
+                ref = np.linalg.solve(G, a.T.astype(np.float64)
+                                      @ (yv - a @ np.full((3, 1), float(it),
+                                                          np.float32)))
+                np.testing.assert_allclose(fm.as_np(b_m), ref, rtol=1e-4,
+                                           atol=1e-5)
+        assert (act["plan_cache_misses"], act["plan_cache_hits"],
+                act["epilogue_launches"]) == (1, 2, 3)
+        acts.append(act)
+    assert acts[1] == acts[0]
+
+
+def test_ooc_ridge_eye_is_epilogue_source():
+    """A small physical matrix consumed only by the epilogue (a ridge eye,
+    itself in host RAM) is handed whole to the epilogue on the device,
+    never streamed; X streams out of core from host RAM."""
+    a = _x(512, 3)
+
+    def program(fm):
+        X = fm.conv_R2FM(a, host=True)
+        eye = fm.conv_R2FM(np.eye(3, dtype=np.float32), host=True)
+        return [fm.crossprod(X) + eye]
+
+    for side in (REF, PORT):
+        plan = side.Plan([o.m for o in program(side.fm)])
+        assert len(plan.epilogue_sources) == 1
+        assert plan.bytes_in() == a.nbytes  # the eye is not streamed
+    for side in (REF, PORT):
+        with counting(side, ("epilogue_launches", "epilogue_host_inputs",
+                             "partition_steps")) as act:
+            side.fm.materialize(*program(side.fm), prefetch=False)
+        assert act["epilogue_launches"] == 1
+        assert act["epilogue_host_inputs"] == 0
+        assert act["partition_steps"] > 1  # genuinely multi-partition
+    for (am,) in both(program, mode="auto", prefetch=False):
+        np.testing.assert_allclose(am, a.T.astype(np.float64) @ a
+                                   + np.eye(3), rtol=1e-4)
 
 
 def test_epilogue_rides_kernel_lowering():

@@ -4,10 +4,12 @@ JAX package and the same numpy oracle, whole mode on the device tier.
 Each test builds the reference test's program in both packages from the
 same numpy inputs (``helpers_twin.both``: equal counters, kernel dispatch,
 shapes and dtypes) and holds both outputs to the reference's oracle and
-tolerance.  The reference's ``stream`` and host-tier (``whole``, host)
-cells of the three parametrized classes come with the port's stream mode
-and host tier (ROADMAP A7).
+tolerance.  The reference's ``("stream", device)`` and ``("whole", host)``
+cells of its three parametrized classes are ``test_stream_and_host_cells``:
+the same test bodies with their sources on that tier, in that mode.
 """
+import inspect
+
 import numpy as np
 import pytest
 
@@ -32,88 +34,90 @@ def twins(program, check, **kw):
 
 
 class TestElementwise:
-    def test_sapply_chain(self):
+    def test_sapply_chain(self, mode="whole", host=False):
         Xn = data()
-        twins(lambda fm: [fm.sqrt(fm.abs_(fm.conv_R2FM(Xn) * 2.0 + 1.0))],
+        twins(lambda fm: [fm.sqrt(fm.abs_(
+                  fm.conv_R2FM(Xn, host=host) * 2.0 + 1.0))],
               lambda m: np.testing.assert_allclose(
-                  m, np.sqrt(np.abs(Xn * 2 + 1)), rtol=1e-5))
+                  m, np.sqrt(np.abs(Xn * 2 + 1)), rtol=1e-5), mode=mode)
 
-    def test_mapply_matrix(self):
+    def test_mapply_matrix(self, mode="whole", host=False):
         Xn = data()
 
         def program(fm):
-            X, Y = fm.conv_R2FM(Xn), fm.conv_R2FM(Xn * 0.5 + 1)
+            X = fm.conv_R2FM(Xn, host=host)
+            Y = fm.conv_R2FM(Xn * 0.5 + 1, host=host)
             return [X * Y - Y]
 
         twins(program, lambda m: np.testing.assert_allclose(
-            m, Xn * (Xn * 0.5 + 1) - (Xn * 0.5 + 1), rtol=1e-4))
+            m, Xn * (Xn * 0.5 + 1) - (Xn * 0.5 + 1), rtol=1e-4), mode=mode)
 
-    def test_scalar_forms(self):
+    def test_scalar_forms(self, mode="whole", host=False):
         """bVUDF2 (vec∘scalar) and bVUDF3 (scalar∘vec)."""
         Xn = data()
 
         def program(fm):
-            X = fm.conv_R2FM(Xn)
+            X = fm.conv_R2FM(Xn, host=host)
             return [X - 3.0, 3.0 - X]
 
         def check(a, b):
             np.testing.assert_allclose(a, Xn - 3.0, rtol=1e-6)
             np.testing.assert_allclose(b, 3.0 - Xn, rtol=1e-6)
 
-        twins(program, check)
+        twins(program, check, mode=mode)
 
-    def test_mapply_row_col(self):
+    def test_mapply_row_col(self, mode="whole", host=False):
         Xn = data()
         row = RNG.normal(size=Xn.shape[1]).astype(np.float32)
         col = RNG.normal(size=Xn.shape[0]).astype(np.float32)
 
         def program(fm):
-            X = fm.conv_R2FM(Xn)
+            X = fm.conv_R2FM(Xn, host=host)
             return [fm.mapply_row(X, row, "mul"), fm.mapply_col(X, col, "add")]
 
         def check(a, b):
             np.testing.assert_allclose(a, Xn * row[None], rtol=1e-5)
             np.testing.assert_allclose(b, Xn + col[:, None], rtol=1e-5)
 
-        twins(program, check)
+        twins(program, check, mode=mode)
 
-    def test_pmin_pmax_ifelse0(self):
+    def test_pmin_pmax_ifelse0(self, mode="whole", host=False):
         Xn = data()
 
         def program(fm):
-            X, Y = fm.conv_R2FM(Xn), fm.conv_R2FM(-Xn)
+            X, Y = fm.conv_R2FM(Xn, host=host), fm.conv_R2FM(-Xn, host=host)
             return [fm.pmin(X, Y), fm.pmax(X, Y)]
 
         def check(mn, mx):
             np.testing.assert_allclose(mn, np.minimum(Xn, -Xn))
             np.testing.assert_allclose(mx, np.maximum(Xn, -Xn))
 
-        twins(program, check)
+        twins(program, check, mode=mode)
 
-    def test_cbind(self):
+    def test_cbind(self, mode="whole", host=False):
         Xn = data()
 
         def program(fm):
-            X = fm.conv_R2FM(Xn)
+            X = fm.conv_R2FM(Xn, host=host)
             return [fm.cbind(X, X * 2.0)]
 
         twins(program, lambda m: np.testing.assert_allclose(
-            m, np.concatenate([Xn, Xn * 2], 1), rtol=1e-6))
+            m, np.concatenate([Xn, Xn * 2], 1), rtol=1e-6), mode=mode)
 
 
 class TestAggregation:
-    def test_agg_full(self):
+    def test_agg_full(self, mode="whole", host=False):
         Xn = data()
-        twins(lambda fm: [fm.sum_(fm.conv_R2FM(Xn))],
+        twins(lambda fm: [fm.sum_(fm.conv_R2FM(Xn, host=host))],
               lambda s: np.testing.assert_allclose(s.reshape(()), Xn.sum(),
-                                                   rtol=1e-4))
+                                                   rtol=1e-4), mode=mode)
 
     @pytest.mark.parametrize("backend", ["torch", "cuda"])
-    def test_agg_col_variants(self, backend):
+    def test_agg_col_variants(self, backend, mode="whole", host=False):
         Xn = data()
 
         def program(fm):
-            X = fm.conv_R2FM(Xn)
+            X = fm.conv_R2FM(Xn, host=host)
             return [fm.colSums(X), fm.colMins(X), fm.colMaxs(X),
                     fm.agg_col(X, "count_nonzero")]
 
@@ -123,13 +127,13 @@ class TestAggregation:
             np.testing.assert_allclose(mx.ravel(), Xn.max(0))
             np.testing.assert_array_equal(nz.ravel(), (Xn != 0).sum(0))
 
-        twins(program, check, backend=backend)
+        twins(program, check, backend=backend, mode=mode)
 
-    def test_agg_row(self):
+    def test_agg_row(self, mode="whole", host=False):
         Xn = data()
-        twins(lambda fm: [fm.rowSums(fm.conv_R2FM(Xn))],
+        twins(lambda fm: [fm.rowSums(fm.conv_R2FM(Xn, host=host))],
               lambda s: np.testing.assert_allclose(s.ravel(), Xn.sum(1),
-                                                   rtol=1e-4))
+                                                   rtol=1e-4), mode=mode)
 
     @pytest.mark.parametrize("p", [2, 9, 17])
     def test_row_sums_round_as_the_reference(self, p):
@@ -144,71 +148,79 @@ class TestAggregation:
         for r, t in zip(ref, port):
             np.testing.assert_array_equal(t, r)
 
-    def test_which_min_row_absolute_indices(self):
+    def test_which_min_row_absolute_indices(self, mode="whole", host=False):
         """Indexed reductions must stay absolute across partitions."""
         Xn = data()
-        twins(lambda fm: [fm.which_min_row(fm.conv_R2FM(Xn))],
+        twins(lambda fm: [fm.which_min_row(fm.conv_R2FM(Xn, host=host))],
               lambda w: np.testing.assert_array_equal(w.ravel(),
-                                                      Xn.argmin(1)))
+                                                      Xn.argmin(1)),
+              mode=mode)
 
-    def test_logsumexp_streaming(self):
+    def test_logsumexp_streaming(self, mode="whole", host=False):
         Xn = data()
         ref = np.log(np.exp(Xn - Xn.max(1, keepdims=True)).sum(1)) + Xn.max(1)
-        twins(lambda fm: [fm.agg_row(fm.conv_R2FM(Xn), "logsumexp")],
-              lambda l: np.testing.assert_allclose(l.ravel(), ref, rtol=1e-5))
+        twins(lambda fm: [fm.agg_row(fm.conv_R2FM(Xn, host=host),
+                                     "logsumexp")],
+              lambda l: np.testing.assert_allclose(l.ravel(), ref, rtol=1e-5),
+              mode=mode)
 
-    def test_any_all(self):
+    def test_any_all(self, mode="whole", host=False):
         Xn = data()
 
         def program(fm):
-            X = fm.conv_R2FM(Xn)
+            X = fm.conv_R2FM(Xn, host=host)
             return [fm.any_(X > 10.0), fm.all_(X > -100.0)]
 
         def check(a, b):
             assert bool(a.reshape(())) == bool((Xn > 10).any())
             assert bool(b.reshape(())) == bool((Xn > -100).all())
 
-        twins(program, check)
+        twins(program, check, mode=mode)
 
 
 class TestInnerProdGroupBy:
     @pytest.mark.parametrize("backend", ["torch", "cuda"])
-    def test_crossprod(self, backend):
+    def test_crossprod(self, backend, mode="whole", host=False):
         Xn = data()
-        twins(lambda fm: [fm.crossprod(fm.conv_R2FM(Xn))],
+        twins(lambda fm: [fm.crossprod(fm.conv_R2FM(Xn, host=host))],
               lambda g: np.testing.assert_allclose(g, Xn.T @ Xn, rtol=1e-3),
-              backend=backend)
+              backend=backend, mode=mode)
 
     @pytest.mark.parametrize("backend", ["torch", "cuda"])
-    def test_crossprod_xy(self, backend):
+    def test_crossprod_xy(self, backend, mode="whole", host=False):
         Xn, Yn = data(), data()
-        twins(lambda fm: [fm.crossprod(fm.conv_R2FM(Xn), fm.conv_R2FM(Yn))],
+        twins(lambda fm: [fm.crossprod(fm.conv_R2FM(Xn, host=host),
+                                       fm.conv_R2FM(Yn, host=host))],
               lambda g: np.testing.assert_allclose(g, Xn.T @ Yn, rtol=1e-3),
-              backend=backend)
+              backend=backend, mode=mode)
 
-    def test_tall_matmul(self):
+    def test_tall_matmul(self, mode="whole", host=False):
         Xn = data()
         W = RNG.normal(size=(Xn.shape[1], 4)).astype(np.float32)
-        twins(lambda fm: [fm.conv_R2FM(Xn) @ W],
-              lambda m: np.testing.assert_allclose(m, Xn @ W, rtol=1e-3))
+        twins(lambda fm: [fm.conv_R2FM(Xn, host=host) @ W],
+              lambda m: np.testing.assert_allclose(m, Xn @ W, rtol=1e-3),
+              mode=mode)
 
-    def test_semiring_distance(self):
+    def test_semiring_distance(self, mode="whole", host=False):
         Xn = data()
         C = RNG.normal(size=(Xn.shape[1], 5)).astype(np.float32)
         ref = ((Xn[:, :, None] - C[None]) ** 2).sum(1)
-        twins(lambda fm: [fm.inner_prod(fm.conv_R2FM(Xn), C, "squared_diff",
-                                        "sum")],
-              lambda m: np.testing.assert_allclose(m, ref, rtol=1e-3))
+        twins(lambda fm: [fm.inner_prod(fm.conv_R2FM(Xn, host=host), C,
+                                        "squared_diff", "sum")],
+              lambda m: np.testing.assert_allclose(m, ref, rtol=1e-3),
+              mode=mode)
 
     @pytest.mark.parametrize("backend", ["torch", "cuda"])
-    def test_groupby_row(self, backend):
+    def test_groupby_row(self, backend, mode="whole", host=False):
         Xn = data()
         lab = RNG.integers(0, 6, Xn.shape[0])
 
         def program(fm):
-            X = fm.conv_R2FM(Xn)
-            return [fm.rowsum(X, fm.conv_R2FM(lab.astype(np.int32)), 6),
-                    fm.table_(fm.conv_R2FM(lab.astype(np.int32)), 6)]
+            X = fm.conv_R2FM(Xn, host=host)
+            return [fm.rowsum(X, fm.conv_R2FM(lab.astype(np.int32),
+                                              host=host), 6),
+                    fm.table_(fm.conv_R2FM(lab.astype(np.int32),
+                                           host=host), 6)]
 
         ref = np.zeros((6, Xn.shape[1]), np.float64)
         np.add.at(ref, lab, Xn.astype(np.float64))
@@ -218,16 +230,18 @@ class TestInnerProdGroupBy:
             np.testing.assert_array_equal(c.ravel(),
                                           np.bincount(lab, minlength=6))
 
-        twins(program, check, backend=backend)
+        twins(program, check, backend=backend, mode=mode)
 
-    def test_groupby_col(self):
+    def test_groupby_col(self, mode="whole", host=False):
         Xn = data()
         lab = RNG.integers(0, 3, Xn.shape[1]).astype(np.int32)
         ref = np.zeros((Xn.shape[0], 3), np.float32)
         for j, k in enumerate(lab):
             ref[:, k] += Xn[:, j]
-        twins(lambda fm: [fm.groupby_col(fm.conv_R2FM(Xn), lab, "sum", 3)],
-              lambda g: np.testing.assert_allclose(g, ref, rtol=1e-4))
+        twins(lambda fm: [fm.groupby_col(fm.conv_R2FM(Xn, host=host), lab,
+                                         "sum", 3)],
+              lambda g: np.testing.assert_allclose(g, ref, rtol=1e-4),
+              mode=mode)
 
 
 class TestDtypesAndLazy:
@@ -287,6 +301,47 @@ class TestDtypesAndLazy:
             got.append(fm.as_np(g))
         for g in got:
             np.testing.assert_allclose(g, (Xn * 2).T @ (Xn * 2), rtol=1e-3)
+
+    def test_persist_host_tier(self):
+        """fm.persist(tier="host"): a virtual matrix materializes into host
+        RAM and is reused as a source from there; a physical one moves
+        now."""
+        Xn = data()
+        got = []
+        for side in (REF, PORT):
+            fm = side.fm
+            X = fm.conv_R2FM(Xn)
+            Y = fm.persist(X * 2.0, tier="host")
+            (s,) = fm.materialize(fm.colSums(Y))
+            store = Y.m.node.cached_store
+            assert store.on_host and isinstance(store.store.data, np.ndarray)
+            with side.fm.conf(prefetch=False):
+                (g,) = fm.materialize(fm.crossprod(Y))
+            P = fm.persist(X, tier="host")
+            assert P.m.on_host and not X.m.on_host
+            np.testing.assert_array_equal(fm.as_np(P), Xn)
+            got.append((fm.as_np(s), fm.as_np(g)))
+        for (s, g) in got:
+            np.testing.assert_allclose(s.ravel(), (Xn * 2).sum(0), rtol=1e-4)
+            np.testing.assert_allclose(g, (Xn * 2).T @ (Xn * 2), rtol=1e-3)
+
+    @pytest.mark.parametrize("mode", ["auto", "stream", "whole"])
+    def test_unfused_host_intermediates(self, mode):
+        """fuse=False over a host source: each node materializes alone, its
+        intermediate written to host RAM and read back, in both packages
+        with the same counters."""
+        Xn = data()
+
+        def program(fm):
+            X = fm.conv_R2FM(Xn, host=True)
+            return [fm.colSums(fm.abs_(X * 2.0 - 1.0)), X + 1.0]
+
+        def check(s, y):
+            np.testing.assert_allclose(s.ravel(), np.abs(Xn * 2 - 1).sum(0),
+                                       rtol=1e-4)
+            np.testing.assert_allclose(y, Xn + 1.0, rtol=1e-6)
+
+        twins(program, check, mode=mode, fuse=False)
 
     def test_transpose_roundtrip(self):
         Xn = data()
@@ -450,28 +505,97 @@ class TestConvLayout:
             assert R.m.store.layout == "row" and R.shape == (7, 40)
             np.testing.assert_array_equal(fm.as_np(R), Xn.T)
 
+    @pytest.mark.parametrize("layout", ["row", "col"])
+    def test_conv_layout_host_tier(self, layout):
+        """A host matrix converts on the host tier: a numpy buffer laid
+        out as asked, in both packages, and streams out of core."""
+        Xn = data(40, 7)
+        for side in (REF, PORT):
+            fm = side.fm
+            X = fm.conv_R2FM(Xn, host=True)
+            Y = fm.conv_layout(X, layout)
+            assert Y.m.on_host and Y.m.store.layout == layout
+            assert isinstance(Y.m.store.data, np.ndarray)
+            assert Y.m.store.data.flags.c_contiguous
+            np.testing.assert_array_equal(fm.as_np(Y), Xn)
+            np.testing.assert_array_equal(np.asarray(Y.m.block(3, 11)),
+                                          Xn[3:11])
+
+        def program(fm):
+            Y = fm.conv_layout(fm.conv_R2FM(Xn, host=True), layout)
+            return [fm.colSums(Y), Y * 2.0]
+
+        def check(s, y2):
+            np.testing.assert_allclose(s.ravel(), Xn.sum(0), rtol=1e-4)
+            np.testing.assert_allclose(y2, Xn * 2, rtol=1e-6)
+
+        twins(program, check, mode="ooc")
+
     def test_conv_layout_refusals(self):
-        """The port refuses an unknown layout, and a host or disk matrix
-        (those tiers come with ROADMAP A7)."""
+        """The port refuses an unknown layout, and a disk matrix (the disk
+        tier comes with ROADMAP A7b)."""
         from repro_torch.core.matrix import DenseStore, FMMatrix
 
-        class HostStore(DenseStore):
-            on_host = True
+        class DiskStore(DenseStore):
+            on_disk = True
 
         X = tfm.conv_R2FM(data(8, 3))
         with pytest.raises(ValueError, match="unknown layout"):
             tfm.conv_layout(X, "diagonal")
-        host = tfm.FM(FMMatrix(X.shape, X.dtype,
-                               store=HostStore(X.m.store.data)))
-        with pytest.raises(NotImplementedError, match="A7"):
-            tfm.conv_layout(host, "col")
+        disk = tfm.FM(FMMatrix(X.shape, X.dtype,
+                               store=DiskStore(X.m.store.data)))
+        with pytest.raises(NotImplementedError, match="A7b"):
+            tfm.conv_layout(disk, "col")
+
+
+#: The reference's parametrized tests of TestElementwise, TestAggregation
+#: and TestInnerProdGroupBy.
+_CELL_TESTS = [
+    (TestElementwise, "test_sapply_chain"),
+    (TestElementwise, "test_mapply_matrix"),
+    (TestElementwise, "test_scalar_forms"),
+    (TestElementwise, "test_mapply_row_col"),
+    (TestElementwise, "test_pmin_pmax_ifelse0"),
+    (TestElementwise, "test_cbind"),
+    (TestAggregation, "test_agg_full"),
+    (TestAggregation, "test_agg_col_variants"),
+    (TestAggregation, "test_agg_row"),
+    (TestAggregation, "test_which_min_row_absolute_indices"),
+    (TestAggregation, "test_logsumexp_streaming"),
+    (TestAggregation, "test_any_all"),
+    (TestInnerProdGroupBy, "test_crossprod"),
+    (TestInnerProdGroupBy, "test_crossprod_xy"),
+    (TestInnerProdGroupBy, "test_tall_matmul"),
+    (TestInnerProdGroupBy, "test_semiring_distance"),
+    (TestInnerProdGroupBy, "test_groupby_row"),
+    (TestInnerProdGroupBy, "test_groupby_col"),
+]
+
+
+@pytest.mark.parametrize("mode,host", [("stream", False), ("whole", True)],
+                         ids=["stream-device", "whole-host"])
+@pytest.mark.parametrize("cls,name", _CELL_TESTS,
+                         ids=[f"{c.__name__}.{n}" for c, n in _CELL_TESTS])
+def test_stream_and_host_cells(cls, name, mode, host):
+    """The reference's ``("stream", device)`` and ``("whole", host)`` cells:
+    the test's program with its sources on that tier, in that mode, held
+    to the same oracle with the counters, kernel dispatch and dtypes equal
+    (a test the twin runs on both backends runs here on ``cuda``, the
+    kernel matchers per partition)."""
+    test = getattr(cls(), name)
+    kw = ({"backend": "cuda"}
+          if "backend" in inspect.signature(test).parameters else {})
+    test(mode=mode, host=host, **kw)
 
 
 def test_port_raises_naming_a7_for_the_stream_and_host_cells():
-    """The reference's stream and host-tier cells of this file need the
-    port's stream mode and host tier, which come with ROADMAP A7."""
+    """What this file's tiers still lack raises naming its ROADMAP item:
+    the host-RAM ELL slab (A7a-ii) and the disk tier (A7b)."""
     Xn = data()
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfm.materialize(tfm.colSums(tfm.conv_R2FM(Xn)), mode="stream")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tfm.conv_R2FM(Xn, host=True)
+    rng = np.random.default_rng(0)
+    with pytest.raises(NotImplementedError, match="A7a-ii"):
+        tfm.one_hot(tfm.as_factor(rng.integers(0, 3, 40), 3), host=True)
+    with pytest.raises(NotImplementedError, match="A7b"):
+        tfm.persist(tfm.conv_R2FM(Xn), tier="disk")
+    with pytest.raises(NotImplementedError, match="A7b"):
+        tfm.persist(tfm.conv_R2FM(Xn) * 2.0, tier="disk")

@@ -8,25 +8,30 @@ packages on the same numpy inputs (``helpers_twin.both``: equal counters,
 kernel dispatch, shapes and dtypes), each held to the reference test's
 oracle.  Streams are cut into 4 KiB partitions, as in the reference.
 
-The reference's stream, ooc and host-tier cells come with the port's
-stream mode, host and disk tiers and prefetcher (ROADMAP A7):
-``test_scale_one_call_two_passes`` and
-``test_pca_covariance_of_centered_two_passes`` in stream and ooc mode,
-``test_sweep_helper_and_sink_binding``, ``test_three_pass_chain``,
-``test_scale_save_disk_streams_out_of_core``,
+The reference's stream and ooc cells run with the port's synchronous
+partition staging: ``test_scale_one_call_two_passes`` and
+``test_pca_covariance_of_centered_two_passes`` in stream mode and in ooc
+mode from host RAM (``*_streaming``), ``test_sweep_helper_and_sink_binding``,
+``test_three_pass_chain``,
 ``test_cache_keyed_on_per_pass_partition_schedule``,
-``test_cached_two_pass_plan_reuse``,
-``test_interrupted_pass1_leaves_no_partial_sinks``,
-``test_interrupted_pass2_rolls_back_pass1_sinks`` and
+``test_cached_two_pass_plan_reuse`` and the interrupted passes with the
+prefetcher off (the port's flaky store is ``helpers_twin.FlakyStore``).
+Many host partitions stream in ooc mode, so both packages run those cells
+with ``prefetch=False``: the reference's values and counters do not depend
+on it.  Waiting for the disk tier (ROADMAP A7b):
+``test_scale_save_disk_streams_out_of_core``; for the prefetcher (A7a-ii):
 ``test_interrupted_prefetching_pass_raises_prefetch_error``.
 """
 import numpy as np
 import pytest
 
+from helpers_cache import StagingFault, assert_no_partial_results
 from helpers_twin import (PORT, REF, _port_on_cpu, both,  # noqa: F401
-                          both_conf, counting)
+                          both_conf, counting, flaky_matrix)
 from repro.core import dag as jdag
 from repro_torch.core import dag as tdag
+
+DAGS = {REF.name: jdag, PORT.name: tdag}
 
 RNG = np.random.default_rng(7)
 
@@ -45,10 +50,11 @@ def _small_partitions():
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_scale_one_call_two_passes(backend):
+def test_scale_one_call_two_passes(backend, mode="whole"):
     a = _x()
+    host = mode == "ooc"
     for side in (REF, PORT):
-        X = side.fm.conv_R2FM(a)
+        X = side.fm.conv_R2FM(a, host=host)
         Z = side.fm.scale(X)
         assert Z.is_virtual  # the moments are DAG edges
         plan = side.Plan([Z.m])
@@ -59,8 +65,9 @@ def test_scale_one_call_two_passes(backend):
         side.mz.reset_exec_stats()
         with counting(side, ("materialize_calls", "plan_cache_misses",
                              "plan_cache_hits", "epilogue_launches")) as act:
-            side.fm.materialize(side.fm.scale(side.fm.conv_R2FM(a)),
-                                backend=be)
+            side.fm.materialize(
+                side.fm.scale(side.fm.conv_R2FM(a, host=host)), backend=be,
+                mode=mode, prefetch=False)
         st = side.mz.exec_stats()
         assert act == {"materialize_calls": 1, "plan_cache_misses": 1,
                        "plan_cache_hits": 0, "epilogue_launches": 1}
@@ -68,18 +75,19 @@ def test_scale_one_call_two_passes(backend):
         stats.append(tuple(st["pass_bytes_in"]))
     assert stats[1] == stats[0] == (a.nbytes, a.nbytes)
     ref = (a - a.mean(0)) / a.std(0, ddof=1)
-    for (Zm,) in both(lambda fm: [fm.scale(fm.conv_R2FM(a))], backend=backend):
+    for (Zm,) in both(lambda fm: [fm.scale(fm.conv_R2FM(a, host=host))],
+                      backend=backend, mode=mode, prefetch=False):
         np.testing.assert_allclose(Zm, ref, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_pca_covariance_of_centered_two_passes(backend):
+def test_pca_covariance_of_centered_two_passes(backend, mode="whole"):
     """crossprod(X - colMeans(X)) / (n − 1): a pass-2 contraction consuming
     the pass-1 epilogue, with its own pass-2 epilogue."""
     a = _x(700, 4)
 
     def program(fm):
-        X = fm.conv_R2FM(a)
+        X = fm.conv_R2FM(a, host=mode == "ooc")
         return [fm.crossprod(X - fm.colMeans(X)) / float(a.shape[0] - 1)]
 
     for side in (REF, PORT):
@@ -89,11 +97,181 @@ def test_pca_covariance_of_centered_two_passes(backend):
     ref = c.T.astype(np.float64) @ c / (a.shape[0] - 1)
     for side, be in ((REF, "xla"), (PORT, backend)):
         side.mz.reset_exec_stats()
-        side.fm.materialize(*program(side.fm), backend=be)
+        side.fm.materialize(*program(side.fm), backend=be, mode=mode,
+                            prefetch=False)
         st = side.mz.exec_stats()
         assert (st["passes"], st["epilogue_launches"]) == (2, 2)
-    for (cm,) in both(program, backend=backend):
+    for (cm,) in both(program, backend=backend, mode=mode, prefetch=False):
         np.testing.assert_allclose(cm, ref, rtol=2e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["stream", "ooc"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_scale_one_call_two_passes_streaming(backend, mode):
+    """The reference's stream and ooc cells (ooc from host RAM)."""
+    test_scale_one_call_two_passes(backend, mode=mode)
+
+
+@pytest.mark.parametrize("mode", ["stream", "ooc"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_pca_covariance_of_centered_two_passes_streaming(backend, mode):
+    test_pca_covariance_of_centered_two_passes(backend, mode=mode)
+
+
+def test_sweep_helper_and_sink_binding():
+    """fm.sweep with a lazy stat: a SINK value bound directly into the
+    pass-2 row-local op, streamed."""
+    a = _x(400, 3)
+    for side in (REF, PORT):
+        fm = side.fm
+        X = fm.conv_R2FM(a)
+        assert side.Plan([fm.sweep(X, 2, fm.colSums(X), "sub").m]) \
+            .n_passes == 2
+        with pytest.raises(ValueError, match="margin"):
+            fm.sweep(X, 3, fm.colSums(X))
+
+    def program(fm):
+        X = fm.conv_R2FM(a)
+        return [fm.sweep(X, 2, fm.colSums(X), "sub")]
+
+    for (sm,) in both(program, mode="stream"):
+        np.testing.assert_allclose(sm, a - a.sum(0), rtol=1e-4, atol=1e-3)
+
+
+def test_three_pass_chain():
+    """Standardizing the CENTERED matrix by its own colSds: moment →
+    center → sd-moment, three passes in one call, streamed."""
+    a = _x(500, 4)
+
+    def program(fm):
+        X = fm.conv_R2FM(a)
+        Z = X - fm.colMeans(X)
+        return [Z / fm.colSds(Z)]
+
+    for side in (REF, PORT):
+        assert side.Plan([o.m for o in program(side.fm)]).n_passes == 3
+    c = a - a.mean(0)
+    for (wm,) in both(program, mode="stream"):
+        np.testing.assert_allclose(wm, c / c.std(0, ddof=1), rtol=1e-3,
+                                   atol=1e-3)
+
+
+def test_cache_keyed_on_per_pass_partition_schedule():
+    """Retuning the I/O partition budget retraces a multi-pass plan (the
+    per-pass partition rows are in the cache key)."""
+    a = _x()
+    ref = (a - a.mean(0)) / a.std(0, ddof=1)
+    acts = []
+    for side in (REF, PORT):
+        fm = side.fm
+        X = fm.conv_R2FM(a)
+        with counting(side, ("plan_cache_misses", "plan_cache_hits",
+                             "partition_steps")) as act:
+            fm.materialize(fm.scale(X), mode="stream")
+            with fm.conf(io_partition_bytes=8192):
+                (Zm,) = fm.materialize(fm.scale(X), mode="stream")
+        assert (act["plan_cache_misses"], act["plan_cache_hits"]) == (2, 0)
+        np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
+        acts.append(act)
+    assert acts[1] == acts[0]
+
+
+def test_cached_two_pass_plan_reuse():
+    """A structurally identical two-pass DAG built twice compiles once and
+    hits on the second materialize."""
+    a = _x()
+    acts = []
+    for side in (REF, PORT):
+        fm = side.fm
+        X = fm.conv_R2FM(a)
+        with counting(side, ("plan_cache_misses", "plan_cache_hits",
+                             "epilogue_launches", "partition_steps",
+                             "prefetch_reuse_hits")) as act:
+            (z1,) = fm.materialize(fm.scale(X), mode="stream")
+            (z2,) = fm.materialize(fm.scale(X), mode="stream")
+        assert (act["plan_cache_misses"], act["plan_cache_hits"],
+                act["epilogue_launches"]) == (1, 1, 2)
+        np.testing.assert_allclose(fm.as_np(z1), fm.as_np(z2), rtol=1e-6)
+        acts.append(act)
+    assert acts[1] == acts[0]
+
+
+@pytest.mark.parametrize("fail_after", [1, 0])
+def test_interrupted_pass1_leaves_no_partial_sinks(fail_after):
+    """A staging failure during PASS 1 aborts the materialize with nothing
+    registered, the store's own error unchanged; a retry (healed store,
+    same cached plan) succeeds."""
+    a = _x(800, 4)
+    ref = (a - a.mean(0)) / a.std(0, ddof=1)
+    reads = []
+    for side in (REF, PORT):
+        fm = side.fm
+        Xm, store = flaky_matrix(side, a, fail_after)
+        Z = fm.scale(fm.FM(Xm))
+        nodes = DAGS[side.name].toposort([Z.m.node])
+        with pytest.raises(StagingFault, match="staging failure"):
+            fm.materialize(Z, prefetch=False)
+        assert store.failed
+        assert_no_partial_results(*nodes)
+        reads.append(store.reads)
+        store.heal()
+        (Zm,) = fm.materialize(Z, prefetch=False)
+        np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
+    assert reads[1] == reads[0] == fail_after
+
+
+def test_interrupted_pass2_rolls_back_pass1_sinks():
+    """Pass 1 completes, pass 2 dies mid-stream: even the already merged
+    pass-1 sinks do not register."""
+    a = _x(800, 4)
+    ref = (a - a.mean(0)) / a.std(0, ddof=1)
+    for side in (REF, PORT):
+        fm = side.fm
+        n_parts = -(-800 // side.Plan([fm.scale(fm.conv_R2FM(a)).m])
+                    .passes[0].partition_rows)
+        assert n_parts > 1
+        # Survive all of pass 1, die on the second read of pass 2.
+        Xm, store = flaky_matrix(side, a, n_parts + 1)
+        Z = fm.scale(fm.FM(Xm))
+        nodes = DAGS[side.name].toposort([Z.m.node])
+        with pytest.raises(StagingFault, match="staging failure"):
+            fm.materialize(Z, prefetch=False)
+        assert store.reads == n_parts + 1  # pass 2 actually started
+        assert_no_partial_results(*nodes)
+        store.heal()
+        (Zm,) = fm.materialize(Z, prefetch=False)
+        np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
+
+
+def test_prefetch_on_a_multi_partition_host_source_raises_naming_a7a_ii():
+    """Where ``prefetch`` resolves True — explicitly, or by the conf default
+    over a host source of more than one partition — the port raises naming
+    ROADMAP A7a-ii (the prefetcher) and registers nothing; it never runs
+    the synchronous path in the prefetcher's place.  The rule's other arms
+    run now: ``prefetch=False``, the conf knob off, one partition."""
+    fm = PORT.fm
+    a = _x(800, 4)
+    X = fm.conv_R2FM(a, host=True)
+    assert -(-800 // PORT.Plan([fm.scale(X).m]).passes[0].partition_rows) > 1
+    ref = (a - a.mean(0)) / a.std(0, ddof=1)
+    for kw in ({}, {"prefetch": True}, {"prefetch": True, "mode": "stream"}):
+        Z = fm.scale(X)
+        nodes = tdag.toposort([Z.m.node])
+        with counting(PORT, ("partition_steps",)) as act:
+            with pytest.raises(NotImplementedError, match="A7a-ii"):
+                fm.materialize(Z, **kw)
+        assert act["partition_steps"] == 0
+        assert_no_partial_results(*nodes)
+    for run in (lambda Z: fm.materialize(Z, prefetch=False),
+                lambda Z: fm.materialize(Z, mode="stream", prefetch=False)):
+        (Zm,) = run(fm.scale(X))
+        np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
+    with fm.conf(prefetch=False):
+        (Zm,) = fm.materialize(fm.scale(X))
+    np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
+    with fm.conf(io_partition_bytes=1 << 20):  # one partition: no prefetch
+        (Zm,) = fm.materialize(fm.scale(X))
+    np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
 
 
 def test_scale_fuses_into_downstream_gram():

@@ -1,25 +1,35 @@
 """Twin of tests/test_parity_fuzz.py: random GenOp DAGs run through the
-JAX package (``xla``) and the port (``torch``, on the CPU), in ``whole``
-mode, each held to the generator's float64 numpy oracle.
+JAX package (``xla``) and the port (``torch``, on the CPU), each held to
+the generator's float64 numpy oracle.
 
 The reference's generator, oracle and program interpreter are imported from
 tests/test_parity_fuzz.py by path (``tests/`` is not a package); the port
 runs the SAME interpreter (``_lazy_outputs``) with the port's ``fm`` in its
 globals, so both packages build each program op for op.  Per program the
-two must also agree exactly on ``passes``, ``partition_steps`` and
-``epilogue_launches`` and on the kernels the kernel backend dispatches
-(``pallas`` units against ``cuda`` units).  A fixed budget — EXAMPLES dense
-programs from seed BASE_SEED and SPARSE_EXAMPLES over an ELL source on both
-sides (the generator's programs with register 0 made sparse, as its
-FUZZ_SPARSE arm does) — plus the reference's hand-pinned epilogue,
-multipass and sparse programs.  Streams are cut into 2 KiB partitions, as
-in the reference.
+two must also agree exactly on the plan counters (``helpers_twin.COUNTERS``)
+and on the kernels the kernel backend dispatches (``pallas`` units against
+``cuda`` units).  A fixed budget:
 
-Left to later slices: the reference's stream and ooc cells (ROADMAP A7),
-its ``fm.batch`` arm (A11), its ``fm.serve`` arm (A12) and its meshed arm
-(A13), with their anchors ``test_known_program_batched_parity``,
-``test_known_program_served_parity`` and
-``test_known_program_meshed_parity``.
+* EXAMPLES dense programs from seed BASE_SEED in ``whole`` mode, and the
+  first STREAM_EXAMPLES of them in ``stream`` mode and in ``ooc`` mode from
+  host RAM;
+* SPARSE_EXAMPLES over an ELL source on both sides (the generator's
+  programs with register 0 made sparse, as its FUZZ_SPARSE arm does), in
+  ``whole`` and ``stream`` mode (a device-tier slab);
+* the bf16 arm: the generator's f32 programs over BF16_SEEDS with register
+  0 cast to bf16 on both sides, held to each other (normalized, within
+  bf16's tolerance) with counters, kernels and declared dtypes exact;
+* the reference's hand-pinned epilogue, multipass and sparse programs in
+  every mode the port has.
+
+Streams are cut into 2 KiB partitions, as in the reference, so ``stream``
+and ``ooc`` run many partitions; both packages stage them synchronously
+(``prefetch=False``: the reference's values and counters do not depend on
+it).  Left to later slices: the ELL arm's ooc cell, a CSR ``.fmat`` (ROADMAP
+A7b), the reference's ``fm.batch`` arm (A11), its ``fm.serve`` arm (A12)
+and its meshed arm (A13), with their anchors
+``test_known_program_batched_parity``, ``test_known_program_served_parity``
+and ``test_known_program_meshed_parity``.
 """
 import dataclasses
 import importlib.util
@@ -27,6 +37,7 @@ import pathlib
 import sys
 import types
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -45,15 +56,21 @@ sys.modules[_SPEC.name] = ref  # its dataclasses look their module up
 _SPEC.loader.exec_module(ref)
 
 EXAMPLES = 60
+STREAM_EXAMPLES = 30
 SPARSE_EXAMPLES = 30
 BASE_SEED = 0
 CHUNKS = 6
+#: The bf16 arm's seeds: a fixed range plus the four programs that raised
+#: before fault C6 was closed (ROADMAP §C).
+BF16_SEEDS = sorted(set(range(3000, 3030)) | {3036, 3107, 3399, 3402})
+#: bf16's tolerance, on errors normalized by the output's scale.
+BF16_TOL = 2e-2
 
 
 def _port_sparse_fm(xn: np.ndarray, *, disk: bool):
     """Register 0 of a sparse program on the port: the same ELL slab the
     reference's ``_sparse_fm`` builds, as a device-tier store."""
-    assert not disk, "the disk tier comes with ROADMAP A7"
+    assert not disk, "the disk tier comes with ROADMAP A7b"
     indptr, indices, data = csr_from_dense(xn)
     kmax = max(1, int(np.diff(indptr).max()) if xn.shape[0] else 1)
     blk = ell_from_csr_rows(indptr, indices, data, 0, xn.shape[0], kmax,
@@ -63,12 +80,53 @@ def _port_sparse_fm(xn: np.ndarray, *, disk: bool):
     return PORT.fm.FM(FMMatrix(xn.shape, store.dtype, store=store))
 
 
-#: The reference's interpreter with the port's fm and sparse constructor.
+def _ref_sparse_fm(xn: np.ndarray, *, disk: bool):
+    """Register 0 of a sparse program on the reference: its own
+    ``_sparse_fm`` slab moved to the device tier, the tier the port's slab
+    is on (a host-RAM slab comes with ROADMAP A7a-ii), so the two stage
+    alike and ``stage_bytes_read`` compares."""
+    assert not disk, "the disk tier comes with ROADMAP A7b"
+    X = ref._sparse_fm(xn, disk=False)
+    st = X.m.store
+    store = type(st)(jnp.asarray(st.cols), jnp.asarray(st.vals), xn.shape[1])
+    return REF.fm.FM(type(X.m)(xn.shape, X.m.dtype, store=store))
+
+
+#: The reference's interpreter with each side's fm and sparse constructor.
+_ref_lazy_outputs = types.FunctionType(
+    ref._lazy_outputs.__code__, {**vars(ref), "_sparse_fm": _ref_sparse_fm})
 _port_lazy_outputs = types.FunctionType(
     ref._lazy_outputs.__code__,
     {**vars(ref), "fm": PORT.fm, "_sparse_fm": _port_sparse_fm})
 
-_SIDES = ((REF, ref._lazy_outputs, "xla"), (PORT, _port_lazy_outputs, "torch"))
+_SIDES = ((REF, _ref_lazy_outputs, "xla"), (PORT, _port_lazy_outputs, "torch"))
+
+_EXEC_MODE = {"mem": "whole", "stream": "stream", "ooc": "ooc"}
+
+
+class _Bf16Source:
+    """A side's ``fm`` whose ``conv_R2FM`` builds register 0 in bf16."""
+
+    def __init__(self, fm, cast):
+        self._fm, self._cast = fm, cast
+
+    def __getattr__(self, name):
+        return getattr(self._fm, name)
+
+    def conv_R2FM(self, arr, host=False):
+        return self._fm.conv_R2FM(self._cast(arr), host=host)
+
+
+_BF16_SIDES = (
+    (REF, types.FunctionType(_ref_lazy_outputs.__code__, {
+        **_ref_lazy_outputs.__globals__,
+        "fm": _Bf16Source(REF.fm, lambda a: jnp.asarray(a, jnp.bfloat16))}),
+     "xla"),
+    (PORT, types.FunctionType(_port_lazy_outputs.__code__, {
+        **_port_lazy_outputs.__globals__,
+        "fm": _Bf16Source(PORT.fm,
+                          lambda a: torch.as_tensor(a).to(torch.bfloat16))}),
+     "torch"))
 
 
 @pytest.fixture(autouse=True)
@@ -83,15 +141,17 @@ def _kernels(side, lazy_outputs, prog):
                   .program(side.kernel_backend).kernel_units)
 
 
-def check_program(prog) -> str | None:
-    """Both packages against the oracle and each other; an error string,
+def check_program(prog, mode: str = "mem") -> str | None:
+    """Both packages against the oracle and each other in one of the
+    generator's cells (``mem``, ``stream`` or ``ooc``); an error string,
     or None."""
     refs = ref.eval_numpy(prog)
     counters = []
     for side, lazy_outputs, backend in _SIDES:
         with counting(side) as c:
-            outs = side.fm.materialize(*lazy_outputs(prog, "mem"),
-                                       mode="whole", backend=backend)
+            outs = side.fm.materialize(*lazy_outputs(prog, mode),
+                                       mode=_EXEC_MODE[mode],
+                                       backend=backend, prefetch=False)
         counters.append(c)
         for o, got, want in zip(prog.outputs, outs, refs, strict=True):
             got = np.asarray(side.fm.as_np(got), np.float64)
@@ -112,12 +172,44 @@ def check_program(prog) -> str | None:
     return None
 
 
-def _run(progs):
+def check_bf16_program(prog, mode: str = "mem") -> str | None:
+    """The program with register 0 cast to bf16 on both sides, the port
+    held to the reference: values normalized by the output's scale within
+    BF16_TOL, counters, kernels and declared dtypes exact."""
+    got = []
+    for side, lazy_outputs, backend in _BF16_SIDES:
+        with counting(side) as c:
+            outs = side.fm.materialize(*lazy_outputs(prog, mode),
+                                       mode=_EXEC_MODE[mode],
+                                       backend=backend, prefetch=False)
+        got.append(([np.asarray(side.fm.as_np(o), np.float64)
+                     for o in outs],
+                    [str(o.dtype).removeprefix("torch.") for o in outs], c))
+    (rv, rdt, rc), (tv, tdt, tc) = got
+    for o, r, t in zip(prog.outputs, rv, tv, strict=True):
+        if t.shape != r.shape:
+            return f"r{o}: shape {t.shape} != {r.shape}"
+        scale = max(1.0, float(np.max(np.abs(r))))
+        err = float(np.max(np.abs(t - r))) / scale
+        if not err <= BF16_TOL:
+            return f"r{o}: normalized max abs err {err:.2e}"
+    if tc != rc:
+        return f"counters: port {tc}, reference {rc}"
+    if tdt != rdt:
+        return f"dtypes: port {tdt}, reference {rdt}"
+    kr, kp = (_kernels(side, lazy, prog) for side, lazy, _ in _BF16_SIDES)
+    if kp != kr:
+        return f"kernels: port {kp}, reference {kr}"
+    return None
+
+
+def _run(progs, modes=("mem",), check=check_program):
     for prog in progs:
-        err = check_program(prog)
-        REF.mz.clear_plan_cache()
-        PORT.mz.clear_plan_cache()
-        assert err is None, f"{err}\nprogram:\n{prog!r}"
+        for mode in modes:
+            err = check(prog, mode)
+            REF.mz.clear_plan_cache()
+            PORT.mz.clear_plan_cache()
+            assert err is None, f"{mode}: {err}\nprogram:\n{prog!r}"
 
 
 @pytest.mark.parametrize("chunk", range(CHUNKS))
@@ -127,26 +219,48 @@ def test_random_dag_parity(chunk):
 
 
 @pytest.mark.parametrize("chunk", range(CHUNKS // 2))
+def test_random_dag_parity_streaming(chunk):
+    """The dense programs' stream and ooc (host RAM) cells."""
+    k = CHUNKS // 2
+    lo = STREAM_EXAMPLES * chunk // k
+    hi = STREAM_EXAMPLES * (chunk + 1) // k
+    _run((ref.generate(BASE_SEED + i) for i in range(lo, hi)),
+         modes=("stream", "ooc"))
+
+
+@pytest.mark.parametrize("chunk", range(CHUNKS // 2))
 def test_random_sparse_dag_parity(chunk):
     """The generator's programs over a sparse (ELL) register 0 whose
-    densified values are the oracle's input."""
+    densified values are the oracle's input, in whole mode and streamed
+    from the device-tier slab."""
     k = CHUNKS // 2
     lo = SPARSE_EXAMPLES * chunk // k
     hi = SPARSE_EXAMPLES * (chunk + 1) // k
-    _run(dataclasses.replace(ref.generate(BASE_SEED + EXAMPLES + i),
-                             sparse=True) for i in range(lo, hi))
+    _run((dataclasses.replace(ref.generate(BASE_SEED + EXAMPLES + i),
+                              sparse=True) for i in range(lo, hi)),
+         modes=("mem", "stream"))
+
+
+@pytest.mark.parametrize("chunk", range(CHUNKS // 2))
+def test_random_dag_parity_bf16(chunk):
+    """The bf16 arm (fault C6's programs among them)."""
+    progs = [p for p in (ref.generate(s) for s in BF16_SEEDS)
+             if p.dtype == "f32"]
+    k = CHUNKS // 2
+    _run(progs[len(progs) * chunk // k:len(progs) * (chunk + 1) // k],
+         check=check_bf16_program)
 
 
 def test_sparse_arm_is_sparse_on_both_sides():
-    """Register 0 of a sparse program is an ELL store in both packages
-    whose densified values are the oracle's input."""
+    """Register 0 of a sparse program is an ELL store on the device tier in
+    both packages whose densified values are the oracle's input."""
     prog = dataclasses.replace(ref.generate(BASE_SEED), sparse=True)
     xn = ref._input(prog)
     assert 0 < np.count_nonzero(xn) < xn.size
-    for side, build in ((REF, ref._sparse_fm), (PORT, _port_sparse_fm)):
+    for side, build in ((REF, _ref_sparse_fm), (PORT, _port_sparse_fm)):
         X = build(xn, disk=False)
         assert type(X.m.store).__name__ == "SparseEllStore"
-        assert X.m.store.sparse
+        assert X.m.store.sparse and not X.m.on_host
         np.testing.assert_array_equal(side.fm.as_np(X), xn)
 
 
@@ -174,4 +288,5 @@ def test_known_program_parity(name):
                  ("sweeprow", 0, 4, "sub"), ("sapply", 2, "abs")],
             outputs=[1, 5, 6]),
     }
-    _run([progs[name]])
+    _run([progs[name]], modes=("mem", "stream") if name == "sparse"
+         else ("mem", "stream", "ooc"))

@@ -3,14 +3,13 @@ hypothesis, on the port and on the JAX package with the same draws.
 
   * fusion never changes results (fused == eager), in both packages, and
     the two packages agree;
+  * execution mode never changes results (whole == stream == ooc);
+  * partition size never changes results (indexed reductions stay
+    absolute);
   * groupby.row(sum) ≡ one-hot matmul;
   * dtype promotion is monotone on the lattice and equal to the
     reference's;
   * I/O partition rows are powers of two and equal to the reference's.
-
-The reference's ``test_mode_invariance`` (whole == stream == ooc) and
-``test_indexed_reduction_partition_invariance`` (which.min over many host
-partitions) need the port's stream mode and host tier (ROADMAP A7).
 """
 import numpy as np
 import pytest
@@ -49,6 +48,48 @@ def test_fused_equals_eager(data, shape):
         np.testing.assert_allclose(fm.as_np(a), fm.as_np(b), rtol=1e-4)
         got.append(fm.as_np(a))
     np.testing.assert_allclose(got[1], got[0], rtol=1e-4)
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.data(), SHAPE)
+def test_mode_invariance(data, shape):
+    """whole == stream == ooc (auto over a host matrix) in each package,
+    and the packages agree."""
+    Xn = arrays(data.draw, shape)
+    got = []
+    for side in (REF, PORT):
+        fm = side.fm
+        ref = None
+        for mode, host in (("whole", False), ("stream", False),
+                           ("auto", True)):
+            X = fm.conv_R2FM(Xn, host=host)
+            (g, w) = fm.materialize(fm.crossprod(X), fm.which_min_row(X),
+                                    mode=mode)
+            if ref is None:
+                ref = (fm.as_np(g), fm.as_np(w))
+            else:
+                np.testing.assert_allclose(fm.as_np(g), ref[0], rtol=1e-3,
+                                           atol=1e-3)
+                np.testing.assert_array_equal(fm.as_np(w), ref[1])
+        got.append(ref)
+    np.testing.assert_allclose(got[1][0], got[0][0], rtol=1e-3, atol=1e-3)
+    np.testing.assert_array_equal(got[1][1], got[0][1])
+
+
+@settings(max_examples=10, deadline=None)
+@given(st.data(), st.sampled_from([None, 2048]))
+def test_indexed_reduction_partition_invariance(data, budget):
+    """which.min over the long dim stays absolute whatever the partition
+    count (offset threading), from host RAM: one partition at the default
+    budget, many at 2 KiB (staged synchronously, in both packages)."""
+    rng = np.random.default_rng(data.draw(st.integers(0, 2 ** 31)))
+    Xn = rng.normal(size=(500, 3)).astype(np.float32)
+    for side in (REF, PORT):
+        fm = side.fm
+        with fm.conf(io_partition_bytes=budget, prefetch=False):
+            X = fm.conv_R2FM(Xn, host=True)
+            (w,) = fm.materialize(fm.agg_col(X, "which.min"))
+        np.testing.assert_array_equal(fm.as_np(w).ravel(), Xn.argmin(0))
 
 
 @settings(max_examples=15, deadline=None)
