@@ -51,12 +51,24 @@ Phases, each printing one JSON line:
                 on ``cuda``, traced and counted (gram, xty, wgram,
                 fused_apply_agg and kmeans_assign must launch); each call
                 prints its wall ms, partition rows, passes, partition
-                steps, bytes read from the host and each pass's ms beside
-                its read floor (its staged bytes over the pageable rate;
-                the pinned one printed too), and must run a pass per
-                materialize, as whole mode, of ⌈n / partition rows⌉ > 1
-                steps; results against path a's (the crossprods against
-                whole mode's);
+                steps, bytes read from the host, each kernel's launches
+                and each pass's ms beside its read floors (its staged
+                bytes over the pageable and the pinned rate), and must run
+                a pass per materialize, as whole mode, of ⌈n / partition
+                rows⌉ > 1 steps; results against path a's (the crossprods
+                against whole mode's); then the four ``ooc`` calls again
+                through the background prefetcher (the default, depth 2),
+                counted on their own: each equal to the synchronous run bit
+                for bit (the fields that differ are printed) with the same
+                launches, passes, steps and bytes read, and each call's
+                line adds a pass's fill of the pinned slots, side-stream
+                copy (device time), wait on the staging queue and steps;
+                then, outside the counted paths, the prefetcher under
+                stress: 2^20 random rows in 512-row partitions, every
+                step delayed on the compute stream, at depth 1 and 8 equal
+                to the synchronous run bit for bit, and an injected
+                staging fault raising ``PrefetchError`` with an empty leak
+                audit;
              c. after the dense data is freed, the sparse path at the scale
                 of the Criteo Display Advertising Challenge train set
                 (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
@@ -70,7 +82,13 @@ Phases, each printing one JSON line:
                 ``glm(max_iter=2)`` in ``stream`` mode over the device slab
                 (counted: every SpMM kernel per partition; the Gram equal
                 to whole mode's bit for bit, the log-likelihoods to a
-                whole-mode fit's within 1e-4)
+                whole-mode fit's within 1e-4); then the slab copied to host
+                RAM as the host-tier store ``fm.one_hot`` builds
+                (``fm.persist(tier="host")``) and the same ``crossprod``
+                and 2^22-row ``glm`` run ``ooc`` through the prefetcher
+                (counted: ``spmm_gram`` once a partition, the Gram equal to
+                whole mode's bit for bit, the log-likelihoods within 1e-4
+                of the device slab's ``stream`` fit)
                 (the ``spmm_gram`` / ``spmm_wgram`` rows also print the
                 kernel's design — threads, tile edge, tiles, splits, body,
                 registers and spills — and ``pair_products``, the in-tile
@@ -104,14 +122,15 @@ Phases, each printing one JSON line:
                 tests/test_archs.py); (c) is (a) in float32, which (a) now
                 is at the full shape; (d) every logit finite.
 
-Then one ``{"kernels": [...]}`` line (launches summed over the five
-paths), the card's name and power limit as ``nvidia-smi`` prints them, and
+Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
+over the counted runs of the five paths), the card's name and power limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
 so every plain version and library call computes in full float32.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import pathlib
@@ -738,11 +757,27 @@ def h2d_rates(torch):
     return rates
 
 
-def run_ooc(torch, calls):
+#: Seconds counters of the staging pipeline, read a call: the host read
+#: (for the prefetcher the fill of its pinned slots), the side stream's
+#: host→device copies (device time; the prefetcher only), the compute
+#: thread's wait on the staging queue, and its steps and combines.
+STAGE_SECONDS = ("stage_read_seconds", "stage_copy_seconds",
+                 "prefetch_wait_seconds", "device_step_seconds",
+                 "combine_seconds")
+
+
+def run_ooc(torch, calls, rates, traced=True):
     """Each ``(name, mode, fn)`` of ``calls`` traced, with its counters:
     wall time (host clock around a call that ends in a synchronize), the
     passes and their partition rows from the ``pass`` spans, partition
-    steps and the bytes read from the host tier."""
+    steps, the bytes read from the host tier, each kernel's launches, and
+    a pass's share of the staging pipeline's seconds (``STAGE_SECONDS``:
+    fill, copy, wait, step) beside its read floors — the bytes it stages
+    over the measured pageable and pinned copy rates (``rates``).  A traced
+    step waits for the compute stream (span fidelity), and so for its own
+    partition's copy; with ``traced=False`` nothing waits, there are no
+    spans, and ``ms_per_pass`` (the call's wall time over its passes) is
+    the pipeline's own pace."""
     from repro_torch.core import fm
     from repro_torch.observability import metrics
     from repro_torch.observability.trace import TRACER
@@ -750,16 +785,20 @@ def run_ooc(torch, calls):
     for name, mode, fn in calls:
         st0 = fm.exec_stats()
         read0 = metrics.root_counter("stage_bytes_read")
+        sec0 = {k: metrics.root_counter(k) for k in STAGE_SECONDS}
         torch.cuda.synchronize()
-        with fm.trace():
+        k0 = read_counts()
+        with fm.trace() if traced else contextlib.nullcontext():
             t0 = time.perf_counter()
             out[name] = fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            passes = [e for e in fm.trace_events() if e["name"] == "pass"]
+            passes = [e for e in fm.trace_events() if e["name"] == "pass"] \
+                if traced else []
         TRACER.reset()  # a span a partition: drop them, keep the passes
+        k1 = read_counts()
         st = fm.exec_stats()
-        info[name] = {
+        d = {
             "mode": mode, "wall_ms": wall * 1e3,
             "materialize_calls": st["materialize_calls"]
             - st0["materialize_calls"],
@@ -767,24 +806,41 @@ def run_ooc(torch, calls):
             "partition_steps": st["partition_steps"] - st0["partition_steps"],
             "stage_bytes_read": int(metrics.root_counter("stage_bytes_read")
                                     - read0),
+            "launches": {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]},
             "partition_rows": sorted({e["args"]["partition_rows"]
                                       for e in passes}),
             "pass_ms": [e["dur"] / 1e3 for e in passes],
             "pass_rows": [e["args"]["partition_rows"] for e in passes]}
+        n_pass = max(1, d["passes"])
+        d["ms_per_pass"] = wall * 1e3 / n_pass
+        pass_bytes = d["stage_bytes_read"] / n_pass
+        d["read_floor_ms"] = pass_bytes / rates["pageable"] * 1e3
+        d["read_floor_pinned_ms"] = pass_bytes / rates["pinned"] * 1e3
+        for k in STAGE_SECONDS:
+            d[k.replace("_seconds", "_ms_per_pass")] = (
+                (metrics.root_counter(k) - sec0[k]) / n_pass * 1e3)
+        fill_s = metrics.root_counter("stage_read_seconds") \
+            - sec0["stage_read_seconds"]
+        d["fill_gb_s"] = d["stage_bytes_read"] / fill_s / 1e9 \
+            if fill_s > 0 else None
+        info[name] = d
     return out, info
 
 
 def ooc_phase(torch, x, y, xk, res_a):
     """Path e: the stream and ooc modes.  X, y and the blobs copied to host
     RAM (``fm.conv_R2FM(host=True)``, 8.4 GB each of X and the blobs) and
-    streamed out of core, a partition at a time staged synchronously
-    (``prefetch=False``), by summary, correlation, glm and kmeans; then
+    streamed out of core by summary, correlation, glm and kmeans: first
+    with the partitions staged synchronously (``prefetch=False``), then
     crossprod (with XᵀY) and summary in ``stream`` mode over the
-    device-resident X.  Counted; results against path a's (and for the
-    crossprods the same call in whole mode); each call's passes as in
-    whole mode, ⌈n / partition rows⌉ steps a pass, and each pass's time
-    against its read floor, the bytes it stages over the measured
-    pageable copy rate."""
+    device-resident X — one counted run — then the four ooc calls again
+    under the default ``prefetch`` (the background prefetcher, depth 2), a
+    second counted run.  Results against path a's (and for the crossprods
+    the same call in whole mode); each call's passes as in whole mode,
+    ⌈n / partition rows⌉ steps a pass, and each pass's time against its
+    read floors.  The prefetched calls equal the synchronous ones bit for
+    bit, with the same launches, passes, steps and bytes read.  Returns the
+    two runs' launches."""
     import numpy as np
     from repro_torch.algorithms import correlation, glm, kmeans, summary
     from repro_torch.core import fm
@@ -802,11 +858,12 @@ def ooc_phase(torch, x, y, xk, res_a):
           (XH.m.nbytes() + YH.m.nbytes() + XKH.m.nbytes()) / 2**30,
           "seconds": time.perf_counter() - t0})
     X, Y = fm.conv_R2FM(x), fm.conv_R2FM(y)
-    calls = (
+    ooc_calls = (
         ("summary", "ooc", lambda: summary(XH)),
         ("correlation", "ooc", lambda: correlation(XH)),
         ("glm", "ooc", lambda: glm(XH, YH, family="logistic", max_iter=8)),
-        ("kmeans", "ooc", lambda: kmeans(XKH, k=K_CLUSTERS, max_iter=5)),
+        ("kmeans", "ooc", lambda: kmeans(XKH, k=K_CLUSTERS, max_iter=5)))
+    calls = ooc_calls + (
         ("crossprod", "stream", lambda: fm.materialize(
             fm.crossprod(X), fm.crossprod(X, Y), mode="stream")),
         ("summary_stream", "stream", lambda: summary(X, mode="stream")))
@@ -815,15 +872,11 @@ def ooc_phase(torch, x, y, xk, res_a):
         (res, info), launches = counted(
             torch, "stream/ooc", ("gram", "xty", "wgram", "fused_apply_agg",
                                   "kmeans_assign"),
-            lambda: run_ooc(torch, calls))
+            lambda: run_ooc(torch, calls, rates))
         whole = fm.materialize(fm.crossprod(X), fm.crossprod(X, Y))
     for name, d in info.items():
-        d["read_floor_ms"] = (d["stage_bytes_read"] / max(1, d["passes"])
-                              / rates["pageable"] * 1e3)
-        d["read_floor_pinned_ms"] = (d["stage_bytes_read"]
-                                     / max(1, d["passes"])
-                                     / rates["pinned"] * 1e3)
-        emit({"phase": "main", "path": "ooc", "call": name, **d})
+        emit({"phase": "main", "path": "ooc", "staging": "synchronous",
+              "call": name, **d})
         # one pass per materialize, as in whole mode; ⌈n / rows⌉ steps each
         check(d["passes"] == d["materialize_calls"] and d["passes"] > 0,
               f"{name}: passes {d['passes']} != materialize calls "
@@ -861,8 +914,143 @@ def ooc_phase(torch, x, y, xk, res_a):
     emit({"phase": "compare", "path": "ooc", "ok": True,
           "launches": launches, "glm_loglik": [g.loglik, gr.loglik],
           "glm_iters": [g.iters, gr.iters], "kmeans_wss": [km.wss, kr.wss]})
-    del XH, YH, XKH
-    return launches
+
+    # The same four calls through the background prefetcher (the default).
+    with fm.conf(backend="cuda"):
+        check(fm.set_conf()["prefetch"] is True, "prefetch is not the "
+              "default")
+        fm.reset_exec_stats()
+        (pres, pinfo), plaunches = counted(
+            torch, "ooc prefetched", ("gram", "wgram", "fused_apply_agg",
+                                      "kmeans_assign"),
+            lambda: run_ooc(torch, ooc_calls, rates))
+    for name, d in pinfo.items():
+        emit({"phase": "main", "path": "ooc", "staging": "prefetched",
+              "call": name, **d})
+    for name, d in pinfo.items():
+        sync = info[name]
+        for k in ("passes", "partition_steps", "stage_bytes_read",
+                  "launches", "pass_rows"):
+            check(d[k] == sync[k], f"prefetched {name}: {k} {d[k]} against "
+                  f"the synchronous run's {sync[k]}")
+        check(d["stage_copy_ms_per_pass"] > 0, f"prefetched {name}: no copy "
+              "ran on the side stream")
+    diffs = same_results(res, pres, [n for n, _, _ in ooc_calls])
+    emit({"phase": "compare", "path": "ooc prefetched",
+          "bit_for_bit": not diffs, "differs": diffs,
+          "launches": plaunches})
+    check(not diffs, f"prefetched results differ from the synchronous "
+          f"run's: {diffs}")
+    # Untraced, outside the counted runs: the pipeline's own pace, with no
+    # step waiting for the compute stream, synchronous then prefetched.
+    for prefetch in (False, True):
+        with fm.conf(backend="cuda", prefetch=prefetch):
+            _, uinfo = run_ooc(torch, ooc_calls, rates, traced=False)
+        for name, d in uinfo.items():
+            emit({"phase": "main", "path": "ooc", "traced": False,
+                  "staging": "prefetched" if prefetch else "synchronous",
+                  "call": name, **{k: v for k, v in d.items()
+                                   if k not in ("pass_ms", "pass_rows",
+                                                "partition_rows")}})
+    del XH, YH, XKH, pres
+    return [launches, plaunches]
+
+
+def same_results(a, b, names):
+    """The fields (numpy arrays, floats, fm matrices) of each named result
+    in ``b`` that are not equal bit for bit to ``a``'s."""
+    import numpy as np
+    from repro_torch.core import fm
+    diffs = []
+
+    def value(v):
+        if isinstance(v, (fm.FM, fm.FMMatrix)):
+            return fm.as_np(v)
+        return np.asarray(v)
+
+    for name in names:
+        ra, rb = a[name], b[name]
+        fields = (vars(ra) if hasattr(ra, "__dict__")
+                  else {f: getattr(ra, f) for f in getattr(
+                      ra, "__dataclass_fields__", ())} or {"value": ra})
+        for f, va in fields.items():
+            vb = getattr(rb, f) if f != "value" else rb
+            if va is None and vb is None:
+                continue
+            if not np.array_equal(value(va), value(vb)):
+                diffs.append(f"{name}.{f}")
+    return diffs
+
+
+def stress_phase(torch):
+    """The prefetcher under stress, outside the counted paths: a host
+    matrix of random data in 512-row partitions (a 256 KiB budget over the
+    plan's live values), crossprod and
+    colSums with every step delayed by a sleep on the compute stream, at
+    depth 1 and 8 — equal to the synchronous run bit for bit; then a
+    staging fault mid-stream raises PrefetchError naming the rows and the
+    source, and leaves no live prefetcher or staged partition."""
+    import numpy as np
+    from repro_torch import storage
+    from repro_torch.core import fm, materialize
+    from repro_torch.core.matrix import DenseStore, FMMatrix
+    a = np.random.default_rng(SEED + 7).normal(
+        size=(1 << 20, N_COLS)).astype(np.float32)
+    step = materialize._member_step
+
+    def slowed(*args, **kw):
+        torch.cuda._sleep(200_000)                # ~0.1 ms on the stream
+        return step(*args, **kw)
+
+    out = {}
+    with fm.conf(backend="cuda", io_partition_bytes=1 << 18):
+        X = fm.conv_R2FM(a, host=True)
+        materialize._member_step = slowed
+        try:
+            for depth in (None, 1, 8):
+                with fm.conf(prefetch=depth is not None,
+                             prefetch_depth=depth):
+                    fm.reset_exec_stats()
+                    t0 = time.perf_counter()
+                    res = fm.materialize(fm.crossprod(X), fm.colSums(X))
+                    out[depth] = ([fm.as_np(r) for r in res],
+                                  fm.exec_stats()["partition_steps"],
+                                  time.perf_counter() - t0)
+        finally:
+            materialize._member_step = step
+
+        class Flaky(DenseStore):
+            reads = 0
+
+            def block(self, start, stop):
+                Flaky.reads += 1
+                if Flaky.reads > 100:
+                    raise OSError("injected staging fault")
+                return super().block(start, stop)
+
+        F = fm.FM(FMMatrix(a.shape, a.dtype, store=Flaky(a), name="flaky"))
+        raised = None
+        try:
+            fm.materialize(fm.crossprod(F))
+        except storage.PrefetchError as exc:
+            raised = str(exc)
+    deadline = time.time() + 10
+    while time.time() < deadline and storage.live_prefetchers():
+        time.sleep(0.02)
+    audit = {"live_prefetchers": len(storage.live_prefetchers()),
+             "staged_leaks": len(storage.staged_leaks())}
+    equal = {d: all(np.array_equal(u, v) for u, v in zip(out[d][0],
+                                                         out[None][0]))
+             for d in (1, 8)}
+    emit({"phase": "stress", "rows": a.shape[0], "partition_steps":
+          out[None][1], "seconds": {str(d): out[d][2] for d in out},
+          "bit_for_bit": equal, "fault": raised, **audit})
+    check(out[None][1] > 100, f"stress: {out[None][1]} partition steps")
+    check(all(equal.values()), f"stress: prefetched runs differ {equal}")
+    check(raised is not None and "of source 'flaky'" in raised,
+          f"stress: the injected fault raised {raised!r}")
+    check(audit == {"live_prefetchers": 0, "staged_leaks": 0},
+          f"stress: leak audit {audit}")
 
 
 def run_a8(torch, x, xk, lab):
@@ -1263,7 +1451,9 @@ def sparse_phase(torch, cols, vals, y):
     check(torch.equal(fm._fm(Gs).logical_data(), gd),
           "the streamed crossprod differs from whole mode's")
     np.testing.assert_allclose(gs.loglik_trace, gw.loglik_trace, rtol=1e-4)
-    launches = {k: launches[k] + slaunches[k] for k in launches}
+    hlaunches = host_slab_phase(torch, Xs, Xm, Ym, gd, gs)
+    launches = {k: launches[k] + slaunches[k] + hlaunches[k]
+                for k in launches}
     del G, Gs, gd, block, Xm, Ym
 
     m = SPARSE_CMP_ROWS
@@ -1293,6 +1483,57 @@ def sparse_phase(torch, cols, vals, y):
     check(eta_diff < 1e-2, f"sparse glm linear predictor differs by "
           f"{eta_diff}")
     check(ll_rel < 1e-5, f"sparse glm log-likelihood differs by {ll_rel}")
+    return launches
+
+
+def host_slab_phase(torch, Xs, Xm, Ym, gd, gs):
+    """Path c from host RAM: the slab copied to the host tier as the
+    ``SparseEllStore`` that ``fm.one_hot(host=True)`` builds
+    (``fm.persist(tier="host")``: cols / vals as numpy), then streamed
+    ``ooc`` through the prefetcher — ``crossprod`` over all of it, equal to
+    whole mode's Gram ``gd`` bit for bit with ``spmm_gram`` once a
+    partition, and ``glm(max_iter=2)`` over the first SPARSE_STREAM_ROWS
+    rows, its log-likelihoods within 1e-4 of the device slab's ``stream``
+    fit ``gs``.  Counted; each pass against its read floors."""
+    import numpy as np
+    from repro_torch.algorithms import glm
+    from repro_torch.core import fm
+    rates = h2d_rates(torch)
+    t0 = time.perf_counter()
+    XH, XmH = fm.persist(Xs, tier="host"), fm.persist(Xm, tier="host")
+    check(XH.m.is_sparse and XH.m.on_host and XmH.m.on_host
+          and isinstance(XH.m.store.vals, np.ndarray)
+          and XH.m.nbytes() == Xs.m.nbytes(), "the host slab")
+    emit({"phase": "data", "path": "sparse host", "host_gib":
+          (XH.m.nbytes() + XmH.m.nbytes()) / 2**30, "pageable_gb_s":
+          rates["pageable"] / 1e9, "pinned_gb_s": rates["pinned"] / 1e9,
+          "seconds": time.perf_counter() - t0})
+    calls = (
+        ("crossprod", "ooc", lambda: fm.materialize(fm.crossprod(XH),
+                                                    mode="ooc")),
+        ("glm", "ooc", lambda: glm(XmH, Ym, "logistic", ridge=1e-3,
+                                   max_iter=2, mode="ooc")))
+    with fm.conf(backend="cuda"):
+        fm.reset_exec_stats()
+        (res, info), launches = counted(
+            torch, "sparse host", ("spmm_gram", "spmm_xty", "spmm_wgram"),
+            lambda: run_ooc(torch, calls, rates))
+    for name, d in info.items():
+        emit({"phase": "main", "path": "sparse", "mode": "ooc",
+              "staging": "prefetched", "call": name, **d})
+    d = info["crossprod"]
+    check(d["launches"].get("spmm_gram") == d["partition_steps"] > 1,
+          f"host-slab crossprod: spmm_gram {d['launches']} for "
+          f"{d['partition_steps']} partitions")
+    check(d["stage_bytes_read"] == XH.m.nbytes(), f"host-slab crossprod "
+          f"read {d['stage_bytes_read']} bytes of {XH.m.nbytes()}")
+    same = bool(torch.equal(fm._fm(res["crossprod"][0]).logical_data(), gd))
+    gh = res["glm"]
+    emit({"phase": "compare", "path": "sparse host", "crossprod_bit_for_bit":
+          same, "glm_loglik_trace": [gh.loglik_trace, gs.loglik_trace]})
+    check(same, "the host slab's crossprod differs from whole mode's")
+    np.testing.assert_allclose(gh.loglik_trace, gs.loglik_trace, rtol=1e-4)
+    del XH, XmH, res
     return launches
 
 
@@ -1531,7 +1772,7 @@ def main() -> int:
     from repro_torch.core import fm
     from repro_torch.kernels import build
     fm.set_conf(device="cuda")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": list(build.SOURCES), "tf32": False})
@@ -1544,8 +1785,9 @@ def main() -> int:
     launches_a, res_a = main_phase(torch, x, y, xk)
     res_a["kmeans"].labels = None    # path e compares centers and wss
     paths = [launches_a, algorithms_phase(torch, x, xk, lab)]
-    paths.append(ooc_phase(torch, x, y, xk, res_a))
+    paths += ooc_phase(torch, x, y, xk, res_a)
     del res_a
+    stress_phase(torch)
     from repro_torch.core import materialize
     materialize.clear_plan_cache()   # cached plans hold their sources
     del x, y, xk, lab
@@ -1571,6 +1813,7 @@ def main() -> int:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [{k: r[k] for k in keys} for r in rows]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

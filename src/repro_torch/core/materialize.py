@@ -16,15 +16,17 @@ Executes a fused `fusion.Plan` in one of three modes:
   written to preallocated host buffers.  ``mode="auto"`` resolves to it
   when any source is on the host.
 
-Partitions are staged synchronously (``_inline_partitions``, the
-reference's prefetch-off path); the background prefetcher comes with
-ROADMAP A7a-ii, and where ``prefetch`` resolves True the executor raises
-rather than run this path in its place.  Each pass runs its epilogue once
-after the merge, and results register only after every pass has run.  The
-final staged partition of a streaming pass stays resident for the next
-pass with the same partition schedule (``prefetch_reuse_hits``), across
-materializes inside an ``iteration_scope``.  The plan cache (LRU, under
-locks) and the execution counters are the reference's.
+Where ``prefetch`` resolves True (the conf default for a host source of
+more than one partition) the partitions are staged by the background
+``storage.PartitionPrefetcher`` — pinned host slots and a side CUDA stream
+on a card — while the compute thread runs the previous partition's step;
+otherwise synchronously on the compute thread (``_inline_partitions``, the
+prefetch-off ablation).  Each pass runs its epilogue once after the merge,
+and results register only after every pass has run.  The final staged
+partition of a streaming pass stays resident for the next pass with the
+same partition schedule (``prefetch_reuse_hits``), across materializes
+inside an ``iteration_scope``.  The plan cache (LRU, under locks) and the
+execution counters are the reference's.
 
 Not in this slice: the disk tier (ROADMAP A7b), co-scheduled groups
 (``fm.batch``, A11), mid-stream admission (A12) and shards (A13).  The
@@ -48,11 +50,6 @@ from .fusion import Plan
 from .matrix import DenseStore, FMMatrix
 from ..observability import metrics
 from ..observability.trace import TRACER
-
-_PREFETCHER = ("prefetch=True: the background partition prefetcher (pinned "
-               "staging on a side CUDA stream) comes with ROADMAP A7a-ii; "
-               "pass prefetch=False or set fm.set_conf(prefetch=False) for "
-               "synchronous staging")
 
 # Plan cache: structurally identical DAG cuts (k-means iteration N+1, IRLS
 # steps) reuse one lowered program.  Keyed by signature + partition
@@ -106,10 +103,13 @@ def clear_plan_cache():
 
 
 def _sync():
-    """Wait for the card: only while tracing, for span timing fidelity."""
+    """Wait for the compute stream: only while tracing, for span timing
+    fidelity.  The current stream, not the whole card: a device-wide wait
+    would also wait for the prefetcher's side-stream copies of the next
+    partitions and so serialize what the trace is there to show."""
     if TRACER.enabled and torch.cuda.is_available() \
             and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+        torch.cuda.current_stream().synchronize()
 
 
 def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
@@ -123,8 +123,8 @@ def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
     ``mode`` is 'auto' | 'whole' | 'stream' | 'ooc'.  ``prefetch`` picks
     the partition staging of the streaming modes: None = the conf default
     (``fm.set_conf(prefetch=...)``, on for a host source of more than one
-    partition), False = synchronous staging; a prefetch that resolves True
-    raises until ROADMAP A7a-ii.  ``donate`` is the reference's knob:
+    partition), True = the background prefetcher, False = synchronous
+    staging.  ``donate`` is the reference's knob:
     PyTorch has no buffer donation, and a staged partition is dropped as
     soon as every step has consumed it, with either value.  ``backend`` is
     'torch' | 'cuda' | 'auto' (None = ``fm.set_conf(backend=...)``)."""
@@ -401,13 +401,15 @@ def _finish_members(members, stacks):
 
 def _run_whole_group(members):
     """Whole-mode sweep of a group: the union of the members' sources is
-    staged once — a device source is its own tensor (a sparse one its ELL
-    slab as one ``SparseBlock``, never densified), a host source is copied
-    whole to the device — then every member's step consumes it as one
-    partition (offset 0)."""
+    staged once — a device source is its own tensor, a host source is
+    copied whole to the device, and a sparse one is its ELL slab as one
+    ``SparseBlock`` (``stage_block``: a host slab's leaves copied, and
+    counted as its read; never densified) — then every member's step
+    consumes it as one partition (offset 0)."""
+    from ..storage.prefetch import stage_block
     group_pairs, maps = _group_staging(members)
     long_dim = members[0].ps.long_dim
-    blocks = {key: (mat.block(0, mat.nrow) if mat.is_sparse
+    blocks = {key: (stage_block(mat, 0, mat.nrow) if mat.is_sparse
                     else _stage_whole(mat))
               for key, mat in group_pairs}
     _count_stream(members, sum(mat.nbytes() for _, mat in group_pairs))
@@ -472,15 +474,16 @@ def _run_stream_group(members, *, to_host: bool,
 
     ``residents`` holds the previous pass's resident final partition(s):
     matching blocks are served instead of re-staged.  With ``capture`` the
-    sweep's own final partition is returned as a `_Resident`.  A staging or
-    step error propagates unchanged; nothing is registered."""
+    sweep's own final partition is returned as a `_Resident`.  A staging
+    error propagates — unchanged from the synchronous path, as a
+    ``PrefetchError`` naming the rows and the source from the prefetcher —
+    and so does a step error; nothing is registered."""
+    from .. import storage  # deferred: storage imports core
     n = members[0].ps.long_dim
     # Partition schedules in one group are power-of-two row counts over the
     # same long dimension: the min is a common partitioning for all members.
     rows = min(m.ps.partition_rows for m in members)
     group_pairs, maps = _group_staging(members)
-    if _resolve_prefetch(prefetch, group_pairs, rows, n):
-        raise NotImplementedError(_PREFETCHER)
     _count_stream(members, sum(mat.nbytes() for _, mat in group_pairs))
     for m in members:
         _alloc_out_targets(m, to_host)
@@ -488,21 +491,40 @@ def _run_stream_group(members, *, to_host: bool,
     reuse_map = _reuse_from(residents, group_pairs, rows, n)
     stacks = [_member_stack(m) for m in members]
     captured = None
-    parts = _inline_partitions(group_pairs, rows, n, reuse=reuse_map)
-    with TRACER.span("stream", members=len(members), rows=rows,
-                     reused=len(reuse_map or ())):
-        for start, stop, blocks in parts:
-            with TRACER.span("partition", start=start, stop=stop):
-                for i, (m, mp, stack) in enumerate(zip(members, maps,
-                                                       stacks)):
-                    with _in_stack(stack):
-                        outputs = _member_step(m, blocks, mp, start, stop,
-                                               idx=i)
-                    m.route_outputs(start, stop, outputs)
-                if capture and stop >= n:
-                    captured = _Resident(
-                        rows, n, {key: blocks[key] for key, _ in group_pairs},
-                        [mat for _, mat in group_pairs])
+    if _resolve_prefetch(prefetch, group_pairs, rows, n):
+        # Group-aware depth: k members consume each staged partition, so
+        # the stager can usefully run further ahead.
+        part_nbytes = rows * sum(mat.nbytes() // max(1, mat.shape[0])
+                                 for _, mat in group_pairs)
+        depth = storage.negotiate_depth(len(members), part_nbytes)
+        # Nothing may come between the pipeline's construction and the try
+        # below: the finally's close() is what guarantees an interrupted
+        # stream never leaves the worker thread alive or partitions queued.
+        parts = storage.PartitionPrefetcher(group_pairs, rows, n,
+                                            depth=depth, reuse=reuse_map)
+    else:
+        parts = _inline_partitions(group_pairs, rows, n, reuse=reuse_map)
+    try:
+        with TRACER.span("stream", members=len(members), rows=rows,
+                         reused=len(reuse_map or ())):
+            for start, stop, blocks in parts:
+                with TRACER.span("partition", start=start, stop=stop):
+                    for i, (m, mp, stack) in enumerate(zip(members, maps,
+                                                           stacks)):
+                        with _in_stack(stack):
+                            outputs = _member_step(m, blocks, mp, start,
+                                                   stop, idx=i)
+                        m.route_outputs(start, stop, outputs)
+                    if capture and stop >= n:
+                        captured = _Resident(
+                            rows, n,
+                            {key: blocks[key] for key, _ in group_pairs},
+                            [mat for _, mat in group_pairs])
+                # drop the partition before asking for the next: the
+                # prefetcher's staged memory bound counts on it
+                del blocks
+    finally:
+        parts.close()
     _finish_members(members, stacks)
     return captured
 

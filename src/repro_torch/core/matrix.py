@@ -3,10 +3,11 @@ repro.core.matrix).
 
 ``FMMatrix`` is an immutable handle; physical storage lives behind the
 ``MatrixStore`` protocol.  The port has the device tier (a ``DenseStore``
-over a tensor on the engine's device, and the sparse
-``storage.sparse.SparseEllStore`` over an ELL slab) and the host-RAM tier:
-a ``DenseStore`` over a numpy array, staged onto the device a partition at
-a time by the streaming executor.  The disk tier comes with ROADMAP A7b.
+over a tensor on the engine's device) and the host-RAM tier (a
+``DenseStore`` over a numpy array, staged onto the device a partition at
+a time by the streaming executor); the sparse
+``storage.sparse.SparseEllStore`` holds an ELL slab on either.  The disk
+tier comes with ROADMAP A7b.
 The partition-size rules are the reference's, bit for bit, so plans,
 signatures and counters match.
 """
@@ -239,6 +240,7 @@ class FMMatrix:
 
     def __repr__(self):
         kind = ("virtual" if self.is_virtual
+                else "sparse host" if self.is_sparse and self.on_host
                 else "sparse device" if self.is_sparse
                 else "host" if self.on_host else "device")
         return (f"FMMatrix({self.nrow}x{self.ncol}, "
@@ -369,20 +371,17 @@ def conv_layout(mat: FMMatrix, layout: str) -> FMMatrix:
 def conv_store(mat: FMMatrix, where: str, *, name: str = "") -> FMMatrix:
     """fm.conv.store: move a physical matrix between the device tier and
     the host-RAM tier ('device' | 'host'; ``fm.persist`` refuses 'disk',
-    which comes with ROADMAP A7b).  A sparse matrix moves to the device in
-    its sparse form (only its cols/vals migrate); a host ELL slab comes
-    with ROADMAP A7a-ii."""
+    which comes with ROADMAP A7b).  A sparse matrix moves in its sparse
+    form: only its cols/vals migrate, to a host ELL slab or a device one."""
     if where not in ("host", "device"):
         raise ValueError(f"unknown store {where!r}")
     if mat.is_sparse:
-        if where == "host":
-            raise NotImplementedError(
-                "the host-RAM ELL slab comes with ROADMAP A7a-ii")
         from ..storage.sparse import SparseEllStore  # deferred: storage imports core
         blk = mat.store.block(0, mat.nrow)
-        store = SparseEllStore(to_device(blk.cols), to_device(blk.vals),
-                               mat.ncol, nnz=getattr(mat.store, "nnz", None))
-        return FMMatrix(mat.shape, mat.dtype, store=store,
+        move = to_host if where == "host" else to_device
+        store = SparseEllStore(move(blk.cols), move(blk.vals), mat.ncol,
+                               nnz=getattr(mat.store, "nnz", None))
+        return FMMatrix(mat.shape, store.dtype, store=store,
                         name=name or mat.name)
     # As in the reference, a move takes the dtype of the buffer it moves:
     # a host bf16 matrix (a float32 buffer) reaches the device as float32.

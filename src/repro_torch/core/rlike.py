@@ -10,9 +10,9 @@ lowers to a GenOp, so a chain of calls builds one lazy DAG that
     >>> (G,) = fm.materialize(fm.crossprod(Z))
 
 Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them: the host-RAM ELL slab (A7a-ii), the disk tier, the
-named-matrix registry and factor ingest from files (A7b), ``explain``
-(A10), ``batch`` (A11), ``serve`` (A12).
+that brings them: the disk tier, the named-matrix registry and factor
+ingest from files (A7b), ``explain`` (A10), ``batch`` (A11), ``serve``
+(A12).
 """
 from __future__ import annotations
 
@@ -528,12 +528,13 @@ def as_factor(x, num_levels: Optional[int] = None) -> Factor:
 def one_hot(*factors, dtype=np.float32, host: bool = True) -> FM:
     """One-hot encode factor(s) into ONE sparse matrix (the ELL tier): k
     factors cbind with running column offsets, so every row has exactly k
-    ones.  ``host=False`` builds the slab on the engine's device;
-    ``host=True``, the reference's default, places it in host RAM, which
-    comes with ROADMAP A7a-ii (staging a host ELL slab)."""
-    if host:
-        _later("the host-RAM ELL slab (fm.one_hot(host=True); pass "
-               "host=False for the device tier)", "A7a-ii")
+    ones.  ``host=True``, the default, places the slab in host RAM (numpy
+    ``cols`` / ``vals``, streamed out of core a partition at a time);
+    ``host=False`` builds it on the engine's device.  Like ``conv_R2FM``,
+    it raises when the engine's device is a CUDA device and no card is
+    present, whichever tier is asked for."""
+    from ..storage import registry  # deferred: storage imports core
+    registry.device()
     if not factors:
         raise ValueError("one_hot needs at least one factor")
     fs = [as_factor(f) for f in factors]
@@ -547,12 +548,16 @@ def one_hot(*factors, dtype=np.float32, host: bool = True) -> FM:
         ncol += f.num_levels
     cols = np.stack([f.codes + off for f, off in zip(fs, offset)],
                     axis=1).astype(np.int32)
+    if host:
+        # host staging type of the dtype (bf16 as float32, as in conv_R2FM)
+        vals = np.ones(cols.shape, dtypes.np_equiv(dtypes.canon(dtype)))
+    else:
+        cols = matrix_mod.to_device(cols)
+        vals = torch.ones(cols.shape, dtype=dtypes.canon(dtype),
+                          device=cols.device)
     from ..storage.sparse import SparseEllStore  # deferred: storage imports core
-    cols_t = matrix_mod.to_device(cols)
-    vals_t = torch.ones(cols.shape, dtype=dtypes.canon(dtype),
-                        device=cols_t.device)
-    store = SparseEllStore(cols_t, vals_t, ncol, nnz=n * len(fs))
-    return FM(FMMatrix((n, ncol), vals_t.dtype, store=store))
+    store = SparseEllStore(cols, vals, ncol, nnz=n * len(fs))
+    return FM(FMMatrix((n, ncol), dtypes.canon(dtype), store=store))
 
 
 def materialize(*xs, **kw) -> list[FM]:

@@ -24,8 +24,8 @@ from ..core import matrix as matrix_mod
 
 _CONF = {
     "data_dir": None,       # recorded; the disk tier is ROADMAP A7b
-    "prefetch": True,       # default for ooc execution (ROADMAP A7a-ii)
-    "prefetch_depth": 2,    # bounded-queue depth (ROADMAP A7a-ii)
+    "prefetch": True,       # default for ooc execution
+    "prefetch_depth": 2,    # bounded-queue depth
     "direct_io": False,     # page-cache bypass on partition reads (A7b)
     "mesh": None,           # sharded execution (ROADMAP A13)
     "device": "cuda",       # where matrices, partials and results live

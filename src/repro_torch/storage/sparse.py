@@ -1,29 +1,34 @@
-"""The sparse store of the device tier (PyTorch port of the in-memory half
-of repro.storage.sparse).
+"""The in-memory sparse store (PyTorch port of the in-memory half of
+repro.storage.sparse).
 
 ``SparseEllStore`` holds one ELL slab — ``cols`` int32 and ``vals``, both
-(nrow, kmax) tensors on the engine's device — and is what
-``fm.one_hot(..., host=False)`` builds.  ``whole`` mode stages it as a
-single ``SparseBlock`` and ``stream`` mode a row range a partition; it is
-never densified on the way.  A host-RAM slab comes with ROADMAP A7a-ii; the
-CSR ``.fmat`` file and its memory-mapped store (``CsrMmapStore``) with the
-disk tier (A7b).
+(nrow, kmax) — either as numpy arrays in host RAM (the host tier, what
+``fm.one_hot(...)`` builds by default) or as tensors on the engine's device
+(``fm.one_hot(..., host=False)``).  ``whole`` mode stages it as a single
+``SparseBlock`` and the streaming modes a row range a partition
+(``storage.prefetch.stage_block``: a host slab's rows are copied to the
+device leaf by leaf); it is never densified on the way.  The CSR ``.fmat``
+file and its memory-mapped store (``CsrMmapStore``) come with the disk tier
+(ROADMAP A7b).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..core import dtypes
 from ..core.matrix import MatrixStore
 from ..core.sparse import SparseBlock
 
 
 class SparseEllStore(MatrixStore):
-    """Device-tier sparse store over an ELL slab."""
+    """Sparse store over an ELL slab in host RAM (numpy) or on the device
+    (tensors)."""
 
     layout = "row"
     sparse = True
 
-    def __init__(self, cols: torch.Tensor, vals: torch.Tensor, ncol: int, *,
+    def __init__(self, cols, vals, ncol: int, *,
                  nnz: int | None = None):
         if cols.shape != vals.shape or cols.ndim != 2:
             raise ValueError(f"ELL cols {tuple(cols.shape)} and vals "
@@ -31,15 +36,16 @@ class SparseEllStore(MatrixStore):
         self.cols = cols
         self.vals = vals
         self.shape = (int(cols.shape[0]), int(ncol))
-        self.dtype = vals.dtype
+        self.dtype = dtypes.canon(vals.dtype)
         self.max_row_nnz = max(1, int(cols.shape[1]))
         if nnz is None:
-            nnz = int(torch.count_nonzero(vals))
+            nnz = int(np.count_nonzero(vals) if self.on_host
+                      else torch.count_nonzero(vals))
         self.nnz = int(nnz)
 
     @property
     def on_host(self) -> bool:
-        return False
+        return isinstance(self.vals, np.ndarray)
 
     def block(self, start: int, stop: int) -> SparseBlock:
         return SparseBlock(self.cols[start:stop], self.vals[start:stop],
@@ -57,8 +63,9 @@ class SparseEllStore(MatrixStore):
         return _SparseTransposed(self)
 
     def __repr__(self):
+        tier = "host" if self.on_host else self.cols.device
         return (f"SparseEllStore({self.shape[0]}x{self.shape[1]}, "
-                f"kmax={self.max_row_nnz}, {self.cols.device})")
+                f"kmax={self.max_row_nnz}, {tier})")
 
 
 class _SparseTransposed(MatrixStore):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import signal
 
 import numpy as np
 import pytest
@@ -75,6 +76,29 @@ def _port_on_cpu():
         yield
     jmz.clear_plan_cache()
     tmz.clear_plan_cache()
+
+
+#: Seconds a test that waits on a prefetcher thread may take (``time_limit``).
+TIME_LIMIT_S = 120
+
+
+@pytest.fixture()
+def time_limit():
+    """Fail the test with ``TimeoutError`` after ``TIME_LIMIT_S`` seconds:
+    a consumer blocked on a staging queue that nothing will fill raises
+    instead of hanging its worker process.  SIGALRM interrupts the main
+    thread's blocking waits; pytest runs each test on its process's main
+    thread."""
+    def expire(signum, frame):
+        raise TimeoutError(f"the test exceeded its {TIME_LIMIT_S} s limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(TIME_LIMIT_S)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
 
 
 @contextlib.contextmanager

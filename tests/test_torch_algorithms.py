@@ -6,10 +6,11 @@ results on the same numpy inputs.
 
 The reference's ``host=True`` cells (its inputs in host RAM, streamed out
 of core) are ``test_host_tier_cells``: the same test bodies with the
-inputs on the host tier in both packages, staged synchronously
-(``fm.conf(prefetch=False)`` on both sides; the reference's results do not
-depend on it).  ``test_host_tier_counters_equal_the_reference`` holds the
-plan counters of each algorithm's run from host RAM to the reference's."""
+inputs on the host tier in both packages, staged by the background
+prefetcher where the conf default turns it on, as in the reference.
+``test_host_tier_counters_equal_the_reference`` holds the plan counters of
+each algorithm's run from host RAM, prefetched in both packages, to the
+reference's."""
 import inspect
 
 import numpy as np
@@ -28,6 +29,9 @@ from repro_torch.kernels import kmeans_assign as ka
 from repro_torch.observability import metrics
 
 from helpers_twin import PORT, REF, both_conf, counting
+from helpers_twin import time_limit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 RNG = np.random.default_rng(11)
 BACKENDS = ["torch", "cuda"]
@@ -352,12 +356,11 @@ _HOST_CELLS = [
          for t, kw in _HOST_CELLS])
 def test_host_tier_cells(test, kw, backend, request):
     """The reference's ``host=True`` cells: the test's inputs in host RAM
-    in both packages, the partitions staged synchronously."""
+    in both packages, run as the reference runs them."""
     args = {name: request.getfixturevalue(name)
             for name in inspect.signature(test).parameters
             if name not in ("backend", "host", *kw)}
-    with both_conf(prefetch=False):
-        test(backend=backend, host=True, **args, **kw)
+    test(backend=backend, host=True, **args, **kw)
 
 
 _COUNTERS = ("materialize_calls", "passes", "partition_steps", "streams",
@@ -392,7 +395,7 @@ def test_host_tier_counters_equal_the_reference(name, run):
     Xn = (rng.normal(size=(1200, 5)) + 1).astype(np.float32)
     yn = (rng.uniform(size=1200) < 0.5).astype(np.float32)
     got = []
-    with both_conf(prefetch=False, io_partition_bytes=4096):
+    with both_conf(io_partition_bytes=4096):
         for side, alg in ((REF, jalg), (PORT, talg)):
             X = side.fm.conv_R2FM(Xn, host=True)
             y = side.fm.conv_R2FM(yn, host=True)

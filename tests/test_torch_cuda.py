@@ -28,7 +28,20 @@ scales, unaligned bases (copied, then equal to the aligned result),
 one case whose element offsets pass 2³¹, and a reduced LM prefill and
 decode on the card against the same on the CPU; xty's 16-byte loads over
 a ragged last column tile at the end of whole allocator segments.
+
+The partition prefetcher on the card, one test an invariant: a consumer
+slowed on the compute stream at depth 1 and 8 against the synchronous
+staging bit for bit, with no host wait on the compute thread (2, 3); no
+pinned slot refilled before its copies complete, the copies on the side
+stream of the engine's device (1, 4); a resident final partition served
+across passes in an ``iteration_scope`` (3); a fault mid-stream with the
+leak audit and an abandoned prefetcher's shutdown (5); staged memory
+within (depth + 2) partitions with the device far behind the host (6).
+Then ``fm.one_hot``'s host slab streamed ``ooc``: crossprod and glm
+against the device slab.
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -888,3 +901,268 @@ def test_stream_and_ooc_reach_every_kernel_per_partition_on_cuda(dev):
     np.testing.assert_allclose(k.wss, k2.wss, rtol=1e-3)
     for a, b in zip(grams["stream"], grams["whole"]):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The partition prefetcher on the card: pinned ring + side stream
+# ---------------------------------------------------------------------------
+
+def _host_x(n, p, seed=0):
+    return np.random.default_rng(seed).normal(size=(n, p)).astype(np.float32)
+
+
+def _drain(pf, sleep_cycles=0, acc_dtype=torch.float64):
+    """Consume a prefetcher as a step would: optionally slowed by a sleep
+    on the compute stream, then a column sum and a Gram of each block in
+    float64 — deterministic, so two runs agree bit for bit."""
+    out = []
+    for start, stop, blocks in pf:
+        if sleep_cycles:
+            torch.cuda._sleep(sleep_cycles)
+        blk = blocks[0]
+        x = blk.to(acc_dtype)
+        out.append((start, stop, x.sum(0), x.T @ x))
+    return out
+
+
+def _sync_parts(store, rows, n, dev):
+    from repro_torch.storage.prefetch import stage_block
+    return [(s, min(s + rows, n), {0: stage_block(store, s, min(s + rows, n),
+                                                  device=dev)})
+            for s in range(0, n, rows)]
+
+
+@pytest.mark.parametrize("depth", [1, 8])
+def test_prefetcher_slowed_consumer_equals_synchronous(dev, depth):
+    """Invariants 2 and 3: a consumer slowed on the compute stream at
+    depth 1 and 8 sees each partition's data exactly — bit for bit as the
+    synchronous staging — and the compute thread never synchronizes while
+    it consumes."""
+    from repro_torch.core.matrix import DenseStore
+    from repro_torch.storage import PartitionPrefetcher
+    A = _host_x(40_000, 16)
+    store = DenseStore(A)
+    want = _drain(_sync_parts(store, 512, 40_000, dev))
+    calls = {"n": 0}
+    main = threading.get_ident()
+    targets = [(torch.cuda, "synchronize"), (torch.cuda.Stream, "synchronize"),
+               (torch.cuda.Event, "synchronize")]
+    reals = [getattr(o, a) for o, a in targets]
+
+    def counting(real):
+        def wrapped(*a, **k):
+            if threading.get_ident() == main:
+                calls["n"] += 1
+            return real(*a, **k)
+        return wrapped
+
+    pf = PartitionPrefetcher([(0, store)], 512, 40_000, depth=depth,
+                             device=dev)
+    for (o, a), real in zip(targets, reals):
+        setattr(o, a, counting(real))
+    try:
+        got = _drain(pf, sleep_cycles=200_000)
+    finally:
+        for (o, a), real in zip(targets, reals):
+            setattr(o, a, real)
+        pf.close()
+    assert calls["n"] == 0, "the consumer waited on the host"
+    assert [g[:2] for g in got] == [w[:2] for w in want]
+    for g, w in zip(got, want):
+        assert torch.equal(g[2], w[2]) and torch.equal(g[3], w[3])
+
+
+def test_prefetcher_pinned_slot_not_refilled_early(dev):
+    """Invariant 1: every fill of a pinned slot finds each earlier copy out
+    of it complete; the copies run on the side stream, never the compute
+    stream (Invariant 4's explicit device and stream too)."""
+    from repro_torch.core.matrix import DenseStore
+    from repro_torch.storage import PartitionPrefetcher, prefetch
+    A = _host_x(1 << 16, 32)
+    ends: dict = {}
+    early, streams = [], set()
+    real_fill, real_copy = prefetch._PinnedSlot.fill, prefetch._PinnedSlot.copy
+
+    def fill(self, key, arr):
+        early.extend(e for e in ends.get(id(self), ()) if not e.query())
+        return real_fill(self, key, arr)
+
+    def copy(self, host, device):
+        streams.add((torch.cuda.current_device(),
+                     torch.cuda.current_stream().cuda_stream))
+        out = real_copy(self, host, device)
+        ends.setdefault(id(self), []).append(self.copies[-1][1])
+        return out
+
+    prefetch._PinnedSlot.fill, prefetch._PinnedSlot.copy = fill, copy
+    try:
+        pf = PartitionPrefetcher([(0, DenseStore(A))], 1024, A.shape[0],
+                                 depth=8, device=dev)
+        got = _drain(pf, sleep_cycles=50_000)
+        side = pf._side.cuda_stream
+        compute = pf._compute.cuda_stream
+        pf.close()
+    finally:
+        prefetch._PinnedSlot.fill, prefetch._PinnedSlot.copy = \
+            real_fill, real_copy
+    assert not early, f"{len(early)} fills found a copy still running"
+    assert streams == {(dev.index or 0, side)} and side != compute
+    want = _drain(_sync_parts(DenseStore(A), 1024, A.shape[0], dev))
+    assert all(torch.equal(g[3], w[3]) for g, w in zip(got, want))
+
+
+def test_prefetcher_resident_final_partition_across_passes(dev):
+    """Invariant 3 across passes: inside an iteration_scope the final
+    partition staged on the side stream stays resident and is served to
+    the next materialize (a reuse hit), the compute stream slowed between
+    — the results equal the synchronous runs' bit for bit, and every
+    staged block was recorded onto the compute stream."""
+    from repro_torch.core import fm
+    A = _host_x(30_001, 8, seed=3)
+    recorded = {"n": 0}
+    real = torch.Tensor.record_stream
+
+    def record(self, stream):
+        recorded["n"] += 1
+        return real(self, stream)
+
+    out = {}
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 16):
+        X = fm.conv_R2FM(A, host=True)
+        for prefetch in (False, True):
+            torch.Tensor.record_stream = record
+            try:
+                fm.reset_exec_stats()
+                with fm.inspect_iterations():
+                    res = []
+                    for i in range(3):
+                        torch.cuda._sleep(2_000_000)
+                        (g,) = fm.materialize(fm.crossprod(X * float(i + 1)),
+                                              prefetch=prefetch)
+                        res.append(fm.as_np(g))
+                st = fm.exec_stats()
+            finally:
+                torch.Tensor.record_stream = real
+            out[prefetch] = (res, st["prefetch_reuse_hits"], recorded["n"])
+            recorded["n"] = 0
+    (sync, sync_hits, _), (pre, pre_hits, n_rec) = out[False], out[True]
+    assert pre_hits == sync_hits == 2
+    assert n_rec > 0
+    for a, b in zip(pre, sync):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_prefetcher_fault_midstream_leaks_nothing(dev):
+    """Invariant 5: a staging fault mid-stream on the card reaches
+    materialize as PrefetchError with the rows and the source, registers
+    nothing, and leaves no worker thread, queued partition, resident or
+    pinned slot; an abandoned prefetcher's close() synchronizes the side
+    stream and drops its ring."""
+    import time
+    from helpers_cache import StagingFault
+    from repro_torch import storage
+    from repro_torch.core import dag, fm, materialize as mz
+    from repro_torch.core.matrix import DenseStore, FMMatrix
+    A = _host_x(20_000, 8, seed=4)
+
+    class Flaky(DenseStore):
+        reads = 0
+
+        def block(self, start, stop):
+            Flaky.reads += 1
+            if Flaky.reads > 5:
+                raise StagingFault("injected fault")
+            return super().block(start, stop)
+
+    X = FMMatrix(A.shape, A.dtype, store=Flaky(A), name="flaky_card")
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 14):
+        Z = fm.scale(fm.FM(X))
+        nodes = dag.toposort([Z.m.node])
+        with mz.iteration_scope():
+            with pytest.raises(storage.PrefetchError,
+                               match=r"rows \[\d+, \d+\) of source "
+                                     r"'flaky_card'"):
+                fm.materialize(Z)
+            assert mz._tls_residents() is None
+    assert all(getattr(n, "cached_store", None) is None for n in nodes)
+    deadline = time.time() + 10
+    while time.time() < deadline and storage.live_prefetchers():
+        time.sleep(0.02)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+    assert not any(t.name == "fm-prefetch" for t in threading.enumerate())
+    pf = storage.PartitionPrefetcher([(0, DenseStore(A))], 256, A.shape[0],
+                                     depth=2, device=dev)
+    it = iter(pf)
+    next(it)
+    pf.close()
+    assert not pf.alive and pf.queued == 0 and pf._slots == []
+    assert pf._side.query()
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+def test_prefetcher_staged_memory_bounded(dev, depth):
+    """Invariant 6: with the compute stream far behind the host (a long
+    sleep a partition), staged device memory stays within (depth + 2)
+    partitions however many partitions the stream has: the live tensors,
+    and the caching allocator's segments of the side stream, freed blocks
+    held back for the compute stream included (the consumer's own
+    reduction workspace lives on the compute stream and is not counted)."""
+    from repro_torch.core.matrix import DenseStore
+    from repro_torch.storage import PartitionPrefetcher
+    rows, p = 1 << 14, 192
+    # 12 MiB a partition: above the caching allocator's 10 MiB class, so a
+    # segment is one block and the side stream's segments count partitions
+    part = rows * p * 4
+    A = _host_x(rows * 40, p, seed=5)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    acc = torch.zeros(p, device=dev)
+    with PartitionPrefetcher([(0, DenseStore(A))], rows, A.shape[0],
+                             depth=depth, device=dev) as pf:
+        for _, _, blocks in pf:
+            torch.cuda._sleep(5_000_000)
+            acc += blocks[0].sum(0)
+            del blocks
+        side = pf._side.cuda_stream
+        # segments are kept until empty_cache: the side stream's high mark
+        held = sum(s["total_size"] for s in torch.cuda.memory_snapshot()
+                   if s["stream"] == side)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= (depth + 2) * part + (1 << 20), (peak, part)
+    assert 0 < held <= (depth + 2) * part, (held, part)
+    np.testing.assert_allclose(acc.cpu().numpy(), A.sum(0), rtol=1e-3,
+                               atol=1e-2)
+
+
+def test_host_ell_slab_against_the_device_slab(dev):
+    """fm.one_hot's host slab streamed out of core through the prefetcher:
+    crossprod equal to the device slab's whole-mode Gram bit for bit, one
+    spmm_gram launch a partition; the logistic fit's log-likelihoods within
+    1e-4 of the device slab's, spmm_xty and spmm_wgram launched."""
+    from repro_torch.algorithms import glm
+    from repro_torch.core import fm
+    rng = np.random.default_rng(6)
+    n, levels = 50_001, (13, 7, 5)
+    codes = [rng.integers(0, lv, n) for lv in levels]
+    yn = (rng.uniform(size=n) < 0.3).astype(np.float32).reshape(-1, 1)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 16):
+        fs = [fm.as_factor(c, lv) for c, lv in zip(codes, levels)]
+        Xh, Xd = fm.one_hot(*fs), fm.one_hot(*fs, host=False)
+        assert Xh.m.on_host and not Xd.m.on_host
+        (gd,) = fm.materialize(fm.crossprod(Xd), mode="whole")
+        before = spmm.gram_launches
+        fm.reset_exec_stats()
+        (gh,) = fm.materialize(fm.crossprod(Xh), mode="ooc")
+        steps = fm.exec_stats()["partition_steps"]
+        assert steps > 1 and spmm.gram_launches - before == steps
+        np.testing.assert_array_equal(fm.as_np(gh), fm.as_np(gd))
+        y = fm.conv_R2FM(yn)
+        before = (spmm.xty_launches, spmm.wgram_launches)
+        rh = glm(Xh, y, "logistic", ridge=1e-3, max_iter=3, mode="ooc")
+        assert spmm.xty_launches > before[0]
+        assert spmm.wgram_launches > before[1]
+        rd = glm(Xd, y, "logistic", ridge=1e-3, max_iter=3, mode="stream")
+    np.testing.assert_allclose(rh.loglik_trace, rd.loglik_trace, rtol=1e-4)

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from helpers_twin import time_limit  # noqa: F401
 from repro.core import fm as jfm
 from repro.core import materialize as jmz
 from repro.core.fusion import Plan as JPlan
@@ -27,6 +28,8 @@ from repro_torch.core import lowering as tlowering
 from repro_torch.core import materialize as tmz
 from repro_torch.core.fusion import Plan as TPlan
 from repro_torch.observability import metrics as tmetrics
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 RNG = np.random.default_rng(17)
 
@@ -285,14 +288,21 @@ def test_lloyd_iterations_reuse_one_cached_plan():
 
 
 def test_later_slices_raise_with_their_roadmap_item():
+    """What later slices bring raises naming its ROADMAP item; what A7a-ii
+    brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host slab —
+    runs and equals the reference."""
     X, _, _ = _inputs()
     Xt = tfm.conv_R2FM(X)
     Xh = tfm.conv_R2FM(X, host=True)
-    for call, item in ((lambda: tfm.materialize(tfm.colSums(Xh), mode="ooc",
-                                                 prefetch=True), "A7a-ii"),
-                       (lambda: tfm.one_hot(tfm.as_factor(np.arange(4))),
-                        "A7a-ii"),
-                       (lambda: tfm.load_factor_matrix("f.csv", "f",
+    (s,) = tfm.materialize(tfm.colSums(Xh), mode="ooc", prefetch=True)
+    (js,) = jfm.materialize(jfm.colSums(jfm.conv_R2FM(X, host=True)),
+                            mode="ooc", prefetch=True)
+    np.testing.assert_allclose(tfm.as_np(s), jfm.as_np(js), rtol=1e-6)
+    H = tfm.one_hot(tfm.as_factor(np.arange(4)))
+    assert H.m.is_sparse and H.m.on_host
+    np.testing.assert_array_equal(
+        tfm.as_np(H), jfm.as_np(jfm.one_hot(jfm.as_factor(np.arange(4)))))
+    for call, item in ((lambda: tfm.load_factor_matrix("f.csv", "f",
                                                        num_levels=[3]),
                         "A7b"),
                        (lambda: tfm.persist(tfm.colSums(Xt), tier="disk"),
@@ -342,9 +352,11 @@ def test_default_device_without_cuda_raises():
         # the host tier too: its partitions would stage to the card
         with pytest.raises(RuntimeError, match="is_available"):
             tfm.conv_R2FM(X, host=True)
+        with pytest.raises(RuntimeError, match="is_available"):
+            tfm.one_hot(tfm.as_factor(np.arange(4)))
         for mode in ("ooc", "stream", "auto"):
             with pytest.raises(RuntimeError, match="is_available"):
-                tfm.materialize(lazy_host, mode=mode, prefetch=False)
+                tfm.materialize(lazy_host, mode=mode)
 
 
 def test_dtype_canon_matches_the_reference():

@@ -11,7 +11,7 @@ and ``ooc`` mode too: ``test_colmeans_colsds_one_plan_one_epilogue`` in
 stream mode, ``test_glm_style_solve_in_plan``,
 ``test_cached_plan_reuse_with_epilogue_iteration`` and
 ``test_ooc_ridge_eye_is_epilogue_source`` (its X in host RAM in place of
-the reference's disk matrix, staged synchronously).
+the reference's disk matrix, staged by the prefetcher in both packages).
 ``test_ooc_epilogue_inputs_on_device`` reads a disk matrix and waits for
 the disk tier (ROADMAP A7b).
 """
@@ -20,6 +20,9 @@ import pytest
 
 from helpers_twin import (PORT, REF, _port_on_cpu, both,  # noqa: F401
                           both_conf, counting)
+from helpers_twin import time_limit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 RNG = np.random.default_rng(3)
 
@@ -160,11 +163,11 @@ def test_ooc_ridge_eye_is_epilogue_source():
     for side in (REF, PORT):
         with counting(side, ("epilogue_launches", "epilogue_host_inputs",
                              "partition_steps")) as act:
-            side.fm.materialize(*program(side.fm), prefetch=False)
+            side.fm.materialize(*program(side.fm))
         assert act["epilogue_launches"] == 1
         assert act["epilogue_host_inputs"] == 0
         assert act["partition_steps"] > 1  # genuinely multi-partition
-    for (am,) in both(program, mode="auto", prefetch=False):
+    for (am,) in both(program, mode="auto"):
         np.testing.assert_allclose(am, a.T.astype(np.float64) @ a
                                    + np.eye(3), rtol=1e-4)
 

@@ -14,7 +14,11 @@ import numpy as np
 import pytest
 
 from helpers_twin import PORT, REF, _port_on_cpu, both  # noqa: F401
+from helpers_twin import time_limit  # noqa: F401
+from repro.core import fm as jfm
 from repro_torch.core import fm as tfm
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 RNG = np.random.default_rng(7)
 
@@ -315,8 +319,7 @@ class TestDtypesAndLazy:
             (s,) = fm.materialize(fm.colSums(Y))
             store = Y.m.node.cached_store
             assert store.on_host and isinstance(store.store.data, np.ndarray)
-            with side.fm.conf(prefetch=False):
-                (g,) = fm.materialize(fm.crossprod(Y))
+            (g,) = fm.materialize(fm.crossprod(Y))
             P = fm.persist(X, tier="host")
             assert P.m.on_host and not X.m.on_host
             np.testing.assert_array_equal(fm.as_np(P), Xn)
@@ -589,12 +592,17 @@ def test_stream_and_host_cells(cls, name, mode, host):
 
 
 def test_port_raises_naming_a7_for_the_stream_and_host_cells():
-    """What this file's tiers still lack raises naming its ROADMAP item:
-    the host-RAM ELL slab (A7a-ii) and the disk tier (A7b)."""
+    """What this file's tiers still lack raises naming its ROADMAP item,
+    the disk tier (A7b); the host-RAM ELL slab (A7a-ii) runs, equal to the
+    reference's."""
     Xn = data()
     rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match="A7a-ii"):
-        tfm.one_hot(tfm.as_factor(rng.integers(0, 3, 40), 3), host=True)
+    codes = rng.integers(0, 3, 40)
+    H = tfm.one_hot(tfm.as_factor(codes, 3), host=True)
+    assert H.m.is_sparse and H.m.on_host
+    np.testing.assert_array_equal(
+        tfm.as_np(H), jfm.as_np(jfm.one_hot(jfm.as_factor(codes, 3),
+                                            host=True)))
     with pytest.raises(NotImplementedError, match="A7b"):
         tfm.persist(tfm.conv_R2FM(Xn), tier="disk")
     with pytest.raises(NotImplementedError, match="A7b"):

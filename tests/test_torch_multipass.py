@@ -8,19 +8,18 @@ packages on the same numpy inputs (``helpers_twin.both``: equal counters,
 kernel dispatch, shapes and dtypes), each held to the reference test's
 oracle.  Streams are cut into 4 KiB partitions, as in the reference.
 
-The reference's stream and ooc cells run with the port's synchronous
-partition staging: ``test_scale_one_call_two_passes`` and
+The reference's stream and ooc cells run as it writes them:
+``test_scale_one_call_two_passes`` and
 ``test_pca_covariance_of_centered_two_passes`` in stream mode and in ooc
-mode from host RAM (``*_streaming``), ``test_sweep_helper_and_sink_binding``,
-``test_three_pass_chain``,
+mode from host RAM (``*_streaming``, the ooc cells through the background
+prefetcher, the conf default, in both packages),
+``test_sweep_helper_and_sink_binding``, ``test_three_pass_chain``,
 ``test_cache_keyed_on_per_pass_partition_schedule``,
-``test_cached_two_pass_plan_reuse`` and the interrupted passes with the
-prefetcher off (the port's flaky store is ``helpers_twin.FlakyStore``).
-Many host partitions stream in ooc mode, so both packages run those cells
-with ``prefetch=False``: the reference's values and counters do not depend
-on it.  Waiting for the disk tier (ROADMAP A7b):
-``test_scale_save_disk_streams_out_of_core``; for the prefetcher (A7a-ii):
-``test_interrupted_prefetching_pass_raises_prefetch_error``.
+``test_cached_two_pass_plan_reuse``, the interrupted passes with the
+prefetcher off and ``test_interrupted_prefetching_pass_raises_prefetch_error``
+with it on (the port's flaky store is ``helpers_twin.FlakyStore``).
+Waiting for the disk tier (ROADMAP A7b):
+``test_scale_save_disk_streams_out_of_core``.
 """
 import numpy as np
 import pytest
@@ -28,8 +27,11 @@ import pytest
 from helpers_cache import StagingFault, assert_no_partial_results
 from helpers_twin import (PORT, REF, _port_on_cpu, both,  # noqa: F401
                           both_conf, counting, flaky_matrix)
+from helpers_twin import time_limit  # noqa: F401
 from repro.core import dag as jdag
 from repro_torch.core import dag as tdag
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 DAGS = {REF.name: jdag, PORT.name: tdag}
 
@@ -67,7 +69,7 @@ def test_scale_one_call_two_passes(backend, mode="whole"):
                              "plan_cache_hits", "epilogue_launches")) as act:
             side.fm.materialize(
                 side.fm.scale(side.fm.conv_R2FM(a, host=host)), backend=be,
-                mode=mode, prefetch=False)
+                mode=mode)
         st = side.mz.exec_stats()
         assert act == {"materialize_calls": 1, "plan_cache_misses": 1,
                        "plan_cache_hits": 0, "epilogue_launches": 1}
@@ -76,7 +78,7 @@ def test_scale_one_call_two_passes(backend, mode="whole"):
     assert stats[1] == stats[0] == (a.nbytes, a.nbytes)
     ref = (a - a.mean(0)) / a.std(0, ddof=1)
     for (Zm,) in both(lambda fm: [fm.scale(fm.conv_R2FM(a, host=host))],
-                      backend=backend, mode=mode, prefetch=False):
+                      backend=backend, mode=mode):
         np.testing.assert_allclose(Zm, ref, rtol=1e-3, atol=1e-4)
 
 
@@ -97,11 +99,10 @@ def test_pca_covariance_of_centered_two_passes(backend, mode="whole"):
     ref = c.T.astype(np.float64) @ c / (a.shape[0] - 1)
     for side, be in ((REF, "xla"), (PORT, backend)):
         side.mz.reset_exec_stats()
-        side.fm.materialize(*program(side.fm), backend=be, mode=mode,
-                            prefetch=False)
+        side.fm.materialize(*program(side.fm), backend=be, mode=mode)
         st = side.mz.exec_stats()
         assert (st["passes"], st["epilogue_launches"]) == (2, 2)
-    for (cm,) in both(program, backend=backend, mode=mode, prefetch=False):
+    for (cm,) in both(program, backend=backend, mode=mode):
         np.testing.assert_allclose(cm, ref, rtol=2e-3, atol=1e-4)
 
 
@@ -243,29 +244,58 @@ def test_interrupted_pass2_rolls_back_pass1_sinks():
         np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
 
 
+def test_interrupted_prefetching_pass_raises_prefetch_error():
+    """With the prefetcher ON, the injected fault surfaces as a
+    PrefetchError on the consumer side, naming the rows and the source —
+    the same no-partial-results guarantee, the pass-2 re-drive included —
+    and leaves no worker thread, staged partition or resident behind."""
+    from repro.storage.prefetch import PrefetchError as JPrefetchError
+    from repro_torch import storage as tstorage
+    from repro_torch.core import materialize as tmz
+    a = _x(800, 4)
+    for side, err in ((REF, JPrefetchError), (PORT, tstorage.PrefetchError)):
+        Xm, store = flaky_matrix(side, a, 1)
+        Z = side.fm.scale(side.fm.FM(Xm))
+        nodes = DAGS[side.name].toposort([Z.m.node])
+        with pytest.raises(err, match=r"rows \[\d+, \d+\) of source "
+                                      r"'flaky'.*staging failure"):
+            side.fm.materialize(Z, prefetch=True)
+        assert_no_partial_results(*nodes)
+    assert tstorage.live_prefetchers() == []
+    assert tstorage.staged_leaks() == []
+    assert tmz._tls_residents() is None
+
+
 def test_prefetch_on_a_multi_partition_host_source_raises_naming_a7a_ii():
     """Where ``prefetch`` resolves True — explicitly, or by the conf default
-    over a host source of more than one partition — the port raises naming
-    ROADMAP A7a-ii (the prefetcher) and registers nothing; it never runs
-    the synchronous path in the prefetcher's place.  The rule's other arms
-    run now: ``prefetch=False``, the conf knob off, one partition."""
-    fm = PORT.fm
+    over a host source of more than one partition — the partitions stream
+    through the background prefetcher: the same three calls that raised
+    naming ROADMAP A7a-ii before the prefetcher landed now run, each equal
+    to the reference's with the counters exact, and each equal bit for bit
+    to the port's synchronous run.  The rule's other arms: ``prefetch=
+    False``, the conf knob off, one partition."""
     a = _x(800, 4)
-    X = fm.conv_R2FM(a, host=True)
-    assert -(-800 // PORT.Plan([fm.scale(X).m]).passes[0].partition_rows) > 1
     ref = (a - a.mean(0)) / a.std(0, ddof=1)
+    assert -(-800 // PORT.Plan([PORT.fm.scale(PORT.fm.conv_R2FM(
+        a, host=True)).m]).passes[0].partition_rows) > 1
     for kw in ({}, {"prefetch": True}, {"prefetch": True, "mode": "stream"}):
-        Z = fm.scale(X)
-        nodes = tdag.toposort([Z.m.node])
-        with counting(PORT, ("partition_steps",)) as act:
-            with pytest.raises(NotImplementedError, match="A7a-ii"):
-                fm.materialize(Z, **kw)
-        assert act["partition_steps"] == 0
-        assert_no_partial_results(*nodes)
-    for run in (lambda Z: fm.materialize(Z, prefetch=False),
-                lambda Z: fm.materialize(Z, mode="stream", prefetch=False)):
-        (Zm,) = run(fm.scale(X))
-        np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)
+        got = []
+        for side in (REF, PORT):
+            X = side.fm.conv_R2FM(a, host=True)
+            with counting(side, ("partition_steps", "passes", "streams",
+                                 "stage_bytes_read",
+                                 "prefetch_reuse_hits")) as act:
+                (Zm,) = side.fm.materialize(side.fm.scale(X), **kw)
+            np.testing.assert_allclose(side.fm.as_np(Zm), ref, rtol=1e-3,
+                                       atol=1e-4)
+            got.append((side.fm.as_np(Zm), act))
+        assert got[1][1] == got[0][1] and got[1][1]["partition_steps"] > 2
+        fm = PORT.fm
+        (Zs,) = fm.materialize(fm.scale(fm.conv_R2FM(a, host=True)),
+                               **dict(kw, prefetch=False))
+        np.testing.assert_array_equal(got[1][0], fm.as_np(Zs))
+    fm = PORT.fm
+    X = fm.conv_R2FM(a, host=True)
     with fm.conf(prefetch=False):
         (Zm,) = fm.materialize(fm.scale(X))
     np.testing.assert_allclose(fm.as_np(Zm), ref, rtol=1e-3, atol=1e-4)

@@ -23,9 +23,9 @@ and on the kernels the kernel backend dispatches (``pallas`` units against
   every mode the port has.
 
 Streams are cut into 2 KiB partitions, as in the reference, so ``stream``
-and ``ooc`` run many partitions; both packages stage them synchronously
-(``prefetch=False``: the reference's values and counters do not depend on
-it).  Left to later slices: the ELL arm's ooc cell, a CSR ``.fmat`` (ROADMAP
+and ``ooc`` run many partitions; both packages stage them as the
+reference's test does (the ``ooc`` cells through the background
+prefetcher, the conf default for a host source).  Left to later slices: the ELL arm's ooc cell, a CSR ``.fmat`` (ROADMAP
 A7b), the reference's ``fm.batch`` arm (A11), its ``fm.serve`` arm (A12)
 and its meshed arm (A13), with their anchors
 ``test_known_program_batched_parity``, ``test_known_program_served_parity``
@@ -44,9 +44,12 @@ import torch
 
 from helpers_twin import (PORT, REF, _port_on_cpu, both_conf,  # noqa: F401
                           counting)
+from helpers_twin import time_limit  # noqa: F401
 from repro_torch.core.matrix import FMMatrix
 from repro_torch.core.sparse import csr_from_dense, ell_from_csr_rows
 from repro_torch.storage.sparse import SparseEllStore
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 _SPEC = importlib.util.spec_from_file_location(
     "_reference_parity_fuzz",
@@ -151,7 +154,7 @@ def check_program(prog, mode: str = "mem") -> str | None:
         with counting(side) as c:
             outs = side.fm.materialize(*lazy_outputs(prog, mode),
                                        mode=_EXEC_MODE[mode],
-                                       backend=backend, prefetch=False)
+                                       backend=backend)
         counters.append(c)
         for o, got, want in zip(prog.outputs, outs, refs, strict=True):
             got = np.asarray(side.fm.as_np(got), np.float64)
@@ -181,7 +184,7 @@ def check_bf16_program(prog, mode: str = "mem") -> str | None:
         with counting(side) as c:
             outs = side.fm.materialize(*lazy_outputs(prog, mode),
                                        mode=_EXEC_MODE[mode],
-                                       backend=backend, prefetch=False)
+                                       backend=backend)
         got.append(([np.asarray(side.fm.as_np(o), np.float64)
                      for o in outs],
                     [str(o.dtype).removeprefix("torch.") for o in outs], c))

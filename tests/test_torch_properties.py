@@ -20,10 +20,13 @@ pytest.importorskip(
 from hypothesis import given, settings, strategies as st
 
 from helpers_twin import PORT, REF, _port_on_cpu  # noqa: F401
+from helpers_twin import time_limit  # noqa: F401
 from repro.core import dtypes as jdtypes
 from repro.core.matrix import io_partition_rows as j_io_rows
 from repro_torch.core import dtypes as tdtypes
 from repro_torch.core.matrix import io_partition_rows as t_io_rows
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 SHAPE = st.tuples(st.integers(5, 200), st.integers(1, 8))
 
@@ -81,12 +84,12 @@ def test_mode_invariance(data, shape):
 def test_indexed_reduction_partition_invariance(data, budget):
     """which.min over the long dim stays absolute whatever the partition
     count (offset threading), from host RAM: one partition at the default
-    budget, many at 2 KiB (staged synchronously, in both packages)."""
+    budget, many at 2 KiB (prefetched, in both packages)."""
     rng = np.random.default_rng(data.draw(st.integers(0, 2 ** 31)))
     Xn = rng.normal(size=(500, 3)).astype(np.float32)
     for side in (REF, PORT):
         fm = side.fm
-        with fm.conf(io_partition_bytes=budget, prefetch=False):
+        with fm.conf(io_partition_bytes=budget):
             X = fm.conv_R2FM(Xn, host=True)
             (w,) = fm.materialize(fm.agg_col(X, "which.min"))
         np.testing.assert_array_equal(fm.as_np(w).ravel(), Xn.argmin(0))

@@ -1,14 +1,23 @@
-"""The sparse (one-hot) tier of the port in ``whole`` mode on the device
-tier, the twins of tests/test_sparse.py: ELL/CSR conversions, factor and
-one-hot construction, engine parity with the dense oracle and with the JAX
-package under both backends (``cuda``'s SpMM wrappers run their plain
-versions on the CPU), sparse GLM against the dense fit, and the plan-cache
-signature.  The disk-tier halves of the reference file (CSR ``.fmat``,
-ingest, ``ooc``/``stream`` modes, meshes) come with ROADMAP A7 and A13."""
+"""The sparse (one-hot) tier of the port, the twins of tests/test_sparse.py:
+ELL/CSR conversions, factor and one-hot construction, engine parity with
+the dense oracle and with the JAX package under both backends (``cuda``'s
+SpMM wrappers run their plain versions on the CPU), sparse GLM against the
+dense fit, and the plan-cache signature — in ``whole`` mode on the device
+tier (``fm.one_hot(..., host=False)``); then the host-RAM ELL slab that
+``fm.one_hot``'s default builds: the one-hot oracle, the row-local and
+sink parity in ``stream`` mode and the crossprod and GLM in ``ooc`` mode
+from the host slab (the reference's ooc cells read a CSR ``.fmat``), the
+host half of ``test_persist_physical_tiers``, and the config surface
+(``test_conf_scoped_override_restores``,
+``test_set_conf_rejects_unknown_knob_with_hint``), each against the
+reference with the counters of ``helpers_twin.both``.  The disk-tier
+halves (CSR ``.fmat``, ingest, ``fm.persist(tier="disk")``, the deprecated
+shims) come with ROADMAP A7b, the mesh cell with A13."""
 import numpy as np
 import pytest
 import torch
 
+from helpers_twin import time_limit  # noqa: F401
 from repro.core import fm as jfm
 from repro_torch.core import fm
 from repro_torch.core import lowering
@@ -17,6 +26,8 @@ from repro_torch.core.sparse import (SparseBlock, csr_from_dense,
                                      csr_from_ell, ell_from_csr_rows)
 from repro_torch.kernels import spmm
 from repro_torch.observability import metrics
+
+pytestmark = pytest.mark.usefixtures("time_limit")
 
 BACKENDS = ["torch", "cuda"]
 
@@ -190,3 +201,157 @@ def test_sparse_leaf_arriving_dense_raises():
     before = spmm.gram_launches
     fm.materialize(fm.crossprod(X), backend="cuda")
     assert spmm.gram_launches == before       # CPU tensors: plain version
+
+
+# ---------------------------------------------------------------------------
+# The host-RAM ELL slab (fm.one_hot's default), against the reference
+# ---------------------------------------------------------------------------
+
+def _host_case(side_fm, seed=0, n=600, levels=(7, 5, 11)):
+    codes = _codes(seed, n, levels)
+    return side_fm.one_hot(*[side_fm.as_factor(c, lv)
+                             for c, lv in zip(codes, levels)])
+
+
+def test_one_hot_default_is_the_host_slab():
+    """``fm.one_hot``'s default, as the reference's test calls it: the
+    slab in host RAM (numpy cols / vals), equal to the dense oracle and to
+    the reference's."""
+    X = _host_case(fm)
+    _, dense = _one_hot_case()
+    assert X.m.is_sparse and X.m.on_host and X.shape == dense.shape
+    assert isinstance(X.m.store.cols, np.ndarray)
+    assert X.m.nbytes() == _host_case(jfm).m.nbytes()
+    np.testing.assert_array_equal(fm.as_np(X), dense)
+    np.testing.assert_array_equal(fm.as_np(X), jfm.as_np(_host_case(jfm)))
+    with pytest.raises(ValueError, match="lengths differ"):
+        fm.one_hot(fm.as_factor(np.arange(4)), fm.as_factor(np.arange(5)))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sparse_rowlocal_and_sinks_parity_host_slab(backend):
+    """The reference's cell as written — ``stream`` mode over the default
+    one_hot — with the counters and kernel dispatch of both packages
+    equal."""
+    from helpers_twin import both, both_conf
+    _, dense = _one_hot_case(seed=4)
+    B = np.full((23, 2), 0.5, np.float32)
+
+    def program(f):
+        X = _host_case(f, seed=4)
+        return [X * 3.0 - 1.0, f.colSums(X), X @ B]
+
+    with both_conf(io_partition_bytes=2048):
+        ref, (zm, s, m) = both(program, backend=backend, mode="stream")
+    np.testing.assert_allclose(zm, dense * 3.0 - 1.0, rtol=1e-5)
+    np.testing.assert_allclose(s.reshape(-1), dense.sum(0), rtol=1e-5)
+    np.testing.assert_allclose(m, dense @ B, rtol=1e-5)
+    for r, t in zip(ref, (zm, s, m)):
+        np.testing.assert_allclose(t, r, rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["ooc", "whole"])
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sparse_crossprod_parity_host_slab(backend, mode):
+    """crossprod over the host slab: ``ooc`` streams it through the
+    prefetcher a partition at a time, ``whole`` stages it once; equal to
+    the oracle, to the reference, and to each other bit for bit."""
+    from helpers_twin import both, both_conf
+    _, dense = _one_hot_case(seed=3)
+    fm.reset_exec_stats()
+    with both_conf(io_partition_bytes=2048):
+        ref, (g,) = both(lambda f: [f.crossprod(_host_case(f, seed=3))],
+                         backend=backend, mode=mode)
+        st = fm.exec_stats()
+    np.testing.assert_allclose(g, dense.T.astype(np.float64) @ dense,
+                               rtol=1e-4)
+    np.testing.assert_allclose(g, ref[0], rtol=1e-6)
+    (gw,) = fm.materialize(fm.crossprod(_host_case(fm, seed=3)),
+                           mode="whole", backend=backend)
+    np.testing.assert_array_equal(g, fm.as_np(gw))
+    assert (st["partition_steps"] > st["passes"]) == (mode == "ooc")
+
+
+def test_sparse_glm_ooc_host_slab_matches_dense_oracle():
+    """The reference's capstone with the host slab in place of its CSR
+    ``.fmat``: logistic regression out of core equals the dense fit and the
+    reference's, on both backends, the SpMM kernels dispatched."""
+    from repro.algorithms.glm import glm as jglm
+    from repro_torch.algorithms import glm
+    rng = np.random.default_rng(5)
+    n = 2500
+    _, dense = _one_hot_case(seed=5, n=n, levels=(13, 7, 5))
+    true_b = rng.normal(0, 0.7, dense.shape[1])
+    p = 1.0 / (1.0 + np.exp(-(dense @ true_b)))
+    yn = (rng.random(n) < p).astype(np.float32).reshape(-1, 1)
+    y = fm.conv_R2FM(yn)
+    oracle = glm(fm.conv_R2FM(dense), y, "logistic", ridge=1e-3,
+                 mode="whole", backend="torch")
+    Xh = _host_case(fm, seed=5, n=n, levels=(13, 7, 5))
+    J = _host_case(jfm, seed=5, n=n, levels=(13, 7, 5))
+    with fm.conf(io_partition_bytes=1 << 14), \
+            jfm.conf(io_partition_bytes=1 << 14):
+        jr = jglm(J, jfm.conv_R2FM(yn), "logistic", ridge=1e-3, mode="ooc")
+        for backend in BACKENDS:
+            fm.reset_exec_stats()
+            r = glm(Xh, y, "logistic", ridge=1e-3, mode="ooc",
+                    backend=backend)
+            st = fm.exec_stats()
+            assert st["partition_steps"] > st["passes"] == r.iters
+            assert np.abs(r.beta - oracle.beta).max() < 1e-2, backend
+            assert abs(r.loglik - oracle.loglik) < 1e-3 * abs(oracle.loglik)
+            assert abs(r.loglik - jr.loglik) < 1e-5 * abs(jr.loglik)
+
+
+def test_persist_physical_tiers_host():
+    """The host half of the reference's cell: a dense matrix and a one-hot
+    slab persisted to host RAM, in both packages; the slab stays sparse
+    (cols / vals move, never densified) and moves back to the device."""
+    A = np.arange(12, dtype=np.float32).reshape(4, 3)
+    _, dense = _one_hot_case(seed=8, n=150)
+    for f in (jfm, fm):
+        X = f.conv_R2FM(A)
+        Xh = f.persist(X, tier="host")
+        assert Xh.m.on_host and not Xh.m.on_disk
+        np.testing.assert_array_equal(f.as_np(Xh), A)
+        with pytest.raises(ValueError, match="unknown tier"):
+            f.persist(X, tier="ssd")
+    S = fm.one_hot(*[fm.as_factor(c, lv) for c, lv in
+                     zip(_codes(8, 150, (7, 5, 11)), (7, 5, 11))],
+                   host=False)
+    Sh = fm.persist(S, tier="host")
+    assert Sh.m.is_sparse and Sh.m.on_host
+    assert isinstance(Sh.m.store.vals, np.ndarray)
+    assert Sh.m.nbytes() == S.m.nbytes()
+    np.testing.assert_array_equal(fm.as_np(Sh), dense)
+    Sd = fm.persist(Sh, tier="device")
+    assert Sd.m.is_sparse and not Sd.m.on_host
+    np.testing.assert_array_equal(fm.as_np(Sd), dense)
+
+
+def test_set_conf_rejects_unknown_knob_with_hint():
+    for f in (jfm, fm):
+        with pytest.raises(ValueError, match="did you mean 'prefetch'"):
+            f.set_conf(prefetsh=True)
+        with pytest.raises(ValueError, match="known knobs"):
+            f.set_conf(not_even_close=1)
+
+
+def test_conf_scoped_override_restores():
+    from repro_torch.core import lowering as lowering_mod
+    from repro_torch.core import matrix as matrix_mod
+    old_backend = lowering_mod.DEFAULT_BACKEND
+    old_bytes = matrix_mod.IO_PARTITION_BYTES
+    with fm.conf(backend="cuda", io_partition_bytes=4096) as live:
+        assert live["backend"] == "cuda"
+        assert matrix_mod.IO_PARTITION_BYTES == 4096
+    assert lowering_mod.DEFAULT_BACKEND == old_backend
+    assert matrix_mod.IO_PARTITION_BYTES == old_bytes
+    # Restores on error too.
+    with pytest.raises(RuntimeError):
+        with fm.conf(io_partition_bytes=8192):
+            raise RuntimeError("boom")
+    assert matrix_mod.IO_PARTITION_BYTES == old_bytes
+    with pytest.raises(ValueError, match="unknown config knob"):
+        with fm.conf(backnd="torch"):
+            pass

@@ -1,0 +1,68 @@
+"""Twin of tests/test_system.py's FlashR user journey: the paper's workflow
+end to end on the port, its data on the host tier the whole time, against
+the reference's journey on the same numpy input — at the reference's
+partition budget (one partition a pass at this size) and at a 256 KiB one,
+where every pass streams out of core in about 20 partitions through the
+background prefetcher in both packages.
+
+Left to later slices: ``test_lm_train_checkpoint_resume`` (LM training,
+ROADMAP A14) and ``test_serve_loadgen_journey`` (serving, A12).
+"""
+import numpy as np
+import pytest
+
+from helpers_twin import time_limit  # noqa: F401
+from repro import algorithms as jalg
+from repro.core import fm as jfm
+from repro_torch import algorithms as talg
+from repro_torch import storage as tstorage
+from repro_torch.core import fm as tfm
+
+pytestmark = pytest.mark.usefixtures("time_limit")
+
+
+def _journey(fm, alg, X_host, k):
+    """The reference test's steps over one package; its own checks, and
+    the results the packages are compared on."""
+    X = fm.conv_R2FM(X_host, host=True)
+    s = alg.summary(X)
+    assert np.isfinite(s.mean).all() and (s.var > 0).all()
+    corr = alg.correlation(X)
+    assert np.allclose(np.diag(corr), 1.0, atol=1e-5)
+    svd = alg.svd_tall(X, k=4)
+    assert (np.diff(svd.s) <= 1e-6).all()  # descending
+    res = alg.kmeans(X, k=k, max_iter=20, seed=0)
+    # identical results from the in-memory tier
+    corr2 = alg.correlation(fm.conv_R2FM(X_host))
+    np.testing.assert_allclose(corr, corr2, rtol=1e-4, atol=1e-5)
+    return s, corr, svd, res
+
+
+@pytest.mark.parametrize("budget", [None, 1 << 18],
+                         ids=["reference-budget", "streamed"])
+def test_flashr_user_journey(budget):
+    rng = np.random.default_rng(0)
+    n, p, k = 40_000, 12, 4
+    centers = rng.normal(size=(k, p)) * 10
+    X_host = np.concatenate(
+        [c + rng.normal(size=(n // k, p)) for c in centers]).astype(np.float32)
+
+    with tfm.conf(device="cpu", io_partition_bytes=budget), \
+            jfm.conf(io_partition_bytes=budget):
+        tfm.reset_exec_stats()
+        ts, tcorr, tsvd, tres = _journey(tfm, talg, X_host, k)
+        st = tfm.exec_stats()
+        js, jcorr, jsvd, jres = _journey(jfm, jalg, X_host, k)
+    assert tstorage.live_prefetchers() == []
+    # one partition a pass at the reference's budget, many at 256 KiB
+    assert (st["partition_steps"] > st["passes"]) == bool(budget)
+
+    d = np.linalg.norm(tres.centers[:, None] - centers[None], axis=-1)
+    assert (d.min(1) < 1.0).all()
+    np.testing.assert_allclose(ts.mean, js.mean, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(ts.var, js.var, rtol=1e-4)
+    np.testing.assert_allclose(tcorr, jcorr, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tsvd.s, jsvd.s, rtol=1e-4)
+    np.testing.assert_allclose(tres.centers, jres.centers, rtol=1e-4,
+                               atol=1e-4)
+    assert tres.iters == jres.iters
