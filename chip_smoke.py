@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — five paths through ``repro_torch.core.fm``, each with the
+4. main    — six paths through ``repro_torch.core.fm``, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -69,6 +69,29 @@ Phases, each printing one JSON line:
                 to the synchronous run bit for bit, and an injected
                 staging fault raising ``PrefetchError`` with an empty leak
                 audit;
+             f. (dense half, inside path e while its host copies and
+                prefetched results exist) the disk tier: the registry
+                pointed at ``.fm_data/`` under the checkout (git-ignored;
+                fails unless ~18 GB are free there), X and y written as
+                ``.fmat`` files with ``fm.save_dense_matrix`` and reopened
+                with ``fm.get_dense_matrix``; a ``disk`` line (mount and
+                file-system type from /proc/mounts, free bytes, the write
+                rate of X's file, cold — after fsync and
+                ``posix_fadvise(DONTNEED)`` — and warm rates of a 1 GiB
+                sequential read, through the memory map and through
+                ``readinto``); summary, correlation and glm ``ooc`` from
+                disk through the prefetcher warm, cold (``direct_io``) and,
+                for correlation, cold with ``prefetch=False``, each line
+                as path e's plus ``disk_read_floor_ms`` (a pass's staged
+                bytes over the faster cold rate) and each result equal to
+                path e's prefetched host-tier result bit for bit with the
+                same launches, passes, steps and bytes read (a
+                ``"compare", "path": "disk"`` line names any field that
+                differs); then ``scale(X, save="disk")``: two passes, the
+                second written through to an 8.4 GB spill file whose size
+                and header are checked, a summary of it from disk (means
+                within 1e-5 of 0, sds of 1) and 4096 random rows against
+                float64; counted; the files removed in a ``finally``;
              c. after the dense data is freed, the sparse path at the scale
                 of the Criteo Display Advertising Challenge train set
                 (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
@@ -97,6 +120,12 @@ Phases, each printing one JSON line:
                 design — warps, stripe, tiles, splits, rows in flight,
                 swizzle, registers and spills — and ``deterministic``, two
                 calls equal bit for bit, checked);
+                then path f's sparse half: the host slab written as a CSR
+                ``.fmat`` (``fm.persist(tier="disk")``, its write time
+                printed), reopened by name and ``crossprod``-ed ``ooc``
+                through the prefetcher warm and cold (counted:
+                ``spmm_gram`` once a partition, the Gram equal to whole
+                mode's bit for bit, ``pass_bytes_in`` the file's CSR bytes);
                 ``torch``, which densifies, is compared with ``cuda`` on the
                 first 2^18 rows;
              d. after the Criteo data is freed, the LM serving path
@@ -123,7 +152,7 @@ Phases, each printing one JSON line:
                 is at the full shape; (d) every logit finite.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
-over the counted runs of the five paths), the card's name and power limit as ``nvidia-smi`` prints them, and
+over the counted runs of the six paths), the card's name and power limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
 so every plain version and library call computes in full float32.
@@ -133,7 +162,9 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import time
@@ -177,6 +208,18 @@ F64_TOL = 1e-5
 F64_TOL_OFFDIAG = 2e-8
 
 REPO = pathlib.Path(__file__).resolve().parent
+#: Where path f writes its ``.fmat`` files: under the checkout (git-ignored),
+#: on the checkout's own file system; emptied when the path is done.
+DISK_DIR = REPO / ".fm_data"
+#: Bytes path f's dense half holds on disk at its peak: X and its spill
+#: (8.4 GB each) and y, with 1 GiB to spare; the CSR half (9.9 GB) comes
+#: after they are removed.
+DISK_NEED = 2 * N_ROWS * N_COLS * 4 + N_ROWS * 4 + (1 << 30)
+#: Rows of X in the 1 GiB the disk line reads cold and warm.
+DISK_RATE_ROWS = (1 << 30) // (N_COLS * 4)
+#: The cold read rate (bytes/s) path f's dense half measured: the disk
+#: read floor of every disk pass, the CSR half's too.
+DISK_COLD_RATE = {}
 
 #: Each kernel's launch counter: (module of repro_torch.kernels, attribute).
 COUNTERS = {
@@ -766,7 +809,7 @@ STAGE_SECONDS = ("stage_read_seconds", "stage_copy_seconds",
                  "combine_seconds")
 
 
-def run_ooc(torch, calls, rates, traced=True):
+def run_ooc(torch, calls, rates, traced=True, disk_rate=None):
     """Each ``(name, mode, fn)`` of ``calls`` traced, with its counters:
     wall time (host clock around a call that ends in a synchronize), the
     passes and their partition rows from the ``pass`` spans, partition
@@ -777,7 +820,9 @@ def run_ooc(torch, calls, rates, traced=True):
     step waits for the compute stream (span fidelity), and so for its own
     partition's copy; with ``traced=False`` nothing waits, there are no
     spans, and ``ms_per_pass`` (the call's wall time over its passes) is
-    the pipeline's own pace."""
+    the pipeline's own pace.  With ``disk_rate`` (bytes/s) each call also
+    gets ``disk_read_floor_ms``, a pass's staged bytes over that rate, and
+    ``pass_bytes_in``, the bytes of the last execution's passes."""
     from repro_torch.core import fm
     from repro_torch.observability import metrics
     from repro_torch.observability.trace import TRACER
@@ -816,6 +861,9 @@ def run_ooc(torch, calls, rates, traced=True):
         pass_bytes = d["stage_bytes_read"] / n_pass
         d["read_floor_ms"] = pass_bytes / rates["pageable"] * 1e3
         d["read_floor_pinned_ms"] = pass_bytes / rates["pinned"] * 1e3
+        if disk_rate is not None:
+            d["disk_read_floor_ms"] = pass_bytes / disk_rate * 1e3
+            d["pass_bytes_in"] = list(st["pass_bytes_in"])
         for k in STAGE_SECONDS:
             d[k.replace("_seconds", "_ms_per_pass")] = (
                 (metrics.root_counter(k) - sec0[k]) / n_pass * 1e3)
@@ -952,8 +1000,9 @@ def ooc_phase(torch, x, y, xk, res_a):
                   "call": name, **{k: v for k, v in d.items()
                                    if k not in ("pass_ms", "pass_rows",
                                                 "partition_rows")}})
+    dlaunches = disk_dense_phase(torch, x, y, XH, pres, pinfo, rates)
     del XH, YH, XKH, pres
-    return [launches, plaunches]
+    return [launches, plaunches, dlaunches]
 
 
 def same_results(a, b, names):
@@ -1533,8 +1582,317 @@ def host_slab_phase(torch, Xs, Xm, Ym, gd, gs):
           same, "glm_loglik_trace": [gh.loglik_trace, gs.loglik_trace]})
     check(same, "the host slab's crossprod differs from whole mode's")
     np.testing.assert_allclose(gh.loglik_trace, gs.loglik_trace, rtol=1e-4)
-    del XH, XmH, res
-    return launches
+    del XmH, res
+    claunches = disk_csr_phase(torch, XH, gd, rates)
+    del XH
+    return {k: launches[k] + claunches[k] for k in launches}
+
+
+# ---------------------------------------------------------------------------
+# Path f: the disk tier
+# ---------------------------------------------------------------------------
+
+def mount_of(path) -> tuple:
+    """(mount point, file-system type) of ``path``: the longest mount
+    point of /proc/mounts that contains it."""
+    real = os.path.realpath(path)
+    best = ("/", "unknown")
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt, fstype = parts[1], parts[2]
+            inside = real == mnt or real.startswith(mnt.rstrip("/") + "/")
+            if inside and len(mnt) >= len(best[0]):
+                best = (mnt, fstype)
+    return best
+
+
+def drop_file_cache(path):
+    """Make the next read of ``path`` cold, as far as the kernel lets us:
+    ``fsync`` (``posix_fadvise(DONTNEED)`` leaves dirty pages in the page
+    cache), then drop the file's pages."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+
+
+def read_rates(store) -> dict:
+    """Sequential read rates (bytes/s) of the first 1 GiB of a dense
+    ``.fmat``'s body, cold (after ``drop_file_cache``) then warm: through
+    its memory map, as ``MmapStore.block`` reads it, and through
+    ``readinto`` in 64 MiB chunks."""
+    import numpy as np
+    nbytes = DISK_RATE_ROWS * N_COLS * 4
+    out = {}
+    for cache in ("cold", "warm"):
+        if cache == "cold":
+            drop_file_cache(store.path)
+        t0 = time.perf_counter()
+        blk = np.array(store._mm[:DISK_RATE_ROWS])
+        out[f"{cache}_mmap"] = nbytes / (time.perf_counter() - t0)
+        check(blk.nbytes == nbytes, "the 1 GiB read")
+        del blk
+    buf = bytearray(64 << 20)
+    for cache in ("cold", "warm"):
+        if cache == "cold":
+            drop_file_cache(store.path)
+        t0 = time.perf_counter()
+        with open(store.path, "rb", buffering=0) as f:
+            f.seek(store.header.body_offset)
+            left = nbytes
+            while left:
+                left -= f.readinto(memoryview(buf)[:min(left, len(buf))])
+        out[f"{cache}_readinto"] = nbytes / (time.perf_counter() - t0)
+    return out
+
+
+def disk_line(path, write_bytes, write_s, rates) -> dict:
+    """The ``disk`` line: where path f's files live and how fast that
+    disk moved them in this run."""
+    mnt, fstype = mount_of(path)
+    st = os.statvfs(path)
+    line = {"phase": "disk", "dir": str(path), "mount": mnt,
+            "fs_type": fstype, "free_bytes": st.f_bavail * st.f_frsize,
+            "write_bytes": write_bytes,
+            "write_gb_s": write_bytes / write_s / 1e9,
+            "read_bytes": DISK_RATE_ROWS * N_COLS * 4}
+    line.update({f"{k}_gb_s": v / 1e9 for k, v in rates.items()})
+    emit(line)
+    return line
+
+
+def disk_setup(torch):
+    """Point the registry at DISK_DIR and check it has room for path f."""
+    from repro_torch.core import fm
+    DISK_DIR.mkdir(parents=True, exist_ok=True)
+    fm.set_conf(data_dir=str(DISK_DIR))
+    st = os.statvfs(DISK_DIR)
+    free = st.f_bavail * st.f_frsize
+    check(free >= DISK_NEED, f"path f needs {DISK_NEED} bytes free under "
+          f"{DISK_DIR} ({mount_of(DISK_DIR)}); {free} are free")
+
+
+def disk_cleanup():
+    """Remove path f's files (the directory itself stays, empty)."""
+    for p in DISK_DIR.iterdir() if DISK_DIR.exists() else ():
+        shutil.rmtree(p) if p.is_dir() else p.unlink()
+
+
+def compare_to_host(name, d, ref, diffs_fields):
+    """One disk call's counters against path e's prefetched host call."""
+    for k in ("passes", "partition_steps", "stage_bytes_read", "launches",
+              "pass_rows"):
+        if d[k] != ref[k]:
+            diffs_fields.append(f"{name}.{k}: {d[k]} != {ref[k]}")
+
+
+def disk_dense_phase(torch, x, y, XH, pres, pinfo, rates):
+    """Path f, dense: X and y written to ``.fmat`` files on the machine's
+    disk with ``fm.save_dense_matrix`` (the ``disk`` line: mount, file
+    system, free bytes, write rate, cold and warm 1 GiB read rates) and
+    reopened with ``fm.get_dense_matrix``; summary, correlation and glm run
+    ``ooc`` from them through the prefetcher warm and cold (``direct_io``,
+    after fsync + drop), and correlation cold with ``prefetch=False``; each
+    result equal to path e's prefetched host-tier result ``pres`` bit for
+    bit with its counters (``pinfo``), each pass beside its disk read
+    floor.  Then ``scale(X, save="disk")`` spills pass 2 to a file,
+    checked by its size, its header, a summary from disk and 4096 rows
+    against float64.  Counted; the files are removed at the end."""
+    import numpy as np
+    from repro_torch.algorithms import correlation, glm, summary
+    from repro_torch.core import fm
+    t_path = time.perf_counter()
+    disk_setup(torch)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        XD = fm.save_dense_matrix(x, "friendster_x")
+        write_s = time.perf_counter() - t0
+        YD = fm.save_dense_matrix(y, "friendster_y")
+        check(XD.m.on_disk and YD.m.on_disk and XD.shape == (N_ROWS, N_COLS)
+              and YD.shape == (N_ROWS, 1), "the disk matrices")
+        XD, YD = fm.get_dense_matrix("friendster_x"), \
+            fm.get_dense_matrix("friendster_y")
+        disk = disk_line(DISK_DIR, XD.m.nbytes(), write_s,
+                         read_rates(XD.m.store))
+        cold_rate = max(disk["cold_mmap_gb_s"],
+                        disk["cold_readinto_gb_s"]) * 1e9
+        DISK_COLD_RATE["bytes_s"] = cold_rate
+        calls = (
+            ("summary", "ooc", lambda: summary(XD)),
+            ("correlation", "ooc", lambda: correlation(XD)),
+            ("glm", "ooc", lambda: glm(XD, YD, family="logistic",
+                                       max_iter=8)))
+
+        def cold():
+            for m in (XD, YD):
+                drop_file_cache(m.m.store.path)
+
+        def run():
+            out = {}
+            with fm.conf(backend="cuda"):
+                out["warm"] = run_ooc(torch, calls, rates,
+                                      disk_rate=cold_rate)
+                cold()
+                with fm.conf(direct_io=True):
+                    out["cold"] = run_ooc(torch, calls, rates,
+                                          disk_rate=cold_rate)
+                cold()
+                with fm.conf(direct_io=True, prefetch=False):
+                    out["cold_sync"] = run_ooc(torch, calls[1:2], rates,
+                                               disk_rate=cold_rate)
+                out["scale"] = scale_to_disk(torch, XD, XH, x)
+            return out
+
+        fm.reset_exec_stats()
+        out, launches = counted(torch, "disk dense",
+                                ("gram", "wgram", "fused_apply_agg"), run)
+        diffs = []
+        for run_name, staging in (("warm", "prefetched"),
+                                  ("cold", "prefetched"),
+                                  ("cold_sync", "synchronous")):
+            res, info = out[run_name]
+            for name, d in info.items():
+                emit({"phase": "main", "path": "disk", "staging": staging,
+                      "cache": run_name.split("_")[0], "call": name, **d})
+                compare_to_host(f"{run_name} {name}", d, pinfo[name], diffs)
+                check(d["pass_bytes_in"][-1] == XD.m.nbytes()
+                      + (YD.m.nbytes() if name == "glm" else 0),
+                      f"disk {name}: pass_bytes_in {d['pass_bytes_in']}")
+            diffs += [f"{run_name} {f}" for f in
+                      same_results(pres, res, list(info))]
+        emit({"phase": "compare", "path": "disk", "bit_for_bit": not diffs,
+              "differs": diffs, "launches": launches})
+        check(not diffs, f"disk results differ from path e's prefetched "
+              f"host-tier results: {diffs}")
+        emit({"phase": "main", "path": "disk", "call": "scale_save_disk",
+              **out["scale"]})
+        return launches
+    finally:
+        fm.set_conf(direct_io=False)
+        disk_cleanup()
+        emit({"phase": "data", "path": "disk", "half": "dense",
+              "seconds": time.perf_counter() - t_path})
+
+
+def scale_to_disk(torch, XD, XH, x) -> dict:
+    """``scale(X, save="disk")`` from the disk matrix: two passes, pass
+    2's sweep written through to a spill file; the file's size and header,
+    a summary of the spilled matrix from disk (means within 1e-5 of 0, sds
+    within 1e-5 of 1) and 4096 random rows against a float64
+    recomputation from X's host copy."""
+    import numpy as np
+    from repro_torch import storage
+    from repro_torch.algorithms import summary
+    from repro_torch.core import fm
+    st0 = fm.exec_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (Z,) = fm.materialize(fm.scale(XD, save="disk"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = fm.exec_stats()
+    passes = st["passes"] - st0["passes"]
+    store = Z.m.store
+    check(Z.m.on_disk and passes == 2, f"scale spill: on disk "
+          f"{Z.m.on_disk}, {passes} passes")
+    size = store.path.stat().st_size
+    h = storage.read_header(store.path)
+    check(size == h.body_offset + N_ROWS * N_COLS * 4
+          and (h.nrow, h.ncol, h.layout) == (N_ROWS, N_COLS, "row")
+          and h.dtype == np.float32, f"spill file {size} bytes, {h}")
+    t1 = time.perf_counter()
+    sm = summary(Z)
+    torch.cuda.synchronize()
+    summary_s = time.perf_counter() - t1
+    mean_err = float(np.abs(sm.mean).max())
+    sd_err = float(np.abs(np.sqrt(sm.var) - 1.0).max())
+    # float64 column moments on the card, the rows from X's host copy
+    s1 = torch.zeros(N_COLS, dtype=torch.float64, device=x.device)
+    s2 = torch.zeros_like(s1)
+    for a, b in row_chunks(N_ROWS):
+        xc = x[a:b].double()
+        s1 += xc.sum(0)
+        s2 += (xc * xc).sum(0)
+    mu = (s1 / N_ROWS).cpu().numpy()
+    sd = np.sqrt(((s2 - N_ROWS * (s1 / N_ROWS) ** 2) / (N_ROWS - 1))
+                 .cpu().numpy())
+    rows = np.sort(np.random.default_rng(SEED + 9).choice(
+        N_ROWS, 4096, replace=False))
+    host = XH.m.logical_data()
+    want = (host[rows].astype(np.float64) - mu) / sd
+    got = np.asarray(store.logical()[rows], np.float64)
+    row_err = float(np.abs(got - want).max())
+    out = {"wall_ms": wall * 1e3, "passes": passes,
+           "partition_steps": st["partition_steps"] - st0["partition_steps"],
+           "pass_bytes_in": list(st["pass_bytes_in"]),
+           "spill_bytes": size, "summary_from_disk_ms": summary_s * 1e3,
+           "mean_max_abs": mean_err, "sd_max_abs_err": sd_err,
+           "rows_checked": len(rows), "rows_max_abs_err_f64": row_err}
+    check(mean_err <= 1e-5 and sd_err <= 1e-5, f"scale spill moments: {out}")
+    check(row_err <= 1e-5, f"scale spill rows against float64: {out}")
+    return out
+
+
+def disk_csr_phase(torch, XH, gd, rates):
+    """Path f, sparse: the host slab written as a CSR ``.fmat``
+    (``fm.persist(tier="disk")``), reopened by name and ``crossprod``-ed
+    ``ooc`` through the prefetcher warm and cold: ``spmm_gram`` once a
+    partition, the Gram equal to whole mode's ``gd`` bit for bit, and
+    ``pass_bytes_in`` beside the file's size.  Counted; the file is removed
+    at the end."""
+    from repro_torch.core import fm
+    t_path = time.perf_counter()
+    disk_setup(torch)
+    try:
+        t0 = time.perf_counter()
+        fm.persist(XH, tier="disk", name="criteo")
+        write_s = time.perf_counter() - t0
+        XC = fm.get_dense_matrix("criteo")
+        size = XC.m.store.path.stat().st_size
+        check(XC.m.on_disk and XC.m.is_sparse and size == 4096
+              + XC.m.nbytes(), f"the CSR file: {XC.m.store}, {size} bytes")
+        emit({"phase": "data", "path": "disk csr", "file_bytes": size,
+              "nnz": XC.m.store.nnz, "write_s": write_s,
+              "write_gb_s": size / write_s / 1e9,
+              "mount": list(mount_of(DISK_DIR))})
+        calls = (("crossprod", "ooc", lambda: fm.materialize(
+            fm.crossprod(XC), mode="ooc")),)
+
+        def run():
+            with fm.conf(backend="cuda"):
+                rate = DISK_COLD_RATE["bytes_s"]
+                warm = run_ooc(torch, calls, rates, disk_rate=rate)
+                drop_file_cache(XC.m.store.path)
+                cold = run_ooc(torch, calls, rates, disk_rate=rate)
+            return warm, cold
+
+        fm.reset_exec_stats()
+        (warm, cold), launches = counted(torch, "disk csr", ("spmm_gram",),
+                                         run)
+        for cache, (res, info) in (("warm", warm), ("cold", cold)):
+            d = info["crossprod"]
+            same = bool(torch.equal(
+                fm._fm(res["crossprod"][0]).logical_data(), gd))
+            emit({"phase": "main", "path": "disk csr", "cache": cache,
+                  "staging": "prefetched", "call": "crossprod",
+                  "file_bytes": size, "bit_for_bit": same, **d})
+            check(d["launches"].get("spmm_gram") == d["partition_steps"] > 1,
+                  f"CSR crossprod ({cache}): spmm_gram {d['launches']} for "
+                  f"{d['partition_steps']} partitions")
+            check(same, f"the CSR file's crossprod ({cache}) differs from "
+                  "whole mode's")
+            check(d["pass_bytes_in"] == [XC.m.nbytes()] == [size - 4096],
+                  f"CSR crossprod ({cache}): pass_bytes_in "
+                  f"{d['pass_bytes_in']}, file {size} bytes")
+        return launches
+    finally:
+        disk_cleanup()
+        emit({"phase": "data", "path": "disk", "half": "csr",
+              "seconds": time.perf_counter() - t_path})
 
 
 def flash_row(torch):

@@ -12,8 +12,8 @@ co-materializes WᵀX and WᵀW — on the cuda backend ``kernels.xty`` and
 ``kernels.gram`` — and pass B is a row-local chain writing the new W.  The
 Frobenius objective ‖X−WH‖² = ‖X‖² − 2·tr(HᵀWᵀX) + tr(WᵀW·HHᵀ) falls out of
 pass A's sinks.  W lives on the tier of X, as in the reference: in host RAM
-for a host X.  ``save='disk'`` (write-through spill of W) comes with the
-disk tier (ROADMAP A7b).
+for a host or disk X.  ``save='disk'`` streams W through the write-through
+spill path every iteration and reclaims the previous iteration's file.
 """
 from __future__ import annotations
 
@@ -83,8 +83,16 @@ def nmf(X: fm.FM, k: int = 8, *, max_iter: int = 30, tol: float = 1e-4,
             W_new = W * num / den
             if save:
                 fm.persist(W_new, tier=save)
+            prev_W = W
             (W,) = fm.materialize(W_new, mode=mode, fuse=fuse,
                                   backend=backend)
+            # Reclaim the previous iteration's spill file (each
+            # save='disk' materialization writes a fresh one) — only files
+            # this fit created; the caller's X is never touched.  A view of
+            # the file still held elsewhere keeps its pages mapped.
+            if save == "disk" and prev_W.m.on_disk:
+                prev_W.m.store.close()
+                prev_W.m.store.path.unlink(missing_ok=True)
 
             if np.isfinite(prev) and \
                     abs(prev - obj) <= tol * max(abs(prev), 1.0):

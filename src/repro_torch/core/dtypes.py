@@ -39,7 +39,10 @@ def _as_torch(dtype) -> torch.dtype:
         name = "bool"
     if name in _BY_NAME:
         return _BY_NAME[name]
-    nd = np.dtype(name)
+    try:
+        nd = np.dtype(name)
+    except TypeError:  # e.g. numpy's 'void16', raw two-byte elements
+        raise TypeError(f"unsupported element type: {dtype!r}") from None
     if nd.kind == "f":
         return torch.float32 if nd.itemsize <= 4 else torch.float64
     if nd.kind in ("i", "u"):

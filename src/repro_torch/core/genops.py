@@ -297,15 +297,11 @@ def solve(a: MatLike, b=None) -> FMMatrix:
 
 def set_mate_level(mat: FMMatrix, level: str) -> FMMatrix:
     """fm.set.mate.level: ask the next materialization to keep this virtual
-    matrix ('device' = the device tier, 'host' = host RAM).  'disk', the
-    write-through spill into an on-disk matrix, comes with ROADMAP A7b."""
+    matrix ('device' = the device tier, 'host' = host RAM, 'disk' = spill
+    the output write-through into an on-disk matrix, storage/)."""
     if not mat.is_virtual:
         return mat
-    if level == "disk":
-        raise NotImplementedError(
-            "save='disk' (write-through spill to the disk tier) comes with "
-            "ROADMAP A7b")
-    if level not in ("device", "host"):
+    if level not in ("device", "host", "disk"):
         raise ValueError(f"bad materialization level {level!r}")
     mat.node.save = level
     return mat

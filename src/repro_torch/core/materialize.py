@@ -10,11 +10,16 @@ Executes a fused `fusion.Plan` in one of three modes:
   power-of-two partition of rows (``core/matrix.py``) runs the pass's step,
   and its sink partials fold into the running accumulators with the
   aggregation VUDFs' ``combine``.
-* ``ooc``    — the same loop over sources in host RAM: each partition is
-  read from the host tier and copied to the device
-  (``storage.prefetch.stage_block``), and long-dimension outputs are
-  written to preallocated host buffers.  ``mode="auto"`` resolves to it
-  when any source is on the host.
+* ``ooc``    — the same loop over sources in host RAM or on disk (an
+  ``.fmat`` file behind ``storage.MmapStore`` / ``CsrMmapStore``): each
+  partition is read from its tier into host memory and copied to the
+  device (``storage.prefetch.stage_block``), and long-dimension outputs
+  are written to preallocated host buffers.  ``mode="auto"`` resolves to
+  it when any source is on the host or on disk.
+
+A ``save='disk'`` output (``fm.persist(x, tier="disk")`` of a virtual
+matrix) streams into a preallocated on-disk matrix a partition at a time
+(``MmapStore.write_rows``, write-through), or in one go in ``whole`` mode.
 
 Where ``prefetch`` resolves True (the conf default for a host source of
 more than one partition) the partitions are staged by the background
@@ -28,10 +33,9 @@ same partition schedule (``prefetch_reuse_hits``), across materializes
 inside an ``iteration_scope``.  The plan cache (LRU, under locks) and the
 execution counters are the reference's.
 
-Not in this slice: the disk tier (ROADMAP A7b), co-scheduled groups
-(``fm.batch``, A11), mid-stream admission (A12) and shards (A13).  The
-group runners take a list of members so that A11 slots in; a materialize
-runs them with one.
+Not in this slice: co-scheduled groups (``fm.batch``, ROADMAP A11),
+mid-stream admission (A12) and shards (A13).  The group runners take a
+list of members so that A11 slots in; a materialize runs them with one.
 """
 from __future__ import annotations
 
@@ -269,13 +273,14 @@ def _reuse_from(residents, group_pairs, rows: int, long_dim: int):
 class _PassExec:
     """Executor state of ONE member pass inside a stream group: its
     program, inputs, running accumulators and long-dimension output
-    targets.  ``out_nodes`` pairs each output's template node (whose id
-    keys the step's outputs) with the node describing where the result
-    goes; ``scopes`` are metrics scopes a batch member adopts (A11)."""
+    targets (host buffers, spill stores).  ``out_nodes`` pairs each
+    output's template node (whose id keys the step's outputs) with the node
+    describing where the result goes; ``scopes`` are metrics scopes a batch
+    member adopts (A11)."""
 
     __slots__ = ("ps", "prog", "sources", "smalls", "epi_sources",
                  "bindings", "out_nodes", "scopes", "accs", "out_parts",
-                 "host_bufs", "finals", "epi_outs")
+                 "host_bufs", "disk_stores", "finals", "epi_outs")
 
     def __init__(self, ps, prog, sources, smalls, epi_sources, bindings, *,
                  out_nodes=None, scopes=()):
@@ -293,14 +298,22 @@ class _PassExec:
         self.accs = ps.init_accs()
         self.out_parts = {tmpl.id: [] for tmpl, _ in out_nodes}
         self.host_bufs: dict[int, np.ndarray] = {}
+        self.disk_stores: dict[int, object] = {}
         self.finals = None
         self.epi_outs = None
 
     def route_outputs(self, start: int, stop: int, outputs: dict):
-        """A partition's long-dimension outputs: into their host buffers
-        (``ooc``), or kept on the device in partition order."""
+        """A partition's long-dimension outputs: written through to their
+        spill stores (``save='disk'``), into their host buffers (``ooc``),
+        or kept on the device in partition order.  A device partition is
+        copied to host RAM first (``.cpu()`` waits for the step that made
+        it on the current stream), bf16 as float32, the spill file's
+        type."""
         for nid, val in outputs.items():
-            if nid in self.host_bufs:
+            if nid in self.disk_stores:
+                self.disk_stores[nid].write_rows(start,
+                                                 matrix_mod.to_host(val))
+            elif nid in self.host_bufs:
                 self.host_bufs[nid][start:stop] = matrix_mod.to_host(val)
             else:
                 self.out_parts[nid].append(val)
@@ -397,6 +410,8 @@ def _finish_members(members, stacks):
                                        m.epi_sources, m.smalls, m.bindings)
         for nid, buf in m.host_bufs.items():
             m.out_parts[nid] = [buf]
+        for st in m.disk_stores.values():
+            st.flush()
 
 
 def _run_whole_group(members):
@@ -446,10 +461,20 @@ def _inline_partitions(src_pairs, rows: int, n: int, reuse=None):
 
 
 def _alloc_out_targets(member, to_host: bool):
-    """Allocate a member's host buffers for its long-dimension outputs
-    (``ooc``, or a ``save='host'`` flag) before its first partition."""
+    """Allocate a member's long-dimension output targets before its first
+    partition: a spill file for a ``save='disk'`` flag, a host buffer in
+    ``ooc`` mode or for a ``save='host'`` flag — bf16 stored as float32."""
+    from .. import storage  # deferred: storage imports core
     for tmpl, spec in member.out_nodes:
-        if (spec.save or ("host" if to_host else "device")) == "host":
+        target = spec.save or ("host" if to_host else "device")
+        if target == "disk":
+            # Write-through spill: the output streams into a preallocated
+            # on-disk matrix a partition at a time and never exists whole
+            # in RAM — in any pass: scale(X, save='disk') spills pass 2.
+            member.disk_stores[tmpl.id] = storage.create_matrix(
+                storage.spill_path(spec.name), (spec.nrow, spec.ncol),
+                dtypes.np_equiv(spec.dtype))
+        elif target == "host":
             member.host_bufs[tmpl.id] = np.empty(
                 (spec.nrow, spec.ncol), dtypes.np_equiv(spec.dtype))
 
@@ -578,6 +603,7 @@ def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
     finals_all: dict[int, object] = {}
     parts_all: dict[int, list] = {}
     epi_all: dict[int, object] = {}
+    disk_all: dict[int, object] = {}
     pass_bytes: list[int] = []
     residents = _tls_residents()
     src_i = bc_i = epi_i = 0
@@ -626,12 +652,13 @@ def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
         finals_all.update(member.finals)
         parts_all.update(member.out_parts)
         epi_all.update(member.epi_outs)
+        disk_all.update(member.disk_stores)
         carried.update(member.finals)
         carried.update(member.epi_outs)
     _set_tls_residents(residents)
     metrics.put("pass_bytes_in", tuple(pass_bytes))
     _store_results(plan, finals_all, parts_all, to_host=(mode == "ooc"),
-                   epilogue_outs=epi_all, onto=own)
+                   disk_stores=disk_all, epilogue_outs=epi_all, onto=own)
     return plan
 
 
@@ -644,14 +671,14 @@ def _pick_mode_src(sources, mode: str) -> str:
 
 
 def _stage_whole(mat):
-    """A physical matrix's logical data on the device: a host matrix is
-    copied whole (broadcast and epilogue sources, pass bindings and whole
-    mode's sources never hand a host buffer to a step)."""
+    """A physical matrix's logical data on the device: a host or disk
+    matrix is copied whole, in its canonical dtype (broadcast and epilogue
+    sources, pass bindings and whole mode's sources never hand a host
+    buffer to a step)."""
     data = mat.logical_data()
     if not isinstance(data, np.ndarray):
         return data
-    from ..storage import registry
-    return torch.from_numpy(np.ascontiguousarray(data)).to(registry.device())
+    return matrix_mod.to_device(data)
 
 
 def _run_epilogue(ps, prog, sink_finals, epi_sources, smalls, bindings):
@@ -675,12 +702,14 @@ def _run_epilogue(ps, prog, sink_finals, epi_sources, smalls, bindings):
 
 
 def _store_results(plan: Plan, sink_finals, out_parts, *, to_host: bool,
-                   epilogue_outs=None, onto: Plan = None):
+                   disk_stores=None, epilogue_outs=None, onto: Plan = None):
     """Register the execution's values as each result node's cached store,
     on ``onto``'s nodes (positionally aligned with the template's), under
     _DAG_LOCK.  Sinks and epilogue results stay on the device in every
     mode; a long-dimension output goes to the host in ``ooc`` mode or
-    under a ``save='host'`` flag."""
+    under a ``save='host'`` flag, and to its spill file under
+    ``save='disk'`` (``disk_stores``: written a partition at a time; in
+    ``whole`` mode, spilled here in one go)."""
     onto = onto if onto is not None else plan
     with _DAG_LOCK:
         for node, dst in zip(plan.sinks, onto.sinks):
@@ -694,10 +723,27 @@ def _store_results(plan: Plan, sink_finals, out_parts, *, to_host: bool,
         tmpl_outs = plan.row_local_roots + plan.saves + plan.epilogue_roots
         own_outs = onto.row_local_roots + onto.saves + onto.epilogue_roots
         for node, dst in zip(tmpl_outs, own_outs):
+            if disk_stores and node.id in disk_stores:
+                dst.cached_store = FMMatrix(
+                    dst.shape, dst.dtype, store=disk_stores[node.id],
+                    name=dst.name)
+                dst.save = None
+                continue
             parts = out_parts[node.id]
             data = parts[0] if len(parts) == 1 else torch.cat(parts, 0)
             target = dst.save or (
                 "host" if to_host and node.id not in epi_ids else None)
+            if target == "disk":
+                from .. import storage  # deferred: storage imports core
+                store = storage.create_matrix(
+                    storage.spill_path(dst.name), dst.shape,
+                    dtypes.np_equiv(dst.dtype))
+                store.write_rows(0, matrix_mod.to_host(data))
+                store.flush()
+                dst.cached_store = FMMatrix(
+                    dst.shape, dst.dtype, store=store, name=dst.name)
+                dst.save = None
+                continue
             if target == "host" and not isinstance(data, np.ndarray):
                 data = matrix_mod.to_host(data)
             dst.cached_store = FMMatrix(

@@ -3,11 +3,12 @@ repro.core.matrix).
 
 ``FMMatrix`` is an immutable handle; physical storage lives behind the
 ``MatrixStore`` protocol.  The port has the device tier (a ``DenseStore``
-over a tensor on the engine's device) and the host-RAM tier (a
-``DenseStore`` over a numpy array, staged onto the device a partition at
-a time by the streaming executor); the sparse
-``storage.sparse.SparseEllStore`` holds an ELL slab on either.  The disk
-tier comes with ROADMAP A7b.
+over a tensor on the engine's device), the host-RAM tier (a ``DenseStore``
+over a numpy array, staged onto the device a partition at a time by the
+streaming executor) and the disk tier (``storage.MmapStore`` over an
+``.fmat`` file, staged the same way); the sparse
+``storage.sparse.SparseEllStore`` holds an ELL slab on the device or in
+host RAM, and ``storage.sparse.CsrMmapStore`` a CSR ``.fmat`` on disk.
 The partition-size rules are the reference's, bit for bit, so plans,
 signatures and counters match.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import abc
 import dataclasses
+import warnings
 from typing import Any, Optional
 
 import numpy as np
@@ -240,8 +242,10 @@ class FMMatrix:
 
     def __repr__(self):
         kind = ("virtual" if self.is_virtual
+                else "sparse disk" if self.is_sparse and self.on_disk
                 else "sparse host" if self.is_sparse and self.on_host
                 else "sparse device" if self.is_sparse
+                else "disk" if self.on_disk
                 else "host" if self.on_host else "device")
         return (f"FMMatrix({self.nrow}x{self.ncol}, "
                 f"{dtypes.name(self.dtype)}, {kind}"
@@ -251,7 +255,9 @@ class FMMatrix:
 def to_device(arr) -> torch.Tensor:
     """A tensor on the engine's device in its canonical dtype.  numpy input
     takes the reference's canon (float64 → float32, int64 → int32), so the
-    same numpy arrays compute the same thing in both packages."""
+    same numpy arrays compute the same thing in both packages.  A
+    read-only array (a disk matrix's memory map) is read, never written: on
+    the CPU device the tensor shares its pages."""
     from ..storage import registry  # deferred: storage imports core
     dev = registry.device()
     if isinstance(arr, torch.Tensor):
@@ -259,7 +265,9 @@ def to_device(arr) -> torch.Tensor:
     else:
         a = np.asarray(arr)
         a = a.astype(dtypes.np_equiv(dtypes.canon(a.dtype)), copy=False)
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)  # not writable
+            t = torch.from_numpy(np.ascontiguousarray(a))
     return dtypes.to_canon(t).to(dev)
 
 
@@ -353,9 +361,9 @@ def conv_FM2R(mat: FMMatrix) -> np.ndarray:
 def conv_layout(mat: FMMatrix, layout: str) -> FMMatrix:
     """fm.conv.layout: physically convert row/col majority: a DenseStore
     over a buffer laid out as asked (a 'col' store holds the transposed
-    buffer, contiguous), on the matrix's own tier; a matrix already in that
-    layout is returned as it is.  Disk matrices come with ROADMAP A7b
-    (``fm.conv_layout`` refuses them)."""
+    buffer, contiguous); a matrix already in that layout is returned as it
+    is.  A device or host matrix stays on its tier; a disk matrix is read
+    into a host-RAM store, as in the reference."""
     if layout not in ("row", "col"):
         raise ValueError(f"unknown layout {layout!r}: expected 'row' or 'col'")
     data = mat.logical_data()
@@ -369,12 +377,19 @@ def conv_layout(mat: FMMatrix, layout: str) -> FMMatrix:
 
 
 def conv_store(mat: FMMatrix, where: str, *, name: str = "") -> FMMatrix:
-    """fm.conv.store: move a physical matrix between the device tier and
-    the host-RAM tier ('device' | 'host'; ``fm.persist`` refuses 'disk',
-    which comes with ROADMAP A7b).  A sparse matrix moves in its sparse
+    """fm.conv.store: move a physical matrix between tiers ('device' | 'host'
+    | 'disk').  ``where='disk'`` writes the matrix into the configured data
+    directory under ``name`` (or the matrix's own name) and returns a
+    handle backed by ``storage.MmapStore`` (a sparse matrix: a CSR ``.fmat``
+    behind ``storage.CsrMmapStore``).  A sparse matrix moves in its sparse
     form: only its cols/vals migrate, to a host ELL slab or a device one."""
-    if where not in ("host", "device"):
+    if where not in ("host", "device", "disk"):
         raise ValueError(f"unknown store {where!r}")
+    if where == "disk":
+        from ..storage import registry  # deferred: storage imports core
+        if mat.is_sparse:
+            return registry.save_sparse_matrix(mat, name or mat.name or None)
+        return registry.save_dense_matrix(mat, name or mat.name or None)
     if mat.is_sparse:
         from ..storage.sparse import SparseEllStore  # deferred: storage imports core
         blk = mat.store.block(0, mat.nrow)
@@ -388,6 +403,4 @@ def conv_store(mat: FMMatrix, where: str, *, name: str = "") -> FMMatrix:
     data = mat.logical_data()
     if where == "host":
         return FMMatrix.from_array(data, name=name or mat.name, host=True)
-    if isinstance(data, np.ndarray):
-        data = torch.from_numpy(np.ascontiguousarray(data))
     return FMMatrix.from_array(data, name=name or mat.name)

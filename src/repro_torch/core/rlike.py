@@ -10,12 +10,11 @@ lowers to a GenOp, so a chain of calls builds one lazy DAG that
     >>> (G,) = fm.materialize(fm.crossprod(Z))
 
 Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them: the disk tier, the named-matrix registry and factor
-ingest from files (A7b), ``explain`` (A10), ``batch`` (A11), ``serve``
-(A12).
+that brings them: ``explain`` (A10), ``batch`` (A11), ``serve`` (A12).
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -424,14 +423,20 @@ def conv_FM2R(x) -> np.ndarray:
 
 
 def persist(x, tier: str = "device", *, name: Optional[str] = None) -> FM:
-    """fm.persist: keep a matrix on a tier, 'device' or 'host' (RAM); a
-    virtual ``x`` is marked so its next materialization keeps it there, a
-    physical one moves now.  'disk' comes with ROADMAP A7b."""
+    """fm.persist: the one entry point for keeping a matrix on a tier:
+    'device', 'host' (RAM) or 'disk' (an ``.fmat`` file in the data
+    directory — FlashR's ``in.mem=FALSE``).  A sparse matrix persists in
+    its sparse form (an ELL slab in RAM, a CSR ``.fmat`` on disk); it is
+    never densified.
+
+    A virtual ``x`` is marked so its next materialization keeps it on
+    ``tier`` (``tier='disk'`` spills the streaming output write-through,
+    with no extra pass); a physical one moves now (``tier='disk'`` writes
+    it under ``name``, or the matrix's own name, and returns the reopened
+    mmap-backed handle).  Returns an FM either way."""
     if tier not in ("device", "host", "disk"):
         raise ValueError(
             f"unknown tier {tier!r}: expected 'device', 'host' or 'disk'")
-    if tier == "disk":
-        _later("fm.persist(tier='disk') (the disk tier)", "A7b")
     m = _fm(x)
     if m.is_virtual:
         genops.set_mate_level(m, tier)
@@ -441,14 +446,27 @@ def persist(x, tier: str = "device", *, name: Optional[str] = None) -> FM:
     return FM(matrix_mod.conv_store(m, tier, name=name or ""))
 
 
+def conv_store(x, where: str, *, name: str = "") -> FM:
+    """Deprecated spelling of ``fm.persist(x, tier=where, name=...)``."""
+    warnings.warn(
+        "fm.conv_store(x, where, name=...) is deprecated; use "
+        "fm.persist(x, tier=..., name=...)", DeprecationWarning,
+        stacklevel=2)
+    return persist(x, tier=where, name=name or None)
+
+
 def conv_layout(x, layout: str) -> FM:
     """fm.conv.layout: physically convert row/col majority ('row' or
-    'col'), on the device or the host tier; a disk matrix comes with
-    ROADMAP A7b."""
-    m = _fm(x)
-    if m.on_disk:
-        _later("fm.conv_layout of a disk matrix", "A7b")
-    return FM(matrix_mod.conv_layout(m, layout))
+    'col'); a disk matrix is read into host RAM in the new layout."""
+    return FM(matrix_mod.conv_layout(_fm(x), layout))
+
+
+def set_mate_level(x, level: str) -> FM:
+    """Deprecated spelling of ``fm.persist(x, tier=level)``."""
+    warnings.warn(
+        "fm.set_mate_level(x, level) is deprecated; use "
+        "fm.persist(x, tier=...)", DeprecationWarning, stacklevel=2)
+    return persist(x, tier=level)
 
 
 def set_conf(**kw) -> dict:
@@ -464,20 +482,36 @@ def conf(**kw):
     return registry.conf(**kw)
 
 
+# -- the disk tier / EM-matrix registry (repro_torch/storage/) ----------------
 def get_dense_matrix(name: str) -> FM:
-    _later("the named-matrix registry (fm.get_dense_matrix)", "A7b")
+    """fm.get.dense.matrix: reopen a named on-disk matrix (mmap-backed)."""
+    from ..storage import registry
+    return FM(registry.get_dense_matrix(name))
 
 
 def load_dense_matrix(src, name: str, **kw) -> FM:
-    _later("ingest into the disk tier (fm.load_dense_matrix)", "A7b")
-
-
-def save_dense_matrix(x, name: Optional[str] = None, **kw) -> FM:
-    _later("the disk tier (fm.save_dense_matrix)", "A7b")
+    """fm.load.dense.matrix: ingest CSV/binary/npy/array → on-disk matrix."""
+    from ..storage import registry
+    return FM(registry.load_dense_matrix(src, name, **kw))
 
 
 def load_factor_matrix(src, name: str, *, num_levels, **kw) -> FM:
-    _later("factor ingest into the disk tier (fm.load_factor_matrix)", "A7b")
+    """fm.load.factor.matrix: stream a CSV of integer factor columns into
+    a CSR on-disk matrix of one-hot rows (the Criteo design matrix) and
+    reopen it on the sparse tier."""
+    from ..storage import registry
+    return FM(registry.load_factor_matrix(src, name, num_levels=num_levels,
+                                          **kw))
+
+
+def save_dense_matrix(x, name: Optional[str] = None, **kw) -> FM:
+    """Write a physical matrix into the registry; returns the disk handle
+    (a virtual ``x`` is materialized first)."""
+    from ..storage import registry
+    m = _fm(x)
+    if getattr(m, "is_virtual", False):
+        (m,) = mat_mod.materialize(m)
+    return FM(registry.save_dense_matrix(m, name, **kw))
 
 
 class Factor:

@@ -119,17 +119,27 @@ def effective_ncol(mat) -> int:
 
 def ell_from_csr_rows(indptr, indices, data, start: int, stop: int,
                       kmax: int, ncol: int) -> SparseBlock:
-    """Slice CSR rows [start, stop) into an ELL SparseBlock (numpy)."""
+    """Slice CSR rows [start, stop) into an ELL SparseBlock (numpy).  When
+    every row holds kmax entries (a one-hot design: k ones a row) the ELL
+    slab is the CSR sections themselves, copied in one read each; other
+    rows are scattered to their slots, padding left (col=0, val=0)."""
     rows = stop - start
     rs, re = int(indptr[start]), int(indptr[stop])
+    if re - rs == rows * kmax:
+        # all rows full (no row exceeds kmax): one contiguous copy a leaf
+        return SparseBlock(
+            np.array(indices[rs:re], np.int32).reshape(rows, kmax),
+            np.array(data[rs:re]).reshape(rows, kmax), ncol)
     counts = np.diff(indptr[start:stop + 1]).astype(np.int64)
     cols = np.zeros((rows, kmax), np.int32)
     vals = np.zeros((rows, kmax), data.dtype)
     if re > rs:
-        row_of = np.repeat(np.arange(rows), counts)
-        pos = np.arange(re - rs) - np.repeat(indptr[start:stop] - rs, counts)
-        cols[row_of, pos] = indices[rs:re]
-        vals[row_of, pos] = data[rs:re]
+        # flat slot of entry e of row r: r·kmax + (e − the row's first)
+        slot = np.arange(re - rs) + np.repeat(
+            np.arange(rows, dtype=np.int64) * kmax - (indptr[start:stop] - rs),
+            counts)
+        cols.reshape(-1)[slot] = indices[rs:re]
+        vals.reshape(-1)[slot] = data[rs:re]
     return SparseBlock(cols, vals, ncol)
 
 
@@ -150,6 +160,11 @@ def csr_from_ell(cols, vals):
     cols = np.asarray(cols)
     vals = np.asarray(vals)
     mask = vals != 0
+    if mask.all():
+        # no padding (a one-hot design): the sections are the slab's rows
+        indptr = np.arange(cols.shape[0] + 1, dtype=np.int64) * cols.shape[1]
+        return (indptr, np.ascontiguousarray(cols, np.int32).reshape(-1),
+                np.ascontiguousarray(vals).reshape(-1))
     counts = mask.sum(axis=1)
     indptr = np.zeros(cols.shape[0] + 1, np.int64)
     np.cumsum(counts, out=indptr[1:])

@@ -12,8 +12,9 @@ behind the paper's claim that out-of-core execution tracks in-memory.
 On a CUDA engine device the prefetcher stages through a small ring of
 pinned host slots and a side CUDA stream:
 
-* the worker copies a partition's rows from the numpy store into a pinned
-  slot (the contiguous read of the host tier, counted in
+* the worker copies a partition's rows from the numpy store — a host-RAM
+  array, or the memory map of an ``.fmat`` file, whose pages are read from
+  disk by that copy — into a pinned slot (the slow-tier read, counted in
   ``stage_bytes_read`` / ``stage_read_seconds``), issues the host→device
   copy on the side stream with ``non_blocking=True``, records an event and
   enqueues the partition;
@@ -40,6 +41,7 @@ from typing import Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import dtypes
 from ..core.sparse import SparseBlock
 from ..observability import metrics
 from ..observability.trace import TRACER
@@ -78,18 +80,33 @@ def _leaves(blk):
     return (blk.cols, blk.vals) if isinstance(blk, SparseBlock) else (blk,)
 
 
+def _host_read(a: np.ndarray) -> np.ndarray:
+    """A block's leaf read into contiguous host memory in its canonical
+    type (float64 → float32, int64 → int32, as the reference's transfer
+    with x64 off).  A memory-mapped view — a disk block — is always copied
+    here: ``np.ascontiguousarray`` would hand the view itself on, and the
+    disk read would then happen inside the device copy, outside the
+    timed read."""
+    dt = dtypes.np_equiv(dtypes.canon(a.dtype))
+    if isinstance(a, np.memmap):
+        return np.array(a, dtype=dt, order="C")
+    return np.ascontiguousarray(a, dtype=dt)
+
+
 def stage_block(mat, start: int, stop: int, *, to_device: bool = True,
                 device=None, pinned=None):
     """Read rows [start, stop) of ``mat`` and stage them for the fused step:
 
-    * a host-tier block — dense numpy, or a host ELL slab's ``SparseBlock``
-      of numpy ``cols`` / ``vals``, leaf by leaf — is made contiguous in
-      host RAM: the slow-tier read, counted in ``stage_bytes_read`` /
+    * a host- or disk-tier block — dense numpy (a memmap view for an
+      ``.fmat`` file), or a host ELL slab's or CSR file's ``SparseBlock``
+      of numpy ``cols`` / ``vals``, leaf by leaf — is read into contiguous
+      host memory in its canonical type: the slow-tier read, its source
+      bytes counted in ``stage_bytes_read`` and its time in
       ``stage_read_seconds``.  ``pinned`` (a prefetcher's `_PinnedSlot`)
       makes that copy land in its pinned buffer and the device copy run
-      asynchronously on the current stream; without it the contiguous
-      array is copied from pageable memory, which blocks the host until it
-      lands.  ``to_device=False`` returns the contiguous host block;
+      asynchronously on the current stream; without it the host copy is
+      copied from pageable memory, which blocks the host until it lands.
+      ``to_device=False`` returns the host block;
     * a device-tier block (dense, or a device slab's ``SparseBlock``) is
       passed through as the store's own view, with no tier read.  The
       reference copies a device block when its consumer will donate it;
@@ -103,10 +120,11 @@ def stage_block(mat, start: int, stop: int, *, to_device: bool = True,
     sparse = isinstance(blk, SparseBlock)
     leaves = _leaves(blk)
     if isinstance(leaves[0], np.ndarray):
-        leaves = [np.ascontiguousarray(a) if pinned is None
+        nbytes = sum(int(a.nbytes) for a in leaves)
+        leaves = [_host_read(a) if pinned is None
                   else pinned.fill((id(mat), i), a)
                   for i, a in enumerate(leaves)]
-        metrics.inc("stage_bytes_read", sum(int(a.nbytes) for a in leaves))
+        metrics.inc("stage_bytes_read", nbytes)
         metrics.inc("stage_read_seconds", time.perf_counter() - t0)
         if to_device:
             if device is None:
@@ -167,19 +185,21 @@ class _PinnedSlot:
         self.done: Optional[torch.cuda.Event] = None
 
     def fill(self, key, arr: np.ndarray) -> torch.Tensor:
-        """Copy ``arr`` into this slot's pinned buffer for ``key``: the
-        host tier's contiguous read, by torch's CPU copy on its intra-op
-        threads — the fastest fill ``examples/torch_prefetch_fill.py``
-        found, alone and end to end, though it slows the compute thread's
-        own host work while it runs (PERF.md)."""
+        """Copy ``arr`` into this slot's pinned buffer for ``key``, in its
+        canonical type: the slow tier's read (for a memmap view, the disk
+        read itself), by torch's CPU copy on its intra-op threads — the
+        fastest fill ``examples/torch_prefetch_fill.py`` found, alone and
+        end to end, though it slows the compute thread's own host work
+        while it runs (PERF.md).  A strided view (a 'col' file's block) is
+        gathered by the same copy."""
         with warnings.catch_warnings():
             # a read-only numpy store is read here, never written
             warnings.simplefilter("ignore", UserWarning)
             src = torch.from_numpy(arr)
+        dt = dtypes.canon(src.dtype)
         buf = self.bufs.get(key)
-        if buf is None or buf.dtype != src.dtype \
-                or buf.numel() < src.numel():
-            buf = self.bufs[key] = torch.empty(src.numel(), dtype=src.dtype,
+        if buf is None or buf.dtype != dt or buf.numel() < src.numel():
+            buf = self.bufs[key] = torch.empty(src.numel(), dtype=dt,
                                                pin_memory=True)
         return buf[:src.numel()].view(src.shape).copy_(src)
 

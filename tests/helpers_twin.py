@@ -101,6 +101,30 @@ def time_limit():
         signal.signal(signal.SIGALRM, old)
 
 
+@pytest.fixture()
+def data_dirs(tmp_path, monkeypatch):
+    """Each package's named-matrix registry pointed at a fresh directory of
+    its own (the previous setting restored afterwards): ``{side name:
+    path}``.  One name then means one file in each package."""
+    from repro import storage as jstorage
+    from repro_torch import storage as tstorage
+    dirs = {}
+    for side, storage in ((REF, jstorage), (PORT, tstorage)):
+        monkeypatch.setitem(storage.registry._CONF, "data_dir", None)
+        dirs[side.name] = tmp_path / f"fmdata-{side.name}"
+        side.fm.set_conf(data_dir=str(dirs[side.name]))
+    return dirs
+
+
+def save_both(arr, name: str, **kw):
+    """Write ``arr`` under ``name`` into each package's registry with that
+    package's own ``fm.load_dense_matrix``; a program then reopens it with
+    ``fm.get_dense_matrix(name)``, so running the program twice never
+    rewrites a mapped file."""
+    for side in (REF, PORT):
+        side.fm.load_dense_matrix(arr, name, **kw)
+
+
 @contextlib.contextmanager
 def both_conf(**kw):
     """The same ``fm.conf`` override in both packages."""

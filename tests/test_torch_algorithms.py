@@ -10,7 +10,10 @@ inputs on the host tier in both packages, staged by the background
 prefetcher where the conf default turns it on, as in the reference.
 ``test_host_tier_counters_equal_the_reference`` holds the plan counters of
 each algorithm's run from host RAM, prefetched in both packages, to the
-reference's."""
+reference's, and ``test_disk_tier_counters_equal_the_reference`` the same
+from ``.fmat`` files.  The reference's disk cells:
+``test_glm_logistic_ooc_disk_one_pass_and_wgram_dispatch`` and
+``test_nmf_disk_spill`` (the superseded spill files reclaimed)."""
 import inspect
 
 import numpy as np
@@ -28,7 +31,7 @@ from repro_torch.core import fm
 from repro_torch.kernels import kmeans_assign as ka
 from repro_torch.observability import metrics
 
-from helpers_twin import PORT, REF, both_conf, counting
+from helpers_twin import PORT, REF, both_conf, counting, data_dirs  # noqa: F401
 from helpers_twin import time_limit  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("time_limit")
@@ -403,4 +406,78 @@ def test_host_tier_counters_equal_the_reference(name, run):
                 run(alg, side.fm, X, y)
             got.append(c)
     assert got[0]["partition_steps"] > got[0]["passes"]  # many partitions
+    assert got[1] == got[0], f"port {got[1]}, reference {got[0]}"
+
+
+# ---------------------------------------------------------------------------
+# The disk tier (tests/test_algorithms.py's disk cells)
+# ---------------------------------------------------------------------------
+
+def test_glm_logistic_ooc_disk_one_pass_and_wgram_dispatch(
+        logit_data, backend, data_dirs):
+    """Logistic GLM on an ooc disk matrix matches the numpy IRLS within
+    1e-5 and the reference's disk run; one streaming pass over X and y per
+    iteration (each staged once a partition, however many leaves read
+    them); the weighted-gram segment lowers onto the cuda wgram kernel."""
+    X, y = logit_data
+    Xd = fm.load_dense_matrix(X, "glm_x")
+    yd = fm.load_dense_matrix(y, "glm_y")
+    assert Xd.m.on_disk and yd.m.on_disk
+    plan = glm_iteration_plan(Xd, yd, np.zeros(X.shape[1]), "logistic")
+    assert len(plan.source_groups) == 2
+    assert plan.bytes_in() == Xd.m.nbytes() + yd.m.nbytes()
+    kernels = sorted(u.kernel for u in plan.program("cuda").kernel_units)
+    assert "wgram" in kernels, plan.program("cuda").describe()
+    res = glm(Xd, yd, family="logistic")
+    np.testing.assert_allclose(res.beta, _numpy_irls_logistic(X, y),
+                               rtol=1e-5, atol=1e-6)
+    r = jalg.glm(jfm.load_dense_matrix(X, "glm_x"),
+                 jfm.load_dense_matrix(y, "glm_y"), family="logistic")
+    np.testing.assert_allclose(res.beta, r.beta, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(res.loglik, r.loglik, rtol=1e-6)
+
+
+def test_nmf_disk_spill(data_dirs):
+    """save='disk': the tall factor streams write-through to the disk tier
+    every iteration, each superseded spill file is reclaimed (only the
+    live W's remains), and the result matches the in-memory run and the
+    reference's disk run."""
+    W0 = np.abs(RNG.normal(size=(1200, 3))).astype(np.float32)
+    H0 = np.abs(RNG.normal(size=(3, 7))).astype(np.float32)
+    Xn = (W0 @ H0).astype(np.float32)
+    Xd = fm.load_dense_matrix(Xn, "nmf_x")
+    with fm.conf(io_partition_bytes=1 << 13):
+        r_disk = nmf(Xd, k=3, max_iter=15, seed=1, save="disk")
+    assert r_disk.W.m.on_disk and r_disk.iters > 2
+    spills = list((data_dirs["repro_torch"] / "spill").glob("*.fmat"))
+    assert spills == [r_disk.W.m.store.path], spills
+    r_mem = nmf(fm.conv_R2FM(Xn), k=3, max_iter=15, seed=1, mode="stream")
+    np.testing.assert_allclose(r_disk.objective, r_mem.objective, rtol=1e-3)
+    np.testing.assert_allclose(fm.as_np(r_disk.W), fm.as_np(r_mem.W),
+                               rtol=1e-3, atol=1e-4)
+    j = jalg.nmf(jfm.load_dense_matrix(Xn, "nmf_x"), k=3, max_iter=15,
+                 seed=1, save="disk")
+    np.testing.assert_allclose(r_disk.objective_trace, j.objective_trace,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("name,run", _HOST_RUNS,
+                         ids=[n for n, _ in _HOST_RUNS])
+def test_disk_tier_counters_equal_the_reference(name, run, data_dirs):
+    """Each algorithm from ``.fmat`` files, many 4 KiB partitions a pass:
+    the port's plan counters equal the reference's exactly, as from host
+    RAM."""
+    rng = np.random.default_rng(4)
+    Xn = (rng.normal(size=(1200, 5)) + 1).astype(np.float32)
+    yn = (rng.uniform(size=1200) < 0.5).astype(np.float32)
+    got = []
+    with both_conf(io_partition_bytes=4096):
+        for side, alg in ((REF, jalg), (PORT, talg)):
+            X = side.fm.load_dense_matrix(Xn, "x")
+            y = side.fm.load_dense_matrix(yn, "y")
+            with counting(side, _COUNTERS) as c:
+                run(alg, side.fm, X, y)
+            got.append(c)
+    assert got[0]["partition_steps"] > got[0]["passes"]
+    assert got[0]["stage_bytes_read"] > 0
     assert got[1] == got[0], f"port {got[1]}, reference {got[0]}"

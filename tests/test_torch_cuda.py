@@ -38,7 +38,11 @@ across passes in an ``iteration_scope`` (3); a fault mid-stream with the
 leak audit and an abandoned prefetcher's shutdown (5); staged memory
 within (depth + 2) partitions with the device far behind the host (6).
 Then ``fm.one_hot``'s host slab streamed ``ooc``: crossprod and glm
-against the device slab.
+against the device slab.  Then the disk tier: ``.fmat`` sources through
+the pinned ring (warm and with ``direct_io``) against the host tier bit for
+bit, a ``save='disk'`` spill written from CUDA partitions against whole
+mode's bytes, a CSR file's crossprod against the device slab's, and a
+disk read fault with the leak audit.
 """
 import threading
 
@@ -1166,3 +1170,139 @@ def test_host_ell_slab_against_the_device_slab(dev):
         assert spmm.wgram_launches > before[1]
         rd = glm(Xd, y, "logistic", ridge=1e-3, max_iter=3, mode="stream")
     np.testing.assert_allclose(rh.loglik_trace, rd.loglik_trace, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The disk tier on the card: .fmat files through the pinned ring
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def disk_dir(dev, tmp_path, monkeypatch):
+    from repro_torch import storage
+    monkeypatch.setitem(storage.registry._CONF, "data_dir", None)
+    storage.set_conf(data_dir=str(tmp_path / "fmdata"))
+    return tmp_path / "fmdata"
+
+
+@pytest.mark.parametrize("direct_io", [False, True])
+def test_mmap_source_through_the_pinned_ring(disk_dir, direct_io):
+    """An MmapStore source ('row' and 'col' files, f32 and f64) streamed
+    ooc through the pinned ring and side stream — warm, and with direct_io
+    (pages dropped after each read) — equals the host-tier run bit for bit
+    with the same launches, steps and bytes read; a float64 file reaches
+    the card as float32."""
+    from repro_torch.core import fm
+    from repro_torch.observability import metrics
+    A = _host_x(40_001, 8, seed=7)
+    for dtype, layout in ((np.float32, "row"), (np.float32, "col"),
+                          (np.float64, "row")):
+        a = A.astype(dtype)
+        with fm.conf(device="cuda", backend="cuda",
+                     io_partition_bytes=1 << 16):
+            Xd = fm.load_dense_matrix(a, f"ring_{layout}_{a.dtype.name}",
+                                      layout=layout)
+            Xh = fm.conv_R2FM(a.astype(np.float32), host=True)
+            runs = []
+            for X, dio in ((Xh, False), (Xd, direct_io)):
+                with fm.conf(direct_io=dio):
+                    fm.reset_exec_stats()
+                    g0 = gram_mod.launches
+                    read0 = metrics.root_counter("stage_bytes_read")
+                    G, s = fm.materialize(fm.crossprod(X), fm.colSums(X),
+                                          mode="ooc")
+                    torch.cuda.synchronize()
+                    st = fm.exec_stats()
+                    runs.append((fm.as_np(G), fm.as_np(s),
+                                 gram_mod.launches - g0,
+                                 st["partition_steps"],
+                                 metrics.root_counter("stage_bytes_read")
+                                 - read0))
+        (gh, sh, lh, ph, bh), (gd, sd, ld, pd, bd) = runs
+        np.testing.assert_array_equal(gd, gh)
+        np.testing.assert_array_equal(sd, sh)
+        assert ld == lh == pd == ph > 1
+        assert bd == a.nbytes and bh == A.nbytes
+
+
+def test_spill_from_cuda_partitions_equals_whole_mode(disk_dir):
+    """save='disk' written from CUDA partitions (copied to host after the
+    step, a partition at a time): the spill file's body equals whole
+    mode's output byte for byte; a bf16 output is stored as float32."""
+    from repro_torch.core import fm
+    A = _host_x(30_000, 6, seed=8)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = fm.conv_R2FM(A)
+        bodies = []
+        for mode in ("stream", "whole"):
+            Z = fm.sqrt(fm.abs_(X)) * 3.0 - 1.0
+            fm.persist(Z, tier="disk")
+            fm.reset_exec_stats()
+            (Zm,) = fm.materialize(Z, mode=mode)
+            assert Zm.m.on_disk
+            steps = fm.exec_stats()["partition_steps"]
+            assert (steps > 1) == (mode == "stream")
+            bodies.append(Zm.m.store.path.read_bytes()[4096:])
+        assert bodies[0] == bodies[1]
+        B = fm.conv_R2FM(torch.from_numpy(A).to(torch.bfloat16))
+        Zb = B * 2.0
+        fm.persist(Zb, tier="disk")
+        (Zbm,) = fm.materialize(Zb, mode="stream")
+    assert Zbm.m.store.header.dtype == np.float32
+    want = (torch.from_numpy(A).to(torch.bfloat16) * 2.0).float().numpy()
+    np.testing.assert_array_equal(np.asarray(Zbm.m.logical_data()), want)
+
+
+def test_csr_file_crossprod_equals_the_device_slab(disk_dir):
+    """A CsrMmapStore streamed ooc through the prefetcher: crossprod equal
+    to the device slab's whole-mode Gram bit for bit, one spmm_gram launch
+    a partition."""
+    from repro_torch.core import fm
+    rng = np.random.default_rng(9)
+    n, levels = 60_001, (13, 7, 5)
+    codes = [rng.integers(0, lv, n) for lv in levels]
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 16):
+        fs = [fm.as_factor(c, lv) for c, lv in zip(codes, levels)]
+        Xdev = fm.one_hot(*fs, host=False)
+        Xc = fm.persist(Xdev, tier="disk", name="csr_card")
+        assert Xc.m.on_disk and Xc.m.is_sparse
+        (gd,) = fm.materialize(fm.crossprod(Xdev), mode="whole")
+        before = spmm.gram_launches
+        fm.reset_exec_stats()
+        (gc,) = fm.materialize(fm.crossprod(Xc), mode="ooc")
+        steps = fm.exec_stats()["partition_steps"]
+    assert steps > 1 and spmm.gram_launches - before == steps
+    np.testing.assert_array_equal(fm.as_np(gc), fm.as_np(gd))
+
+
+def test_disk_read_fault_leaks_nothing(disk_dir):
+    """A disk read that fails mid-stream raises PrefetchError naming the
+    rows and the file, and the leak audit (live_prefetchers,
+    staged_leaks) is empty afterwards."""
+    import time
+    from repro_torch import storage
+    from repro_torch.core import fm
+    from repro_torch.core.matrix import FMMatrix
+    A = _host_x(20_000, 8, seed=10)
+    path = disk_dir / "fault.fmat"
+    storage.save_matrix(path, A)
+
+    class Failing(storage.MmapStore):
+        reads = 0
+
+        def block(self, start, stop):
+            Failing.reads += 1
+            if Failing.reads > 4:
+                raise OSError(f"read error in {self.path}")
+            return super().block(start, stop)
+
+    X = FMMatrix(A.shape, A.dtype,
+                 store=Failing(path, storage.read_header(path)))
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 14):
+        with pytest.raises(storage.PrefetchError,
+                           match=r"rows \[\d+, \d+\) of source '.*fault\."
+                                 r"fmat'"):
+            fm.materialize(fm.crossprod(fm.FM(X)), mode="ooc")
+    deadline = time.time() + 10
+    while time.time() < deadline and storage.live_prefetchers():
+        time.sleep(0.02)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from helpers_twin import time_limit  # noqa: F401
+from helpers_twin import data_dirs, time_limit  # noqa: F401
 from repro.core import fm as jfm
 from repro.core import materialize as jmz
 from repro.core.fusion import Plan as JPlan
@@ -287,10 +287,11 @@ def test_lloyd_iterations_reuse_one_cached_plan():
     assert (st["plan_cache_misses"], st["plan_cache_hits"]) == (1, 2)
 
 
-def test_later_slices_raise_with_their_roadmap_item():
+def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
     """What later slices bring raises naming its ROADMAP item; what A7a-ii
-    brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host slab —
-    runs and equals the reference."""
+    and A7b brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host
+    slab, factor ingest and ``fm.persist(tier="disk")`` — runs and equals
+    the reference."""
     X, _, _ = _inputs()
     Xt = tfm.conv_R2FM(X)
     Xh = tfm.conv_R2FM(X, host=True)
@@ -302,13 +303,16 @@ def test_later_slices_raise_with_their_roadmap_item():
     assert H.m.is_sparse and H.m.on_host
     np.testing.assert_array_equal(
         tfm.as_np(H), jfm.as_np(jfm.one_hot(jfm.as_factor(np.arange(4)))))
-    for call, item in ((lambda: tfm.load_factor_matrix("f.csv", "f",
-                                                       num_levels=[3]),
-                        "A7b"),
-                       (lambda: tfm.persist(tfm.colSums(Xt), tier="disk"),
-                        "A7b"),
-                       (lambda: tfm.persist(Xt, tier="disk"), "A7b"),
-                       (lambda: tfm.batch(tfm.colSums(Xt)), "A11"),
+    csv = tmp_path / "f.csv"
+    csv.write_text("0\n2\n1\n")
+    for f in (jfm, tfm):
+        F = f.load_factor_matrix(str(csv), "f", num_levels=[3])
+        np.testing.assert_array_equal(f.as_np(F), np.eye(3)[[0, 2, 1]])
+        (c,) = f.materialize(f.persist(f.colSums(f.conv_R2FM(X)),
+                                       tier="disk"))
+        np.testing.assert_allclose(f.as_np(c).ravel(), X.sum(0), rtol=1e-5)
+        assert f.persist(f.conv_R2FM(X), tier="disk").m.on_disk
+    for call, item in ((lambda: tfm.batch(tfm.colSums(Xt)), "A11"),
                        (lambda: tfm.explain(tfm.colSums(Xt)), "A10"),
                        (lambda: tfm.serve(), "A12"),
                        (lambda: tfm.set_conf(mesh=object()), "A13")):

@@ -12,14 +12,14 @@ stream mode, ``test_glm_style_solve_in_plan``,
 ``test_cached_plan_reuse_with_epilogue_iteration`` and
 ``test_ooc_ridge_eye_is_epilogue_source`` (its X in host RAM in place of
 the reference's disk matrix, staged by the prefetcher in both packages).
-``test_ooc_epilogue_inputs_on_device`` reads a disk matrix and waits for
-the disk tier (ROADMAP A7b).
+``test_ooc_epilogue_inputs_on_device`` reads an ``.fmat`` file in each
+package (the disk tier).
 """
 import numpy as np
 import pytest
 
 from helpers_twin import (PORT, REF, _port_on_cpu, both,  # noqa: F401
-                          both_conf, counting)
+                          both_conf, counting, data_dirs, save_both)
 from helpers_twin import time_limit  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("time_limit")
@@ -170,6 +170,33 @@ def test_ooc_ridge_eye_is_epilogue_source():
     for (am,) in both(program, mode="auto"):
         np.testing.assert_allclose(am, a.T.astype(np.float64) @ a
                                    + np.eye(3), rtol=1e-4)
+
+
+def test_ooc_epilogue_inputs_on_device(data_dirs):
+    """Disk-backed sources: the epilogue receives device tensors only — no
+    memmap or numpy array leaks past the merge (``epilogue_host_inputs``
+    records any) — and the stored results stay on the device; counters
+    equal the reference's."""
+    a = _x(700, 4)
+    save_both(a, "epi_x")
+
+    def program(fm):
+        Xd = fm.get_dense_matrix("epi_x")
+        assert Xd.m.on_disk
+        return [fm.colMeans(Xd), fm.colSds(Xd)]
+
+    for side in (REF, PORT):
+        with counting(side, ("epilogue_launches", "epilogue_host_inputs",
+                             "partition_steps")) as act:
+            mu_m, sd_m = side.fm.materialize(*program(side.fm))
+        assert act["epilogue_launches"] == 1
+        assert act["epilogue_host_inputs"] == 0
+        assert act["partition_steps"] > 1  # genuinely multi-partition ooc
+        assert not mu_m.m.on_host and not sd_m.m.on_host
+    mu, sd = both(program, mode="auto")[1]
+    np.testing.assert_allclose(mu.reshape(-1), a.mean(0), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(sd.reshape(-1), a.std(0, ddof=1), rtol=1e-3)
 
 
 def test_epilogue_rides_kernel_lowering():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from helpers_twin import PORT, REF, _port_on_cpu, both  # noqa: F401
+from helpers_twin import data_dirs  # noqa: F401
 from helpers_twin import time_limit  # noqa: F401
 from repro.core import fm as jfm
 from repro_torch.core import fm as tfm
@@ -534,21 +535,21 @@ class TestConvLayout:
 
         twins(program, check, mode="ooc")
 
-    def test_conv_layout_refusals(self):
-        """The port refuses an unknown layout, and a disk matrix (the disk
-        tier comes with ROADMAP A7b)."""
-        from repro_torch.core.matrix import DenseStore, FMMatrix
-
-        class DiskStore(DenseStore):
-            on_disk = True
-
+    def test_conv_layout_refusals(self, data_dirs):
+        """The port refuses an unknown layout; a disk matrix converts into
+        host RAM in the new layout, as in the reference."""
         X = tfm.conv_R2FM(data(8, 3))
         with pytest.raises(ValueError, match="unknown layout"):
             tfm.conv_layout(X, "diagonal")
-        disk = tfm.FM(FMMatrix(X.shape, X.dtype,
-                               store=DiskStore(X.m.store.data)))
-        with pytest.raises(NotImplementedError, match="A7b"):
-            tfm.conv_layout(disk, "col")
+        a = data(40, 3)
+        for f in (jfm, tfm):
+            disk = f.load_dense_matrix(a, "lay")
+            C = f.conv_layout(disk, "col")
+            assert C.m.store.layout == "col" and C.m.on_host
+            assert not C.m.on_disk
+            np.testing.assert_array_equal(f.as_np(C), a)
+            assert f.conv_layout(disk, "row") is not None
+        assert tfm.conv_layout(disk, "row").m is disk.m
 
 
 #: The reference's parametrized tests of TestElementwise, TestAggregation
@@ -591,10 +592,10 @@ def test_stream_and_host_cells(cls, name, mode, host):
     test(mode=mode, host=host, **kw)
 
 
-def test_port_raises_naming_a7_for_the_stream_and_host_cells():
-    """What this file's tiers still lack raises naming its ROADMAP item,
-    the disk tier (A7b); the host-RAM ELL slab (A7a-ii) runs, equal to the
-    reference's."""
+def test_port_raises_naming_a7_for_the_stream_and_host_cells(data_dirs):
+    """What this file's tiers lacked now runs, equal to the reference's:
+    the host-RAM ELL slab (A7a-ii) and the disk tier (A7b) — a physical
+    matrix persisted to disk, and a virtual one spilled there."""
     Xn = data()
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 3, 40)
@@ -603,7 +604,10 @@ def test_port_raises_naming_a7_for_the_stream_and_host_cells():
     np.testing.assert_array_equal(
         tfm.as_np(H), jfm.as_np(jfm.one_hot(jfm.as_factor(codes, 3),
                                             host=True)))
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tfm.persist(tfm.conv_R2FM(Xn), tier="disk")
-    with pytest.raises(NotImplementedError, match="A7b"):
-        tfm.persist(tfm.conv_R2FM(Xn) * 2.0, tier="disk")
+    for f in (jfm, tfm):
+        D = f.persist(f.conv_R2FM(Xn), tier="disk")
+        assert D.m.on_disk
+        np.testing.assert_array_equal(f.as_np(D), Xn)
+        (S,) = f.materialize(f.persist(f.conv_R2FM(Xn) * 2.0, tier="disk"))
+        assert S.m.on_disk
+        np.testing.assert_allclose(f.as_np(S), Xn * 2.0, rtol=1e-6)

@@ -18,15 +18,16 @@ prefetcher, the conf default, in both packages),
 ``test_cached_two_pass_plan_reuse``, the interrupted passes with the
 prefetcher off and ``test_interrupted_prefetching_pass_raises_prefetch_error``
 with it on (the port's flaky store is ``helpers_twin.FlakyStore``).
-Waiting for the disk tier (ROADMAP A7b):
-``test_scale_save_disk_streams_out_of_core``.
+``test_scale_save_disk_streams_out_of_core`` streams ``scale`` from an
+``.fmat`` file into a spill file, pass 2 written through.
 """
 import numpy as np
 import pytest
 
 from helpers_cache import StagingFault, assert_no_partial_results
 from helpers_twin import (PORT, REF, _port_on_cpu, both,  # noqa: F401
-                          both_conf, counting, flaky_matrix)
+                          both_conf, counting, data_dirs, flaky_matrix,
+                          save_both)
 from helpers_twin import time_limit  # noqa: F401
 from repro.core import dag as jdag
 from repro_torch.core import dag as tdag
@@ -426,3 +427,38 @@ def test_glm_standardize_first_iteration_two_passes():
         np.testing.assert_allclose(pred, 1.0 / (1.0 + np.exp(-(Zs @ b))),
                                    rtol=1e-2, atol=1e-3)
     assert stats[1] == stats[0]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_scale_save_disk_streams_out_of_core(backend, data_dirs):
+    """scale() of a disk matrix with save='disk': two passes, both
+    streamed, pass 2's sweep written through to a spill file (disk to
+    disk, never whole in RAM); counters equal the reference's and the
+    spill file's body equals the reference's within the tolerance."""
+    a = _x(800, 4)
+    save_both(a, "mp_spill_x")
+
+    def program(fm):
+        Xd = fm.get_dense_matrix("mp_spill_x")
+        assert Xd.m.on_disk
+        return [fm.scale(Xd, save="disk")]
+
+    stats = []
+    for side in (REF, PORT):
+        with counting(side, ("passes", "partition_steps",
+                             "epilogue_host_inputs")) as st:
+            (Zm,) = side.fm.materialize(
+                *program(side.fm),
+                **({"backend": backend} if side is PORT else {}))
+        assert st["passes"] == 2
+        assert st["partition_steps"] > 2     # genuinely streamed, both passes
+        assert st["epilogue_host_inputs"] == 0
+        assert Zm.m.on_disk                  # disk → disk
+        ref = (a - a.mean(0)) / a.std(0, ddof=1)
+        np.testing.assert_allclose(np.asarray(Zm.m.logical_data()), ref,
+                                   rtol=1e-3, atol=1e-4)
+        stats.append((st, np.array(Zm.m.logical_data())))
+    assert stats[1][0] == stats[0][0]
+    np.testing.assert_allclose(stats[1][1], stats[0][1], rtol=1e-5,
+                               atol=1e-6)
+    both(program, backend=backend, mode="auto")

@@ -6,18 +6,21 @@ and the two ``test_prefetch_error_*`` cells (a worker failure names the
 partition's rows and the source).  Each runs in both packages on the same
 numpy inputs.
 
+``test_ooc_disk_scale_trace`` traces ``scale(X, save="disk")`` of an
+``.fmat`` file in each package: the span tree and its counters agree.
+
 The rest of the reference file comes with ROADMAP A10: the four tracer
 tests, ``test_pass_bytes_scoped_per_execution_and_set_on_cache_hit``,
-``test_exec_stats_compat_view``, the four ``explain`` tests and, with the
-disk tier (A7b), ``test_ooc_disk_scale_trace``.
+``test_exec_stats_compat_view`` and the four ``explain`` tests.
 """
+import collections
 import threading
 
 import numpy as np
 import pytest
 
 from helpers_twin import (PORT, REF, _port_on_cpu, both_conf,  # noqa: F401
-                          time_limit)
+                          data_dirs, time_limit)
 from repro import storage as jstorage
 from repro_torch import storage as tstorage
 
@@ -138,3 +141,50 @@ def test_prefetch_error_names_unnamed_source_by_type():
         pf.close()
         msgs.append(str(info.value))
     assert msgs[1] == msgs[0]
+
+
+@pytest.mark.parametrize("side", [REF, PORT], ids=lambda s: s.name)
+def test_ooc_disk_scale_trace(data_dirs, small_partitions, side):
+    """scale(X, save='disk') over an ``.fmat`` file, traced: one
+    materialize span, a pass span a pass (2), a partition span a step, the
+    staging spans on the prefetcher's own track, one epilogue span, and
+    every partition inside a pass and every step and combine inside a
+    partition."""
+    from repro.observability.trace import TRACER as JTRACER
+    from repro_torch.observability.trace import TRACER as TTRACER
+    fm = side.fm
+    tracer = TTRACER if side is PORT else JTRACER
+    a = _arr(n=1024, p=4, seed=3)
+    X = fm.load_dense_matrix(a, "trace_x")
+    Z = fm.scale(X, save="disk")
+    fm.reset_exec_stats()
+    with fm.trace():
+        (Zm,) = fm.materialize(Z)
+    st = fm.exec_stats()
+    evs = fm.trace_events()
+    counts = collections.Counter(e["name"] for e in evs)
+    assert Zm.m.on_disk
+    assert counts["materialize"] == 1
+    assert counts["pass"] == st["passes"] == 2
+    assert counts["partition"] == st["partition_steps"] > 2
+    for required in ("stage", "prefetch_wait", "device_step", "combine"):
+        assert counts[required] > 0, required
+    assert counts["epilogue"] == st["epilogue_launches"] == 1
+    by_name = {}
+    for e in evs:
+        by_name.setdefault(e["name"], []).append(e)
+    main_tid = threading.get_ident()
+    assert main_tid not in {e["tid"] for e in by_name["stage"]}
+    assert any(m.get("args", {}).get("name") == "fm-prefetch"
+               for m in tracer.chrome_trace()["traceEvents"]
+               if m["ph"] == "M")
+    passes = [(p["ts"], p["ts"] + p["dur"]) for p in by_name["pass"]]
+    for part in by_name["partition"]:
+        lo, hi = part["ts"], part["ts"] + part["dur"]
+        assert any(p0 <= lo and hi <= p1 for p0, p1 in passes)
+    parts = [(p["ts"], p["ts"] + p["dur"]) for p in by_name["partition"]]
+    for name in ("device_step", "combine"):
+        for e in by_name[name]:
+            lo, hi = e["ts"], e["ts"] + e["dur"]
+            assert any(p0 <= lo and hi <= p1 for p0, p1 in parts), name
+    tracer.reset()

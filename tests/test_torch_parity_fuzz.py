@@ -15,7 +15,9 @@ and on the kernels the kernel backend dispatches (``pallas`` units against
   host RAM;
 * SPARSE_EXAMPLES over an ELL source on both sides (the generator's
   programs with register 0 made sparse, as its FUZZ_SPARSE arm does), in
-  ``whole`` and ``stream`` mode (a device-tier slab);
+  ``whole`` and ``stream`` mode (a device-tier slab) and in ``ooc`` mode
+  from a CSR ``.fmat`` each package writes into its own registry, as the
+  reference's generator does;
 * the bf16 arm: the generator's f32 programs over BF16_SEEDS with register
   0 cast to bf16 on both sides, held to each other (normalized, within
   bf16's tolerance) with counters, kernels and declared dtypes exact;
@@ -25,8 +27,9 @@ and on the kernels the kernel backend dispatches (``pallas`` units against
 Streams are cut into 2 KiB partitions, as in the reference, so ``stream``
 and ``ooc`` run many partitions; both packages stage them as the
 reference's test does (the ``ooc`` cells through the background
-prefetcher, the conf default for a host source).  Left to later slices: the ELL arm's ooc cell, a CSR ``.fmat`` (ROADMAP
-A7b), the reference's ``fm.batch`` arm (A11), its ``fm.serve`` arm (A12)
+prefetcher, the conf default for a host or disk source).  Left to later
+slices: the reference's ``fm.batch`` arm (ROADMAP A11), its ``fm.serve``
+arm (A12)
 and its meshed arm (A13), with their anchors
 ``test_known_program_batched_parity``, ``test_known_program_served_parity``
 and ``test_known_program_meshed_parity``.
@@ -43,7 +46,7 @@ import pytest
 import torch
 
 from helpers_twin import (PORT, REF, _port_on_cpu, both_conf,  # noqa: F401
-                          counting)
+                          counting, data_dirs)
 from helpers_twin import time_limit  # noqa: F401
 from repro_torch.core.matrix import FMMatrix
 from repro_torch.core.sparse import csr_from_dense, ell_from_csr_rows
@@ -72,12 +75,18 @@ BF16_TOL = 2e-2
 
 def _port_sparse_fm(xn: np.ndarray, *, disk: bool):
     """Register 0 of a sparse program on the port: the same ELL slab the
-    reference's ``_sparse_fm`` builds, as a device-tier store."""
-    assert not disk, "the disk tier comes with ROADMAP A7b"
+    reference's ``_sparse_fm`` builds, as a device-tier store — or, for
+    the ooc cell, written as a CSR ``.fmat`` and reopened through the
+    registry, as the reference does."""
+    from repro_torch import storage
     indptr, indices, data = csr_from_dense(xn)
     kmax = max(1, int(np.diff(indptr).max()) if xn.shape[0] else 1)
     blk = ell_from_csr_rows(indptr, indices, data, 0, xn.shape[0], kmax,
                             xn.shape[1])
+    if disk:
+        m = FMMatrix(xn.shape, xn.dtype, store=SparseEllStore(
+            blk.cols, blk.vals, xn.shape[1]))
+        return PORT.fm.FM(storage.save_sparse_matrix(m, "fuzz_sparse"))
     store = SparseEllStore(torch.as_tensor(blk.cols),
                            torch.as_tensor(blk.vals), xn.shape[1])
     return PORT.fm.FM(FMMatrix(xn.shape, store.dtype, store=store))
@@ -86,9 +95,10 @@ def _port_sparse_fm(xn: np.ndarray, *, disk: bool):
 def _ref_sparse_fm(xn: np.ndarray, *, disk: bool):
     """Register 0 of a sparse program on the reference: its own
     ``_sparse_fm`` slab moved to the device tier, the tier the port's slab
-    is on (a host-RAM slab comes with ROADMAP A7a-ii), so the two stage
-    alike and ``stage_bytes_read`` compares."""
-    assert not disk, "the disk tier comes with ROADMAP A7b"
+    is on, so the two stage alike and ``stage_bytes_read`` compares; for
+    the ooc cell its own CSR ``.fmat``."""
+    if disk:
+        return ref._sparse_fm(xn, disk=True)
     X = ref._sparse_fm(xn, disk=False)
     st = X.m.store
     store = type(st)(jnp.asarray(st.cols), jnp.asarray(st.vals), xn.shape[1])
@@ -232,16 +242,16 @@ def test_random_dag_parity_streaming(chunk):
 
 
 @pytest.mark.parametrize("chunk", range(CHUNKS // 2))
-def test_random_sparse_dag_parity(chunk):
+def test_random_sparse_dag_parity(chunk, data_dirs):
     """The generator's programs over a sparse (ELL) register 0 whose
-    densified values are the oracle's input, in whole mode and streamed
-    from the device-tier slab."""
+    densified values are the oracle's input, in whole mode, streamed from
+    the device-tier slab, and out of core from a CSR ``.fmat``."""
     k = CHUNKS // 2
     lo = SPARSE_EXAMPLES * chunk // k
     hi = SPARSE_EXAMPLES * (chunk + 1) // k
     _run((dataclasses.replace(ref.generate(BASE_SEED + EXAMPLES + i),
                               sparse=True) for i in range(lo, hi)),
-         modes=("mem", "stream"))
+         modes=("mem", "stream", "ooc"))
 
 
 @pytest.mark.parametrize("chunk", range(CHUNKS // 2))
@@ -254,9 +264,10 @@ def test_random_dag_parity_bf16(chunk):
          check=check_bf16_program)
 
 
-def test_sparse_arm_is_sparse_on_both_sides():
+def test_sparse_arm_is_sparse_on_both_sides(data_dirs):
     """Register 0 of a sparse program is an ELL store on the device tier in
-    both packages whose densified values are the oracle's input."""
+    both packages, and for the ooc cell a CSR ``.fmat`` (the same bytes),
+    whose densified values are the oracle's input."""
     prog = dataclasses.replace(ref.generate(BASE_SEED), sparse=True)
     xn = ref._input(prog)
     assert 0 < np.count_nonzero(xn) < xn.size
@@ -265,12 +276,17 @@ def test_sparse_arm_is_sparse_on_both_sides():
         assert type(X.m.store).__name__ == "SparseEllStore"
         assert X.m.store.sparse and not X.m.on_host
         np.testing.assert_array_equal(side.fm.as_np(X), xn)
+        D = build(xn, disk=True)
+        assert type(D.m.store).__name__ == "CsrMmapStore" and D.m.on_disk
+        np.testing.assert_array_equal(side.fm.as_np(D), xn)
+    assert (data_dirs["repro"] / "fuzz_sparse.fmat").read_bytes() == \
+        (data_dirs["repro_torch"] / "fuzz_sparse.fmat").read_bytes()
 
 
 @pytest.mark.parametrize("name", ["epilogue", "multipass", "sparse"])
-def test_known_program_parity(name):
+def test_known_program_parity(name, data_dirs):
     """The reference's hand-pinned programs (its always-on anchors), in
-    whole mode."""
+    every mode: the sparse one out of core from a CSR ``.fmat``."""
     progs = {
         "epilogue": ref.Program(
             seed=1234, n=96, p=3, dtype="f32",
@@ -291,5 +307,4 @@ def test_known_program_parity(name):
                  ("sweeprow", 0, 4, "sub"), ("sapply", 2, "abs")],
             outputs=[1, 5, 6]),
     }
-    _run([progs[name]], modes=("mem", "stream") if name == "sparse"
-         else ("mem", "stream", "ooc"))
+    _run([progs[name]], modes=("mem", "stream", "ooc"))
