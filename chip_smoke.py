@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — six paths through ``repro_torch.core.fm``, each with the
+4. main    — seven paths through ``repro_torch.core.fm``, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -34,6 +34,10 @@ Phases, each printing one JSON line:
                 ``cuda`` (once to warm, then counted; every materialize is
                 one pass; gram must have run its triangle body), then with
                 backend ``torch``, compared;
+                then ``fm.explain(..., backend="cuda")`` of every
+                materialize the four calls make (``"phase": "explain"``
+                lines with their dispatch lines): the kernels each call's
+                texts name must be those it launched;
              b. ``svd_tall(k=10, compute_u=True)``, ``pca(k=10)``,
                 ``nmf(|X|, k=8, max_iter=3)``, ``gmm(k=10, max_iter=3)`` on
                 the 10 blobs and ``naive_bayes`` + ``nb_predict`` on the
@@ -91,7 +95,27 @@ Phases, each printing one JSON line:
                 second written through to an 8.4 GB spill file whose size
                 and header are checked, a summary of it from disk (means
                 within 1e-5 of 0, sds of 1) and 4096 random rows against
-                float64; counted; the files removed in a ``finally``;
+                float64; counted; then path g, ``fm.batch``, while X and y
+                live on the device, in host RAM and on disk:
+                ``colMeans(X)``, ``(colSds(X), crossprod(X))``, ``sum_(X)``
+                and ``crossprod(X, y)`` (the first three ride the fourth's
+                {X, y} stream) on device ``whole``, device ``stream``, host
+                ``ooc`` and disk ``ooc`` (warm), each tier as four solo
+                materializes and as one batch, each once warm and then
+                measured untraced: wall ms, streams, passes, steps, pass
+                bytes, bytes read, launches and the staging seconds a
+                stream, the group's partition rows beside each member's;
+                checked: one stream against four, four passes, the union
+                of X and y read once, gram, xty and fused_apply_agg once a
+                partition of the group, and each result bit for bit with
+                its serial run where the member's own partition rows are
+                the group's, else with its request run alone at the
+                group's rows (the relative difference from the serial run
+                is printed); three batches under ``fm.inspect_iterations()``
+                (4 reuse hits: X and y in each batch after the first); and
+                ``fm.explain_batch`` of the requests (``members=4``, the
+                union's bytes against the serial sum); counted; the files
+                removed in a ``finally``;
              c. after the dense data is freed, the sparse path at the scale
                 of the Criteo Display Advertising Challenge train set
                 (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
@@ -111,7 +135,12 @@ Phases, each printing one JSON line:
                 and 2^22-row ``glm`` run ``ooc`` through the prefetcher
                 (counted: ``spmm_gram`` once a partition, the Gram equal to
                 whole mode's bit for bit, the log-likelihoods within 1e-4
-                of the device slab's ``stream`` fit)
+                of the device slab's ``stream`` fit), then path g's sparse
+                half: ``crossprod(Xs)`` and ``crossprod(Xs, y)`` from the
+                host slab as two solo materializes and as one batch
+                (counted: one stream against two, ``spmm_gram`` and
+                ``spmm_xty`` once a partition of the group, the Gram equal
+                to whole mode's and XᵀY to the serial run's bit for bit)
                 (the ``spmm_gram`` / ``spmm_wgram`` rows also print the
                 kernel's design — threads, tile edge, tiles, splits, body,
                 registers and spills — and ``pair_products``, the in-tile
@@ -152,7 +181,7 @@ Phases, each printing one JSON line:
                 is at the full shape; (d) every logit finite.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
-over the counted runs of the six paths), the card's name and power limit as ``nvidia-smi`` prints them, and
+over the counted runs of the seven paths), the card's name and power limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
 so every plain version and library call computes in full float32.
@@ -1000,9 +1029,9 @@ def ooc_phase(torch, x, y, xk, res_a):
                   "call": name, **{k: v for k, v in d.items()
                                    if k not in ("pass_ms", "pass_rows",
                                                 "partition_rows")}})
-    dlaunches = disk_dense_phase(torch, x, y, XH, pres, pinfo, rates)
+    dlaunches = disk_dense_phase(torch, x, y, XH, YH, pres, pinfo, rates)
     del XH, YH, XKH, pres
-    return [launches, plaunches, dlaunches]
+    return [launches, plaunches] + dlaunches
 
 
 def same_results(a, b, names):
@@ -1500,7 +1529,7 @@ def sparse_phase(torch, cols, vals, y):
     check(torch.equal(fm._fm(Gs).logical_data(), gd),
           "the streamed crossprod differs from whole mode's")
     np.testing.assert_allclose(gs.loglik_trace, gw.loglik_trace, rtol=1e-4)
-    hlaunches = host_slab_phase(torch, Xs, Xm, Ym, gd, gs)
+    hlaunches = host_slab_phase(torch, Xs, Xm, Ym, gd, gs, y)
     launches = {k: launches[k] + slaunches[k] + hlaunches[k]
                 for k in launches}
     del G, Gs, gd, block, Xm, Ym
@@ -1535,7 +1564,7 @@ def sparse_phase(torch, cols, vals, y):
     return launches
 
 
-def host_slab_phase(torch, Xs, Xm, Ym, gd, gs):
+def host_slab_phase(torch, Xs, Xm, Ym, gd, gs, y):
     """Path c from host RAM: the slab copied to the host tier as the
     ``SparseEllStore`` that ``fm.one_hot(host=True)`` builds
     (``fm.persist(tier="host")``: cols / vals as numpy), then streamed
@@ -1583,9 +1612,10 @@ def host_slab_phase(torch, Xs, Xm, Ym, gd, gs):
     check(same, "the host slab's crossprod differs from whole mode's")
     np.testing.assert_allclose(gh.loglik_trace, gs.loglik_trace, rtol=1e-4)
     del XmH, res
+    blaunches = batch_sparse_phase(torch, XH, y, gd)
     claunches = disk_csr_phase(torch, XH, gd, rates)
     del XH
-    return {k: launches[k] + claunches[k] for k in launches}
+    return {k: launches[k] + blaunches[k] + claunches[k] for k in launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1689,7 +1719,7 @@ def compare_to_host(name, d, ref, diffs_fields):
             diffs_fields.append(f"{name}.{k}: {d[k]} != {ref[k]}")
 
 
-def disk_dense_phase(torch, x, y, XH, pres, pinfo, rates):
+def disk_dense_phase(torch, x, y, XH, YH, pres, pinfo, rates):
     """Path f, dense: X and y written to ``.fmat`` files on the machine's
     disk with ``fm.save_dense_matrix`` (the ``disk`` line: mount, file
     system, free bytes, write rate, cold and warm 1 GiB read rates) and
@@ -1770,7 +1800,7 @@ def disk_dense_phase(torch, x, y, XH, pres, pinfo, rates):
               f"host-tier results: {diffs}")
         emit({"phase": "main", "path": "disk", "call": "scale_save_disk",
               **out["scale"]})
-        return launches
+        return [launches, batch_dense_phase(torch, x, y, XH, YH, XD, YD)]
     finally:
         fm.set_conf(direct_io=False)
         disk_cleanup()
@@ -1893,6 +1923,367 @@ def disk_csr_phase(torch, XH, gd, rates):
         disk_cleanup()
         emit({"phase": "data", "path": "disk", "half": "csr",
               "seconds": time.perf_counter() - t_path})
+
+
+# ---------------------------------------------------------------------------
+# Path g: fm.batch — one partition stream shared by k plans
+# ---------------------------------------------------------------------------
+
+#: Path g's dense outputs in the order a batch returns them (flattened), and
+#: the request each belongs to.
+BATCH_OUTPUTS = ("colMeans", "colSds", "crossprod", "sum_", "crossprod_xy")
+BATCH_MEMBER = (0, 1, 1, 2, 3)
+
+
+def dense_requests(fm, X, Y):
+    """Path g's dense requests: the reference's doc example over X —
+    colMeans, (colSds, crossprod), sum_ — plus XᵀY, whose {X, y} stream the
+    first three ride by the subset rule."""
+    return [fm.colMeans(X), (fm.colSds(X), fm.crossprod(X)), fm.sum_(X),
+            fm.crossprod(X, Y)]
+
+
+def outs_of(req):
+    return req if isinstance(req, tuple) else (req,)
+
+
+def group_rows(reqs):
+    """(the group's partition rows, each member's own): a member's rows are
+    its plan's, the group's those of the members' ``GroupProgram`` (the
+    smallest)."""
+    from repro_torch.core import lowering
+    from repro_torch.core.fusion import Plan
+    members = []
+    for req in reqs:
+        plan = Plan([o.m for o in outs_of(req)])
+        members.append((plan.passes[0], plan.program("cuda")))
+    return (lowering.GroupProgram(members).partition_rows,
+            [ps.partition_rows for ps, _ in members])
+
+
+def run_serial(fm, make, mode):
+    """Each request of ``make()`` as its own materialize: the results,
+    flattened, and each execution's pass bytes."""
+    vals, pass_bytes = [], []
+    for req in make():
+        vals += fm.materialize(*outs_of(req), mode=mode)
+        pass_bytes += fm.exec_stats()["pass_bytes_in"]
+    return vals, pass_bytes
+
+
+def run_batched(fm, make, mode):
+    """The requests of ``make()`` as one ``fm.batch``."""
+    vals = []
+    for r in fm.batch(*make(), mode=mode):
+        vals += r if isinstance(r, list) else [r]
+    return vals, list(fm.exec_stats()["pass_bytes_in"])
+
+
+def measure(torch, fn):
+    """One untraced call of ``fn``: its results as device tensors, and its
+    wall ms (host clock around a call that ends in a synchronize) with the
+    counters it moved — streams, passes, partition steps, each execution's
+    pass bytes, the bytes read from the host or disk tier, reuse hits, each
+    kernel's launches and the staging pipeline's seconds a stream (fill,
+    side-stream copy, queue wait; ``device_step`` is the steps' host time:
+    untraced, nothing waits for the card)."""
+    from repro_torch.core import fm
+    from repro_torch.observability import metrics
+    st0 = fm.exec_stats()
+    read0 = metrics.root_counter("stage_bytes_read")
+    sec0 = {k: metrics.root_counter(k) for k in STAGE_SECONDS}
+    torch.cuda.synchronize()
+    k0 = read_counts()
+    t0 = time.perf_counter()
+    vals, pass_bytes = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = read_counts()
+    st = fm.exec_stats()
+    d = {"wall_ms": wall * 1e3, "pass_bytes_in": pass_bytes,
+         "stage_bytes_read": int(metrics.root_counter("stage_bytes_read")
+                                 - read0),
+         "launches": {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}}
+    for k in ("streams", "passes", "partition_steps", "prefetch_reuse_hits"):
+        d[k] = st[k] - st0[k]
+    for k in STAGE_SECONDS:
+        d[k.replace("_seconds", "_ms_per_stream")] = (
+            (metrics.root_counter(k) - sec0[k]) / max(1, d["streams"]) * 1e3)
+    return [fm._fm(v).logical_data() for v in vals], d
+
+
+def max_rel_diff(a, b) -> float:
+    """max over entries of |a − b| / |b| (0 where both are 0)."""
+    d = (a.double() - b.double()).abs()
+    return float((d / b.double().abs().clamp_min(1e-300)).max())
+
+
+def max_norm_diff(a, b) -> float:
+    """max |a − b| / max |b|: the difference in the units of the output's
+    largest entry."""
+    b = b.double()
+    return float((a.double() - b).abs().max() / b.abs().max().clamp_min(
+        1e-300))
+
+
+def batch_tier(torch, tier, X, Y, mode):
+    """One dense tier of path g: the requests as four solo materializes,
+    then as one ``fm.batch``, each once warm and then measured; each member
+    whose own partition rows differ from the group's also runs alone at the
+    group's rows.  Returns the two runs' lines and the comparison line."""
+    from repro_torch.core import fm
+    from repro_torch.core.fusion import Plan
+
+    def make():
+        return dense_requests(fm, X, Y)
+
+    grows, mrows = group_rows(make())
+    runs = {}
+    for run, fn in (("serial", run_serial), ("batched", run_batched)):
+        fn(fm, make, mode)                                  # warm
+        runs[run] = measure(torch, lambda: fn(fm, make, mode))
+    # A member alone at the group's partition rows (its I/O budget scaled):
+    # what batching alone changes, with the partitioning held equal.
+    alone = {}
+    budget = fm.set_conf()["io_partition_bytes"]
+    for i, req in enumerate(make()):
+        if mode != "whole" and mrows[i] != grows:
+            with fm.conf(io_partition_bytes=budget * grows // mrows[i]):
+                check(Plan([o.m for o in outs_of(req)]).passes[0]
+                      .partition_rows == grows, f"{tier}: member {i} alone")
+                alone[i] = [fm._fm(v).logical_data() for v in
+                            fm.materialize(*outs_of(req), mode=mode)]
+    (bvals, bd), (svals, sd) = runs["batched"], runs["serial"]
+    same, rel, norm, same_alone = [], {}, {}, []
+    pos = {i: 0 for i in alone}
+    for name, member, b, s in zip(BATCH_OUTPUTS, BATCH_MEMBER, bvals,
+                                  svals):
+        rel[name], norm[name] = max_rel_diff(b, s), max_norm_diff(b, s)
+        if torch.equal(b, s):
+            same.append(name)
+        if member in alone:
+            same_alone.append((name, torch.equal(
+                b, alone[member][pos[member]])))
+            pos[member] += 1
+    rows = {"group_rows": grows if mode != "whole" else X.nrow,
+            "member_rows": mrows if mode != "whole" else [X.nrow] * 4}
+    lines = [{"phase": "main", "path": "batch", "tier": tier, "mode": mode,
+              "run": run, **rows, **runs[run][1]} for run in runs]
+    cmp = {"phase": "compare", "path": "batch", "tier": tier,
+           "speedup": sd["wall_ms"] / bd["wall_ms"],
+           "bit_for_bit": same,
+           "rows_equal": [n for n, m in zip(BATCH_OUTPUTS, BATCH_MEMBER)
+                          if mode == "whole" or mrows[m] == grows],
+           "bit_for_bit_alone_at_group_rows": same_alone,
+           "max_rel_diff": rel, "max_norm_diff": norm}
+    return lines, cmp, (bvals, svals, bd, sd, grows, mrows)
+
+
+def check_batch_tier(tier, X, Y, mode, cmp, detail):
+    """The checks of one dense tier (applied after its lines are
+    printed)."""
+    bvals, svals, bd, sd, grows, mrows = detail
+    nbytes = X.m.nbytes() + Y.m.nbytes()
+    check(bd["streams"] == 1 and bd["passes"] == 4,
+          f"batch {tier}: {bd['streams']} streams, {bd['passes']} passes")
+    check(sd["streams"] == 4 and sd["passes"] == 4,
+          f"serial {tier}: {sd['streams']} streams, {sd['passes']} passes")
+    check(bd["pass_bytes_in"] == [nbytes], f"batch {tier}: pass_bytes_in "
+          f"{bd['pass_bytes_in']}, X and y {nbytes}")
+    if mode == "ooc":
+        check(bd["stage_bytes_read"] == nbytes
+              and sd["stage_bytes_read"] == 3 * X.m.nbytes() + nbytes,
+              f"{tier}: read {bd['stage_bytes_read']} batched, "
+              f"{sd['stage_bytes_read']} serially")
+    parts = 1 if mode == "whole" else -(-X.nrow // grows)
+    lb = bd["launches"]
+    check(lb.get("gram") == parts and lb.get("xty") == parts
+          and lb.get("fused_apply_agg", 0) > 0
+          and lb["fused_apply_agg"] % parts == 0,
+          f"batch {tier}: launches {lb} for {parts} partitions")
+    check(bd["partition_steps"] == 4 * parts,
+          f"batch {tier}: {bd['partition_steps']} steps for 4 members of "
+          f"{parts} partitions")
+    # Batching changes nothing but a member's partitioning: bit for bit
+    # against its serial run where the member's own partition rows are the
+    # group's, and where they are not, against its request run alone at
+    # the group's rows (the float32 partials of a zero-mean column sum fold
+    # in another order at other rows: ``max_rel_diff`` is printed).
+    for name in cmp["rows_equal"]:
+        check(name in cmp["bit_for_bit"], f"batch {tier}: {name} differs "
+              "from its serial run at equal partition rows")
+    for name, same in cmp["bit_for_bit_alone_at_group_rows"]:
+        check(same, f"batch {tier}: {name} differs from its request run "
+              "alone at the group's partition rows")
+    check(len(cmp["rows_equal"]) + len(cmp["bit_for_bit_alone_at_group_rows"])
+          == len(BATCH_OUTPUTS), f"batch {tier}: an output went unchecked")
+
+
+def inspect_batches(torch, XH, YH):
+    """Three batches of the dense requests over the host copy inside
+    ``fm.inspect_iterations()``: each batch after the first starts from the
+    previous one's resident final partition, one reuse hit a staged source
+    (X and y)."""
+    from repro_torch.core import fm
+    st0 = fm.exec_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fm.inspect_iterations():
+        for _ in range(3):
+            fm.batch(*dense_requests(fm, XH, YH), mode="ooc")
+    torch.cuda.synchronize()
+    st = fm.exec_stats()
+    return {"phase": "main", "path": "batch", "tier": "host",
+            "run": "inspect_iterations", "batches": 3, "sources": 2,
+            "wall_ms": (time.perf_counter() - t0) * 1e3,
+            "streams": st["streams"] - st0["streams"],
+            "prefetch_reuse_hits": st["prefetch_reuse_hits"]
+            - st0["prefetch_reuse_hits"]}
+
+
+def batch_dense_phase(torch, x, y, XH, YH, XD, YD):
+    """Path g, dense (inside path f, while X and y live on the device, in
+    host RAM and on disk): the four requests on cuda over four tiers —
+    device ``whole``, device ``stream``, host ``ooc`` and disk ``ooc``
+    (warm) — serially and batched (``batch_tier``); three batches under
+    ``fm.inspect_iterations()``; and ``fm.explain_batch`` of the requests.
+    Counted."""
+    from repro_torch.core import fm
+    from repro_torch.core.fusion import Plan
+    from repro_torch.observability.explain import _fmt_bytes
+    t_path = time.perf_counter()
+    X, Y = fm.conv_R2FM(x), fm.conv_R2FM(y)
+    tiers = (("device whole", X, Y, "whole"), ("device stream", X, Y,
+                                               "stream"),
+             ("host", XH, YH, "ooc"), ("disk warm", XD, YD, "ooc"))
+
+    def run():
+        with fm.conf(backend="cuda"):
+            out = [batch_tier(torch, *t) for t in tiers]
+            return out, inspect_batches(torch, XH, YH)
+
+    fm.reset_exec_stats()
+    (out, insp), launches = counted(torch, "batch dense",
+                                    ("gram", "xty", "fused_apply_agg"), run)
+    for lines, cmp, _ in out:
+        for line in lines:
+            emit(line)
+        emit(cmp)
+    emit(insp)
+    text = fm.explain_batch(*dense_requests(fm, XH, YH))
+    union = XH.m.nbytes() + YH.m.nbytes()
+    serial = sum(Plan([o.m for o in outs_of(r)]).bytes_in()
+                 for r in dense_requests(fm, XH, YH))
+    emit({"phase": "explain_batch", "tier": "host", "text": text})
+    emit({"phase": "batch", "half": "dense", "launches": launches,
+          "seconds": time.perf_counter() - t_path})
+    for (tier, Xt, Yt, mode), (_, cmp, detail) in zip(tiers, out):
+        check_batch_tier(tier, Xt, Yt, mode, cmp, detail)
+    check(insp["prefetch_reuse_hits"] == 2 * 2 and insp["streams"] == 3,
+          f"inspect_iterations: {insp}")
+    check("members=4" in text and "rounds=1" in text and union < serial
+          and f"reads {_fmt_bytes(union)} once (vs {_fmt_bytes(serial)} "
+          "serially)" in text, f"explain_batch: {text}")
+    return launches
+
+
+def batch_sparse_phase(torch, XH, y, gd):
+    """Path g, sparse (inside path c, while the host slab lives):
+    ``crossprod(Xs)`` and ``crossprod(Xs, y)`` ``ooc`` from host RAM
+    through the prefetcher, as two solo materializes and as one
+    ``fm.batch``, each once warm and then measured: one stream against
+    two, ``spmm_gram`` and ``spmm_xty`` once a partition of the group, the
+    Gram equal to whole mode's ``gd`` bit for bit and XᵀY to the serial
+    run's.  Counted."""
+    from repro_torch.core import fm
+    t_path = time.perf_counter()
+    YH = fm.conv_R2FM(y.reshape(-1, 1).cpu().numpy(), host=True)
+
+    def make():
+        return [fm.crossprod(XH), fm.crossprod(XH, YH)]
+
+    def run():
+        with fm.conf(backend="cuda"):
+            grows, mrows = group_rows(make())
+            runs = {}
+            for name, fn in (("serial", run_serial),
+                             ("batched", run_batched)):
+                fn(fm, make, "ooc")                             # warm
+                runs[name] = measure(torch, lambda: fn(fm, make, "ooc"))
+            return grows, mrows, runs
+
+    fm.reset_exec_stats()
+    (grows, mrows, runs), launches = counted(
+        torch, "batch sparse", ("spmm_gram", "spmm_xty"), run)
+    (bvals, bd), (svals, sd) = runs["batched"], runs["serial"]
+    for name in runs:
+        emit({"phase": "main", "path": "batch", "tier": "sparse host",
+              "mode": "ooc", "run": name, "group_rows": grows,
+              "member_rows": mrows, **runs[name][1]})
+    parts = -(-XH.nrow // grows)
+    same = {"gram_whole": bool(torch.equal(bvals[0], gd)),
+            "xty_serial": bool(torch.equal(bvals[1], svals[1]))}
+    emit({"phase": "compare", "path": "batch", "tier": "sparse host",
+          "speedup": sd["wall_ms"] / bd["wall_ms"], "bit_for_bit": same,
+          "max_rel_diff": {"crossprod_xy": max_rel_diff(bvals[1], svals[1])},
+          "launches": launches, "seconds": time.perf_counter() - t_path})
+    check(bd["streams"] == 1 and sd["streams"] == 2
+          and bd["passes"] == sd["passes"] == 2,
+          f"sparse batch: {bd['streams']} / {sd['streams']} streams")
+    check(bd["launches"].get("spmm_gram") == bd["launches"].get("spmm_xty")
+          == parts > 1, f"sparse batch: launches {bd['launches']} for "
+          f"{parts} partitions")
+    check(all(same.values()), f"sparse batch: bit for bit {same}")
+    return launches
+
+
+def explain_phase(torch, x, y, xk):
+    """``fm.explain(..., backend="cuda")`` of every materialize path a's
+    four calls make (``fm.materialize`` wrapped while each call runs on
+    cuda): each call's dispatch lines must name exactly the kernels that
+    call launched."""
+    import re
+    from repro_torch.algorithms import correlation, glm, kmeans, summary
+    from repro_torch.core import fm
+    X, Y, XK = fm.conv_R2FM(x), fm.conv_R2FM(y), fm.conv_R2FM(xk)
+    calls = (("summary", lambda: summary(X)),
+             ("correlation", lambda: correlation(X)),
+             ("glm", lambda: glm(X, Y, family="logistic", max_iter=8)),
+             ("kmeans", lambda: kmeans(XK, k=K_CLUSTERS, max_iter=5)))
+    real = fm.materialize
+    texts = []
+
+    def explaining(*xs, **kw):
+        texts.append(fm.explain(*xs, backend="cuda"))
+        return real(*xs, **kw)
+
+    out = []
+    with fm.conf(backend="cuda"):
+        for name, fn in calls:
+            texts.clear()
+            torch.cuda.synchronize()
+            k0 = read_counts()
+            fm.materialize = explaining
+            try:
+                fn()
+            finally:
+                fm.materialize = real
+            torch.cuda.synchronize()
+            k1 = read_counts()
+            launched = sorted(k for k in k1 if k1[k] > k0[k])
+            dispatch = sorted({ln.strip() for t in texts
+                               for ln in t.splitlines()
+                               if ln.strip().startswith("->")})
+            named = sorted({k for t in texts
+                            for m in re.findall(r"cuda:([\w/]+)", t)
+                            for k in m.split("/")})
+            emit({"phase": "explain", "call": name, "materializes":
+                  len(texts), "dispatch": dispatch, "named": named,
+                  "launched": launched})
+            out.append((name, named, launched))
+    for name, named, launched in out:
+        check(named == launched and launched, f"explain {name}: names "
+              f"{named}, the call launched {launched}")
 
 
 def flash_row(torch):
@@ -2141,6 +2532,7 @@ def main() -> int:
     rows = kernel_phase(torch, x, xk)
     small_phase(x, xk, lab)
     launches_a, res_a = main_phase(torch, x, y, xk)
+    explain_phase(torch, x, y, xk)
     res_a["kmeans"].labels = None    # path e compares centers and wss
     paths = [launches_a, algorithms_phase(torch, x, xk, lab)]
     paths += ooc_phase(torch, x, y, xk, res_a)

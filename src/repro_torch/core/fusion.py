@@ -371,6 +371,25 @@ class Plan:
                          f"|{fname}|{extra}|{ng}|{sv}|{rq}|{','.join(ps_)}")
         return ";".join(parts)
 
+    def staged_sources(self) -> list[tuple[int, FMMatrix]]:
+        """One pair per distinct physical matrix across every pass: the
+        denominator of ``passes_over_sources`` (``bytes_in`` counts each
+        pass's read, so a two-pass plan over one matrix reports 2.0)."""
+        seen: set[int] = set()
+        out = []
+        for ps in self.passes:
+            for nid, mat in ps.staged_sources():
+                if id(mat) not in seen:
+                    seen.add(id(mat))
+                    out.append((nid, mat))
+        return out
+
+    def result_nodes(self):
+        """Deterministic result slots (sinks + requested + saves +
+        epilogue outputs, in pass order)."""
+        return (list(self.sinks) + self.row_local_roots + self.saves
+                + self.epilogue_roots)
+
     def small_values(self):
         return [s.value for s in self.smalls]
 
@@ -416,6 +435,14 @@ class Plan:
             total += n.nrow * n.ncol * dtypes.nbytes(n.dtype)
         return int(total)
 
+    def explain(self, backend: str | None = None) -> str:
+        """The planner's decisions for humans (``fm.explain``): the pass
+        schedule, each source's tier and streamed bytes, both partition
+        levels and the per-segment backend dispatch
+        (observability/explain.py)."""
+        from ..observability.explain import explain_plan
+        return explain_plan(self, backend=backend)
+
     def describe(self) -> str:
         lines = [f"Plan(long_dim={self.long_dim}, passes={self.n_passes},"
                  f" fuse={self.fuse})"]
@@ -424,3 +451,46 @@ class Plan:
         lines.append(f"  flops={self.flop_count():.3e} bytes_in={self.bytes_in():.3e}"
                      f" bytes_out={self.bytes_out():.3e}")
         return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Cross-plan co-scheduling (the batch layer, core/batch.py)
+# ---------------------------------------------------------------------------
+
+def stream_group_key(ps: PassSchedule, sources=None) -> tuple:
+    """The co-schedule signature of one pass: its long dimension plus the
+    identity set of the physical matrices it streams.  Two passes with
+    compatible keys (equal, or one source set a subset of the other, same
+    long dimension) can share one streaming drive.  Partition row counts
+    need not match: they are powers of two under one I/O budget, so the
+    group runs at the smallest member's rows."""
+    return (ps.long_dim,
+            frozenset(id(m) for _, m in ps.staged_sources(sources)))
+
+
+def coschedule(keys) -> list[list[int]]:
+    """Group member passes (given their `stream_group_key`s) onto shared
+    streaming drives: groups of member indices, input order kept inside
+    each group.  Equal keys share a drive; a member whose source set is a
+    strict subset of an existing group's rides that group's stream.  A pass
+    that streams nothing gets a group of its own.  Supersets are seeded
+    first, so a subset always finds its carrier."""
+    keys = list(keys)
+    order = sorted(range(len(keys)), key=lambda i: -len(keys[i][1]))
+    groups: list[list[int]] = []
+    group_keys: list[tuple] = []
+    for i in order:
+        long_dim, mats = keys[i]
+        placed = False
+        if mats:
+            for gi, (g_long, g_mats) in enumerate(group_keys):
+                if g_long == long_dim and mats <= g_mats:
+                    groups[gi].append(i)
+                    placed = True
+                    break
+        if not placed:
+            groups.append([i])
+            group_keys.append((long_dim, mats))
+    for g in groups:
+        g.sort()
+    return groups

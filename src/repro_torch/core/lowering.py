@@ -202,6 +202,42 @@ def _release_plan(units, keep: set) -> dict:
     return release
 
 
+class GroupProgram:
+    """The co-scheduled executable of one stream group (core/batch.py): k
+    member passes driven over a single shared partition stream.
+
+    The members keep their own lowered ``step``/``combine``/``epilogue``;
+    what the group composes is the schedule — while a staged partition is
+    resident, every member's step consumes it before it is dropped, so k
+    plans × 1 stream executes as 1 stream × k steps.  ``members`` holds
+    ``(PassSchedule, LoweredProgram)`` pairs in execution order; the
+    runner is ``materialize._run_stream_group``."""
+
+    def __init__(self, members):
+        self.members = list(members)
+
+    @property
+    def kernel_units(self):
+        return [u for _, prog in self.members for u in prog.kernel_units]
+
+    @property
+    def partition_rows(self) -> int:
+        """The group's common partitioning: the smallest member's rows (all
+        are powers of two under one I/O budget, so every member's schedule
+        divides it)."""
+        return min(ps.partition_rows for ps, _ in self.members)
+
+    def describe(self) -> str:
+        lines = [f"GroupProgram(members={len(self.members)}, "
+                 f"partition_rows={self.partition_rows})"]
+        for i, (ps, prog) in enumerate(self.members):
+            lines.append(f" member {i} (pass {ps.idx}, "
+                         f"rows={ps.partition_rows}):")
+            lines.extend("  " + line
+                         for line in prog.describe().splitlines())
+        return "\n".join(lines)
+
+
 class Backend:
     name = "?"
 
@@ -842,7 +878,8 @@ def dispatch_report(plan, ir, backend: str) -> dict[int, str]:
         elif backend != "cuda":
             report[seg.sid] = "torch generic rules"
         elif dtypes.itemsize(seg.dtype) >= 8:
-            report[seg.sid] = "generic rules (64-bit dtype)"
+            report[seg.sid] = ("generic rules (64-bit dtype: kernels keep "
+                               "full precision on the torch path)")
         elif seg.sid in reasons:
             why = "; ".join(dict.fromkeys(reasons[seg.sid]))
             report[seg.sid] = f"generic rules (declined: {why})"

@@ -33,9 +33,11 @@ same partition schedule (``prefetch_reuse_hits``), across materializes
 inside an ``iteration_scope``.  The plan cache (LRU, under locks) and the
 execution counters are the reference's.
 
-Not in this slice: co-scheduled groups (``fm.batch``, ROADMAP A11),
-mid-stream admission (A12) and shards (A13).  The group runners take a
-list of members so that A11 slots in; a materialize runs them with one.
+The group runners take a list of members: a materialize runs them with
+one, ``fm.batch`` (core/batch.py) with every pass co-scheduled onto one
+stream — the union of the members' sources staged once a partition, each
+member's step on it in turn.  Not in this slice: mid-stream admission
+(ROADMAP A12) and shards (A13).
 """
 from __future__ import annotations
 
@@ -275,8 +277,8 @@ class _PassExec:
     program, inputs, running accumulators and long-dimension output
     targets (host buffers, spill stores).  ``out_nodes`` pairs each
     output's template node (whose id keys the step's outputs) with the node
-    describing where the result goes; ``scopes`` are metrics scopes a batch
-    member adopts (A11)."""
+    describing where the result goes; ``scopes`` are the metrics scopes a
+    batch member adopts around its compute."""
 
     __slots__ = ("ps", "prog", "sources", "smalls", "epi_sources",
                  "bindings", "out_nodes", "scopes", "accs", "out_parts",

@@ -10,7 +10,7 @@ lowers to a GenOp, so a chain of calls builds one lazy DAG that
     >>> (G,) = fm.materialize(fm.crossprod(Z))
 
 Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them: ``explain`` (A10), ``batch`` (A11), ``serve`` (A12).
+that brings them: ``serve`` (A12).
 """
 from __future__ import annotations
 
@@ -601,7 +601,41 @@ def materialize(*xs, **kw) -> list[FM]:
 
 
 def batch(*request_groups, **kw):
-    _later("cross-materialize stream fusion (fm.batch)", "A11")
+    """fm.batch: cross-materialize stream fusion (core/batch.py).
+
+    Each argument is one request — a lazy matrix, or a tuple/list of lazy
+    matrices that would otherwise be one ``fm.materialize(...)`` call.
+    Every request keeps its own plan, but requests whose passes stream the
+    same physical sources are co-scheduled onto one partition sweep: k
+    plans × 1 stream (``fm.exec_stats()['streams']``).
+
+        means, (sds, ctp) = fm.batch(fm.colMeans(X),
+                                     (fm.colSds(X), fm.crossprod(X)))
+
+    With no arguments, returns a collector to queue requests explicitly:
+
+        with fm.batch() as b:
+            h = b.add(fm.colMeans(X))
+        h.value
+
+    Keywords (``mode``, ``backend``, ``donate``, ``prefetch``,
+    ``reuse_plans``) follow ``fm.materialize``; ``mode='auto'`` picks per
+    group from the union of that group's sources.  ``mesh`` comes with the
+    multi-GPU slice (ROADMAP A13)."""
+    from . import batch as batch_mod
+    b = batch_mod.Batch(**kw)
+    if not request_groups:
+        return b
+    handles = []
+    for grp in request_groups:
+        outs = grp if isinstance(grp, (tuple, list)) else (grp,)
+        handles.append(b.add(*[_fm(x) for x in outs]))
+    b.run()
+    results = []
+    for grp, h in zip(request_groups, handles):
+        v = h.value
+        results.append([FM(m) for m in v] if isinstance(v, list) else FM(v))
+    return results
 
 
 def serve(**kw):
@@ -609,11 +643,24 @@ def serve(**kw):
 
 
 def explain(*xs, backend: Optional[str] = None) -> str:
-    _later("fm.explain", "A10")
+    """fm.explain: render the fused plan ``fm.materialize(*xs)`` would run
+    — pass schedule, source tiers, both partition levels, per-segment
+    backend dispatch — without executing anything."""
+    from ..observability.explain import explain as _explain
+    return _explain(*[_fm(x) for x in xs], backend=backend)
 
 
 def explain_batch(*request_groups, backend: Optional[str] = None) -> str:
-    _later("fm.explain_batch", "A10")
+    """fm.explain_batch: render the co-schedule ``fm.batch(*requests)``
+    would run — per round, the stream groups with their member plans,
+    shared sources and the union bytes one drive reads — without executing
+    anything.  Arguments mirror ``fm.batch``: each one is a lazy matrix or
+    a tuple/list of them forming one request."""
+    from ..observability.explain import explain_batch as _explain_batch
+    groups = [grp if isinstance(grp, (tuple, list)) else (grp,)
+              for grp in request_groups]
+    return _explain_batch([[_fm(x) for x in g] for g in groups],
+                          backend=backend)
 
 
 def inspect_iterations():

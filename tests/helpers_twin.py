@@ -19,6 +19,8 @@ checks, exactly, what the two packages must share:
   ``Plan(outputs).program("cuda")`` in the port;
 * each output's shape and dtype (the numpy dtype too, but for bfloat16).
 
+``both_batched`` does the same for the requests of one ``fm.batch`` call.
+
 The values are then held to the reference test's own oracle and
 tolerance, on both sides, by the calling test.
 """
@@ -187,6 +189,48 @@ def both(program, *, backend: str = "torch", mode: str = "whole",
         # computes it in bf16: ROADMAP §C)
         bf16 = "bfloat16" in (dt, r.dtype.name)
         assert t.shape == r.shape and (bf16 or t.dtype == r.dtype)
+    return ref, port
+
+
+def _batch_values(side: Side, res) -> list:
+    """A batch's results as numpy: per request an array, or a list of them
+    for a tuple request."""
+    return [[side.fm.as_np(o) for o in r] if isinstance(r, list)
+            else side.fm.as_np(r) for r in res]
+
+
+def both_batched(program, *, backend: str = "torch", **kw):
+    """``both`` for a batch: ``program(fm)`` returns the requests of one
+    ``fm.batch`` call (each a lazy matrix or a tuple of them), run in both
+    packages — the reference on ``xla``, the port on ``backend`` — with
+    ``kw`` (``mode``, ``prefetch``, ...).  Checks the counters of the call,
+    the kernels each request's plan dispatches and the outputs' shapes and
+    dtypes, as ``both`` does.  Returns ``(reference results, port
+    results)``, each per request a numpy array, or a list of them for a
+    tuple request."""
+    got = {}
+    for side, be in ((REF, "xla"), (PORT, backend)):
+        with counting(side) as c:
+            res = side.fm.batch(*program(side.fm), backend=be, **kw)
+        flat = [o for r in res for o in (r if isinstance(r, list) else [r])]
+        got[side.name] = (_batch_values(side, res),
+                          [str(o.dtype).removeprefix("torch.") for o in flat],
+                          [side.fm.as_np(o).shape for o in flat], c)
+    (ref, rdt, rsh, rc), (port, pdt, psh, pc) = got[REF.name], got[PORT.name]
+    assert pc == rc, f"counters: port {pc}, reference {rc}"
+    assert pdt == rdt, f"dtypes: port {pdt}, reference {rdt}"
+    assert psh == rsh, f"shapes: port {psh}, reference {rsh}"
+
+    def request_kernels(side):
+        out = []
+        for req in program(side.fm):
+            outs = req if isinstance(req, tuple) else (req,)
+            plan = side.Plan([o.m for o in outs if o.m.is_virtual])
+            out.append(sorted(u.kernel for u in plan.program(
+                side.kernel_backend).kernel_units))
+        return out
+
+    assert request_kernels(PORT) == request_kernels(REF)
     return ref, port
 
 

@@ -42,7 +42,11 @@ against the device slab.  Then the disk tier: ``.fmat`` sources through
 the pinned ring (warm and with ``direct_io``) against the host tier bit for
 bit, a ``save='disk'`` spill written from CUDA partitions against whole
 mode's bytes, a CSR file's crossprod against the device slab's, and a
-disk read fault with the leak audit.
+disk read fault with the leak audit.  Last, ``fm.batch``: a 3-member group
+(colMeans, crossprod, XᵀY) from host RAM through the prefetcher at depth 1
+and 4 — one stream, each member's kernel once a partition, results within
+1e-6 of serial — and the same group with every member's step delayed at
+depth 1, equal to the synchronous run bit for bit.
 """
 import threading
 
@@ -1305,4 +1309,85 @@ def test_disk_read_fault_leaks_nothing(disk_dir):
     deadline = time.time() + 10
     while time.time() < deadline and storage.live_prefetchers():
         time.sleep(0.02)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+
+
+# ---------------------------------------------------------------------------
+# fm.batch on the card: k members' kernels on each staged partition
+# ---------------------------------------------------------------------------
+
+def _batch_requests(fm, X, Y):
+    """Three members over {X, y}: colMeans (fused_apply_agg), crossprod
+    (gram) and XᵀY (xty) — the first two ride the third's stream."""
+    return [fm.colMeans(X), fm.crossprod(X), fm.crossprod(X, Y)]
+
+
+def _batch_kernels():
+    return (faa.launches, gram_mod.launches, gram_mod.xty_launches)
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+def test_batch_group_from_host_ram_through_the_prefetcher(dev, depth,
+                                                          monkeypatch):
+    """A 3-member group from host RAM, staged by the prefetcher at depth 1
+    and 4: one stream, three passes, each member's kernel launched once a
+    partition of the group, every result within 1e-6 of its serial run."""
+    from repro_torch import storage
+    from repro_torch.core import fm
+    n = 50_001
+    A = _host_x(n, 8, seed=11)
+    y = _host_x(n, 1, seed=12)
+    monkeypatch.setattr(storage, "negotiate_depth", lambda *a, **k: depth)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X, Y = fm.conv_R2FM(A, host=True), fm.conv_R2FM(y, host=True)
+        serial = [fm.as_np(fm.materialize(r, mode="ooc")[0])
+                  for r in _batch_requests(fm, X, Y)]
+        fm.reset_exec_stats()
+        before = _batch_kernels()
+        with fm.trace():
+            got = fm.batch(*_batch_requests(fm, X, Y), mode="ooc",
+                           prefetch=True)
+            rows = [e["args"]["rows"] for e in fm.trace_events()
+                    if e["name"] == "stream"]
+        grew = [a - b for a, b in zip(_batch_kernels(), before)]
+        st = fm.exec_stats()
+    assert st["streams"] == 1 and st["passes"] == 3
+    assert st["pass_bytes_in"] == (A.nbytes + y.nbytes,)
+    parts = -(-n // rows[0])
+    assert parts > 4 and st["partition_steps"] == 3 * parts
+    assert grew == [parts, parts, parts], (grew, parts)
+    for g, s in zip(got, serial):
+        np.testing.assert_allclose(fm.as_np(g), s, rtol=1e-6, atol=1e-6)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+
+
+def test_batch_partition_not_restaged_under_a_member(dev, monkeypatch):
+    """The prefetcher's done event is recorded after the last member's step
+    on a partition: with every member's step delayed on the compute stream
+    and depth 1, a 3-member group's results equal the synchronous run's
+    bit for bit (no partition was re-staged, and no pinned slot refilled,
+    while a member still read it)."""
+    from repro_torch import storage
+    from repro_torch.core import fm, materialize
+    n = 40_000
+    A = _host_x(n, 16, seed=13)
+    y = _host_x(n, 1, seed=14)
+    step = materialize._member_step
+
+    def slowed(*args, **kw):
+        torch.cuda._sleep(1_000_000)
+        return step(*args, **kw)
+
+    monkeypatch.setattr(storage, "negotiate_depth", lambda *a, **k: 1)
+    out = {}
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X, Y = fm.conv_R2FM(A, host=True), fm.conv_R2FM(y, host=True)
+        for prefetch in (False, True):
+            monkeypatch.setattr(materialize, "_member_step", slowed)
+            got = fm.batch(*_batch_requests(fm, X, Y), mode="ooc",
+                           prefetch=prefetch)
+            monkeypatch.setattr(materialize, "_member_step", step)
+            out[prefetch] = [fm.as_np(g) for g in got]
+    for a, b in zip(out[True], out[False]):
+        np.testing.assert_array_equal(a, b)
     assert storage.live_prefetchers() == [] and storage.staged_leaks() == []

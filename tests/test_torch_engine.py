@@ -288,7 +288,8 @@ def test_lloyd_iterations_reuse_one_cached_plan():
 
 
 def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
-    """What later slices bring raises naming its ROADMAP item; what A7a-ii
+    """What later slices bring raises naming its ROADMAP item (``fm.serve``,
+    A12; a mesh, A13, in ``set_conf`` and in ``fm.batch``); what A7a-ii
     and A7b brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host
     slab, factor ingest and ``fm.persist(tier="disk")`` — runs and equals
     the reference."""
@@ -312,10 +313,10 @@ def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
                                        tier="disk"))
         np.testing.assert_allclose(f.as_np(c).ravel(), X.sum(0), rtol=1e-5)
         assert f.persist(f.conv_R2FM(X), tier="disk").m.on_disk
-    for call, item in ((lambda: tfm.batch(tfm.colSums(Xt)), "A11"),
-                       (lambda: tfm.explain(tfm.colSums(Xt)), "A10"),
-                       (lambda: tfm.serve(), "A12"),
-                       (lambda: tfm.set_conf(mesh=object()), "A13")):
+    for call, item in ((lambda: tfm.serve(), "A12"),
+                       (lambda: tfm.set_conf(mesh=object()), "A13"),
+                       (lambda: tfm.batch(tfm.colSums(Xt), mesh=object()),
+                        "A13")):
         with pytest.raises(NotImplementedError, match=item):
             call()
 

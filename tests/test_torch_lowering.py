@@ -432,3 +432,44 @@ def test_set_conf_backend_roundtrip():
                                    rtol=1e-4)
     finally:
         fm.set_conf(backend="auto")
+
+
+#: The reference's dispatch words → the port's.
+_DISPATCH_NAME_MAP = (("xla generic trace", "torch generic rules"),
+                      ("pallas:", "cuda:"),
+                      ("generic trace (", "generic rules ("),
+                      ("on the XLA path", "on the torch path"))
+
+
+def test_dispatch_report_words_are_the_reference_s(monkeypatch):
+    """``dispatch_report``'s text is the reference's under the name map, on
+    both backends, for a claimed segment, an unmatched one and a 64-bit one
+    (the engine canonicalizes 64-bit sources to 32 bits, so the segment is
+    retyped by hand, with x64 on in the reference)."""
+    from repro.core import dtypes as jdtypes
+    from repro.core import lowering as jlowering
+    monkeypatch.setattr(jdtypes, "_x64", lambda: True)
+    a = _data(64, 3, np.float32)
+    got = {}
+    for side, low, f64, backends in (
+            (REF, jlowering, jnp.float64, ("xla", "pallas")),
+            (PORT, tlowering, torch.float64, ("torch", "cuda"))):
+        fm = side.fm
+        X = fm.conv_R2FM(a)
+        ps = side.Plan([fm.rowSums(X).m, fm.crossprod(X).m]).passes[0]
+        reports = [low.dispatch_report(ps, ps.ir, be) for be in backends]
+        seg = next(s for s in ps.ir.segments if s.kind == "row_local")
+        seg.dtype = f64
+        reports.append(low.dispatch_report(ps, ps.ir, backends[1]))
+        got[side.name] = [sorted(r.items()) for r in reports]
+    want = [[(sid, _mapped(text)) for sid, text in r]
+            for r in got[REF.name]]
+    assert got[PORT.name] == want
+    assert ("generic rules (64-bit dtype: kernels keep full precision on "
+            "the torch path)") in dict(got[PORT.name][2]).values()
+
+
+def _mapped(text: str) -> str:
+    for old, new in _DISPATCH_NAME_MAP:
+        text = text.replace(old, new)
+    return text

@@ -9,12 +9,24 @@ numpy inputs.
 ``test_ooc_disk_scale_trace`` traces ``scale(X, save="disk")`` of an
 ``.fmat`` file in each package: the span tree and its counters agree.
 
-The rest of the reference file comes with ROADMAP A10: the four tracer
-tests, ``test_pass_bytes_scoped_per_execution_and_set_on_cache_hit``,
-``test_exec_stats_compat_view`` and the four ``explain`` tests.
+The device-tier cells: the four tracer tests, run on each package's own
+tracer; ``test_pass_bytes_scoped_per_execution_and_set_on_cache_hit`` and
+``test_exec_stats_compat_view`` in both packages, their counters equal;
+and the four ``explain`` tests — the golden text of the two-pass
+``scale(X)`` plan equal, character for character, to the reference's
+golden (and to the reference's own output) under the name map
+``EXPLAIN_NAME_MAP``: ``backend=xla`` → ``backend=torch``, ``xla generic
+trace`` → ``torch generic rules``, ``pallas:`` → ``cuda:``, ``generic
+trace (`` → ``generic rules (``.
 """
 import collections
+import importlib.util
+import json
+import pathlib
+import re
+import sys
 import threading
+from importlib import import_module
 
 import numpy as np
 import pytest
@@ -188,3 +200,194 @@ def test_ooc_disk_scale_trace(data_dirs, small_partitions, side):
             lo, hi = e["ts"], e["ts"] + e["dur"]
             assert any(p0 <= lo and hi <= p1 for p0, p1 in parts), name
     tracer.reset()
+
+
+# ---------------------------------------------------------------------------
+# Span tracer (each package's own)
+# ---------------------------------------------------------------------------
+
+def _tracer(side):
+    return import_module(f"{side.name}.observability.trace").TRACER
+
+
+@pytest.mark.parametrize("side", [REF, PORT], ids=lambda s: s.name)
+def test_span_nesting_and_containment(side):
+    tracer = _tracer(side)
+    tracer.start()
+    with tracer.span("outer", idx=1):
+        with tracer.span("inner"):
+            pass
+        with tracer.span("inner"):
+            pass
+    tracer.stop()
+    evs = tracer.events()
+    # Spans record on exit, so both children precede their parent.
+    assert [e["name"] for e in evs] == ["inner", "inner", "outer"]
+    outer = evs[-1]
+    assert outer["args"] == {"idx": 1}
+    for inner in evs[:2]:
+        assert inner["ts"] >= outer["ts"]
+        assert inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"]
+    tracer.reset()
+
+
+@pytest.mark.parametrize("side", [REF, PORT], ids=lambda s: s.name)
+def test_disabled_tracer_records_nothing(side):
+    tracer = _tracer(side)
+    tracer.reset()
+    with tracer.span("x", a=1):
+        pass
+    tracer.record("y", 0.0, 1.0)
+    assert tracer.events() == []
+    # Disabled spans are one shared null object — no per-span allocation.
+    assert tracer.span("x") is tracer.span("y")
+
+
+@pytest.mark.parametrize("side", [REF, PORT], ids=lambda s: s.name)
+def test_chrome_trace_export(side, tmp_path):
+    fm, tracer = side.fm, _tracer(side)
+    with fm.trace():
+        with tracer.span("work", rows=7):
+            pass
+    path = tmp_path / "trace.json"
+    fm.trace_export(str(path))
+    doc = json.loads(path.read_text())
+    assert doc["displayTimeUnit"] == "ms"
+    complete = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    meta = [e for e in doc["traceEvents"] if e["ph"] == "M"]
+    assert [e["name"] for e in complete] == ["work"]
+    assert complete[0]["dur"] >= 0 and complete[0]["args"] == {"rows": 7}
+    assert any(m["name"] == "thread_name" for m in meta)
+    assert any(m["name"] == "process_name" for m in meta)
+
+
+@pytest.mark.parametrize("side", [REF, PORT], ids=lambda s: s.name)
+def test_trace_context_manager_resets_by_default(side):
+    fm, tracer = side.fm, _tracer(side)
+    with fm.trace():
+        with tracer.span("first"):
+            pass
+    assert [e["name"] for e in fm.trace_events()] == ["first"]
+    with fm.trace():
+        pass
+    assert fm.trace_events() == []          # reset=True dropped "first"
+    assert not tracer.enabled               # and the tracer is off again
+
+
+# ---------------------------------------------------------------------------
+# Scoped metrics: per-execution pass bytes, the exec_stats view
+# ---------------------------------------------------------------------------
+
+def _metrics(side):
+    return import_module(f"{side.name}.observability.metrics")
+
+
+def test_pass_bytes_scoped_per_execution_and_set_on_cache_hit():
+    a = _arr(n=128)
+    got = []
+    for side in (REF, PORT):
+        fm, mz = side.fm, side.mz
+        mz.reset_exec_stats()
+        mz.clear_plan_cache()
+        X = fm.conv_R2FM(a)
+        fm.materialize(fm.crossprod(X))
+        assert mz.exec_stats()["pass_bytes_in"] == (a.nbytes,)
+        # Re-executing the cached plan must still publish its own bytes.
+        with fm.collect_stats() as scope:
+            fm.materialize(fm.crossprod(X))
+        assert scope.stats()["pass_bytes_in"] == (a.nbytes,)
+        st = mz.exec_stats()
+        assert st["plan_cache_hits"] == 1 and st["plan_cache_misses"] == 1
+        assert _metrics(side).stats()["plan_cache_hit_ratio"] == 0.5
+        got.append(st)
+    assert got[1] == got[0]
+
+
+def test_exec_stats_compat_view():
+    a = _arr(n=200)
+    got = []
+    for side in (REF, PORT):
+        fm, mz = side.fm, side.mz
+        mz.reset_exec_stats()
+        mz.clear_plan_cache()
+        X = fm.conv_R2FM(a)
+        fm.materialize(fm.scale(X))
+        st = mz.exec_stats()
+        assert st["materialize_calls"] == 1
+        assert st["passes"] == 2                 # scale is the two-pass plan
+        assert st["epilogue_launches"] >= 1
+        assert len(st["pass_bytes_in"]) == 2
+        for key in mz.EXEC_COUNTERS:
+            assert isinstance(st[key], int), key
+        # The registry view carries the derived telemetry too.
+        full = _metrics(side).stats()
+        assert 0.0 <= full["prefetch_wait_frac"] <= 1.0
+        assert full["stream_bandwidth_bytes_s"] >= 0.0
+        got.append(st)
+    assert got[1] == got[0]
+    assert PORT.mz.EXEC_COUNTERS == REF.mz.EXEC_COUNTERS
+
+
+# ---------------------------------------------------------------------------
+# fm.explain (golden, under the name map)
+# ---------------------------------------------------------------------------
+
+_SPEC = importlib.util.spec_from_file_location(
+    "_reference_observability",
+    pathlib.Path(__file__).with_name("test_observability.py"))
+_ref_obs = importlib.util.module_from_spec(_SPEC)
+sys.modules[_SPEC.name] = _ref_obs
+_SPEC.loader.exec_module(_ref_obs)
+
+#: The reference's words → the port's, applied in this order to the
+#: reference's explain text; no other character may differ.
+EXPLAIN_NAME_MAP = (("backend=xla", "backend=torch"),
+                    ("xla generic trace", "torch generic rules"),
+                    ("pallas:", "cuda:"),
+                    ("generic trace (", "generic rules ("))
+
+
+def _port_words(text: str) -> str:
+    for old, new in EXPLAIN_NAME_MAP:
+        text = text.replace(old, new)
+    return text
+
+
+def test_explain_golden_two_pass_scale():
+    texts = {}
+    with both_conf(io_partition_bytes=1 << 20, vmem_partition_bytes=1 << 20):
+        for side, backend in ((REF, "xla"), (PORT, "torch")):
+            X = side.fm.conv_R2FM(np.ones((100, 3), np.float32))
+            texts[side.name] = re.sub(
+                r"#\d+", "#N", side.fm.explain(side.fm.scale(X),
+                                               backend=backend))
+    assert texts[REF.name] == _ref_obs.EXPLAIN_GOLDEN
+    assert texts[PORT.name] == _port_words(_ref_obs.EXPLAIN_GOLDEN)
+
+
+def test_explain_pallas_dispatch_reasons():
+    a = _arr(n=256)
+    texts = {}
+    for side, backend in ((REF, "pallas"), (PORT, "cuda")):
+        X = side.fm.conv_R2FM(a)
+        texts[side.name] = re.sub(r"#\d+", "#N", side.fm.explain(
+            side.fm.crossprod(X), backend=backend))
+    assert "cuda:gram (claimed by " in texts[PORT.name]
+    assert "backend=cuda" in texts[PORT.name]
+    assert texts[PORT.name] == _port_words(texts[REF.name]).replace(
+        "backend=pallas", "backend=cuda")
+
+
+@pytest.mark.parametrize("side", [REF, PORT], ids=lambda s: s.name)
+def test_explain_nothing_virtual(side):
+    X = side.fm.conv_R2FM(_arr(n=16))
+    assert "already materialized" in side.fm.explain(X)
+
+
+@pytest.mark.parametrize("side,backend", [(REF, "xla"), (PORT, "torch")],
+                         ids=["repro", "repro_torch"])
+def test_plan_explain_method_matches_fm_explain(side, backend):
+    X = side.fm.conv_R2FM(_arr(n=64))
+    Z = side.fm.scale(X)
+    assert side.Plan([Z.m]).explain(backend=backend) == side.fm.explain(
+        Z, backend=backend)

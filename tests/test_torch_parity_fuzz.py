@@ -27,12 +27,12 @@ and on the kernels the kernel backend dispatches (``pallas`` units against
 Streams are cut into 2 KiB partitions, as in the reference, so ``stream``
 and ``ooc`` run many partitions; both packages stage them as the
 reference's test does (the ``ooc`` cells through the background
-prefetcher, the conf default for a host or disk source).  Left to later
-slices: the reference's ``fm.batch`` arm (ROADMAP A11), its ``fm.serve``
-arm (A12)
-and its meshed arm (A13), with their anchors
-``test_known_program_batched_parity``, ``test_known_program_served_parity``
-and ``test_known_program_meshed_parity``.
+prefetcher, the conf default for a host or disk source).  The reference's
+``fm.batch`` arm and its anchor ``test_known_program_batched_parity`` are
+tests/test_torch_parity_fuzz_batch.py.  Left to later slices: its
+``fm.serve`` arm (ROADMAP A12) and its meshed arm (A13), with their anchors
+``test_known_program_served_parity`` and
+``test_known_program_meshed_parity``.
 """
 import dataclasses
 import importlib.util

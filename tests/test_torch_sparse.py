@@ -239,6 +239,75 @@ def test_sparse_leaf_arriving_dense_raises():
 
 
 # ---------------------------------------------------------------------------
+# Dispatch visibility: SpMM claims + decline reasons (fm.explain)
+# ---------------------------------------------------------------------------
+
+#: The reference's explain words → the port's (test_torch_observability).
+_EXPLAIN_NAME_MAP = (("backend=xla", "backend=torch"),
+                     ("backend=pallas", "backend=cuda"),
+                     ("xla generic trace", "torch generic rules"),
+                     ("pallas:", "cuda:"),
+                     ("generic trace (", "generic rules ("))
+
+
+def _explain_both(program, backend):
+    """``fm.explain`` of ``program(fm)`` in each package (the reference on
+    ``pallas`` or ``xla`` for the port's ``cuda`` or ``torch``), node ids
+    normalized: (reference text mapped to the port's words, port text)."""
+    import re
+    texts = []
+    for pkg, be in ((jfm, {"cuda": "pallas", "torch": "xla"}[backend]),
+                    (fm, backend)):
+        texts.append(re.sub(r"#\d+", "#N",
+                            pkg.explain(*program(pkg), backend=be)))
+    for old, new in _EXPLAIN_NAME_MAP:
+        texts[0] = texts[0].replace(old, new)
+    return texts
+
+
+def test_explain_shows_spmm_claims():
+    from repro.algorithms.glm import glm_irls_outputs as jglm_outputs
+    from repro_torch.algorithms.glm import glm_irls_outputs
+
+    def gram(pkg):
+        return [pkg.crossprod(_host_case(pkg, seed=6, n=400))]
+
+    want, text = _explain_both(gram, "cuda")
+    assert "cuda:spmm_gram (claimed by match_spmm)" in text
+    assert "density=" in text
+    assert text == want
+
+    def irls(pkg):
+        X = _host_case(pkg, seed=6, n=400)
+        y = pkg.conv_R2FM(np.ones((400, 1), np.float32))
+        outs = (glm_irls_outputs if pkg is fm else jglm_outputs)(
+            X, y, np.zeros(X.ncol), "logistic")
+        return outs[:2]
+
+    want, text = _explain_both(irls, "cuda")
+    assert "cuda:spmm_wgram" in text
+    assert "cuda:spmm_xty" in text
+    assert text == want
+
+
+def test_explain_reports_decline_reasons():
+    """A fallback segment says why — here a (mul,max) semiring over a
+    sparse source declines both the spmm and dense matchers."""
+    def semiring(pkg):
+        X = _host_case(pkg, seed=7, n=200)
+        return [pkg.inner_prod(X.T, X, "mul", "max")]
+
+    want, text = _explain_both(semiring, "cuda")
+    assert "generic rules (declined:" in text
+    assert "spmm covers (mul,sum) only" in text
+    assert text == want
+    # The torch backend has no matchers: its line is the golden one.
+    want, text = _explain_both(semiring, "torch")
+    assert "torch generic rules" in text
+    assert text == want
+
+
+# ---------------------------------------------------------------------------
 # The host-RAM ELL slab (fm.one_hot's default), against the reference
 # ---------------------------------------------------------------------------
 
