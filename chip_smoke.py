@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — seven paths through ``repro_torch.core.fm``, each with the
+4. main    — eight paths through ``repro_torch.core.fm``, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -114,8 +114,41 @@ Phases, each printing one JSON line:
                 is printed); three batches under ``fm.inspect_iterations()``
                 (4 reuse hits: X and y in each batch after the first); and
                 ``fm.explain_batch`` of the requests (``members=4``, the
-                union's bytes against the serial sum); counted; the files
-                removed in a ``finally``;
+                union's bytes against the serial sum); counted; then path
+                h, ``fm.serve``, over the same host and disk copies (and
+                the blobs' host copy), counted, each arm once warm and
+                then measured (wall ms until every result is read back and
+                the card is idle): h1, path g's four requests from four
+                tenant threads (a barrier, a ``fm.collect_stats()`` scope
+                each) into one Engine window (``max_window_requests=4``,
+                no mid-stream admission), ``ooc`` from host RAM and from
+                disk — one stream, four passes, X and y read once, each
+                tenant's scope its own plan's bytes and one stream, gram
+                and xty once a partition and fused_apply_agg twice, every
+                result equal to path g's batch on that tier bit for bit,
+                the wall ms beside path g's batched and serial ms; h2,
+                ``colSums(X)`` ``ooc`` from the host copy through a paced
+                store that holds the sweep at its second partition until a
+                late ``colMeans(X)`` is parked in the live gate, with the
+                prefetcher on and off, traced — one admit, one stream, two
+                passes, the catch-up's bytes the prefix the late member
+                missed (its ``catch_up`` span), both results within
+                ``F64_TOL`` of float64 in units of Σ|x| and the late one's
+                relative difference from its solo run printed; h3,
+                colMeans and crossprod over X and over the blobs in one
+                window — two groups — with ``max_concurrent_streams`` 2
+                and 1: two streams, the launches those of the two groups'
+                ``fm.batch`` runs summed, every result bit for bit with its
+                request run alone at the group's rows, the pinned host
+                bytes of the prefetchers' rings at their peak; h4, h3's
+                traffic under ``max_inflight_bytes`` = one group's bytes: a
+                deferral at least, h3's results bit for bit, the admission
+                wait printed; h5, ``repro_torch.launch.serve.main`` in
+                process over 2^24 × 32 rows (a cut: it draws its matrix
+                with numpy on the host), 4 clients, 3 waves — the serve
+                arm's streams equal to the waves, its bytes a request ×
+                clients equal to the serial arm's, both ``BENCH`` rows
+                printed; the files removed in a ``finally``;
              c. after the dense data is freed, the sparse path at the scale
                 of the Criteo Display Advertising Challenge train set
                 (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
@@ -181,7 +214,7 @@ Phases, each printing one JSON line:
                 is at the full shape; (d) every logit finite.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
-over the counted runs of the seven paths), the card's name and power limit as ``nvidia-smi`` prints them, and
+over the counted runs of the eight paths), the card's name and power limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
 so every plain version and library call computes in full float32.
@@ -196,6 +229,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 N_ROWS = 65_608_366      # Friendster-32: rows of the paper's dense input
@@ -235,15 +269,25 @@ CHUNK_ROWS = 1 << 22     # rows per chunk of a float64 plain version
 #: 3.8e-6, off-diagonals 1.5e-9 and 1.7e-9, cluster sums 1.1e-6.
 F64_TOL = 1e-5
 F64_TOL_OFFDIAG = 2e-8
+#: Limit on a mid-stream member's result against its solo run (path h2), in
+#: units of the output's largest entry: it folds the sweep's tail before
+#: the prefix it missed, so its float32 partials add in another order.
+#: Path g measured 7.2e-7 for colMeans at another partition order (PERF.md).
+SOLO_NORM_TOL = 1e-5
 
 REPO = pathlib.Path(__file__).resolve().parent
 #: Where path f writes its ``.fmat`` files: under the checkout (git-ignored),
 #: on the checkout's own file system; emptied when the path is done.
 DISK_DIR = REPO / ".fm_data"
+#: Rows of the matrix path h's load generator draws with numpy on the host
+#: (a cut: all 65.6M rows would take 20-40 s to draw), at Friendster-32's
+#: width.
+LOADGEN_ROWS = 1 << 24
 #: Bytes path f's dense half holds on disk at its peak: X and its spill
-#: (8.4 GB each) and y, with 1 GiB to spare; the CSR half (9.9 GB) comes
-#: after they are removed.
-DISK_NEED = 2 * N_ROWS * N_COLS * 4 + N_ROWS * 4 + (1 << 30)
+#: (8.4 GB each), y and path h's load-generator matrix (2.1 GB), with 1 GiB
+#: to spare; the CSR half (9.9 GB) comes after they are removed.
+DISK_NEED = (2 * N_ROWS * N_COLS * 4 + N_ROWS * 4
+             + LOADGEN_ROWS * N_COLS * 4 + (1 << 30))
 #: Rows of X in the 1 GiB the disk line reads cold and warm.
 DISK_RATE_ROWS = (1 << 30) // (N_COLS * 4)
 #: The cold read rate (bytes/s) path f's dense half measured: the disk
@@ -1029,7 +1073,8 @@ def ooc_phase(torch, x, y, xk, res_a):
                   "call": name, **{k: v for k, v in d.items()
                                    if k not in ("pass_ms", "pass_rows",
                                                 "partition_rows")}})
-    dlaunches = disk_dense_phase(torch, x, y, XH, YH, pres, pinfo, rates)
+    dlaunches = disk_dense_phase(torch, x, y, XH, YH, XKH, pres, pinfo,
+                                 rates)
     del XH, YH, XKH, pres
     return [launches, plaunches] + dlaunches
 
@@ -1719,7 +1764,7 @@ def compare_to_host(name, d, ref, diffs_fields):
             diffs_fields.append(f"{name}.{k}: {d[k]} != {ref[k]}")
 
 
-def disk_dense_phase(torch, x, y, XH, YH, pres, pinfo, rates):
+def disk_dense_phase(torch, x, y, XH, YH, XKH, pres, pinfo, rates):
     """Path f, dense: X and y written to ``.fmat`` files on the machine's
     disk with ``fm.save_dense_matrix`` (the ``disk`` line: mount, file
     system, free bytes, write rate, cold and warm 1 GiB read rates) and
@@ -1800,7 +1845,9 @@ def disk_dense_phase(torch, x, y, XH, YH, pres, pinfo, rates):
               f"host-tier results: {diffs}")
         emit({"phase": "main", "path": "disk", "call": "scale_save_disk",
               **out["scale"]})
-        return [launches, batch_dense_phase(torch, x, y, XH, YH, XD, YD)]
+        glaunches, gres = batch_dense_phase(torch, x, y, XH, YH, XD, YD)
+        hlaunches = serve_phase(torch, x, XH, YH, XKH, XD, YD, gres)
+        return [launches, glaunches, hlaunches]
     finally:
         fm.set_conf(direct_io=False)
         disk_cleanup()
@@ -2147,7 +2194,8 @@ def batch_dense_phase(torch, x, y, XH, YH, XD, YD):
     device ``whole``, device ``stream``, host ``ooc`` and disk ``ooc``
     (warm) — serially and batched (``batch_tier``); three batches under
     ``fm.inspect_iterations()``; and ``fm.explain_batch`` of the requests.
-    Counted."""
+    Counted.  Returns the launches and, per tier, the batch's results and
+    its batched and serial wall ms (path h holds its windows to them)."""
     from repro_torch.core import fm
     from repro_torch.core.fusion import Plan
     from repro_torch.observability.explain import _fmt_bytes
@@ -2184,7 +2232,10 @@ def batch_dense_phase(torch, x, y, XH, YH, XD, YD):
     check("members=4" in text and "rounds=1" in text and union < serial
           and f"reads {_fmt_bytes(union)} once (vs {_fmt_bytes(serial)} "
           "serially)" in text, f"explain_batch: {text}")
-    return launches
+    return launches, {
+        tier: {"vals": detail[0], "batched_ms": detail[2]["wall_ms"],
+               "serial_ms": detail[3]["wall_ms"]}
+        for (tier, _, _, _), (_, _, detail) in zip(tiers, out)}
 
 
 def batch_sparse_phase(torch, XH, y, gd):
@@ -2234,6 +2285,387 @@ def batch_sparse_phase(torch, XH, y, gd):
           == parts > 1, f"sparse batch: launches {bd['launches']} for "
           f"{parts} partitions")
     check(all(same.values()), f"sparse batch: bit for bit {same}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Path h: fm.serve — concurrent tenants through the admission-window Engine
+# ---------------------------------------------------------------------------
+
+def two_group_requests(fm, X, K):
+    """Path h's two-group traffic (h3, h4): colMeans and crossprod over X
+    and over the blobs."""
+    return [fm.colMeans(X), fm.crossprod(X), fm.colMeans(K), fm.crossprod(K)]
+
+
+def tenants(fm, eng, requests):
+    """Each request submitted from its own tenant thread — released by a
+    barrier, under its own ``fm.collect_stats()`` scope — into ``eng``;
+    every result read back.  Returns the results flattened (physical
+    matrices) and each tenant's scope stats; a tenant's exception is
+    raised here."""
+    barrier = threading.Barrier(len(requests))
+    res = [None] * len(requests)
+    stats = [None] * len(requests)
+    errors = []
+
+    def tenant(i, outs):
+        try:
+            with fm.collect_stats(f"tenant{i}") as sc:
+                barrier.wait(timeout=60)
+                r = eng.submit(*outs).result(timeout=600)
+            res[i] = r if isinstance(r, list) else [r]
+            stats[i] = sc.stats()
+        except Exception as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=tenant, args=(i, outs_of(req)))
+               for i, req in enumerate(requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors:
+        raise errors[0]
+    check(not any(t.is_alive() for t in threads), "a tenant never finished")
+    return [v for r in res for v in r], stats
+
+
+def served(torch, eng, make):
+    """One window of ``make()``'s requests from tenant threads, once warm
+    and then measured (``measure``: wall ms until every result is read
+    back and the card is idle, and the counters it moved).  Returns the
+    measured run's results, counters and tenant stats."""
+    from repro_torch.core import fm
+    tenants(fm, eng, make())                                 # warm
+    got = {}
+
+    def run():
+        vals, got["stats"] = tenants(fm, eng, make())
+        return vals, list(fm.exec_stats()["pass_bytes_in"])
+
+    vals, d = measure(torch, run)
+    return vals, d, got["stats"]
+
+
+def serve_counters():
+    from repro_torch.observability import metrics
+    return {k: metrics.root_counter(k) for k in
+            ("serve_deferrals", "serve_admission_wait_seconds",
+             "midstream_admits", "bytes_streamed")}
+
+
+def alone_at(fm, outs, rows):
+    """``outs`` materialized ``ooc`` alone at ``rows`` partition rows (its
+    I/O budget scaled): what a group member computes, with the
+    partitioning held equal."""
+    from repro_torch.core.fusion import Plan
+    own = Plan([o.m for o in outs]).passes[0].partition_rows
+    budget = fm.set_conf()["io_partition_bytes"]
+    with fm.conf(io_partition_bytes=budget * rows // own):
+        check(Plan([o.m for o in outs]).passes[0].partition_rows == rows,
+              f"alone at {rows} rows")
+        return [fm._fm(v).logical_data()
+                for v in fm.materialize(*outs, mode="ooc")]
+
+
+@contextlib.contextmanager
+def pinned_peak():
+    """The peak, sampled every 2 ms, of the pinned host bytes the live
+    prefetchers' slot rings hold."""
+    from repro_torch.storage import prefetch
+    peak = {"bytes": 0}
+    stop = threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            total = sum(b.numel() * b.element_size()
+                        for p in list(prefetch._LIVE)
+                        for slot in list(p._slots)
+                        for b in list(slot.bufs.values()))
+            peak["bytes"] = max(peak["bytes"], total)
+            stop.wait(0.002)
+
+    t = threading.Thread(target=sample, name="pinned-peak", daemon=True)
+    t.start()
+    try:
+        yield peak
+    finally:
+        stop.set()
+        t.join(timeout=10)
+
+
+def serve_h1(torch, XH, YH, XD, YD, gres):
+    """h1, window coalescing: path g's four requests from four tenant
+    threads into one window (``max_window_requests=4``, no mid-stream
+    admission), ``ooc`` from host RAM and from disk (warm)."""
+    from repro_torch.core import fm
+    from repro_torch.core.fusion import Plan
+    lines, checks = [], []
+    for tier, X, Y in (("host", XH, YH), ("disk warm", XD, YD)):
+        grows, _ = group_rows(dense_requests(fm, X, Y))
+        parts = -(-X.nrow // grows)
+        own = [Plan([o.m for o in outs_of(r)]).bytes_in()
+               for r in dense_requests(fm, X, Y)]
+        with fm.serve(window_ms=60_000, max_window_requests=4, mode="ooc",
+                      midstream_admission=False) as eng:
+            vals, d, stats = served(torch, eng,
+                                    lambda: dense_requests(fm, X, Y))
+        g = gres[tier]
+        same = [n for n, a, b in zip(BATCH_OUTPUTS, vals, g["vals"])
+                if torch.equal(a, b)]
+        line = {"phase": "main", "path": "serve", "arm": "h1", "tier": tier,
+                "mode": "ooc", "group_rows": grows, "partitions": parts,
+                **d, "batch_ms": g["batched_ms"],
+                "serial_ms": g["serial_ms"],
+                "tenants": [{k: st.get(k) for k in
+                             ("streams", "passes", "bytes_streamed")}
+                            for st in stats],
+                "bit_for_bit_with_batch": same}
+        lines.append(line)
+        nbytes = X.m.nbytes() + Y.m.nbytes()
+        lb = d["launches"]
+        checks += [
+            (d["streams"] == 1 and d["passes"] == 4,
+             f"h1 {tier}: {d['streams']} streams, {d['passes']} passes"),
+            (d["pass_bytes_in"] == [nbytes] and d["stage_bytes_read"]
+             == nbytes, f"h1 {tier}: pass_bytes_in {d['pass_bytes_in']}, "
+             f"read {d['stage_bytes_read']}, X and y {nbytes}"),
+            (all(st["streams"] == 1 and st["bytes_streamed"] == b
+                 for st, b in zip(stats, own)),
+             f"h1 {tier}: tenant scopes {stats} against own bytes {own}"),
+            (lb.get("gram") == parts and lb.get("xty") == parts
+             and lb.get("fused_apply_agg") == 2 * parts,
+             f"h1 {tier}: launches {lb} for {parts} partitions"),
+            (same == list(BATCH_OUTPUTS), f"h1 {tier}: only {same} equal "
+             "path g's batch bit for bit")]
+    return lines, checks
+
+
+def paced_matrix(XH, started, release):
+    """X's host copy behind a store that holds the sweep at its second
+    partition read until ``release``."""
+    from repro_torch.core.matrix import DenseStore, FMMatrix
+
+    class Paced(DenseStore):
+        reads = 0
+
+        def block(self, start, stop):
+            self.reads += 1
+            if self.reads == 2:
+                started.set()
+                release.wait(timeout=120)
+            return super().block(start, stop)
+
+    arr = XH.m.store.data
+    return FMMatrix(arr.shape, arr.dtype, store=Paced(arr), name="paced")
+
+
+def serve_h2(torch, x, XH):
+    """h2, one mid-stream join: ``colSums(X)`` streams ``ooc`` from the
+    host copy through a paced store; a late ``colMeans(X)`` is offered to
+    the live gate while the sweep waits on its second partition, then the
+    sweep goes on.  Prefetcher on and off, each once warm and then
+    measured (traced: the ``catch_up`` span names the prefix)."""
+    from repro_torch.core import fm
+    n = x.shape[0]
+    s64 = torch.zeros(N_COLS, dtype=torch.float64, device=x.device)
+    a64 = torch.zeros_like(s64)
+    for s, e in row_chunks(n):
+        xc = x[s:e].double()
+        s64 += xc.sum(0)
+        a64 += xc.abs().sum(0)
+    (solo,) = fm.materialize(fm.colMeans(XH), mode="ooc")
+    solo = fm._fm(solo).logical_data()
+    lines, checks = [], []
+    for prefetch in (True, False):
+        for run in ("warm", "measured"):
+            started, release = threading.Event(), threading.Event()
+            X = paced_matrix(XH, started, release)
+            st0, c0 = fm.exec_stats(), serve_counters()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with fm.trace(), fm.serve(window_ms=1, mode="ooc",
+                                      prefetch=prefetch) as eng:
+                h1 = eng.submit(fm.colSums(X))
+                check(started.wait(timeout=120), "h2: the sweep never "
+                      "started")
+                h2 = eng.submit(fm.colMeans(X))
+                with eng._cv:
+                    parked = not eng._pending
+                release.set()
+                sums, means = (fm._fm(h.result(timeout=600)).logical_data()
+                               .reshape(-1) for h in (h1, h2))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                upto = [e["args"]["upto"] for e in fm.trace_events()
+                        if e["name"] == "catch_up"]
+                rows = [e["args"]["rows"] for e in fm.trace_events()
+                        if e["name"] == "stream"]
+            st, c1 = fm.exec_stats(), serve_counters()
+            if run == "warm":
+                continue
+            missed = upto[0] if upto else 0
+            catch_up_bytes = c1["bytes_streamed"] - c0["bytes_streamed"] \
+                - X.nbytes()
+            err_sums = float(((sums.double() - s64).abs() / a64).max())
+            err_means = float(((means.double() - s64 / n).abs()
+                               / (a64 / n)).max())
+            rel_solo = max_rel_diff(means, solo.reshape(-1))
+            norm_solo = max_norm_diff(means, solo.reshape(-1))
+            d = {k: st[k] - st0[k] for k in
+                 ("midstream_admits", "streams", "passes",
+                  "partition_steps")}
+            lines.append({
+                "phase": "main", "path": "serve", "arm": "h2",
+                "prefetch": prefetch, "wall_ms": wall * 1e3, **d,
+                "parked_in_gate": parked, "group_rows": rows,
+                "joined_at_row": missed, "catch_up_bytes": catch_up_bytes,
+                "err_f64_sums": err_sums, "err_f64_means": err_means,
+                "limit_f64": F64_TOL, "max_rel_diff_late_vs_solo": rel_solo,
+                "max_norm_diff_late_vs_solo": norm_solo,
+                "limit_late_vs_solo": SOLO_NORM_TOL,
+                "late_bit_for_bit_with_solo": bool(torch.equal(
+                    means, solo.reshape(-1)))})
+            checks += [
+                (parked and d["midstream_admits"] == 1 and d["streams"] == 1
+                 and d["passes"] == 2, f"h2 prefetch={prefetch}: {d}, "
+                 f"parked {parked}"),
+                (missed > 0 and catch_up_bytes == missed * N_COLS * 4,
+                 f"h2 prefetch={prefetch}: catch-up {catch_up_bytes} bytes "
+                 f"for a prefix of {missed} rows"),
+                (err_sums <= F64_TOL and err_means <= F64_TOL,
+                 f"h2 prefetch={prefetch}: against float64 {err_sums}, "
+                 f"{err_means} > {F64_TOL}"),
+                (norm_solo <= SOLO_NORM_TOL, f"h2 prefetch={prefetch}: the "
+                 f"late colMeans {norm_solo} from its solo run")]
+    return lines, checks
+
+
+def serve_h3_h4(torch, XH, XKH):
+    """h3, two groups at once: colMeans and crossprod over X and over the
+    blobs in one window — two disjoint source sets, two groups — with
+    ``max_concurrent_streams=2`` and then 1, each once warm and then
+    measured, with no in-flight-bytes cap (the 'auto' cap, a quarter
+    second of the measured staging rate, would hold the second group back
+    as h4 does); every result against its request run alone at the
+    group's rows, the launches against the two groups' ``fm.batch`` runs.
+    h4, the bandwidth cap: ``max_inflight_bytes`` one group's union bytes
+    over the same traffic."""
+    from repro_torch.core import fm
+    reqs = two_group_requests(fm, XH, XKH)
+    grows = [group_rows(reqs[i:i + 2])[0] for i in (0, 2)]
+    alone = [v for i, req in enumerate(reqs)
+             for v in alone_at(fm, outs_of(req), grows[i // 2])]
+    expect = {}
+    for i, X in enumerate((XH, XKH)):
+        fm.batch(fm.colMeans(X), fm.crossprod(X), mode="ooc")     # warm
+        _, bd = measure(torch, lambda: run_batched(
+            fm, lambda: [fm.colMeans(X), fm.crossprod(X)], "ooc"))
+        for k, v in bd["launches"].items():
+            expect[k] = expect.get(k, 0) + v
+    lines, checks, vals = [], [], {}
+    for streams in (2, 1):
+        c0 = serve_counters()
+        with fm.serve(window_ms=60_000, max_window_requests=4, mode="ooc",
+                      max_concurrent_streams=streams,
+                      max_inflight_bytes=None,
+                      midstream_admission=False) as eng:
+            with pinned_peak() as peak:
+                vals[streams], d, _ = served(
+                    torch, eng, lambda: two_group_requests(fm, XH, XKH))
+        deferrals = serve_counters()["serve_deferrals"] \
+            - c0["serve_deferrals"]
+        same = [torch.equal(a, b) for a, b in zip(vals[streams], alone)]
+        lines.append({"phase": "main", "path": "serve", "arm": "h3",
+                      "max_concurrent_streams": streams,
+                      "group_rows": grows, **d,
+                      "serve_deferrals": deferrals,
+                      "pinned_peak_bytes": peak["bytes"],
+                      "expected_launches": expect,
+                      "bit_for_bit_alone_at_group_rows": same})
+        checks += [
+            (d["streams"] == 2 and d["passes"] == 4 and deferrals == 0,
+             f"h3 streams={streams}: {d['streams']} streams, {deferrals} "
+             "deferrals"),
+            (d["launches"] == expect, f"h3 streams={streams}: launches "
+             f"{d['launches']} against the groups' {expect}"),
+            (all(same), f"h3 streams={streams}: bit for bit alone {same}")]
+    cap = XH.m.nbytes()
+    c0 = serve_counters()
+    with fm.serve(window_ms=60_000, max_window_requests=4, mode="ooc",
+                  max_concurrent_streams=2, max_inflight_bytes=cap,
+                  midstream_admission=False) as eng:
+        capped, d, _ = served(torch, eng,
+                              lambda: two_group_requests(fm, XH, XKH))
+    c1 = serve_counters()
+    deferrals = c1["serve_deferrals"] - c0["serve_deferrals"]
+    same = [torch.equal(a, b) for a, b in zip(capped, vals[2])]
+    lines.append({"phase": "main", "path": "serve", "arm": "h4",
+                  "max_inflight_bytes": cap, **d,
+                  "windows": 2, "serve_deferrals": deferrals,
+                  "serve_admission_wait_seconds":
+                  c1["serve_admission_wait_seconds"]
+                  - c0["serve_admission_wait_seconds"],
+                  "bit_for_bit_with_h3": same})
+    checks += [(deferrals >= 1 and d["streams"] == 2,
+                f"h4: {deferrals} deferrals, {d['streams']} streams"),
+               (all(same), f"h4: results against h3's {same}")]
+    return lines, checks
+
+
+def serve_h5():
+    """h5, the load generator in process: ``repro_torch.launch.serve`` at
+    Friendster-32's width over LOADGEN_ROWS rows, 4 clients, 3 waves."""
+    from repro_torch.launch import serve as loadgen
+    k, waves = 4, 3
+    serial, srv = loadgen.main([
+        "--n", str(LOADGEN_ROWS), "--p", str(N_COLS), "--clients", str(k),
+        "--waves", str(waves), "--partition-kib", "65536"])
+    line = {"phase": "main", "path": "serve", "arm": "h5",
+            "rows": LOADGEN_ROWS, "cols": N_COLS,
+            "rows_cut": "the generator draws its matrix with numpy on the "
+                        "host; all 65,608,366 rows would take 20-40 s",
+            "rows_bench": [{key: r[key] for key in
+                            ("arm", "rps", "us_p50", "us_p99", "streams",
+                             "bytes_per_request", "backend")}
+                           for r in (serial, srv)]}
+    checks = [(srv["streams"] == waves and serial["streams"] == k * waves,
+               f"h5: streams serve {srv['streams']}, serial "
+               f"{serial['streams']}"),
+              (srv["bytes_per_request"] * k == serial["bytes_per_request"],
+               f"h5: bytes a request {srv['bytes_per_request']} against "
+               f"{serial['bytes_per_request']}")]
+    return [line], checks
+
+
+def serve_phase(torch, x, XH, YH, XKH, XD, YD, gres):
+    """Path h, ``fm.serve`` (inside path f, after path g): h1 window
+    coalescing, h2 a mid-stream join, h3 two groups at once, h4 the
+    bandwidth cap, h5 the load generator; on cuda, counted.  Lines are
+    printed before their checks are applied."""
+    from repro_torch.core import fm
+    t_path = time.perf_counter()
+
+    def run():
+        with fm.conf(backend="cuda"):
+            out = [serve_h1(torch, XH, YH, XD, YD, gres),
+                   serve_h2(torch, x, XH),
+                   serve_h3_h4(torch, XH, XKH)]
+        out.append(serve_h5())
+        return out
+
+    fm.reset_exec_stats()
+    out, launches = counted(torch, "serve", ("gram", "xty",
+                                             "fused_apply_agg"), run)
+    for lines, _ in out:
+        for line in lines:
+            emit(line)
+    emit({"phase": "serve", "launches": launches,
+          "seconds": time.perf_counter() - t_path})
+    for _, checks in out:
+        for ok, what in checks:
+            check(ok, what)
     return launches
 
 

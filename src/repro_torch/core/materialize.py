@@ -36,8 +36,11 @@ execution counters are the reference's.
 The group runners take a list of members: a materialize runs them with
 one, ``fm.batch`` (core/batch.py) with every pass co-scheduled onto one
 stream — the union of the members' sources staged once a partition, each
-member's step on it in turn.  Not in this slice: mid-stream admission
-(ROADMAP A12) and shards (A13).
+member's step on it in turn.  ``fm.serve`` (core/serve.py) also splices a
+late member into a live sweep at a partition boundary (``admit``,
+`_join_member`); it rides the rest of the sweep and then re-drives the
+prefix it missed (`_catch_up`), staged synchronously on the same compute
+stream.  Not in this slice: shards (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -70,10 +73,11 @@ _PLANS_LOCK = threading.Lock()
 _DAG_LOCK = threading.RLock()
 
 #: The counters ``exec_stats()`` exposes (the reference's list; the shard
-#: and admission counters stay 0 in this slice).  ``streams`` counts
-#: physical sweeps over the sources, ``passes`` each member's logical pass
-#: (equal for a solo materialize); ``prefetch_reuse_hits`` counts staged
-#: blocks served from the previous pass's resident final partition.
+#: counters stay 0 in this slice).  ``streams`` counts physical sweeps over
+#: the sources, ``passes`` each member's logical pass (equal for a solo
+#: materialize), ``midstream_admits`` the members spliced into a live sweep;
+#: ``prefetch_reuse_hits`` counts staged blocks served from the previous
+#: pass's resident final partition.
 EXEC_COUNTERS = (
     "materialize_calls",
     "plan_cache_hits",
@@ -383,6 +387,20 @@ def _count_stream(members, union_bytes: int):
         sc.inc("streams", 1)
 
 
+def _count_admitted(member):
+    """A mid-stream-admitted member's logical pass joins the current sweep:
+    root passes + 1, streams unchanged.  The catch-up prefix's bytes are
+    counted as `_catch_up` stages them; the member's own request scopes see
+    what a solo run would report (one stream, its full plan bytes)."""
+    metrics.inc("passes")
+    metrics.inc("midstream_admits")
+    ambient = set(metrics.REGISTRY.scopes())
+    stream_scopes: list = []
+    _count_member_scopes(member, ambient, stream_scopes)
+    for sc in stream_scopes:
+        sc.inc("streams", 1)
+
+
 def _member_step(member, blocks, key_map, start, stop, *, idx):
     """One member's step + combine over the staged partition."""
     mblocks = {nid: blocks[key] for nid, key in key_map.items()}
@@ -491,9 +509,71 @@ def _resolve_prefetch(prefetch, group_pairs, rows: int, n: int) -> bool:
                 and any(mat.on_host for _, mat in group_pairs))
 
 
+def _join_member(member, members, maps, stacks, joined, group_keys,
+                 to_host: bool, start: int):
+    """Splice a mid-stream-admitted member into a live sweep at the
+    partition boundary ``start``: it consumes every partition from there on
+    beside the group, then `_catch_up` re-drives the prefix it missed.  Its
+    staged sources must be a subset of the group's (it adds consumers to
+    blocks already staged, never new staging), and its long-dimension
+    outputs row-addressed (host or disk targets): device outputs
+    concatenate in partition order, which a late joiner would scramble."""
+    mp = {}
+    for nid, mat in member.ps.staged_sources(member.sources):
+        if id(mat) not in group_keys:
+            raise ValueError(
+                "mid-stream admission requires the member's staged sources "
+                "to be a subset of the live group's")
+        mp[nid] = id(mat)
+    if any((spec.save or ("host" if to_host else "device")) == "device"
+           for _, spec in member.out_nodes):
+        raise ValueError(
+            "mid-stream admission cannot take device-resident "
+            "long-dimension outputs (order-dependent concatenation)")
+    _alloc_out_targets(member, to_host)
+    members.append(member)
+    maps.append(mp)
+    stacks.append(_member_stack(member))
+    joined[len(members) - 1] = start
+    _count_admitted(member)
+
+
+def _catch_up(members, maps, stacks, joined, group_pairs, rows: int):
+    """Re-drive the partition prefix [0, join start) that the mid-stream
+    members missed, after the sweep, staged synchronously
+    (``storage.prefetch.stage_block``) for the compute stream the sweep ran
+    on.  Sink combines are order-independent and late long-dimension
+    outputs row-addressed (`_join_member`), so the prefix after the tail is
+    exact — though a float32 sink folds its partials in another order than
+    a solo run."""
+    from ..storage.prefetch import stage_block
+    max_join = max(joined.values())
+    late_keys = {key for idx in joined for key in maps[idx].values()}
+    pairs = [(key, mat) for key, mat in group_pairs if key in late_keys]
+    start = 0
+    with TRACER.span("catch_up", members=len(joined), upto=max_join):
+        while start < max_join:
+            stop = min(start + rows, max_join)
+            blocks = {key: stage_block(mat, start, stop)
+                      for key, mat in pairs}
+            metrics.inc("bytes_streamed",
+                        sum(int(b.nbytes) for b in blocks.values()))
+            with TRACER.span("partition", start=start, stop=stop):
+                for i, j0 in joined.items():
+                    if j0 <= start:
+                        continue
+                    with _in_stack(stacks[i]):
+                        outputs = _member_step(members[i], blocks, maps[i],
+                                               start, stop, idx=i)
+                    members[i].route_outputs(start, stop, outputs)
+            del blocks
+            start = stop
+
+
 def _run_stream_group(members, *, to_host: bool,
                       prefetch: Optional[bool] = None, residents=None,
-                      capture: bool = False):
+                      capture: bool = False, admit=None,
+                      depth: Optional[int] = None):
     """Stream ONE group of member passes partition by partition: one
     staging sweep over the union of the members' sources, every member's
     step consuming each staged partition (1 stream × k steps; a solo
@@ -501,8 +581,13 @@ def _run_stream_group(members, *, to_host: bool,
 
     ``residents`` holds the previous pass's resident final partition(s):
     matching blocks are served instead of re-staged.  With ``capture`` the
-    sweep's own final partition is returned as a `_Resident`.  A staging
-    error propagates — unchanged from the synchronous path, as a
+    sweep's own final partition is returned as a `_Resident`.  ``admit``
+    is the mid-stream admission hook (``fm.serve``): called at every
+    partition boundary with ``(start, stop)``, it returns the new members
+    that join the sweep from that partition on (`_join_member`); after the
+    sweep they catch up on the prefix they missed (`_catch_up`).  ``depth``
+    overrides the prefetch depth; None negotiates a group-aware one.  A
+    staging error propagates — unchanged from the synchronous path, as a
     ``PrefetchError`` naming the rows and the source from the prefetcher —
     and so does a step error; nothing is registered."""
     from .. import storage  # deferred: storage imports core
@@ -516,14 +601,17 @@ def _run_stream_group(members, *, to_host: bool,
         _alloc_out_targets(m, to_host)
 
     reuse_map = _reuse_from(residents, group_pairs, rows, n)
+    group_keys = {key for key, _ in group_pairs}
+    joined: dict[int, int] = {}  # member index -> partition start it joined
     stacks = [_member_stack(m) for m in members]
     captured = None
     if _resolve_prefetch(prefetch, group_pairs, rows, n):
-        # Group-aware depth: k members consume each staged partition, so
-        # the stager can usefully run further ahead.
-        part_nbytes = rows * sum(mat.nbytes() // max(1, mat.shape[0])
-                                 for _, mat in group_pairs)
-        depth = storage.negotiate_depth(len(members), part_nbytes)
+        if depth is None:
+            # Group-aware depth: k members consume each staged partition,
+            # so the stager can usefully run further ahead.
+            part_nbytes = rows * sum(mat.nbytes() // max(1, mat.shape[0])
+                                     for _, mat in group_pairs)
+            depth = storage.negotiate_depth(len(members), part_nbytes)
         # Nothing may come between the pipeline's construction and the try
         # below: the finally's close() is what guarantees an interrupted
         # stream never leaves the worker thread alive or partitions queued.
@@ -535,6 +623,10 @@ def _run_stream_group(members, *, to_host: bool,
         with TRACER.span("stream", members=len(members), rows=rows,
                          reused=len(reuse_map or ())):
             for start, stop, blocks in parts:
+                if admit is not None:
+                    for new_member in admit(start, stop):
+                        _join_member(new_member, members, maps, stacks,
+                                     joined, group_keys, to_host, start)
                 with TRACER.span("partition", start=start, stop=stop):
                     for i, (m, mp, stack) in enumerate(zip(members, maps,
                                                            stacks)):
@@ -552,6 +644,8 @@ def _run_stream_group(members, *, to_host: bool,
                 del blocks
     finally:
         parts.close()
+    if joined:
+        _catch_up(members, maps, stacks, joined, group_pairs, rows)
     _finish_members(members, stacks)
     return captured
 

@@ -8,9 +8,6 @@ lowers to a GenOp, so a chain of calls builds one lazy DAG that
     >>> X = fm.runif_matrix(1_000_000, 16)
     >>> Z = (X - fm.colMeans(X)) / fm.colSds(X)   # lazy: moment + sweep passes
     >>> (G,) = fm.materialize(fm.crossprod(Z))
-
-Verbs of later slices raise ``NotImplementedError`` naming the ROADMAP item
-that brings them: ``serve`` (A12).
 """
 from __future__ import annotations
 
@@ -162,10 +159,6 @@ def _vec_data(m: FMMatrix):
 
 def _fm(x) -> FMMatrix:
     return x.m if isinstance(x, FM) else x
-
-
-def _later(what: str, item: str):
-    raise NotImplementedError(f"{what} comes with ROADMAP {item}")
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +632,32 @@ def batch(*request_groups, **kw):
 
 
 def serve(**kw):
-    _later("the serving layer (fm.serve)", "A12")
+    """fm.serve: start an async multi-tenant serving `Engine`
+    (core/serve.py) — concurrent threads ``submit()`` lazy requests, a
+    short admission window groups strangers' plans by shared sources, and
+    each group streams its matrices ONCE for all members (k requests ×
+    1 stream), with bandwidth admission control and mid-stream admission
+    of late same-group plans.
+
+        with fm.serve(window_ms=5) as eng:
+            h1 = eng.submit(fm.colMeans(X))   # any thread
+            h2 = eng.submit(fm.crossprod(X))  # same window, same stream
+            mu, G = h1.result(), h2.result()
+
+    Keywords are `Engine`'s (window_ms, max_window_requests,
+    max_concurrent_streams, max_inflight_bytes, bandwidth_window_s,
+    max_pending_requests, submit_timeout_s, midstream_admission, mode,
+    backend, donate, prefetch, prefetch_depth, reuse_plans, mesh)."""
+    from . import serve as serve_mod
+    return serve_mod.Engine(**kw)
+
+
+def __getattr__(name):
+    # fm.Engine without importing the serving layer at fm import time.
+    if name in ("Engine", "EngineSaturated"):
+        from . import serve as serve_mod
+        return getattr(serve_mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def explain(*xs, backend: Optional[str] = None) -> str:

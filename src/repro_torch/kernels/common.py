@@ -8,7 +8,14 @@ wrapper decides between its kernel and its plain version.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
+
+#: Guards every wrapper's launch counters (module globals read by name, as
+#: ``gram.launches``): ``fm.serve`` launches kernels from several worker
+#: threads at once, and ``+=`` on a global is not atomic.
+LAUNCH_LOCK = threading.Lock()
 
 #: Streaming multiprocessors of one H100 SXM: the split counts below aim at
 #: a few resident blocks per SM.

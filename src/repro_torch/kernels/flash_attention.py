@@ -43,7 +43,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .common import aligned, route
+from .common import LAUNCH_LOCK, aligned, route
 
 #: Head dims the kernel is built for (tests 16, reduced configs 32, qwen2
 #: 64, zamba2 112, llama / granite 128, paligemma 256; 80 and 96 for the
@@ -127,5 +127,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.fm_flash_attention(*args, _DTYPES[q.dtype],
                                      build.stream_handle(q))
     build.check(err, "flash_attention")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     return out

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, aligned, route, splits_for
+from .common import LAUNCH_LOCK, SM_COUNT, aligned, route, splits_for
 
 #: Aggregations a chain can end in.
 CHAIN_AGGS = ("sum", "min", "max", "count", "count_nonzero")
@@ -229,8 +229,9 @@ def fused_apply_agg(x: torch.Tensor, chains, *, acc_dtype: str = "float32"):
                                          out.data_ptr(), n, p, plan.splits,
                                          prog_c, stream)
         build.check(err, "fused_apply_agg")
-        launches += 1
-        ring_launches += ring
+        with LAUNCH_LOCK:
+            launches += 1
+            ring_launches += ring
         for c, (_, _, acc) in enumerate(group):
             outs.append(out[c] if acc == "int32" else out[c].view(torch.float32))
     return tuple(outs)

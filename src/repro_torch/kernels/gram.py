@@ -41,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, aligned, route, splits_for
+from .common import LAUNCH_LOCK, SM_COUNT, aligned, route, splits_for
 
 TILE = 32
 #: xty's thin path takes one operand at most this many columns wide.
@@ -100,8 +100,9 @@ def gram(x: torch.Tensor) -> torch.Tensor:
         err = lib.fm_gram(x.data_ptr(), ws.data_ptr(), out.data_ptr(), n, p,
                           plan.splits, _DTYPES[x.dtype], stream)
     build.check(err, "gram")
-    launches += 1
-    tri_launches += plan.body == "tri"
+    with LAUNCH_LOCK:
+        launches += 1
+        tri_launches += plan.body == "tri"
     return out
 
 
@@ -207,5 +208,6 @@ def xty(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     err = lib.fm_xty(x.data_ptr(), y.data_ptr(), ws.data_ptr(), out.data_ptr(),
                      n, p, q, splits, _DTYPES[x.dtype], build.stream_handle(x))
     build.check(err, "xty")
-    xty_launches += 1
+    with LAUNCH_LOCK:
+        xty_launches += 1
     return out

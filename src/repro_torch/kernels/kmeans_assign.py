@@ -31,7 +31,7 @@ from typing import NamedTuple
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, aligned, route
+from .common import LAUNCH_LOCK, SM_COUNT, aligned, route
 
 #: Launches of the CUDA kernels (the plain CPU path does not count):
 #: ``launches`` counts every call that launched, ``tma_launches`` those that
@@ -166,6 +166,7 @@ def kmeans_assign(x: torch.Tensor, centers: torch.Tensor):
             sums.data_ptr(), cnts.data_ptr(), wss.data_ptr(), n, p, k,
             plan.blocks, SMEM_LIMIT, _DTYPES[x.dtype], stream)
     build.check(err, "kmeans_assign")
-    launches += 1
-    tma_launches += plan.body == "tma"
+    with LAUNCH_LOCK:
+        launches += 1
+        tma_launches += plan.body == "tma"
     return labels, sums, cnts, wss

@@ -37,7 +37,7 @@ import math
 import torch
 
 from . import build, ref
-from .common import SM_COUNT, route
+from .common import LAUNCH_LOCK, SM_COUNT, route
 
 #: Launches of the CUDA kernels (the plain CPU path does not count).
 gram_launches = 0
@@ -167,7 +167,8 @@ def spmm_gram(cols: torch.Tensor, vals: torch.Tensor, *,
         return ref.spmm_gram_ref(cols, vals, ncol)
     out = _gram(cols.contiguous(), vals.to(torch.float32).contiguous(), None,
                 int(ncol), "spmm_gram")
-    gram_launches += 1
+    with LAUNCH_LOCK:
+        gram_launches += 1
     return out
 
 
@@ -186,7 +187,8 @@ def spmm_wgram(cols: torch.Tensor, vals: torch.Tensor, w: torch.Tensor, *,
     w = _rows(w.reshape(-1), n, "spmm_wgram", "w")
     out = _gram(cols.contiguous(), vals.to(torch.float32).contiguous(), w,
                 int(ncol), "spmm_wgram")
-    wgram_launches += 1
+    with LAUNCH_LOCK:
+        wgram_launches += 1
     return out
 
 
@@ -215,5 +217,6 @@ def spmm_xty(cols: torch.Tensor, vals: torch.Tensor, y: torch.Tensor, *,
                           ws.data_ptr(), out.data_ptr(), n, kmax, ncol, q, qc,
                           cs, warps, splits, build.stream_handle(cols))
     build.check(err, "spmm_xty")
-    xty_launches += 1
+    with LAUNCH_LOCK:
+        xty_launches += 1
     return out

@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import build, ref
-from .common import aligned, route
+from .common import LAUNCH_LOCK, aligned, route
 from .gram import _DTYPES, check_x, tri_plan
 
 #: Launches of the CUDA kernels (the plain CPU path does not count):
@@ -64,6 +64,7 @@ def wgram(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                            out.data_ptr(), n, p, plan.splits,
                            _DTYPES[x.dtype], stream)
     build.check(err, "wgram")
-    launches += 1
-    tri_launches += plan.body == "tri"
+    with LAUNCH_LOCK:
+        launches += 1
+        tri_launches += plan.body == "tri"
     return out

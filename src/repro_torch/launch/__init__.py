@@ -1,1 +1,2 @@
-"""Entry points of the port's LM stack: the serving steps (``steps``)."""
+"""Entry points of the port: the LM stack's serving steps (``steps``) and
+the FlashR serving load generator (``serve``)."""

@@ -46,7 +46,11 @@ disk read fault with the leak audit.  Last, ``fm.batch``: a 3-member group
 (colMeans, crossprod, XᵀY) from host RAM through the prefetcher at depth 1
 and 4 — one stream, each member's kernel once a partition, results within
 1e-6 of serial — and the same group with every member's step delayed at
-depth 1, equal to the synchronous run bit for bit.
+depth 1, equal to the synchronous run bit for bit.  Then ``fm.serve``:
+the launch counters exact under 8 threads, an Engine window equal to
+``fm.batch`` bit for bit, a mid-stream join through a paced host store
+with the prefetcher on and off, two concurrent groups with exact launch
+counts, and a result read on a fresh stream of another thread finished.
 """
 import threading
 
@@ -1391,3 +1395,219 @@ def test_batch_partition_not_restaged_under_a_member(dev, monkeypatch):
     for a, b in zip(out[True], out[False]):
         np.testing.assert_array_equal(a, b)
     assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+
+
+# ---------------------------------------------------------------------------
+# fm.serve on the card: kernels launched from the Engine's worker threads
+# ---------------------------------------------------------------------------
+
+def test_launch_counters_exact_under_threads(dev):
+    """8 threads × 50 gram calls count exactly 400 launches: the wrappers'
+    counters are guarded by one lock (a lost ``+=`` would show here with
+    the interpreter switching threads every few microseconds)."""
+    import sys
+    x = _x(4096, 8, torch.float32, dev)
+    gram_mod.gram(x)
+    torch.cuda.synchronize()
+    errors, barrier = [], threading.Barrier(8)
+
+    def worker():
+        try:
+            barrier.wait(timeout=30)
+            for _ in range(50):
+                gram_mod.gram(x)
+        except Exception as exc:  # noqa: BLE001 - surfaced below
+            errors.append(exc)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        before = gram_mod.launches
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    torch.cuda.synchronize()
+    assert gram_mod.launches - before == 400
+
+
+def _serve_requests(fm, X, Y):
+    return [fm.colMeans(X), fm.crossprod(X), fm.crossprod(X, Y)]
+
+
+def test_engine_window_equals_batch_bit_for_bit(dev):
+    """Three requests from three threads in one Engine window run as one
+    group on a pool thread: one stream, each member's kernel once a
+    partition, every result equal to the same requests' ``fm.batch`` bit
+    for bit (the same group at the same rows)."""
+    from repro_torch import storage
+    from repro_torch.core import fm
+    n = 50_001
+    A, y = _host_x(n, 8, seed=21), _host_x(n, 1, seed=22)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X, Y = fm.conv_R2FM(A, host=True), fm.conv_R2FM(y, host=True)
+        batched = [fm.as_np(r) for r in
+                   fm.batch(*_serve_requests(fm, X, Y), mode="ooc")]
+        reqs = _serve_requests(fm, X, Y)
+        fm.reset_exec_stats()
+        before = _batch_kernels()
+        handles, barrier = [None] * 3, threading.Barrier(3)
+        with fm.serve(window_ms=60_000, max_window_requests=3, mode="ooc",
+                      midstream_admission=False) as eng:
+            def submit(i):
+                barrier.wait(timeout=30)
+                handles[i] = eng.submit(reqs[i])
+
+            threads = [threading.Thread(target=submit, args=(i,))
+                       for i in range(3)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=60)
+            served = [fm.as_np(h.result(timeout=120)) for h in handles]
+        grew = [a - b for a, b in zip(_batch_kernels(), before)]
+        st = fm.exec_stats()
+    assert st["streams"] == 1 and st["passes"] == 3
+    parts = st["partition_steps"] // 3
+    assert parts > 4 and grew == [parts, parts, parts], (grew, parts)
+    for s, b in zip(served, batched):
+        np.testing.assert_array_equal(s, b)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_engine_midstream_join_on_the_card(dev, prefetch):
+    """A late colMeans joins a live colSums sweep at a partition boundary
+    (the host store holds the sweep at its second read until the late
+    request is parked): one admit, one stream, the catch-up restaging
+    exactly the prefix the late member missed (its ``catch_up`` span's
+    rows), both results within float32 rounding of float64."""
+    from repro_torch import storage
+    from repro_torch.core import fm
+    from repro_torch.core.matrix import DenseStore, FMMatrix
+    from repro_torch.observability import metrics
+    n, p = 80_000, 8
+    A = _host_x(n, p, seed=23)
+    started, release = threading.Event(), threading.Event()
+
+    class Paced(DenseStore):
+        reads = 0
+
+        def block(self, start, stop):
+            self.reads += 1
+            if self.reads == 2:
+                started.set()
+                release.wait(timeout=30)
+            return super().block(start, stop)
+
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = FMMatrix(A.shape, A.dtype, store=Paced(A), name="paced")
+        fm.reset_exec_stats()
+        with fm.trace(), fm.serve(window_ms=1, prefetch=prefetch) as eng:
+            h1 = eng.submit(fm.colSums(X))
+            assert started.wait(timeout=30)
+            h2 = eng.submit(fm.colMeans(X))
+            release.set()
+            sums, means = (fm.as_np(h.result(timeout=120)) for h in (h1, h2))
+            upto = [e["args"]["upto"] for e in fm.trace_events()
+                    if e["name"] == "catch_up"]
+            rows = [e["args"]["rows"] for e in fm.trace_events()
+                    if e["name"] == "stream"]
+        st = fm.exec_stats()
+        streamed = metrics.root_counter("bytes_streamed")
+    assert st["midstream_admits"] == 1 and st["streams"] == 1 \
+        and st["passes"] == 2
+    missed = upto[0] if upto else 0
+    assert streamed - A.nbytes == missed * p * 4
+    if not prefetch:  # parked while the sweep waited: joins at partition 1
+        assert missed == rows[0]
+    a64 = A.astype(np.float64)
+    np.testing.assert_allclose(sums.ravel(), a64.sum(0), rtol=1e-4,
+                               atol=1e-2)
+    np.testing.assert_allclose(means.ravel(), a64.mean(0), rtol=1e-4,
+                               atol=1e-6)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+
+
+def test_engine_two_groups_exact_launch_counts(dev):
+    """One window over two disjoint sources forms two groups, run at once
+    on two pool threads: two streams, each kernel launched exactly once a
+    partition of each group, every result equal bit for bit to its group's
+    ``fm.batch``."""
+    from repro_torch.core import fm
+    n1, n2 = 40_000, 30_001
+    A1, A2 = _host_x(n1, 8, seed=24), _host_x(n2, 8, seed=25)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X1, X2 = fm.conv_R2FM(A1, host=True), fm.conv_R2FM(A2, host=True)
+        want = [fm.as_np(r) for X in (X1, X2)
+                for r in fm.batch(fm.colMeans(X), fm.crossprod(X),
+                                  mode="ooc")]
+        parts = []
+        for X in (X1, X2):
+            fm.reset_exec_stats()
+            fm.batch(fm.colMeans(X), fm.crossprod(X), mode="ooc")
+            parts.append(fm.exec_stats()["partition_steps"] // 2)
+        reqs = [fm.colMeans(X1), fm.crossprod(X1), fm.colMeans(X2),
+                fm.crossprod(X2)]
+        fm.reset_exec_stats()
+        torch.cuda.synchronize()
+        g0, f0 = gram_mod.launches, faa.launches
+        with fm.serve(window_ms=60_000, max_window_requests=4, mode="ooc",
+                      max_concurrent_streams=2,
+                      midstream_admission=False) as eng:
+            handles = [eng.submit(r) for r in reqs]
+            got = [fm.as_np(h.result(timeout=120)) for h in handles]
+        st = fm.exec_stats()
+    assert st["streams"] == 2 and st["passes"] == 4
+    assert gram_mod.launches - g0 == sum(parts)
+    assert faa.launches - f0 == sum(parts)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_result_read_on_a_fresh_stream_sees_finished_values(dev,
+                                                            monkeypatch):
+    """A future resolves only after its group's device work has run: with
+    every step delayed on the compute stream, a thread whose current
+    stream is a fresh ``torch.cuda.Stream`` copies the result on that
+    stream, with no synchronization of its own, and reads the finished
+    values."""
+    from repro_torch.core import fm, materialize
+    n = 40_000
+    A = _host_x(n, 8, seed=26)
+    step = materialize._member_step
+
+    def slowed(*args, **kw):
+        torch.cuda._sleep(2_000_000)
+        return step(*args, **kw)
+
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = fm.conv_R2FM(A, host=True)
+        (want,) = fm.materialize(fm.crossprod(X), mode="ooc")
+        want = fm.as_np(want)
+        monkeypatch.setattr(materialize, "_member_step", slowed)
+        out, errors = {}, []
+        with fm.serve(window_ms=1) as eng:
+            h = eng.submit(fm.crossprod(X))
+
+            def reader():
+                try:
+                    side = torch.cuda.Stream()
+                    with torch.cuda.stream(side):
+                        g = fm._fm(h.result(timeout=120)).logical_data()
+                        copy = torch.empty_like(g)
+                        copy.copy_(g, non_blocking=True)
+                    side.synchronize()
+                    out["g"] = copy.cpu().numpy()
+                except Exception as exc:  # noqa: BLE001 - surfaced below
+                    errors.append(exc)
+
+            t = threading.Thread(target=reader)
+            t.start()
+            t.join(timeout=180)
+    assert not errors and not t.is_alive(), errors
+    np.testing.assert_array_equal(out["g"], want)

@@ -288,11 +288,11 @@ def test_lloyd_iterations_reuse_one_cached_plan():
 
 
 def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
-    """What later slices bring raises naming its ROADMAP item (``fm.serve``,
-    A12; a mesh, A13, in ``set_conf`` and in ``fm.batch``); what A7a-ii
-    and A7b brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host
-    slab, factor ingest and ``fm.persist(tier="disk")`` — runs and equals
-    the reference."""
+    """What later slices bring raises naming its ROADMAP item (a mesh, A13,
+    in ``set_conf``, ``fm.batch`` and ``fm.Engine``); what A7a-ii, A7b and
+    A12 brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host slab,
+    factor ingest, ``fm.persist(tier="disk")`` and ``fm.serve`` — runs and
+    equals the reference."""
     X, _, _ = _inputs()
     Xt = tfm.conv_R2FM(X)
     Xh = tfm.conv_R2FM(X, host=True)
@@ -313,7 +313,11 @@ def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
                                        tier="disk"))
         np.testing.assert_allclose(f.as_np(c).ravel(), X.sum(0), rtol=1e-5)
         assert f.persist(f.conv_R2FM(X), tier="disk").m.on_disk
-    for call, item in ((lambda: tfm.serve(), "A12"),
+    with tfm.serve(window_ms=1) as eng:
+        h = eng.submit(tfm.colSums(Xt))
+        np.testing.assert_allclose(tfm.as_np(h.result(timeout=60)).ravel(),
+                                   X.sum(0), rtol=1e-5)
+    for call, item in ((lambda: tfm.Engine(mesh=object()), "A13"),
                        (lambda: tfm.set_conf(mesh=object()), "A13"),
                        (lambda: tfm.batch(tfm.colSums(Xt), mesh=object()),
                         "A13")):

@@ -29,9 +29,9 @@ and ``ooc`` run many partitions; both packages stage them as the
 reference's test does (the ``ooc`` cells through the background
 prefetcher, the conf default for a host or disk source).  The reference's
 ``fm.batch`` arm and its anchor ``test_known_program_batched_parity`` are
-tests/test_torch_parity_fuzz_batch.py.  Left to later slices: its
-``fm.serve`` arm (ROADMAP A12) and its meshed arm (A13), with their anchors
-``test_known_program_served_parity`` and
+tests/test_torch_parity_fuzz_batch.py, its ``fm.serve`` arm and
+``test_known_program_served_parity`` tests/test_torch_parity_fuzz_serve.py.
+Left to a later slice: its meshed arm (ROADMAP A13), with its anchor
 ``test_known_program_meshed_parity``.
 """
 import dataclasses

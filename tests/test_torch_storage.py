@@ -27,9 +27,8 @@ into host memory by ``stage_block`` itself, the file's dtypes staged in
 their canonical types, bfloat16 in each package, ``drop_cache``'s ranges
 and the lifetime of views past ``close()``.
 
-Waiting for later items: ``test_engine_close_release_storage`` (the
-serving engine, ROADMAP A12) and ``test_plan_cache_mesh_key_not_id``
-(meshes, A13).
+Waiting for a later item: ``test_plan_cache_mesh_key_not_id`` (meshes,
+ROADMAP A13).
 """
 import dataclasses
 import threading
@@ -802,6 +801,22 @@ def test_registry_data_dir_agrees_across_threads(monkeypatch):
         assert len(set(got)) == 1 and reg._OWNED_DIRS == [got[0]]
     finally:
         tstorage.cleanup()
+        reg._OWNED_DIRS[:] = saved_owned
+
+
+def test_engine_close_release_storage(monkeypatch):
+    """Engine.close(release_storage=True) routes to registry.cleanup()."""
+    reg = tstorage.registry
+    monkeypatch.setitem(reg._CONF, "data_dir", None)
+    saved_owned = list(reg._OWNED_DIRS)
+    reg._OWNED_DIRS[:] = []
+    try:
+        lazy = reg.data_dir()
+        assert lazy.exists()
+        eng = PORT.fm.serve(window_ms=1)
+        eng.close(release_storage=True)
+        assert not lazy.exists()
+    finally:
         reg._OWNED_DIRS[:] = saved_owned
 
 

@@ -5,13 +5,14 @@ partition budget (one partition a pass at this size) and at a 256 KiB one,
 where every pass streams out of core in about 20 partitions through the
 background prefetcher in both packages.
 
-Left to later slices: ``test_lm_train_checkpoint_resume`` (LM training,
-ROADMAP A14) and ``test_serve_loadgen_journey`` (serving, A12).
+The serving journey runs both packages' load generators with the same
+arguments.  Left to a later slice: ``test_lm_train_checkpoint_resume``
+(LM training, ROADMAP A14).
 """
 import numpy as np
 import pytest
 
-from helpers_twin import time_limit  # noqa: F401
+from helpers_twin import data_dirs, time_limit  # noqa: F401
 from repro import algorithms as jalg
 from repro.core import fm as jfm
 from repro_torch import algorithms as talg
@@ -66,3 +67,28 @@ def test_flashr_user_journey(budget):
     np.testing.assert_allclose(tres.centers, jres.centers, rtol=1e-4,
                                atol=1e-4)
     assert tres.iters == jres.iters
+
+
+def test_serve_loadgen_journey(data_dirs):
+    """The serving journey: the load generator's serial-vs-serve arms over
+    one named disk matrix — each wave's concurrent same-source requests
+    share ONE streaming drive and read strictly fewer bytes — with the
+    same arguments in both packages, and the same evidence."""
+    from repro.launch import serve as jserve
+    from repro_torch.launch import serve as tserve
+
+    argv = ["--n", "6000", "--p", "4", "--clients", "3", "--waves", "2",
+            "--partition-kib", "16", "--name", "system_serve_x"]
+    got = {}
+    for name, serve in (("repro", jserve), ("repro_torch", tserve)):
+        with tfm.conf(device="cpu"):
+            serial, served = serve.main(argv)
+        assert served["streams"] == 2            # one stream per wave
+        assert serial["streams"] == 6            # one stream per request
+        assert served["bytes_per_request"] * 3 == serial["bytes_per_request"]
+        assert served["requests"] == serial["requests"] == 6
+        got[name] = [{k: r[k] for k in ("arm", "streams",
+                                        "bytes_per_request", "requests")}
+                     for r in (serial, served)]
+    assert got["repro_torch"] == got["repro"]
+    assert served["backend"] == "torch"
