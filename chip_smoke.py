@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — eight paths through ``repro_torch.core.fm``, each with the
+4. main    — nine paths through ``repro_torch.core.fm``, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -148,7 +148,34 @@ Phases, each printing one JSON line:
                 with numpy on the host), 4 clients, 3 waves — the serve
                 arm's streams equal to the waves, its bytes a request ×
                 clients equal to the serial arm's, both ``BENCH`` rows
-                printed; the files removed in a ``finally``;
+                printed; then path i's dense half, sharded execution
+                over ``[cuda:0] × k`` (``launch.mesh.Mesh``: each shard a
+                thread and a CUDA stream of its own), counted, each line
+                beside its unsharded twin: i1, ``correlation``,
+                ``summary``, ``glm(max_iter=3)``, ``kmeans(k=10,
+                max_iter=2)`` and ``crossprod`` in ``stream`` mode over the
+                device X unsharded and under k = 1, 2, 4, twice each — k
+                shards and k − 1 merges a pass, ``shard_bytes_in`` k
+                entries summing to the pass's bytes, the unsharded
+                passes, steps and launches, k = 1 bit for bit with
+                unsharded, each k bit for bit run to run, the Gram within
+                ``F64_TOL`` of float64; i2, ``crossprod`` and ``colSums``
+                in ``whole`` mode with ``mesh=`` — two row blocks at k = 2
+                (65,608,366 divides by 2), unsplit and bit for bit with
+                whole mode at k = 4 (it does not divide by 4); i3, path
+                g's four requests as one ``fm.batch(mesh=[cuda:0] × 2)``
+                ``ooc`` from host RAM through two prefetchers — one
+                stream, two shards, X and y read once, the pinned peak,
+                each output beside path g's batch; i4,
+                ``scale(D, save="disk")`` under k = 2, D the first 2^24
+                rows of X as an ``.fmat`` (a cut of depth), both shards'
+                rows in one spill file (size, header, 4096 rows against
+                float64); i5, ``Engine(mesh=[cuda:0] × 2)`` with two
+                tenants, ``colMeans`` and ``crossprod`` from host RAM —
+                sharded, no gate, no mid-stream admit; then i7, a
+                staging fault in one shard of two: it raises, nothing
+                registers, no prefetcher, staged partition or shard thread
+                is left; the files removed in a ``finally``;
              c. after the dense data is freed, the sparse path at the scale
                 of the Criteo Display Advertising Challenge train set
                 (Kaggle, 2014): 45,840,617 rows × 26 categorical columns,
@@ -188,6 +215,14 @@ Phases, each printing one JSON line:
                 through the prefetcher warm and cold (counted:
                 ``spmm_gram`` once a partition, the Gram equal to whole
                 mode's bit for bit, ``pass_bytes_in`` the file's CSR bytes);
+                path i's sparse half (i6, before the CSR file, counted)
+                under ``[cuda:0] × 2``: ``crossprod`` in ``stream`` over
+                the device slab and ``ooc`` from the host slab and
+                ``glm(max_iter=2)`` in ``stream`` on the 2^22-row slab,
+                beside their unsharded runs — the SpMM launches and steps
+                as unsharded, 2 shards a pass, the Gram within
+                ``SPARSE_SHARD_TOL`` of whole mode's, the log-likelihoods
+                within 1e-4 of the unsharded fit's;
                 ``torch``, which densifies, is compared with ``cuda`` on the
                 first 2^18 rows;
              d. after the Criteo data is freed, the LM serving path
@@ -214,7 +249,8 @@ Phases, each printing one JSON line:
                 is at the full shape; (d) every logit finite.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
-over the counted runs of the eight paths), the card's name and power limit as ``nvidia-smi`` prints them, and
+over the counted runs of the nine paths), the card's name and power
+limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
 so every plain version and library call computes in full float32.
@@ -288,6 +324,15 @@ LOADGEN_ROWS = 1 << 24
 #: to spare; the CSR half (9.9 GB) comes after they are removed.
 DISK_NEED = (2 * N_ROWS * N_COLS * 4 + N_ROWS * 4
              + LOADGEN_ROWS * N_COLS * 4 + (1 << 30))
+#: Rows of the ``.fmat`` path i4 spills through two shards (a cut of
+#: depth: the full spill is path f's, 14-18 s).
+SPILL_ROWS = 1 << 24
+#: Rows of the host store path i7 injects its shard fault into.
+FAULT_ROWS = 1 << 22
+#: Limit on a sharded sparse Gram against whole mode's, relative to its
+#: largest entry: every entry is an integer count under 2^24, which float32
+#: adds exactly in any order, so the measured difference should be 0.
+SPARSE_SHARD_TOL = 1e-6
 #: Rows of X in the 1 GiB the disk line reads cold and warm.
 DISK_RATE_ROWS = (1 << 30) // (N_COLS * 4)
 #: The cold read rate (bytes/s) path f's dense half measured: the disk
@@ -1658,9 +1703,12 @@ def host_slab_phase(torch, Xs, Xm, Ym, gd, gs, y):
     np.testing.assert_allclose(gh.loglik_trace, gs.loglik_trace, rtol=1e-4)
     del XmH, res
     blaunches = batch_sparse_phase(torch, XH, y, gd)
+    ilaunches = shard_sparse_arm(torch, Xs, XH, Xm, Ym, gd, gs,
+                                 d["partition_steps"])
     claunches = disk_csr_phase(torch, XH, gd, rates)
     del XH
-    return {k: launches[k] + blaunches[k] + claunches[k] for k in launches}
+    return {k: launches[k] + blaunches[k] + ilaunches[k] + claunches[k]
+            for k in launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1847,7 +1895,8 @@ def disk_dense_phase(torch, x, y, XH, YH, XKH, pres, pinfo, rates):
               **out["scale"]})
         glaunches, gres = batch_dense_phase(torch, x, y, XH, YH, XD, YD)
         hlaunches = serve_phase(torch, x, XH, YH, XKH, XD, YD, gres)
-        return [launches, glaunches, hlaunches]
+        ilaunches = shard_dense_phase(torch, x, y, XH, YH, gres)
+        return [launches, glaunches, hlaunches, ilaunches]
     finally:
         fm.set_conf(direct_io=False)
         disk_cleanup()
@@ -2490,6 +2539,14 @@ def serve_h2(torch, x, XH):
                 h1 = eng.submit(fm.colSums(X))
                 check(started.wait(timeout=120), "h2: the sweep never "
                       "started")
+                # The prefetcher reads partition 1 (and so sets ``started``)
+                # while the group may not yet have taken partition 0: the
+                # late request joins mid-stream only once partition 0's
+                # step has run, its admission point passed.
+                deadline = time.time() + 120
+                while (fm.exec_stats()["partition_steps"]
+                       == st0["partition_steps"] and time.time() < deadline):
+                    time.sleep(0.001)
                 h2 = eng.submit(fm.colMeans(X))
                 with eng._cv:
                     parked = not eng._pending
@@ -2666,6 +2723,464 @@ def serve_phase(torch, x, XH, YH, XKH, XD, YD, gres):
     for _, checks in out:
         for ok, what in checks:
             check(ok, what)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Path i: sharded execution over [cuda:0] × k
+# ---------------------------------------------------------------------------
+
+def card_mesh(torch, k):
+    """``k`` shards on this one card (axis ``data``): each shard drives its
+    own executor on a thread and a CUDA stream of its own."""
+    from repro_torch.launch.mesh import Mesh
+    return Mesh([torch.device(DEVICE, 0)] * k, ("data",))
+
+
+def shard_calls(fm, X, Y):
+    """Path i1's calls, each in ``stream`` mode over the device X."""
+    from repro_torch.algorithms import correlation, glm, kmeans, summary
+    return (
+        ("correlation", lambda: correlation(X, mode="stream")),
+        ("summary", lambda: summary(X, mode="stream")),
+        ("glm", lambda: glm(X, Y, family="logistic", max_iter=3,
+                            mode="stream")),
+        ("kmeans", lambda: kmeans(X, k=K_CLUSTERS, max_iter=2,
+                                  mode="stream")),
+        ("crossprod", lambda: fm.materialize(fm.crossprod(X),
+                                             mode="stream")[0]))
+
+
+SHARD_STATS = ("shards", "shard_merges", "passes", "partition_steps",
+               "materialize_calls", "streams", "midstream_admits")
+
+
+def shard_run(torch, calls):
+    """Each ``(name, fn)`` of ``calls`` once, untraced: its result, wall ms
+    (host clock around a call that ends in a synchronize), the counters it
+    moved (``SHARD_STATS``, each kernel's launches) and the last pass's
+    ``shard_bytes_in`` and ``pass_bytes_in``."""
+    from repro_torch.core import fm
+    out, info = {}, {}
+    for name, fn in calls:
+        st0 = fm.exec_stats()
+        torch.cuda.synchronize()
+        k0 = read_counts()
+        t0 = time.perf_counter()
+        out[name] = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1 = read_counts()
+        st = fm.exec_stats()
+        info[name] = {"wall_ms": wall * 1e3,
+                      **{k: st[k] - st0[k] for k in SHARD_STATS},
+                      "launches": {k: k1[k] - k0[k] for k in k1
+                                   if k1[k] != k0[k]},
+                      "shard_bytes_in": list(st["shard_bytes_in"]),
+                      "pass_bytes_in": list(st["pass_bytes_in"])}
+    return out, info
+
+
+def shard_stream_arm(torch, x, y, g64):
+    """i1: path i1's calls in ``stream`` mode unsharded, then under
+    ``[cuda:0] × 1, × 2, × 4`` twice each (the first run builds the
+    mesh's plans; the lines are the second's).  Checked: k shards and
+    k − 1 merges a pass, ``shard_bytes_in`` k entries summing to the last
+    pass's bytes, the unsharded run's passes, steps and launches; k = 1
+    bit for bit with unsharded, each k bit for bit run to run; the Gram
+    within ``F64_TOL`` / ``F64_TOL_OFFDIAG`` of float64."""
+    from repro_torch.core import fm
+    X, Y = fm.conv_R2FM(x), fm.conv_R2FM(y)
+    calls = shard_calls(fm, X, Y)
+    names = [n for n, _ in calls]
+    shard_run(torch, calls)                           # warm: plans, kernels
+    with fm.conf(mesh=False):
+        base, binfo = shard_run(torch, calls)
+    lines, checks = [], []
+    for k in (1, 2, 4):
+        with fm.conf(mesh=card_mesh(torch, k)):
+            runs = [shard_run(torch, calls) for _ in range(2)]
+        (res, _), (res2, info) = runs
+        diffs_k = same_results(res, res2, names)
+        diffs_base = same_results(base, res, names)
+        de, do = corr_err(torch, fm._fm(res["crossprod"]).logical_data(),
+                          g64)
+        for name in names:
+            d, b = info[name], binfo[name]
+            lines.append({"phase": "main", "path": "shard", "arm": "i1",
+                          "mode": "stream", "shards_k": k, "call": name,
+                          **d, "unsharded_ms": b["wall_ms"],
+                          "ratio": d["wall_ms"] / b["wall_ms"]})
+            checks += [
+                (d["shards"] == k * d["passes"]
+                 and d["shard_merges"] == (k - 1) * d["passes"],
+                 f"i1 k={k} {name}: {d['shards']} shards, "
+                 f"{d['shard_merges']} merges for {d['passes']} passes"),
+                (len(d["shard_bytes_in"]) == k
+                 and sum(d["shard_bytes_in"]) == d["pass_bytes_in"][-1],
+                 f"i1 k={k} {name}: shard_bytes_in {d['shard_bytes_in']} "
+                 f"against the pass's {d['pass_bytes_in']}"),
+                (all(d[s] == b[s] for s in ("passes", "partition_steps",
+                                             "materialize_calls"))
+                 and d["launches"] == b["launches"],
+                 f"i1 k={k} {name}: {d} against unsharded {b}")]
+        lines.append({"phase": "compare", "path": "shard", "arm": "i1",
+                      "shards_k": k, "differs_run_to_run": diffs_k,
+                      "differs_from_unsharded": diffs_base,
+                      "gram_err_f64": [de, do]})
+        checks += [(not diffs_k, f"i1 k={k}: runs differ in {diffs_k}"),
+                   (k > 1 or not diffs_base,
+                    f"i1 k=1 differs from unsharded in {diffs_base}"),
+                   (de <= F64_TOL and do <= F64_TOL_OFFDIAG,
+                    f"i1 k={k}: Gram err {de}, {do} against float64")]
+    return lines, checks
+
+
+def colsum_err(torch, s, x):
+    """A float32 column-sum vector against float64, in units of Σ|x|."""
+    s1 = torch.zeros(x.shape[1], dtype=torch.float64, device=x.device)
+    a1 = torch.zeros_like(s1)
+    for a, b in row_chunks(x.shape[0]):
+        xc = x[a:b].double()
+        s1 += xc.sum(0)
+        a1 += xc.abs().sum(0)
+    return float(((s.double().reshape(-1) - s1).abs() / a1).max())
+
+
+def shard_whole_arm(torch, x, g64):
+    """i2: ``materialize(crossprod(X), colSums(X), mesh=)`` in whole mode:
+    at k = 2 the rows divide and split in two blocks, at k = 4 they do not
+    and the group runs unsplit (bit for bit with whole mode), shards 1."""
+    from repro_torch.core import fm
+    X = fm.conv_R2FM(x)
+    want = [fm._fm(v).logical_data() for v in
+            fm.materialize(fm.crossprod(X), fm.colSums(X))]
+    lines, checks = [], []
+    for k in (2, 4):
+        mesh = card_mesh(torch, k)
+        calls = (("whole", lambda: fm.materialize(
+            fm.crossprod(X), fm.colSums(X), mesh=mesh)),)
+        shard_run(torch, calls)                                  # warm
+        res, info = shard_run(torch, calls)
+        d = info["whole"]
+        g, s = (fm._fm(v).logical_data() for v in res["whole"])
+        de, do = corr_err(torch, g, g64)
+        se = colsum_err(torch, s, x)
+        same = torch.equal(g, want[0]) and torch.equal(s, want[1])
+        split = N_ROWS % k == 0
+        d.pop("shard_bytes_in")  # a streamed pass's, not this call's
+        lines.append({"phase": "main", "path": "shard", "arm": "i2",
+                      "mode": "whole", "shards_k": k, **d,
+                      "rows_divide": split, "bit_for_bit_with_whole": same,
+                      "gram_err_f64": [de, do], "colsums_err_f64": se})
+        checks += [
+            (d["shards"] == (k if split else 1),
+             f"i2 k={k}: {d['shards']} shards, rows divide: {split}"),
+            (d["shard_merges"] == 0 and d["streams"] == 1
+             and d["partition_steps"] == 1,
+             f"i2 k={k}: {d}"),
+            (d["launches"].get("gram") == (k if split else 1),
+             f"i2 k={k}: gram launches {d['launches']}"),
+            (split or same, f"i2 k={k}: the unsplit run differs from whole "
+             "mode"),
+            (de <= F64_TOL and do <= F64_TOL_OFFDIAG and se <= F64_TOL,
+             f"i2 k={k}: Gram err {de}, {do}, colSums err {se}")]
+    return lines, checks
+
+
+def shard_batch_arm(torch, x, y, XH, YH, g64, gres):
+    """i3: path g's four requests as one ``fm.batch(mesh=[cuda:0] × 2)``
+    ``ooc`` from the host copies through two prefetchers: one stream, two
+    shards, X and y read once; the Gram and XᵀY within float64's limits,
+    every output's difference from path g's batch printed and held to
+    ``SOLO_NORM_TOL``; the pinned peak printed."""
+    from repro_torch.core import fm
+    mesh = card_mesh(torch, 2)
+
+    def run():
+        vals = []
+        for r in fm.batch(*dense_requests(fm, XH, YH), mode="ooc",
+                          mesh=mesh):
+            vals += r if isinstance(r, list) else [r]
+        return vals, list(fm.exec_stats()["pass_bytes_in"])
+
+    run()                                                        # warm
+    st0 = fm.exec_stats()
+    with pinned_peak() as peak:
+        vals, d = measure(torch, run)
+    st = fm.exec_stats()
+    d.update({k: st[k] - st0[k] for k in ("shards", "shard_merges")})
+    d["shard_bytes_in"] = list(st["shard_bytes_in"])
+    g = gres["host"]
+    named = dict(zip(BATCH_OUTPUTS, vals))
+    de, do = corr_err(torch, named["crossprod"], g64)
+    xy64, units = xty64(torch, x, y.reshape(-1, 1))
+    xe = float(((named["crossprod_xy"].double() - xy64).abs() / units).max())
+    norm = {n: max_norm_diff(a, b)
+            for n, a, b in zip(BATCH_OUTPUTS, vals, g["vals"])}
+    nbytes = XH.m.nbytes() + YH.m.nbytes()
+    line = {"phase": "main", "path": "shard", "arm": "i3", "mode": "ooc",
+            "shards_k": 2, **d, "pinned_peak_bytes": peak["bytes"],
+            "batch_ms": g["batched_ms"], "serial_ms": g["serial_ms"],
+            "gram_err_f64": [de, do], "xty_err_f64": xe,
+            "max_norm_diff_from_batch": norm}
+    checks = [
+        (d["streams"] == 1 and d["passes"] == 4 and d["shards"] == 2
+         and d["shard_merges"] == 4, f"i3: {d}"),
+        (d["stage_bytes_read"] == nbytes and d["pass_bytes_in"] == [nbytes],
+         f"i3: read {d['stage_bytes_read']}, X and y {nbytes}"),
+        (de <= F64_TOL and do <= F64_TOL_OFFDIAG and xe <= F64_TOL,
+         f"i3: Gram err {de}, {do}, XᵀY err {xe} against float64"),
+        (max(norm.values()) <= SOLO_NORM_TOL,
+         f"i3: differs from path g's batch by {norm}")]
+    return [line], checks
+
+
+def shard_spill_arm(torch, x):
+    """i4: ``scale(D, save="disk")`` ``ooc`` under ``[cuda:0] × 2``, D the
+    first SPILL_ROWS rows of X as an ``.fmat`` (a cut of depth): both
+    shards' rows land in one spill file, its size and header checked, and
+    4096 random rows against float64."""
+    import numpy as np
+    from repro_torch import storage
+    from repro_torch.core import fm
+    n = SPILL_ROWS
+    D = fm.save_dense_matrix(x[:n], "shard_spill_x")
+    st0 = fm.exec_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fm.conf(mesh=card_mesh(torch, 2)):
+        (Z,) = fm.materialize(fm.scale(D, save="disk"), mode="ooc")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = fm.exec_stats()
+    store = Z.m.store
+    size = store.path.stat().st_size
+    h = storage.read_header(store.path)
+    xs = x[:n]
+    s1 = torch.zeros(N_COLS, dtype=torch.float64, device=x.device)
+    s2 = torch.zeros_like(s1)
+    for a, b in row_chunks(n):
+        xc = xs[a:b].double()
+        s1 += xc.sum(0)
+        s2 += (xc * xc).sum(0)
+    mu = s1 / n
+    sd = ((s2 - n * mu ** 2) / (n - 1)).sqrt()
+    rows = np.sort(np.random.default_rng(SEED + 26).choice(n, 4096,
+                                                           replace=False))
+    want = ((xs[torch.as_tensor(rows, device=x.device)].double() - mu) / sd)
+    got = torch.as_tensor(np.asarray(store.logical()[rows], np.float64),
+                          device=x.device)
+    row_err = float((got - want).abs().max())
+    d = {"wall_ms": wall * 1e3, "rows": n,
+         **{k: st[k] - st0[k] for k in SHARD_STATS},
+         "shard_bytes_in": list(st["shard_bytes_in"]), "spill_bytes": size,
+         "rows_checked": len(rows), "rows_max_abs_err_f64": row_err}
+    line = {"phase": "main", "path": "shard", "arm": "i4", "mode": "ooc",
+            "shards_k": 2, **d}
+    checks = [
+        (Z.m.on_disk and d["passes"] == 2 and d["shards"] == 4,
+         f"i4: on disk {Z.m.on_disk}, {d}"),
+        (size == h.body_offset + n * N_COLS * 4
+         and (h.nrow, h.ncol, h.layout) == (n, N_COLS, "row")
+         and h.dtype == np.float32, f"i4: spill file {size} bytes, {h}"),
+        (row_err <= 1e-5, f"i4: rows against float64 {row_err}")]
+    return [line], checks
+
+
+def shard_serve_arm(torch, XH, g64):
+    """i5: ``Engine(mesh=[cuda:0] × 2)``, two tenants — ``colMeans(X)`` and
+    ``crossprod(X)`` from the host copy — in one window: sharded, no
+    mid-stream admission, no gate; the Gram within float64's limits and
+    colMeans within ``SOLO_NORM_TOL`` of the unsharded Engine's."""
+    from repro_torch.core import fm
+
+    def make():
+        return [fm.colMeans(XH), fm.crossprod(XH)]
+
+    got = {}
+    for name, mesh in (("unsharded", None), ("sharded", card_mesh(torch, 2))):
+        with fm.serve(window_ms=60_000, max_window_requests=2, mode="ooc",
+                      mesh=mesh) as eng:
+            tenants(fm, eng, make())                             # warm
+            st0 = fm.exec_stats()
+            vals, d = measure(torch, lambda: (
+                tenants(fm, eng, make())[0],
+                list(fm.exec_stats()["pass_bytes_in"])))
+            st = fm.exec_stats()
+            with eng._gates_lock:
+                gates = len(eng._gates)
+        d.update({k: st[k] - st0[k] for k in ("shards", "shard_merges",
+                                               "midstream_admits")})
+        got[name] = (vals, d, gates)
+    (uv, ud, _), (sv, sd, gates) = got["unsharded"], got["sharded"]
+    de, do = corr_err(torch, sv[1], g64)
+    norm = max_norm_diff(sv[0], uv[0])
+    line = {"phase": "main", "path": "shard", "arm": "i5", "mode": "ooc",
+            "shards_k": 2, **sd, "unsharded_ms": ud["wall_ms"],
+            "gates": gates, "gram_err_f64": [de, do],
+            "colmeans_max_norm_diff": norm}
+    checks = [
+        (sd["shards"] > 0 and sd["midstream_admits"] == 0 and gates == 0,
+         f"i5: {sd}, {gates} gates"),
+        (de <= F64_TOL and do <= F64_TOL_OFFDIAG,
+         f"i5: Gram err {de}, {do} against float64"),
+        (norm <= SOLO_NORM_TOL, f"i5: colMeans differs by {norm}")]
+    return [line], checks
+
+
+def shard_fault_arm(torch, XH):
+    """i7: a staging fault in one shard (a store that fails its fourth
+    block read) under ``[cuda:0] × 2``: the materialize raises, nothing
+    registers, and the prefetcher, staged and thread audits are empty."""
+    import numpy as np
+    from repro_torch import storage
+    from repro_torch.core import fm
+    from repro_torch.core.matrix import DenseStore, FMMatrix
+
+    class FlakyStore(DenseStore):
+        def __init__(self, data):
+            super().__init__(data)
+            self.reads, self.lock = 0, threading.Lock()
+
+        def block(self, start, stop):
+            with self.lock:
+                self.reads += 1
+                n = self.reads
+            if n > 3:
+                raise RuntimeError("injected shard staging failure")
+            return super().block(start, stop)
+
+    host = XH.m.logical_data()[:FAULT_ROWS]
+    Xf = FMMatrix(host.shape, np.float32, store=FlakyStore(host),
+                  name="flaky")
+    G = fm.crossprod(fm.FM(Xf) * 2.0)
+    raised = None
+    try:
+        fm.materialize(G, mode="ooc", prefetch=True,
+                       mesh=card_mesh(torch, 2))
+    except Exception as exc:  # noqa: BLE001 - checked below
+        raised = repr(exc)
+    deadline = time.time() + 10
+    while time.time() < deadline and storage.live_prefetchers():
+        time.sleep(0.05)
+    shard_threads = [t.name for t in threading.enumerate()
+                     if t.name.startswith("fm-shard")]
+    line = {"phase": "stress", "path": "shard", "arm": "i7",
+            "raised": raised, "registered": not G.m.is_virtual,
+            "live_prefetchers": len(storage.live_prefetchers()),
+            "staged_leaks": len(storage.staged_leaks()),
+            "shard_threads": shard_threads}
+    checks = [
+        (raised is not None and "injected shard staging" in raised,
+         f"i7: {raised}"),
+        (G.m.is_virtual and getattr(G.m, "cached_store", None) is None,
+         "i7: a partial sink registered"),
+        (not line["live_prefetchers"] and not line["staged_leaks"]
+         and not shard_threads, f"i7: {line}")]
+    return [line], checks
+
+
+def shard_dense_phase(torch, x, y, XH, YH, gres):
+    """Path i, dense (inside path f, after path h, while X and y live on
+    the device, in host RAM and on disk): i1 stream, i2 whole, i3 a host
+    ``ooc`` batch, i4 a spill and i5 an Engine, all over ``[cuda:0] × k``,
+    counted; then i7, an injected shard fault.  Each arm's lines are
+    printed before its checks.  Returns the launches."""
+    from repro_torch.core import fm
+    t_path = time.perf_counter()
+    g64 = gram64(torch, x)
+
+    def run():
+        with fm.conf(backend="cuda"):
+            return [shard_stream_arm(torch, x, y, g64),
+                    shard_whole_arm(torch, x, g64),
+                    shard_batch_arm(torch, x, y, XH, YH, g64, gres),
+                    shard_spill_arm(torch, x),
+                    shard_serve_arm(torch, XH, g64)]
+
+    fm.reset_exec_stats()
+    arms, launches = counted(torch, "shard dense",
+                             ("gram", "xty", "fused_apply_agg", "wgram",
+                              "kmeans_assign"), run)
+    with fm.conf(backend="cuda"):
+        arms.append(shard_fault_arm(torch, XH))
+    for lines, _ in arms:
+        for line in lines:
+            emit(line)
+    emit({"phase": "shard", "half": "dense", "launches": launches,
+          "seconds": time.perf_counter() - t_path})
+    for _, checks in arms:
+        for cond, what in checks:
+            check(cond, what)
+    return launches
+
+
+def shard_sparse_arm(torch, Xs, XH, Xm, Ym, gd, gs, host_steps):
+    """i6 (inside path c, while the device and host slabs live), under
+    ``[cuda:0] × 2``: ``crossprod(Xs)`` in ``stream`` over the device slab
+    and ``ooc`` from the host slab, and ``glm(max_iter=2)`` in ``stream``
+    on the 2^22-row slab, with their unsharded twins: the SpMM kernels'
+    launches as unsharded, 2 shards a pass, the Gram within
+    SPARSE_SHARD_TOL (relative) of whole mode's and the log-likelihoods
+    within 1e-4 of the unsharded fit's.  Counted; returns the launches."""
+    import numpy as np
+    from repro_torch.algorithms import glm
+    from repro_torch.core import fm
+    mesh = card_mesh(torch, 2)
+    calls = (
+        ("crossprod_stream", lambda: fm.materialize(fm.crossprod(Xs),
+                                                    mode="stream")),
+        ("glm_stream", lambda: glm(Xm, Ym, "logistic", ridge=1e-3,
+                                   max_iter=2, mode="stream")),
+        ("crossprod_ooc", lambda: fm.materialize(fm.crossprod(XH),
+                                                 mode="ooc")))
+
+    def run():
+        with fm.conf(backend="cuda"):
+            base = shard_run(torch, calls[:2])
+            with fm.conf(mesh=mesh):
+                return base, shard_run(torch, calls)
+
+    t0 = time.perf_counter()
+    fm.reset_exec_stats()
+    ((bres, binfo), (res, info)), launches = counted(
+        torch, "shard sparse", ("spmm_gram", "spmm_xty", "spmm_wgram"), run)
+    rel = {n: float((fm._fm(res[n][0]).logical_data().double()
+                     - gd.double()).abs().max() / gd.double().abs().max())
+           for n in ("crossprod_stream", "crossprod_ooc")}
+    g, gb = res["glm_stream"], bres["glm_stream"]
+    ll = float(np.max(np.abs(np.array(g.loglik_trace)
+                             - np.array(gb.loglik_trace))
+                      / np.abs(np.array(gb.loglik_trace))))
+    lines = [{"phase": "main", "path": "shard", "arm": "i6",
+              "shards_k": 2, "call": n, **d,
+              **({"unsharded_ms": binfo[n]["wall_ms"]} if n in binfo
+                 else {})} for n, d in info.items()]
+    lines.append({"phase": "compare", "path": "shard", "arm": "i6",
+                  "gram_rel_diff_from_whole": rel,
+                  "gram_tol": SPARSE_SHARD_TOL,
+                  "glm_loglik_trace": [g.loglik_trace, gb.loglik_trace,
+                                       gs.loglik_trace],
+                  "glm_loglik_rel_diff": ll, "launches": launches,
+                  "seconds": time.perf_counter() - t0})
+    for line in lines:
+        emit(line)
+    for n, d in info.items():
+        check(d["shards"] == 2 * d["passes"] and d["shard_merges"]
+              == d["passes"], f"i6 {n}: {d}")
+    for n in ("crossprod_stream", "crossprod_ooc"):
+        d = info[n]
+        check(d["launches"].get("spmm_gram") == d["partition_steps"]
+              == host_steps, f"i6 {n}: spmm_gram {d['launches']} for "
+              f"{d['partition_steps']} steps, unsharded {host_steps}")
+        check(rel[n] <= SPARSE_SHARD_TOL, f"i6 {n}: Gram differs from "
+              f"whole mode's by {rel[n]}")
+    for n, b in binfo.items():
+        d = info[n]
+        check(d["launches"] == b["launches"] and d["partition_steps"]
+              == b["partition_steps"], f"i6 {n}: {d} against unsharded {b}")
+    check(ll <= 1e-4, f"i6 glm log-likelihoods differ by {ll}")
     return launches
 
 

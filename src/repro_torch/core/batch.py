@@ -30,8 +30,11 @@ than the whole group's.
 Consecutive rounds with identical partition schedules reuse the resident
 final partition (``prefetch_reuse_hits``), and inside
 ``materialize.iteration_scope`` the residency carries across batches and
-materializes.  Sharded groups (``mesh=``) come with the multi-GPU slice
-(ROADMAP A13).
+materializes.  Under a mesh (``mesh=``, default the configured
+``fm.set_conf(mesh=...)``) every group's sweep shards over the mesh's data
+axis as a solo materialize's does (`materialize._run_sharded_stream`), each
+member's partials merging through its own ``combine`` across the shard
+boundaries.
 """
 from __future__ import annotations
 
@@ -84,7 +87,7 @@ def _request_stack(req: BatchRequest):
     return tuple(cur) + tuple(extra)
 
 
-def _plan_request(req: BatchRequest, backend: str,
+def _plan_request(req: BatchRequest, backend: str, mesh,
                   reuse_plans: bool) -> bool:
     """Build ``req``'s own Plan and acquire its (possibly cached) template.
     False for a pure pass-through request (no virtual outputs).  Plan
@@ -97,7 +100,7 @@ def _plan_request(req: BatchRequest, backend: str,
         metrics.inc("materialize_calls")
         with mz._DAG_LOCK:
             req.plan = Plan(virtuals)
-            req.exec_plan = mz._acquire_exec_plan(req.plan, backend,
+            req.exec_plan = mz._acquire_exec_plan(req.plan, backend, mesh,
                                                   reuse_plans)
     prog = req.exec_plan.program(backend)
     req.pass_progs = getattr(prog, "passes", None) or [prog]
@@ -139,13 +142,6 @@ def _member_for(req: BatchRequest, r: int):
                         out_nodes=out_nodes, scopes=req.scopes)
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution across cards comes with the multi-GPU slice "
-            "(ROADMAP A13)")
-
-
 def plan_rounds(requests, *, backend: Optional[str] = None,
                 reuse_plans: bool = True, mesh=None):
     """Prepare every request's plan and the per-round co-schedule.
@@ -155,10 +151,9 @@ def plan_rounds(requests, *, backend: Optional[str] = None,
     deterministic schedule both `execute_batch` and ``fm.explain_batch``
     read.  Requests whose outputs are all physical come back with
     ``plan is None`` (pure pass-through)."""
-    _no_mesh(mesh)
     backend = lowering.resolve_backend(backend)
     active = [req for req in requests
-              if _plan_request(req, backend, reuse_plans)]
+              if _plan_request(req, backend, mesh, reuse_plans)]
 
     rounds = []
     n_rounds = max((req.n_passes for req in active), default=0)
@@ -179,24 +174,27 @@ def execute_batch(requests, *, mode: str = "auto",
     Returns the requests' result lists (physical FMMatrix per output).
     ``mode`` follows ``fm.materialize`` ('auto' picks per group from the
     union of that group's sources); ``donate`` is accepted and has no
-    effect, as in ``materialize``.  A failure mid-batch clears the thread's
-    resident-partition capture: residents from a previous round must not
-    stay held for the rest of the iteration scope."""
-    _no_mesh(mesh)
+    effect, as in ``materialize``.  ``mesh`` (default: the configured
+    ``fm.set_conf(mesh=...)``) shards every group's sweep over the mesh's
+    data axis, as a solo materialize's.  A failure mid-batch clears the
+    thread's resident-partition capture: residents from a previous round
+    must not stay held for the rest of the iteration scope."""
     from ..storage import registry
     registry.device()  # raises when CUDA is asked for and absent
     try:
         return _execute_batch(requests, mode=mode, backend=backend,
-                              prefetch=prefetch, reuse_plans=reuse_plans)
+                              prefetch=prefetch, reuse_plans=reuse_plans,
+                              mesh=mesh)
     except BaseException:
         mz._set_tls_residents(None)
         raise
 
 
-def _execute_batch(requests, *, mode, backend, prefetch, reuse_plans):
+def _execute_batch(requests, *, mode, backend, prefetch, reuse_plans, mesh):
     backend = lowering.resolve_backend(backend)
+    mesh = mz._default_mesh(mesh)
     active, rounds = plan_rounds(requests, backend=backend,
-                                 reuse_plans=reuse_plans)
+                                 reuse_plans=reuse_plans, mesh=mesh)
     residents = mz._tls_residents()
     stream_bytes: list[int] = []
     with TRACER.span("batch", requests=len(active), rounds=len(rounds)):
@@ -217,13 +215,13 @@ def _execute_batch(requests, *, mode, backend, prefetch, reuse_plans):
                     raise ValueError(f"unknown mode {group_mode!r}")
                 t_pass = time.perf_counter()
                 if group_mode == "whole":
-                    mz._run_whole_group(members)
+                    mz._run_whole_group(members, mesh=mesh)
                 else:
                     capture = mz.inspecting() or r + 1 < len(rounds)
                     entry = mz._run_stream_group(
                         members, to_host=(group_mode == "ooc"),
                         prefetch=prefetch, residents=residents,
-                        capture=capture)
+                        capture=capture, mesh=mesh)
                     if entry is not None:
                         next_residents.append(entry)
                 metrics.inc("pass_seconds", time.perf_counter() - t_pass)
@@ -277,9 +275,9 @@ class Batch:
     def __init__(self, *, mode: str = "auto", backend: Optional[str] = None,
                  donate: bool = True, prefetch: Optional[bool] = None,
                  reuse_plans: bool = True, mesh=None):
-        _no_mesh(mesh)
         self._kw = dict(mode=mode, backend=backend, donate=donate,
-                        prefetch=prefetch, reuse_plans=reuse_plans)
+                        prefetch=prefetch, reuse_plans=reuse_plans,
+                        mesh=mesh)
         self.requests: list[BatchRequest] = []
         self._ran = False
 

@@ -6,8 +6,9 @@ schedules it as an ordered list of passes (`PassSchedule`).  Most programs
 are one pass; a merged value feeding a row-local op (``scale(X)``) schedules
 as moment pass → sweep pass, all under one plan-cache entry and one
 ``fm.materialize`` call.  The schedule, the epilogue roles, the staging
-groups, the partition sizes and the signature are the reference's.  The mesh
-hook is not ported: sharded execution is the multi-GPU slice (ROADMAP A13).
+groups, the partition sizes and the signature are the reference's.  Under a
+configured mesh (``fm.set_conf(mesh=...)``) each pass also carries its
+per-shard row ranges (``shard_ranges``), part of the plan-cache key.
 """
 from __future__ import annotations
 
@@ -21,6 +22,40 @@ from .dag import (LeafNode, Node, SinkNode, Small, as_node, long_dim_of,
                   schedule_passes)
 from .matrix import FMMatrix, io_partition_rows
 from .sparse import effective_ncol
+
+
+def shard_ranges(long_dim: int, partition_rows: int,
+                 n_shards: int) -> list[tuple[int, int]]:
+    """Contiguous, partition-aligned half-open row ranges splitting
+    ``[0, long_dim)`` into ``n_shards`` shards.
+
+    Every boundary lands on a multiple of ``partition_rows``, so each shard
+    streams whole I/O-level partitions, and partitions are spread as evenly
+    as possible (leading shards take the remainder).  With fewer
+    partitions than shards the trailing ranges are empty ``(start,
+    start)``: those shards idle."""
+    n_shards = max(1, int(n_shards))
+    n_parts = max(1, -(-int(long_dim) // max(1, int(partition_rows))))
+    base, extra = divmod(n_parts, n_shards)
+    ranges, part = [], 0
+    for s in range(n_shards):
+        take = base + (1 if s < extra else 0)
+        lo = min(part * partition_rows, long_dim)
+        part += take
+        hi = min(part * partition_rows, long_dim)
+        ranges.append((int(lo), int(hi)))
+    return ranges
+
+
+def _conf_data_shards() -> int:
+    """Data-axis size of the configured mesh (``fm.set_conf(mesh=...)``),
+    1 when unsharded.  Deferred imports: storage imports core."""
+    from ..storage import registry
+    mesh = registry.get_conf("mesh")
+    if mesh is None:
+        return 1
+    from ..distributed.sharding import data_axis_size
+    return data_axis_size(mesh)
 
 
 class PassSchedule:
@@ -173,6 +208,11 @@ class PassSchedule:
                            default=torch.float32)
         self.partition_rows = io_partition_rows(
             max(widths), widest_dtype, n_live)
+        # Per-shard row ranges over the configured mesh's data axis: part of
+        # ``Plan.pass_key``, so a mesh change (or a long dimension of fewer
+        # partitions than shards) re-plans.
+        self.shard_ranges = shard_ranges(
+            self.long_dim, self.partition_rows, _conf_data_shards())
 
         self.ir = plan_ir.compile_ir(self)
 
@@ -302,9 +342,10 @@ class Plan:
         return prog
 
     def pass_key(self) -> tuple:
-        """Both partition levels of every pass: the non-structural half of
-        the plan-cache key."""
-        return tuple((ps.partition_rows, ps.ir.schedule_key())
+        """Both partition levels of every pass and its per-shard row ranges:
+        the non-structural half of the plan-cache key."""
+        return tuple((ps.partition_rows, tuple(ps.shard_ranges),
+                      ps.ir.schedule_key())
                      for ps in self.passes)
 
     def signature(self) -> str:

@@ -106,6 +106,23 @@ class LoweredProgram:
                          f"outs={[n.name for n in self.plan.epilogue_roots]}")
         return "\n".join(lines)
 
+    def shard_specs(self, mesh) -> dict:
+        """Spec per result node of this pass under a data-sharded mesh,
+        through ``distributed.sharding.resolve``: long-dimension outputs
+        shard their rows over the data tier (``rows``, replicated when the
+        row count does not divide), merged sinks and epilogue values
+        replicate (``rep``).  The port has no sharded tensor type: the
+        sharded runner holds a long output as one tensor on the first
+        shard's device, and these specs record what the reference
+        commits."""
+        from ..distributed import sharding as shd
+        specs = {}
+        for n in self.plan.row_local_roots + self.plan.saves:
+            specs[n.id] = shd.resolve("rows|rep", (n.nrow, n.ncol), mesh)
+        for n in list(self.plan.sinks) + list(self.plan.epilogue_roots):
+            specs[n.id] = shd.resolve("rep|rep", (n.nrow, n.ncol), mesh)
+        return specs
+
     def step(self, source_blocks, smalls, bindings, offset):
         """One I/O-level partition through the fused cut of this pass;
         returns (sink_partials, row_local_outputs).  ``source_blocks`` holds
@@ -166,6 +183,14 @@ class MultiPassProgram:
     def epilogue(self):
         return next((p.epilogue for p in self.passes
                      if p.epilogue is not None), None)
+
+    def shard_specs(self, mesh) -> dict:
+        """Union of every pass's per-node output specs (node ids are unique
+        across the plan)."""
+        specs = {}
+        for p in self.passes:
+            specs.update(p.shard_specs(mesh))
+        return specs
 
     def describe(self) -> str:
         lines = [f"MultiPassProgram(passes={len(self.passes)})"]

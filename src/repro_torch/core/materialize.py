@@ -40,10 +40,21 @@ member's step on it in turn.  ``fm.serve`` (core/serve.py) also splices a
 late member into a live sweep at a partition boundary (``admit``,
 `_join_member`); it rides the rest of the sweep and then re-drives the
 prefix it missed (`_catch_up`), staged synchronously on the same compute
-stream.  Not in this slice: shards (ROADMAP A13).
+stream.
+
+Under a mesh (``materialize(mesh=)``, ``fm.set_conf(mesh=...)``, a
+`launch.mesh.Mesh`) a streaming sweep splits into contiguous,
+partition-aligned row ranges, one per data shard (`_run_sharded_stream`):
+each shard drives its own prefetcher and executor clone on a thread of its
+own — on a card under ``torch.cuda.device`` of its device and on a CUDA
+stream of its own — and the shards' sink partials merge pairwise in shard
+order through the same ``combine``.  Whole mode splits its long-aligned
+dense inputs into equal row blocks when the rows divide
+(`_run_whole_group`).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import threading
 import time
@@ -57,6 +68,7 @@ from . import dtypes, lowering, matrix as matrix_mod
 from .dag import LeafNode, Node, wrap
 from .fusion import Plan
 from .matrix import DenseStore, FMMatrix
+from .sparse import SparseBlock
 from ..observability import metrics
 from ..observability.trace import TRACER
 
@@ -72,12 +84,17 @@ PLAN_CACHE_LIMIT = 256
 _PLANS_LOCK = threading.Lock()
 _DAG_LOCK = threading.RLock()
 
-#: The counters ``exec_stats()`` exposes (the reference's list; the shard
-#: counters stay 0 in this slice).  ``streams`` counts physical sweeps over
-#: the sources, ``passes`` each member's logical pass (equal for a solo
-#: materialize), ``midstream_admits`` the members spliced into a live sweep;
+#: The counters ``exec_stats()`` exposes (the reference's list).
+#: ``streams`` counts physical sweeps over the sources, ``passes`` each
+#: member's logical pass (equal for a solo materialize),
+#: ``midstream_admits`` the members spliced into a live sweep;
 #: ``prefetch_reuse_hits`` counts staged blocks served from the previous
-#: pass's resident final partition.
+#: pass's resident final partition.  ``shards`` counts the shard drives
+#: under a mesh (one per non-empty row range of a sharded sweep; in whole
+#: mode the data-axis size the inputs split over), ``shard_merges`` the
+#: cross-shard ``combine`` merges (one per shard boundary a pass with
+#: sinks); ``bytes_in`` stays the union of the rows read, its per-shard
+#: split the ``shard_bytes_in`` tuple.
 EXEC_COUNTERS = (
     "materialize_calls",
     "plan_cache_hits",
@@ -137,11 +154,10 @@ def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
     staging.  ``donate`` is the reference's knob:
     PyTorch has no buffer donation, and a staged partition is dropped as
     soon as every step has consumed it, with either value.  ``backend`` is
-    'torch' | 'cuda' | 'auto' (None = ``fm.set_conf(backend=...)``)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded execution across cards comes with the multi-GPU slice "
-            "(ROADMAP A13)")
+    'torch' | 'cuda' | 'auto' (None = ``fm.set_conf(backend=...)``).
+    ``mesh`` (a `launch.mesh.Mesh`; None = the configured
+    ``fm.set_conf(mesh=...)``) shards the execution over the mesh's data
+    axis."""
     from ..storage import registry
     registry.device()  # raises when CUDA is asked for and absent
     virtuals = [m for m in mats if m.is_virtual]
@@ -150,6 +166,7 @@ def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
 
     metrics.inc("materialize_calls")
     backend = lowering.resolve_backend(backend)
+    mesh = _default_mesh(mesh)
 
     if not fuse:
         with TRACER.span("materialize", backend=backend, fuse=False,
@@ -160,14 +177,14 @@ def materialize(*mats: FMMatrix, mode: str = "auto", fuse: bool = True,
 
     with _DAG_LOCK:
         plan = Plan(virtuals)
-        exec_plan = _acquire_exec_plan(plan, backend, reuse_plans)
+        exec_plan = _acquire_exec_plan(plan, backend, mesh, reuse_plans)
 
     # A cached plan's nodes belong to the first caller's DAG: execution reads
     # the template's programs and registers results onto THIS call's nodes.
     with TRACER.span("materialize", backend=backend,
                      passes=plan.n_passes, outputs=len(virtuals),
                      cached=exec_plan is not plan):
-        _execute(exec_plan, onto=plan, mode=mode,
+        _execute(exec_plan, onto=plan, mode=mode, mesh=mesh,
                  sources=[m for _, m in plan.sources],
                  bc_sources=[m for _, m in plan.broadcast_sources],
                  epi_sources=[m for _, m in plan.epilogue_sources],
@@ -185,12 +202,34 @@ def _result_of(m: FMMatrix) -> FMMatrix:
     return store
 
 
-def _acquire_exec_plan(plan: Plan, backend: str, reuse_plans: bool):
-    """Plan-cache lookup: signature, both partition levels of every pass
-    and the backend form the key.  Thread-safe under _PLANS_LOCK."""
+def _mesh_key(mesh):
+    """A mesh's structural identity in the plan-cache key: its axis names
+    and shape, never ``id(mesh)`` (which the collector can reissue to
+    another mesh)."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names), tuple(np.shape(mesh.devices)))
+
+
+def _default_mesh(mesh):
+    """The execution mesh: an explicit ``mesh=`` wins, else the configured
+    ``fm.set_conf(mesh=...)``, else None (unsharded).  Raises unless its
+    devices are of the engine's device type."""
+    from ..storage import registry  # deferred: storage imports core
+    if mesh is None:
+        mesh = registry.get_conf("mesh")
+    if mesh is not None:
+        registry.check_mesh(mesh, registry.device())
+    return mesh
+
+
+def _acquire_exec_plan(plan: Plan, backend: str, mesh, reuse_plans: bool):
+    """Plan-cache lookup: signature, both partition levels and the shard
+    ranges of every pass, the backend and the mesh's structure form the
+    key.  Thread-safe under _PLANS_LOCK."""
     if not reuse_plans:
         return plan
-    sig = (plan.signature(), plan.pass_key(), backend)
+    sig = (plan.signature(), plan.pass_key(), backend, _mesh_key(mesh))
     with _PLANS_LOCK:
         cached = _PLANS.get(sig)
         if cached is not None:
@@ -401,10 +440,13 @@ def _count_admitted(member):
         sc.inc("streams", 1)
 
 
-def _member_step(member, blocks, key_map, start, stop, *, idx):
-    """One member's step + combine over the staged partition."""
+def _member_step(member, blocks, key_map, start, stop, *, idx,
+                 count: bool = True):
+    """One member's step + combine over the staged partition (``count``:
+    as one of ``partition_steps``)."""
     mblocks = {nid: blocks[key] for nid, key in key_map.items()}
-    metrics.inc("partition_steps")
+    if count:
+        metrics.inc("partition_steps")
     t0 = time.perf_counter()
     with TRACER.span("device_step", rows=stop - start, member=idx):
         partials, outputs = member.prog.step(mblocks, member.smalls,
@@ -421,52 +463,137 @@ def _member_step(member, blocks, key_map, start, stop, *, idx):
     return outputs
 
 
-def _finish_members(members, stacks):
-    """Finalize + epilogue for every member once the sweep completes."""
+def _finish_members(members, stacks, dev=None):
+    """Finalize + epilogue for every member once the sweep completes.
+    Under a mesh ``dev`` is the first shard's device: the merged
+    accumulators and the bindings are held there, and the epilogue runs
+    once, on it."""
     for m, stack in zip(members, stacks):
-        with _in_stack(stack):
+        with _in_stack(stack), _on(dev):
+            bindings = m.bindings
+            if dev is not None:
+                m.accs = _to_device(m.accs, dev)
+                bindings = _to_device(bindings, dev)
             m.finals = m.ps.finalize_accs(m.accs)
             m.epi_outs = _run_epilogue(m.ps, m.prog, m.finals,
-                                       m.epi_sources, m.smalls, m.bindings)
+                                       m.epi_sources, m.smalls, bindings)
         for nid, buf in m.host_bufs.items():
             m.out_parts[nid] = [buf]
         for st in m.disk_stores.values():
             st.flush()
 
 
-def _run_whole_group(members):
+def _run_whole_group(members, mesh=None):
     """Whole-mode sweep of a group: the union of the members' sources is
     staged once — a device source is its own tensor, a host source is
     copied whole to the device, and a sparse one is its ELL slab as one
     ``SparseBlock`` (``stage_block``: a host slab's leaves copied, and
     counted as its read; never densified) — then every member's step
-    consumes it as one partition (offset 0)."""
+    consumes it as one partition (offset 0).
+
+    Under a mesh the long dimension splits into ``data_axis_size`` equal
+    row blocks when the rows divide (`_long_spec`) and every source is
+    dense (a sparse source is never split, as in the reference): each
+    block runs every member's step on its shard's device
+    (`_run_whole_sharded`).  Otherwise the group runs unsplit on the first
+    shard's device.  ``shards`` counts the data-axis size the rows split
+    over (1 when they do not divide); ``partition_steps`` and ``streams``
+    count as unsharded whole mode, and no ``shard_merges``: the fold of
+    the blocks' partials is the counterpart of the reference's SPMD
+    all-reduce, not a ``combine`` merge."""
     from ..storage.prefetch import stage_block
     group_pairs, maps = _group_staging(members)
     long_dim = members[0].ps.long_dim
-    blocks = {key: (stage_block(mat, 0, mat.nrow) if mat.is_sparse
-                    else _stage_whole(mat))
-              for key, mat in group_pairs}
+    n_shards, dev0 = 1, None
+    if mesh is not None:
+        from ..distributed import sharding as shd
+        n_shards = _long_spec(mesh, long_dim)
+        dev0 = shd.shard_devices(mesh)[0]
+        metrics.inc("shards", n_shards)
     _count_stream(members, sum(mat.nbytes() for _, mat in group_pairs))
     stacks = [_member_stack(m) for m in members]
-    with TRACER.span("stream", members=len(members), mode="whole"):
-        with TRACER.span("partition", start=0, stop=long_dim):
-            for i, (m, mp, stack) in enumerate(zip(members, maps, stacks)):
-                with _in_stack(stack):
-                    outputs = _member_step(m, blocks, mp, 0, long_dim, idx=i)
+    if n_shards > 1 and not any(mat.is_sparse for _, mat in group_pairs):
+        _run_whole_sharded(members, mesh, n_shards, group_pairs, maps)
+        _finish_members(members, stacks, dev=dev0)
+        _apply_output_specs(members, mesh)
+        return
+    with _on(dev0):
+        blocks = {key: (stage_block(mat, 0, mat.nrow) if mat.is_sparse
+                        else _stage_whole(mat))
+                  for key, mat in group_pairs}
+        with TRACER.span("stream", members=len(members), mode="whole"):
+            with TRACER.span("partition", start=0, stop=long_dim):
+                for i, (m, mp, stack) in enumerate(zip(members, maps,
+                                                       stacks)):
+                    with _in_stack(stack):
+                        outputs = _member_step(m, blocks, mp, 0, long_dim,
+                                               idx=i)
+                    for nid, val in outputs.items():
+                        m.out_parts[nid].append(val)
+    _finish_members(members, stacks, dev=dev0)
+
+
+def _long_spec(mesh, long_dim: int) -> int:
+    """The shard count of a whole-mode long-aligned input: the data-axis
+    size when the rows divide over it (``resolve``'s divisibility check,
+    the ``rows`` rule), else 1.  Model-like axes replicate: GenOps are
+    row-parallel."""
+    from ..distributed import sharding as shd
+    spec = shd.resolve("rows|rep", (long_dim, 1), mesh)
+    return shd.data_axis_size(mesh) if spec[0] is not None else 1
+
+
+def _run_whole_sharded(members, mesh, n_shards: int, group_pairs, maps):
+    """Whole mode over ``n_shards`` equal row blocks: per shard an executor
+    clone of every member runs its step on the block, on the shard's
+    device and thread (`_drive_shards`); then the clones' partials fold
+    into each member's accumulators in shard order and device outputs
+    gather to the first shard's device in shard order."""
+    from ..distributed import sharding as shd
+    long_dim = members[0].ps.long_dim
+    rows = long_dim // n_shards
+    devices = shd.shard_devices(mesh)
+    shards = [(si, si * rows, (si + 1) * rows, dev)
+              for si, dev in enumerate(devices)]
+    clones = _shard_clones(members, shards)
+    stacks = _thread_stacks(members)
+    metrics.inc("partition_steps", len(members))
+
+    def body(k):
+        si, lo, hi, _dev = shards[k]
+        blocks = {key: _stage_whole(mat, lo, hi)
+                  for key, mat in group_pairs}
+        with TRACER.span("partition", start=lo, stop=hi, shard=si):
+            for i, (sm, mp) in enumerate(zip(clones[k], maps)):
+                with metrics.use_scopes(stacks[i]):
+                    outputs = _member_step(sm, blocks, mp, lo, hi, idx=i,
+                                           count=False)
                 for nid, val in outputs.items():
-                    m.out_parts[nid].append(val)
-    _finish_members(members, stacks)
+                    sm.out_parts[nid].append(val)
+
+    with TRACER.span("stream", members=len(members), mode="whole",
+                     shards=len(shards)):
+        _drive_shards(shards, clones, body)
+    dev0 = shards[0][3]
+    for mi, m in enumerate(members):
+        acc = clones[0][mi].accs
+        for s in range(1, len(shards)):
+            acc = m.prog.combine(acc, _to_device(clones[s][mi].accs, dev0))
+        m.accs = acc
+        _gather_outputs(m, [c[mi] for c in clones], dev0)
 
 
-def _inline_partitions(src_pairs, rows: int, n: int, reuse=None):
-    """Synchronous partition staging over rows [0, n) in ``rows``-row
-    partitions: each source's block is staged on the compute thread
-    (``storage.prefetch.stage_block``).  ``reuse`` maps source keys to the
-    previous pass's resident final-partition blocks, served in place of the
-    last re-read."""
+def _inline_partitions(src_pairs, rows: int, n: int, reuse=None,
+                       row_start: int = 0, device=None):
+    """Synchronous partition staging over rows [row_start, n) in
+    ``rows``-row partitions: each source's block is staged on the compute
+    thread (``storage.prefetch.stage_block``) onto ``device`` (None: the
+    engine's).  ``reuse`` maps source keys to the previous pass's resident
+    final-partition blocks, served in place of the last re-read.
+    ``row_start`` and ``device`` are the prefetcher's shard parameters: one
+    shard's range, staged onto that shard's device."""
     from ..storage.prefetch import stage_block
-    start = 0
+    start = row_start
     while start < n:
         stop = min(start + rows, n)
         blocks = {}
@@ -475,7 +602,7 @@ def _inline_partitions(src_pairs, rows: int, n: int, reuse=None):
                 blocks[key] = reuse[key]
                 metrics.inc("prefetch_reuse_hits")
             else:
-                blocks[key] = stage_block(mat, start, stop)
+                blocks[key] = stage_block(mat, start, stop, device=device)
         yield start, stop, blocks
         start = stop
 
@@ -573,7 +700,7 @@ def _catch_up(members, maps, stacks, joined, group_pairs, rows: int):
 def _run_stream_group(members, *, to_host: bool,
                       prefetch: Optional[bool] = None, residents=None,
                       capture: bool = False, admit=None,
-                      depth: Optional[int] = None):
+                      depth: Optional[int] = None, mesh=None):
     """Stream ONE group of member passes partition by partition: one
     staging sweep over the union of the members' sources, every member's
     step consuming each staged partition (1 stream × k steps; a solo
@@ -589,8 +716,16 @@ def _run_stream_group(members, *, to_host: bool,
     overrides the prefetch depth; None negotiates a group-aware one.  A
     staging error propagates — unchanged from the synchronous path, as a
     ``PrefetchError`` naming the rows and the source from the prefetcher —
-    and so does a step error; nothing is registered."""
+    and so does a step error; nothing is registered.
+
+    ``mesh`` routes the sweep to the sharded runner (`_run_sharded_stream`)
+    unless an ``admit`` hook is given: a late member splices into one
+    sequential sweep at a partition boundary, and a sharded sweep has no
+    single boundary order (``fm.serve`` opens no gate under a mesh)."""
     from .. import storage  # deferred: storage imports core
+    if mesh is not None and admit is None:
+        return _run_sharded_stream(members, mesh, to_host=to_host,
+                                   prefetch=prefetch, depth=depth)
     n = members[0].ps.long_dim
     # Partition schedules in one group are power-of-two row counts over the
     # same long dimension: the min is a common partitioning for all members.
@@ -651,6 +786,288 @@ def _run_stream_group(members, *, to_host: bool,
 
 
 # ---------------------------------------------------------------------------
+# Sharded execution: one drive per data shard of a mesh
+# ---------------------------------------------------------------------------
+
+def _on(dev):
+    """``dev`` as the thread's current CUDA device (a no-op for None and the
+    CPU): the kernels' ``ctypes`` launches and every allocation at
+    ``device="cuda"`` go to it."""
+    if dev is not None and dev.type == "cuda":
+        return torch.cuda.device(dev)
+    return contextlib.nullcontext()
+
+
+def _to_device(tree, dev):
+    """Every tensor of ``tree`` (a dict, list, tuple, ``SparseBlock`` or
+    tensor) on ``dev``: the same tensor where it is there already."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, dev) for v in tree)
+    if isinstance(tree, SparseBlock):
+        return SparseBlock(tree.cols.to(dev), tree.vals.to(dev), tree.ncol)
+    return tree
+
+
+def _record(tree, stream):
+    """``record_stream`` every CUDA tensor of ``tree`` onto ``stream``: made
+    on a shard's stream and used or freed on the caller's, its memory is
+    reused only after the caller's work on it."""
+    if isinstance(tree, torch.Tensor):
+        if tree.is_cuda:
+            tree.record_stream(stream)
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            _record(v, stream)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _record(v, stream)
+
+
+def _shard_clones(members, shards):
+    """Per shard, an executor clone of every member: the same per-pass
+    program run over one row range, its bindings and smalls copied to the
+    shard's device, its accumulators its own; row-addressed targets (host
+    buffers, spill stores) are shared — the ranges are disjoint."""
+    out = []
+    for _si, _lo, _hi, dev in shards:
+        clones = []
+        for m in members:
+            sm = _PassExec(m.ps, m.prog, m.sources, _to_device(m.smalls, dev),
+                           m.epi_sources, _to_device(m.bindings, dev),
+                           out_nodes=m.out_nodes, scopes=m.scopes)
+            sm.accs = _to_device(sm.accs, dev)
+            sm.host_bufs = m.host_bufs
+            sm.disk_stores = m.disk_stores
+            clones.append(sm)
+        out.append(clones)
+    return out
+
+
+def _thread_stacks(members):
+    """Per member, the calling thread's whole metrics-scope stack (ambient
+    plus the member's request scopes): scopes are thread-local, so shard
+    threads re-enter these."""
+    ambient = metrics.current_scopes()
+    amb = set(ambient)
+    return [tuple(ambient) + tuple(s for s in m.scopes if s not in amb)
+            for m in members]
+
+
+#: Each shard's CUDA stream, by (device, shard index), made once and kept:
+#: the caching allocator reuses a freed block only on the stream it was
+#: made on, so a stream made anew each sweep allocates its buffers anew
+#: (PERF.md §6: one shard on a fresh stream a sweep against a kept one).
+_SHARD_STREAMS: dict = {}
+_SHARD_STREAMS_LOCK = threading.Lock()
+
+
+def _shard_stream(dev, k: int):
+    with _SHARD_STREAMS_LOCK:
+        stream = _SHARD_STREAMS.get((dev, k))
+        if stream is None:
+            stream = _SHARD_STREAMS[(dev, k)] = torch.cuda.Stream(dev)
+        return stream
+
+
+def _drive_shards(shards, clones, body):
+    """Run ``body(k)`` for every shard ``shards[k]`` (``(index, lo, hi,
+    device)``) — on a thread of its own (``fm-shard``; one shard runs on
+    the calling thread), under the calling thread's metrics scopes, and on
+    a card under ``torch.cuda.device`` of the shard's device on a CUDA
+    stream of its own (`_shard_stream`) that first waits for the caller's
+    stream.  Every drive is joined; the caller's streams then wait for
+    every shard's stream, the clones' tensors are recorded onto them, and
+    the first error is re-raised."""
+    ambient = metrics.current_scopes()
+    callers = {}
+    for _si, _lo, _hi, dev in shards:
+        if dev.type == "cuda" and dev not in callers:
+            callers[dev] = torch.cuda.current_stream(dev)
+    done: dict[int, object] = {}
+
+    def drive(k: int):
+        si, lo, hi, dev = shards[k]
+        with metrics.use_scopes(ambient), _on(dev):
+            if dev.type != "cuda":
+                with TRACER.span("shard", idx=si, start=lo, stop=hi):
+                    body(k)
+                return
+            stream = _shard_stream(dev, k)
+            stream.wait_stream(callers[dev])
+            try:
+                with torch.cuda.stream(stream), \
+                        TRACER.span("shard", idx=si, start=lo, stop=hi):
+                    body(k)
+            finally:
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                done[k] = ev
+
+    errors = []
+    if len(shards) == 1:
+        try:
+            drive(0)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+    else:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(shards),
+                thread_name_prefix="fm-shard") as pool:
+            futures = [pool.submit(drive, k) for k in range(len(shards))]
+            errors = [f.exception() for f in futures]
+    for k, ev in done.items():
+        dev = shards[k][3]
+        callers[dev].wait_event(ev)
+        if not any(errors):
+            _record([(c.accs, c.out_parts) for c in clones[k]],
+                    callers[dev])
+    for exc in errors:
+        if exc is not None:
+            raise exc
+
+
+def _gather_outputs(member, clones, dev0):
+    """A member's device long outputs, gathered from its shard clones onto
+    ``dev0`` in shard order; row-addressed targets are already written."""
+    for tmpl, _spec in member.out_nodes:
+        nid = tmpl.id
+        if nid in member.host_bufs or nid in member.disk_stores:
+            continue
+        for sm in clones:
+            member.out_parts[nid].extend(_to_device(p, dev0)
+                                         for p in sm.out_parts[nid])
+
+
+def _run_sharded_stream(members, mesh, *, to_host: bool,
+                        prefetch: Optional[bool] = None,
+                        depth: Optional[int] = None):
+    """Shard a group's partition sweep across the mesh's data axis (the
+    paper's partition-per-thread mapping, §III-D, as a partition range per
+    device):
+
+    * the long dimension splits into contiguous partition-aligned row
+      ranges (`fusion.shard_ranges`), one per data shard; ``shards``
+      counts the non-empty ones, trailing empty ranges idle;
+    * each shard runs its own prefetcher drive (or synchronous staging) and
+      executor clones over its range, staging onto its device, on a plain
+      thread (`_drive_shards`: on a card its own CUDA stream, the
+      prefetcher built inside it, so the prefetcher's compute stream is
+      the shard's);
+    * sink partials merge across shards through the same ``combine``,
+      pairwise in shard order on the left shard's device: one merge a
+      shard boundary (``shard_merges``); the merged values end on the
+      first shard's device, where each member finalizes and runs its
+      epilogue once;
+    * row-addressed targets (``ooc`` host buffers, ``save='disk'`` spill
+      stores) are shared by the clones — ranges are disjoint, so one spill
+      file takes every shard's rows; device long outputs gather to the
+      first shard's device in shard order (`_apply_output_specs`).
+
+    One failed shard fails the sweep: every drive is joined and the first
+    error re-raised after every prefetcher has closed, so no sink
+    registers.  Residency capture and reuse are off under a mesh.
+    ``bytes_in`` stays the union (each row is staged by one shard), its
+    per-shard split published as ``shard_bytes_in``."""
+    from .. import storage  # deferred: storage imports core
+    from ..distributed import sharding as shd
+    from .fusion import shard_ranges
+
+    n = members[0].ps.long_dim
+    rows = min(m.ps.partition_rows for m in members)
+    group_pairs, maps = _group_staging(members)
+    _count_stream(members, sum(mat.nbytes() for _, mat in group_pairs))
+    for m in members:
+        _alloc_out_targets(m, to_host)
+
+    devices = shd.shard_devices(mesh)
+    ranges = shard_ranges(n, rows, len(devices))
+    shards = [(si, lo, hi, dev)
+              for si, ((lo, hi), dev) in enumerate(zip(ranges, devices))
+              if hi > lo]
+    metrics.inc("shards", len(shards))
+    row_bytes = sum(mat.nbytes() // max(1, mat.shape[0])
+                    for _, mat in group_pairs)
+    metrics.put("shard_bytes_in",
+                tuple(row_bytes * (hi - lo) for _, lo, hi, _d in shards))
+    prefetch = _resolve_prefetch(prefetch, group_pairs, rows, n)
+    if prefetch and depth is None:
+        depth = storage.negotiate_depth(len(members), rows * row_bytes)
+    clones = _shard_clones(members, shards)
+    stacks = _thread_stacks(members)
+
+    def body(k):
+        si, lo, hi, dev = shards[k]
+        if prefetch:
+            parts = storage.PartitionPrefetcher(
+                group_pairs, rows, hi, row_start=lo, depth=depth, device=dev)
+        else:
+            parts = _inline_partitions(group_pairs, rows, hi, row_start=lo,
+                                       device=dev)
+        try:
+            for start, stop, blocks in parts:
+                with TRACER.span("partition", start=start, stop=stop,
+                                 shard=si):
+                    for i, (sm, mp) in enumerate(zip(clones[k], maps)):
+                        with metrics.use_scopes(stacks[i]):
+                            outputs = _member_step(sm, blocks, mp, start,
+                                                   stop, idx=i)
+                        sm.route_outputs(start, stop, outputs)
+                # drop the partition before asking for the next: the
+                # prefetcher's staged memory bound counts on it
+                del blocks
+        finally:
+            parts.close()
+
+    with TRACER.span("stream", members=len(members), rows=rows,
+                     shards=len(shards)):
+        _drive_shards(shards, clones, body)
+
+    dev0 = shards[0][3]
+    for mi, m in enumerate(members):
+        if m.ps.sinks:
+            entries = [(c[mi].accs, sh[3]) for c, sh in zip(clones, shards)]
+            while len(entries) > 1:
+                nxt = []
+                for j in range(0, len(entries) - 1, 2):
+                    (a, dev_a), (b, _dev_b) = entries[j], entries[j + 1]
+                    with TRACER.span("shard_combine", member=mi), _on(dev_a):
+                        a = m.prog.combine(a, _to_device(b, dev_a))
+                    metrics.inc("shard_merges")
+                    nxt.append((a, dev_a))
+                if len(entries) % 2:
+                    nxt.append(entries[-1])
+                entries = nxt
+            m.accs = entries[0][0]
+        _gather_outputs(m, [c[mi] for c in clones], dev0)
+    _finish_members(members, [_member_stack(m) for m in members], dev=dev0)
+    _apply_output_specs(members, mesh)
+    return None
+
+
+def _apply_output_specs(members, mesh):
+    """Device long outputs whose resolved spec shards their rows
+    (``LoweredProgram.shard_specs``) become one tensor on the first shard's
+    device: the port has no sharded tensor type, so this is where the
+    reference commits them sharded over the mesh."""
+    for m in members:
+        specs = m.prog.shard_specs(mesh)
+        for tmpl, _spec in m.out_nodes:
+            nid = tmpl.id
+            parts = m.out_parts.get(nid)
+            if not parts or isinstance(parts[0], np.ndarray):
+                continue
+            spec = specs.get(nid)
+            if spec is None or not len(spec) or spec[0] is None:
+                continue
+            if len(parts) > 1:
+                m.out_parts[nid] = [torch.cat(parts, 0)]
+
+
+# ---------------------------------------------------------------------------
 # Fused execution
 # ---------------------------------------------------------------------------
 
@@ -666,7 +1083,7 @@ def _execute(plan: Plan, **kw):
 
 
 def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
-                    mode: str = "auto", sources=None, smalls=None,
+                    mode: str = "auto", mesh=None, sources=None, smalls=None,
                     prefetch: Optional[bool] = None,
                     backend: Optional[str] = None,
                     epi_sources=None, bc_sources=None):
@@ -726,7 +1143,7 @@ def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
         with TRACER.span("pass", idx=ps.idx, mode=mode,
                          partition_rows=ps.partition_rows):
             if mode == "whole":
-                _run_whole_group([member])
+                _run_whole_group([member], mesh=mesh)
                 residents = None
             else:
                 capture = inspecting()
@@ -741,7 +1158,7 @@ def _execute_passes(plan: Plan, *, onto: Optional[Plan] = None,
                         for _, mat in nxt.staged_sources(nxt_src))
                 entry = _run_stream_group(
                     [member], to_host=(mode == "ooc"), prefetch=prefetch,
-                    residents=residents, capture=capture)
+                    residents=residents, capture=capture, mesh=mesh)
                 residents = [entry] if entry is not None else None
         metrics.inc("pass_seconds", time.perf_counter() - t_pass)
         pass_bytes.append(ps.bytes_in(ps_src))
@@ -766,15 +1183,20 @@ def _pick_mode_src(sources, mode: str) -> str:
     return "whole"
 
 
-def _stage_whole(mat):
-    """A physical matrix's logical data on the device: a host or disk
-    matrix is copied whole, in its canonical dtype (broadcast and epilogue
+def _stage_whole(mat, lo: int = 0, hi: Optional[int] = None):
+    """A physical matrix's logical data — rows [lo, hi) when ``hi`` is
+    given, a whole-mode shard's block — on the current device: a host or
+    disk matrix is copied, in its canonical dtype (broadcast and epilogue
     sources, pass bindings and whole mode's sources never hand a host
-    buffer to a step)."""
+    buffer to a step), a device tensor is its own view unless it lies on
+    another card."""
     data = mat.logical_data()
-    if not isinstance(data, np.ndarray):
-        return data
-    return matrix_mod.to_device(data)
+    if hi is not None:
+        data = data[lo:hi]
+    if isinstance(data, np.ndarray):
+        return matrix_mod.to_device(data)
+    from ..storage import registry  # deferred: storage imports core
+    return data.to(registry.device())
 
 
 def _run_epilogue(ps, prog, sink_finals, epi_sources, smalls, bindings):

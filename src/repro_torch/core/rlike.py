@@ -464,13 +464,16 @@ def set_mate_level(x, level: str) -> FM:
 
 def set_conf(**kw) -> dict:
     """fm.set.conf: the reference's knobs plus ``device`` ('cuda' default,
-    or 'cpu'); see repro_torch.storage.registry."""
+    or 'cpu'); ``mesh`` (a `launch.mesh.Mesh` of the engine's device type,
+    ``False`` clears it) shards execution engine-wide.  See
+    repro_torch.storage.registry."""
     from ..storage import registry
     return registry.set_conf(**kw)
 
 
 def conf(**kw):
-    """fm.conf: scoped configuration override (a context manager)."""
+    """fm.conf: scoped configuration override (a context manager), e.g.
+    ``with fm.conf(mesh=mesh):`` for a sharded scope."""
     from ..storage import registry
     return registry.conf(**kw)
 
@@ -612,9 +615,8 @@ def batch(*request_groups, **kw):
         h.value
 
     Keywords (``mode``, ``backend``, ``donate``, ``prefetch``,
-    ``reuse_plans``) follow ``fm.materialize``; ``mode='auto'`` picks per
-    group from the union of that group's sources.  ``mesh`` comes with the
-    multi-GPU slice (ROADMAP A13)."""
+    ``reuse_plans``, ``mesh``) follow ``fm.materialize``; ``mode='auto'``
+    picks per group from the union of that group's sources."""
     from . import batch as batch_mod
     b = batch_mod.Batch(**kw)
     if not request_groups:

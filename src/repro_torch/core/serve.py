@@ -42,8 +42,11 @@ Per-request futures resolve only after every pass of that request
 succeeded; a failing group fails its members' futures and registers no
 partial sinks (the fm.batch contract).  ``fm.collect_stats()`` scopes open
 at submit time travel with the request, so each tenant sees its OWN
-plan's passes and bytes, not the group's.  Sharded groups (``mesh=``)
-come with the multi-GPU slice (ROADMAP A13).
+plan's passes and bytes, not the group's.  Under a mesh (``mesh=``,
+default the configured ``fm.set_conf(mesh=...)``) every group goes through
+the sharded runner and no mid-stream gate opens: a sharded sweep has no
+single partition-boundary order to splice a late member into, so a late
+request waits for the next window.
 """
 from __future__ import annotations
 
@@ -201,7 +204,10 @@ class Engine:
     prefetch_depth : int or None
         Override the group-aware negotiated prefetch depth.
     mesh
-        None only: sharded serving comes with ROADMAP A13.
+        A `launch.mesh.Mesh` each group's sweep shards over (None adopts
+        the configured ``fm.set_conf(mesh=...)`` at each submit and
+        group); under a mesh admission is serialized: no mid-stream gate
+        opens.
     """
 
     def __init__(self, *, window_ms: float = 5.0,
@@ -216,7 +222,6 @@ class Engine:
                  donate: bool = True, prefetch: Optional[bool] = None,
                  prefetch_depth: Optional[int] = None,
                  reuse_plans: bool = True, mesh=None):
-        batch_mod._no_mesh(mesh)
         from ..storage import registry
         self.device = registry.device()  # raises when CUDA is absent
         self.window_s = max(float(window_ms), 0.0) / 1e3
@@ -228,6 +233,7 @@ class Engine:
                                      if max_pending_requests else None)
         self.submit_timeout_s = max(float(submit_timeout_s), 0.0)
         self.midstream_admission = bool(midstream_admission)
+        self.mesh = mesh
         self.mode = mode
         self.backend = lowering.resolve_backend(backend)
         self.prefetch = prefetch
@@ -264,12 +270,15 @@ class Engine:
                 raise TypeError(f"submit() takes lazy matrices, got {m!r}")
         req = ServeRequest(mats, structured=len(mats) != 1)
         metrics.inc("serve_requests")
-        if not batch_mod._plan_request(req, self.backend, self.reuse_plans):
+        mesh = mz._default_mesh(self.mesh)
+        if not batch_mod._plan_request(req, self.backend, mesh,
+                                       self.reuse_plans):
             # Pure pass-through: every output is already physical.
             req.future.set_result(
                 req.results() if req.structured else req.results()[0])
             return RequestHandle(req)
-        if self.midstream_admission and self._try_midstream(req):
+        if (mesh is None and self.midstream_admission
+                and self._try_midstream(req)):
             return RequestHandle(req)
         with self._cv:
             if self._closed:
@@ -385,22 +394,27 @@ class Engine:
             raise ValueError(f"unknown mode {group_mode!r}")
 
         gate = None
+        mesh = mz._default_mesh(self.mesh)
         self._acquire_bandwidth(union_bytes)
         try:
             with self._on_device(), \
                     TRACER.span("serve_group", members=len(members),
                                 round=r, mode=group_mode):
                 if group_mode == "whole":
-                    mz._run_whole_group(members)
+                    mz._run_whole_group(members, mesh=mesh)
                 else:
+                    # No gate opens under a mesh: a gate splices a late
+                    # member into ONE sequential sweep at a partition
+                    # boundary, and a sharded sweep has one a shard.
                     admit = None
-                    if self.midstream_admission and r == 0:
+                    if (mesh is None and self.midstream_admission
+                            and r == 0):
                         gate = self._open_gate(members, group_mode)
                         admit = gate.take
                     mz._run_stream_group(
                         members, to_host=(group_mode == "ooc"),
                         prefetch=self.prefetch, capture=False, admit=admit,
-                        depth=self.prefetch_depth)
+                        depth=self.prefetch_depth, mesh=mesh)
                 # Completion, not enqueue: the group's kernels and epilogue
                 # have run before any member's future can resolve.
                 self._wait_device()

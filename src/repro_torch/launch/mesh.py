@@ -1,0 +1,57 @@
+"""Device meshes for the engine's sharded execution (the port's
+counterpart of repro.launch.mesh).
+
+A `Mesh` is a numpy object array of ``torch.device`` plus one axis name
+per array dimension — what ``distributed.sharding`` and the sharded
+partition loop read.  A device may repeat, as in a ``jax.sharding.Mesh``
+built from an array: ``Mesh([torch.device("cpu")] * 4, ("data",))`` runs
+four shards on the CPU, and ``Mesh([torch.device("cuda", 0)] * 2,
+("data",))`` two shards on one card, each on its own CUDA stream.
+
+``make_production_mesh`` (the LM stack's pod meshes) comes with the rest
+of the LM stack (ROADMAP A14).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class Mesh:
+    """``devices`` (any nesting of devices or device strings, or a numpy
+    array of them) laid out over ``axis_names``, one name per dimension."""
+
+    def __init__(self, devices, axis_names):
+        arr = np.asarray(devices, dtype=object)
+        axis_names = tuple(axis_names)
+        if arr.ndim != len(axis_names):
+            raise ValueError(
+                f"a mesh of shape {arr.shape} needs {arr.ndim} axis names; "
+                f"got {axis_names}")
+        self.devices = np.empty(arr.shape, dtype=object)
+        for idx, d in np.ndenumerate(arr):
+            self.devices[idx] = torch.device(d)
+        self.axis_names = axis_names
+
+
+def make_host_mesh(n: int = 0, *, model: int = 1) -> Mesh:
+    """A (data, model) mesh over the first ``n`` distinct visible devices
+    of the engine's device type — the machine's cards, or the one CPU —
+    (all of them when ``n`` is 0), ``data = n // model``.  Never repeats a
+    device: build a `Mesh` directly for that."""
+    from ..storage import registry
+    dev = registry.device()  # raises when CUDA is asked for and absent
+    devs = ([torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else [torch.device("cpu")])
+    n = n or len(devs)
+    if n > len(devs):
+        raise ValueError(
+            f"make_host_mesh({n}) needs {n} distinct devices; "
+            f"{len(devs)} visible ({[str(d) for d in devs]}); build a "
+            f"Mesh of repeated devices directly to run more shards")
+    data = n // model
+    if data < 1 or data * model != n:
+        raise ValueError(f"{n} devices do not split into model={model}")
+    return Mesh(np.array(devs[:n], dtype=object).reshape(data, model),
+                ("data", "model"))

@@ -4,8 +4,9 @@ repro/launch/steps.py's ``build_prefill_step`` and ``build_decode_step``.
 Serving runs with bf16 parameters, norm scales included, and activations in
 ``cfg.dtype`` (the reference's ``lower_cell`` / ``_bf16_init`` rule):
 ``serving_model`` builds such a model.  The steps run without autograd.
-The reference's ``*_specs`` (abstract arguments and mesh shardings) and the
-train step wait for multi-GPU sharding and training (ROADMAP A13, A14).
+The reference's ``*_specs`` (abstract arguments and mesh shardings of the
+LM stack) and the train step wait for the rest of the LM stack
+(ROADMAP A14).
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ A parameter tree is a plain dict of tensors with the reference's keys and
 shapes, so ``zoo.params_from_numpy`` can carry the JAX tree across leaf by
 leaf.  The reference's ``Boxed`` leaves and logical axes, and the sharding
 hints built on them, are not ported: on one device a hint is the identity
-(multi-GPU sharding is ROADMAP A13).
+(the engine's sharding policy is ``distributed.sharding``; the LM's
+parameter and activation sharding comes with the rest of the LM stack,
+ROADMAP A14).
 """
 from __future__ import annotations
 

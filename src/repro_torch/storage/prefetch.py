@@ -108,9 +108,11 @@ def stage_block(mat, start: int, stop: int, *, to_device: bool = True,
       copied from pageable memory, which blocks the host until it lands.
       ``to_device=False`` returns the host block;
     * a device-tier block (dense, or a device slab's ``SparseBlock``) is
-      passed through as the store's own view, with no tier read.  The
-      reference copies a device block when its consumer will donate it;
-      PyTorch has no donation, and no step writes into its inputs.
+      passed through as the store's own view, with no tier read — copied
+      only when ``device`` names another card (a shard of a mesh over
+      several cards).  The reference copies a device block when its
+      consumer will donate it; PyTorch has no donation, and no step writes
+      into its inputs.
 
     ``device`` is where the block goes (None: the engine's device).
     Records a ``stage`` span.  An error (a failed read of the store)
@@ -133,9 +135,20 @@ def stage_block(mat, start: int, stop: int, *, to_device: bool = True,
             leaves = [torch.from_numpy(a).to(device) if pinned is None
                       else pinned.copy(a, device) for a in leaves]
         blk = SparseBlock(*leaves, blk.ncol) if sparse else leaves[0]
+    elif to_device and device is not None and _elsewhere(leaves[0], device):
+        leaves = [a.to(device) for a in leaves]
+        blk = SparseBlock(*leaves, blk.ncol) if sparse else leaves[0]
     TRACER.record("stage", t0, time.perf_counter(),
                   {"start": int(start), "stop": int(stop)})
     return blk
+
+
+def _elsewhere(t: torch.Tensor, device) -> bool:
+    """True when ``t`` is not on ``device`` (an index-less ``cuda`` means
+    the current card, which a device tensor already is)."""
+    device = torch.device(device)
+    return t.device.type != device.type or (
+        device.index is not None and t.device.index != device.index)
 
 
 def _source_name(mat) -> str:
@@ -235,7 +248,7 @@ class PartitionPrefetcher:
     pass's resident final-partition blocks, served instead of re-staged
     (``prefetch_reuse_hits``); ``device`` is where blocks are staged (None:
     the engine's device), ``row_start`` where the range begins (one
-    prefetcher per shard, ROADMAP A13).  ``donate`` is the reference's
+    prefetcher per shard of a mesh, each over its own row range).  ``donate`` is the reference's
     knob: PyTorch has no buffer donation, and it has no effect."""
 
     def __init__(self, sources: Sequence[Tuple[int, object]],

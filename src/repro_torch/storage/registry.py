@@ -19,8 +19,9 @@ configures both packages, plus ``device``: the ``torch.device`` every
 matrix and every accumulator lives on.  It is ``cuda`` unless the caller
 asks for the CPU (``fm.set_conf(device="cpu")`` or ``fm.conf(device=
 "cpu")``); with no card and no such request, ``device()`` raises rather
-than carry on quietly on the CPU.  ``mesh`` comes with the multi-GPU slice
-(ROADMAP A13).
+than carry on quietly on the CPU.  ``mesh`` installs a default
+`launch.mesh.Mesh` for sharded execution (``mesh=False`` clears it); its
+devices must be of the engine's device type.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ _CONF = {
     "prefetch": True,       # default for ooc execution
     "prefetch_depth": 2,    # bounded-queue depth
     "direct_io": False,     # best-effort page-cache bypass on disk reads
-    "mesh": None,           # sharded execution (ROADMAP A13)
+    "mesh": None,           # default Mesh for sharded execution
     "device": "cuda",       # where matrices, partials and results live
 }
 
@@ -74,7 +75,7 @@ KNOWN_KNOBS = {
     "vmem_partition_bytes": "processor-level (tile) partition budget",
     "backend": "lowering backend: 'auto' | 'torch' | 'cuda'",
     "direct_io": "best-effort page-cache bypass on partition reads",
-    "mesh": "sharded execution across cards (multi-GPU slice)",
+    "mesh": "default Mesh for sharded execution (False clears)",
     "device": "torch device of the engine: 'cuda' (default) or 'cpu'",
 }
 
@@ -96,12 +97,20 @@ def _check_knobs(kw: dict):
 
 def set_conf(**kw) -> dict:
     """fm.set.conf: configure the engine; returns the live config.  ``None``
-    means "leave unchanged"; ``fm.conf(...)`` is the scoped override."""
+    means "leave unchanged"; ``fm.conf(...)`` is the scoped override.
+
+    ``mesh`` installs a default `launch.mesh.Mesh` (``make_host_mesh``, or
+    one of repeated devices) for sharded execution: every materialize,
+    batch and serve drive splits its partition loop over the mesh's data
+    axis (core/materialize).  ``mesh=False`` clears it."""
     _check_knobs(kw)
-    if kw.get("mesh") not in (None, False):
-        raise NotImplementedError(
-            "sharded execution across cards comes with the multi-GPU slice "
-            "(ROADMAP A13)")
+    mesh = kw.get("mesh")
+    if mesh is not None and mesh is not False \
+            and not (hasattr(mesh, "axis_names")
+                     and hasattr(mesh, "devices")):
+        raise TypeError(
+            f"mesh must be a Mesh (see launch.mesh.make_host_mesh) or "
+            f"False to clear; got {mesh!r}")
     dev = kw.get("device")
     if dev is not None:
         dev = torch.device(dev)
@@ -125,8 +134,13 @@ def set_conf(**kw) -> dict:
             if int(kw["prefetch_depth"]) < 1:
                 raise ValueError("prefetch_depth must be >= 1")
             _CONF["prefetch_depth"] = int(kw["prefetch_depth"])
+        if mesh is not None and mesh is not False:
+            check_mesh(mesh, torch.device(dev if dev is not None
+                                          else _CONF["device"]))
         if dev is not None:
             _CONF["device"] = str(dev)
+        if mesh is not None:
+            _CONF["mesh"] = None if mesh is False else mesh
         if kw.get("io_partition_bytes") is not None:
             matrix_mod.IO_PARTITION_BYTES = int(kw["io_partition_bytes"])
         if kw.get("vmem_partition_bytes") is not None:
@@ -172,6 +186,19 @@ def conf(**kw):
         yield set_conf(**kw)
     finally:
         _restore_conf(snapshot)
+
+
+def check_mesh(mesh, dev: Optional[torch.device] = None):
+    """Raise unless every device of ``mesh`` is of the engine's device type
+    (``dev``, default the configured one): a CPU mesh never computes on
+    the CPU under a CUDA engine, nor a card's mesh under a CPU one."""
+    dev = torch.device(_CONF["device"]) if dev is None else dev
+    types = {torch.device(d).type for d in np.ravel(mesh.devices)}
+    if types != {dev.type}:
+        raise ValueError(
+            f"the mesh's devices are {sorted(types)}; the engine's device "
+            f"is {dev.type!r} (fm.set_conf(device=...)); a mesh holds "
+            f"devices of the engine's type only")
 
 
 def device() -> torch.device:

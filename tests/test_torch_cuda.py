@@ -51,6 +51,12 @@ the launch counters exact under 8 threads, an Engine window equal to
 ``fm.batch`` bit for bit, a mid-stream join through a paced host store
 with the prefetcher on and off, two concurrent groups with exact launch
 counts, and a result read on a fresh stream of another thread finished.
+Last, sharded execution over ``[cuda:0] × k`` (``launch.mesh.Mesh``): one
+shard bit for bit with the unsharded run, two and four within tolerance of
+it and bit for bit from run to run, each shard's steps on a CUDA stream of
+its own (a delayed step on one shard leaves the merged result exact), an
+injected staging fault in one shard with the leak audit, and
+``Engine(mesh=)`` opening no mid-stream gate.
 """
 import threading
 
@@ -1611,3 +1617,161 @@ def test_result_read_on_a_fresh_stream_sees_finished_values(dev,
             t.join(timeout=180)
     assert not errors and not t.is_alive(), errors
     np.testing.assert_array_equal(out["g"], want)
+
+
+# ---------------------------------------------------------------------------
+# Sharded execution over [cuda:0] × k
+# ---------------------------------------------------------------------------
+
+def _card_mesh(k):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh([torch.device("cuda", 0)] * k, ("data",))
+
+
+def _mesh_calls(fm, X):
+    return [fm.crossprod(X), fm.colMeans(X)]
+
+
+@pytest.mark.parametrize("mode", ["stream", "ooc"])
+def test_mesh_one_shard_equals_unsharded_bit_for_bit(dev, mode):
+    """A mesh of one shard runs the unsharded schedule: the same results
+    bit for bit, one shard, no merge, the same launches."""
+    from repro_torch.core import fm
+    A = _host_x(60_001, 8, seed=31)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = fm.conv_R2FM(A, host=(mode == "ooc"))
+        want = [fm.as_np(g) for g in fm.materialize(*_mesh_calls(fm, X),
+                                                     mode=mode)]
+        g0 = gram_mod.launches
+        fm.reset_exec_stats()
+        got = [fm.as_np(g) for g in fm.materialize(
+            *_mesh_calls(fm, X), mode=mode, mesh=_card_mesh(1))]
+        st = fm.exec_stats()
+    assert (st["shards"], st["shard_merges"]) == (1, 0)
+    assert gram_mod.launches - g0 == st["partition_steps"]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("mode", ["stream", "ooc"])
+def test_mesh_shards_within_tolerance_and_deterministic(dev, k, mode):
+    """k shards on one card: results within float32 merge-order tolerance
+    of the unsharded run and bit for bit from run to run (the merge order
+    is fixed), with the reference's accounting: k shards, k − 1 merges,
+    the partition steps and gram launches of the unsharded run."""
+    from repro_torch import storage
+    from repro_torch.core import fm
+    A = _host_x(60_001, 8, seed=32)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = fm.conv_R2FM(A, host=(mode == "ooc"))
+        fm.reset_exec_stats()
+        want = [fm.as_np(g) for g in fm.materialize(*_mesh_calls(fm, X),
+                                                     mode=mode)]
+        steps = fm.exec_stats()["partition_steps"]
+        runs = []
+        for _ in range(2):
+            fm.reset_exec_stats()
+            g0 = gram_mod.launches
+            runs.append([fm.as_np(g) for g in fm.materialize(
+                *_mesh_calls(fm, X), mode=mode, mesh=_card_mesh(k))])
+            st = fm.exec_stats()
+            assert (st["shards"], st["shard_merges"]) == (k, k - 1)
+            assert st["partition_steps"] == steps
+            assert gram_mod.launches - g0 == steps
+            assert sum(st["shard_bytes_in"]) == A.nbytes
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(a, b)
+    for g, w in zip(runs[0], want):
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-3)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+
+
+def test_mesh_shards_run_on_their_own_streams(dev, monkeypatch):
+    """Each shard's steps run on a CUDA stream of its own, not the caller's:
+    with the last shard's steps delayed on its stream, the merged result
+    equals the undelayed sharded run bit for bit (the merge waits for
+    every shard's stream)."""
+    from repro_torch.core import fm, materialize
+    A = _host_x(60_001, 8, seed=33)
+    step = materialize._member_step
+    streams, lock = set(), threading.Lock()
+
+    def slowed(member, blocks, key_map, start, stop, **kw):
+        with lock:
+            streams.add(torch.cuda.current_stream().cuda_stream)
+        if start >= 40_000:
+            torch.cuda._sleep(5_000_000)
+        return step(member, blocks, key_map, start, stop, **kw)
+
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = fm.conv_R2FM(A)
+        mesh = _card_mesh(2)
+        want = [fm.as_np(g) for g in fm.materialize(
+            *_mesh_calls(fm, X), mode="stream", mesh=mesh)]
+        monkeypatch.setattr(materialize, "_member_step", slowed)
+        caller = torch.cuda.current_stream().cuda_stream
+        got = [fm.as_np(g) for g in fm.materialize(
+            *_mesh_calls(fm, X), mode="stream", mesh=mesh)]
+    assert len(streams) == 2 and caller not in streams, (streams, caller)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_mesh_shard_fault_leaks_nothing(dev):
+    """A staging fault in one shard fails the sweep: nothing registers, and
+    no prefetcher, staged partition or shard thread outlives the call."""
+    import time
+    from repro_torch import storage
+    from repro_torch.core import fm
+    from repro_torch.core.matrix import DenseStore, FMMatrix
+
+    class FlakyStore(DenseStore):
+        def __init__(self, data):
+            super().__init__(np.asarray(data))
+            self.reads, self.lock = 0, threading.Lock()
+
+        def block(self, start, stop):
+            with self.lock:
+                self.reads += 1
+                n = self.reads
+            if n > 3:
+                raise RuntimeError("injected shard staging failure")
+            return super().block(start, stop)
+
+    A = _host_x(60_001, 8, seed=34)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        Xf = FMMatrix(A.shape, A.dtype, store=FlakyStore(A), name="flaky")
+        G = fm.crossprod(fm.FM(Xf) * 2.0)
+        with pytest.raises(Exception, match="injected shard staging"):
+            fm.materialize(G, mode="ooc", prefetch=True, mesh=_card_mesh(2))
+    assert G.m.is_virtual and getattr(G.m, "cached_store", None) is None
+    deadline = time.time() + 10
+    while time.time() < deadline and storage.live_prefetchers():
+        time.sleep(0.05)
+    assert storage.live_prefetchers() == [] and storage.staged_leaks() == []
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("fm-shard")]
+
+
+def test_engine_under_mesh_opens_no_gate(dev):
+    """``Engine(mesh=)`` shards each group over ``[cuda:0] × 2`` and admits
+    no member mid-stream; results equal the sharded ``fm.batch``."""
+    from repro_torch.core import fm
+    A = _host_x(60_001, 8, seed=35)
+    with fm.conf(device="cuda", backend="cuda", io_partition_bytes=1 << 15):
+        X = fm.conv_R2FM(A, host=True)
+        mesh = _card_mesh(2)
+        want = [fm.as_np(g) for g in fm.batch(*_mesh_calls(fm, X),
+                                              mode="ooc", mesh=mesh)]
+        fm.reset_exec_stats()
+        with fm.serve(window_ms=200, max_window_requests=2, mode="ooc",
+                      mesh=mesh) as eng:
+            handles = [eng.submit(r) for r in _mesh_calls(fm, X)]
+            got = [fm.as_np(h.result(timeout=120)) for h in handles]
+            with eng._gates_lock:
+                assert eng._gates == []
+        st = fm.exec_stats()
+    assert st["shards"] == 2 and st["midstream_admits"] == 0
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

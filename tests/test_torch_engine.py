@@ -288,11 +288,12 @@ def test_lloyd_iterations_reuse_one_cached_plan():
 
 
 def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
-    """What later slices bring raises naming its ROADMAP item (a mesh, A13,
-    in ``set_conf``, ``fm.batch`` and ``fm.Engine``); what A7a-ii, A7b and
-    A12 brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host slab,
-    factor ingest, ``fm.persist(tier="disk")`` and ``fm.serve`` — runs and
-    equals the reference."""
+    """What later slices bring raises naming its ROADMAP item (training,
+    A14: ``Model.forward``); what A7a-ii, A7b, A12 and A13 brought — a
+    prefetched ``ooc`` stream, ``fm.one_hot``'s host slab, factor ingest,
+    ``fm.persist(tier="disk")``, ``fm.serve`` and meshes — runs and equals
+    the reference, and a mesh that is no mesh (``set_conf``, ``fm.batch``,
+    ``fm.Engine``) raises the reference's exception type."""
     X, _, _ = _inputs()
     Xt = tfm.conv_R2FM(X)
     Xh = tfm.conv_R2FM(X, host=True)
@@ -317,12 +318,24 @@ def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
         h = eng.submit(tfm.colSums(Xt))
         np.testing.assert_allclose(tfm.as_np(h.result(timeout=60)).ravel(),
                                    X.sum(0), rtol=1e-5)
-    for call, item in ((lambda: tfm.Engine(mesh=object()), "A13"),
-                       (lambda: tfm.set_conf(mesh=object()), "A13"),
-                       (lambda: tfm.batch(tfm.colSums(Xt), mesh=object()),
-                        "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    def served(f, X):
+        with f.Engine(window_ms=1, mesh=object()) as eng:
+            eng.submit(f.colSums(X)).result(timeout=60)
+
+    Xj = jfm.conv_R2FM(X)
+    for call in (lambda f, X: f.set_conf(mesh=object()),
+                 lambda f, X: f.batch(f.colSums(X), mesh=object()),
+                 served):
+        with pytest.raises(Exception) as want:
+            call(jfm, Xj)
+        with pytest.raises(want.type):
+            call(tfm, Xt)
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.models import zoo
+    model = zoo.build(reduced_for_smoke(get_config("llama3.2-3b")),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="A14"):
+        model.forward({}, {})
 
 
 def test_conf_knobs_mirror_the_reference():

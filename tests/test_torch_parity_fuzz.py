@@ -22,7 +22,14 @@ and on the kernels the kernel backend dispatches (``pallas`` units against
   0 cast to bf16 on both sides, held to each other (normalized, within
   bf16's tolerance) with counters, kernels and declared dtypes exact;
 * the reference's hand-pinned epilogue, multipass and sparse programs in
-  every mode the port has.
+  every mode the port has;
+* the meshed arm (the reference's FUZZ_MESH ``eval_engine_meshed``, with
+  each side's ``fm`` and mesh): the reference over its in-process host
+  mesh, the port over a one-device mesh — counters (``shards`` and
+  ``shard_merges`` among them) equal to the reference's — and over
+  ``Mesh([cpu] × 4)``, held to the oracle.  MESH_EXAMPLES programs always,
+  STREAM_EXAMPLES under ``FUZZ_MESH``, and the reference's anchor
+  ``test_known_program_meshed_parity`` in every mode.
 
 Streams are cut into 2 KiB partitions, as in the reference, so ``stream``
 and ``ooc`` run many partitions; both packages stage them as the
@@ -31,8 +38,6 @@ prefetcher, the conf default for a host or disk source).  The reference's
 ``fm.batch`` arm and its anchor ``test_known_program_batched_parity`` are
 tests/test_torch_parity_fuzz_batch.py, its ``fm.serve`` arm and
 ``test_known_program_served_parity`` tests/test_torch_parity_fuzz_serve.py.
-Left to a later slice: its meshed arm (ROADMAP A13), with its anchor
-``test_known_program_meshed_parity``.
 """
 import dataclasses
 import importlib.util
@@ -45,11 +50,12 @@ import numpy as np
 import pytest
 import torch
 
-from helpers_twin import (PORT, REF, _port_on_cpu, both_conf,  # noqa: F401
-                          counting, data_dirs)
+from helpers_twin import (COUNTERS, PORT, REF, _port_on_cpu,  # noqa: F401
+                          both_conf, counting, data_dirs)
 from helpers_twin import time_limit  # noqa: F401
 from repro_torch.core.matrix import FMMatrix
 from repro_torch.core.sparse import csr_from_dense, ell_from_csr_rows
+from repro_torch.launch.mesh import Mesh, make_host_mesh
 from repro_torch.storage.sparse import SparseEllStore
 
 pytestmark = pytest.mark.usefixtures("time_limit")
@@ -71,6 +77,8 @@ CHUNKS = 6
 BF16_SEEDS = sorted(set(range(3000, 3030)) | {3036, 3107, 3399, 3402})
 #: bf16's tolerance, on errors normalized by the output's scale.
 BF16_TOL = 2e-2
+#: Programs of the meshed arm without FUZZ_MESH (all STREAM_EXAMPLES with).
+MESH_EXAMPLES = 6
 
 
 def _port_sparse_fm(xn: np.ndarray, *, disk: bool):
@@ -308,3 +316,85 @@ def test_known_program_parity(name, data_dirs):
             outputs=[1, 5, 6]),
     }
     _run([progs[name]], modes=("mem", "stream", "ooc"))
+
+
+# ---------------------------------------------------------------------------
+# The meshed arm (the reference's FUZZ_MESH arm)
+# ---------------------------------------------------------------------------
+
+#: The port's meshes: one device (the reference's in-process host mesh has
+#: one), and four shards on the CPU.
+_PORT_MESHES = {
+    1: make_host_mesh,
+    4: lambda: Mesh([torch.device("cpu")] * 4, ("data",)),
+}
+
+
+def _meshed(side_globals, mesh_fn):
+    return types.FunctionType(ref.eval_engine_meshed.__code__,
+                              {**side_globals, "_host_mesh": mesh_fn})
+
+
+def check_meshed_program(prog, mode: str, port_shards: int) -> str | None:
+    """One program through ``eval_engine_meshed`` in both packages, each
+    against the oracle (normalized error ≤ 2e-3, the reference's limit);
+    over one shard the port's counters also equal the reference's."""
+    refs = ref.eval_numpy(prog)
+    names = ("shards", "shard_merges") + COUNTERS
+    got = []
+    for side, lazy, backend, mesh_fn in (
+            (REF, _ref_lazy_outputs, "xla", ref._host_mesh),
+            (PORT, _port_lazy_outputs, "torch", _PORT_MESHES[port_shards])):
+        run = _meshed(lazy.__globals__ | {"_lazy_outputs": lazy}, mesh_fn)
+        with counting(side, names) as c:
+            vals = run(prog, backend, mode)
+        got.append(c)
+        for o, v, want in zip(prog.outputs, vals, refs, strict=True):
+            if v.shape != want.shape:
+                return f"{side.name} r{o}: shape {v.shape} != {want.shape}"
+            scale = max(1.0, float(np.max(np.abs(want))))
+            err = float(np.max(np.abs(v - want))) / scale
+            if not err <= 2e-3:
+                return f"{side.name} r{o}: meshed err {err:.2e}"
+    rc, pc = got
+    if port_shards == 1 and pc != rc:
+        return f"counters: port {pc}, reference {rc}"
+    if not 1 <= pc["shards"] <= port_shards * pc["streams"]:
+        return f"port shards {pc['shards']} over {port_shards}"
+    return None
+
+
+@pytest.mark.parametrize("port_shards", sorted(_PORT_MESHES))
+def test_random_dag_parity_meshed(port_shards):
+    """The dense programs in every mode, materialized under a mesh."""
+    n = STREAM_EXAMPLES if ref.FUZZ_MESH else MESH_EXAMPLES
+    for i in range(n):
+        prog = ref.generate(BASE_SEED + i)
+        for mode in ("mem", "stream", "ooc"):
+            err = check_meshed_program(prog, mode, port_shards)
+            REF.mz.clear_plan_cache()
+            PORT.mz.clear_plan_cache()
+            assert err is None, f"{mode}: {err}\nprogram:\n{prog!r}"
+
+
+@pytest.mark.parametrize("port_shards", sorted(_PORT_MESHES))
+def test_known_program_meshed_parity(port_shards):
+    """The reference's always-on anchor of the meshed arm: a hand-pinned
+    multi-output multipass program materialized with an explicit mesh
+    matches the oracle in every mode."""
+    prog = ref.Program(
+        seed=2468, n=96, p=3, dtype="f32",
+        ops=[
+            ("colsums", 0),                # -> r1  pass-1 sink
+            ("escalar", 1, "div", 2.0),    # -> r2  pass-1 epilogue
+            ("sweeprow", 0, 2, "sub"),     # -> r3  PASS-2 row-local sweep
+            ("sapply", 3, "abs"),          # -> r4  pass-2 chain
+            ("colmaxs", 4),                # -> r5  pass-2 sink
+            ("sumall", 0),                 # -> r6  independent sink
+        ],
+        outputs=[3, 5, 6])
+    for mode in ("mem", "stream", "ooc"):
+        err = check_meshed_program(prog, mode, port_shards)
+        REF.mz.clear_plan_cache()
+        PORT.mz.clear_plan_cache()
+        assert err is None, f"{mode}: {err}"

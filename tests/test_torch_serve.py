@@ -16,9 +16,12 @@ stats) are also held equal to each other.  Every thread join and every
 One case is added: the 'auto' in-flight cap holding a group back behind
 a larger one, in both packages (a reference-side fact, ROADMAP §C).
 
-Left to the multi-GPU slice (ROADMAP A13):
-``test_serve_under_mesh_shards_groups_and_serializes_admission``, the
-reference's serving under a mesh.
+``test_serve_under_mesh_shards_groups_and_serializes_admission`` runs
+the reference's body over each package's ``make_host_mesh()`` (one device
+here) with the counters held equal, and the port's body again over
+``Mesh([cpu] × 4)``; its window is 2 s, closed by the second request, not
+the reference's 50 ms, which a slow thread start can split in two and
+leave the schedule (and so the counters) to chance.
 """
 import dataclasses
 import threading
@@ -74,9 +77,7 @@ class Pkg:
         return self.side.metrics
 
     def plan_request(self, req) -> bool:
-        if self.side is REF:
-            return self.batch._plan_request(req, self.backend, None, True)
-        return self.batch._plan_request(req, self.backend, True)
+        return self.batch._plan_request(req, self.backend, None, True)
 
 
 # A staging fault may surface raw (inline staging) or wrapped by the
@@ -815,3 +816,59 @@ def test_engine_saturated_reexported():
     for pkg in PKGS:
         assert pkg.fm.EngineSaturated is pkg.serve.EngineSaturated
         assert pkg.fm.Engine is pkg.serve.Engine
+
+
+# ---------------------------------------------------------------------------
+# Serving under a mesh: sharded groups, serialized admission
+# ---------------------------------------------------------------------------
+
+def _serve_under_mesh(pkg, mesh, ndata):
+    """The reference's body: an Engine(mesh=...) drives every group through
+    the sharded runner and opens no mid-stream gate."""
+    fm = pkg.fm
+    a = _x(4096, 4, seed=5)
+    X = pkg.FMMatrix(a.shape, a.dtype, store=pkg.DenseStore(a),
+                     name="mesh-serve")
+    with counting(pkg.side, helpers_twin.COUNTERS + ("shards",
+                                                     "shard_merges")) as c:
+        with pkg.serve.Engine(window_ms=2000, max_window_requests=2,
+                              mode="stream", mesh=mesh,
+                              backend=pkg.backend) as eng:
+            h1, h2 = _submit_from_threads(
+                eng, [fm.colMeans(X), fm.crossprod(X)])
+            assert np.allclose(_np(pkg, h1.result(120)), a.mean(0),
+                               atol=1e-4)
+            assert np.allclose(_np(pkg, h2.result(120)), a.T @ a,
+                               rtol=1e-4, atol=1e-2)
+            st = pkg.mz.exec_stats()
+            assert st["shards"] > 0 and st["shards"] % ndata == 0, st
+            assert st["midstream_admits"] == 0
+            with eng._gates_lock:
+                assert eng._gates == []  # no gate ever opens under a mesh
+    return dict(c)
+
+
+@pytest.mark.parametrize("port_shards", [1, 4])
+def test_serve_under_mesh_shards_groups_and_serializes_admission(
+        port_shards):
+    """An Engine(mesh=...) shards every group and opens no mid-stream gate
+    (``midstream_admits`` 0); a late compatible request waits for the next
+    window but computes correctly.  Over one device the port's counters
+    equal the reference's; over ``[cpu] × 4`` the port's group runs four
+    shards."""
+    import torch
+    from repro.launch.mesh import make_host_mesh as jmesh
+    from repro_torch.launch.mesh import Mesh, make_host_mesh as tmesh
+    ref, port = PKGS
+    if port_shards == 1:
+        mesh = tmesh()
+    else:
+        mesh = Mesh([torch.device("cpu")] * port_shards, ("data",))
+    got_port = _serve_under_mesh(port, mesh, port_shards)
+    if port_shards == 1:
+        got_ref = _serve_under_mesh(ref, jmesh(), 1)
+        assert got_port == got_ref, (got_port, got_ref)
+    else:
+        # one merge a shard boundary for each member (both have sinks)
+        assert got_port["shard_merges"] == 3 * got_port["passes"]
+        assert got_port["shards"] == 4 * got_port["streams"]

@@ -16,7 +16,15 @@ the CSR ``.fmat`` round trip, crossprod and GLM ``ooc`` from a CSR file
 the ``fm.persist`` cells, the deprecated ``conv_store`` /
 ``set_mate_level`` shims, factor ingest and the ingest paths that leave no
 partial file, and the bytes an ``ooc`` stream of a CSR file moves.  The
-mesh cell comes with ROADMAP A13."""
+mesh cell (``test_sparse_mesh_parity_subprocess``) runs both packages in
+one subprocess under four forced host devices, the port over
+``Mesh([cpu] × 4)``."""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -710,3 +718,67 @@ def test_sparse_stream_moves_nnz_bytes(disk):
     Xd = fm.get_dense_matrix("acct")
     assert fm.exec_stats()["pass_bytes_in"] == (Xd.m.nbytes(),)
     assert Xd.m.nbytes() == 3001 * 8 + 6000 * 8
+
+
+# ---------------------------------------------------------------------------
+# The mesh cell: both packages in one subprocess under 4 forced devices
+# ---------------------------------------------------------------------------
+
+_SPARSE_MESH = textwrap.dedent("""
+    import os, sys, json
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import numpy as np, torch
+    from repro.core import fm as jfm
+    from repro.launch.mesh import make_host_mesh
+    from repro_torch.core import fm as tfm
+    from repro_torch.launch.mesh import Mesh
+
+    tfm.set_conf(device="cpu")
+    out = {}
+    for name, fm, mesh, kw in (
+            ("repro", jfm, make_host_mesh(4), {}),
+            ("repro_torch", tfm, Mesh([torch.device("cpu")] * 4, ("data",)),
+             {"host": False})):
+        fm.set_conf(data_dir=os.path.join(sys.argv[1], name))
+        rng = np.random.default_rng(3)
+        codes = [rng.integers(0, 9, 2000), rng.integers(0, 6, 2000)]
+        X = fm.one_hot(*[fm.as_factor(c) for c in codes], **kw)
+        dense = fm.as_np(X).copy()
+        want = dense.T.astype(np.float64) @ dense
+        fm.set_conf(io_partition_bytes=4096)
+        Xd = fm.persist(X, tier="disk", name="mesh_oh")
+        rec = {"sparse": bool(X.m.store.sparse and Xd.m.store.sparse)}
+        fm.reset_exec_stats()
+        (g,) = fm.materialize(fm.crossprod(X), mode="whole", mesh=mesh)
+        np.testing.assert_allclose(fm.as_np(g), want, rtol=1e-3)
+        rec["whole"] = fm.exec_stats()
+        with fm.conf(mesh=mesh):
+            for src, mode in ((X, "stream"), (Xd, "ooc")):
+                fm.reset_exec_stats()
+                (g,) = fm.materialize(fm.crossprod(src), mode=mode)
+                np.testing.assert_allclose(fm.as_np(g), want, rtol=1e-3)
+                rec[mode] = fm.exec_stats()
+                assert rec[mode]["shards"] == 4
+        out[name] = rec
+    print(json.dumps(out))
+""")
+
+
+def test_sparse_mesh_parity_subprocess(tmp_path):
+    """Sharded execution over a 4-device mesh: sparse crossprod in
+    whole / stream / ooc matches the dense oracle in both packages (the
+    reference's own assertions, run on each side), with the execution
+    counters — ``shards``, ``shard_merges``, ``shard_bytes_in`` among them
+    — equal to the reference's."""
+    env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _SPARSE_MESH, str(tmp_path)],
+        capture_output=True, text=True, env=env, timeout=600, cwd=root)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    ref, port = got["repro"], got["repro_torch"]
+    assert port["sparse"] and ref["sparse"]
+    for mode in ("whole", "stream", "ooc"):
+        assert port[mode] == ref[mode], (mode, port[mode], ref[mode])
+    assert port["stream"]["shard_merges"] == 3

@@ -25,10 +25,8 @@ the plan cache over disk sources and the registry's owned temp dirs; then
 one test a place where the disk tier meets the port: a memmap block read
 into host memory by ``stage_block`` itself, the file's dtypes staged in
 their canonical types, bfloat16 in each package, ``drop_cache``'s ranges
-and the lifetime of views past ``close()``.
-
-Waiting for a later item: ``test_plan_cache_mesh_key_not_id`` (meshes,
-ROADMAP A13).
+and the lifetime of views past ``close()``; ``test_plan_cache_mesh_key_not_id``
+over a one-device mesh in each package.
 """
 import dataclasses
 import threading
@@ -1010,3 +1008,35 @@ def test_reference_close_unmaps_under_live_views(tmp_path):
     assert proc.stdout.splitlines()[:1] == ["closed"], proc.stderr[-2000:]
     assert proc.returncode == -signal.SIGSEGV, (proc.returncode,
                                                 proc.stdout)
+
+
+def test_plan_cache_mesh_key_not_id():
+    """Cache keys use a mesh's structure, never ``id(mesh)`` (which the
+    collector can reissue to another mesh): two equal one-device meshes
+    share one cache entry, in both packages alike."""
+    import jax
+    from jax.sharding import Mesh as JMesh
+    from repro_torch.launch.mesh import Mesh as TMesh
+    meshes = {REF.name: lambda: JMesh(np.array(jax.devices()[:1]),
+                                      ("data",)),
+              PORT.name: lambda: TMesh([torch.device("cpu")], ("data",))}
+    A = _arr(64, 3)
+    sizes = {}
+    for side in (REF, PORT):
+        mz, fm = side.mz, side.fm
+        mz.clear_plan_cache()
+        m1, m2 = meshes[side.name](), meshes[side.name]()
+        assert mz._mesh_key(m1) == mz._mesh_key(m2)
+        assert mz._mesh_key(m1) != mz._mesh_key(None)
+        with counting(side, ("shards", "partition_steps")) as c:
+            (a,) = fm.materialize(fm.colSums(fm.conv_R2FM(A) * 2.0),
+                                  mesh=m1)
+            n_before = len(mz._PLANS)
+            (b,) = fm.materialize(fm.colSums(fm.conv_R2FM(A) * 2.0),
+                                  mesh=m2)
+        assert len(mz._PLANS) == n_before  # equal structure: a cache hit
+        np.testing.assert_allclose(fm.as_np(b).ravel(), 2 * A.sum(0),
+                                   rtol=1e-5)
+        np.testing.assert_array_equal(fm.as_np(a), fm.as_np(b))
+        sizes[side.name] = (n_before, dict(c))
+    assert sizes[PORT.name] == sizes[REF.name]
