@@ -247,6 +247,35 @@ Phases, each printing one JSON line:
                 decode step against a prefill one token longer (the twin of
                 tests/test_archs.py); (c) is (a) in float32, which (a) now
                 is at the full shape; (d) every logit finite.
+             j. after the serving weights are freed, training
+                (``repro_torch.launch.steps.build_train_step``), which runs
+                no kernel: the JAX package's train forward computes
+                attention in jnp, so the port's is plain PyTorch (the
+                launch counters are set to 0 before j2 and must read 0
+                after it).  j1: ``blockwise_attention`` at the full-width
+                layer shape — q (1, 4096, 24, 128), k/v (1, 4096, 8, 128),
+                f32, causal, bk 1024 — and its backward against the grouped
+                route under autograd, each of out, dq, dk, dv within
+                ``TRAIN_TOL`` of its largest entry, forward and
+                forward + backward ms, peak memory; j2: llama3.2-3b's train
+                step at full width and depth (f32 masters, bf16
+                activations, remat, bf16 moments, seq 4096, global batch 2
+                in 2 microbatches — a cut of train_4k's 256 — tokens from
+                ``DataIterator``, the learning rate under
+                ``warmup_cosine``), one warm and ``TRAIN_STEPS`` timed
+                steps: ms, tokens/s, loss, grad norm, peak memory, model
+                FLOPs (6·N·tokens + 12·L·S²·d_head·n_heads·B) and their
+                share of 989 TFLOP/s; finite, the loss of the last step
+                below the first's; j3: at full width and a depth of 2 in
+                float32, gradients with remat on against off, two
+                microbatches against one and the blockwise route against
+                the grouped one at S = 4096, each leaf within
+                ``TRAIN_TOL``; j4: ``launch.train.main`` over qwen2-0.5b
+                at full width and depth (4 steps, a checkpoint every 2,
+                then ``--resume`` to step 6, which must run 2 steps) and
+                the checkpoint's round trip — restored onto the card and
+                saved again, every leaf's CRC-32 equal — with its bytes
+                and save and restore seconds; the directory removed.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the nine paths), the card's name and power
@@ -260,6 +289,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import math
 import os
 import pathlib
 import shutil
@@ -293,6 +323,22 @@ LM_DECODE = 32           # greedy decode steps
 #: Limit of the serving checks (a) and (b), in float32: max |diff| over
 #: max |logit|.  The JAX package's bf16 limit (tests/test_archs.py) is 2e-2.
 LM_F32_TOL = 1e-3
+TRAIN_ARCH = "llama3.2-3b"  # path j's model, at its published width and depth
+TRAIN_SEQ = 4096         # train_4k's sequence length
+TRAIN_BATCH = 2          # global batch a step (train_4k: 256; a cut)
+TRAIN_ACCUM = 2          # microbatches a step
+TRAIN_STEPS = 3          # timed steps, after one warm step
+TRAIN_BK = 1024          # blockwise attention's KV chunk
+#: j2's learning rate: AdamConfig's 3e-4 peak under ``warmup_cosine``'s
+#: default warmup (200 steps), so the timed steps run at 1.5e-6 .. 4.5e-6.
+#: A constant 3e-4 from the first step raised the loss from 12.69 to 16.45
+#: in three steps at this width (PERF.md).
+TRAIN_WARMUP = 200
+TRAIN_CHECK_LAYERS = 2   # j3's depth at full width (a cut of depth)
+#: Limit of j1 and j3, each tensor's max |diff| over its largest |entry|,
+#: float32 on both sides (the tests' CPU limit for gradients).
+TRAIN_TOL = 1e-4
+TRAIN_MAIN_ARCH = "qwen2-0.5b"  # j4's launcher run, full width and depth
 CHUNK_ROWS = 1 << 22     # rows per chunk of a float64 plain version
 #: Limits on a float32 kernel's error against its float64 plain version,
 #: per entry, in units of that entry's condition: sqrt(G_ii·G_jj) for a Gram
@@ -3450,6 +3496,298 @@ def lm_phase(torch, flash_ms):
     return launches
 
 
+def max_rel(torch, a: dict, b: dict) -> float:
+    """Largest over the keys of max |a - b| / max |b|."""
+    return max(rel_err(torch, a[k], b[k]) for k in b)
+
+
+def blockwise_row(torch):
+    """j1: blockwise attention at the full-width layer shape (f32, causal)
+    against the grouped route under autograd, on the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    cfg = get_config(TRAIN_ARCH)
+    S, nh, nkv, hd = TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 6)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=DEVICE)
+    q, k, v = draw(1, S, nh, hd), draw(1, S, nkv, hd), draw(1, S, nkv, hd)
+    dout = draw(1, S, nh * hd)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    pos = torch.arange(S, dtype=torch.int32, device=DEVICE)[None]
+
+    def blockwise():
+        return layers.blockwise_attention(q, k, v, pos, pos, True, TRAIN_BK)
+
+    def grouped():
+        return layers._grouped_attention(q, k, v,
+                                         layers.causal_mask(pos, pos))
+
+    def run(fn):
+        out = fn()
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), dout)
+        return {"out": out.detach(), "dq": dq, "dk": dk, "dv": dv}
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(), (q, k, v), dout)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = run(blockwise)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = run(grouped)
+    errs = {k_: rel_err(torch, got[k_], want[k_]) for k_ in want}
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, blockwise, reps=3)
+        g_fwd_ms = time_ms(torch, grouped, reps=3)
+    row = {"phase": "train", "path": "j1", "name": "blockwise_attention",
+           "shape": f"q (1, {S}, {nh}, {hd}), k/v (1, {S}, {nkv}, {hd}) "
+                    f"f32, causal, bk {TRAIN_BK}",
+           "rel_err": errs, "tol": TRAIN_TOL,
+           "fwd_ms": fwd_ms, "fwd_bwd_ms": time_ms(torch, fwd_bwd(blockwise),
+                                                   reps=3),
+           "grouped_fwd_ms": g_fwd_ms,
+           "grouped_fwd_bwd_ms": time_ms(torch, fwd_bwd(grouped), reps=3),
+           "peak_bytes_fwd_bwd": peak}
+    emit(row)
+    check(max(errs.values()) <= TRAIN_TOL,
+          f"j1: blockwise attention against the grouped route {errs}")
+    del q, k, v, dout, got, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def train_step_phase(torch):
+    """j2: llama3.2-3b's train step at full width and depth, bf16
+    activations over f32 masters, remat, bf16 moments; one warm step, then
+    TRAIN_STEPS timed steps on successive batches of the token stream."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam, schedule
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), grad_accum=TRAIN_ACCUM)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    model = zoo.build(cfg, DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    opt = adam.init(params)
+    it = DataIterator(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
+                                 seed=SEED), device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in zoo.flatten(params))
+    flops = (6 * n_params * B * S
+             + 12 * cfg.n_layers * S * S * cfg.hd * cfg.n_heads * B)
+    zero_counts()
+    rows, losses = [], []
+    for i in range(1 + TRAIN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lr = adam.AdamConfig().lr * float(
+            schedule.warmup_cosine(i, warmup=TRAIN_WARMUP))
+        step = steps.build_train_step(model, adam.AdamConfig(lr=lr))
+        params, opt, met = step(params, opt, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        rows.append({"step": i, "warm": i == 0, "ms": ms,
+                     "lr": lr,
+                     "tokens_s": B * S / ms * 1e3, "loss": loss,
+                     "grad_norm": gnorm,
+                     "flop_share_989": flops / (ms / 1e3) / BF16_FLOP_S})
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_counts()
+    finite = all(bool(torch.isfinite(t).all()) for _, t in
+                 zoo.flatten(params)) and all(
+        bool(torch.isfinite(t.float()).all()) for m in ("m", "v")
+        for _, t in zoo.flatten(opt[m]))
+    timed = rows[1:]
+    out = {"phase": "main", "path": "j", "arm": "j2", "arch": TRAIN_ARCH,
+           "n_params": n_params, "n_layers": cfg.n_layers,
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "moment_dtype": "bfloat16", "remat": cfg.remat,
+           "seq": S, "global_batch": B, "grad_accum": TRAIN_ACCUM,
+           "lr": f"3e-4 × warmup_cosine(step, warmup={TRAIN_WARMUP})",
+           "cut": f"global batch {B} (train_4k: 256) in {TRAIN_ACCUM} "
+                  f"microbatches of {B // TRAIN_ACCUM}; weights random "
+                  f"(seed {SEED}); tokens from DataIterator (seed {SEED})",
+           "init_s": init_s, "steps": rows,
+           "mean_ms": sum(r["ms"] for r in timed) / len(timed),
+           "mean_tokens_s": sum(r["tokens_s"] for r in timed) / len(timed),
+           "model_flops_per_step": flops,
+           "flops_formula": "6·N·tokens + 12·L·S²·d_head·n_heads·B",
+           "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
+           "resident_before_gib": resident / 2**30,
+           "kernel_launches": launches, "all_finite": finite}
+    emit(out)
+    check(finite and all(map(math.isfinite, losses)),
+          "j2: a loss, parameter or moment is not finite")
+    check(losses[-1] < losses[0], f"j2: the loss did not fall {losses}")
+    check(not any(launches.values()),
+          f"j2: the train step launched a kernel {launches}: the train "
+          "forward must not reach ops.attention")
+    del params, opt, it, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_checks_phase(torch):
+    """j3: at full width and a depth of TRAIN_CHECK_LAYERS, float32 compute:
+    gradients with remat on against off, grad_accum 2 against 1 over the
+    same batch, and the blockwise route against the grouped one at
+    S = TRAIN_SEQ (the threshold raised for the run)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, zoo
+    base = dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=TRAIN_CHECK_LAYERS, dtype="float32")
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 7)
+    params = zoo.build(base, DEVICE).init(gen)
+    batch = next(DataIterator(DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab=base.vocab, seed=SEED),
+                              device=DEVICE))
+
+    def grads(**over):
+        model = zoo.build(dataclasses.replace(base, **over), DEVICE)
+        t0 = time.perf_counter()
+        loss, _, g = steps.loss_and_grads(model, params, batch)
+        torch.cuda.synchronize()
+        out = {k: v.detach().clone() for k, v in zoo.flatten(g)}
+        for _, p in zoo.flatten(params):
+            p.grad = None
+        return float(loss), out, (time.perf_counter() - t0) * 1e3
+
+    l_on, g_on, ms_on = grads(remat=True)
+    l_off, g_off, ms_off = grads(remat=False)
+    l_acc, g_acc, ms_acc = grads(remat=True, grad_accum=2)
+    saved = layers._BLOCKWISE_THRESHOLD
+    layers._BLOCKWISE_THRESHOLD = TRAIN_SEQ    # S·T = threshold²: grouped
+    try:
+        l_grp, g_grp, ms_grp = grads(remat=True)
+    finally:
+        layers._BLOCKWISE_THRESHOLD = saved
+    errs = {"remat_on_vs_off": max_rel(torch, g_on, g_off),
+            "accum2_vs_accum1": max_rel(torch, g_acc, g_on),
+            "blockwise_vs_grouped": max_rel(torch, g_on, g_grp)}
+    out = {"phase": "compare", "path": "j", "arm": "j3",
+           "arch": TRAIN_ARCH, "n_layers": TRAIN_CHECK_LAYERS,
+           "cut": f"depth {TRAIN_CHECK_LAYERS} of 28 at full width",
+           "dtype": "float32", "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "grad_rel_err": errs, "tol": TRAIN_TOL,
+           "losses": {"remat_on": l_on, "remat_off": l_off,
+                      "accum2": l_acc, "grouped": l_grp},
+           "ms": {"remat_on": ms_on, "remat_off": ms_off, "accum2": ms_acc,
+                  "grouped": ms_grp}}
+    emit(out)
+    for name, e in errs.items():
+        check(e <= TRAIN_TOL, f"j3 {name}: gradients differ by {e}")
+    del params, g_on, g_off, g_acc, g_grp
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_main_phase(torch):
+    """j4: ``launch.train.main`` over qwen2-0.5b at full width and depth —
+    4 steps with a checkpoint every 2, then ``--resume`` to step 6 — and
+    the checkpoint's round trip: the last step restored onto the card and
+    saved again writes the same bytes (every leaf's CRC-32 equal), so the
+    restored parameters and moments are the saved ones bit for bit."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core import fm
+    from repro_torch.launch import train
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    argv = ["--arch", TRAIN_MAIN_ARCH, "--batch", "4", "--seq", "1024",
+            "--ckpt-dir", str(d), "--ckpt-every", "2", "--log-every", "1"]
+    try:
+        with fm.conf(device=DEVICE):
+            t0 = time.perf_counter()
+            first = train.main(argv + ["--steps", "4"])
+            t1 = time.perf_counter()
+            resumed = train.main(argv + ["--steps", "6", "--resume"])
+            t2 = time.perf_counter()
+        ck = Checkpointer(str(d))
+        last = ck.latest_step()
+        cfg = get_config(TRAIN_MAIN_ARCH)
+        model = zoo.build(cfg, DEVICE)
+        template = {"params": model.init(0)}
+        template["opt"] = adam.init(template["params"])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        state, step, extra = ck.restore(template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t3
+        t3 = time.perf_counter()
+        ck.save(last + 1000, state, extra=extra, blocking=True)
+        save_s = time.perf_counter() - t3
+        man = {s_: json.loads((d / f"step_{s_:010d}" / "manifest.json")
+                              .read_text())["leaves"]
+               for s_ in (last, last + 1000)}
+        same = {k: man[last][k]["crc32"] == man[last + 1000][k]["crc32"]
+                for k in man[last]}
+        nbytes = sum(f.stat().st_size
+                     for f in (d / f"step_{last:010d}").iterdir())
+        bf16 = sorted({v["dtype"] for v in man[last].values()})
+        out = {"phase": "main", "path": "j", "arm": "j4",
+               "arch": TRAIN_MAIN_ARCH, "n_layers": cfg.n_layers,
+               "argv": argv, "losses": first, "resumed_losses": resumed,
+               "first_run_s": t1 - t0, "resume_run_s": t2 - t1,
+               "checkpoint_step": last, "checkpoint_bytes": nbytes,
+               "leaves": len(same), "leaf_dtypes": bf16,
+               "restore_s": restore_s, "save_s": save_s,
+               "round_trip_bit_for_bit": all(same.values()),
+               "extra": extra}
+        emit(out)
+        check(len(resumed) == 2, f"j4: the resume ran {len(resumed)} steps, "
+              "not 2")
+        check(all(map(math.isfinite, first + resumed)),
+              "j4: a loss is not finite")
+        check(step == last == 6 and extra["data"]["step"] == 6,
+              f"j4: restored step {step}, latest {last}, extra {extra}")
+        check(all(same.values()), "j4: the restored state saved again "
+              f"differs from the checkpoint in "
+              f"{[k for k, v in same.items() if not v]}")
+        del state, template
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_path(torch):
+    """Path j: training, after path lm with the serving weights freed."""
+    t0 = time.perf_counter()
+    blockwise_row(torch)
+    train_step_phase(torch)
+    train_checks_phase(torch)
+    train_main_phase(torch)
+    emit({"phase": "train", "path": "j", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3506,6 +3844,9 @@ def main() -> int:
 
     rows.append(flash_row(torch))
     paths.append(lm_phase(torch, rows[-1]["ms"]))
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_path(torch)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,9 +1,23 @@
-"""Matrix ingest: external files → the on-disk matrix format (PyTorch port
-of the ingest half of repro.data.pipeline).
+"""Training tokens and matrix ingest (PyTorch port of
+repro.data.pipeline).
 
-`ingest_csv` / `ingest_binary` / `ingest_factor_csv` are the FlashR
-``fm.load.dense.matrix`` / ``fm.load.factor.matrix`` workflow: a multi-GB
-text or raw-binary table streamed into the ``.fmat`` format of
+The token half: ``TokenSource`` is a flat token stream on the slow tier —
+the synthetic Zipf(1.3) corpus drawn from ``np.random.default_rng(seed)``,
+or ``.npy`` / raw uint16 shards, memory-mapped — and ``DataIterator`` cuts
+it into the reference's windows (``_host_batch``: rows of seq_len + 1
+tokens, tokens and labels shifted by one, a process's rows disjoint from
+the others') with one batch staged ahead: on a CUDA device, batch N + 1
+is cut, pinned and queued as a non-blocking copy before step N runs.  That
+hides the host's window and pinning time; the copy itself is queued on the
+current stream, so on the card it runs after step N's work, not beside
+it (a batch is a few tens of KB).  The
+iterator's state is one step cursor (``state_dict`` / ``load_state_dict``)
+that round-trips through checkpoints.  The windows are the reference's bit
+for bit.
+
+The matrix half: `ingest_csv` / `ingest_binary` / `ingest_factor_csv` are
+the FlashR ``fm.load.dense.matrix`` / ``fm.load.factor.matrix`` workflow: a
+multi-GB text or raw-binary table streamed into the ``.fmat`` format of
 ``storage/format.py`` in bounded chunks, never fully resident in RAM.
 `ingest_factor_csv` is the sparse arm: integer factor columns stream
 straight into the CSR ``.fmat`` variant as one-hot rows (k ones per row
@@ -11,17 +25,127 @@ among Σ num_levels columns) without ever forming the dense design matrix.
 Every ingest path removes its partial output file on failure — a malformed
 row, a dtype mismatch or a factor-cardinality overflow raises a clear error
 and leaves no truncated ``.fmat`` behind.  The files are byte for byte the
-reference's.  (The token half of the reference's module — ``DataConfig``,
-``TokenSource``, ``DataIterator`` — comes with the LM training slice,
-ROADMAP A14.)
+reference's.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import pathlib
-from typing import Sequence, Union
+from typing import Iterator, Optional, Sequence, Union
 
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class DataConfig:
+    seq_len: int = 1024
+    global_batch: int = 8
+    vocab: int = 32000
+    seed: int = 0
+    shards: Optional[Sequence[str]] = None   # token files; None => synthetic
+    synthetic_tokens: int = 1 << 22          # per synthetic "shard"
+
+
+class TokenSource:
+    """A flat token stream on the slow tier."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+        if cfg.shards:
+            self._arrays = [np.load(p, mmap_mode="r") if str(p).endswith(".npy")
+                            else np.memmap(p, dtype=np.uint16, mode="r")
+                            for p in cfg.shards]
+        else:
+            rng = np.random.default_rng(cfg.seed)
+            # Zipf-ish synthetic corpus: realistic token frequency skew.
+            ranks = rng.zipf(1.3, size=cfg.synthetic_tokens)
+            self._arrays = [np.minimum(ranks, cfg.vocab - 1).astype(np.int32)]
+        self.total = sum(a.shape[0] for a in self._arrays)
+
+    def window(self, start: int, length: int) -> np.ndarray:
+        """Contiguous token window with wraparound (one I/O-level read)."""
+        start = start % self.total
+        out = np.empty(length, np.int32)
+        filled = 0
+        offset = start
+        for _ in self._arrays * 2:  # wraps at most once
+            if filled == length:
+                break
+            lo = offset % self.total
+            # locate shard-local offset
+            acc = 0
+            for arr in self._arrays:
+                if lo < acc + arr.shape[0]:
+                    local = lo - acc
+                    take = min(length - filled, arr.shape[0] - local)
+                    out[filled:filled + take] = arr[local:local + take]
+                    filled += take
+                    offset += take
+                    break
+                acc += arr.shape[0]
+        return out
+
+
+class DataIterator:
+    """Deterministic, resumable batch iterator staging one batch ahead on
+    ``device`` (None: the engine's device)."""
+
+    def __init__(self, cfg: DataConfig, *, device=None,
+                 process_index: int = 0, process_count: int = 1):
+        if device is None:
+            from ..storage import registry  # deferred: registry imports core
+            device = registry.device()
+        self.cfg = cfg
+        self.source = TokenSource(cfg)
+        self.step = 0
+        self.device = torch.device(device)
+        self.process_index = process_index
+        self.process_count = process_count
+        self._staged = None  # the batch staged ahead
+
+    # -- fault-tolerance contract -------------------------------------------
+    def state_dict(self) -> dict:
+        return {"step": self.step, "seed": self.cfg.seed}
+
+    def load_state_dict(self, state: dict):
+        self.step = int(state["step"])
+        self._staged = None
+
+    # -- batch construction ----------------------------------------------------
+    def _host_batch(self, step: int) -> dict:
+        cfg = self.cfg
+        per_proc = cfg.global_batch // self.process_count
+        span = cfg.seq_len + 1
+        base = (step * cfg.global_batch + self.process_index * per_proc) * span
+        toks = np.stack([
+            self.source.window(base + i * span, span) for i in range(per_proc)])
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def _stage(self, batch_np: dict) -> dict:
+        """Host → device: from pinned memory without blocking on a card."""
+        out = {}
+        for k, v in batch_np.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            else:
+                t = t.to(self.device)
+            out[k] = t
+        return out
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        if self._staged is None:
+            self._staged = self._stage(self._host_batch(self.step))
+        out = self._staged
+        self.step += 1
+        # stage the next batch while the caller computes on `out`
+        self._staged = self._stage(self._host_batch(self.step))
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,16 @@ Attention:
     ``cur_len``, attend over positions <= ``cur_len``.  The port writes the
     new K/V into the cache tensors in place (the reference returns a new
     cache; in place saves copying it every step).
+  * training (``apply_attention_train``) never reaches ``ops.attention``,
+    whose kernel has no backward: it computes attention as the reference's
+    train forward does, in plain PyTorch — ``_grouped_attention`` under a
+    position mask while S·T <= ``_BLOCKWISE_THRESHOLD``², else
+    ``blockwise_attention``, the flash-style scan over KV chunks with its
+    recompute backward (a ``torch.autograd.Function``, the twin of the
+    reference's custom VJP).  Neither is a Pallas kernel in the reference.
 
-Left out (training, other families): blockwise attention and its VJP,
-cross-attention, sinusoidal encodings, the cross-entropy loss (ROADMAP A14).
+``xent_loss`` is the reference's f32 cross-entropy.  Left out (other
+families): cross-attention and sinusoidal encodings (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -157,6 +164,150 @@ def apply_attention(cfg, p, x, positions, *, causal: bool = True,
     return out @ p["wo"].to(out.dtype), (k, v)
 
 
+def causal_mask(positions_q, positions_k):
+    """(B,S),(B,T) -> (B,1,1,S,T) bool."""
+    return (positions_q[:, None, None, :, None]
+            >= positions_k[:, None, None, None, :])
+
+
+# Blockwise (flash-style) attention for the train forward: the (S, T) score
+# matrix exists only as (S, bk) tiles of a scan over KV chunks, in f32; the
+# backward recomputes each tile's probabilities from the saved (out, lse)
+# rather than storing them.
+_BLOCKWISE_THRESHOLD = 2048  # S·T above which scores must not materialize
+
+
+def _kv_chunks(k, v, k_pos, bk):
+    """K, V (B,T,nkv,hd) padded to a multiple of bk (padded keys at
+    position -1) and cut into (nk, B, nkv, bk, hd) f32 chunks; the
+    positions into (nk, B, bk)."""
+    B, T, nkv, hd = k.shape
+    pad_k = (-T) % bk
+    nk = (T + pad_k) // bk
+    kpos = F.pad(k_pos, (0, pad_k), value=-1)
+
+    def chunks(t):
+        t = F.pad(t, (0, 0, 0, 0, 0, pad_k))
+        return t.reshape(B, nk, bk, nkv, hd).permute(1, 0, 3, 2, 4).float()
+    return chunks(k), chunks(v), kpos.reshape(B, nk, bk).transpose(0, 1), nk
+
+
+def _tile_mask(q_pos, kpb, causal):
+    mask = (kpb >= 0)[:, None, None, None, :]
+    if causal:
+        mask = mask & (q_pos[:, None, None, :, None]
+                       >= kpb[:, None, None, None, :])
+    return mask
+
+
+def _flash_fwd_scan(q, k, v, q_pos, k_pos, causal, bk):
+    """q: (B,S,nh,hd); k/v: (B,T,nkv,hd).  Returns the grouped output
+    (B,nkv,g,S,hd), f32-normalized then cast to q.dtype, and the f32
+    log-sum-exp (B,nkv,g,S)."""
+    B, S, nh, hd = q.shape
+    T, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    bk = min(bk, T)
+    qg = q.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4).float()
+    kc, vc, kpc, nk = _kv_chunks(k, v, k_pos, bk)
+    scale = hd ** -0.5
+    m = torch.full((B, nkv, g, S), -1e30, device=q.device)
+    l = torch.zeros((B, nkv, g, S), device=q.device)
+    acc = torch.zeros((B, nkv, g, S, hd), device=q.device)
+    for j in range(nk):
+        kb, vb = kc[j].unsqueeze(2), vc[j].unsqueeze(2)     # (B,kv,1,bk,hd)
+        s = (qg @ kb.transpose(-1, -2)) * scale
+        s = torch.where(_tile_mask(q_pos, kpc[j], causal), s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ vb
+        m = m_new
+    lsafe = l.clamp_min(1e-30)
+    out = (acc / lsafe[..., None]).to(q.dtype)              # (B,kv,g,S,hd)
+    return out, m + torch.log(lsafe)
+
+
+def _unflatten_out(out, B, S, nh, hd):
+    # (B,kv,g,S,hd) -> (B,S,nh*hd)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh * hd)
+
+
+class _BlockwiseAttention(torch.autograd.Function):
+    """The reference's ``_blockwise_attention_vjp``: forward saves (q, k, v,
+    q_pos, k_pos, out, lse) only; backward is ``_bw_bwd``'s recompute."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, causal, bk):
+        out, lse = _flash_fwd_scan(q, k, v, q_pos, k_pos, causal, bk)
+        ctx.save_for_backward(q, k, v, q_pos, k_pos, out, lse)
+        ctx.causal, ctx.bk = causal, bk
+        B, S, nh, hd = q.shape
+        return _unflatten_out(out, B, S, nh, hd)
+
+    @staticmethod
+    def backward(ctx, dout):
+        """Flash backward: recompute (S, bk) probability tiles per kv chunk
+        from the saved (out, lse); dq accumulates across chunks, dk / dv are
+        emitted per chunk."""
+        q, k, v, q_pos, k_pos, out_g, lse = ctx.saved_tensors
+        B, S, nh, hd = q.shape
+        T, nkv = k.shape[1], k.shape[2]
+        g = nh // nkv
+        scale = hd ** -0.5
+        bk = min(ctx.bk, T)
+        dog = dout.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4).float()
+        D = (dog * out_g.float()).sum(-1)                   # (B,kv,g,S)
+        qg = q.reshape(B, S, nkv, g, hd).permute(0, 2, 3, 1, 4).float()
+        kc, vc, kpc, nk = _kv_chunks(k, v, k_pos, bk)
+        dq = torch.zeros((B, nkv, g, S, hd), device=q.device)
+        dks, dvs = [], []
+        for j in range(nk):
+            kb, vb = kc[j].unsqueeze(2), vc[j].unsqueeze(2)
+            s = (qg @ kb.transpose(-1, -2)) * scale
+            p = torch.where(_tile_mask(q_pos, kpc[j], ctx.causal),
+                            torch.exp(s - lse[..., None]), 0.0)
+            dvs.append((p.transpose(-1, -2) @ dog).sum(2))   # (B,kv,bk,hd)
+            dp = dog @ vb.transpose(-1, -2)
+            ds = p * (dp - D[..., None]) * scale
+            dq = dq + ds @ kb
+            dks.append((ds.transpose(-1, -2) @ qg).sum(2))
+        dq = dq.permute(0, 3, 1, 2, 4).reshape(B, S, nh, hd)
+
+        def unchunk(parts):
+            t = torch.stack(parts).permute(1, 0, 3, 2, 4)   # (B,nk,bk,kv,hd)
+            return t.reshape(B, nk * bk, nkv, hd)[:, :T]
+        return (dq.to(q.dtype), unchunk(dks).to(k.dtype),
+                unchunk(dvs).to(v.dtype), None, None, None, None)
+
+
+def blockwise_attention(q, k, v, q_pos, k_pos, causal, bk: int = 1024):
+    """Flash-style attention: (B,S,nh,hd)×(B,T,nkv,hd) -> (B,S,nh*hd),
+    O(S·bk) score memory in the forward and the backward."""
+    return _BlockwiseAttention.apply(q, k, v, q_pos, k_pos, causal, bk)
+
+
+def apply_attention_train(cfg, p, x, positions, *, causal: bool = True):
+    """Full-sequence self-attention of the train forward, the reference's
+    ``apply_attention``: the grouped softmax under a position mask while
+    S·T <= ``_BLOCKWISE_THRESHOLD``² (read at call time), else
+    ``blockwise_attention``.  Never ``ops.attention``.  Returns (out,
+    (k, v))."""
+    q, k, v = _qkv(cfg, p, x)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    S, T = q.shape[1], k.shape[1]
+    if S * T > _BLOCKWISE_THRESHOLD ** 2:
+        out = blockwise_attention(q, k, v, positions, positions, causal)
+    else:
+        mask = (causal_mask(positions, positions) if causal else
+                torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
+                           device=x.device))
+        out = _grouped_attention(q, k, v, mask)
+    return out @ p["wo"].to(out.dtype), (k, v)
+
+
 def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
     shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -222,10 +373,13 @@ def init_embed(cfg, gen) -> dict:
 
 
 def embed_tokens(cfg, p, tokens):
-    """tokens: int32 (B, S) → (B, S, d) in the activation dtype."""
+    """tokens: int32 (B, S) → (B, S, d) in the activation dtype: rows of the
+    table cast to that dtype, as the reference writes it, so a training
+    gradient accumulates into the table in the activation dtype as the
+    reference's does (the cast is no copy when the table is already in it,
+    as serving's is)."""
     dt = dtype_of(cfg.dtype)
-    emb = p["tok"].index_select(0, tokens.reshape(-1)).to(dt)
-    emb = emb.reshape(*tokens.shape, cfg.d_model)
+    emb = p["tok"].to(dt)[tokens.long()]
     if cfg.tie_embeddings:
         # gemma-style scaled tied embedding; the factor is rounded to the
         # activation dtype first, as the reference's weakly typed scalar is
@@ -237,3 +391,20 @@ def logits_out(cfg, p, x):
     if cfg.tie_embeddings:
         return x @ p["tok"].to(x.dtype).T
     return x @ p["out"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def xent_loss(logits, labels, mask=None):
+    """Stable cross-entropy; logits (B,S,V) any float dtype, labels int:
+    the f32 log-sum-exp minus the gold logit, its mean (or masked mean)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

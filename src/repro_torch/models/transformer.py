@@ -1,16 +1,24 @@
-"""Decoder-only LM, dense family: init, KV cache, prefill and decode — the
-port of repro/models/transformer.py's serving entry points.
+"""Decoder-only LM, dense family: init, the train forward, KV cache,
+prefill and decode — the port of repro/models/transformer.py.
 
 The parameter tree is the reference's: layer leaves stacked on a leading
 ``n_layers`` axis; a plain loop over the layers (views into the stacked
 tensors) stands in for ``lax.scan``.  The cache is the reference's
 ``{"kv": {"k", "v"}: (L, B, max_len, nkv, hd), "len"}``, ``len`` a 0-d
-int32 tensor on the model's device.  Training (``forward`` / the loss) and
-the MoE and VLM variants wait for ROADMAP A14.
+int32 tensor on the model's device.
+
+``forward(cfg, params, batch) -> (loss, {"loss": loss})`` is the causal-LM
+loss.  With ``cfg.remat`` each block runs under
+``torch.utils.checkpoint`` (non-reentrant), which keeps only the block's
+input, as the reference's ``jax.checkpoint(nothing_saveable)`` does.  The
+MoE and VLM variants wait for ROADMAP A14.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 
@@ -37,6 +45,114 @@ def layer(stacked: dict, i: int) -> dict:
     """Layer i's parameters: views into the stacked leaves."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
+
+
+class _LayerSlice(torch.autograd.Function):
+    """Layer i of a stacked leaf, whose gradient is added into slice i of
+    the leaf's ``.grad`` (zeros at first use, the leaf's dtype).
+
+    ``leaf[i]`` would do the same through autograd, but ``select``'s
+    backward makes a zero tensor the size of the whole stacked leaf for
+    every layer: at llama3.2-3b, 11.3 GB of f32 written and added per
+    layer and backward.  Here each layer's gradient touches its own slice
+    only; across backward calls it accumulates in ``.grad`` as autograd's
+    does.
+
+    The leaf's AccumulateGrad node gets no gradient, so its hooks (a
+    gradient reducer's among them) see none: read ``.grad`` after
+    ``backward()``.  A backward that would not accumulate into the leaf —
+    ``torch.autograd.grad``, or ``backward(inputs=...)`` without it —
+    raises rather than write ``.grad`` behind its back."""
+
+    @staticmethod
+    def forward(ctx, leaf, i, acc):
+        ctx.leaf, ctx.i, ctx.acc = leaf, i, acc
+        return leaf[i]
+
+    @staticmethod
+    def backward(ctx, grad):
+        try:
+            accumulates = torch._C._will_engine_execute_node(ctx.acc)
+        except RuntimeError:  # raised under torch.autograd.grad
+            accumulates = False
+        if not accumulates:
+            raise RuntimeError(
+                "a stacked layer leaf takes its gradient in .grad only: "
+                "call loss.backward() (with the leaf among its inputs), "
+                "not torch.autograd.grad")
+        leaf = ctx.leaf
+        if leaf.grad is None:
+            leaf.grad = torch.zeros_like(leaf)
+        leaf.grad[ctx.i] += grad
+        return None, None, None
+
+
+def _slice(leaf, i):
+    if not torch.is_grad_enabled():
+        return leaf[i]
+    # The leaf's AccumulateGrad node, reached through a view's graph.
+    acc = leaf.view_as(leaf).grad_fn.next_functions[0][0]
+    return _LayerSlice.apply(leaf, i, acc)
+
+
+def train_layer(stacked: dict, i: int) -> dict:
+    """Layer i's parameters for the train forward: views of the stacked
+    leaves, a leaf that requires grad through `_LayerSlice`."""
+    return {k: train_layer(v, i) if isinstance(v, dict) else
+            _slice(v, i) if v.requires_grad else v[i]
+            for k, v in stacked.items()}
+
+
+# ---------------------------------------------------------------------------
+# Train / full forward
+# ---------------------------------------------------------------------------
+
+def _block_apply(cfg, blk, x, positions):
+    a, _ = L.apply_attention_train(cfg, blk["attn"],
+                                   L.apply_norm(cfg, blk["ln1"], x),
+                                   positions, causal=True)
+    x = x + a
+    h = L.apply_norm(cfg, blk["ln2"], x)
+    return x + L.apply_mlp(cfg, blk["mlp"], h), 0.0
+
+
+def _scan_blocks(cfg, stacked, x, positions, block_fn):
+    """The layers in order, each on views of its slice of the stacked
+    leaves; under ``cfg.remat`` each block is recomputed in the backward
+    from its input."""
+    body = functools.partial(block_fn, cfg)
+    aux = 0.0
+    for i in range(cfg.n_layers):
+        blk = train_layer(stacked, i)
+        if cfg.remat:
+            x, a = checkpoint(body, blk, x, positions, use_reentrant=False)
+        else:
+            x, a = body(blk, x, positions)
+        aux = aux + a
+    return x, aux
+
+
+def hidden_states(cfg, params, tokens):
+    """Token embedding -> the blocks -> final-norm hidden states, and the
+    blocks' auxiliary loss (0 for the dense family)."""
+    x = L.embed_tokens(cfg, params["embed"], tokens.to(torch.int32))
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device)[None].expand(B, S)
+    x, aux = _scan_blocks(cfg, params["layers"], x, positions, _block_apply)
+    return L.apply_norm(cfg, params["final_norm"], x), aux
+
+
+def forward(cfg, params, batch):
+    """Causal-LM loss.  batch: tokens (B,S), labels (B,S) [, loss_mask]."""
+    if cfg.n_experts or cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.family} training: ROADMAP A14 (the port trains the dense "
+            "family)")
+    h, _ = hidden_states(cfg, params, batch["tokens"])
+    logits = L.logits_out(cfg, params["embed"], h)
+    loss = L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    return loss, {"loss": loss}
 
 
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:

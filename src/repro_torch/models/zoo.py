@@ -1,10 +1,11 @@
 """Model zoo: the facade over the ported architecture families — the port
 of repro/models/zoo.py for the dense family.
 
-``build(cfg)`` returns a ``Model`` whose serving functions share the
-reference's signatures:
+``build(cfg)`` returns a ``Model`` whose functions share the reference's
+signatures:
 
     init(gen)                                   -> params
+    forward(params, batch)                      -> (loss, metrics)
     prefill(params, batch, max_len)             -> (cache, logits)
     decode(params, cache, token)                -> (cache, logits)
     init_cache(batch, max_len)                  -> cache
@@ -12,9 +13,9 @@ reference's signatures:
 on the model's device: ``cuda`` unless the caller asks for the CPU (the
 ``device`` argument, else the engine's ``device`` knob, ``fm.set_conf(device=
 ...)``); with no card and no such request, ``build`` raises.  Other
-families, and training (``forward``), raise ``NotImplementedError`` naming
-ROADMAP A14.  ``params_from_numpy`` carries a JAX parameter tree across, so
-both packages compute the same thing.
+families raise ``NotImplementedError`` naming ROADMAP A14.
+``params_from_numpy`` and ``opt_state_from_numpy`` carry a JAX parameter
+tree and AdamW state across, so both packages compute the same thing.
 """
 from __future__ import annotations
 
@@ -73,7 +74,7 @@ class Model:
         return transformer.init_cache(self.cfg, batch, max_len, self.device)
 
     def forward(self, params, batch):
-        raise NotImplementedError("training (forward / loss): ROADMAP A14")
+        return transformer.forward(self.cfg, params, batch)
 
 
 def build(cfg: ArchConfig, device=None) -> Model:
@@ -85,9 +86,9 @@ def build(cfg: ArchConfig, device=None) -> Model:
 
 
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
-    """Meta-device stand-ins for one (arch × shape) serving cell's inputs:
-    prefill takes tokens (B, S) with max_len S, decode one token (B, 1)
-    against a cache of max_len S."""
+    """Meta-device stand-ins for one (arch × shape) cell's inputs: train
+    takes tokens and labels (B, S), prefill tokens (B, S) with max_len S,
+    decode one token (B, 1) against a cache of max_len S."""
     B, S = shape.global_batch, shape.seq_len
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.family} inputs: ROADMAP A14")
@@ -95,6 +96,9 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     def tok(shape_):
         return torch.empty(shape_, dtype=torch.int32, device="meta")
 
+    if shape.kind == "train":
+        return {"kind": "train",
+                "batch": {"tokens": tok((B, S)), "labels": tok((B, S))}}
     if shape.kind == "prefill":
         return {"kind": "prefill", "batch": {"tokens": tok((B, S))},
                 "max_len": S}
@@ -139,6 +143,20 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> dict:
             device=dev, dtype=dtype_of(cfg.param_dtype))
 
     return tree_map(leaf, tree)
+
+
+def opt_state_from_numpy(cfg: ArchConfig, state: dict, device=None) -> dict:
+    """The port's AdamW state from the reference's ``{"m", "v", "step"}``
+    as numpy arrays: the moment trees checked as ``params_from_numpy``
+    checks parameters, in their own dtype (bf16 or f32 moments), the step
+    a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    first = np.asarray(next(v for _, v in flatten(state["m"])))
+    mcfg = dataclasses.replace(cfg, param_dtype=first.dtype.name)
+    return {"m": params_from_numpy(mcfg, state["m"], dev),
+            "v": params_from_numpy(mcfg, state["v"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def tree_map(fn, tree, prefix=""):

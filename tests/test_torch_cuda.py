@@ -27,7 +27,11 @@ of float64) and f32, the wgmma body over many kv tiles, zero and negative
 scales, unaligned bases (copied, then equal to the aligned result),
 one case whose element offsets pass 2³¹, and a reduced LM prefill and
 decode on the card against the same on the CPU; xty's 16-byte loads over
-a ragged last column tile at the end of whole allocator segments.
+a ragged last column tile at the end of whole allocator segments.  The
+train path (no kernel of its own): blockwise attention and its backward
+against the grouped route, and a reduced llama's gradients (remat on and
+off, two microbatches, either attention route) against the CPU's, then
+three bf16 train steps that launch no kernel.
 
 The partition prefetcher on the card, one test an invariant: a consumer
 slowed on the compute stream at depth 1 and 8 against the synchronous
@@ -868,6 +872,95 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(dev, arch,
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
+def _rel_to(a, b):
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blockwise_attention_on_the_card(dev, causal):
+    """Path j1 at a small shape: blockwise attention (bk 128 over T = 300:
+    padded keys) and its recompute backward against the grouped route under
+    autograd on the card, and against the blockwise run on the CPU; f32,
+    GQA g = 3, each of out, dq, dk, dv within 1e-4 of its largest entry."""
+    from repro_torch.models import layers
+    B, S, nh, nkv, hd = 2, 300, 6, 2, 64
+    host = [torch.as_tensor(RNG.normal(size=s), dtype=torch.float32)
+            for s in ((B, S, nh, hd), (B, S, nkv, hd), (B, S, nkv, hd),
+                      (B, S, nh * hd))]
+    pos = torch.arange(S, dtype=torch.int32)[None].expand(B, S)
+
+    def run(device, blockwise):
+        q, k, v, dout = (t.to(device) for t in host)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        p = pos.to(device)
+        out = (layers.blockwise_attention(q, k, v, p, p, causal, 128)
+               if blockwise else layers._grouped_attention(
+                   q, k, v, layers.causal_mask(p, p) if causal else
+                   torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
+                              device=device)))
+        return (out,) + torch.autograd.grad(out, (q, k, v), dout)
+
+    card, grouped, cpu = run(dev, True), run(dev, False), run("cpu", True)
+    for a, b, c in zip(card, grouped, cpu):
+        assert _rel_to(a, b) <= 1e-4 and _rel_to(a, c) <= 1e-4
+
+
+def test_train_gradients_and_steps_on_the_card(dev):
+    """Path j3 at a reduced llama3.2-3b (f32): gradients with remat on
+    against off, grad_accum 2 against 1, the blockwise route against the
+    grouped one (threshold lowered), and all of them against the CPU's,
+    each leaf within 1e-4 of its largest entry; then three bf16 train
+    steps on the card: finite, the loss falling, no kernel launched."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.models import layers, zoo
+    from repro_torch.optim import adam
+    base = reduced_for_smoke(get_config("llama3.2-3b"))
+    params = {"cpu": zoo.build(base, device="cpu").init(0)}
+    params[dev] = zoo.tree_map(lambda _, t: t.to(dev), params["cpu"])
+    toks = torch.as_tensor(RNG.integers(0, base.vocab, (2, 2, 96)),
+                           dtype=torch.int32)
+    batch = {"tokens": toks[0], "labels": toks[1]}
+
+    def grads(device, threshold=2048, **over):
+        model = zoo.build(dataclasses.replace(base, **over), device=device)
+        saved, layers._BLOCKWISE_THRESHOLD = (layers._BLOCKWISE_THRESHOLD,
+                                              threshold)
+        try:
+            _, _, g = steps.loss_and_grads(
+                model, params[device],
+                {k: v.to(device) for k, v in batch.items()})
+        finally:
+            layers._BLOCKWISE_THRESHOLD = saved
+        out = {k: v.detach().clone() for k, v in zoo.flatten(g)}
+        for _, p in zoo.flatten(params[device]):
+            p.grad = None
+        return out
+
+    want = grads("cpu")
+    for over in ({"remat": False}, {"remat": True}, {"grad_accum": 2},
+                 {"threshold": 32}):
+        got = grads(dev, **over)
+        for name, g in want.items():
+            assert _rel_to(got[name], g) <= 1e-4, (over, name)
+    cfg = dataclasses.replace(base, dtype="bfloat16", remat=True,
+                              grad_accum=2)
+    model = zoo.build(cfg, device=dev)
+    p = model.init(0)
+    opt = adam.init(p)
+    step = steps.build_train_step(model)
+    before = fa.launches
+    losses = []
+    for _ in range(3):
+        p, opt, met = step(p, opt, {k: v.to(dev) for k, v in batch.items()})
+        losses.append(float(met["loss"]))
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert fa.launches == before
+
+
 def test_stream_and_ooc_reach_every_kernel_per_partition_on_cuda(dev):
     """The stream and ooc modes on the card: summary, correlation, glm and
     kmeans from host RAM (``ooc``, staged synchronously) and a crossprod
@@ -1141,7 +1234,11 @@ def test_prefetcher_staged_memory_bounded(dev, depth):
                              depth=depth, device=dev) as pf:
         for _, _, blocks in pf:
             torch.cuda._sleep(5_000_000)
-            acc += blocks[0].sum(0)
+            # the column sum in two stages: a one-stage sum(0) of a
+            # 16,384 × 192 partition allocates a 24 MiB reduction buffer on
+            # the compute stream, two partitions of memory that the peak
+            # would count beside the staged ones
+            acc += blocks[0].view(-1, 128, p).sum(1).sum(0)
             del blocks
         side = pf._side.cuda_stream
         # segments are kept until empty_cache: the side stream's high mark

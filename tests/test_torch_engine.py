@@ -288,11 +288,12 @@ def test_lloyd_iterations_reuse_one_cached_plan():
 
 
 def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
-    """What later slices bring raises naming its ROADMAP item (training,
-    A14: ``Model.forward``); what A7a-ii, A7b, A12 and A13 brought — a
-    prefetched ``ooc`` stream, ``fm.one_hot``'s host slab, factor ingest,
-    ``fm.persist(tier="disk")``, ``fm.serve`` and meshes — runs and equals
-    the reference, and a mesh that is no mesh (``set_conf``, ``fm.batch``,
+    """What later slices bring raises naming its ROADMAP item (the LM
+    mesh, A14: ``replan_mesh``); what A7a-ii, A7b, A12, A13 and A14's dense
+    training brought — a prefetched ``ooc`` stream, ``fm.one_hot``'s host
+    slab, factor ingest, ``fm.persist(tier="disk")``, ``fm.serve``, meshes
+    and ``Model.forward`` — runs (and equals the reference where it is
+    compared here), and a mesh that is no mesh (``set_conf``, ``fm.batch``,
     ``fm.Engine``) raises the reference's exception type."""
     X, _, _ = _inputs()
     Xt = tfm.conv_R2FM(X)
@@ -332,10 +333,14 @@ def test_later_slices_raise_with_their_roadmap_item(tmp_path, data_dirs):
             call(tfm, Xt)
     from repro_torch.configs import get_config, reduced_for_smoke
     from repro_torch.models import zoo
+    from repro_torch.runtime import replan_mesh
     model = zoo.build(reduced_for_smoke(get_config("llama3.2-3b")),
                       device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.int32)
+    loss, _ = model.forward(model.init(0), {"tokens": toks, "labels": toks})
+    assert torch.isfinite(loss)
     with pytest.raises(NotImplementedError, match="A14"):
-        model.forward({}, {})
+        replan_mesh(1)
 
 
 def test_conf_knobs_mirror_the_reference():

@@ -6,8 +6,12 @@ where every pass streams out of core in about 20 partitions through the
 background prefetcher in both packages.
 
 The serving journey runs both packages' load generators with the same
-arguments.  Left to a later slice: ``test_lm_train_checkpoint_resume``
-(LM training, ROADMAP A14).
+arguments.  The LM training journey (``test_lm_train_checkpoint_resume``)
+trains reduced qwen2-0.5b with the port's ``launch.train.main``,
+checkpoints and resumes it, as the reference's test does; its checkpoint
+is restored by the reference's ``Checkpointer`` into the reference's
+train state, and the port's launcher resumes from a checkpoint the
+reference's launcher wrote.
 """
 import numpy as np
 import pytest
@@ -92,3 +96,52 @@ def test_serve_loadgen_journey(data_dirs):
                      for r in (serial, served)]
     assert got["repro_torch"] == got["repro"]
     assert served["backend"] == "torch"
+
+
+def test_lm_train_checkpoint_resume(tmp_path):
+    from repro_torch.launch import train
+
+    ck = str(tmp_path / "ck")
+    with tfm.conf(device="cpu"):
+        losses = train.main(["--arch", "qwen2-0.5b", "--reduced", "--steps",
+                             "8", "--batch", "4", "--seq", "64", "--ckpt-dir",
+                             ck, "--ckpt-every", "4", "--log-every", "100"])
+        assert losses[-1] < losses[0], "loss must decrease"
+        resumed = train.main(["--arch", "qwen2-0.5b", "--reduced", "--steps",
+                              "10", "--batch", "4", "--seq", "64",
+                              "--ckpt-dir", ck, "--resume", "--log-every",
+                              "100"])
+    assert len(resumed) == 2  # steps 8..9 only: resume picked up step 8
+
+
+def test_lm_train_checkpoints_cross_packages(tmp_path):
+    """The port's launcher resumes from the reference launcher's
+    checkpoint (runs steps 4..5 of 6), and the reference's Checkpointer
+    restores the port's step-6 checkpoint into the reference's own train
+    state: the same keys, shapes and dtypes, bf16 moments included."""
+    import jax
+    from repro.checkpoint import Checkpointer as JCheckpointer
+    from repro.configs import get_config, reduced_for_smoke
+    from repro.launch import train as jtrain
+    from repro.models import zoo as jzoo
+    from repro.models.base import tree_unbox
+    from repro.optim import adam as jadam
+    from repro_torch.launch import train
+
+    ck = str(tmp_path / "ck")
+    argv = ["--arch", "qwen2-0.5b", "--reduced", "--batch", "4", "--seq",
+            "32", "--ckpt-dir", ck, "--ckpt-every", "2", "--log-every", "100"]
+    jtrain.main(argv + ["--steps", "4"])
+    with tfm.conf(device="cpu"):
+        resumed = train.main(argv + ["--steps", "6", "--resume"])
+    assert len(resumed) == 2 and all(np.isfinite(resumed))
+    model = jzoo.build(reduced_for_smoke(get_config("qwen2-0.5b")))
+    params, _ = tree_unbox(model.init(jax.random.PRNGKey(0)))
+    template = {"params": params, "opt": jadam.init(params)}
+    state, step, extra = JCheckpointer(ck).restore(template)
+    assert step == 6 and extra["data"]["step"] == 6
+    for (path, got), want in zip(
+            jax.tree_util.tree_flatten_with_path(state)[0],
+            jax.tree_util.tree_leaves(template)):
+        assert got.shape == want.shape and got.dtype == want.dtype, path
+        assert np.isfinite(np.asarray(got, np.float32)).all(), path
