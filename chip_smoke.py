@@ -26,7 +26,8 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — nine paths through ``repro_torch.core.fm``, each with the
+4. main    — paths a–l: a–c and e–i through ``repro_torch.core.fm``, d,
+             j, k and l through the LM stack, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -276,9 +277,38 @@ Phases, each printing one JSON line:
                 the checkpoint's round trip — restored onto the card and
                 saved again, every leaf's CRC-32 equal — with its bytes
                 and save and restore seconds; the directory removed.
+             k. after path j's state is freed, the MoE family served
+                (``steps.serving_model`` → ``build_prefill_step`` →
+                ``build_decode_step``): first the ``flash_attention``
+                kernel at qwen3-moe-30b-a3b's attention shape — q (4, 32,
+                4096, 128), k/v (4, 4, 4096, 128), GQA group 8, bf16,
+                causal, the ``wgmma`` body — under the serving row's rule
+                (2e-3 + 1e-2·|plain| of the f32 plain version, one bf16
+                ulp of float64 on three heads) with its ms, the plain
+                version's, SDPA's and the bound; then qwen3-moe-30b-a3b at
+                full width and depth (48 layers, 128 experts, top-8;
+                61.06 GB of bf16 weights from seed 2016, drawn a layer at
+                a time: the init's seconds and its peak over the weights,
+                checked <= 2 GiB), 4 prompts of 4096 tokens and 32 greedy
+                decode steps, counted (48 launches a prefill), with the
+                pairs dropped by capacity at each layer (C = 320 a row);
+                then at full width and a depth of ``MOE_CHECK_LAYERS`` in
+                float32 (the first layers widened): (a) at the main
+                prompt and (b) at the dropless prompt
+                ``MOE_DROPLESS_PROMPT``, each within ``LM_F32_TOL``, with
+                the tokens whose top-k routes differ between the two runs
+                printed; (d) every logit finite.
+             l. then the VLM: the kernel at paligemma-3b's shape — q (4,
+                8, 4096, 256), k/v (4, 1, 4096, 256), MQA at head dim 256,
+                the FMA body — as in path k, then paligemma-3b at full
+                width and depth (18 layers, tied embeddings, GeGLU), 4
+                prompts of 256 patch embeddings (normal, seed 2016, bf16)
+                and 3840 tokens, 32 greedy decode steps, counted (18
+                launches a prefill), the kernel's share of prefill; then
+                (a), (b) and (d) as path d, in float32 at full depth.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
-over the counted runs of the nine paths), the card's name and power
+over the counted runs of the paths), the card's name and power
 limit as ``nvidia-smi`` prints them, and
 last the line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before the last line.  TF32 is switched off for matmul and cuDNN,
@@ -320,6 +350,15 @@ LM_ARCH = "llama3.2-3b"  # the serving path's model, at its published width
 LM_BATCH = 4             # prompts a prefill
 LM_PROMPT = 4096         # tokens a prompt
 LM_DECODE = 32           # greedy decode steps
+MOE_ARCH = "qwen3-moe-30b-a3b"  # path k's model, full width and depth
+VLM_ARCH = "paligemma-3b"       # path l's model, full width and depth
+#: Path k's float32 checks run the model's first layers at full width (a
+#: cut of depth: all 48 in float32 would be 122 GB).
+MOE_CHECK_LAYERS = 2
+#: Path k's check (b) prompt: (511 + 1) · top-8 = 4096 pairs a row, the
+#: most that routes dropless, so prefill + decode and the longer prefill
+#: keep every pair.
+MOE_DROPLESS_PROMPT = 511
 #: Limit of the serving checks (a) and (b), in float32: max |diff| over
 #: max |logit|.  The JAX package's bf16 limit (tests/test_archs.py) is 2e-2.
 LM_F32_TOL = 1e-3
@@ -3394,31 +3433,138 @@ def flash_d112(torch):
     return out
 
 
-def lm_phase(torch, flash_ms):
-    """Path d: llama3.2-3b prefill + greedy decode on the card, counted,
-    then checks (a)-(d)."""
-    import dataclasses
+def flash_case(torch, B, nh, nkv, S, d, seed):
+    """The flash kernel at one serving shape — q (B, nh, S, d), k/v (B, nkv,
+    S, d), bf16, causal — under the serving row's rule: within 2e-3 +
+    1e-2·|plain| of its f32 plain version and within one bf16 ulp of
+    float64 on three heads; its ms beside its plain version's, SDPA's and
+    the bound (at the bf16 tensor rate, the inputs' type, and at the f32
+    rate, which bounds the FMA body)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, flash_attention as fa, ref
+    g = nh // nkv
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    q = torch.randn((B, nh, S, d), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, nkv, S, d), generator=gen, device=DEVICE,
+                        dtype=torch.bfloat16) for _ in range(2))
+    o = fa.flash_attention(q, k, v, causal=True)
+    pf = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    diff = (o.float() - pf).abs()
+    excess = float((diff - 2e-3 - 1e-2 * pf.abs()).max())
+    err64 = excess64 = -float("inf")
+    for b, h in ((0, 0), (B // 2, min(g + 1, nh - 1)), (B - 1, nh - 1)):
+        o64 = ref.flash_attention_ref(
+            q[b:b + 1, h:h + 1].double(), k[b:b + 1, h // g:h // g + 1].double(),
+            v[b:b + 1, h // g:h // g + 1].double(), causal=True,
+            dtype=torch.float64)[0, 0]
+        d64 = (o[b, h].double() - o64).abs()
+        err64 = max(err64, float(d64.max()))
+        excess64 = max(excess64,
+                       float((d64 - 1e-5 - 2.0 ** -7 * o64.abs()).max()))
+    ops = 2 * B * nh * S * S * d                  # causal: half of 4·B·nh·S²·d
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v once, bf16
+    bt, bf = bound(nbytes, ops, BF16_FLOP_S), bound(nbytes, ops, F32_FLOP_S)
+    body = fa.body_for(q.dtype, d)
+    out = dict(
+        name="flash_attention",
+        shape=f"q ({B}, {nh}, {S}, {d}), k/v ({B}, {nkv}, {S}, {d}) bf16, "
+              "causal", group=g, body=body,
+        ptxas=build.ptxas_report(
+            "flash_attention", f"flash_fwd_wgmmaILi{d}ELb1E"
+            if body == "wgmma" else f"flash_fwdI13__nv_bfloat16Li{d}E"),
+        max_abs_err=float(diff.max()),
+        tol="|o - plain| <= 2e-3 + 1e-2·|plain|, plain the f32 plain version",
+        tol_excess=excess, max_abs_err_f64=err64,
+        tol_f64="|o - o64| <= 1e-5 + 2^-7·|o64| (one bf16 ulp)",
+        tol_f64_excess=excess64,
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
+            q, k, v, causal=True), reps=2),
+        bound_ms=bt[0], bound_by=bt[1], bound_rate="bf16 tensor, 989 TFLOP/s",
+        bound_f32_ms=bf[0], bound_f32_by=bf[1], ops=ops, bytes=nbytes,
+        library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True)),
+        library="torch.nn.functional.scaled_dot_product_attention("
+                "is_causal=True, enable_gqa=True)")
+    del q, k, v, o, pf, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_flash_case(path, row):
+    check(row["tol_excess"] <= 0, f"{path}: flash_attention at "
+          f"{row['shape']} exceeds 2e-3 + 1e-2·|plain| of the f32 plain "
+          f"version by {row['tol_excess']}")
+    check(row["tol_f64_excess"] <= 0, f"{path}: flash_attention at "
+          f"{row['shape']} exceeds one bf16 ulp of float64 by "
+          f"{row['tol_f64_excess']}")
+
+
+def serve_init(torch, arch):
+    """The serving model of ``arch`` at its published width and depth, bf16
+    weights drawn on the card from seed ``SEED``: (cfg, model, params, the
+    generator, the init's line — seconds, weight bytes, and its peak over
+    what was resident before it)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import zoo
-    cfg = get_config(LM_ARCH)
-    B, S = LM_BATCH, LM_PROMPT
-    resident = torch.cuda.memory_allocated()
+    cfg = get_config(arch)
     model = steps.serving_model(cfg, device=DEVICE)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = model.init(gen)
-    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
-                         device=DEVICE, dtype=torch.int32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for _, t in zoo.flatten(params))
-    max_len = S + LM_DECODE
+    leaves = [t for _, t in zoo.flatten(params)]
+    weights = sum(t.numel() * t.element_size() for t in leaves)
+    peak = torch.cuda.max_memory_allocated() - resident
+    return cfg, model, params, gen, {
+        "arch": arch, "n_params": sum(t.numel() for t in leaves),
+        "param_dtype": "bfloat16", "init_s": init_s,
+        "weights_gib": weights / 2**30, "init_peak_gib": peak / 2**30,
+        "init_transient_gib": (peak - weights) / 2**30,
+        "resident_before_gib": resident / 2**30}
+
+
+@contextlib.contextmanager
+def routes():
+    """The (sel, keep) of every MoE layer run inside, in order."""
+    from repro_torch.models import moe
+    got = []
+    moe.route_hook = lambda sel, keep: got.append((sel, keep))
+    try:
+        yield got
+    finally:
+        moe.route_hook = None
+
+
+def route_flips(torch, a, b):
+    """Tokens whose top-k expert sets differ between two runs' selections
+    (a list of (B, S, k) a layer each), summed over the layers; None
+    without MoE layers."""
+    if not a and not b:
+        return None
+    check(len(a) == len(b), f"routes of {len(a)} and {len(b)} layers")
+    return sum(int((torch.sort(x, -1).values != torch.sort(y, -1).values)
+                   .any(-1).sum()) for x, y in zip(a, b))
+
+
+def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
+    """One warm prefill (its MoE routes recorded), then one prefill and
+    ``LM_DECODE`` greedy decode steps, counted: (logits of every step, the
+    timing line, launches, the warm prefill's routes).  The kernel must
+    launch once a layer."""
+    from repro_torch.launch import steps
     prefill = steps.build_prefill_step(model, max_len)
     decode = steps.build_decode_step(model)
-    batch = {"tokens": toks[:, :S]}
-    prefill(params, batch)                       # warm: cuBLAS, the kernel
+    with routes() as warm:
+        prefill(params, batch)                   # warm: cuBLAS, the kernel
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -3436,63 +3582,222 @@ def lm_phase(torch, flash_ms):
         return outs, t1 - t0, time.perf_counter() - t1
 
     (outs, pre_s, dec_s), launches = counted(
-        torch, "lm", ("flash_attention",), run)
+        torch, path, ("flash_attention",), run)
     peak = torch.cuda.max_memory_allocated()
     greedy = torch.stack([o.argmax(-1)[:, 0] for o in outs], 1)
-    emit({"phase": "main", "path": "lm", "arch": LM_ARCH,
-          "n_params": n_params, "param_dtype": "bfloat16",
-          "init_s": init_s, "batch": B, "prompt": S, "decode_steps": LM_DECODE,
-          "prefill_ms": pre_s * 1e3, "prefill_tokens_s": B * S / pre_s,
-          "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
-          "decode_tokens_s": B * LM_DECODE / dec_s,
-          "flash_launches": launches["flash_attention"],
-          "flash_share_of_prefill": cfg.n_layers * flash_ms / (pre_s * 1e3),
-          "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
-          "resident_before_gib": resident / 2**30,
-          "kv_cache_gib": 2 * cfg.n_layers * B * max_len * cfg.n_kv_heads
-          * cfg.hd * 2 / 2**30,
-          "greedy_tokens_row0": greedy[0].tolist()})
+    B = batch["tokens"].shape[0]
+    S = batch["tokens"].shape[1] + cfg.n_patches
+    line = {"batch": B, "prompt": S, "decode_steps": LM_DECODE,
+            "prefill_ms": pre_s * 1e3, "prefill_tokens_s": B * S / pre_s,
+            "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
+            "decode_tokens_s": B * LM_DECODE / dec_s,
+            "flash_launches": launches["flash_attention"],
+            "flash_share_of_prefill": cfg.n_layers * flash_ms / (pre_s * 1e3),
+            "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
+            "kv_cache_gib": 2 * cfg.n_layers * B * max_len * cfg.n_kv_heads
+            * cfg.hd * 2 / 2**30,
+            "greedy_tokens_row0": greedy[0].tolist()}
+    return outs, line, launches, warm
+
+
+def check_launches(path, cfg, launches):
     check(launches["flash_attention"] == cfg.n_layers,
-          f"flash_attention launched {launches['flash_attention']} times in "
-          f"one prefill, not once per layer ({cfg.n_layers})")
+          f"{path}: flash_attention launched {launches['flash_attention']} "
+          f"times in one prefill, not once per layer ({cfg.n_layers})")
 
-    def a_and_b(model_, params_):
-        """(a) last-position logits of the kernel prefill against the same
-        prefill with the plain attention; (b) prefill + one decode step
-        against a prefill one token longer.  Both at the main shape."""
-        pre = steps.build_prefill_step(model_, max_len)
-        cache, got = pre(params_, batch)
-        _, want = steps.build_prefill_step(model_, max_len, attn_impl="ref")(
-            params_, batch)
-        _, dec = steps.build_decode_step(model_)(params_, cache,
-                                                 toks[:, S:S + 1])
-        del cache
-        _, full = pre(params_, {"tokens": toks})
-        logits = [got, want, dec, full]
-        return rel_err(torch, got, want), rel_err(torch, dec, full), logits
 
-    # In bf16 both read the rounding noise of these random weights (printed
-    # only); the checks run on the same weights and activations in float32.
-    a16, b16, logits16 = a_and_b(model, params)
+def check_a(torch, model, params, batch, max_len):
+    """(a): the last-position logits of the kernel prefill against the
+    same prefill with the plain attention; (rel, logits, route flips)."""
+    from repro_torch.launch import steps
+    with routes() as ra:
+        _, got = steps.build_prefill_step(model, max_len)(params, batch)
+    with routes() as rb:
+        _, want = steps.build_prefill_step(model, max_len, attn_impl="ref")(
+            params, batch)
+    return (rel_err(torch, got, want), [got, want],
+            route_flips(torch, [s for s, _ in ra], [s for s, _ in rb]))
+
+
+def check_b(torch, model, params, batch, token, longer, max_len):
+    """(b): prefill + one decode step of ``token`` against a prefill one
+    token longer (the twin of tests/test_archs.py); (rel, logits, route
+    flips: the prefill's and decode's routes against the longer one's)."""
+    from repro_torch.launch import steps
+    pre = steps.build_prefill_step(model, max_len)
+    with routes() as r1:
+        cache, _ = pre(params, batch)
+        _, dec = steps.build_decode_step(model)(params, cache, token)
+    del cache
+    with routes() as r2:
+        _, full = pre(params, longer)
+    n = len(r2)
+    joined = [torch.cat([r1[i][0], r1[n + i][0]], 1) for i in range(n)]
+    return (rel_err(torch, dec, full), [dec, full],
+            route_flips(torch, joined, [sel for sel, _ in r2]))
+
+
+def serve_checks(torch, path, cfg, model, params, batch, token, longer,
+                 max_len, outs):
+    """(a), (b) in bf16 (printed only) and in float32 on the same weights
+    widened (checked within ``LM_F32_TOL``), (d) every logit finite."""
+    import dataclasses
+    from repro_torch.models import zoo
+    a16, la16, _ = check_a(torch, model, params, batch, max_len)
+    b16, lb16, _ = check_b(torch, model, params, batch, token, longer,
+                           max_len)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
     params32 = zoo.tree_map(lambda _, t: t.float(), params)
-    del params
-    a, b, logits32 = a_and_b(zoo.build(cfg32, DEVICE), params32)
+    model32 = zoo.build(cfg32, DEVICE)
+    a, la, fa_ = check_a(torch, model32, params32, batch, max_len)
+    b, lb, fb = check_b(torch, model32, params32, batch, token, longer,
+                        max_len)
     finite = all(bool(torch.isfinite(t).all())
-                 for t in outs + logits16 + logits32)
-    emit({"phase": "compare", "path": "lm", "dtype": "float32",
-          "batch": B, "prompt": S,
+                 for t in outs + la16 + lb16 + la + lb)
+    emit({"phase": "compare", "path": path, "dtype": "float32",
+          "batch": batch["tokens"].shape[0],
+          "prompt": batch["tokens"].shape[1] + cfg.n_patches,
           "a_kernel_vs_plain_prefill": a, "a_tol": LM_F32_TOL,
           "b_prefill_decode_vs_longer_prefill": b, "b_tol": LM_F32_TOL,
           "c": "(a) in float32, which (a) is",
           "d_all_logits_finite": finite,
           "a_bf16_not_checked": a16, "b_bf16_not_checked": b16})
-    check(a < LM_F32_TOL, f"lm (a): float32 kernel prefill vs plain {a}")
-    check(b < LM_F32_TOL, f"lm (b): float32 prefill + decode vs longer "
+    check(a < LM_F32_TOL, f"{path} (a): float32 kernel prefill vs plain {a}")
+    check(b < LM_F32_TOL, f"{path} (b): float32 prefill + decode vs longer "
           f"prefill {b}")
-    check(finite, "lm (d): a logit is not finite")
-    del params32, outs, logits16, logits32
+    check(finite, f"{path} (d): a logit is not finite")
+    del params32
+
+
+def lm_phase(torch, flash_ms):
+    """Path d: llama3.2-3b prefill + greedy decode on the card, counted,
+    then checks (a)-(d)."""
+    cfg, model, params, gen, init = serve_init(torch, LM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :S]}
+    outs, line, launches, _ = serve_timed(torch, "lm", cfg, model, params,
+                                          batch, max_len, flash_ms)
+    emit({"phase": "main", "path": "lm", **init, **line})
+    check_launches("lm", cfg, launches)
+    # In bf16 (a) and (b) read the rounding noise of these random weights
+    # (printed only); the checks run on the same weights and activations
+    # in float32.
+    serve_checks(torch, "lm", cfg, model, params, batch, toks[:, S:S + 1],
+                 {"tokens": toks}, max_len, outs)
+    del params, outs
     torch.cuda.empty_cache()
+    return launches
+
+
+def moe_phase(torch):
+    """Path k: qwen3-moe-30b-a3b at full width and depth — the flash kernel
+    at its attention shape, bf16 serving weights from seed 2016, 4 prompts
+    of 4096 tokens and 32 greedy decode steps, counted; then, at full
+    width and a depth of ``MOE_CHECK_LAYERS`` in float32 (the same first
+    layers, widened), (a) at the main prompt and (b) at the dropless
+    prompt ``MOE_DROPLESS_PROMPT``, with the route flips printed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, zoo
+    t_path = time.perf_counter()
+    cfg = get_config(MOE_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    row = flash_case(torch, B, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd,
+                     SEED + 7)
+    emit({"phase": "kernel", "path": "moe", **row})
+    check_flash_case("moe", row)
+    cfg, model, params, gen, init = serve_init(torch, MOE_ARCH)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :S]}
+    outs, line, launches, warm = serve_timed(torch, "moe", cfg, model, params,
+                                             batch, max_len, row["ms"])
+    dropped = [int((~keep).sum()) for _, keep in warm]
+    emit({"phase": "main", "path": "moe", **init, **line,
+          "capacity": moe._capacity(cfg, S),
+          "pairs_per_layer": B * S * cfg.top_k,
+          "dropped_pairs_per_layer": dropped,
+          "dropped_share": sum(dropped) / (len(dropped) * B * S * cfg.top_k)})
+    check_launches("moe", cfg, launches)
+    check(init["init_transient_gib"] <= 2.0, "moe: the init's peak is "
+          f"{init['init_transient_gib']} GiB over the weights, not <= 2")
+    check(len(dropped) == cfg.n_layers, f"moe: {len(dropped)} routed layers")
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    n = MOE_CHECK_LAYERS
+    cfg32 = dataclasses.replace(cfg, n_layers=n, dtype="float32",
+                                param_dtype="float32")
+    params32 = {"embed": zoo.tree_map(lambda _, t: t.float(),
+                                      params["embed"]),
+                "final_norm": zoo.tree_map(lambda _, t: t.float(),
+                                           params["final_norm"]),
+                "layers": zoo.tree_map(lambda _, t: t[:n].float(),
+                                       params["layers"])}
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = zoo.build(cfg32, DEVICE)
+    a, la, flips_a = check_a(torch, model32, params32, batch, max_len)
+    sb = MOE_DROPLESS_PROMPT
+    check((sb + 1) * cfg.top_k <= 4096, "moe (b): the prompt is not dropless")
+    b, lb, flips_b = check_b(torch, model32, params32,
+                             {"tokens": toks[:, :sb]}, toks[:, sb:sb + 1],
+                             {"tokens": toks[:, :sb + 1]}, sb + 1)
+    finite = finite and all(bool(torch.isfinite(t).all()) for t in la + lb)
+    emit({"phase": "compare", "path": "moe", "dtype": "float32",
+          "layers": n, "batch": B, "prompt": S,
+          "a_kernel_vs_plain_prefill": a, "a_tol": LM_F32_TOL,
+          "a_route_flips": flips_a, "a_routed_tokens": n * B * S,
+          "b_prompt": sb, "b_prefill_decode_vs_longer_prefill": b,
+          "b_tol": LM_F32_TOL, "b_route_flips": flips_b,
+          "b_routed_tokens": n * B * (sb + 1),
+          "d_all_logits_finite": finite})
+    check(a < LM_F32_TOL, f"moe (a): float32 kernel prefill vs plain {a} "
+          f"({flips_a} route flips)")
+    check(b < LM_F32_TOL, f"moe (b): float32 prefill + decode vs longer "
+          f"prefill {b} ({flips_b} route flips)")
+    check(finite, "moe (d): a logit is not finite")
+    del params32, la, lb
+    torch.cuda.empty_cache()
+    emit({"phase": "moe", "path": "k", "seconds": time.perf_counter() - t_path})
+    return launches
+
+
+def vlm_phase(torch):
+    """Path l: paligemma-3b at full width and depth — the flash kernel at
+    its attention shape (MQA, head dim 256: the FMA body), bf16 serving
+    weights from seed 2016, 4 prompts of 256 patch embeddings (normal,
+    bf16) and 3840 tokens, 32 greedy decode steps, counted; then (a), (b)
+    and (d) as path lm, in float32 at full depth."""
+    from repro_torch.configs import get_config
+    t_path = time.perf_counter()
+    cfg = get_config(VLM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    row = flash_case(torch, B, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd,
+                     SEED + 8)
+    emit({"phase": "kernel", "path": "vlm", **row})
+    check_flash_case("vlm", row)
+    cfg, model, params, gen, init = serve_init(torch, VLM_ARCH)
+    T = S - cfg.n_patches
+    patches = torch.randn((B, cfg.n_patches, cfg.d_model), generator=gen,
+                          device=DEVICE, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (B, T + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :T], "patch_embs": patches}
+    outs, line, launches, _ = serve_timed(torch, "vlm", cfg, model, params,
+                                          batch, max_len, row["ms"])
+    emit({"phase": "main", "path": "vlm", **init, **line,
+          "patches": cfg.n_patches, "text_tokens": T})
+    check_launches("vlm", cfg, launches)
+    serve_checks(torch, "vlm", cfg, model, params, batch, toks[:, T:T + 1],
+                 {"tokens": toks, "patch_embs": patches}, max_len, outs)
+    del params, outs
+    torch.cuda.empty_cache()
+    emit({"phase": "vlm", "path": "l", "seconds": time.perf_counter() - t_path})
     return launches
 
 
@@ -3847,6 +4152,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_path(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(moe_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(vlm_phase(torch))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,8 +1,9 @@
 """Architecture configs (--arch <id>): the port's copy of repro.configs.
 
-``base.py`` and the dense-family config files are the reference's, verbatim
-(data only).  The other families' configs come with their models (ROADMAP
-A14); ``get_config`` names that item for them.
+``base.py`` and the config files of the dense, MoE and VLM families are the
+reference's, verbatim (data only).  The SSM, hybrid and enc-dec configs
+come with their models (ROADMAP A14); ``get_config`` names that item for
+them.
 """
 from . import base
 from .base import ArchConfig, SHAPES, ShapeSpec, reduced_for_smoke
@@ -13,9 +14,10 @@ ARCH_IDS = [
     "whisper-medium",
 ]
 
-#: The configs this port carries: the dense family, served by
-#: ``models.zoo.build``.
-PORTED_IDS = ("llama3.2-3b", "granite-8b", "qwen2-72b", "qwen2-0.5b")
+#: The configs this port carries, served by ``models.zoo.build``: the dense
+#: family, the MoE family and the VLM.
+PORTED_IDS = ("llama3.2-3b", "granite-8b", "qwen2-72b", "qwen2-0.5b",
+              "qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b")
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -24,8 +26,8 @@ def get_config(arch_id: str) -> ArchConfig:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in PORTED_IDS:
         raise NotImplementedError(
-            f"{arch_id}: only the dense family is ported "
-            f"({', '.join(PORTED_IDS)}); the others come with ROADMAP A14")
+            f"{arch_id}: the port carries {', '.join(PORTED_IDS)}; the "
+            "SSM, hybrid and enc-dec families come with ROADMAP A14")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG

@@ -6,7 +6,7 @@ shapes, so ``zoo.params_from_numpy`` can carry the JAX tree across leaf by
 leaf.  The reference's ``Boxed`` leaves and logical axes, and the sharding
 hints built on them, are not ported: on one device a hint is the identity
 (the engine's sharding policy is ``distributed.sharding``; the LM's
-parameter and activation sharding comes with the rest of the LM stack,
+parameter and activation sharding comes with the sharded train step,
 ROADMAP A14).
 """
 from __future__ import annotations
@@ -30,22 +30,24 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
           scale: Optional[float] = None, stack: int = 0) -> torch.Tensor:
     """One parameter on ``gen``'s device: 'normal' / 'embed' draw N(0, 1) in
     float32 times the scale (default ``init_scale``), 'zeros' and 'ones' are
-    constant; then cast to ``dtype``.  ``stack`` > 0 draws that many layers'
-    copies at once, on a new leading axis; the scale is still the one
-    layer's.  ``gen=None`` gives an empty tensor on the ``meta`` device: the
-    shapes and dtypes of a tree without allocating it."""
+    constant; then cast to ``dtype``.  ``stack`` > 0 makes that many layers'
+    copies on a new leading axis, each drawn in turn into the tensor of
+    ``dtype`` (a float32 draw the size of one layer's leaf at a time); the
+    scale is still the one layer's.  ``gen=None`` gives an empty tensor on
+    the ``meta`` device: the shapes and dtypes of a tree without allocating
+    it."""
     full = ((stack,) if stack else ()) + tuple(shape)
     if gen is None:
         return torch.empty(full, dtype=dtype, device="meta")
-    return _draw(gen, full, shape, init, scale).to(dtype)
-
-
-def _draw(gen, full, shape, init, scale) -> torch.Tensor:
     dev = gen.device
     if init == "zeros":
-        return torch.zeros(full, device=dev)
+        return torch.zeros(full, dtype=dtype, device=dev)
     if init == "ones":
-        return torch.ones(full, device=dev)
+        return torch.ones(full, dtype=dtype, device=dev)
     if scale is None:
         scale = init_scale(shape, init)
-    return torch.randn(full, generator=gen, device=dev).mul_(scale)
+    out = torch.empty(full, dtype=dtype, device=dev)
+    for part in (out.unbind(0) if stack else (out,)):
+        part.copy_(torch.randn(tuple(shape), generator=gen,
+                               device=dev).mul_(scale))
+    return out

@@ -1,5 +1,6 @@
-"""Decoder-only LM, dense family: init, the train forward, KV cache,
-prefill and decode — the port of repro/models/transformer.py.
+"""Decoder-only LM — the dense, MoE and VLM families: init, the train
+forward, KV cache, prefill and decode — the port of
+repro/models/transformer.py.
 
 The parameter tree is the reference's: layer leaves stacked on a leading
 ``n_layers`` axis; a plain loop over the layers (views into the stacked
@@ -10,8 +11,13 @@ int32 tensor on the model's device.
 ``forward(cfg, params, batch) -> (loss, {"loss": loss})`` is the causal-LM
 loss.  With ``cfg.remat`` each block runs under
 ``torch.utils.checkpoint`` (non-reentrant), which keeps only the block's
-input, as the reference's ``jax.checkpoint(nothing_saveable)`` does.  The
-MoE and VLM variants wait for ROADMAP A14.
+input, as the reference's ``jax.checkpoint(nothing_saveable)`` does.
+
+The MoE family (``cfg.n_experts``) puts ``moe.apply_moe`` where the dense
+block has its MLP; its train loss adds 0.01 · (the layers' summed
+load-balancing loss) / n_layers.  The VLM family (paligemma) takes
+``patch_embs`` (B, n_patches, d_model): the image patches' embeddings,
+placed before the text's, and the train loss is over the text span only.
 """
 from __future__ import annotations
 
@@ -21,15 +27,28 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
+from . import moe as M
+
+#: Families this module computes.
+FAMILIES = ("dense", "moe", "vlm")
 
 
 def _block_init(cfg, gen, stack: int) -> dict:
+    blk = {"ln1": L.init_norm(cfg, gen, stack),
+           "attn": L.init_attention(cfg, gen, stack),
+           "ln2": L.init_norm(cfg, gen, stack)}
     if cfg.n_experts:
-        raise NotImplementedError("MoE layers: ROADMAP A14")
-    return {"ln1": L.init_norm(cfg, gen, stack),
-            "attn": L.init_attention(cfg, gen, stack),
-            "ln2": L.init_norm(cfg, gen, stack),
-            "mlp": L.init_mlp(cfg, gen, stack)}
+        blk["moe"] = M.init_moe(cfg, gen, stack)
+    else:
+        blk["mlp"] = L.init_mlp(cfg, gen, stack)
+    return blk
+
+
+def _ffn(cfg, blk, h):
+    """The block's second half: (the MoE layer or the MLP of h, aux)."""
+    if cfg.n_experts:
+        return M.apply_moe(cfg, blk["moe"], h)
+    return L.apply_mlp(cfg, blk["mlp"], h), 0.0
 
 
 def init(cfg, gen) -> dict:
@@ -112,8 +131,8 @@ def _block_apply(cfg, blk, x, positions):
                                    L.apply_norm(cfg, blk["ln1"], x),
                                    positions, causal=True)
     x = x + a
-    h = L.apply_norm(cfg, blk["ln2"], x)
-    return x + L.apply_mlp(cfg, blk["mlp"], h), 0.0
+    m, aux = _ffn(cfg, blk, L.apply_norm(cfg, blk["ln2"], x))
+    return x + m, aux
 
 
 def _scan_blocks(cfg, stacked, x, positions, block_fn):
@@ -132,10 +151,18 @@ def _scan_blocks(cfg, stacked, x, positions, block_fn):
     return x, aux
 
 
-def hidden_states(cfg, params, tokens):
-    """Token embedding -> the blocks -> final-norm hidden states, and the
-    blocks' auxiliary loss (0 for the dense family)."""
+def _embed(cfg, params, tokens, patch_embs):
+    """Token embeddings, after the patch embeddings when given."""
     x = L.embed_tokens(cfg, params["embed"], tokens.to(torch.int32))
+    if patch_embs is not None:
+        x = torch.cat([patch_embs.to(x.dtype), x], dim=1)
+    return x
+
+
+def hidden_states(cfg, params, tokens, *, patch_embs=None):
+    """(Patch and) token embedding -> the blocks -> final-norm hidden
+    states, and the blocks' summed auxiliary loss (0 but for MoE)."""
+    x = _embed(cfg, params, tokens, patch_embs)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
@@ -144,14 +171,20 @@ def hidden_states(cfg, params, tokens):
 
 
 def forward(cfg, params, batch):
-    """Causal-LM loss.  batch: tokens (B,S), labels (B,S) [, loss_mask]."""
-    if cfg.n_experts or cfg.family != "dense":
+    """Causal-LM loss.  batch: tokens (B,S), labels (B,S) [, loss_mask]
+    [, patch_embs (B, P, d)]."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.family} training: ROADMAP A14 (the port trains the dense "
-            "family)")
-    h, _ = hidden_states(cfg, params, batch["tokens"])
+            f"{cfg.family} training: ROADMAP A14 (the port trains the "
+            f"{', '.join(FAMILIES)} families)")
+    patch = batch.get("patch_embs")
+    h, aux = hidden_states(cfg, params, batch["tokens"], patch_embs=patch)
+    if patch is not None:
+        h = h[:, patch.shape[1]:]            # the text span only (VLM)
     logits = L.logits_out(cfg, params["embed"], h)
     loss = L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"loss": loss}
 
 
@@ -162,11 +195,12 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
             "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def prefill(cfg, params, tokens, max_len: int, *, attn_impl: str = "auto"):
-    """Run the prompt (B, S) and return (cache, last-position logits
-    (B, 1, vocab))."""
-    tokens = tokens.to(torch.int32)
-    x = L.embed_tokens(cfg, params["embed"], tokens)
+def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
+            attn_impl: str = "auto"):
+    """Run the prompt — the patch embeddings (B, P, d) when given, then the
+    tokens (B, S) — and return (cache, last-position logits (B, 1,
+    vocab)); the cache holds P + S positions."""
+    x = _embed(cfg, params, tokens, patch_embs)
     B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(f"prefill: {S} tokens exceed max_len {max_len}")
@@ -180,8 +214,7 @@ def prefill(cfg, params, tokens, max_len: int, *, attn_impl: str = "auto"):
         a, (k, v) = L.apply_attention(cfg, blk["attn"], h, positions,
                                       causal=True, impl=attn_impl)
         x = x + a
-        h = L.apply_norm(cfg, blk["ln2"], x)
-        x = x + L.apply_mlp(cfg, blk["mlp"], h)
+        x = x + _ffn(cfg, blk, L.apply_norm(cfg, blk["ln2"], x))[0]
         kc[i, :, :S] = k
         vc[i, :, :S] = v
     h = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
@@ -203,8 +236,7 @@ def decode(cfg, params, cache, token):
         a, _ = L.apply_attention_decode(cfg, blk["attn"], h,
                                         {"k": kc[i], "v": vc[i]}, cur)
         x = x + a
-        h = L.apply_norm(cfg, blk["ln2"], x)
-        x = x + L.apply_mlp(cfg, blk["mlp"], h)
+        x = x + _ffn(cfg, blk, L.apply_norm(cfg, blk["ln2"], x))[0]
     h = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.logits_out(cfg, params["embed"], h)
     return {"kv": cache["kv"], "len": cur + 1}, logits

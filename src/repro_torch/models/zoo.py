@@ -1,5 +1,5 @@
 """Model zoo: the facade over the ported architecture families — the port
-of repro/models/zoo.py for the dense family.
+of repro/models/zoo.py for the dense, MoE and VLM families.
 
 ``build(cfg)`` returns a ``Model`` whose functions share the reference's
 signatures:
@@ -12,8 +12,10 @@ signatures:
 
 on the model's device: ``cuda`` unless the caller asks for the CPU (the
 ``device`` argument, else the engine's ``device`` knob, ``fm.set_conf(device=
-...)``); with no card and no such request, ``build`` raises.  Other
-families raise ``NotImplementedError`` naming ROADMAP A14.
+...)``); with no card and no such request, ``build`` raises.  A VLM's
+batch carries ``patch_embs`` (B, n_patches, d_model) beside its tokens.
+The SSM, hybrid and enc-dec families raise ``NotImplementedError`` naming
+ROADMAP A14.
 ``params_from_numpy`` and ``opt_state_from_numpy`` carry a JAX parameter
 tree and AdamW state across, so both packages compute the same thing.
 """
@@ -29,7 +31,7 @@ from . import transformer
 from .layers import dtype_of
 
 #: Families ``build`` serves.
-FAMILIES = ("dense",)
+FAMILIES = transformer.FAMILIES
 
 
 def resolve_device(device=None) -> torch.device:
@@ -65,6 +67,7 @@ class Model:
     def prefill(self, params, batch: dict, max_len: int, *,
                 attn_impl: str = "auto"):
         return transformer.prefill(self.cfg, params, batch["tokens"], max_len,
+                                   patch_embs=batch.get("patch_embs"),
                                    attn_impl=attn_impl)
 
     def decode(self, params, cache, token):
@@ -78,7 +81,7 @@ class Model:
 
 
 def build(cfg: ArchConfig, device=None) -> Model:
-    if cfg.family not in FAMILIES or cfg.n_experts:
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet; the "
             f"port serves {FAMILIES} (ROADMAP A14)")
@@ -88,7 +91,9 @@ def build(cfg: ArchConfig, device=None) -> Model:
 def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     """Meta-device stand-ins for one (arch × shape) cell's inputs: train
     takes tokens and labels (B, S), prefill tokens (B, S) with max_len S,
-    decode one token (B, 1) against a cache of max_len S."""
+    decode one token (B, 1) against a cache of max_len S.  A VLM's S
+    counts its patches: tokens and labels are (B, S - n_patches), beside
+    ``patch_embs`` (B, n_patches, d_model) in ``cfg.dtype``."""
     B, S = shape.global_batch, shape.seq_len
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.family} inputs: ROADMAP A14")
@@ -96,12 +101,17 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     def tok(shape_):
         return torch.empty(shape_, dtype=torch.int32, device="meta")
 
+    text = S - cfg.n_patches                    # n_patches is 0 but for VLM
+    batch = {"tokens": tok((B, text)), "labels": tok((B, text))}
+    if cfg.family == "vlm":
+        batch["patch_embs"] = torch.empty(
+            (B, cfg.n_patches, cfg.d_model), dtype=dtype_of(cfg.dtype),
+            device="meta")
     if shape.kind == "train":
-        return {"kind": "train",
-                "batch": {"tokens": tok((B, S)), "labels": tok((B, S))}}
+        return {"kind": "train", "batch": batch}
     if shape.kind == "prefill":
-        return {"kind": "prefill", "batch": {"tokens": tok((B, S))},
-                "max_len": S}
+        del batch["labels"]
+        return {"kind": "prefill", "batch": batch, "max_len": S}
     if shape.kind == "decode":
         return {"kind": "decode", "batch": {"token": tok((B, 1))},
                 "max_len": S, "cache_batch": B}

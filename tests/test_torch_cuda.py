@@ -25,8 +25,12 @@ head dim the kernel is built for (80, 96, 112 and 256 among them), GQA
 group factors 1, 3 and 8, causal and not, bf16 (held within one bf16 ulp
 of float64) and f32, the wgmma body over many kv tiles, zero and negative
 scales, unaligned bases (copied, then equal to the aligned result),
-one case whose element offsets pass 2³¹, and a reduced LM prefill and
-decode on the card against the same on the CPU; xty's 16-byte loads over
+one case whose element offsets pass 2³¹, the two serving shapes of the
+MoE and VLM families (GQA group 8 at head dim 128 on the wgmma body, MQA
+at head dim 256 on the FMA body), and a reduced LM prefill and decode on
+the card against the same on the CPU — dense, MoE (qwen3-moe, arctic) and
+VLM (paligemma) — with a full-width init of two qwen3-moe layers whose
+peak stays within one float32 layer leaf of their bf16 bytes; xty's 16-byte loads over
 a ragged last column tile at the end of whole allocator segments.  The
 train path (no kernel of its own): blockwise attention and its backward
 against the grouped route, and a reduced llama's gradients (remat on and
@@ -870,6 +874,108 @@ def test_lm_prefill_and_decode_on_the_card_match_the_cpu(dev, arch,
     for a, b in zip(out[dev], out["cpu"]):
         a, b = a.double().cpu(), b.double()
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("nh,nkv,d", [(32, 4, 128), (8, 1, 256)])
+def test_flash_attention_moe_and_vlm_serving_shapes(dev, nh, nkv, d):
+    """qwen3-moe's attention (32 heads over 4, head dim 128: the wgmma
+    body) and paligemma's (8 heads over 1, head dim 256: the FMA body) at
+    S = T = 1024, bf16, causal: one launch, within one bf16 ulp of the
+    float64 plain version."""
+    B, S = 2, 1024
+    q = _x(B * nh * S, d, torch.bfloat16, dev).reshape(B, nh, S, d)
+    k = _x(B * nkv * S, d, torch.bfloat16, dev).reshape(B, nkv, S, d)
+    v = _x(B * nkv * S, d, torch.bfloat16, dev).reshape(B, nkv, S, d)
+    assert fa.body_for(q.dtype, d) == ("wgmma" if d == 128 else "fma")
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True, dtype=torch.float64)
+    _close(got, want, 1e-2)
+    _within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "arctic-480b",
+                                  "paligemma-3b"])
+@pytest.mark.parametrize("serve_dtype,tol", [("float32", 1e-4),
+                                             ("bfloat16", 2e-2)])
+def test_moe_and_vlm_prefill_and_decode_on_the_card_match_the_cpu(
+        dev, arch, serve_dtype, tol):
+    """The reduced MoE and VLM models (dropless prompts; paligemma with 8
+    patch embeddings before the text) as the dense test above: prefill
+    (one kernel launch a layer) and a decode step on the card against the
+    CPU, float32 to 1e-4 of the largest logit, bf16 to 2e-2; the routes of
+    the two devices' prefills are printed as the tokens whose top-k sets
+    differ."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.models import moe, zoo
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)),
+                              dtype=serve_dtype)
+    on = {d: steps.serving_model(cfg, serve_dtype=serve_dtype, device=d)
+          for d in ("cpu", dev)}
+    params = {"cpu": on["cpu"].init(0)}
+    params[dev] = zoo.tree_map(lambda _, t: t.to(dev), params["cpu"])
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 101)),
+                           dtype=torch.int32)
+    patches = torch.as_tensor(RNG.normal(size=(2, cfg.n_patches,
+                                               cfg.d_model)),
+                              dtype=torch.float32)
+    out, sels = {}, {}
+    for d in ("cpu", dev):
+        batch = {"tokens": toks[:, :100].to(d)}
+        if cfg.family == "vlm":
+            batch["patch_embs"] = patches.to(d)
+        got = []
+        moe.route_hook = lambda sel, keep: got.append(sel.cpu())
+        try:
+            before = fa.launches
+            cache, logits = steps.build_prefill_step(
+                on[d], 110 + cfg.n_patches)(params[d], batch)
+            _, dec = steps.build_decode_step(on[d])(params[d], cache,
+                                                    toks[:, 100:].to(d))
+            launched = fa.launches - before
+        finally:
+            moe.route_hook = None
+        assert launched == (cfg.n_layers if d == dev else 0)
+        out[d], sels[d] = (logits, dec, cache["kv"]["k"]), got
+    flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                for a, b in zip(sels[dev], sels["cpu"]))
+    print(f"{arch} {serve_dtype}: {flips} tokens routed differently")
+    for a, b in zip(out[dev], out["cpu"]):
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+def test_moe_init_peak_within_one_float32_layer_leaf(dev):
+    """Two full-width qwen3-moe layers drawn in bf16 on the card: each
+    stacked leaf is drawn a layer at a time, so the init's peak over the
+    bf16 bytes stays within one layer's float32 expert leaf (E·d·f·4 =
+    805 MB), not the whole stack's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer, zoo
+    cfg = dataclasses.replace(get_config("qwen3-moe-30b-a3b"),
+                              param_dtype="bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    blk = transformer._block_init(cfg, gen, 2)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    nbytes = sum(t.numel() * t.element_size() for _, t in zoo.flatten(blk))
+    leaf32 = cfg.n_experts * cfg.d_model * cfg.moe_ff * 4
+    assert blk["moe"]["wi"].shape == (2, cfg.n_experts, cfg.d_model,
+                                      cfg.moe_ff)
+    assert blk["moe"]["wi"].dtype == torch.bfloat16
+    assert nbytes < peak <= nbytes + leaf32 + (1 << 20), (peak, nbytes)
+    w = blk["moe"]["wi"][1, 5].float()
+    assert abs(float(w.std()) * cfg.n_experts ** 0.5 - 1) < 0.01
 
 
 def _rel_to(a, b):

@@ -414,8 +414,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         from repro_torch.storage import prefetch, sparse
         from repro_torch import configs, models
         from repro_torch.launch import steps
-        from repro_torch.models import layers, transformer, zoo
-        configs.get_config("llama3.2-3b")
+        from repro_torch.models import layers, moe, transformer, zoo
+        for arch in configs.PORTED_IDS:
+            configs.get_config(arch)
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro.")
                      or m.startswith("jax"))

@@ -1,10 +1,15 @@
-"""The port's dense LM serving path on the CPU against the JAX package.
+"""The port's LM serving path on the CPU against the JAX package.
 
-Reduced llama3.2-3b and qwen2-0.5b (``reduced_for_smoke``: 2 layers,
-d_model 128, 4 heads over 2 KV heads, head dim 32, vocab 512, float32): the
+Reduced llama3.2-3b and qwen2-0.5b (dense), qwen3-moe-30b-a3b and
+arctic-480b (MoE: 8 experts, top-2, arctic with its dense residual) and
+paligemma-3b (VLM: MQA, tied embeddings, GeGLU, 8 patch embeddings before
+the text) — ``reduced_for_smoke``: 2 layers, d_model 128, 4 heads over 2
+KV heads (1 for paligemma), head dim 32, vocab 512, float32: the
 reference's parameters from ``model.init(PRNGKey(0))``, their norm scales
 and QKV biases redrawn from a seeded numpy RNG so that those leaves matter,
-carried across with ``params_from_numpy``.  Prefill logits and the KV cache
+carried across with ``params_from_numpy``; the patch embeddings drawn from
+the same RNG.  The MoE prompts are dropless (S·k <= 4096), as the
+reference's serving check is.  Prefill logits and the KV cache
 agree with ``repro.models.zoo.build(cfg).prefill`` within 1e-4 of their
 largest value, one decode step with ``decode`` likewise, and prefill + decode
 with a prefill one token longer within 2e-2 (the twin of
@@ -34,9 +39,9 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import steps
 from repro_torch.models import layers, transformer, zoo
 
-ARCHS = ["llama3.2-3b", "qwen2-0.5b"]
+ARCHS = ["llama3.2-3b", "qwen2-0.5b", "qwen3-moe-30b-a3b", "arctic-480b",
+         "paligemma-3b"]
 B, S = 2, 33
-MAX_LEN = S + 8
 
 
 def _rel(a, b):
@@ -65,13 +70,19 @@ def case(request):
     tree = jax.tree_util.tree_map_with_path(redraw, tree)
     jparams = jax.tree_util.tree_map(jnp.asarray, tree)
     toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
-    prefill = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t}, MAX_LEN))
+    patches = (rng.normal(size=(B, cfg.n_patches, cfg.d_model))
+               .astype(np.float32) if cfg.family == "vlm" else None)
+    max_len = cfg.n_patches + S + 8
+    extra = {} if patches is None else {"patch_embs": jnp.asarray(patches)}
+    prefill = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t, **extra},
+                                               max_len))
     jcache, jlogits = prefill(jparams, jnp.asarray(toks[:, :S]))
     _, jfull = prefill(jparams, jnp.asarray(toks))
     jcache2, jdec = jax.jit(jm.decode)(jparams, jcache,
                                        jnp.asarray(toks[:, S:]))
     model = zoo.build(cfg, device="cpu")
-    return dict(arch=arch, cfg=cfg, model=model, toks=toks,
+    return dict(arch=arch, cfg=cfg, model=model, toks=toks, patches=patches,
+                max_len=max_len,
                 params=zoo.params_from_numpy(cfg, tree, "cpu"),
                 jcache=jax.tree_util.tree_map(np.asarray, jcache),
                 jlogits=np.asarray(jlogits), jfull=np.asarray(jfull),
@@ -79,9 +90,16 @@ def case(request):
                 jdec=np.asarray(jdec))
 
 
+def _batch(case, toks):
+    batch = {"tokens": torch.from_numpy(toks)}
+    if case["patches"] is not None:
+        batch["patch_embs"] = torch.from_numpy(case["patches"])
+    return batch
+
+
 def _prefill(case, toks):
-    step = steps.build_prefill_step(case["model"], MAX_LEN)
-    return step(case["params"], {"tokens": torch.from_numpy(toks)})
+    step = steps.build_prefill_step(case["model"], case["max_len"])
+    return step(case["params"], _batch(case, toks))
 
 
 def test_prefill_logits_and_cache_match_reference(case):
@@ -90,11 +108,13 @@ def test_prefill_logits_and_cache_match_reference(case):
     assert _rel(logits.numpy(), case["jlogits"]) < 1e-4
     for kv in ("k", "v"):
         got, want = cache["kv"][kv].numpy(), case["jcache"]["kv"][kv]
-        assert got.shape == want.shape == (case["cfg"].n_layers, B, MAX_LEN,
+        assert got.shape == want.shape == (case["cfg"].n_layers, B,
+                                           case["max_len"],
                                            case["cfg"].n_kv_heads,
                                            case["cfg"].hd)
         assert _rel(got, want) < 1e-4
-    assert int(cache["len"]) == int(case["jcache"]["len"]) == S
+    n = case["cfg"].n_patches + S
+    assert int(cache["len"]) == int(case["jcache"]["len"]) == n
 
 
 def test_decode_step_matches_reference(case):
@@ -105,7 +125,8 @@ def test_decode_step_matches_reference(case):
     assert _rel(logits.numpy(), case["jdec"]) < 1e-4
     for kv in ("k", "v"):
         assert _rel(cache["kv"][kv].numpy(), case["jcache2"]["kv"][kv]) < 1e-4
-    assert int(cache["len"]) == int(case["jcache2"]["len"]) == S + 1
+    n = case["cfg"].n_patches + S + 1
+    assert int(cache["len"]) == int(case["jcache2"]["len"]) == n
 
 
 def test_prefill_decode_matches_longer_prefill(case):
@@ -125,9 +146,9 @@ def test_prefill_with_ref_attention_matches_auto(case):
     on the CPU 'auto' takes that plain version too, and counts no launch."""
     before = fa.launches
     _, a = _prefill(case, case["toks"][:, :S])
-    step = steps.build_prefill_step(case["model"], MAX_LEN, attn_impl="ref")
-    _, r = step(case["params"], {"tokens": torch.from_numpy(
-        case["toks"][:, :S])})
+    step = steps.build_prefill_step(case["model"], case["max_len"],
+                                    attn_impl="ref")
+    _, r = step(case["params"], _batch(case, case["toks"][:, :S]))
     assert torch.equal(a, r) and fa.launches == before
 
 
@@ -224,8 +245,11 @@ def test_init_law_and_serving_dtype():
                zip(zoo.flatten(sp), zoo.flatten(again)))
 
 
-def test_input_specs_match_reference():
-    cfg, jcfg = get_config("llama3.2-3b"), jget_config("llama3.2-3b")
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "paligemma-3b"])
+def test_input_specs_match_reference(arch):
+    """Shapes and dtypes of every cell's inputs; the VLM's tokens are the
+    text after its 256 patches, its patch embeddings in ``cfg.dtype``."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
     for name in ("train_4k", "prefill_32k", "decode_32k"):
         got = zoo.input_specs(cfg, SHAPES[name])
         want = jzoo.input_specs(jcfg, JSHAPES[name])
@@ -234,16 +258,21 @@ def test_input_specs_match_reference():
         assert set(got["batch"]) == set(want["batch"])
         for k, v in want["batch"].items():
             assert tuple(got["batch"][k].shape) == v.shape
-            assert got["batch"][k].dtype == torch.int32
+            assert str(got["batch"][k].dtype) == f"torch.{v.dtype}"
+            assert got["batch"][k].device.type == "meta"
 
 
 def test_unported_families_and_bad_inputs_raise():
-    for arch in ARCH_IDS:
-        if arch not in PORTED_IDS:
-            with pytest.raises(NotImplementedError, match="A14"):
-                get_config(arch)
-    with pytest.raises(NotImplementedError, match="A14"):
-        zoo.build(jget_config("mamba2-1.3b"), device="cpu")
+    """The SSM, hybrid and enc-dec configs and models name A14."""
+    unported = [a for a in ARCH_IDS if a not in PORTED_IDS]
+    assert sorted(unported) == ["mamba2-1.3b", "whisper-medium", "zamba2-7b"]
+    for arch in unported:
+        with pytest.raises(NotImplementedError, match="A14"):
+            get_config(arch)
+        with pytest.raises(NotImplementedError, match="A14"):
+            zoo.build(jget_config(arch), device="cpu")
+        with pytest.raises(NotImplementedError, match="A14"):
+            zoo.input_specs(jget_config(arch), SHAPES["train_4k"])
     cfg = reduced_for_smoke(get_config("qwen2-0.5b"))
     model = zoo.build(cfg, device="cpu")
     tree = model.init(0)

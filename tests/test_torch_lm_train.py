@@ -1,4 +1,4 @@
-"""The port's dense-family training on the CPU against the JAX package.
+"""The port's LM training on the CPU against the JAX package.
 
 Reduced llama3.2-3b and qwen2-0.5b (``reduced_for_smoke``: 2 layers,
 d_model 128, 4 heads over 2 KV heads, head dim 32, vocab 512, float32), the
@@ -6,7 +6,10 @@ reference's parameters from ``model.init(PRNGKey(0))`` carried across with
 ``params_from_numpy``:
 
 * ``forward``'s loss within 1e-5 relative and every gradient leaf within
-  1e-4 of its largest |entry|, remat off and on;
+  1e-4 of its largest |entry|, remat off and on — for the dense archs and
+  for reduced qwen3-moe-30b-a3b and arctic-480b (the loss with 0.01 ·
+  aux / n_layers) and paligemma-3b (patch embeddings before the text, the
+  loss over the text only);
 * ``blockwise_attention``'s forward and its backward (the reference's
   custom VJP through ``jax.vjp``) at B 2, S = T = 48, GQA g = 2, causal and
   not, bk 16 and bk 20 (T not a multiple: padded keys), within 1e-5 of the
@@ -51,6 +54,8 @@ from repro_torch.models import layers, zoo
 from repro_torch.optim import adam
 
 ARCHS = ["llama3.2-3b", "qwen2-0.5b"]
+#: Archs of the loss-and-gradient twin: the dense ones, MoE and the VLM.
+LOSS_ARCHS = ARCHS + ["qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b"]
 B, S = 2, 48
 
 
@@ -74,10 +79,15 @@ def _pair(arch, **over):
         cfg, tree, "cpu")
 
 
-def _batch(vocab, b=B, s=S, seed=0):
+def _batch(vocab, b=B, s=S, seed=0, cfg=None):
+    """Tokens and labels (b, s); for a VLM ``cfg``, patch embeddings too."""
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
+    batch = {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
+    if cfg is not None and cfg.family == "vlm":
+        batch["patch_embs"] = rng.normal(
+            size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch
 
 
 def _torch(batch):
@@ -85,10 +95,10 @@ def _torch(batch):
 
 
 @pytest.mark.parametrize("remat", [False, True])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_forward_loss_and_grads_match_reference(arch, remat):
     jm, tree, model, params = _pair(arch, remat=remat)
-    batch = _batch(model.cfg.vocab)
+    batch = _batch(model.cfg.vocab, cfg=model.cfg)
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
     (jloss, jmet), jg = jax.value_and_grad(
         lambda p: jm.forward(p, jb), has_aux=True)(
@@ -290,11 +300,13 @@ def test_opt_state_from_numpy_carries_the_reference_state():
 
 
 def test_other_families_still_raise_with_a14():
-    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
-                              n_experts=4, top_k=2)
+    """The SSM, hybrid and enc-dec families' train forward names A14."""
     from repro_torch.models import transformer
-    with pytest.raises(NotImplementedError, match="A14"):
-        transformer.forward(cfg, {}, {})
+    for family in ("ssm", "hybrid", "encdec"):
+        cfg = dataclasses.replace(
+            reduced_for_smoke(get_config("llama3.2-3b")), family=family)
+        with pytest.raises(NotImplementedError, match="A14"):
+            transformer.forward(cfg, {}, {})
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="A14"):
         train.main(["--arch", "qwen2-0.5b", "--reduced",
@@ -337,7 +349,7 @@ def test_training_modules_import_no_jax_and_nothing_of_repro():
         from repro_torch.checkpoint import checkpoint as ck
         from repro_torch.data import pipeline
         from repro_torch.launch import steps, train
-        from repro_torch.models import layers, transformer, zoo
+        from repro_torch.models import layers, moe, transformer, zoo
         from repro_torch.optim import adam, schedule
         from repro_torch.runtime import fault_tolerance
         bad = sorted(m for m in sys.modules

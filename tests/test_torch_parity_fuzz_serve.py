@@ -16,6 +16,15 @@ the dense arm's programs in ``whole``, ``stream`` and ``ooc`` (host RAM)
 mode, and the reference's anchor, ``test_known_program_served_parity``, in
 every mode.
 
+The counters are exact only when each side serves its k requests in ONE
+admission window.  The reference's evaluator opens a 2,000 ms window
+(``max_window_requests=k`` closes it early); a submit that reached its
+Engine after the window closed would make that side run two windows and
+two streams.  The twin's copy of the evaluator therefore gets an Engine
+whose window is ``WINDOW_MS`` — it still closes at the k-th request, so
+it costs nothing when all k arrive — and each side must have served its
+requests in one window of k, or the cell fails naming the windows.
+
 A file of its own, so that ``--dist loadfile`` runs it on another worker
 than the fuzz twin.
 """
@@ -36,27 +45,54 @@ pytestmark = pytest.mark.usefixtures("time_limit")
 ref = twin.ref
 SERVE_EXAMPLES = 24
 CHUNKS = 3
+#: The twin's admission window: long enough for every submit of a cell
+#: under any load; the window still closes at its k-th request.
+WINDOW_MS = 30_000
+#: Sizes of the windows each side's Engine ran in the current cell.
+WINDOWS: list = []
 
 
-def _port_import(name, globals=None, locals=None, fromlist=(), level=0):
-    """``import repro.<x>`` answered by ``repro_torch.<x>``: the reference's
-    serving code, run against the port."""
-    if level == 0 and name.startswith("repro."):
-        mod = importlib.import_module("repro_torch." + name[len("repro."):])
-        return mod if fromlist else importlib.import_module("repro_torch")
-    return builtins.__import__(name, globals, locals, fromlist, level)
+def _long_window(serve_mod):
+    """``serve_mod`` as the evaluator imports it, its Engine opening
+    ``WINDOW_MS`` windows and recording each window's size."""
+    class Engine(serve_mod.Engine):
+        def __init__(self, *, window_ms, **kw):
+            super().__init__(window_ms=WINDOW_MS, **kw)
+
+        def _run_window(self, window):
+            WINDOWS.append(len(window))
+            return super()._run_window(window)
+    return types.SimpleNamespace(Engine=Engine)
+
+
+def _importer(package):
+    """``import repro.<x>`` answered by ``<package>.<x>``, with the serve
+    module's Engine under ``_long_window``: the reference's serving code,
+    run against either package."""
+    def __import__(name, globals=None, locals=None, fromlist=(), level=0):
+        if level == 0 and name.startswith("repro."):
+            mod = importlib.import_module(
+                f"{package}.{name[len('repro.'):]}")
+            if name == "repro.core.serve" and fromlist:
+                return _long_window(mod)
+            return mod if fromlist else importlib.import_module(package)
+        return builtins.__import__(name, globals, locals, fromlist, level)
+    return __import__
 
 
 #: The reference's served evaluator with each side's interpreter.
 _SERVED = {
     REF.name: types.FunctionType(
         ref.eval_engine_served.__code__,
-        {**vars(ref), "_lazy_outputs": twin._ref_lazy_outputs}),
+        {**vars(ref), "_lazy_outputs": twin._ref_lazy_outputs,
+         "__builtins__": {**vars(builtins),
+                          "__import__": _importer("repro")}}),
     PORT.name: types.FunctionType(
         ref.eval_engine_served.__code__,
         {**vars(ref), "fm": PORT.fm,
          "_lazy_outputs": twin._port_lazy_outputs,
-         "__builtins__": {**vars(builtins), "__import__": _port_import}}),
+         "__builtins__": {**vars(builtins),
+                          "__import__": _importer("repro_torch")}}),
 }
 
 
@@ -71,12 +107,17 @@ def check_served_program(prog, mode: str = "mem") -> str | None:
     of the generator's cells; an error string, or None."""
     refs = ref.eval_numpy(prog)
     counters = []
+    k = min(3, len(prog.outputs))
     for side, lazy_outputs, backend in twin._SIDES:
         served = side.metrics.root_counter("serve_requests")
+        WINDOWS.clear()
         with counting(side) as c:
             gots = _SERVED[side.name](prog, backend, mode)
         if side.metrics.root_counter("serve_requests") == served:
             return f"{side.name}: its own Engine served no request"
+        if WINDOWS != [k]:
+            return (f"{side.name}: its {k} requests were served in "
+                    f"windows of {WINDOWS}, not in one")
         c["pass_bytes_in"] = sorted(c["pass_bytes_in"])
         counters.append(c)
         for o, got, want in zip(prog.outputs, gots, refs, strict=True):
