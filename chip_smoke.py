@@ -26,8 +26,8 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — paths a–l: a–c and e–i through ``repro_torch.core.fm``, d,
-             j, k and l through the LM stack, each with the
+4. main    — paths a–n: a–c and e–i through ``repro_torch.core.fm``, d
+             and j–n through the LM stack, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -306,6 +306,32 @@ Phases, each printing one JSON line:
                 and 3840 tokens, 32 greedy decode steps, counted (18
                 launches a prefill), the kernel's share of prefill; then
                 (a), (b) and (d) as path d, in float32 at full depth.
+             m. then the SSM: mamba2-1.3b at full width and depth (48
+                layers, d_model 2048, 64 SSM heads of 64, state 128, vocab
+                50,280, untied; 2.89 GB of bf16 weights from seed 2016), 4
+                prompts of 4096 tokens and 32 greedy decode steps,
+                counted: no attention, so ``flash_attention`` must launch
+                0 times; the SSM cache's bytes printed; then in float32 at
+                full depth (b) prefill + one decode step against a prefill
+                one token longer (4097: the chunked scan's pad path), (e)
+                layer 0's chunked scan (``ssm.apply_ssm``) over the 4 ×
+                4096 prompt against the same layer token by token through
+                ``apply_ssm_decode`` from a zero cache — its output, final
+                state and conv window — each within ``LM_F32_TOL``, and (d)
+                every logit finite; (a) does not apply.
+             n. then the hybrid: the kernel at zamba2-7b's attention shape
+                — q, k, v (4, 32, 4096, 112), MHA at head dim 112, the FMA
+                body — as in path k; then zamba2-7b at full width and
+                depth (81 layers: 13 groups of 6 SSM layers, each followed
+                by the one shared attention + MLP block, and a tail of 3;
+                d_model 3584, 32 heads of 112, d_ff 14,336, vocab 32,000;
+                13.50 GB of bf16 weights), 4 prompts of 4096 tokens and 32
+                decode steps, counted (13 launches a prefill: one an
+                application of the shared block), the kernel's share of
+                prefill and the 13 KV caches' bytes; then (a), (b) and (d)
+                in float32 at full width and a depth of 15 — the first two
+                groups and the tail (a cut) — the bf16 readings at full
+                depth printed.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the paths), the card's name and power
@@ -352,6 +378,12 @@ LM_PROMPT = 4096         # tokens a prompt
 LM_DECODE = 32           # greedy decode steps
 MOE_ARCH = "qwen3-moe-30b-a3b"  # path k's model, full width and depth
 VLM_ARCH = "paligemma-3b"       # path l's model, full width and depth
+SSM_ARCH = "mamba2-1.3b"        # path m's model, full width and depth
+HYBRID_ARCH = "zamba2-7b"       # path n's model, full width and depth
+#: Path n also prints its bf16 (a) and (b) at full width and this depth
+#: (the first two groups of 6 SSM layers and the 3-layer tail) beside the
+#: full depth's, so the two show what depth does to bf16 rounding.
+HYBRID_SHALLOW_LAYERS = 15
 #: Path k's float32 checks run the model's first layers at full width (a
 #: cut of depth: all 48 in float32 would be 122 GB).
 MOE_CHECK_LAYERS = 2
@@ -3555,11 +3587,33 @@ def route_flips(torch, a, b):
                    .any(-1).sum()) for x, y in zip(a, b))
 
 
+def attention_apps(cfg) -> int:
+    """Applications of attention in one prefill: a layer each for the
+    dense, MoE and VLM families, none for the SSM, one a group of SSM
+    layers for the hybrid."""
+    from repro_torch.models import hybrid
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return hybrid.group_shape(cfg)[0]
+    return cfg.n_layers
+
+
+def cache_bytes(cache, keys) -> int:
+    """Bytes of the tensors under ``keys`` of a decode cache (those it
+    has)."""
+    from repro_torch.models import zoo
+    return sum(t.nbytes for k in keys if k in cache
+               for _, t in zoo.flatten(cache[k]))
+
+
 def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
     """One warm prefill (its MoE routes recorded), then one prefill and
     ``LM_DECODE`` greedy decode steps, counted: (logits of every step, the
     timing line, launches, the warm prefill's routes).  The kernel must
-    launch once a layer."""
+    launch once an application of attention (``attention_apps``); a path
+    without attention (the SSM) counts its launches without requiring
+    one, and ``flash_ms`` is then None."""
     from repro_torch.launch import steps
     prefill = steps.build_prefill_step(model, max_len)
     decode = steps.build_decode_step(model)
@@ -3579,10 +3633,13 @@ def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
             outs.append(logits)
             tok = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
-        return outs, t1 - t0, time.perf_counter() - t1
+        return (outs, t1 - t0, time.perf_counter() - t1,
+                cache_bytes(cache, ("kv",)),
+                cache_bytes(cache, ("ssm", "ssm_groups", "ssm_tail")))
 
-    (outs, pre_s, dec_s), launches = counted(
-        torch, path, ("flash_attention",), run)
+    apps = attention_apps(cfg)
+    (outs, pre_s, dec_s, kv_bytes, ssm_bytes), launches = counted(
+        torch, path, ("flash_attention",) if apps else (), run)
     peak = torch.cuda.max_memory_allocated()
     greedy = torch.stack([o.argmax(-1)[:, 0] for o in outs], 1)
     B = batch["tokens"].shape[0]
@@ -3592,18 +3649,22 @@ def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
             "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
             "decode_tokens_s": B * LM_DECODE / dec_s,
             "flash_launches": launches["flash_attention"],
-            "flash_share_of_prefill": cfg.n_layers * flash_ms / (pre_s * 1e3),
+            "attention_apps": apps,
+            "flash_share_of_prefill": (apps * flash_ms / (pre_s * 1e3)
+                                       if apps else 0.0),
             "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
-            "kv_cache_gib": 2 * cfg.n_layers * B * max_len * cfg.n_kv_heads
-            * cfg.hd * 2 / 2**30,
+            "kv_cache_gib": kv_bytes / 2**30,
+            "ssm_cache_bytes": ssm_bytes,
             "greedy_tokens_row0": greedy[0].tolist()}
     return outs, line, launches, warm
 
 
 def check_launches(path, cfg, launches):
-    check(launches["flash_attention"] == cfg.n_layers,
+    apps = attention_apps(cfg)
+    check(launches["flash_attention"] == apps,
           f"{path}: flash_attention launched {launches['flash_attention']} "
-          f"times in one prefill, not once per layer ({cfg.n_layers})")
+          f"times in one prefill, not once an application of attention "
+          f"({apps})")
 
 
 def check_a(torch, model, params, batch, max_len):
@@ -3798,6 +3859,137 @@ def vlm_phase(torch):
     del params, outs
     torch.cuda.empty_cache()
     emit({"phase": "vlm", "path": "l", "seconds": time.perf_counter() - t_path})
+    return launches
+
+
+def scan_vs_recurrence(torch, cfg32, params32, toks):
+    """(e): layer 0's ``apply_ssm`` (the chunked scan) over the prompt
+    against the same layer run token by token through ``apply_ssm_decode``
+    from a zero cache, in float32: (output rel, final state rel, window
+    rel, seconds of the token loop)."""
+    from repro_torch.models import layers as L, ssm, transformer
+    blk = transformer.layer(params32["layers"], 0)
+    with torch.no_grad():
+        x = L.embed_tokens(cfg32, params32["embed"], toks)
+        h = L.apply_norm(cfg32, blk["ln"], x)
+        y, state, window = ssm.apply_ssm(cfg32, blk["ssm"], h)
+        cache = ssm.init_ssm_cache(cfg32, h.shape[0], torch.float32, DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = [ssm.apply_ssm_decode(cfg32, blk["ssm"], h[:, t:t + 1], cache)[0]
+              for t in range(h.shape[1])]
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t0
+    return (rel_err(torch, y, torch.cat(ys, 1)),
+            rel_err(torch, state, cache["state"]),
+            rel_err(torch, window, cache["conv"]), loop_s)
+
+
+def ssm_phase(torch):
+    """Path m: mamba2-1.3b at full width and depth — bf16 serving weights
+    from seed 2016, 4 prompts of 4096 tokens and 32 greedy decode steps,
+    counted (no attention: flash launches 0 times, checked); then in
+    float32 at full depth (b) prefill + decode against a prefill one token
+    longer (4097 tokens: the pad path), (e) layer 0's chunked scan over
+    the prompt against its token-by-token recurrence, (d) every logit
+    finite.  (a), the kernel against plain attention, does not apply."""
+    import dataclasses
+    from repro_torch.models import zoo
+    t_path = time.perf_counter()
+    cfg, model, params, gen, init = serve_init(torch, SSM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :S]}
+    outs, line, launches, _ = serve_timed(torch, "ssm", cfg, model, params,
+                                          batch, max_len, None)
+    emit({"phase": "main", "path": "ssm", **init, **line,
+          "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30})
+    check_launches("ssm", cfg, launches)
+    finite = all(bool(torch.isfinite(t).all()) for t in outs)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    params32 = zoo.tree_map(lambda _, t: t.float(), params)
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    model32 = zoo.build(cfg32, DEVICE)
+    b, lb, _ = check_b(torch, model32, params32, batch, toks[:, S:S + 1],
+                       {"tokens": toks}, max_len)
+    e_y, e_state, e_window, loop_s = scan_vs_recurrence(
+        torch, cfg32, params32, toks[:, :S])
+    finite = finite and all(bool(torch.isfinite(t).all()) for t in lb)
+    emit({"phase": "compare", "path": "ssm", "dtype": "float32",
+          "layers": cfg.n_layers, "batch": B, "prompt": S,
+          "a": "does not apply: no attention",
+          "b_prefill_decode_vs_longer_prefill": b, "b_tol": LM_F32_TOL,
+          "e_scan_vs_recurrence_y": e_y, "e_state": e_state,
+          "e_window": e_window, "e_tol": LM_F32_TOL,
+          "e_recurrence_s": loop_s, "d_all_logits_finite": finite})
+    check(b < LM_F32_TOL, f"ssm (b): float32 prefill + decode vs longer "
+          f"prefill {b}")
+    check(max(e_y, e_state, e_window) < LM_F32_TOL, f"ssm (e): chunked "
+          f"scan vs recurrence: y {e_y}, state {e_state}, window {e_window}")
+    check(finite, "ssm (d): a logit is not finite")
+    del params32, lb
+    torch.cuda.empty_cache()
+    emit({"phase": "ssm", "path": "m", "seconds": time.perf_counter() - t_path})
+    return launches
+
+
+def hybrid_phase(torch):
+    """Path n: zamba2-7b — the flash kernel at its attention shape (MHA,
+    head dim 112: the FMA body) as in path k, then full width and depth
+    (81 layers: 13 groups of 6 and a tail of 3), bf16 serving weights from
+    seed 2016, 4 prompts of 4096 tokens and 32 greedy decode steps,
+    counted (13 launches a prefill: one an application of the shared
+    block); then (a), (b) and (d) as path lm, in float32 at full depth,
+    and the bf16 (a) and (b) at a depth of ``HYBRID_SHALLOW_LAYERS``
+    (printed only)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid, zoo
+    t_path = time.perf_counter()
+    cfg = get_config(HYBRID_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    row = flash_case(torch, B, cfg.n_heads, cfg.n_kv_heads, S, cfg.hd,
+                     SEED + 9)
+    emit({"phase": "kernel", "path": "hybrid", **row})
+    check_flash_case("hybrid", row)
+    cfg, model, params, gen, init = serve_init(torch, HYBRID_ARCH)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :S]}
+    outs, line, launches, _ = serve_timed(torch, "hybrid", cfg, model,
+                                          params, batch, max_len, row["ms"])
+    emit({"phase": "main", "path": "hybrid", **init, **line,
+          "groups_every_tail": list(hybrid.group_shape(cfg)),
+          "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30})
+    check_launches("hybrid", cfg, launches)
+    longer = {"tokens": toks}
+    n = HYBRID_SHALLOW_LAYERS
+    cfg_n = dataclasses.replace(cfg, n_layers=n)
+    n_groups = hybrid.group_shape(cfg_n)[0]
+    params_n = dict(params, groups=zoo.tree_map(lambda _, t: t[:n_groups],
+                                                params["groups"]))
+    model_n = zoo.build(cfg_n, DEVICE)
+    a16 = check_a(torch, model_n, params_n, batch, max_len)[0]
+    b16 = check_b(torch, model_n, params_n, batch, toks[:, S:S + 1], longer,
+                  max_len)[0]
+    emit({"phase": "compare", "path": "hybrid", "dtype": "bfloat16",
+          "layers": n, "groups_every_tail": list(hybrid.group_shape(cfg_n)),
+          "a_bf16_not_checked": a16, "b_bf16_not_checked": b16})
+    del params_n
+    torch.cuda.reset_peak_memory_stats()
+    serve_checks(torch, "hybrid", cfg, model, params, batch,
+                 toks[:, S:S + 1], longer, max_len, outs)
+    emit({"phase": "memory", "path": "hybrid",
+          "checks_max_memory_gib": torch.cuda.max_memory_allocated() / 2**30})
+    del params, outs
+    torch.cuda.empty_cache()
+    emit({"phase": "hybrid", "path": "n",
+          "seconds": time.perf_counter() - t_path})
     return launches
 
 
@@ -4158,6 +4350,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(vlm_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(ssm_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(hybrid_phase(torch))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

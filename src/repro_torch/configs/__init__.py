@@ -1,9 +1,9 @@
 """Architecture configs (--arch <id>): the port's copy of repro.configs.
 
-``base.py`` and the config files of the dense, MoE and VLM families are the
-reference's, verbatim (data only).  The SSM, hybrid and enc-dec configs
-come with their models (ROADMAP A14); ``get_config`` names that item for
-them.
+``base.py`` and the config files of the dense, MoE, VLM, SSM and hybrid
+families are the reference's, verbatim (data only).  The enc-dec config
+comes with its model (ROADMAP A14); ``get_config`` names that item for
+it.
 """
 from . import base
 from .base import ArchConfig, SHAPES, ShapeSpec, reduced_for_smoke
@@ -15,9 +15,10 @@ ARCH_IDS = [
 ]
 
 #: The configs this port carries, served by ``models.zoo.build``: the dense
-#: family, the MoE family and the VLM.
+#: family, the MoE family, the VLM, the SSM and the hybrid.
 PORTED_IDS = ("llama3.2-3b", "granite-8b", "qwen2-72b", "qwen2-0.5b",
-              "qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b")
+              "qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b",
+              "mamba2-1.3b", "zamba2-7b")
 
 
 def get_config(arch_id: str) -> ArchConfig:
@@ -27,7 +28,7 @@ def get_config(arch_id: str) -> ArchConfig:
     if arch_id not in PORTED_IDS:
         raise NotImplementedError(
             f"{arch_id}: the port carries {', '.join(PORTED_IDS)}; the "
-            "SSM, hybrid and enc-dec families come with ROADMAP A14")
+            "enc-dec family comes with ROADMAP A14")
     mod = importlib.import_module(
         f"repro_torch.configs.{arch_id.replace('-', '_').replace('.', '_')}")
     return mod.CONFIG

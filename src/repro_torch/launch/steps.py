@@ -8,9 +8,9 @@ the parameters and moments updated in place (the reference's jitted step
 donates them).  Serving runs with bf16 parameters, norm scales included,
 and activations in ``cfg.dtype`` (the reference's ``lower_cell`` /
 ``_bf16_init`` rule): ``serving_model`` builds such a model; the serving
-steps run without autograd.  The dense, MoE and VLM families take the same
-steps; a VLM's batch carries ``patch_embs`` (B, n_patches, d_model) beside
-its tokens.  The reference's ``*_specs`` (abstract
+steps run without autograd.  Every ported family (dense, MoE, VLM, SSM,
+hybrid) takes the same steps; a VLM's batch carries ``patch_embs`` (B,
+n_patches, d_model) beside its tokens.  The reference's ``*_specs`` (abstract
 arguments and mesh shardings of the LM stack) wait for the sharded train
 step (ROADMAP A14).
 """
@@ -32,11 +32,13 @@ def loss_and_grads(model: zoo.Model, params: dict, batch: dict):
     f32 masters, as the reference's ``g_acc``; the parameter dtype
     otherwise), then are divided by the count, and the loss is the mean of
     the microbatches' losses.  ``grads`` are the leaves' ``.grad``
-    tensors, in the parameters' tree."""
+    tensors, in the parameters' tree.  A zero-length leaf (a hybrid's
+    empty tail), which no loss reads, gets its empty gradient, as jax.grad
+    gives; any other leaf the loss did not reach raises."""
     accum = max(1, model.cfg.grad_accum)
     for _, p in zoo.flatten(params):
         p.requires_grad_(True)
-        p.grad = None
+        p.grad = torch.zeros_like(p) if p.numel() == 0 else None
     if accum == 1:
         loss, metrics = model.forward(params, batch)
         loss.backward()
@@ -50,11 +52,15 @@ def loss_and_grads(model: zoo.Model, params: dict, batch: dict):
             l, _ = model.forward(params, {k: v[i] for k, v in micro.items()})
             l.backward()
             loss_sum = loss_sum + l.detach()
+        loss = loss_sum / accum
+        metrics = {"loss": loss}
+    missing = [name for name, p in zoo.flatten(params) if p.grad is None]
+    if missing:
+        raise RuntimeError(f"the loss reached no gradient of {missing}")
+    if accum > 1:
         with torch.no_grad():
             for _, p in zoo.flatten(params):
                 p.grad.div_(accum)
-        loss = loss_sum / accum
-        metrics = {"loss": loss}
     grads = zoo.tree_map(lambda _, p: p.grad, params)
     return loss, metrics, grads
 

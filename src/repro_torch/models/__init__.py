@@ -1,6 +1,7 @@
-"""The port's LM stack, dense, MoE and VLM families: layers, the MoE
-layer, the decoder-only transformer's entry points and the zoo facade
-(``zoo.build``)."""
-from . import base, layers, moe, transformer, zoo
+"""The port's LM stack, dense, MoE, VLM, SSM and hybrid families: layers,
+the MoE layer, the Mamba-2 mixer, the decoder-only transformer's, the SSM
+LM's and the hybrid's entry points and the zoo facade (``zoo.build``)."""
+from . import base, hybrid, layers, moe, ssm, ssm_lm, transformer, zoo
 
-__all__ = ["base", "layers", "moe", "transformer", "zoo"]
+__all__ = ["base", "hybrid", "layers", "moe", "ssm", "ssm_lm", "transformer",
+           "zoo"]

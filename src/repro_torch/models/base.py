@@ -11,7 +11,8 @@ ROADMAP A14).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import math
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -27,16 +28,21 @@ def init_scale(shape: Sequence[int], init: str = "normal") -> float:
 
 def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
           dtype: torch.dtype = torch.float32, init: str = "normal",
-          scale: Optional[float] = None, stack: int = 0) -> torch.Tensor:
+          scale: Optional[float] = None,
+          stack: Union[int, tuple] = 0) -> torch.Tensor:
     """One parameter on ``gen``'s device: 'normal' / 'embed' draw N(0, 1) in
     float32 times the scale (default ``init_scale``), 'zeros' and 'ones' are
     constant; then cast to ``dtype``.  ``stack`` > 0 makes that many layers'
     copies on a new leading axis, each drawn in turn into the tensor of
     ``dtype`` (a float32 draw the size of one layer's leaf at a time); the
-    scale is still the one layer's.  ``gen=None`` gives an empty tensor on
-    the ``meta`` device: the shapes and dtypes of a tree without allocating
-    it."""
-    full = ((stack,) if stack else ()) + tuple(shape)
+    scale is still the one layer's.  A tuple ``stack`` gives several
+    leading axes, the layers drawn in row-major order (a hybrid's (groups,
+    layers a group)); a 0 in it makes a zero-length stack.  ``gen=None``
+    gives an empty tensor on the ``meta`` device: the shapes and dtypes of
+    a tree without allocating it."""
+    lead = tuple(stack) if isinstance(stack, tuple) else \
+        ((stack,) if stack else ())
+    full = lead + tuple(shape)
     if gen is None:
         return torch.empty(full, dtype=dtype, device="meta")
     dev = gen.device
@@ -47,7 +53,9 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
     if scale is None:
         scale = init_scale(shape, init)
     out = torch.empty(full, dtype=dtype, device=dev)
-    for part in (out.unbind(0) if stack else (out,)):
+    layers = out.view((math.prod(lead),) + tuple(shape)).unbind(0) \
+        if lead else (out,)
+    for part in layers:
         part.copy_(torch.randn(tuple(shape), generator=gen,
                                device=dev).mul_(scale))
     return out

@@ -60,8 +60,9 @@ def init(cfg, gen) -> dict:
             "final_norm": L.init_norm(cfg, gen)}
 
 
-def layer(stacked: dict, i: int) -> dict:
-    """Layer i's parameters: views into the stacked leaves."""
+def layer(stacked: dict, i) -> dict:
+    """Layer i's parameters (i an int, or a tuple over several stacked
+    axes): views into the stacked leaves."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in stacked.items()}
 
@@ -135,13 +136,14 @@ def _block_apply(cfg, blk, x, positions):
     return x + m, aux
 
 
-def _scan_blocks(cfg, stacked, x, positions, block_fn):
-    """The layers in order, each on views of its slice of the stacked
-    leaves; under ``cfg.remat`` each block is recomputed in the backward
-    from its input."""
+def _scan_blocks(cfg, stacked, x, positions, block_fn, indices=None):
+    """The layers in order (``indices`` of the stacked leaves, every one of
+    the ``n_layers`` by default; an index may be a tuple), each on views of
+    its slice of the stacked leaves; under ``cfg.remat`` each block is
+    recomputed in the backward from its input."""
     body = functools.partial(block_fn, cfg)
     aux = 0.0
-    for i in range(cfg.n_layers):
+    for i in (range(cfg.n_layers) if indices is None else indices):
         blk = train_layer(stacked, i)
         if cfg.remat:
             x, a = checkpoint(body, blk, x, positions, use_reentrant=False)
@@ -175,8 +177,9 @@ def forward(cfg, params, batch):
     [, patch_embs (B, P, d)]."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.family} training: ROADMAP A14 (the port trains the "
-            f"{', '.join(FAMILIES)} families)")
+            f"{cfg.family} training: ROADMAP A14 (transformer.forward trains "
+            f"the {', '.join(FAMILIES)} families; zoo.module_for gives each "
+            "family's module)")
     patch = batch.get("patch_embs")
     h, aux = hidden_states(cfg, params, batch["tokens"], patch_embs=patch)
     if patch is not None:

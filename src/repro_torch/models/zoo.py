@@ -1,5 +1,5 @@
 """Model zoo: the facade over the ported architecture families — the port
-of repro/models/zoo.py for the dense, MoE and VLM families.
+of repro/models/zoo.py for the dense, MoE, VLM, SSM and hybrid families.
 
 ``build(cfg)`` returns a ``Model`` whose functions share the reference's
 signatures:
@@ -14,8 +14,9 @@ on the model's device: ``cuda`` unless the caller asks for the CPU (the
 ``device`` argument, else the engine's ``device`` knob, ``fm.set_conf(device=
 ...)``); with no card and no such request, ``build`` raises.  A VLM's
 batch carries ``patch_embs`` (B, n_patches, d_model) beside its tokens.
-The SSM, hybrid and enc-dec families raise ``NotImplementedError`` naming
-ROADMAP A14.
+Each family's functions come from its module (``MODULES``): dense, MoE and
+VLM from ``transformer``, SSM from ``ssm_lm``, hybrid from ``hybrid``.  The
+enc-dec family raises ``NotImplementedError`` naming ROADMAP A14.
 ``params_from_numpy`` and ``opt_state_from_numpy`` carry a JAX parameter
 tree and AdamW state across, so both packages compute the same thing.
 """
@@ -27,11 +28,24 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
-from . import transformer
+from . import hybrid, ssm_lm, transformer
 from .layers import dtype_of
 
+#: The module that computes each family ``build`` serves.
+MODULES = {**{f: transformer for f in transformer.FAMILIES},
+           **{f: ssm_lm for f in ssm_lm.FAMILIES},
+           **{f: hybrid for f in hybrid.FAMILIES}}
 #: Families ``build`` serves.
-FAMILIES = transformer.FAMILIES
+FAMILIES = tuple(MODULES)
+
+
+def module_for(cfg: ArchConfig):
+    """The module computing ``cfg.family``; enc-dec raises naming A14."""
+    if cfg.family not in MODULES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
+            f"port serves {FAMILIES} (ROADMAP A14)")
+    return MODULES[cfg.family]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -53,6 +67,10 @@ class Model:
     cfg: ArchConfig
     device: torch.device
 
+    @property
+    def module(self):
+        return module_for(self.cfg)
+
     def init(self, gen) -> dict:
         """Parameters drawn from ``gen``: a ``torch.Generator`` on the
         model's device, or an int seed for one."""
@@ -62,29 +80,28 @@ class Model:
         if gen.device.type != self.device.type:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
-        return transformer.init(self.cfg, gen)
+        return self.module.init(self.cfg, gen)
 
     def prefill(self, params, batch: dict, max_len: int, *,
                 attn_impl: str = "auto"):
-        return transformer.prefill(self.cfg, params, batch["tokens"], max_len,
-                                   patch_embs=batch.get("patch_embs"),
+        """``attn_impl`` picks the attention of the families that attend
+        in a prefill (the SSM ignores it)."""
+        return self.module.prefill(self.cfg, params, batch["tokens"],
+                                   max_len, patch_embs=batch.get("patch_embs"),
                                    attn_impl=attn_impl)
 
     def decode(self, params, cache, token):
-        return transformer.decode(self.cfg, params, cache, token)
+        return self.module.decode(self.cfg, params, cache, token)
 
     def init_cache(self, batch: int, max_len: int) -> dict:
-        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+        return self.module.init_cache(self.cfg, batch, max_len, self.device)
 
     def forward(self, params, batch):
-        return transformer.forward(self.cfg, params, batch)
+        return self.module.forward(self.cfg, params, batch)
 
 
 def build(cfg: ArchConfig, device=None) -> Model:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"port serves {FAMILIES} (ROADMAP A14)")
+    module_for(cfg)
     return Model(cfg, resolve_device(device))
 
 
@@ -93,7 +110,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     takes tokens and labels (B, S), prefill tokens (B, S) with max_len S,
     decode one token (B, 1) against a cache of max_len S.  A VLM's S
     counts its patches: tokens and labels are (B, S - n_patches), beside
-    ``patch_embs`` (B, n_patches, d_model) in ``cfg.dtype``."""
+    ``patch_embs`` (B, n_patches, d_model) in ``cfg.dtype``.  The SSM and
+    hybrid take the dense family's inputs, ``long_500k``'s too."""
     B, S = shape.global_batch, shape.seq_len
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.family} inputs: ROADMAP A14")
@@ -133,9 +151,11 @@ def params_from_numpy(cfg: ArchConfig, tree: dict, device=None) -> dict:
     (``tree_unbox(model.init(key))[0]`` mapped through ``np.asarray``): the
     same keys, the same (in, out) layouts and the same stacked layer axis,
     each leaf checked against the port's shape and cast to
-    ``cfg.param_dtype`` on ``device``."""
+    ``cfg.param_dtype`` on ``device``.  The expected tree is the family's
+    own ``init``'s; zero-length leaves (a hybrid's empty tail) carry over
+    as such."""
     dev = resolve_device(device)
-    want = dict(flatten(transformer.init(cfg, None)))
+    want = dict(flatten(module_for(cfg).init(cfg, None)))
     got = dict(flatten(tree))
     if set(got) != set(want):
         raise ValueError(f"parameter tree keys differ: missing "

@@ -29,8 +29,11 @@ one case whose element offsets pass 2³¹, the two serving shapes of the
 MoE and VLM families (GQA group 8 at head dim 128 on the wgmma body, MQA
 at head dim 256 on the FMA body), and a reduced LM prefill and decode on
 the card against the same on the CPU — dense, MoE (qwen3-moe, arctic) and
-VLM (paligemma) — with a full-width init of two qwen3-moe layers whose
-peak stays within one float32 layer leaf of their bf16 bytes; xty's 16-byte loads over
+VLM (paligemma) — and the SSM (mamba2) and hybrid (zamba2, with and
+without a tail) in float32, flash launching 0 times and once an
+application of the shared block; a full-width init of two qwen3-moe
+layers whose peak stays within one float32 layer leaf of their bf16
+bytes; xty's 16-byte loads over
 a ragged last column tile at the end of whole allocator segments.  The
 train path (no kernel of its own): blockwise attention and its backward
 against the grouped route, and a reduced llama's gradients (remat on and
@@ -947,6 +950,52 @@ def test_moe_and_vlm_prefill_and_decode_on_the_card_match_the_cpu(
     for a, b in zip(out[dev], out["cpu"]):
         a, b = a.double().cpu(), b.double()
         assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-1.3b", 2),
+                                           ("zamba2-7b", 2), ("zamba2-7b", 5)])
+def test_ssm_and_hybrid_prefill_and_decode_on_the_card_match_the_cpu(
+        dev, arch, n_layers):
+    """The reduced SSM and hybrid (zamba2 at 2 layers: one group, no tail;
+    at 5: two groups and a tail of 1) in float32: prefill of 200 tokens
+    (two SSD chunks, the second ragged) and a decode step on the card
+    against the CPU, the logits and every cache leaf within 1e-4 of their
+    largest value; the flash kernel launches 0 times for the SSM and once
+    an application of the shared block for the hybrid."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)),
+                              n_layers=n_layers)
+    on = {d: steps.serving_model(cfg, serve_dtype="float32", device=d)
+          for d in ("cpu", dev)}
+    params = {"cpu": on["cpu"].init(0)}
+    params[dev] = zoo.tree_map(lambda _, t: t.to(dev), params["cpu"])
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 201)),
+                           dtype=torch.int32)
+    out, caches = {}, {}
+    for d in ("cpu", dev):
+        before = fa.launches
+        cache, logits = steps.build_prefill_step(on[d], 210)(
+            params[d], {"tokens": toks[:, :200].to(d)})
+        launched = fa.launches - before
+        pre = {k: v.clone() for k, v in zoo.flatten(cache)}
+        cache, dec = steps.build_decode_step(on[d])(params[d], cache,
+                                                    toks[:, 200:].to(d))
+        want = (n_layers // cfg.shared_attn_every
+                if cfg.family == "hybrid" else 0)
+        assert launched == (want if d == dev else 0)
+        out[d] = (logits, dec)
+        caches[d] = {**{f"prefill.{k}": v for k, v in pre.items()},
+                     **{f"decode.{k}": v for k, v in zoo.flatten(cache)}}
+    for a, b in list(zip(out[dev], out["cpu"])) + [
+            (caches[dev][k], caches["cpu"][k]) for k in caches["cpu"]]:
+        if b.numel() == 0 or b.dtype == torch.int32:
+            assert a.shape == b.shape and torch.equal(a.cpu(), b)
+            continue
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 def test_moe_init_peak_within_one_float32_layer_leaf(dev):

@@ -3,20 +3,26 @@
 Reduced llama3.2-3b and qwen2-0.5b (dense), qwen3-moe-30b-a3b and
 arctic-480b (MoE: 8 experts, top-2, arctic with its dense residual) and
 paligemma-3b (VLM: MQA, tied embeddings, GeGLU, 8 patch embeddings before
-the text) — ``reduced_for_smoke``: 2 layers, d_model 128, 4 heads over 2
-KV heads (1 for paligemma), head dim 32, vocab 512, float32: the
-reference's parameters from ``model.init(PRNGKey(0))``, their norm scales
-and QKV biases redrawn from a seeded numpy RNG so that those leaves matter,
-carried across with ``params_from_numpy``; the patch embeddings drawn from
-the same RNG.  The MoE prompts are dropless (S·k <= 4096), as the
-reference's serving check is.  Prefill logits and the KV cache
+the text), mamba2-1.3b (SSM: 8 heads of 32, state 16) and zamba2-7b
+(hybrid: the shared attention block every 2 SSM layers; at 2 layers no
+tail, and at 5 layers — ``zamba2-7b:5`` in both packages — two groups and
+a tail of 1) — ``reduced_for_smoke``: 2 layers, d_model 128, 4 heads over
+2 KV heads (1 for paligemma), head dim 32, vocab 512, float32: the
+reference's parameters from ``model.init(PRNGKey(0))``, their norm scales,
+QKV biases and the SSM's constant leaves (``A_log``, ``dt_bias``,
+``conv_b``, ``D``, the gated norm) redrawn from a seeded numpy RNG so that
+those leaves matter, carried across with ``params_from_numpy``; the patch
+embeddings drawn from the same RNG.  The MoE prompts are dropless (S·k <=
+4096), as the reference's serving check is.  Prefill logits and every
+cache leaf (KV, SSM state, conv window, the hybrid's per-application KV)
 agree with ``repro.models.zoo.build(cfg).prefill`` within 1e-4 of their
-largest value, one decode step with ``decode`` likewise, and prefill + decode
-with a prefill one token longer within 2e-2 (the twin of
+largest value, one decode step with ``decode`` likewise, and prefill +
+decode with a prefill one token longer within 2e-2 (the twin of
 tests/test_archs.py's serving check).  Attention runs the flash kernel's
 plain version here; the kernel itself is held against it on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -37,10 +43,12 @@ from repro_torch.configs import (ARCH_IDS, PORTED_IDS, SHAPES, get_config,
                                  reduced_for_smoke)
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch import steps
-from repro_torch.models import layers, transformer, zoo
+from repro_torch.models import hybrid, layers, zoo
 
 ARCHS = ["llama3.2-3b", "qwen2-0.5b", "qwen3-moe-30b-a3b", "arctic-480b",
-         "paligemma-3b"]
+         "paligemma-3b", "mamba2-1.3b", "zamba2-7b", "zamba2-7b:5"]
+#: Names of the SSM leaves that init to constants (zeros or ones).
+SSM_CONST = ("['A_log']", "['dt_bias']", "['conv_b']", "['D']", "['norm']")
 B, S = 2, 33
 
 
@@ -53,8 +61,11 @@ def _rel(a, b):
 def case(request):
     """One reduced arch through both packages: the JAX prefill of S and
     S + 1 tokens and one decode step, the port's parameters."""
-    arch = request.param
+    arch, _, layers_ = request.param.partition(":")
     jcfg, cfg = jreduced(jget_config(arch)), reduced_for_smoke(get_config(arch))
+    if layers_:
+        jcfg = dataclasses.replace(jcfg, n_layers=int(layers_))
+        cfg = dataclasses.replace(cfg, n_layers=int(layers_))
     jm = jzoo.build(jcfg)
     params, _ = tree_unbox(jm.init(jax.random.PRNGKey(0)))
     rng = np.random.default_rng(11)
@@ -62,6 +73,10 @@ def case(request):
 
     def redraw(path, a):
         name = jax.tree_util.keystr(path)
+        if name.endswith(SSM_CONST):
+            return (1.0 + 0.2 * rng.normal(size=a.shape)).astype(a.dtype) \
+                if name.endswith(("['D']", "['norm']")) else \
+                (0.1 * rng.normal(size=a.shape)).astype(a.dtype)
         if "scale" in name or "'b" in name:          # ones / zeros at init
             return (1.0 + 0.2 * rng.normal(size=a.shape)).astype(a.dtype) \
                 if "scale" in name else \
@@ -102,17 +117,38 @@ def _prefill(case, toks):
     return step(case["params"], _batch(case, toks))
 
 
+def _check_cache(cache, want):
+    """Every leaf but ``len`` of the port's cache against the reference's:
+    the same keys and shapes, values within 1e-4 of the largest (a
+    zero-length leaf, the hybrid's empty tail, only by shape)."""
+    got = {k: v.numpy() for k, v in zoo.flatten(cache) if k != "len"}
+    want = {k: np.asarray(v) for k, v in zoo.flatten(want) if k != "len"}
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape, k
+        if v.size:
+            assert _rel(got[k], v) < 1e-4, k
+
+
+def _kv_lead(cfg):
+    """Leading length of the KV cache: a layer each, or for the hybrid an
+    application of the shared block each."""
+    if cfg.family == "hybrid":
+        return hybrid.group_shape(cfg)[0]
+    return cfg.n_layers
+
+
 def test_prefill_logits_and_cache_match_reference(case):
     cache, logits = _prefill(case, case["toks"][:, :S])
     assert logits.shape == (B, 1, case["cfg"].vocab)
     assert _rel(logits.numpy(), case["jlogits"]) < 1e-4
-    for kv in ("k", "v"):
-        got, want = cache["kv"][kv].numpy(), case["jcache"]["kv"][kv]
-        assert got.shape == want.shape == (case["cfg"].n_layers, B,
-                                           case["max_len"],
-                                           case["cfg"].n_kv_heads,
-                                           case["cfg"].hd)
-        assert _rel(got, want) < 1e-4
+    cfg = case["cfg"]
+    if cfg.family != "ssm":
+        for kv in ("k", "v"):
+            assert cache["kv"][kv].shape == (_kv_lead(cfg), B,
+                                             case["max_len"],
+                                             cfg.n_kv_heads, cfg.hd)
+    _check_cache(cache, case["jcache"])
     n = case["cfg"].n_patches + S
     assert int(cache["len"]) == int(case["jcache"]["len"]) == n
 
@@ -123,8 +159,7 @@ def test_decode_step_matches_reference(case):
     cache, logits = decode(case["params"], cache,
                            torch.from_numpy(case["toks"][:, S:]))
     assert _rel(logits.numpy(), case["jdec"]) < 1e-4
-    for kv in ("k", "v"):
-        assert _rel(cache["kv"][kv].numpy(), case["jcache2"]["kv"][kv]) < 1e-4
+    _check_cache(cache, case["jcache2"])
     n = case["cfg"].n_patches + S + 1
     assert int(cache["len"]) == int(case["jcache2"]["len"]) == n
 
@@ -208,21 +243,58 @@ def test_norm_and_mlp_match_reference(norm, act):
 
 @pytest.mark.parametrize("arch", PORTED_IDS)
 def test_parameter_tree_matches_reference_at_full_width(arch):
-    """The port's tree (meta device: nothing allocated) has the reference's
-    keys and shapes at the published widths, and its count is the config's
-    ``n_params``."""
+    """The port's tree from its family's own ``init`` (meta device: nothing
+    allocated) has the reference's keys and shapes at the published
+    widths, and its count is the config's ``n_params`` plus what that
+    leaves out: the norm scales (two a layer and the final one; the SSM's
+    one a layer, the hybrid's one an SSM layer and the shared block's two),
+    QKV biases and the SSM's conv biases."""
     cfg = get_config(arch)
     jshapes, _ = jzoo.build(jget_config(arch)).abstract_params()
     want = dict(zoo.flatten(jax.tree_util.tree_map(lambda s: s.shape,
                                                     jshapes)))
-    tree = transformer.init(cfg, None)
+    tree = zoo.module_for(cfg).init(cfg, None)
     got = {k: tuple(v.shape) for k, v in zoo.flatten(tree)}
     assert got == {k: tuple(v) for k, v in want.items()}
     count = sum(int(np.prod(s)) for s in got.values())
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    n_norms = {"ssm": cfg.n_layers + 1,
+               "hybrid": cfg.n_layers + 3}.get(cfg.family, 2 * cfg.n_layers + 1)
+    norms = n_norms * cfg.d_model
     biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
         if cfg.qkv_bias else 0
+    if cfg.family in ("ssm", "hybrid"):
+        d_in = cfg.ssm_expand * cfg.d_model
+        biases += cfg.n_layers * (d_in + 2 * cfg.ssm_ngroups * cfg.ssm_state)
     assert count - norms - biases == cfg.n_params()
+
+
+@pytest.mark.parametrize("arch,n_layers", [("mamba2-1.3b", 2),
+                                           ("zamba2-7b", 2), ("zamba2-7b", 5)])
+def test_params_from_numpy_round_trips_ssm_and_hybrid_trees(arch, n_layers):
+    """The reference's ``ssm_lm`` and ``hybrid`` trees carried across and
+    back to numpy unchanged, the hybrid's group leaves (n_groups, every,
+    …) and its tail (tail, …), zero-length at 2 layers, included."""
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), n_layers=n_layers)
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)),
+                              n_layers=n_layers)
+    params, _ = tree_unbox(jzoo.build(jcfg).init(jax.random.PRNGKey(1)))
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    got = zoo.params_from_numpy(cfg, tree, "cpu")
+    want = dict(zoo.flatten(tree))
+    assert set(dict(zoo.flatten(got))) == set(want)
+    for name, t in zoo.flatten(got):
+        assert t.dtype == torch.float32 and t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), want[name])
+    if cfg.family == "hybrid":
+        every = cfg.shared_attn_every
+        tail = n_layers % every
+        assert got["groups"]["ln"]["scale"].shape == (
+            n_layers // every, every, cfg.d_model)
+        assert got["tail"]["ssm"]["in_proj"].shape[0] == tail
+    tree["layers" if cfg.family == "ssm" else "tail"]["ln"]["scale"] = \
+        np.ones((n_layers + 1, cfg.d_model), np.float32)
+    with pytest.raises(ValueError, match="shape"):
+        zoo.params_from_numpy(cfg, tree, "cpu")
 
 
 def test_init_law_and_serving_dtype():
@@ -263,9 +335,10 @@ def test_input_specs_match_reference(arch):
 
 
 def test_unported_families_and_bad_inputs_raise():
-    """The SSM, hybrid and enc-dec configs and models name A14."""
+    """The enc-dec config and model name A14; a prompt shorter than the
+    SSM's conv window raises."""
     unported = [a for a in ARCH_IDS if a not in PORTED_IDS]
-    assert sorted(unported) == ["mamba2-1.3b", "whisper-medium", "zamba2-7b"]
+    assert unported == ["whisper-medium"]
     for arch in unported:
         with pytest.raises(NotImplementedError, match="A14"):
             get_config(arch)
@@ -284,6 +357,11 @@ def test_unported_families_and_bad_inputs_raise():
     with pytest.raises(ValueError, match="max_len"):
         model.prefill(model.init(0),
                       {"tokens": torch.zeros(1, 9, dtype=torch.int64)}, 8)
+    for arch in ("mamba2-1.3b", "zamba2-7b"):
+        model = zoo.build(reduced_for_smoke(get_config(arch)), device="cpu")
+        with pytest.raises(ValueError, match="conv window"):
+            model.prefill(model.init(0),
+                          {"tokens": torch.zeros(1, 2, dtype=torch.int32)}, 8)
 
 
 def test_building_without_asking_for_the_cpu_raises_without_a_card():

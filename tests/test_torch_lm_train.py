@@ -8,8 +8,11 @@ reference's parameters from ``model.init(PRNGKey(0))`` carried across with
 * ``forward``'s loss within 1e-5 relative and every gradient leaf within
   1e-4 of its largest |entry|, remat off and on — for the dense archs and
   for reduced qwen3-moe-30b-a3b and arctic-480b (the loss with 0.01 ·
-  aux / n_layers) and paligemma-3b (patch embeddings before the text, the
-  loss over the text only);
+  aux / n_layers), paligemma-3b (patch embeddings before the text, the
+  loss over the text only), mamba2-1.3b (the SSM; 48 tokens take the pad
+  path of one chunk) and zamba2-7b (the hybrid at 2 layers, one group and
+  an empty tail, and at 5 layers: two applications of the shared block,
+  whose leaves add both gradients, and a tail of 1);
 * ``blockwise_attention``'s forward and its backward (the reference's
   custom VJP through ``jax.vjp``) at B 2, S = T = 48, GQA g = 2, causal and
   not, bk 16 and bk 20 (T not a multiple: padded keys), within 1e-5 of the
@@ -18,8 +21,10 @@ reference's parameters from ``model.init(PRNGKey(0))`` carried across with
   ``_BLOCKWISE_THRESHOLD`` set in both packages, never ``ops.attention``;
 * ``adam.update`` on the same numpy gradients: float32 moments and
   parameters within rtol 1e-6, bf16 moments within one bf16 ulp;
-* three ``build_train_step`` steps with ``grad_accum`` 1 and 2: the losses
-  within 1e-5 and the parameters under the Adam rule below.
+* three ``build_train_step`` steps with ``grad_accum`` 1 and 2, and for the
+  SSM and the hybrid (whose empty tail takes its empty gradient) with 1
+  and the config's own: the losses within 1e-5 and the parameters under
+  the Adam rule below.
 
 Adam's first steps are close to sign(g): an entry whose gradient is float
 noise can move either way by 2·lr.  Entries whose reference gradient is
@@ -54,8 +59,10 @@ from repro_torch.models import layers, zoo
 from repro_torch.optim import adam
 
 ARCHS = ["llama3.2-3b", "qwen2-0.5b"]
-#: Archs of the loss-and-gradient twin: the dense ones, MoE and the VLM.
-LOSS_ARCHS = ARCHS + ["qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b"]
+#: Archs of the loss-and-gradient twin: the dense ones, MoE, the VLM, the
+#: SSM and the hybrid (``:5`` sets 5 layers in both packages).
+LOSS_ARCHS = ARCHS + ["qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b",
+                      "mamba2-1.3b", "zamba2-7b", "zamba2-7b:5"]
 B, S = 2, 48
 
 
@@ -97,7 +104,9 @@ def _torch(batch):
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("arch", LOSS_ARCHS)
 def test_forward_loss_and_grads_match_reference(arch, remat):
-    jm, tree, model, params = _pair(arch, remat=remat)
+    arch, _, layers_ = arch.partition(":")
+    over = {"n_layers": int(layers_)} if layers_ else {}
+    jm, tree, model, params = _pair(arch, remat=remat, **over)
     batch = _batch(model.cfg.vocab, cfg=model.cfg)
     jb = jax.tree_util.tree_map(jnp.asarray, batch)
     (jloss, jmet), jg = jax.value_and_grad(
@@ -112,6 +121,9 @@ def test_forward_loss_and_grads_match_reference(arch, remat):
         1e-5 * abs(float(jloss))
     want = dict(zoo.flatten(_np_tree(jg)))
     for name, p in zoo.flatten(params):
+        if p.numel() == 0:                   # the hybrid's empty tail
+            assert want[name].size == 0, name
+            continue
         assert p.grad.shape == p.shape, name
         assert _rel(p.grad.numpy(), want[name]) < 1e-4, name
 
@@ -234,7 +246,23 @@ def test_train_steps_match_reference(accum):
     within 1e-5 relative; parameters within 2e-2·lr of each other per step
     (bf16 moments may round the two packages' f32 moments a bf16 ulp apart)
     except where the reference gradient is float noise (module docstring)."""
-    arch = "llama3.2-3b"
+    _check_train_steps("llama3.2-3b", accum)
+
+
+@pytest.mark.parametrize("accum", [1, "own"])
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b"])
+def test_train_steps_of_ssm_and_hybrid_match_reference(arch, accum):
+    """The same three steps for the SSM and the reduced hybrid, whose
+    empty tail the loss never reads: its leaves take their empty
+    gradients, as ``jax.grad`` gives, so AdamW runs over every leaf.  With
+    ``grad_accum`` 1 and the config's own (mamba2's 2, zamba2's 4)."""
+    if accum == "own":
+        accum = reduced_for_smoke(get_config(arch)).grad_accum
+        assert accum > 1, arch
+    _check_train_steps(arch, accum)
+
+
+def _check_train_steps(arch, accum):
     jm, tree, model, params = _pair(arch, grad_accum=accum)
     opt_cfg, jopt_cfg = adam.AdamConfig(), jadam.AdamConfig()
     jstep = jax.jit(jsteps.build_train_step(jm, jopt_cfg))
@@ -249,7 +277,8 @@ def test_train_steps_match_reference(accum):
         batch = _batch(model.cfg.vocab, b=4, s=32, seed=10 + i)
         jb = jax.tree_util.tree_map(jnp.asarray, batch)
         for name, g in zoo.flatten(_np_tree(jgrad(jp, jb))):
-            noise[name] |= (g != 0) & (np.abs(g) < 1e-5 * np.abs(g).max())
+            if g.size:
+                noise[name] |= (g != 0) & (np.abs(g) < 1e-5 * np.abs(g).max())
         jp, js, jmet = jstep(jp, js, jb)
         params, ts, met = step(params, ts, _torch(batch))
         assert set(met) == {"loss", "grad_norm"}
@@ -261,6 +290,8 @@ def test_train_steps_match_reference(accum):
     want = dict(zoo.flatten(_np_tree(jp)))
     lim = 3 * 2e-2 * opt_cfg.lr
     for name, t in zoo.flatten(params):
+        if t.numel() == 0:                   # the hybrid's empty tail
+            continue
         keep = ~noise[name]
         assert keep.mean() > 0.99, name
         diff = np.abs(t.detach().numpy() - want[name])[keep]
@@ -299,6 +330,19 @@ def test_opt_state_from_numpy_carries_the_reference_state():
             dict(zoo.flatten(js["m"]))[name].astype(np.float32))
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+def test_a_leaf_the_loss_never_reaches_raises(accum):
+    """Only a zero-length leaf may go without a gradient: a non-empty leaf
+    the loss never reads fails the step rather than train on zeros."""
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                              grad_accum=accum)
+    model = zoo.build(cfg, device="cpu")
+    params = dict(model.init(0), stray=torch.zeros(3))
+    with pytest.raises(RuntimeError, match="stray"):
+        steps.loss_and_grads(model, params,
+                             _torch(_batch(cfg.vocab, b=2, s=16)))
+
+
 def test_other_families_still_raise_with_a14():
     """The SSM, hybrid and enc-dec families' train forward names A14."""
     from repro_torch.models import transformer
@@ -307,6 +351,10 @@ def test_other_families_still_raise_with_a14():
             reduced_for_smoke(get_config("llama3.2-3b")), family=family)
         with pytest.raises(NotImplementedError, match="A14"):
             transformer.forward(cfg, {}, {})
+    with pytest.raises(NotImplementedError, match="A14"):
+        zoo.build(dataclasses.replace(
+            reduced_for_smoke(get_config("llama3.2-3b")), family="encdec"),
+            device="cpu")
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="A14"):
         train.main(["--arch", "qwen2-0.5b", "--reduced",
@@ -349,7 +397,8 @@ def test_training_modules_import_no_jax_and_nothing_of_repro():
         from repro_torch.checkpoint import checkpoint as ck
         from repro_torch.data import pipeline
         from repro_torch.launch import steps, train
-        from repro_torch.models import layers, moe, transformer, zoo
+        from repro_torch.models import (hybrid, layers, moe, ssm, ssm_lm,
+                                        transformer, zoo)
         from repro_torch.optim import adam, schedule
         from repro_torch.runtime import fault_tolerance
         bad = sorted(m for m in sys.modules
