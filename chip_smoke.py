@@ -26,8 +26,8 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — paths a–n: a–c and e–i through ``repro_torch.core.fm``, d
-             and j–n through the LM stack, each with the
+4. main    — paths a–o: a–c and e–i through ``repro_torch.core.fm``, d
+             and j–o through the LM stack, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -329,9 +329,30 @@ Phases, each printing one JSON line:
                 decode steps, counted (13 launches a prefill: one an
                 application of the shared block), the kernel's share of
                 prefill and the 13 KV caches' bytes; then (a), (b) and (d)
-                in float32 at full width and a depth of 15 — the first two
-                groups and the tail (a cut) — the bf16 readings at full
-                depth printed.
+                in float32 at full width and depth, the bf16 (a) and (b)
+                printed at full depth and at a depth of 15 — the first two
+                groups and the tail.
+             o. then the enc-dec: the kernel at whisper-medium's three
+                attention shapes — the encoder's q, k, v (4, 16, 1500, 64)
+                and the cross-attention's q (4, 16, 416, 64) over k, v (4,
+                16, 1500, 64), not causal, the decoder's (4, 16, 416, 64),
+                causal; each as in path k, SDPA with the same
+                ``is_causal`` — then whisper-medium at full width and
+                depth (24 encoder + 24 decoder layers, d_model 1024, 16
+                heads of 64, d_ff 4096, vocab 51,865; 1.62 GB of bf16
+                weights from seed 2016), 4 × 1500 normal bf16 frame
+                embeddings (the stub frontend's), 4 prompts of 416 tokens
+                and 32 greedy decode steps (448 positions, whisper's text
+                context), counted: 72 launches a prefill (an encoder layer
+                one, a decoder layer two: self and cross) and none in the
+                decode steps; the encoder alone timed once, the self and
+                cross K/V caches' bytes (checked against their shapes) and
+                the prefill and decode floors printed; then (a), (b) and
+                (d) in float32 at full depth, the same frames in every
+                batch; then o-train: one warm and 2 timed AdamW steps at
+                full width and depth (f32 masters, bf16 activations and
+                moments, remat), 2 × 448 tokens and 1500 frames each, a
+                finite loss and no kernel launched.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the paths), the card's name and power
@@ -380,6 +401,12 @@ MOE_ARCH = "qwen3-moe-30b-a3b"  # path k's model, full width and depth
 VLM_ARCH = "paligemma-3b"       # path l's model, full width and depth
 SSM_ARCH = "mamba2-1.3b"        # path m's model, full width and depth
 HYBRID_ARCH = "zamba2-7b"       # path n's model, full width and depth
+ENCDEC_ARCH = "whisper-medium"  # path o's model, full width and depth
+#: Path o's text prompt: with LM_DECODE decode steps, 448 positions —
+#: whisper-medium's published text context (max_target_positions).
+ENCDEC_PROMPT = 416
+ENCDEC_TRAIN_BATCH = 2   # o-train's sequences a step, each 448 tokens
+ENCDEC_TRAIN_STEPS = 2   # o-train's timed steps, after one warm step
 #: Path n also prints its bf16 (a) and (b) at full width and this depth
 #: (the first two groups of 6 SSM layers and the 3-layer tail) beside the
 #: full depth's, so the two show what depth does to bf16 rounding.
@@ -3465,44 +3492,47 @@ def flash_d112(torch):
     return out
 
 
-def flash_case(torch, B, nh, nkv, S, d, seed):
+def flash_case(torch, B, nh, nkv, S, d, seed, T=None, causal=True):
     """The flash kernel at one serving shape — q (B, nh, S, d), k/v (B, nkv,
-    S, d), bf16, causal — under the serving row's rule: within 2e-3 +
-    1e-2·|plain| of its f32 plain version and within one bf16 ulp of
-    float64 on three heads; its ms beside its plain version's, SDPA's and
-    the bound (at the bf16 tensor rate, the inputs' type, and at the f32
-    rate, which bounds the FMA body)."""
+    T, d) (T = S by default), bf16, causal or not — under the serving row's
+    rule: within 2e-3 + 1e-2·|plain| of its f32 plain version and within
+    one bf16 ulp of float64 on three heads; its ms beside its plain
+    version's, SDPA's (the same ``is_causal``) and the bound (at the bf16
+    tensor rate, the inputs' type, and at the f32 rate, which bounds the
+    FMA body) from 4·B·nh·S·T·d operations, half that causal."""
     import torch.nn.functional as F
     from repro_torch.kernels import build, flash_attention as fa, ref
+    T = S if T is None else T
     g = nh // nkv
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
     q = torch.randn((B, nh, S, d), generator=gen, device=DEVICE,
                     dtype=torch.bfloat16)
-    k, v = (torch.randn((B, nkv, S, d), generator=gen, device=DEVICE,
+    k, v = (torch.randn((B, nkv, T, d), generator=gen, device=DEVICE,
                         dtype=torch.bfloat16) for _ in range(2))
-    o = fa.flash_attention(q, k, v, causal=True)
-    pf = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    o = fa.flash_attention(q, k, v, causal=causal)
+    pf = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal)
     diff = (o.float() - pf).abs()
     excess = float((diff - 2e-3 - 1e-2 * pf.abs()).max())
     err64 = excess64 = -float("inf")
     for b, h in ((0, 0), (B // 2, min(g + 1, nh - 1)), (B - 1, nh - 1)):
         o64 = ref.flash_attention_ref(
             q[b:b + 1, h:h + 1].double(), k[b:b + 1, h // g:h // g + 1].double(),
-            v[b:b + 1, h // g:h // g + 1].double(), causal=True,
+            v[b:b + 1, h // g:h // g + 1].double(), causal=causal,
             dtype=torch.float64)[0, 0]
         d64 = (o[b, h].double() - o64).abs()
         err64 = max(err64, float(d64.max()))
         excess64 = max(excess64,
                        float((d64 - 1e-5 - 2.0 ** -7 * o64.abs()).max()))
-    ops = 2 * B * nh * S * S * d                  # causal: half of 4·B·nh·S²·d
+    ops = 4 * B * nh * S * T * d // (2 if causal else 1)
     nbytes = 2 * (2 * q.numel() + 2 * k.numel())  # q, o, k, v once, bf16
     bt, bf = bound(nbytes, ops, BF16_FLOP_S), bound(nbytes, ops, F32_FLOP_S)
     body = fa.body_for(q.dtype, d)
     out = dict(
         name="flash_attention",
-        shape=f"q ({B}, {nh}, {S}, {d}), k/v ({B}, {nkv}, {S}, {d}) bf16, "
-              "causal", group=g, body=body,
+        shape=f"q ({B}, {nh}, {S}, {d}), k/v ({B}, {nkv}, {T}, {d}) bf16, "
+              + ("causal" if causal else "not causal"), group=g, body=body,
         ptxas=build.ptxas_report(
             "flash_attention", f"flash_fwd_wgmmaILi{d}ELb1E"
             if body == "wgmma" else f"flash_fwdI13__nv_bfloat16Li{d}E"),
@@ -3511,15 +3541,15 @@ def flash_case(torch, B, nh, nkv, S, d, seed):
         tol_excess=excess, max_abs_err_f64=err64,
         tol_f64="|o - o64| <= 1e-5 + 2^-7·|o64| (one bf16 ulp)",
         tol_f64_excess=excess64,
-        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True)),
+        ms=time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal)),
         plain_ms=time_ms(torch, lambda: ref.flash_attention_ref(
-            q, k, v, causal=True), reps=2),
+            q, k, v, causal=causal), reps=2),
         bound_ms=bt[0], bound_by=bt[1], bound_rate="bf16 tensor, 989 TFLOP/s",
         bound_f32_ms=bf[0], bound_f32_by=bf[1], ops=ops, bytes=nbytes,
         library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True)),
+            q, k, v, is_causal=causal, enable_gqa=True)),
         library="torch.nn.functional.scaled_dot_product_attention("
-                "is_causal=True, enable_gqa=True)")
+                f"is_causal={causal}, enable_gqa=True)")
     del q, k, v, o, pf, diff
     torch.cuda.empty_cache()
     return out
@@ -3590,30 +3620,39 @@ def route_flips(torch, a, b):
 def attention_apps(cfg) -> int:
     """Applications of attention in one prefill: a layer each for the
     dense, MoE and VLM families, none for the SSM, one a group of SSM
-    layers for the hybrid."""
+    layers for the hybrid, one an encoder layer and two (self and cross) a
+    decoder layer for the enc-dec."""
     from repro_torch.models import hybrid
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return hybrid.group_shape(cfg)[0]
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
 def cache_bytes(cache, keys) -> int:
     """Bytes of the tensors under ``keys`` of a decode cache (those it
-    has)."""
+    has; a key may hold a tree or one tensor)."""
     from repro_torch.models import zoo
     return sum(t.nbytes for k in keys if k in cache
-               for _, t in zoo.flatten(cache[k]))
+               for _, t in zoo.flatten({k: cache[k]}))
 
 
-def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
+def serve_timed(torch, path, cfg, model, params, batch, max_len,
+                flash_prefill_ms):
     """One warm prefill (its MoE routes recorded), then one prefill and
     ``LM_DECODE`` greedy decode steps, counted: (logits of every step, the
     timing line, launches, the warm prefill's routes).  The kernel must
-    launch once an application of attention (``attention_apps``); a path
-    without attention (the SSM) counts its launches without requiring
-    one, and ``flash_ms`` is then None."""
+    launch once an application of attention (``attention_apps``) and never
+    in a decode step; a path without attention (the SSM) counts its
+    launches without requiring one, and ``flash_prefill_ms`` (the kernel's
+    time over one prefill's launches, from the timed kernel cases) is
+    then None.  The
+    flash launches of the prefill and of the decode steps are printed
+    apart."""
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import steps
     prefill = steps.build_prefill_step(model, max_len)
     decode = steps.build_decode_step(model)
@@ -3627,19 +3666,25 @@ def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
         cache, logits = prefill(params, batch)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        pre_launches = fa.launches
         outs, tok = [logits], logits.argmax(-1).to(torch.int32)
         for _ in range(LM_DECODE):
             cache, logits = decode(params, cache, tok)
             outs.append(logits)
             tok = logits.argmax(-1).to(torch.int32)
         torch.cuda.synchronize()
-        return (outs, t1 - t0, time.perf_counter() - t1,
+        return (outs, t1 - t0, time.perf_counter() - t1, pre_launches,
                 cache_bytes(cache, ("kv",)),
-                cache_bytes(cache, ("ssm", "ssm_groups", "ssm_tail")))
+                cache_bytes(cache, ("ssm", "ssm_groups", "ssm_tail")),
+                cache_bytes(cache, ("cross_k", "cross_v")))
 
     apps = attention_apps(cfg)
-    (outs, pre_s, dec_s, kv_bytes, ssm_bytes), launches = counted(
-        torch, path, ("flash_attention",) if apps else (), run)
+    (outs, pre_s, dec_s, pre_launches, kv_bytes, ssm_bytes, cross_bytes), \
+        launches = counted(torch, path, ("flash_attention",) if apps else (),
+                           run)
+    dec_launches = launches["flash_attention"] - pre_launches
+    check(dec_launches == 0, f"{path}: flash_attention launched "
+          f"{dec_launches} times in {LM_DECODE} decode steps")
     peak = torch.cuda.max_memory_allocated()
     greedy = torch.stack([o.argmax(-1)[:, 0] for o in outs], 1)
     B = batch["tokens"].shape[0]
@@ -3649,12 +3694,14 @@ def serve_timed(torch, path, cfg, model, params, batch, max_len, flash_ms):
             "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
             "decode_tokens_s": B * LM_DECODE / dec_s,
             "flash_launches": launches["flash_attention"],
+            "flash_launches_prefill": pre_launches,
+            "flash_launches_decode": dec_launches,
             "attention_apps": apps,
-            "flash_share_of_prefill": (apps * flash_ms / (pre_s * 1e3)
+            "flash_share_of_prefill": (flash_prefill_ms / (pre_s * 1e3)
                                        if apps else 0.0),
             "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
-            "kv_cache_gib": kv_bytes / 2**30,
-            "ssm_cache_bytes": ssm_bytes,
+            "kv_cache_gib": kv_bytes / 2**30, "kv_cache_bytes": kv_bytes,
+            "ssm_cache_bytes": ssm_bytes, "cross_kv_cache_bytes": cross_bytes,
             "greedy_tokens_row0": greedy[0].tolist()}
     return outs, line, launches, warm
 
@@ -3739,8 +3786,9 @@ def lm_phase(torch, flash_ms):
                          device=DEVICE, dtype=torch.int32)
     max_len = S + LM_DECODE
     batch = {"tokens": toks[:, :S]}
-    outs, line, launches, _ = serve_timed(torch, "lm", cfg, model, params,
-                                          batch, max_len, flash_ms)
+    outs, line, launches, _ = serve_timed(
+        torch, "lm", cfg, model, params, batch, max_len,
+        attention_apps(cfg) * flash_ms)
     emit({"phase": "main", "path": "lm", **init, **line})
     check_launches("lm", cfg, launches)
     # In bf16 (a) and (b) read the rounding noise of these random weights
@@ -3775,8 +3823,9 @@ def moe_phase(torch):
                          device=DEVICE, dtype=torch.int32)
     max_len = S + LM_DECODE
     batch = {"tokens": toks[:, :S]}
-    outs, line, launches, warm = serve_timed(torch, "moe", cfg, model, params,
-                                             batch, max_len, row["ms"])
+    outs, line, launches, warm = serve_timed(
+        torch, "moe", cfg, model, params, batch, max_len,
+        attention_apps(cfg) * row["ms"])
     dropped = [int((~keep).sum()) for _, keep in warm]
     emit({"phase": "main", "path": "moe", **init, **line,
           "capacity": moe._capacity(cfg, S),
@@ -3849,8 +3898,9 @@ def vlm_phase(torch):
                          device=DEVICE, dtype=torch.int32)
     max_len = S + LM_DECODE
     batch = {"tokens": toks[:, :T], "patch_embs": patches}
-    outs, line, launches, _ = serve_timed(torch, "vlm", cfg, model, params,
-                                          batch, max_len, row["ms"])
+    outs, line, launches, _ = serve_timed(
+        torch, "vlm", cfg, model, params, batch, max_len,
+        attention_apps(cfg) * row["ms"])
     emit({"phase": "main", "path": "vlm", **init, **line,
           "patches": cfg.n_patches, "text_tokens": T})
     check_launches("vlm", cfg, launches)
@@ -3961,8 +4011,9 @@ def hybrid_phase(torch):
                          device=DEVICE, dtype=torch.int32)
     max_len = S + LM_DECODE
     batch = {"tokens": toks[:, :S]}
-    outs, line, launches, _ = serve_timed(torch, "hybrid", cfg, model,
-                                          params, batch, max_len, row["ms"])
+    outs, line, launches, _ = serve_timed(
+        torch, "hybrid", cfg, model, params, batch, max_len,
+        attention_apps(cfg) * row["ms"])
     emit({"phase": "main", "path": "hybrid", **init, **line,
           "groups_every_tail": list(hybrid.group_shape(cfg)),
           "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30})
@@ -3989,6 +4040,157 @@ def hybrid_phase(torch):
     del params, outs
     torch.cuda.empty_cache()
     emit({"phase": "hybrid", "path": "n",
+          "seconds": time.perf_counter() - t_path})
+    return launches
+
+
+def encdec_floors(cfg, B, S, max_len) -> dict:
+    """Path o's floors on the card (989 TFLOP/s bf16, 3.35 TB/s): a
+    prefill's operations — the encoder's projections and attention, the
+    decoder's projections, self- and cross-attention, the cross K/V, the
+    last position's logits — and a decode step's bytes: the decoder's
+    weights but the cross K/V projections, the output embedding, the cross
+    K/V cache and the self K/V cache at ``max_len``, bf16."""
+    d, f, E, L, V = cfg.d_model, cfg.d_ff, cfg.enc_len, cfg.n_layers, cfg.vocab
+    da, dkv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    qkvo, mlp = 2 * d * da + 2 * d * dkv, 2 * d * f
+    enc = cfg.n_enc_layers * (2 * B * E * (qkvo + mlp)
+                              + 4 * B * cfg.n_heads * E * E * cfg.hd)
+    dec = L * (2 * B * S * (qkvo + 2 * d * da + mlp)
+               + 2 * B * E * 2 * d * dkv
+               + 2 * B * cfg.n_heads * S * S * cfg.hd
+               + 4 * B * cfg.n_heads * S * E * cfg.hd)
+    ops = enc + dec + 2 * B * d * V
+    weights = 2 * (L * (qkvo + 2 * d * da + mlp) + d * V)
+    cross_kv = 2 * 2 * L * B * E * dkv
+    self_kv = 2 * 2 * L * B * max_len * dkv
+    return {"prefill_flop": ops, "prefill_floor_ms": ops / BF16_FLOP_S * 1e3,
+            "decode_bytes": weights + cross_kv + self_kv,
+            "decode_floor_ms": (weights + cross_kv + self_kv)
+            / HBM_BYTES_S * 1e3,
+            "cross_kv_bytes_expected": cross_kv,
+            "self_kv_bytes_expected": self_kv}
+
+
+def encdec_train(torch, cfg, gen):
+    """o-train: whisper-medium's train step at full width and depth, f32
+    masters, bf16 activations and AdamW moments, remat, path j's learning
+    rate; one warm step and ``ENCDEC_TRAIN_STEPS`` timed ones on batches of
+    ``ENCDEC_TRAIN_BATCH`` × 448 tokens from the token stream and normal
+    frames; no kernel may launch (the train attention never reaches
+    ``ops.attention``)."""
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam, schedule
+    B, S = ENCDEC_TRAIN_BATCH, ENCDEC_PROMPT + LM_DECODE
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = zoo.build(cfg, DEVICE)
+    params = model.init(gen)
+    opt = adam.init(params)
+    it = DataIterator(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
+                                 seed=SEED), device=DEVICE)
+    zero_counts()
+    rows, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + ENCDEC_TRAIN_STEPS):
+        batch = dict(next(it), frames=torch.randn(
+            (B, cfg.enc_len, cfg.d_model), generator=gen,
+            device=DEVICE))
+        lr = adam.AdamConfig().lr * float(
+            schedule.warmup_cosine(i, warmup=TRAIN_WARMUP))
+        step = steps.build_train_step(model, adam.AdamConfig(lr=lr))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        loss = float(met["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        rows.append({"step": i, "warm": i == 0, "ms": ms, "lr": lr,
+                     "loss": loss, "grad_norm": float(met["grad_norm"])})
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"phase": "main", "path": "o", "arm": "train", "arch": cfg.name,
+           "n_params": sum(t.numel() for _, t in zoo.flatten(params)),
+           "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
+           "moment_dtype": "bfloat16", "remat": cfg.remat, "global_batch": B,
+           "seq": S, "frames": cfg.enc_len, "steps": rows,
+           "mean_ms": sum(r["ms"] for r in rows[1:]) / ENCDEC_TRAIN_STEPS,
+           "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
+           "kernel_launches": launches}
+    emit(out)
+    check(all(map(math.isfinite, losses)),
+          f"o-train: a loss is not finite {losses}")
+    check(not any(launches.values()),
+          f"o-train: the train step launched a kernel {launches}")
+    del params, opt, it, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_phase(torch):
+    """Path o: whisper-medium — the flash kernel at its three attention
+    shapes (the encoder's q, k, v (4, 16, 1500, 64) and the cross-
+    attention's q (4, 16, 416, 64) over k, v (4, 16, 1500, 64), not causal;
+    the decoder's (4, 16, 416, 64), causal; all on the ``wgmma`` body);
+    then full width and depth (24 encoder + 24 decoder layers, d_model
+    1024, 16 heads of 64), bf16 serving weights from seed 2016, 4 × 1500
+    normal bf16 frame embeddings (the stub frontend's), 4 prompts of 416
+    tokens and 32 greedy decode steps (448 positions, whisper's text
+    context), counted (72 launches a prefill, none in decode); the
+    encoder alone timed once; then (a), (b) and (d) as path lm, in float32
+    at full depth with the same frames in every batch; then o-train."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec
+    t_path = time.perf_counter()
+    cfg = get_config(ENCDEC_ARCH)
+    B, S, E = LM_BATCH, ENCDEC_PROMPT, cfg.enc_len
+    flash = {}
+    for i, (name, s_, t_, causal) in enumerate((
+            ("encoder", E, E, False), ("cross", S, E, False),
+            ("decoder", S, S, True))):
+        row = flash_case(torch, B, cfg.n_heads, cfg.n_kv_heads, s_, cfg.hd,
+                         SEED + 10 + i, T=t_, causal=causal)
+        emit({"phase": "kernel", "path": "encdec", "attention": name, **row})
+        check_flash_case("encdec", row)
+        flash[name] = row["ms"]
+    per_prefill = (cfg.n_enc_layers * flash["encoder"]
+                   + cfg.n_layers * (flash["cross"] + flash["decoder"]))
+    cfg, model, params, gen, init = serve_init(torch, ENCDEC_ARCH)
+    frames = torch.randn((B, E, cfg.d_model), generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :S], "frames": frames}
+    outs, line, launches, _ = serve_timed(
+        torch, "encdec", cfg, model, params, batch, max_len, per_prefill)
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        encdec.encode(cfg, params, frames)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+    floors = encdec_floors(cfg, B, S, max_len)
+    emit({"phase": "main", "path": "encdec", **init, **line, "frames": E,
+          "encoder_ms": enc_ms, "flash_ms_per_prefill": per_prefill,
+          "cross_kv_cache_gib": line["cross_kv_cache_bytes"] / 2**30,
+          **floors})
+    check_launches("encdec", cfg, launches)
+    check(line["cross_kv_cache_bytes"] == floors["cross_kv_bytes_expected"]
+          and line["kv_cache_bytes"] == floors["self_kv_bytes_expected"],
+          f"encdec: cache bytes {line['kv_cache_bytes']} self, "
+          f"{line['cross_kv_cache_bytes']} cross")
+    serve_checks(torch, "encdec", cfg, model, params, batch,
+                 toks[:, S:S + 1], {"tokens": toks, "frames": frames},
+                 max_len, outs)
+    del params, outs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec_train(torch, get_config(ENCDEC_ARCH), gen)
+    emit({"phase": "encdec", "path": "o",
           "seconds": time.perf_counter() - t_path})
     return launches
 
@@ -4356,6 +4558,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(hybrid_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(encdec_phase(torch))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

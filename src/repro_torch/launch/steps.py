@@ -9,8 +9,9 @@ donates them).  Serving runs with bf16 parameters, norm scales included,
 and activations in ``cfg.dtype`` (the reference's ``lower_cell`` /
 ``_bf16_init`` rule): ``serving_model`` builds such a model; the serving
 steps run without autograd.  Every ported family (dense, MoE, VLM, SSM,
-hybrid) takes the same steps; a VLM's batch carries ``patch_embs`` (B,
-n_patches, d_model) beside its tokens.  The reference's ``*_specs`` (abstract
+hybrid, enc-dec) takes the same steps; a VLM's batch carries ``patch_embs``
+(B, n_patches, d_model) beside its tokens, an enc-dec's ``frames`` (B,
+enc_len, d_model).  The reference's ``*_specs`` (abstract
 arguments and mesh shardings of the LM stack) wait for the sharded train
 step (ROADMAP A14).
 """
@@ -91,7 +92,7 @@ def serving_model(cfg: ArchConfig, *, serve_dtype: str = "bfloat16",
 def build_prefill_step(model: zoo.Model, max_len: int, *,
                        attn_impl: str = "auto"):
     """(params, batch) -> (cache, last-position logits); batch: tokens
-    (B, S) [, patch_embs (B, P, d)]."""
+    (B, S) [, patch_embs (B, P, d) | frames (B, enc_len, d)]."""
     def prefill_step(params, batch):
         with torch.no_grad():
             return model.prefill(params, batch, max_len, attn_impl=attn_impl)

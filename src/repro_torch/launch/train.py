@@ -9,8 +9,11 @@ checkpoints → preemption guard → straggler monitor.  It runs on ``cuda``
 unless the engine's ``device`` knob asks for the CPU
 (``fm.set_conf(device="cpu")``); with no card and no such request it
 raises.  Parameters are drawn from a ``torch.Generator`` seeded 0 on the
-model's device.  One device: ``--model-parallel`` > 1 waits for the
-sharded train step (ROADMAP A14).
+model's device.  As the reference's launcher, every step's batch carries
+zero float32 stand-ins for the stub frontends: ``patch_embs`` (B,
+n_patches, d_model) for a VLM, ``frames`` (B, enc_len, d_model) for an
+enc-dec model.  One device: ``--model-parallel`` > 1 waits for the sharded
+train step (ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -68,6 +71,13 @@ def main(argv=None):
     data_cfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                           vocab=cfg.vocab)
     it = DataIterator(data_cfg, device=model.device)
+    stubs = {}
+    if cfg.family == "vlm":
+        stubs["patch_embs"] = torch.zeros(
+            (args.batch, cfg.n_patches, cfg.d_model), device=model.device)
+    if cfg.family == "encdec":
+        stubs["frames"] = torch.zeros(
+            (args.batch, cfg.enc_len, cfg.d_model), device=model.device)
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
@@ -87,7 +97,7 @@ def main(argv=None):
     try:
         for step in range(start_step, args.steps):
             t0 = time.perf_counter()
-            batch = next(it)
+            batch = {**next(it), **stubs}
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             losses.append(loss)

@@ -9,15 +9,19 @@ Attention:
   * prefill (full sequence) goes through ``kernels.ops.attention`` — the
     hand-written flash kernel on the card — with q (B, nh, S, hd) and k, v
     (B, nkv, T, hd), GQA read in the kernel.  The reference computes the same
-    causal softmax attention in jnp (``_grouped_attention``, or its
-    blockwise scan for long sequences); its mask compares positions, the
-    kernel's compares indices, which is the same for a prefill's positions
-    0 .. S-1.
+    softmax attention in jnp (``_grouped_attention``, or its blockwise scan
+    for long sequences); its causal mask compares positions, the kernel's
+    compares indices, which is the same for a prefill's positions 0 .. S-1.
+    The enc-dec family's encoder self-attention and its cross-attention
+    (``xkv``: K/V from the encoder output, S != T) are not causal: the
+    kernel masks only k < T there, as the reference masks nothing.
   * one-token decode against the static-length KV cache stays plain
     PyTorch, as the reference computes it outside any kernel: write at
     ``cur_len``, attend over positions <= ``cur_len``.  The port writes the
     new K/V into the cache tensors in place (the reference returns a new
-    cache; in place saves copying it every step).
+    cache; in place saves copying it every step).  Decode-time
+    cross-attention over the cached encoder K/V is plain too
+    (``apply_cross_attention_decode``).
   * training (``apply_attention_train``) never reaches ``ops.attention``,
     whose kernel has no backward: it computes attention as the reference's
     train forward does, in plain PyTorch — ``_grouped_attention`` under a
@@ -26,8 +30,8 @@ Attention:
     recompute backward (a ``torch.autograd.Function``, the twin of the
     reference's custom VJP).  Neither is a Pallas kernel in the reference.
 
-``xent_loss`` is the reference's f32 cross-entropy.  Left out (other
-families): cross-attention and sinusoidal encodings (ROADMAP A14).
+``xent_loss`` is the reference's f32 cross-entropy; ``sinusoidal`` its
+absolute encodings (the enc-dec family's positions).
 """
 from __future__ import annotations
 
@@ -93,6 +97,17 @@ def rope(x, positions, theta: float):
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal(positions, d: int):
+    """Sin/cos absolute encodings: positions (..., S) -> (..., S, d) in f32,
+    the reference's formula: frequencies exp(-log(10000) · arange(d/2) /
+    (d/2)), the sines then the cosines."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -118,13 +133,29 @@ def _proj(x, w, b=None):
     return y
 
 
-def _qkv(cfg, p, x):
+def _qkv(cfg, p, x, xkv=None):
+    """q from x (B, S, d); k, v from ``xkv`` (B, T, d), x itself by
+    default."""
     nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xkv = x if xkv is None else xkv
     B, S = x.shape[:2]
+    T = xkv.shape[1]
     q = _proj(x, p["wq"], p.get("bq")).reshape(B, S, nh, hd)
-    k = _proj(x, p["wk"], p.get("bk")).reshape(B, S, nkv, hd)
-    v = _proj(x, p["wv"], p.get("bv")).reshape(B, S, nkv, hd)
+    k = _proj(xkv, p["wk"], p.get("bk")).reshape(B, T, nkv, hd)
+    v = _proj(xkv, p["wv"], p.get("bv")).reshape(B, T, nkv, hd)
     return q, k, v
+
+
+def _qkv_roped(cfg, p, x, positions, use_rope, xkv, kv_positions):
+    """``_qkv`` with RoPE on q at ``positions`` and on k at
+    ``kv_positions`` (``positions`` by default) under ``use_rope``: (q, k,
+    v, kv_positions), the prelude of both full-sequence attentions."""
+    q, k, v = _qkv(cfg, p, x, xkv)
+    kv_positions = positions if kv_positions is None else kv_positions
+    if use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, kv_positions, cfg.rope_theta)
+    return q, k, v, kv_positions
 
 
 def _grouped_attention(q, k, v, mask):
@@ -147,14 +178,21 @@ def _grouped_attention(q, k, v, mask):
 
 
 def apply_attention(cfg, p, x, positions, *, causal: bool = True,
+                    use_rope: bool = True, xkv=None, kv_positions=None,
                     impl: str = "auto"):
-    """Full-sequence self-attention (prefill) through ``ops.attention``;
-    returns (out, (k, v)) with the roped k and v as (B, S, nkv, hd).  The
-    causal mask is by index, so ``positions`` must be 0 .. S-1 per row (a
-    prefill's)."""
-    q, k, v = _qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    """Full-sequence attention (prefill, encoder, cross) through
+    ``ops.attention``: self-attention over x, or cross-attention of x over
+    ``xkv`` (B, T, d) at ``kv_positions`` (``positions`` by default);
+    returns (out, (k, v)) with k and v (roped under ``use_rope``) as (B, T,
+    nkv, hd).  The causal mask is by index, so causal attention needs T ==
+    S and ``positions`` 0 .. S-1 per row (a prefill's); non-causal
+    attention masks nothing but the keys past T, at any S and T."""
+    q, k, v, _ = _qkv_roped(cfg, p, x, positions, use_rope, xkv,
+                            kv_positions)
+    if causal and k.shape[1] != q.shape[1]:
+        raise ValueError(f"apply_attention: causal over {k.shape[1]} keys "
+                         f"for {q.shape[1]} queries; the kernel's causal "
+                         "mask is by index")
     B, S = x.shape[:2]
     out = ops.attention(q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
@@ -288,20 +326,22 @@ def blockwise_attention(q, k, v, q_pos, k_pos, causal, bk: int = 1024):
     return _BlockwiseAttention.apply(q, k, v, q_pos, k_pos, causal, bk)
 
 
-def apply_attention_train(cfg, p, x, positions, *, causal: bool = True):
-    """Full-sequence self-attention of the train forward, the reference's
-    ``apply_attention``: the grouped softmax under a position mask while
-    S·T <= ``_BLOCKWISE_THRESHOLD``² (read at call time), else
+def apply_attention_train(cfg, p, x, positions, *, causal: bool = True,
+                          use_rope: bool = True, xkv=None,
+                          kv_positions=None):
+    """Full-sequence attention of the train forward (self, or cross over
+    ``xkv`` at ``kv_positions``), the reference's ``apply_attention``: the
+    grouped softmax under a position mask while S·T <=
+    ``_BLOCKWISE_THRESHOLD``² (read at call time), else
     ``blockwise_attention``.  Never ``ops.attention``.  Returns (out,
     (k, v))."""
-    q, k, v = _qkv(cfg, p, x)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q, k, v, kv_positions = _qkv_roped(cfg, p, x, positions, use_rope, xkv,
+                                       kv_positions)
     S, T = q.shape[1], k.shape[1]
     if S * T > _BLOCKWISE_THRESHOLD ** 2:
-        out = blockwise_attention(q, k, v, positions, positions, causal)
+        out = blockwise_attention(q, k, v, positions, kv_positions, causal)
     else:
-        mask = (causal_mask(positions, positions) if causal else
+        mask = (causal_mask(positions, kv_positions) if causal else
                 torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
                            device=x.device))
         out = _grouped_attention(q, k, v, mask)
@@ -314,7 +354,8 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def apply_attention_decode(cfg, p, x, cache: dict, cur_len):
+def apply_attention_decode(cfg, p, x, cache: dict, cur_len, *,
+                           use_rope: bool = True):
     """One-token decode: x is (B, 1, d); cache holds k, v (B, T, nkv, hd).
 
     ``cur_len`` (0-d int32 tensor) is the number of valid positions already
@@ -323,8 +364,9 @@ def apply_attention_decode(cfg, p, x, cache: dict, cur_len):
     B = x.shape[0]
     pos = cur_len.reshape(1, 1).expand(B, 1)
     q, k_new, v_new = _qkv(cfg, p, x)
-    q = rope(q, pos, cfg.rope_theta)
-    k_new = rope(k_new, pos, cfg.rope_theta)
+    if use_rope:
+        q = rope(q, pos, cfg.rope_theta)
+        k_new = rope(k_new, pos, cfg.rope_theta)
     at = cur_len.reshape(1).long()
     k, v = cache["k"], cache["v"]
     k.index_copy_(1, at, k_new.to(k.dtype))
@@ -332,6 +374,17 @@ def apply_attention_decode(cfg, p, x, cache: dict, cur_len):
     kpos = torch.arange(k.shape[1], dtype=torch.int32, device=k.device)
     out = _grouped_attention(q, k, v, kpos <= cur_len)
     return out @ p["wo"].to(out.dtype), cache
+
+
+def apply_cross_attention_decode(cfg, p, x, cross_k, cross_v):
+    """Decode-time cross-attention of x (B, 1, d) over the cached encoder
+    K/V (B, T, nkv, hd), unmasked: plain PyTorch, as the reference computes
+    it outside any kernel."""
+    B = x.shape[0]
+    q = _proj(x, p["wq"], p.get("bq")).reshape(B, 1, cfg.n_heads, cfg.hd)
+    mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
+    out = _grouped_attention(q, cross_k, cross_v, mask)
+    return out @ p["wo"].to(out.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -176,10 +176,9 @@ def forward(cfg, params, batch):
     """Causal-LM loss.  batch: tokens (B,S), labels (B,S) [, loss_mask]
     [, patch_embs (B, P, d)]."""
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.family} training: ROADMAP A14 (transformer.forward trains "
-            f"the {', '.join(FAMILIES)} families; zoo.module_for gives each "
-            "family's module)")
+        raise ValueError(
+            f"transformer.forward trains the {', '.join(FAMILIES)} families, "
+            f"not {cfg.family}: zoo.module_for gives each family's module")
     patch = batch.get("patch_embs")
     h, aux = hidden_states(cfg, params, batch["tokens"], patch_embs=patch)
     if patch is not None:

@@ -1,5 +1,6 @@
 """Model zoo: the facade over the ported architecture families — the port
-of repro/models/zoo.py for the dense, MoE, VLM, SSM and hybrid families.
+of repro/models/zoo.py for the dense, MoE, VLM, SSM, hybrid and enc-dec
+families.
 
 ``build(cfg)`` returns a ``Model`` whose functions share the reference's
 signatures:
@@ -13,10 +14,10 @@ signatures:
 on the model's device: ``cuda`` unless the caller asks for the CPU (the
 ``device`` argument, else the engine's ``device`` knob, ``fm.set_conf(device=
 ...)``); with no card and no such request, ``build`` raises.  A VLM's
-batch carries ``patch_embs`` (B, n_patches, d_model) beside its tokens.
-Each family's functions come from its module (``MODULES``): dense, MoE and
-VLM from ``transformer``, SSM from ``ssm_lm``, hybrid from ``hybrid``.  The
-enc-dec family raises ``NotImplementedError`` naming ROADMAP A14.
+batch carries ``patch_embs`` (B, n_patches, d_model) beside its tokens, an
+enc-dec's ``frames`` (B, enc_len, d_model).  Each family's functions come
+from its module (``MODULES``): dense, MoE and VLM from ``transformer``, SSM
+from ``ssm_lm``, hybrid from ``hybrid``, enc-dec from ``encdec``.
 ``params_from_numpy`` and ``opt_state_from_numpy`` carry a JAX parameter
 tree and AdamW state across, so both packages compute the same thing.
 """
@@ -28,23 +29,23 @@ import numpy as np
 import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
-from . import hybrid, ssm_lm, transformer
+from . import encdec, hybrid, ssm_lm, transformer
 from .layers import dtype_of
 
 #: The module that computes each family ``build`` serves.
 MODULES = {**{f: transformer for f in transformer.FAMILIES},
            **{f: ssm_lm for f in ssm_lm.FAMILIES},
-           **{f: hybrid for f in hybrid.FAMILIES}}
+           **{f: hybrid for f in hybrid.FAMILIES},
+           **{f: encdec for f in encdec.FAMILIES}}
 #: Families ``build`` serves.
 FAMILIES = tuple(MODULES)
 
 
 def module_for(cfg: ArchConfig):
-    """The module computing ``cfg.family``; enc-dec raises naming A14."""
+    """The module computing ``cfg.family``; an unknown family raises."""
     if cfg.family not in MODULES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet; the "
-            f"port serves {FAMILIES} (ROADMAP A14)")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; the "
+                         f"port serves {FAMILIES}")
     return MODULES[cfg.family]
 
 
@@ -85,7 +86,13 @@ class Model:
     def prefill(self, params, batch: dict, max_len: int, *,
                 attn_impl: str = "auto"):
         """``attn_impl`` picks the attention of the families that attend
-        in a prefill (the SSM ignores it)."""
+        in a prefill (the SSM ignores it).  An enc-dec prefill encodes
+        ``batch["frames"]`` first, as the reference's ``build`` passes
+        them."""
+        if self.cfg.family == "encdec":
+            return self.module.prefill(self.cfg, params, batch["frames"],
+                                       batch["tokens"], max_len,
+                                       attn_impl=attn_impl)
         return self.module.prefill(self.cfg, params, batch["tokens"],
                                    max_len, patch_embs=batch.get("patch_embs"),
                                    attn_impl=attn_impl)
@@ -110,11 +117,12 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     takes tokens and labels (B, S), prefill tokens (B, S) with max_len S,
     decode one token (B, 1) against a cache of max_len S.  A VLM's S
     counts its patches: tokens and labels are (B, S - n_patches), beside
-    ``patch_embs`` (B, n_patches, d_model) in ``cfg.dtype``.  The SSM and
-    hybrid take the dense family's inputs, ``long_500k``'s too."""
+    ``patch_embs`` (B, n_patches, d_model) in ``cfg.dtype``; an enc-dec's
+    tokens and labels (B, S) beside ``frames`` (B, enc_len, d_model) in
+    ``cfg.dtype``.  The SSM and hybrid take the dense family's inputs,
+    ``long_500k``'s too."""
     B, S = shape.global_batch, shape.seq_len
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"{cfg.family} inputs: ROADMAP A14")
+    module_for(cfg)
 
     def tok(shape_):
         return torch.empty(shape_, dtype=torch.int32, device="meta")
@@ -125,6 +133,10 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
         batch["patch_embs"] = torch.empty(
             (B, cfg.n_patches, cfg.d_model), dtype=dtype_of(cfg.dtype),
             device="meta")
+    if cfg.family == "encdec":
+        batch["frames"] = torch.empty(
+            (B, cfg.enc_len, cfg.d_model), dtype=dtype_of(cfg.dtype),
+            device="meta")
     if shape.kind == "train":
         return {"kind": "train", "batch": batch}
     if shape.kind == "prefill":
@@ -133,7 +145,7 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     if shape.kind == "decode":
         return {"kind": "decode", "batch": {"token": tok((B, 1))},
                 "max_len": S, "cache_batch": B}
-    raise NotImplementedError(f"{shape.kind} inputs: ROADMAP A14")
+    raise ValueError(f"unknown shape kind {shape.kind!r}")
 
 
 def flatten(tree, prefix=""):

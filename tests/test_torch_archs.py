@@ -1,15 +1,15 @@
 """Twin of tests/test_archs.py's rows for the ported families (dense, MoE,
-VLM, SSM, hybrid): each ported architecture at its reduced config runs one
+VLM, SSM, hybrid, enc-dec): each ported architecture at its reduced config runs one
 forward and one gradient on the CPU — a finite scalar loss, a gradient of
 every leaf's shape, all finite (a zero-length leaf, the reduced hybrid's
 empty tail, has no element to check) — and ``input_specs`` covers every
 shape of the full config (train, prefill, decode, and ``long_500k`` for
-the SSM and hybrid) as the reference's does, the VLM's patch embeddings in
-``cfg.dtype``; the full configs' parameter trees on the ``meta`` device
-(nothing allocated) count within 2× of ``n_params``, and the published
-sizes hold (``test_param_counts_sane``).  The serving row
-(``test_prefill_decode_matches_forward``) is twinned in
-tests/test_torch_lm.py; the enc-dec rows wait for ROADMAP A14.
+the SSM and hybrid) as the reference's does, the VLM's patch embeddings
+and the enc-dec's frames in ``cfg.dtype``; the full configs' parameter
+trees on the ``meta`` device (nothing allocated) count within 2× of
+``n_params``, and the published sizes hold (``test_param_counts_sane``).
+The serving row (``test_prefill_decode_matches_forward``) is twinned in
+tests/test_torch_lm.py.
 """
 import numpy as np
 import pytest
@@ -35,6 +35,9 @@ def test_forward_and_train_shapes(arch):
     if cfg.family == "vlm":
         batch["patch_embs"] = torch.from_numpy(RNG.normal(
             size=(2, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(RNG.normal(
+            size=(2, cfg.enc_len, cfg.d_model)).astype(np.float32))
     with torch.no_grad():
         loss, metrics = model.forward(params, batch)
     assert loss.shape == () and np.isfinite(float(loss))
@@ -64,14 +67,16 @@ def test_input_specs_cover_all_shapes(arch):
             assert all(d > 0 for d in v.shape), (arch, name, k)
             assert tuple(v.shape) == want["batch"][k].shape
             assert str(v.dtype) == f"torch.{want['batch'][k].dtype}"
-            assert v.dtype == (dtype_of(cfg.dtype) if k == "patch_embs"
+            assert v.dtype == (dtype_of(cfg.dtype)
+                               if k in ("patch_embs", "frames")
                                else torch.int32)
             assert v.device.type == "meta"
 
 
 @pytest.mark.parametrize("arch", ["qwen2-72b", "arctic-480b",
                                   "qwen3-moe-30b-a3b", "paligemma-3b",
-                                  "mamba2-1.3b", "zamba2-7b"])
+                                  "mamba2-1.3b", "zamba2-7b",
+                                  "whisper-medium"])
 def test_full_config_abstract_params(arch):
     """FULL configs as ``meta`` tensors only — no allocation."""
     cfg = get_config(arch)
@@ -86,12 +91,14 @@ def test_full_config_abstract_params(arch):
 def test_param_counts_sane():
     """The published sizes: ``n_params`` and the meta tree's count of each
     ported config, and qwen3-moe's ~3.3B active a token.  mamba2-1.3b's
-    target is the reference test's 1.3e9; zamba2-7b's is its own
-    ``n_params``, 6.75e9 (the reference test has no row for it)."""
+    and whisper-medium's targets are the reference test's 1.3e9 and
+    0.76e9; zamba2-7b's is its own ``n_params``, 6.75e9 (the reference
+    test has no row for it)."""
     expected = {"qwen2-72b": 72e9, "granite-8b": 8e9, "llama3.2-3b": 3.2e9,
                 "qwen2-0.5b": 0.5e9, "arctic-480b": 480e9,
                 "qwen3-moe-30b-a3b": 30.5e9, "paligemma-3b": 2.9e9,
-                "mamba2-1.3b": 1.3e9, "zamba2-7b": 6.75e9}
+                "mamba2-1.3b": 1.3e9, "zamba2-7b": 6.75e9,
+                "whisper-medium": 0.76e9}
     assert set(expected) == set(PORTED_IDS)
     for arch, target in expected.items():
         cfg = get_config(arch)

@@ -749,13 +749,17 @@ def _within_one_ulp(got, want):
     (1024, 1024, 128, 3, True), (1024, 1024, 128, 3, False),
     (1024, 1024, 64, 3, True), (1000, 1000, 128, 1, True),
     (300, 1000, 64, 8, False), (50, 50, 128, 3, True), (50, 300, 64, 1, False),
-    (200, 130, 128, 3, True)])
+    (200, 130, 128, 3, True), (1500, 1500, 64, 1, False),
+    (416, 1500, 64, 1, False), (416, 416, 64, 1, True)])
 def test_flash_attention_hopper_body(dev, S, T, d, g, causal):
     """The wgmma body (bf16, head dims 64 and 128) across many kv tiles and
     wrap-arounds of its ring (2 stages at d 128, 4 at d 64; T = 1024 is 8
     tiles of 128 keys), T not a multiple of the 128-key tile, S below one
-    64-row warpgroup and below the 128-row block: one launch, within one
-    bf16 ulp of float64."""
+    64-row warpgroup and below the 128-row block, and whisper-medium's
+    three shapes (the encoder's 1500 × 1500 and the cross-attention's 416
+    × 1500, not causal; the decoder's 416 × 416, causal — 1500 and 416
+    multiples of neither tile): one launch, within one bf16 ulp of
+    float64."""
     assert fa.body_for(torch.bfloat16, d) == "wgmma"
     B, nkv = 2, 2
     q = _x(B * nkv * g * S, d, torch.bfloat16, dev).reshape(B, nkv * g, S, d)
@@ -996,6 +1000,52 @@ def test_ssm_and_hybrid_prefill_and_decode_on_the_card_match_the_cpu(
             continue
         a, b = a.double().cpu(), b.double()
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("serve_dtype,tol", [("float32", 1e-4),
+                                             ("bfloat16", 2e-2)])
+def test_encdec_prefill_and_decode_on_the_card_match_the_cpu(
+        dev, serve_dtype, tol):
+    """Reduced whisper-medium (2 + 2 layers, 32 frames): prefill of 100
+    tokens — the flash kernel once an encoder layer and twice a decoder
+    layer (self and cross) on the card, never on the CPU — and a decode
+    step, which launches none, against the CPU: the logits and every cache
+    leaf (self K/V, cross K/V) within ``tol`` of their largest value."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("whisper-medium")),
+                              dtype=serve_dtype)
+    on = {d: steps.serving_model(cfg, serve_dtype=serve_dtype, device=d)
+          for d in ("cpu", dev)}
+    params = {"cpu": on["cpu"].init(0)}
+    params[dev] = zoo.tree_map(lambda _, t: t.to(dev), params["cpu"])
+    toks = torch.as_tensor(RNG.integers(0, cfg.vocab, (2, 101)),
+                           dtype=torch.int32)
+    frames = torch.as_tensor(RNG.normal(size=(2, cfg.enc_len, cfg.d_model)),
+                             dtype=torch.float32)
+    out, caches = {}, {}
+    for d in ("cpu", dev):
+        before = fa.launches
+        cache, logits = steps.build_prefill_step(on[d], 110)(
+            params[d], {"tokens": toks[:, :100].to(d),
+                        "frames": frames.to(d)})
+        launched = fa.launches - before
+        cache, dec = steps.build_decode_step(on[d])(params[d], cache,
+                                                    toks[:, 100:].to(d))
+        assert fa.launches - before == launched
+        assert launched == (cfg.n_enc_layers + 2 * cfg.n_layers
+                            if d == dev else 0)
+        out[d] = (logits, dec)
+        caches[d] = dict(zoo.flatten(cache))
+    for a, b in list(zip(out[dev], out["cpu"])) + [
+            (caches[dev][k], caches["cpu"][k]) for k in caches["cpu"]]:
+        if b.dtype == torch.int32:
+            assert torch.equal(a.cpu(), b)
+            continue
+        a, b = a.double().cpu(), b.double()
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
 
 
 def test_moe_init_peak_within_one_float32_layer_leaf(dev):

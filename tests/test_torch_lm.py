@@ -6,13 +6,16 @@ paligemma-3b (VLM: MQA, tied embeddings, GeGLU, 8 patch embeddings before
 the text), mamba2-1.3b (SSM: 8 heads of 32, state 16) and zamba2-7b
 (hybrid: the shared attention block every 2 SSM layers; at 2 layers no
 tail, and at 5 layers — ``zamba2-7b:5`` in both packages — two groups and
-a tail of 1) — ``reduced_for_smoke``: 2 layers, d_model 128, 4 heads over
-2 KV heads (1 for paligemma), head dim 32, vocab 512, float32: the
-reference's parameters from ``model.init(PRNGKey(0))``, their norm scales,
-QKV biases and the SSM's constant leaves (``A_log``, ``dt_bias``,
-``conv_b``, ``D``, the gated norm) redrawn from a seeded numpy RNG so that
-those leaves matter, carried across with ``params_from_numpy``; the patch
-embeddings drawn from the same RNG.  The MoE prompts are dropless (S·k <=
+a tail of 1) and whisper-medium (enc-dec: 2 encoder and 2 decoder layers,
+layernorm, sinusoidal positions, 32 frames; the cache's cross K/V too) —
+``reduced_for_smoke``: 2 layers, d_model 128, 4 heads over 2 KV heads (1
+for paligemma, 4 for whisper), head dim 32, vocab 512, float32: the
+reference's parameters from ``model.init(PRNGKey(0))``, their norm scales
+and biases, QKV biases and the SSM's constant leaves (``A_log``,
+``dt_bias``, ``conv_b``, ``D``, the gated norm) redrawn from a seeded numpy
+RNG so that those leaves matter, carried across with
+``params_from_numpy``; the patch embeddings and frames drawn from the same
+RNG.  The MoE prompts are dropless (S·k <=
 4096), as the reference's serving check is.  Prefill logits and every
 cache leaf (KV, SSM state, conv window, the hybrid's per-application KV)
 agree with ``repro.models.zoo.build(cfg).prefill`` within 1e-4 of their
@@ -46,7 +49,8 @@ from repro_torch.launch import steps
 from repro_torch.models import hybrid, layers, zoo
 
 ARCHS = ["llama3.2-3b", "qwen2-0.5b", "qwen3-moe-30b-a3b", "arctic-480b",
-         "paligemma-3b", "mamba2-1.3b", "zamba2-7b", "zamba2-7b:5"]
+         "paligemma-3b", "mamba2-1.3b", "zamba2-7b", "zamba2-7b:5",
+         "whisper-medium"]
 #: Names of the SSM leaves that init to constants (zeros or ones).
 SSM_CONST = ("['A_log']", "['dt_bias']", "['conv_b']", "['D']", "['norm']")
 B, S = 2, 33
@@ -87,8 +91,12 @@ def case(request):
     toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
     patches = (rng.normal(size=(B, cfg.n_patches, cfg.d_model))
                .astype(np.float32) if cfg.family == "vlm" else None)
+    frames = (rng.normal(size=(B, cfg.enc_len, cfg.d_model))
+              .astype(np.float32) if cfg.family == "encdec" else None)
     max_len = cfg.n_patches + S + 8
     extra = {} if patches is None else {"patch_embs": jnp.asarray(patches)}
+    if frames is not None:
+        extra["frames"] = jnp.asarray(frames)
     prefill = jax.jit(lambda p, t: jm.prefill(p, {"tokens": t, **extra},
                                                max_len))
     jcache, jlogits = prefill(jparams, jnp.asarray(toks[:, :S]))
@@ -97,7 +105,7 @@ def case(request):
                                        jnp.asarray(toks[:, S:]))
     model = zoo.build(cfg, device="cpu")
     return dict(arch=arch, cfg=cfg, model=model, toks=toks, patches=patches,
-                max_len=max_len,
+                frames=frames, max_len=max_len,
                 params=zoo.params_from_numpy(cfg, tree, "cpu"),
                 jcache=jax.tree_util.tree_map(np.asarray, jcache),
                 jlogits=np.asarray(jlogits), jfull=np.asarray(jfull),
@@ -109,6 +117,8 @@ def _batch(case, toks):
     batch = {"tokens": torch.from_numpy(toks)}
     if case["patches"] is not None:
         batch["patch_embs"] = torch.from_numpy(case["patches"])
+    if case["frames"] is not None:
+        batch["frames"] = torch.from_numpy(case["frames"])
     return batch
 
 
@@ -210,6 +220,22 @@ def test_rope_matches_reference(theta):
     assert (err <= (1e-5 + pos * 2.0 ** -22) * np.abs(x).max()).all()
 
 
+@pytest.mark.parametrize("d", [128, 1024])
+def test_sinusoidal_matches_reference(d):
+    """The enc-dec family's sin/cos encodings, in f32, out to whisper's
+    last frame (1499) and past its text context.  The formula is the
+    reference's; as in the RoPE twin, a one-ulp difference of the f32
+    frequencies moves an angle by up to pos · 2⁻²³ radians, so the limit
+    grows with the position."""
+    pos = np.array([[0, 1, 2, 447, 448], [100, 1023, 1024, 1498, 1499]],
+                   np.int32)
+    got = layers.sinusoidal(torch.from_numpy(pos), d).numpy()
+    want = np.asarray(jlayers.sinusoidal(jnp.asarray(pos), d))
+    assert got.shape == want.shape == (2, 5, d) and got.dtype == np.float32
+    err = np.abs(got - want).max(axis=-1)
+    assert (err <= 1e-5 + pos * 2.0 ** -22).all()
+
+
 @pytest.mark.parametrize("norm,act", [("rmsnorm", "swiglu"),
                                       ("layernorm", "geglu"),
                                       ("rmsnorm", "gelu")])
@@ -247,8 +273,10 @@ def test_parameter_tree_matches_reference_at_full_width(arch):
     allocated) has the reference's keys and shapes at the published
     widths, and its count is the config's ``n_params`` plus what that
     leaves out: the norm scales (two a layer and the final one; the SSM's
-    one a layer, the hybrid's one an SSM layer and the shared block's two),
-    QKV biases and the SSM's conv biases."""
+    one a layer, the hybrid's one an SSM layer and the shared block's two;
+    the enc-dec's two an encoder layer, three a decoder layer and two
+    final ones, each layernorm with its bias), QKV biases and the SSM's
+    conv biases."""
     cfg = get_config(arch)
     jshapes, _ = jzoo.build(jget_config(arch)).abstract_params()
     want = dict(zoo.flatten(jax.tree_util.tree_map(lambda s: s.shape,
@@ -257,9 +285,10 @@ def test_parameter_tree_matches_reference_at_full_width(arch):
     got = {k: tuple(v.shape) for k, v in zoo.flatten(tree)}
     assert got == {k: tuple(v) for k, v in want.items()}
     count = sum(int(np.prod(s)) for s in got.values())
-    n_norms = {"ssm": cfg.n_layers + 1,
-               "hybrid": cfg.n_layers + 3}.get(cfg.family, 2 * cfg.n_layers + 1)
-    norms = n_norms * cfg.d_model
+    n_norms = {"ssm": cfg.n_layers + 1, "hybrid": cfg.n_layers + 3,
+               "encdec": 2 * cfg.n_enc_layers + 3 * cfg.n_layers + 2}.get(
+                   cfg.family, 2 * cfg.n_layers + 1)
+    norms = n_norms * cfg.d_model * (2 if cfg.norm == "layernorm" else 1)
     biases = cfg.n_layers * (cfg.n_heads + 2 * cfg.n_kv_heads) * cfg.hd \
         if cfg.qkv_bias else 0
     if cfg.family in ("ssm", "hybrid"):
@@ -317,10 +346,12 @@ def test_init_law_and_serving_dtype():
                zip(zoo.flatten(sp), zoo.flatten(again)))
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-3b", "paligemma-3b"])
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "paligemma-3b",
+                                  "whisper-medium"])
 def test_input_specs_match_reference(arch):
     """Shapes and dtypes of every cell's inputs; the VLM's tokens are the
-    text after its 256 patches, its patch embeddings in ``cfg.dtype``."""
+    text after its 256 patches, its patch embeddings in ``cfg.dtype``; the
+    enc-dec's 1500 frames in ``cfg.dtype`` beside its tokens."""
     cfg, jcfg = get_config(arch), jget_config(arch)
     for name in ("train_4k", "prefill_32k", "decode_32k"):
         got = zoo.input_specs(cfg, SHAPES[name])
@@ -335,17 +366,15 @@ def test_input_specs_match_reference(arch):
 
 
 def test_unported_families_and_bad_inputs_raise():
-    """The enc-dec config and model name A14; a prompt shorter than the
-    SSM's conv window raises."""
-    unported = [a for a in ARCH_IDS if a not in PORTED_IDS]
-    assert unported == ["whisper-medium"]
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="A14"):
-            get_config(arch)
-        with pytest.raises(NotImplementedError, match="A14"):
-            zoo.build(jget_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="A14"):
-            zoo.input_specs(jget_config(arch), SHAPES["train_4k"])
+    """Every architecture of the reference is ported; an unknown family, a
+    prompt shorter than the SSM's conv window, a prompt past max_len and
+    an enc-dec prefill of another frame count than ``enc_len`` raise."""
+    assert set(ARCH_IDS) == set(PORTED_IDS)
+    for arch in ARCH_IDS:
+        assert get_config(arch).family in zoo.FAMILIES
+    with pytest.raises(ValueError, match="unknown family"):
+        zoo.build(dataclasses.replace(get_config("llama3.2-3b"),
+                                      family="diffusion"), device="cpu")
     cfg = reduced_for_smoke(get_config("qwen2-0.5b"))
     model = zoo.build(cfg, device="cpu")
     tree = model.init(0)
@@ -362,6 +391,15 @@ def test_unported_families_and_bad_inputs_raise():
         with pytest.raises(ValueError, match="conv window"):
             model.prefill(model.init(0),
                           {"tokens": torch.zeros(1, 2, dtype=torch.int32)}, 8)
+    cfg = reduced_for_smoke(get_config("whisper-medium"))
+    model = zoo.build(cfg, device="cpu")
+    toks = torch.zeros(1, 4, dtype=torch.int32)
+    for frames, max_len, what in ((cfg.enc_len + 1, 8, "enc_len"),
+                                  (cfg.enc_len, 3, "max_len")):
+        with pytest.raises(ValueError, match=what):
+            model.prefill(model.init(0), {"tokens": toks, "frames":
+                                          torch.zeros(1, frames, cfg.d_model)},
+                          max_len)
 
 
 def test_building_without_asking_for_the_cpu_raises_without_a_card():

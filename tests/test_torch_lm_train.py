@@ -12,19 +12,27 @@ reference's parameters from ``model.init(PRNGKey(0))`` carried across with
   loss over the text only), mamba2-1.3b (the SSM; 48 tokens take the pad
   path of one chunk) and zamba2-7b (the hybrid at 2 layers, one group and
   an empty tail, and at 5 layers: two applications of the shared block,
-  whose leaves add both gradients, and a tail of 1);
+  whose leaves add both gradients, and a tail of 1) and whisper-medium
+  (enc-dec: frames through the encoder, whose output every decoder
+  layer's cross-attention reads);
 * ``blockwise_attention``'s forward and its backward (the reference's
   custom VJP through ``jax.vjp``) at B 2, S = T = 48, GQA g = 2, causal and
-  not, bk 16 and bk 20 (T not a multiple: padded keys), within 1e-5 of the
-  largest |entry|;
+  not, and not causal over T = 40 != S keys (the enc-dec cross-attention's
+  case), bk 16 and bk 20 (T not a multiple: padded keys), within 1e-5 of
+  the largest |entry|;
 * each route of the train attention (grouped, blockwise) chosen by
   ``_BLOCKWISE_THRESHOLD`` set in both packages, never ``ops.attention``;
 * ``adam.update`` on the same numpy gradients: float32 moments and
   parameters within rtol 1e-6, bf16 moments within one bf16 ulp;
-* three ``build_train_step`` steps with ``grad_accum`` 1 and 2, and for the
+* three ``build_train_step`` steps with ``grad_accum`` 1 and 2, for the
   SSM and the hybrid (whose empty tail takes its empty gradient) with 1
-  and the config's own: the losses within 1e-5 and the parameters under
-  the Adam rule below.
+  and the config's own, and for the enc-dec with 1: the losses within 1e-5 and the parameters under
+  the Adam rule below;
+* the launcher's batch: zero float32 ``patch_embs`` for paligemma-3b and
+  zero ``frames`` for whisper-medium beside the tokens, every step, the
+  keys, shapes and dtypes the reference's launcher feeds its step; and
+  after ``--resume`` from the launcher's own checkpoint the same batch
+  again, for those two and for mamba2-1.3b (grad_accum 2).
 
 Adam's first steps are close to sign(g): an entry whose gradient is float
 noise can move either way by 2·lr.  Entries whose reference gradient is
@@ -62,7 +70,8 @@ ARCHS = ["llama3.2-3b", "qwen2-0.5b"]
 #: Archs of the loss-and-gradient twin: the dense ones, MoE, the VLM, the
 #: SSM and the hybrid (``:5`` sets 5 layers in both packages).
 LOSS_ARCHS = ARCHS + ["qwen3-moe-30b-a3b", "arctic-480b", "paligemma-3b",
-                      "mamba2-1.3b", "zamba2-7b", "zamba2-7b:5"]
+                      "mamba2-1.3b", "zamba2-7b", "zamba2-7b:5",
+                      "whisper-medium"]
 B, S = 2, 48
 
 
@@ -87,13 +96,17 @@ def _pair(arch, **over):
 
 
 def _batch(vocab, b=B, s=S, seed=0, cfg=None):
-    """Tokens and labels (b, s); for a VLM ``cfg``, patch embeddings too."""
+    """Tokens and labels (b, s); for a VLM ``cfg``, patch embeddings too,
+    for an enc-dec one frames."""
     rng = np.random.default_rng(seed)
     batch = {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
              "labels": rng.integers(0, vocab, (b, s)).astype(np.int32)}
     if cfg is not None and cfg.family == "vlm":
         batch["patch_embs"] = rng.normal(
             size=(b, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg is not None and cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(b, cfg.enc_len, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -129,23 +142,26 @@ def test_forward_loss_and_grads_match_reference(arch, remat):
 
 
 @pytest.mark.parametrize("bk", [16, 20])
-@pytest.mark.parametrize("causal", [True, False])
-def test_blockwise_attention_matches_reference_vjp(causal, bk):
+@pytest.mark.parametrize("causal,T", [pytest.param(True, S, id="True"),
+                                      pytest.param(False, S, id="False"),
+                                      pytest.param(False, 40, id="False-T40")])
+def test_blockwise_attention_matches_reference_vjp(causal, T, bk):
     rng = np.random.default_rng(3)
-    nh, nkv, hd, T = 4, 2, 32, S
+    nh, nkv, hd = 4, 2, 32
     q = rng.normal(size=(B, S, nh, hd)).astype(np.float32)
     k, v = (rng.normal(size=(B, T, nkv, hd)).astype(np.float32)
             for _ in range(2))
     dout = rng.normal(size=(B, S, nh * hd)).astype(np.float32)
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
-    jpos = jnp.asarray(pos)
+    kpos = np.broadcast_to(np.arange(T, dtype=np.int32), (B, T)).copy()
+    jpos, jkpos = jnp.asarray(pos), jnp.asarray(kpos)
     jout, vjp = jax.vjp(lambda q_, k_, v_: jlayers.blockwise_attention(
-                            q_, k_, v_, jpos, jpos, causal, bk),
+                            q_, k_, v_, jpos, jkpos, causal, bk),
                         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     jgrads = vjp(jnp.asarray(dout))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
-    tpos = torch.from_numpy(pos)
-    out = layers.blockwise_attention(tq, tk, tv, tpos, tpos, causal, bk)
+    out = layers.blockwise_attention(tq, tk, tv, torch.from_numpy(pos),
+                                     torch.from_numpy(kpos), causal, bk)
     out.backward(torch.from_numpy(dout))
     assert _rel(out.detach().numpy(), jout) < 1e-5
     for got, want in zip((tq.grad, tk.grad, tv.grad), jgrads):
@@ -262,6 +278,13 @@ def test_train_steps_of_ssm_and_hybrid_match_reference(arch, accum):
     _check_train_steps(arch, accum)
 
 
+def test_train_steps_of_encdec_match_reference():
+    """The same three steps for reduced whisper-medium, frames in every
+    batch: the encoder's leaves take their gradients through every
+    decoder layer's cross-attention."""
+    _check_train_steps("whisper-medium", 1)
+
+
 def _check_train_steps(arch, accum):
     jm, tree, model, params = _pair(arch, grad_accum=accum)
     opt_cfg, jopt_cfg = adam.AdamConfig(), jadam.AdamConfig()
@@ -274,7 +297,8 @@ def _check_train_steps(arch, accum):
     noise = {name: np.zeros(a.shape, bool)
              for name, a in zoo.flatten(tree)}
     for i in range(3):
-        batch = _batch(model.cfg.vocab, b=4, s=32, seed=10 + i)
+        batch = _batch(model.cfg.vocab, b=4, s=32, seed=10 + i,
+                       cfg=model.cfg)
         jb = jax.tree_util.tree_map(jnp.asarray, batch)
         for name, g in zoo.flatten(_np_tree(jgrad(jp, jb))):
             if g.size:
@@ -313,6 +337,89 @@ def test_input_specs_train_kind_matches_reference():
             assert got["batch"][k].device.type == "meta"
 
 
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-medium"])
+def test_launcher_batch_carries_the_stub_frontends(arch, monkeypatch):
+    """Both launchers, two steps of the reduced config: the port's step
+    receives the reference's batch keys, shapes and dtypes every step —
+    tokens and labels, and zero float32 ``patch_embs`` (B, n_patches,
+    d_model) for a VLM or ``frames`` (B, enc_len, d_model) for an enc-dec
+    model, as the reference's launcher adds them — and those stand-ins
+    are zeros."""
+    from repro.launch import steps as jsteps_mod
+    from repro.launch import train as jtrain
+    from repro_torch.core import fm
+    from repro_torch.launch import train
+    seen = {"ref": [], "port": []}
+
+    def record(mod, key, describe):
+        real = mod.build_train_step
+
+        def build(*a, **k):
+            step = real(*a, **k)
+
+            def recorded(params, opt_state, batch):
+                seen[key].append({n: describe(v) for n, v in batch.items()})
+                return step(params, opt_state, batch)
+            return recorded
+        monkeypatch.setattr(mod, "build_train_step", build)
+    record(jsteps_mod, "ref", lambda v: (tuple(v.shape), str(v.dtype)))
+    record(steps, "port", lambda v: (tuple(v.shape),
+                                     str(v.dtype).replace("torch.", ""),
+                                     v.clone()))
+    argv = ["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+            "--seq", "16", "--log-every", "100"]
+    jtrain.main(argv)
+    with fm.conf(device="cpu"):
+        losses = train.main(argv)
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    cfg = reduced_for_smoke(get_config(arch))
+    stub, shape = (("patch_embs", (2, cfg.n_patches, cfg.d_model))
+                   if cfg.family == "vlm" else
+                   ("frames", (2, cfg.enc_len, cfg.d_model)))
+    assert len(seen["port"]) == 2 and seen["ref"]
+    for got in seen["port"]:
+        assert set(got) == set(seen["ref"][0]) == {"tokens", "labels", stub}
+        for name, (shp, dt) in seen["ref"][0].items():
+            assert got[name][:2] == (shp, dt), name
+        assert got[stub][:2] == (shape, "float32")
+        assert not got[stub][2].any()
+
+
+@pytest.mark.parametrize("arch", ["paligemma-3b", "whisper-medium",
+                                  "mamba2-1.3b"])
+def test_launcher_resume_keeps_the_batch(arch, tmp_path, monkeypatch):
+    """The port's launcher checkpoints after two steps and resumes for two
+    more: the resumed steps receive the same batch keys, shapes and dtypes
+    as the first run's — the stub frontend of a VLM or an enc-dec model
+    too, and nothing of the checkpoint's metadata — and train to finite
+    losses, with grad_accum > 1 (mamba2-1.3b) as with 1."""
+    from repro_torch.core import fm
+    from repro_torch.launch import train
+    seen = []
+    real = steps.build_train_step
+
+    def build(*a, **k):
+        step = real(*a, **k)
+
+        def recorded(params, opt_state, batch):
+            seen.append({n: (tuple(v.shape), v.dtype)
+                         if isinstance(v, torch.Tensor) else type(v).__name__
+                         for n, v in batch.items()})
+            return step(params, opt_state, batch)
+        return recorded
+    monkeypatch.setattr(steps, "build_train_step", build)
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", str(tmp_path / "ck"), "--ckpt-every", "2",
+            "--log-every", "100"]
+    with fm.conf(device="cpu"):
+        first = train.main(argv + ["--steps", "2"])
+        resumed = train.main(argv + ["--steps", "4", "--resume"])
+    assert len(first) == len(resumed) == 2
+    assert all(np.isfinite(first + resumed))
+    assert len(seen) == 4
+    assert all(got == seen[0] for got in seen[1:]), seen
+
+
 def test_opt_state_from_numpy_carries_the_reference_state():
     jm, tree, model, params = _pair("qwen2-0.5b")
     js = _np_tree(jadam.init(jax.tree_util.tree_map(jnp.asarray, tree)))
@@ -344,17 +451,15 @@ def test_a_leaf_the_loss_never_reaches_raises(accum):
 
 
 def test_other_families_still_raise_with_a14():
-    """The SSM, hybrid and enc-dec families' train forward names A14."""
+    """``transformer.forward`` refuses the SSM, hybrid and enc-dec families,
+    naming ``zoo.module_for``; the sharded train step (``--model-parallel``
+    > 1) names A14."""
     from repro_torch.models import transformer
     for family in ("ssm", "hybrid", "encdec"):
         cfg = dataclasses.replace(
             reduced_for_smoke(get_config("llama3.2-3b")), family=family)
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(ValueError, match="module_for"):
             transformer.forward(cfg, {}, {})
-    with pytest.raises(NotImplementedError, match="A14"):
-        zoo.build(dataclasses.replace(
-            reduced_for_smoke(get_config("llama3.2-3b")), family="encdec"),
-            device="cpu")
     from repro_torch.launch import train
     with pytest.raises(NotImplementedError, match="A14"):
         train.main(["--arch", "qwen2-0.5b", "--reduced",
@@ -397,8 +502,8 @@ def test_training_modules_import_no_jax_and_nothing_of_repro():
         from repro_torch.checkpoint import checkpoint as ck
         from repro_torch.data import pipeline
         from repro_torch.launch import steps, train
-        from repro_torch.models import (hybrid, layers, moe, ssm, ssm_lm,
-                                        transformer, zoo)
+        from repro_torch.models import (encdec, hybrid, layers, moe, ssm,
+                                        ssm_lm, transformer, zoo)
         from repro_torch.optim import adam, schedule
         from repro_torch.runtime import fault_tolerance
         bad = sorted(m for m in sys.modules
