@@ -26,8 +26,8 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — paths a–o: a–c and e–i through ``repro_torch.core.fm``, d
-             and j–o through the LM stack, each with the
+4. main    — paths a–p: a–c and e–i through ``repro_torch.core.fm``, d
+             and j–p through the LM stack, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -353,6 +353,32 @@ Phases, each printing one JSON line:
                 full width and depth (f32 masters, bf16 activations and
                 moments, remat), 2 × 448 tokens and 1500 frames each, a
                 finite loss and no kernel launched.
+             p. then sharded training (``launch.steps.build_train_step``
+                over a ``launch.mesh.Mesh`` of repeated positions of the
+                one card, ``distributed.sharding.tree_shardings``): p1,
+                llama3.2-3b's train step at full width and depth over
+                ``[cuda:0] × 4`` as (data 2, model 2) with path j2's
+                settings (f32 masters, bf16 activations and moments,
+                remat, seq 4096, global batch 2 — one row a data row, so
+                ``grad_accum`` 1 by ``rescale_grad_accum`` — the same
+                warm-up schedule), one warm and 2 timed steps: ms,
+                tokens/s, peak memory, j2's mean ms beside them; each
+                position's stored bytes of every parameter and moment
+                equal to its spec's block, a finite loss, no kernel
+                launched (the counters set to 0 before p1 and read after
+                it); p2, full width, depth 2, float32: one sharded step
+                against the unsharded one from the same parameters and
+                batch, the loss within 1e-3 relative and every gradient
+                leaf within ``TRAIN_TOL`` of its largest entry, and two
+                sharded runs bit for bit; p3, p2's state after one sharded
+                AdamW step saved, then restored onto ``replan_mesh(2,
+                prefer_model=2)`` over ``[cuda:0] × 2``, every leaf bit
+                for bit and laid out by the new sharding; p4,
+                ``optim.compression.cross_pod_psum_int8`` over a ``pod``
+                axis of the card's 4 positions on p2's gradient tree as
+                AdamW takes it (clipped to global norm 1; the position k
+                copy scaled by (k + 1)/4), 30 rounds, the mean within rtol
+                0.05, atol 2e-5 of the exact sum, ms a round.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the paths), the card's name and power
@@ -437,6 +463,13 @@ TRAIN_CHECK_LAYERS = 2   # j3's depth at full width (a cut of depth)
 #: float32 on both sides (the tests' CPU limit for gradients).
 TRAIN_TOL = 1e-4
 TRAIN_MAIN_ARCH = "qwen2-0.5b"  # j4's launcher run, full width and depth
+SHARD_MESH = (2, 2)      # path p's (data, model) positions on the one card
+SHARD_STEPS = 3          # p0's and p1's timed steps, after one warm step
+SHARD_CHECK_LAYERS = 2   # p2's depth at full width (a cut of depth)
+#: Path p2's limit on the sharded loss against the unsharded one, relative
+#: (the JAX package's test_multidevice_equivalence bound).
+SHARD_LOSS_TOL = 1e-3
+SHARD_INT8_ROUNDS = 30   # p4's rounds (the JAX package's test)
 CHUNK_ROWS = 1 << 22     # rows per chunk of a float64 plain version
 #: Limits on a float32 kernel's error against its float64 plain version,
 #: per entry, in units of that entry's condition: sqrt(G_ii·G_jj) for a Gram
@@ -4478,13 +4511,363 @@ def train_main_phase(torch):
 
 
 def train_path(torch):
-    """Path j: training, after path lm with the serving weights freed."""
+    """Path j: training, after path lm with the serving weights freed;
+    returns j2's line."""
     t0 = time.perf_counter()
     blockwise_row(torch)
-    train_step_phase(torch)
+    j2 = train_step_phase(torch)
     train_checks_phase(torch)
     train_main_phase(torch)
     emit({"phase": "train", "path": "j", "seconds": time.perf_counter() - t0})
+    return j2
+
+
+def shard_mesh(torch, shape, names):
+    """Positions of the one card laid out as ``shape`` over ``names``."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    n = math.prod(shape)
+    devs = np.array([torch.device(DEVICE, 0)] * n, dtype=object)
+    return Mesh(devs.reshape(shape), names)
+
+
+def shard_layout(params, opt) -> dict:
+    """Each position's stored bytes of every parameter and moment against
+    its spec's block: (leaves checked, bytes held, positions off)."""
+    from repro_torch.models import zoo
+    held, off, n = 0, [], 0
+    trees = {"params": params, "m": opt["m"], "v": opt["v"]}
+    for tname, tree in trees.items():
+        for name, leaf in zoo.flatten(tree):
+            n += 1
+            sh = leaf.sharding
+            want = sh.shard_shape(leaf.shape)
+            for pos in sh.positions():
+                t = leaf.local(pos)
+                nb = t.untyped_storage().nbytes()
+                held += nb
+                if (tuple(t.shape) != want or nb != math.prod(want)
+                        * t.element_size()):
+                    off.append(f"{tname}.{name}@{pos}")
+    return {"leaves": n, "bytes": held, "off": off}
+
+
+def grad_blocks_spy(torch, steps, seen):
+    """Wrap ``steps._reduce_grads`` to read the data rows' gradients just
+    before they are reduced: every row's gradient of a leaf must be one
+    tensor a block's first copy, of the block's shape and storage, on its
+    position's device.  ``seen`` gets each position's bytes held, what the
+    spec says it should hold (rows × its blocks) and the leaves off.
+    Returns the function to put back."""
+    real = steps._reduce_grads
+
+    def spy(params, rows, weights):
+        from repro_torch.models import zoo
+        held, want, off = {}, {}, []
+        for name, p in zoo.flatten(params):
+            sh, block = p.sharding, p.sharding.shard_shape(p.shape)
+            firsts = {pos for pos in sh.positions() if sh.is_first_copy(pos)}
+            nb = math.prod(block) * p.dtype.itemsize
+            for pos in firsts:
+                want[pos] = want.get(pos, 0) + len(rows) * nb
+            for row in rows:
+                bufs = row.grads.get(name, {})
+                if set(bufs) != firsts:
+                    off.append(f"{name}: positions {sorted(bufs)}")
+                for pos, g in bufs.items():
+                    size = g.untyped_storage().nbytes()
+                    held[pos] = held.get(pos, 0) + size
+                    if (tuple(g.shape) != block or size != nb
+                            or g.device != p.local(pos).device):
+                        off.append(f"{name}@{pos}")
+        seen.update(held=held, want=want, off=off)
+        return real(params, rows, weights)
+    steps._reduce_grads = spy
+    return real
+
+
+def shard_step_phase(torch, j2, shape=SHARD_MESH, arm="p1"):
+    """llama3.2-3b's train step at full width and depth over (data, model)
+    = ``shape`` positions of the card, j2's settings: p1 over (2, 2); p0
+    over (1, 1), the path ``launch.train`` takes on one device, against
+    j2's ``loss_and_grads`` path.  The warm step's data rows' gradients
+    are read before their reduction (``grad_blocks_spy``)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam, schedule
+    from repro_torch.runtime import rescale_grad_accum
+    mesh = shard_mesh(torch, shape, ("data", "model"))
+    accum = rescale_grad_accum(TRAIN_ACCUM, old_data=1, new_data=shape[0])
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), grad_accum=accum)
+    B, S = TRAIN_BATCH, TRAIN_SEQ
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    model = zoo.build(cfg, DEVICE)
+    t0 = time.perf_counter()
+    p_shapes, p_axes = model.abstract_params()
+    p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    params = shd.place_tree(model.init(gen), p_sh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    opt = adam.init(params)
+    rows = shd.sharding_for("batch|seq", (B, S), mesh)
+    it = DataIterator(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
+                                 seed=SEED),
+                      sharding={"tokens": rows, "labels": rows})
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    layout = shard_layout(params, opt)
+    zero_counts()
+    out_rows, losses, grad_blocks = [], [], {}
+    for i in range(1 + SHARD_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lr = adam.AdamConfig().lr * float(
+            schedule.warmup_cosine(i, warmup=TRAIN_WARMUP))
+        step = steps.build_train_step(model, adam.AdamConfig(lr=lr))
+        real = grad_blocks_spy(torch, steps, grad_blocks) if i == 0 else None
+        try:
+            params, opt, met = step(params, opt, batch)
+        finally:
+            if real is not None:
+                steps._reduce_grads = real
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        ms = (time.perf_counter() - t0) * 1e3
+        losses.append(loss)
+        out_rows.append({"step": i, "warm": i == 0, "ms": ms, "lr": lr,
+                         "tokens_s": B * S / ms * 1e3, "loss": loss,
+                         "grad_norm": gnorm})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    whole = sum(p.numel() * p.dtype.itemsize
+                for _, p in zoo.flatten(params))
+    launches = read_counts()
+    timed = out_rows[1:]
+    mean_ms = sum(r["ms"] for r in timed) / len(timed)
+    held = grad_blocks.get("held", {})
+    out = {"phase": "main", "path": "p", "arm": arm, "arch": TRAIN_ARCH,
+           "mesh": dict(zip(mesh.axis_names, mesh.devices.shape)),
+           "devices": f"[{DEVICE}:0] x {mesh.devices.size}",
+           "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "param_dtype": cfg.param_dtype, "moment_dtype": "bfloat16",
+           "remat": cfg.remat, "seq": S, "global_batch": B,
+           "grad_accum": accum, "init_s": init_s, "steps": out_rows,
+           "mean_ms": mean_ms,
+           "mean_tokens_s": sum(r["tokens_s"] for r in timed) / len(timed),
+           "j2_mean_ms": j2["mean_ms"], "vs_j2": mean_ms / j2["mean_ms"],
+           "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
+           "j2_max_memory_gib": j2["max_memory_gib"],
+           "layout": {"leaves": layout["leaves"],
+                      "bytes_held": layout["bytes"],
+                      "positions_off": layout["off"]},
+           "grad_blocks": {
+               "whole_grad_bytes": whole,
+               "held_by_position": {str(k): v for k, v in held.items()},
+               "max_share_of_whole": max(held.values(), default=0) / whole,
+               "as_spec": held == grad_blocks.get("want"),
+               "off": grad_blocks.get("off", ["not read"])[:8]},
+           "kernel_launches": launches}
+    emit(out)
+    check(not layout["off"], f"{arm}: positions hold other than their "
+          f"block: {layout['off'][:8]}")
+    check(held and held == grad_blocks["want"] and not grad_blocks["off"],
+          f"{arm}: the rows' gradients are not their positions' blocks: "
+          f"{out['grad_blocks']}")
+    check(all(map(math.isfinite, losses)), f"{arm}: a loss is not finite "
+          f"{losses}")
+    check(not any(launches.values()),
+          f"{arm}: the sharded train step launched a kernel {launches}")
+    del params, opt, it, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_grads_phase(torch):
+    """p2 at full width and a depth of SHARD_CHECK_LAYERS, float32: one
+    sharded step against the unsharded one, and run to run.  Returns the
+    model, its sharded parameters and their sharded gradients."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    mesh = shard_mesh(torch, SHARD_MESH, ("data", "model"))
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=SHARD_CHECK_LAYERS, dtype="float32")
+    model = zoo.build(cfg, DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 8)
+    params = model.init(gen)
+    batch = next(DataIterator(DataConfig(seq_len=TRAIN_SEQ,
+                                         global_batch=TRAIN_BATCH,
+                                         vocab=cfg.vocab, seed=SEED),
+                              device=DEVICE))
+    p_shapes, p_axes = model.abstract_params()
+    sparams = shd.place_tree(params,
+                             shd.tree_shardings(p_axes, p_shapes, mesh))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l1, _, g1 = steps.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) * 1e3
+    g1 = {k: v.detach().clone() for k, v in zoo.flatten(g1)}
+    del params
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ls, _, gs = steps.sharded_loss_and_grads(model, sparams, batch)
+        torch.cuda.synchronize()
+        runs.append((float(ls), gs, (time.perf_counter() - t0) * 1e3))
+    (ls, gs, ms_s), (ls2, gs2, ms_s2) = runs
+    del runs
+    errs = {k: rel_err(torch, g.full(), g1[k]) for k, g in zoo.flatten(gs)}
+    same = ls == ls2 and all(
+        torch.equal(a.full(), b.full())
+        for (_, a), (_, b) in zip(zoo.flatten(gs), zoo.flatten(gs2)))
+    loss_rel = abs(ls - float(l1)) / abs(float(l1))
+    del g1, gs2
+    out = {"phase": "compare", "path": "p", "arm": "p2", "arch": TRAIN_ARCH,
+           "n_layers": SHARD_CHECK_LAYERS, "dtype": "float32",
+           "mesh": dict(zip(mesh.axis_names, mesh.devices.shape)),
+           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+           "loss_unsharded": float(l1), "loss_sharded": ls,
+           "loss_rel": loss_rel, "loss_tol": SHARD_LOSS_TOL,
+           "grad_rel_err_max": max(errs.values()),
+           "grad_worst_leaf": max(errs, key=errs.get), "tol": TRAIN_TOL,
+           "bit_for_bit_run_to_run": same,
+           "ms": {"unsharded": ms1, "sharded": ms_s, "sharded_again": ms_s2}}
+    emit(out)
+    check(loss_rel <= SHARD_LOSS_TOL, f"p2: loss {ls} against "
+          f"{float(l1)} unsharded")
+    check(max(errs.values()) <= TRAIN_TOL, f"p2: gradients differ {errs}")
+    check(same, "p2: two sharded runs differ")
+    return model, sparams, gs
+
+
+def shard_restore_phase(torch, model, sparams, gs):
+    """p3: the state after one sharded AdamW step, saved on (2, 2), restored
+    onto the replanned (1, 2)."""
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam
+    from repro_torch.runtime import replan_mesh
+    mesh = sparams["embed"]["tok"].sharding.mesh
+    opt = adam.init(sparams)
+    sparams, opt, _ = adam.update(gs, opt, sparams)
+    state = {"params": sparams, "opt": opt}
+    d = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_shard_"))
+    try:
+        ck = Checkpointer(str(d))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(1, state, blocking=True)
+        save_s = time.perf_counter() - t0
+        mesh_b = replan_mesh(2, prefer_model=2,
+                             devices=[torch.device(DEVICE, 0)] * 2)
+        p_shapes, p_axes = model.abstract_params()
+        sh_b = {"params": shd.tree_shardings(p_axes, p_shapes, mesh_b),
+                "opt": shd.tree_shardings(adam.opt_state_axes(p_axes),
+                                          opt, mesh_b)}
+        t0 = time.perf_counter()
+        got, step, _ = ck.restore(state, shardings=sh_b)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want_sh, saved = dict(zoo.flatten(sh_b)), dict(zoo.flatten(state))
+        bad = [k for k, v in zoo.flatten(got)
+               if v.sharding != want_sh[k] or v.dtype != saved[k].dtype
+               or not torch.equal(v.full(), saved[k].full())]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    out = {"phase": "compare", "path": "p", "arm": "p3",
+           "from": dict(zip(mesh.axis_names, mesh.devices.shape)),
+           "to": dict(zip(mesh_b.axis_names, mesh_b.devices.shape)),
+           "leaves": len(want_sh), "step": step, "save_s": save_s,
+           "restore_s": restore_s, "leaves_off": bad}
+    emit(out)
+    check(step == 1 and not bad, f"p3: restored leaves differ {bad}")
+    return out
+
+
+def shard_int8_phase(torch, gs):
+    """p4: the int8 cross-pod reduction over 4 pod positions of the card,
+    on the gradient tree as AdamW takes it (clipped to norm 1)."""
+    import numpy as np
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam, compression
+    pods = shard_mesh(torch, (4,), ("pod",))
+    rep = shd.NamedSharding(pods, ())
+    clip = min(1.0, 1.0 / float(adam.global_norm(gs)))
+    grads, exact = {}, {}
+    for k, g in zoo.flatten(gs):
+        full = g.full() * clip
+        shards = np.empty((4,), dtype=object)
+        for i in range(4):
+            shards[i] = full * ((i + 1) / 4)
+        grads[k] = shd.ShardedTensor(shards, rep, full.shape, full.dtype)
+        exact[k] = full * 2.5
+        del full
+    err = compression.init_error_state(grads)
+    total = {k: torch.zeros_like(v) for k, v in exact.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SHARD_INT8_ROUNDS):
+        red, err = compression.cross_pod_psum_int8(grads, err, "pod")
+        for k in total:
+            total[k] += red[k].local((0,))
+        del red
+    torch.cuda.synchronize()
+    round_ms = (time.perf_counter() - t0) * 1e3 / SHARD_INT8_ROUNDS
+    worst, bad = 0.0, []
+    for k in total:
+        mean = total[k] / SHARD_INT8_ROUNDS
+        excess = ((mean - exact[k]).abs()
+                  - (2e-5 + 0.05 * exact[k].abs())).max()
+        worst = max(worst, float((mean - exact[k]).abs().max()))
+        if float(excess) > 0:
+            bad.append(k)
+    out = {"phase": "compare", "path": "p", "arm": "p4",
+           "pods": 4, "leaves": len(total),
+           "elements": sum(v.numel() for v in total.values()),
+           "clip": clip,
+           "amax": max(float(v.abs().max()) for v in exact.values()) / 2.5,
+           "rounds": SHARD_INT8_ROUNDS, "ms_a_round": round_ms,
+           "max_abs_err_of_mean": worst, "rtol": 0.05, "atol": 2e-5,
+           "leaves_off": bad}
+    emit(out)
+    check(not bad, f"p4: the int8 mean is off the exact sum in {bad}")
+    return out
+
+
+def shard_path(torch, j2):
+    """Path p: sharded training over positions of the one card."""
+    t0 = time.perf_counter()
+    shard_step_phase(torch, j2, (1, 1), "p0")
+    shard_step_phase(torch, j2)
+    model, sparams, gs = shard_grads_phase(torch)
+    shard_restore_phase(torch, model, sparams, gs)
+    del model, sparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_int8_phase(torch, gs)
+    del gs
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "path": "p", "seconds": time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -4545,7 +4928,7 @@ def main() -> int:
     paths.append(lm_phase(torch, rows[-1]["ms"]))
     gc.collect()
     torch.cuda.empty_cache()
-    train_path(torch)
+    j2 = train_path(torch)
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(moe_phase(torch))
@@ -4561,6 +4944,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(encdec_phase(torch))
+    gc.collect()
+    torch.cuda.empty_cache()
+    shard_path(torch, j2)
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -13,9 +13,14 @@ of repro/checkpoint/checkpoint.py.
   in the manifest; a CRC-32 per file, ``manifest.json`` (leaf keys are the
   dict keys joined by ``/``, as ``params/layers/attn/wq``) and a
   ``latest`` pointer.
+* **Sharded** leaves (``distributed.sharding.ShardedTensor``) are gathered
+  onto the host by ``save``, so the files are the same whatever mesh wrote
+  them.
 * **Restore** places each leaf on its template's device, in its
-  template's dtype.  The reference's elastic restore onto new shardings
-  waits for the sharded train step (ROADMAP A14).
+  template's dtype; given ``shardings`` (a tree of ``NamedSharding``, the
+  elastic path) it lays each leaf out by its new sharding instead, in the
+  stored dtype, as the reference does: a checkpoint written on one mesh
+  restores onto another (``runtime.fault_tolerance.replan_mesh``).
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..distributed.sharding import ShardedTensor, place
 
 
 def _flatten_with_paths(tree, prefix=""):
@@ -50,6 +57,8 @@ def _unflatten(template, values, prefix=""):
 def _to_host(v):
     """(numpy array as written, logical dtype name) of one leaf: a copy,
     so the caller may update the tensor once ``save`` returns."""
+    if isinstance(v, ShardedTensor):
+        v = v.full("cpu")
     if isinstance(v, torch.Tensor):
         t = v.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -60,11 +69,15 @@ def _to_host(v):
     return arr, str(arr.dtype)
 
 
-def _from_host(arr: np.ndarray, logical: str, tmpl: torch.Tensor):
+def _from_host(arr: np.ndarray, logical: str, tmpl, sharding=None):
     if logical == "bfloat16":
         t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(arr)
+    if sharding is not None:
+        return place(t, sharding)
+    if isinstance(tmpl, ShardedTensor):
+        return place(t.to(tmpl.dtype), tmpl.sharding)
     return t.to(device=tmpl.device, dtype=tmpl.dtype)
 
 
@@ -140,16 +153,21 @@ class Checkpointer:
         return max(steps) if steps else None
 
     def restore(self, template: Any, *, step: Optional[int] = None,
-                verify: bool = True):
+                shardings: Any = None, verify: bool = True):
         """Load into the structure of ``template`` (a tree of tensors):
-        each leaf on its template leaf's device and in its dtype.  Returns
-        (tree, step, extra)."""
+        each leaf on its template leaf's device (a sharded template leaf's
+        layout) and in its dtype — or,
+        given ``shardings`` (a tree of ``NamedSharding`` with the
+        template's keys: the ELASTIC path), each leaf laid out by its new
+        sharding in the stored dtype.  Returns (tree, step, extra)."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
         d = self.dir / f"step_{step:010d}"
         manifest = json.loads((d / "manifest.json").read_text())
         values = {}
+        sh_of = (dict(_flatten_with_paths(shardings))
+                 if shardings is not None else {})
         for key, tmpl in _flatten_with_paths(template):
             meta = manifest["leaves"].get(key)
             if meta is None:
@@ -160,5 +178,6 @@ class Checkpointer:
                 if crc != meta["crc32"]:
                     raise IOError(f"CRC mismatch for {key} in step {step}")
             arr = np.load(d / meta["file"])
-            values[key] = _from_host(arr, meta["dtype"], tmpl)
+            values[key] = _from_host(arr, meta["dtype"], tmpl,
+                                     sh_of.get(key))
         return _unflatten(template, values), step, manifest.get("extra", {})

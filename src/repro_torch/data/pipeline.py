@@ -90,14 +90,22 @@ class TokenSource:
 
 class DataIterator:
     """Deterministic, resumable batch iterator staging one batch ahead on
-    ``device`` (None: the engine's device)."""
+    ``device`` (None: the engine's device) — or, given ``sharding`` (a
+    dict of ``NamedSharding``, one per input, as ``sharding_for("batch|seq",
+    ...)`` gives them), laid out on its mesh: each batch a dict of
+    ``ShardedTensor``, each position holding its rows, staged through the
+    mesh's first device."""
 
-    def __init__(self, cfg: DataConfig, *, device=None,
+    def __init__(self, cfg: DataConfig, *, sharding=None, device=None,
                  process_index: int = 0, process_count: int = 1):
+        if sharding is not None:
+            first = next(iter(sharding.values()))
+            device = first.device(first.positions()[0])
         if device is None:
             from ..storage import registry  # deferred: registry imports core
             device = registry.device()
         self.cfg = cfg
+        self.sharding = sharding
         self.source = TokenSource(cfg)
         self.step = 0
         self.device = torch.device(device)
@@ -133,6 +141,9 @@ class DataIterator:
             else:
                 t = t.to(self.device)
             out[k] = t
+        if self.sharding is not None:
+            from ..distributed.sharding import place
+            out = {k: place(v, self.sharding[k]) for k, v in out.items()}
         return out
 
     def __iter__(self) -> Iterator[dict]:

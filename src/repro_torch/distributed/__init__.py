@@ -1,2 +1,3 @@
 """The port's distribution layer: the logical-axis sharding policy
-(``sharding``) the engine's sharded execution reads."""
+(``sharding``) that the engine's sharded execution and the LM's sharded
+train step read."""

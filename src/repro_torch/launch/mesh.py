@@ -8,8 +8,10 @@ built from an array: ``Mesh([torch.device("cpu")] * 4, ("data",))`` runs
 four shards on the CPU, and ``Mesh([torch.device("cuda", 0)] * 2,
 ("data",))`` two shards on one card, each on its own CUDA stream.
 
-``make_production_mesh`` (the LM stack's pod meshes) comes with the rest
-of the LM stack (ROADMAP A14).
+Two meshes are equal when their axis names and device arrays are, as
+``jax.sharding.Mesh`` compares (``distributed.sharding.NamedSharding``
+equality reads it).  ``make_production_mesh`` (the reference's 256- and
+512-chip pod meshes) comes with the dry-run tools (ROADMAP A14b).
 """
 from __future__ import annotations
 
@@ -33,17 +35,33 @@ class Mesh:
             self.devices[idx] = torch.device(d)
         self.axis_names = axis_names
 
+    def _key(self):
+        return (self.axis_names, self.devices.shape,
+                tuple(str(d) for d in self.devices.flat))
+
+    def __eq__(self, other):
+        return isinstance(other, Mesh) and self._key() == other._key()
+
+    def __hash__(self):
+        return hash(self._key())
+
+
+def visible_devices() -> list:
+    """The distinct visible devices of the engine's device type: the
+    machine's cards, or the one CPU."""
+    from ..storage import registry
+    dev = registry.device()  # raises when CUDA is asked for and absent
+    return ([torch.device("cuda", i)
+             for i in range(torch.cuda.device_count())]
+            if dev.type == "cuda" else [torch.device("cpu")])
+
 
 def make_host_mesh(n: int = 0, *, model: int = 1) -> Mesh:
     """A (data, model) mesh over the first ``n`` distinct visible devices
     of the engine's device type — the machine's cards, or the one CPU —
     (all of them when ``n`` is 0), ``data = n // model``.  Never repeats a
     device: build a `Mesh` directly for that."""
-    from ..storage import registry
-    dev = registry.device()  # raises when CUDA is asked for and absent
-    devs = ([torch.device("cuda", i)
-             for i in range(torch.cuda.device_count())]
-            if dev.type == "cuda" else [torch.device("cpu")])
+    devs = visible_devices()
     n = n or len(devs)
     if n > len(devs):
         raise ValueError(

@@ -11,17 +11,31 @@ and activations in ``cfg.dtype`` (the reference's ``lower_cell`` /
 steps run without autograd.  Every ported family (dense, MoE, VLM, SSM,
 hybrid, enc-dec) takes the same steps; a VLM's batch carries ``patch_embs``
 (B, n_patches, d_model) beside its tokens, an enc-dec's ``frames`` (B,
-enc_len, d_model).  The reference's ``*_specs`` (abstract
-arguments and mesh shardings of the LM stack) wait for the sharded train
-step (ROADMAP A14).
+enc_len, d_model).
+
+Over a mesh (parameters and moments ``distributed.sharding.ShardedTensor``
+leaves, as ``train_specs`` lays them out), ``build_train_step`` runs the
+sharded step (``sharded_loss_and_grads``): one thread and, on a card, one
+CUDA stream per data row, each on its rows of the batch with layers
+gathered from the shards and each layer's gradient added into the row's
+gradient of every position's block; then the rows' blocks reduced in row
+order; then ``adam.update`` block by block.
+``train_specs`` gives the step's meta-device arguments and shardings, the
+twin of the reference's.  The reference's ``prefill_specs``,
+``decode_specs`` and ``lower_cell`` come with the dry-run tools (ROADMAP
+A14b).
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import threading
 
+import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, ShapeSpec
+from ..distributed import sharding as shd
 from ..models import zoo
 from ..optim import adam
 
@@ -66,13 +80,212 @@ def loss_and_grads(model: zoo.Model, params: dict, batch: dict):
     return loss, metrics, grads
 
 
+def is_sharded(params) -> bool:
+    """Whether ``params`` is laid out on a mesh (``ShardedTensor`` leaves)."""
+    return isinstance(next(adam.leaves(params))[1], shd.ShardedTensor)
+
+
+_ROW_STREAMS: dict = {}
+
+
+def _row_stream(dev, r):
+    key = (dev, r)
+    if key not in _ROW_STREAMS:
+        _ROW_STREAMS[key] = torch.cuda.Stream(dev)
+    return _ROW_STREAMS[key]
+
+
+def drive_rows(devices, body):
+    """``body(r)`` for every data row r, on a thread each (one row runs on
+    the calling thread); on a card under the row's device and a CUDA
+    stream of its own that first waits for the caller's stream, which
+    waits for every row's stream once all are joined.  The first error is
+    re-raised."""
+    callers = {d: torch.cuda.current_stream(d) for d in set(devices)
+               if d.type == "cuda"}
+    done = {}
+
+    def drive(r):
+        dev = devices[r]
+        if dev.type != "cuda":
+            body(r)
+            return
+        stream = _row_stream(dev, r)
+        stream.wait_stream(callers[dev])
+        try:
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                body(r)
+        finally:
+            done[r] = stream
+
+    errors = []
+    if len(devices) == 1:
+        try:
+            drive(0)
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            errors.append(exc)
+    else:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(devices),
+                thread_name_prefix="train-row") as pool:
+            futures = [pool.submit(drive, r) for r in range(len(devices))]
+            errors = [f.exception() for f in futures]
+    for r, stream in done.items():
+        callers[devices[r]].wait_stream(stream)
+    errors = [e for e in errors if e is not None]
+    # a row that failed breaks the others' barrier: raise its error
+    errors.sort(key=lambda e: isinstance(e, threading.BrokenBarrierError))
+    if errors:
+        raise errors[0]
+
+
+def _row_batch(batch: dict, pos, dev, r: int, n_rows: int,
+               accum: int) -> dict:
+    """Data row r's rows of every input on ``dev``, microbatch by
+    microbatch: its share of each of the ``accum`` microbatches one device
+    would take (rows i·B/accum + r·b .. + b, b = B/(accum·n_rows)), so a
+    microbatch over the rows is one device's.  A sharded input's local
+    block is taken as it is where it holds exactly those rows (accum 1)."""
+    out = {}
+    for k, v in batch.items():
+        B = v.shape[0]
+        if B % (n_rows * accum):
+            raise ValueError(f"{k}: a batch of {B} rows does not split into "
+                             f"grad_accum={accum} microbatches over "
+                             f"{n_rows} data rows")
+        b = B // (n_rows * accum)
+        if isinstance(v, shd.ShardedTensor):
+            sl, local = v.sharding.slices(v.shape, pos), v.local(pos)
+            if accum == 1 and sl[0] == slice(r * b, (r + 1) * b) and \
+                    local.device == dev and all(
+                        s == slice(0, d) for s, d in zip(sl[1:], v.shape[1:])):
+                out[k] = local
+                continue
+            v = v.full(dev)
+        rows = [v[i * B // accum + r * b:i * B // accum + (r + 1) * b]
+                for i in range(accum)]
+        out[k] = torch.cat(rows).to(dev) if accum > 1 else rows[0].to(dev)
+    return out
+
+
+def _reduce_grads(params: dict, rows: list, weights: list) -> dict:
+    """Each position's block of every gradient: Σ_r weights[r] · (row r's
+    gradient of the block), summed in row order into row 0's block on the
+    position's device — bit for bit the same every run.  A position
+    holding a copy of a block takes the first copy's tensor, or a copy of
+    it on another device.  Rows' blocks are released as they are added."""
+    missing = []
+
+    def leaf(name, p):
+        bufs = [(row.grads.pop(name), w) for row, w in zip(rows, weights)
+                if name in row.grads]
+        if not bufs:
+            if p.numel():
+                missing.append(name)
+            return p.map(torch.zeros_like)
+        (acc, w0), rest = bufs[0], bufs[1:]
+        for pos, blk in acc.items():
+            if w0 != 1.0:
+                blk.mul_(w0)
+            for b, w in rest:
+                blk.add_(b.pop(pos), alpha=w)
+        sh = p.sharding
+        out = np.empty(p.shards.shape, dtype=object)
+        for pos in sh.positions():
+            blk, dev = acc[sh.first_copy(pos)], sh.device(pos)
+            out[pos] = blk if blk.device == dev else blk.to(dev)
+        return shd.ShardedTensor(out, sh, p.shape, p.dtype)
+
+    grads = zoo.tree_map(leaf, params)
+    if missing:
+        raise RuntimeError(f"the loss reached no gradient of {missing}")
+    return grads
+
+
+def row_grads(model: zoo.Model, params: dict, batch: dict):
+    """The data rows' part of ``sharded_loss_and_grads``: (rows, weights,
+    loss), each ``sharding.Row`` holding its gradient of every block in
+    ``Row.grads``, ``weights`` what ``_reduce_grads`` scales row r's by
+    and ``loss`` the global batch's."""
+    first = next(adam.leaves(params))[1]
+    mesh = first.sharding.mesh
+    _, axes = model.abstract_params()
+    positions = shd.shard_positions(mesh)
+    n_rows = len(positions)
+    group = shd.RowGroup(n_rows)
+    rows = [shd.Row(r, mesh.devices[pos], group)
+            for r, pos in enumerate(positions)]
+    accum = max(1, model.cfg.grad_accum)
+    parts = [_row_batch(batch, pos, row.device, r, n_rows, accum)
+             for r, (pos, row) in enumerate(zip(positions, rows))]
+    if "loss_mask" in batch:
+        counts = [float(pt["loss_mask"].float().sum()) for pt in parts]
+    else:
+        counts = [float(pt["tokens"].shape[0]) for pt in parts]
+    weights = [c / sum(counts) for c in counts]
+    losses = [None] * n_rows
+
+    def body(r):
+        row, part = rows[r], parts[r]
+        micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+                 for k, v in part.items()}
+        total = 0.0
+        try:
+            for i in range(accum):
+                loss, _ = model.forward(shd.bind_row(params, axes, row),
+                                        {k: v[i] for k, v in micro.items()})
+                loss.backward()
+                total = total + loss.detach()
+        except BaseException:
+            group.abort()
+            raise
+        losses[r] = total / accum
+
+    drive_rows([row.device for row in rows], body)
+    loss = sum(w * lo.to(rows[0].device) for w, lo in zip(weights, losses))
+    return rows, [w / accum for w in weights], loss
+
+
+def sharded_loss_and_grads(model: zoo.Model, params: dict, batch: dict):
+    """``loss_and_grads`` over the mesh ``params`` are laid out on: (loss,
+    metrics, grads), grads a tree of ``ShardedTensor`` in the parameters'
+    layout.
+
+    The batch rows split evenly over the data rows (``pod`` × ``data``);
+    row r runs on ``shard_devices(mesh)[r]``, on a thread and a CUDA stream
+    of its own, ``cfg.grad_accum`` microbatches of its rows in order, each
+    a forward over ``sharding.bind_row``'s view of the parameters (every
+    layer gathered from the shards as it runs) and a ``backward()`` that
+    adds each gathered layer's gradient into the row's gradient of each
+    position's block, on that position's device (``row_grads``).  Row r's
+    microbatch i is its share of one device's microbatch i
+    (``_row_batch``), and a MoE layer's load-balancing term takes the
+    first-choice shares of all rows' tokens (``sharding.Row.gather_sum``,
+    where the rows wait for one another in the forward), so a microbatch
+    over the rows computes what one device's does.  Then the rows' blocks
+    are reduced in row order (``_reduce_grads``), weighted so the result
+    is the gradient of the mean over the global batch — by rows, or by the
+    ``loss_mask`` tokens when the batch carries one — which is the loss
+    returned.  A position holds the rows' gradients of its own block only:
+    n_rows blocks a leaf, never a whole leaf's gradient."""
+    rows, weights, loss = row_grads(model, params, batch)
+    grads = _reduce_grads(params, rows, weights)
+    return loss, {"loss": loss}, grads
+
+
 def build_train_step(model: zoo.Model,
                      opt_cfg: adam.AdamConfig = adam.AdamConfig()):
     """(params, opt_state, batch) -> (params', opt_state', metrics), metrics
-    ``loss`` and ``grad_norm``: ``loss_and_grads`` then ``adam.update``,
-    which writes the parameters and moments in place; the gradients are
-    released after the update."""
+    ``loss`` and ``grad_norm``: ``loss_and_grads`` (``sharded_loss_and_grads``
+    over a mesh) then ``adam.update``, which writes the parameters and
+    moments in place; the gradients are released after the update."""
     def train_step(params, opt_state, batch):
+        if is_sharded(params):
+            _, metrics, grads = sharded_loss_and_grads(model, params, batch)
+            new_params, new_opt, opt_metrics = adam.update(
+                grads, opt_state, params, opt_cfg)
+            del grads
+            return new_params, new_opt, dict(metrics, **opt_metrics)
         _, metrics, grads = loss_and_grads(model, params, batch)
         new_params, new_opt, opt_metrics = adam.update(
             grads, opt_state, params, opt_cfg)
@@ -81,6 +294,28 @@ def build_train_step(model: zoo.Model,
             p.grad = None
         return new_params, new_opt, dict(metrics, **opt_metrics)
     return train_step
+
+
+def train_specs(model: zoo.Model, shape: ShapeSpec, mesh,
+                opt_cfg: adam.AdamConfig = adam.AdamConfig()):
+    """Meta-device arguments and shardings of the train step on ``mesh``:
+    the twin of the reference's ``train_specs``, ``args`` (params, opt
+    state, batch) and ``in_shardings`` / ``out_shardings`` trees of
+    ``NamedSharding`` resolved from the parameters' logical axes."""
+    p_shapes, p_axes = model.abstract_params()
+    opt_shapes = adam.init(p_shapes, opt_cfg)
+    opt_axes = adam.opt_state_axes(p_axes)
+    spec = zoo.input_specs(model.cfg, shape)
+    assert spec["kind"] == "train"
+    p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    o_sh = shd.tree_shardings(opt_axes, opt_shapes, mesh)
+    b_sh = shd.tree_shardings(spec["axes"], spec["batch"], mesh)
+    metrics_sh = {k: shd.sharding_for("", (), mesh)
+                  for k in ("loss", "grad_norm")}
+    return dict(args=(p_shapes, opt_shapes, spec["batch"]),
+                in_shardings=(p_sh, o_sh, b_sh),
+                out_shardings=(p_sh, o_sh, metrics_sh),
+                donate_argnums=(0, 1))
 
 
 def serving_model(cfg: ArchConfig, *, serve_dtype: str = "bfloat16",

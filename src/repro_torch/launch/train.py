@@ -4,16 +4,20 @@ repro/launch/train.py.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
         --reduced --steps 50 --batch 8 --seq 256 --ckpt-dir ck --resume
 
-Config → model zoo → token pipeline → train step → async atomic
-checkpoints → preemption guard → straggler monitor.  It runs on ``cuda``
-unless the engine's ``device`` knob asks for the CPU
+Config → model zoo → sharded token pipeline → train step over a (data,
+model) mesh (FSDP and model-axis shardings from the logical-axis policy)
+→ async atomic checkpoints → preemption guard → straggler monitor.  It
+runs on ``cuda`` unless the engine's ``device`` knob asks for the CPU
 (``fm.set_conf(device="cpu")``); with no card and no such request it
-raises.  Parameters are drawn from a ``torch.Generator`` seeded 0 on the
-model's device.  As the reference's launcher, every step's batch carries
-zero float32 stand-ins for the stub frontends: ``patch_embs`` (B,
-n_patches, d_model) for a VLM, ``frames`` (B, enc_len, d_model) for an
-enc-dec model.  One device: ``--model-parallel`` > 1 waits for the sharded
-train step (ROADMAP A14).
+raises.  The mesh is ``make_host_mesh(model=--model-parallel)`` over the
+distinct visible devices (one CPU, or the machine's cards: a (1, 1) mesh
+on one device).  Parameters are drawn from a ``torch.Generator`` seeded 0
+on the model's device, then laid out by ``tree_shardings``; the AdamW
+state follows them, the batches are laid out by ``"batch|seq"``, and a
+resume restores onto the mesh's shardings.  As the reference's launcher,
+every step's batch carries zero float32 stand-ins for the stub frontends:
+``patch_embs`` (B, n_patches, d_model) for a VLM, ``frames`` (B, enc_len,
+d_model) for an enc-dec model.
 """
 from __future__ import annotations
 
@@ -47,43 +51,50 @@ def main(argv=None):
     from ..checkpoint import Checkpointer
     from ..configs import get_config, reduced_for_smoke
     from ..data.pipeline import DataConfig, DataIterator
+    from ..distributed import sharding as shd
     from ..models import zoo
     from ..optim import adam
     from ..runtime.fault_tolerance import PreemptionGuard, StragglerMonitor
+    from .mesh import make_host_mesh
     from .steps import build_train_step
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: the sharded train step "
-            "comes with the LM half of the sharding policy (ROADMAP A14)")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_for_smoke(cfg)
+    mesh = make_host_mesh(model=args.model_parallel)
     model = zoo.build(cfg)
-    log.info("arch=%s device=%s params(full)=%.2fB", cfg.name, model.device,
+    log.info("arch=%s mesh=%s params(full)=%.2fB", cfg.name,
+             dict(zip(mesh.axis_names, mesh.devices.shape)),
              cfg.n_params() / 1e9)
     opt_cfg = adam.AdamConfig(lr=args.lr)
 
     gen = torch.Generator(device=model.device)
     gen.manual_seed(0)
-    params = model.init(gen)
+    p_shapes, p_axes = model.abstract_params()
+    p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    params = shd.place_tree(model.init(gen), p_sh)
     opt_state = adam.init(params, opt_cfg)
     data_cfg = DataConfig(seq_len=args.seq, global_batch=args.batch,
                           vocab=cfg.vocab)
-    it = DataIterator(data_cfg, device=model.device)
+    rows = shd.sharding_for("batch|seq", (args.batch, args.seq), mesh)
+    it = DataIterator(data_cfg, sharding={"tokens": rows, "labels": rows})
     stubs = {}
     if cfg.family == "vlm":
-        stubs["patch_embs"] = torch.zeros(
-            (args.batch, cfg.n_patches, cfg.d_model), device=model.device)
+        stubs["patch_embs"] = (args.batch, cfg.n_patches, cfg.d_model)
     if cfg.family == "encdec":
-        stubs["frames"] = torch.zeros(
-            (args.batch, cfg.enc_len, cfg.d_model), device=model.device)
+        stubs["frames"] = (args.batch, cfg.enc_len, cfg.d_model)
+    stubs = {k: shd.place(torch.zeros(v),
+                          shd.sharding_for("batch|seq|embed", v, mesh))
+             for k, v in stubs.items()}
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if ckpt and args.resume and ckpt.latest_step() is not None:
         state = {"params": params, "opt": opt_state}
-        state, start_step, extra = ckpt.restore(state)
+        state_sh = {"params": p_sh,
+                    "opt": shd.tree_shardings(
+                        adam.opt_state_axes(p_axes), opt_state, mesh)}
+        state, start_step, extra = ckpt.restore(state, shardings=state_sh)
         params, opt_state = state["params"], state["opt"]
         it.load_state_dict(extra.get("data", {"step": start_step}))
         log.info("resumed from step %d", start_step)

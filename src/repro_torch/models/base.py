@@ -3,11 +3,14 @@
 
 A parameter tree is a plain dict of tensors with the reference's keys and
 shapes, so ``zoo.params_from_numpy`` can carry the JAX tree across leaf by
-leaf.  The reference's ``Boxed`` leaves and logical axes, and the sharding
-hints built on them, are not ported: on one device a hint is the identity
-(the engine's sharding policy is ``distributed.sharding``; the LM's
-parameter and activation sharding comes with the sharded train step,
-ROADMAP A14).
+leaf.  Every leaf is made by ``param`` with the reference's logical axis
+names, one per dimension (``"layers"`` for each stacked axis in front);
+the tensor carries them as ``LOGICAL_AXES`` and ``axes_of`` reads them
+back '|'-joined, as the reference's ``tree_unbox`` encodes them.  An init
+run on the ``meta`` device (``gen=None``) gives the shapes and axes of a
+tree without allocating it: ``zoo.Model.abstract_params``, from which
+``distributed.sharding.tree_shardings`` places parameters and moments on a
+mesh.
 """
 from __future__ import annotations
 
@@ -26,11 +29,22 @@ def init_scale(shape: Sequence[int], init: str = "normal") -> float:
     return fan_in ** -0.5
 
 
-def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
-          dtype: torch.dtype = torch.float32, init: str = "normal",
-          scale: Optional[float] = None,
+#: Attribute of a parameter tensor holding its logical axes (a tuple).
+LOGICAL_AXES = "logical_axes"
+
+
+def axes_of(t: torch.Tensor) -> str:
+    """The '|'-joined logical axes ``param`` gave ``t``."""
+    return "|".join(getattr(t, LOGICAL_AXES))
+
+
+def param(gen: Optional[torch.Generator], shape: Sequence[int],
+          axes: Sequence[str], *, dtype: torch.dtype = torch.float32,
+          init: str = "normal", scale: Optional[float] = None,
           stack: Union[int, tuple] = 0) -> torch.Tensor:
-    """One parameter on ``gen``'s device: 'normal' / 'embed' draw N(0, 1) in
+    """One parameter on ``gen``'s device, with ``axes`` (one logical axis
+    name per dim of ``shape``; each stacked axis adds ``"layers"`` in
+    front): 'normal' / 'embed' draw N(0, 1) in
     float32 times the scale (default ``init_scale``), 'zeros' and 'ones' are
     constant; then cast to ``dtype``.  ``stack`` > 0 makes that many layers'
     copies on a new leading axis, each drawn in turn into the tensor of
@@ -40,8 +54,15 @@ def param(gen: Optional[torch.Generator], shape: Sequence[int], *,
     layers a group)); a 0 in it makes a zero-length stack.  ``gen=None``
     gives an empty tensor on the ``meta`` device: the shapes and dtypes of
     a tree without allocating it."""
+    assert len(axes) == len(shape), (shape, axes)
     lead = tuple(stack) if isinstance(stack, tuple) else \
         ((stack,) if stack else ())
+    out = _draw(gen, shape, lead, dtype, init, scale)
+    setattr(out, LOGICAL_AXES, ("layers",) * len(lead) + tuple(axes))
+    return out
+
+
+def _draw(gen, shape, lead, dtype, init, scale) -> torch.Tensor:
     full = lead + tuple(shape)
     if gen is None:
         return torch.empty(full, dtype=dtype, device="meta")

@@ -16,10 +16,10 @@ cross-attention (not causal), the decoder's self-attention (causal, S ==
 T) — goes through ``ops.attention``, the flash kernel on the card, so a
 prefill launches it n_enc_layers + 2 · n_layers times.  The cache is the
 reference's ``{"kv": {"k", "v"}: (L, B, max_len, nkv, hd), "cross_k",
-"cross_v": (L, B, enc_len, nkv, hd), "len"}`` in ``cfg.dtype`` (``len`` a
-0-d int32); ``decode`` is encoder-free: its self-attention writes the
-cache in place, its cross-attention reads the cached encoder K/V, both
-plain PyTorch as the reference computes them.
+"cross_v": (L, B, F, nkv, hd), "len"}`` for a prefill of F frames, in
+``cfg.dtype`` (``len`` a 0-d int32); ``decode`` is encoder-free: its
+self-attention writes the cache in place, its cross-attention reads the
+cached encoder K/V, both plain PyTorch as the reference computes them.
 
 Training (``forward``) takes ``apply_attention_train`` throughout; under
 ``cfg.remat`` each encoder and decoder block runs under
@@ -31,7 +31,6 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from . import layers as L
 from . import transformer as T
@@ -138,12 +137,8 @@ def forward(cfg, params, batch):
     x = _dec_input(cfg, params, tokens, pos)
     body = functools.partial(_dec_train, cfg)
     for i in range(cfg.n_layers):
-        blk = T.train_layer(params["dec_layers"], i)
-        if cfg.remat:
-            x = checkpoint(body, blk, x, pos, enc_out, epos,
-                           use_reentrant=False)
-        else:
-            x = body(blk, x, pos, enc_out, epos)
+        x = T.run_block(cfg, body, params["dec_layers"], i, x, pos, enc_out,
+                        epos)
     h = L.apply_norm(cfg, params["dec_norm"], x)
     logits = L.logits_out(cfg, params["embed"], h)
     loss = L.xent_loss(logits, batch["labels"])
@@ -154,10 +149,15 @@ def forward(cfg, params, batch):
 # Serving
 # ---------------------------------------------------------------------------
 
-def init_cache(cfg, batch: int, max_len: int, device) -> dict:
+def init_cache(cfg, batch: int, max_len: int, device,
+               enc_len: int = 0) -> dict:
+    """Zeros: the decoder's self-attention K/V of ``max_len`` positions and
+    the cross K/V of ``enc_len`` encoder positions (``cfg.enc_len`` by
+    default; a prefill sizes them by the frames it encodes)."""
     dt = L.dtype_of(cfg.dtype)
     one = L.init_kv_cache(cfg, batch, max_len, dt, "meta")
-    cross = (cfg.n_layers, batch, cfg.enc_len, cfg.n_kv_heads, cfg.hd)
+    cross = (cfg.n_layers, batch, enc_len or cfg.enc_len, cfg.n_kv_heads,
+             cfg.hd)
     return {"kv": {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype,
                                   device=device) for k, v in one.items()},
             "cross_k": torch.zeros(cross, dtype=dt, device=device),
@@ -167,19 +167,19 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 def prefill(cfg, params, frames, tokens, max_len: int, *,
             attn_impl: str = "auto"):
-    """Encode ``frames`` (B, enc_len, d), run the prompt (B, S) and return
-    (cache, last-position logits (B, 1, vocab))."""
+    """Encode ``frames`` (B, F, d) — any number F of frames, ``cfg.enc_len``
+    at full size — run the prompt (B, S) and return (cache, last-position
+    logits (B, 1, vocab)); the cache's cross K/V hold the F encoder
+    positions, as the reference sizes them by the encoder's output."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prefill: {S} tokens exceed max_len {max_len}")
-    if frames.shape[1] != cfg.enc_len:
-        raise ValueError(f"prefill: {frames.shape[1]} frames, the config's "
-                         f"enc_len is {cfg.enc_len}")
     enc_out = encode(cfg, params, frames, attn_impl=attn_impl)
+    F_ = enc_out.shape[1]
     pos = _positions(B, S, enc_out.device)
-    enc_pos = _positions(B, cfg.enc_len, enc_out.device)
+    enc_pos = _positions(B, F_, enc_out.device)
     x = _dec_input(cfg, params, tokens, pos)
-    cache = init_cache(cfg, B, max_len, x.device)
+    cache = init_cache(cfg, B, max_len, x.device, enc_len=F_)
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     attend = _serve_attention(attn_impl)
     for i in range(cfg.n_layers):

@@ -59,9 +59,10 @@ def _pdt(cfg) -> torch.dtype:
 
 def init_norm(cfg, gen, stack: int = 0) -> dict:
     kw = dict(dtype=_pdt(cfg), stack=stack)
-    p = {"scale": param(gen, (cfg.d_model,), init="ones", **kw)}
+    p = {"scale": param(gen, (cfg.d_model,), ("embed",), init="ones", **kw)}
     if cfg.norm == "layernorm":
-        p["bias"] = param(gen, (cfg.d_model,), init="zeros", **kw)
+        p["bias"] = param(gen, (cfg.d_model,), ("embed",), init="zeros",
+                          **kw)
     return p
 
 
@@ -115,14 +116,14 @@ def sinusoidal(positions, d: int):
 def init_attention(cfg, gen, stack: int = 0) -> dict:
     d, nh, nkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kw = dict(dtype=_pdt(cfg), stack=stack)
-    p = {"wq": param(gen, (d, nh * hd), **kw),
-         "wk": param(gen, (d, nkv * hd), **kw),
-         "wv": param(gen, (d, nkv * hd), **kw),
-         "wo": param(gen, (nh * hd, d), **kw)}
+    p = {"wq": param(gen, (d, nh * hd), ("d_model", "heads"), **kw),
+         "wk": param(gen, (d, nkv * hd), ("d_model", "kv_heads"), **kw),
+         "wv": param(gen, (d, nkv * hd), ("d_model", "kv_heads"), **kw),
+         "wo": param(gen, (nh * hd, d), ("heads", "d_model"), **kw)}
     if cfg.qkv_bias:
-        p["bq"] = param(gen, (nh * hd,), init="zeros", **kw)
-        p["bk"] = param(gen, (nkv * hd,), init="zeros", **kw)
-        p["bv"] = param(gen, (nkv * hd,), init="zeros", **kw)
+        p["bq"] = param(gen, (nh * hd,), ("heads",), init="zeros", **kw)
+        p["bk"] = param(gen, (nkv * hd,), ("kv_heads",), init="zeros", **kw)
+        p["bv"] = param(gen, (nkv * hd,), ("kv_heads",), init="zeros", **kw)
     return p
 
 
@@ -394,9 +395,10 @@ def apply_cross_attention_decode(cfg, p, x, cross_k, cross_v):
 def init_mlp(cfg, gen, stack: int = 0, d_ff: Optional[int] = None) -> dict:
     d, f = cfg.d_model, d_ff or cfg.d_ff
     kw = dict(dtype=_pdt(cfg), stack=stack)
-    p = {"wi": param(gen, (d, f), **kw), "wo": param(gen, (f, d), **kw)}
+    p = {"wi": param(gen, (d, f), ("d_model", "d_ff"), **kw),
+         "wo": param(gen, (f, d), ("d_ff", "d_model"), **kw)}
     if cfg.act in ("swiglu", "geglu"):
-        p["wg"] = param(gen, (d, f), **kw)
+        p["wg"] = param(gen, (d, f), ("d_model", "d_ff"), **kw)
     return p
 
 
@@ -418,10 +420,11 @@ def apply_mlp(cfg, p, x):
 # ---------------------------------------------------------------------------
 
 def init_embed(cfg, gen) -> dict:
-    p = {"tok": param(gen, (cfg.vocab, cfg.d_model), dtype=_pdt(cfg),
-                      init="embed")}
+    p = {"tok": param(gen, (cfg.vocab, cfg.d_model), ("vocab", "d_model"),
+                      dtype=_pdt(cfg), init="embed")}
     if not cfg.tie_embeddings:
-        p["out"] = param(gen, (cfg.d_model, cfg.vocab), dtype=_pdt(cfg))
+        p["out"] = param(gen, (cfg.d_model, cfg.vocab), ("d_model", "vocab"),
+                         dtype=_pdt(cfg))
     return p
 
 

@@ -32,8 +32,18 @@ the reference's function does.
 ``route_hook``, when set, is called with (sel, keep) of every call — the
 selected experts (B, S, k) and the keep mask (B, S·k) — for instrumentation
 (chip_smoke.py reads the dropped pairs and compares routes with it).
+
+The load-balancing term is E · Σ_e me_e · pe_e over the call's tokens
+(``me`` the mean router probabilities, ``pe`` the share of tokens whose
+first choice is e).  The train forward asks for its statistics
+(``stats=True``, a ``Balance``) instead of its value: over a mesh each
+data row holds a part of the batch, and the rows combine their ``pe``
+before the term is taken (``balance_loss``), so the term is the global
+batch's, as the reference's SPMD step computes it.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,11 +58,12 @@ route_hook = None
 def init_moe(cfg, gen, stack: int = 0) -> dict:
     d, f, e = cfg.d_model, cfg.moe_ff, cfg.n_experts
     kw = dict(dtype=L._pdt(cfg), stack=stack)
-    p = {"router": param(gen, (d, e), **kw),
-         "wi": param(gen, (e, d, f), **kw),
-         "wo": param(gen, (e, f, d), **kw)}
+    p = {"router": param(gen, (d, e), ("d_model", "experts"), **kw),
+         "wi": param(gen, (e, d, f), ("experts", "d_model", "d_ff"), **kw),
+         "wo": param(gen, (e, f, d), ("experts", "d_ff", "d_model"), **kw)}
     if cfg.act in ("swiglu", "geglu"):
-        p["wg"] = param(gen, (e, d, f), **kw)
+        p["wg"] = param(gen, (e, d, f), ("experts", "d_model", "d_ff"),
+                        **kw)
     if cfg.dense_residual:
         p["dense"] = L.init_mlp(cfg, gen, stack, cfg.d_ff)
     return p
@@ -94,8 +105,18 @@ def _expert_ffn(cfg, p, buf):
     return h @ p["wo"].to(dt)
 
 
-def apply_moe(cfg, p, x):
-    """x: (B, S, d) -> ((B, S, d), the load-balancing auxiliary loss)."""
+class Balance(NamedTuple):
+    """A MoE call's load-balancing statistics: ``me`` (E,) its tokens' mean
+    router probabilities (differentiable), ``pe`` (E,) the share of its
+    tokens whose first choice each expert is, over ``n`` tokens."""
+    me: torch.Tensor
+    pe: torch.Tensor
+    n: int
+
+
+def apply_moe(cfg, p, x, *, stats: bool = False):
+    """x: (B, S, d) -> ((B, S, d), the load-balancing auxiliary loss), or
+    with ``stats`` its ``Balance`` in place of the loss."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = _capacity(cfg, S)
@@ -152,11 +173,18 @@ def apply_moe(cfg, p, x):
         y = term if y is None else y + term
     if "dense" in p:
         y = y + L.apply_mlp(cfg, p["dense"], x)
-    return y, _aux_loss(gates.reshape(-1, E), sel.reshape(-1, k), E)
+    bal = _balance(gates.reshape(-1, E), sel.reshape(-1, k), E)
+    return y, (bal if stats else balance_loss(bal))
 
 
-def _aux_loss(gates, sel, E):
-    """Switch/GShard load-balancing auxiliary loss."""
+def _balance(gates, sel, E) -> Balance:
     me = gates.mean(dim=0)                                       # (E,)
     pe = F.one_hot(sel[:, 0], E).float().mean(dim=0)
-    return E * torch.sum(me * pe)
+    return Balance(me, pe, gates.shape[0])
+
+
+def balance_loss(bal: Balance, pe=None):
+    """Switch/GShard load-balancing auxiliary loss E · Σ me · pe, with the
+    batch's ``pe`` in place of the call's when given."""
+    pe = bal.pe if pe is None else pe
+    return bal.me.shape[0] * torch.sum(bal.me * pe)

@@ -55,15 +55,16 @@ def init_ssm(cfg, gen, stack=0) -> dict:
     conv_ch = d_in + 2 * G * N
     kw = dict(dtype=dtype_of(cfg.param_dtype), stack=stack)
     return {
-        "in_proj": param(gen, (d, 2 * d_in + 2 * G * N + H), **kw),
-        "conv_w": param(gen, (cfg.ssm_conv, conv_ch),
+        "in_proj": param(gen, (d, 2 * d_in + 2 * G * N + H),
+                         ("d_model", "d_inner"), **kw),
+        "conv_w": param(gen, (cfg.ssm_conv, conv_ch), ("conv", "d_inner"),
                         scale=cfg.ssm_conv ** -0.5, **kw),
-        "conv_b": param(gen, (conv_ch,), init="zeros", **kw),
-        "A_log": param(gen, (H,), init="zeros", **kw),
-        "dt_bias": param(gen, (H,), init="zeros", **kw),
-        "D": param(gen, (H,), init="ones", **kw),
-        "norm": param(gen, (d_in,), init="ones", **kw),
-        "out_proj": param(gen, (d_in, d), **kw),
+        "conv_b": param(gen, (conv_ch,), ("d_inner",), init="zeros", **kw),
+        "A_log": param(gen, (H,), ("heads",), init="zeros", **kw),
+        "dt_bias": param(gen, (H,), ("heads",), init="zeros", **kw),
+        "D": param(gen, (H,), ("heads",), init="ones", **kw),
+        "norm": param(gen, (d_in,), ("d_inner",), init="ones", **kw),
+        "out_proj": param(gen, (d_in, d), ("d_inner", "d_model"), **kw),
     }
 
 

@@ -26,6 +26,7 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import sharding as shd
 from . import layers as L
 from . import moe as M
 
@@ -44,10 +45,11 @@ def _block_init(cfg, gen, stack: int) -> dict:
     return blk
 
 
-def _ffn(cfg, blk, h):
-    """The block's second half: (the MoE layer or the MLP of h, aux)."""
+def _ffn(cfg, blk, h, stats=False):
+    """The block's second half: (the MoE layer or the MLP of h, aux), aux
+    the MoE's load-balancing loss — its ``moe.Balance`` under ``stats``."""
     if cfg.n_experts:
-        return M.apply_moe(cfg, blk["moe"], h)
+        return M.apply_moe(cfg, blk["moe"], h, stats=stats)
     return L.apply_mlp(cfg, blk["mlp"], h), 0.0
 
 
@@ -117,10 +119,35 @@ def _slice(leaf, i):
 
 def train_layer(stacked: dict, i: int) -> dict:
     """Layer i's parameters for the train forward: views of the stacked
-    leaves, a leaf that requires grad through `_LayerSlice`."""
-    return {k: train_layer(v, i) if isinstance(v, dict) else
-            _slice(v, i) if v.requires_grad else v[i]
-            for k, v in stacked.items()}
+    leaves, a leaf that requires grad through `_LayerSlice`.  Under a mesh
+    the leaves are a data row's ``sharding.RowLeaf``: layer i is gathered
+    from the shards onto the row's device (``sharding.hint_tree``) and its
+    gradient goes into the row's gradient of each position's block."""
+    return shd.hint_tree({
+        k: train_layer(v, i) if isinstance(v, dict) else
+        v[i] if isinstance(v, shd.RowLeaf) else
+        _slice(v, i) if v.requires_grad else v[i]
+        for k, v in stacked.items()})
+
+
+def _sharded(tree) -> bool:
+    return any(_sharded(v) if isinstance(v, dict) else
+               isinstance(v, shd.RowLeaf) for v in tree.values())
+
+
+def run_block(cfg, body, stacked, i, *args):
+    """``body(layer i's parameters, *args)``, under ``cfg.remat`` inside
+    ``torch.utils.checkpoint`` (non-reentrant).  A sharded stack gathers
+    the layer inside the checkpoint, so the backward gathers it again
+    instead of keeping every layer's gathered copy alive (a checkpoint
+    keeps its inputs)."""
+    if not cfg.remat:
+        return body(train_layer(stacked, i), *args)
+    if _sharded(stacked):
+        return checkpoint(lambda *a: body(train_layer(stacked, i), *a),
+                          *args, use_reentrant=False)
+    return checkpoint(body, train_layer(stacked, i), *args,
+                      use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -132,23 +159,27 @@ def _block_apply(cfg, blk, x, positions):
                                    L.apply_norm(cfg, blk["ln1"], x),
                                    positions, causal=True)
     x = x + a
-    m, aux = _ffn(cfg, blk, L.apply_norm(cfg, blk["ln2"], x))
+    m, aux = _ffn(cfg, blk, L.apply_norm(cfg, blk["ln2"], x), stats=True)
     return x + m, aux
 
 
 def _scan_blocks(cfg, stacked, x, positions, block_fn, indices=None):
     """The layers in order (``indices`` of the stacked leaves, every one of
     the ``n_layers`` by default; an index may be a tuple), each on views of
-    its slice of the stacked leaves; under ``cfg.remat`` each block is
-    recomputed in the backward from its input."""
+    its slice of the stacked leaves (``run_block``); under ``cfg.remat``
+    each block is recomputed in the backward from its input.  A block's
+    aux may be a MoE layer's ``moe.Balance``: its loss is taken here, with
+    the batch's first-choice shares under a mesh (``sharding.Row.gather_sum``
+    over the data rows)."""
     body = functools.partial(block_fn, cfg)
+    row = shd.row_of(stacked)
     aux = 0.0
     for i in (range(cfg.n_layers) if indices is None else indices):
-        blk = train_layer(stacked, i)
-        if cfg.remat:
-            x, a = checkpoint(body, blk, x, positions, use_reentrant=False)
-        else:
-            x, a = body(blk, x, positions)
+        x, a = run_block(cfg, body, stacked, i, x, positions)
+        if isinstance(a, M.Balance):
+            pe = None if row is None else \
+                row.gather_sum(a.pe * a.n) / row.gather_sum(a.n)
+            a = M.balance_loss(a, pe)
         aux = aux + a
     return x, aux
 

@@ -6,6 +6,7 @@ families.
 signatures:
 
     init(gen)                                   -> params
+    abstract_params()                           -> (meta params, axes)
     forward(params, batch)                      -> (loss, metrics)
     prefill(params, batch, max_len)             -> (cache, logits)
     decode(params, cache, token)                -> (cache, logits)
@@ -30,6 +31,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from . import encdec, hybrid, ssm_lm, transformer
+from .base import axes_of
 from .layers import dtype_of
 
 #: The module that computes each family ``build`` serves.
@@ -83,6 +85,14 @@ class Model:
                              f"{self.device}")
         return self.module.init(self.cfg, gen)
 
+    def abstract_params(self):
+        """(tree of ``meta`` tensors, tree of '|'-joined logical axes)
+        without allocating: the twin of the reference's
+        ``Model.abstract_params`` (its ShapeDtypeStruct tree and
+        ``tree_unbox`` axes)."""
+        shapes = self.module.init(self.cfg, None)
+        return shapes, tree_map(lambda _, t: axes_of(t), shapes)
+
     def prefill(self, params, batch: dict, max_len: int, *,
                 attn_impl: str = "auto"):
         """``attn_impl`` picks the attention of the families that attend
@@ -120,7 +130,8 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
     ``patch_embs`` (B, n_patches, d_model) in ``cfg.dtype``; an enc-dec's
     tokens and labels (B, S) beside ``frames`` (B, enc_len, d_model) in
     ``cfg.dtype``.  The SSM and hybrid take the dense family's inputs,
-    ``long_500k``'s too."""
+    ``long_500k``'s too.  ``axes`` holds each input's logical axes, the
+    reference's."""
     B, S = shape.global_batch, shape.seq_len
     module_for(cfg)
 
@@ -129,22 +140,27 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec) -> dict:
 
     text = S - cfg.n_patches                    # n_patches is 0 but for VLM
     batch = {"tokens": tok((B, text)), "labels": tok((B, text))}
+    axes = {"tokens": "batch|seq", "labels": "batch|seq"}
     if cfg.family == "vlm":
         batch["patch_embs"] = torch.empty(
             (B, cfg.n_patches, cfg.d_model), dtype=dtype_of(cfg.dtype),
             device="meta")
+        axes["patch_embs"] = "batch|seq|embed"
     if cfg.family == "encdec":
         batch["frames"] = torch.empty(
             (B, cfg.enc_len, cfg.d_model), dtype=dtype_of(cfg.dtype),
             device="meta")
+        axes["frames"] = "batch|seq|embed"
     if shape.kind == "train":
-        return {"kind": "train", "batch": batch}
+        return {"kind": "train", "batch": batch, "axes": axes}
     if shape.kind == "prefill":
-        del batch["labels"]
-        return {"kind": "prefill", "batch": batch, "max_len": S}
+        del batch["labels"], axes["labels"]
+        return {"kind": "prefill", "batch": batch, "axes": axes,
+                "max_len": S}
     if shape.kind == "decode":
         return {"kind": "decode", "batch": {"token": tok((B, 1))},
-                "max_len": S, "cache_batch": B}
+                "axes": {"token": "batch|seq"}, "max_len": S,
+                "cache_batch": B}
     raise ValueError(f"unknown shape kind {shape.kind!r}")
 
 

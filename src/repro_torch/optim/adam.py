@@ -18,6 +18,8 @@ import dataclasses
 
 import torch
 
+from ..distributed.sharding import NamedSharding, ShardedTensor, place
+
 #: Elements of one slice of ``update``'s in-place pass (256 MB of f32).
 SLICE_ELEMS = 1 << 26
 
@@ -51,12 +53,21 @@ def _map(fn, tree):
 
 def init(params, cfg: AdamConfig = AdamConfig()):
     mdt = getattr(torch, cfg.moment_dtype)
-    step_dev = next(leaves(params))[1].device
+    first = next(leaves(params))[1]
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=mdt, device=p.device)
+    def zeros_like(t):
+        return torch.zeros(t.shape, dtype=mdt, device=t.device)
+
+    if isinstance(first, ShardedTensor):
+        def zeros(p):
+            return p.map(zeros_like)
+        step = place(torch.zeros((), dtype=torch.int32),
+                     NamedSharding(first.sharding.mesh, ()))
+    else:
+        zeros = zeros_like
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
     return {"m": _map(zeros, params), "v": _map(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=step_dev)}
+            "step": step}
 
 
 def opt_state_axes(param_axes):
@@ -65,10 +76,16 @@ def opt_state_axes(param_axes):
 
 
 def global_norm(tree):
-    """sqrt of the sum over leaves (in JAX's order) of Σ x² in f32."""
-    total = 0
+    """sqrt of the sum over leaves (in JAX's order) of Σ x² in f32; a
+    sharded leaf's Σ over the first copy of each of its blocks, in mesh
+    order, on the first block's device."""
+    total, dev = 0, None
     for _, x in leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+        parts = ([t for _, _, t in x.blocks()]
+                 if isinstance(x, ShardedTensor) else [x])
+        for t in parts:
+            dev = t.device if dev is None else dev
+            total = total + torch.sum(torch.square(t.float())).to(dev)
     return torch.sqrt(total)
 
 
@@ -83,15 +100,27 @@ def update(grads, state, params, cfg: AdamConfig = AdamConfig(),
     """One AdamW step, in place.  Returns (params, new_state, metrics):
     ``params`` and the state's moment trees are the tensors passed in, now
     holding the new values."""
-    step = state["step"] + 1
+    old_step = state["step"]
+    sharded = isinstance(old_step, ShardedTensor)
+    step = old_step.map(lambda t: t + 1) if sharded else old_step + 1
+    step1 = step.local(step.sharding.positions()[0]) if sharded else step
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / gnorm.clamp_min(1e-9), max=1.0) \
         if cfg.grad_clip else 1.0
-    b1c = 1.0 - cfg.b1 ** step.float()
-    b2c = 1.0 - cfg.b2 ** step.float()
+    b1c = 1.0 - cfg.b1 ** step1.float()
+    b2c = 1.0 - cfg.b2 ** step1.float()
     lr = cfg.lr * lr_scale
+    on_dev = {}
+
+    def consts(dev):
+        """(clip, b1c, b2c) on ``dev``."""
+        if dev not in on_dev:
+            on_dev[dev] = tuple(c.to(dev) if isinstance(c, torch.Tensor)
+                                else c for c in (clip, b1c, b2c))
+        return on_dev[dev]
 
     def upd_elem(p, g, m, v, decay):
+        clip, b1c, b2c = consts(p.device)
         g = g.float() * clip
         m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g
         v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g * g
@@ -107,15 +136,23 @@ def update(grads, state, params, cfg: AdamConfig = AdamConfig(),
 
     g_of, m_of, v_of = (dict(leaves(t)) for t in (grads, state["m"],
                                                   state["v"]))
-    for key, p in leaves(params):
-        g, m, v = g_of[key], m_of[key], v_of[key]
-        decay = bool(cfg.weight_decay) and p.ndim >= 2
+    def upd_leaf(p, g, m, v, decay):
         if p.ndim == 0:
             upd_elem(p, g, m, v, decay)
-            continue
+            return
         rows = _rows_per_slice(p)
         for lo in range(0, p.shape[0], rows):
             sl = slice(lo, lo + rows)
             upd_elem(p[sl], g[sl], m[sl], v[sl], decay)
+
+    for key, p in leaves(params):
+        g, m, v = g_of[key], m_of[key], v_of[key]
+        decay = bool(cfg.weight_decay) and p.ndim >= 2
+        if isinstance(p, ShardedTensor):
+            for pos in p.sharding.positions():
+                upd_leaf(p.local(pos), g.local(pos), m.local(pos),
+                         v.local(pos), decay)
+        else:
+            upd_leaf(p, g, m, v, decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}, \
         {"grad_norm": gnorm}

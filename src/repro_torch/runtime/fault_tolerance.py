@@ -9,9 +9,12 @@ most one step plus the async-save lag.
 **Stragglers** — ``StragglerMonitor`` tracks per-step wall times; a step
 slower than ``threshold × median`` is logged and flagged.
 
-**Elastic re-mesh** — ``rescale_grad_accum`` holds the global batch across
-a change of data-parallel width.  ``replan_mesh`` needs the LM half of the
-sharding policy and raises until it is ported (ROADMAP A14).
+**Elastic re-mesh** — ``replan_mesh(n_devices)`` picks the largest valid
+(data, model) grid for the surviving device count; the checkpoint
+restores with the *new* shardings (``Checkpointer.restore(shardings=)``),
+so training continues at reduced width instead of waiting for repair.
+``rescale_grad_accum`` holds the global batch across the change of
+data-parallel width.
 """
 from __future__ import annotations
 
@@ -45,12 +48,27 @@ class PreemptionGuard:
             signal.signal(sig, h)
 
 
-def replan_mesh(n_devices: int, *, prefer_model: int = 16):
-    """The largest (data, model) grid for the surviving device count: needs
-    the LM half of the sharding policy (ROADMAP A14)."""
-    raise NotImplementedError(
-        "replan_mesh: the (data, model) LM mesh and its parameter shardings "
-        "come with the sharded train step (ROADMAP A14)")
+def replan_mesh(n_devices: int, *, prefer_model: int = 16, devices=None):
+    """The largest (data, model) grid for the surviving device count: the
+    model axis stays at ``prefer_model`` when it divides ``n_devices``
+    (parameter shards stay valid), else is halved until it does; ``data =
+    n_devices // model``.  ``devices`` are the survivors (repeats allowed,
+    as in a ``launch.mesh.Mesh``); by default the first ``n_devices``
+    distinct visible devices of the engine's device type."""
+    import numpy as np
+
+    from ..launch.mesh import Mesh, visible_devices
+    model = prefer_model
+    while model > 1 and n_devices % model:
+        model //= 2
+    data = n_devices // model
+    devs = visible_devices() if devices is None else list(devices)
+    if len(devs) < n_devices:
+        raise ValueError(f"replan_mesh({n_devices}) has {len(devs)} devices "
+                         f"({[str(d) for d in devs]}); pass the survivors "
+                         "as devices=")
+    return Mesh(np.array(devs[:n_devices], dtype=object).reshape(data, model),
+                ("data", "model"))
 
 
 def rescale_grad_accum(cfg_accum: int, old_data: int, new_data: int) -> int:

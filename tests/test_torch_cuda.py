@@ -67,7 +67,10 @@ shard bit for bit with the unsharded run, two and four within tolerance of
 it and bit for bit from run to run, each shard's steps on a CUDA stream of
 its own (a delayed step on one shard leaves the merged result exact), an
 injected staging fault in one shard with the leak audit, and
-``Engine(mesh=)`` opening no mid-stream gate.
+``Engine(mesh=)`` opening no mid-stream gate.  Then the sharded train
+step over ``[cuda:0] × 4`` as (data 2, model 2): gradients against the
+unsharded step's, bit for bit run to run, a CUDA stream a data row, no
+kernel launched.
 """
 import threading
 
@@ -2077,3 +2080,64 @@ def test_engine_under_mesh_opens_no_gate(dev):
     assert st["shards"] == 2 and st["midstream_admits"] == 0
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+def test_sharded_train_step_on_the_card(dev):
+    """The sharded train step over ``[cuda:0] × 4`` as (data 2, model 2),
+    reduced llama3.2-3b in float32: its gradients within 1e-5 of each
+    leaf's largest entry of the unsharded step's on the card, two runs bit
+    for bit, each data row's work on a CUDA stream of its own, and a full
+    AdamW step that launches no kernel."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import zoo
+    from repro_torch.optim import adam
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                              dtype="float32")
+    model = zoo.build(cfg, dev)
+    base = zoo.build(dataclasses.replace(cfg, grad_accum=2), dev)
+    params = model.init(0)
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 64))
+                                 .astype(np.int32)).to(dev)
+             for k in ("tokens", "labels")}
+    l1, _, g1 = steps.loss_and_grads(base, params, batch)
+    g1 = {k: v.clone() for k, v in zoo.flatten(g1)}
+    mesh = Mesh(np.array([torch.device("cuda", 0)] * 4,
+                         dtype=object).reshape(2, 2), ("data", "model"))
+    shapes, axes = model.abstract_params()
+    sp = shd.place_tree(params, shd.tree_shardings(axes, shapes, mesh))
+    streams = {}
+    real = shd.bind_row
+
+    def spy(p, a, row, prefix=""):
+        streams.setdefault(row.index, set()).add(
+            torch.cuda.current_stream().cuda_stream)
+        return real(p, a, row, prefix)
+    runs = []
+    for _ in range(2):
+        shd.bind_row = spy
+        try:
+            runs.append(steps.sharded_loss_and_grads(model, sp, batch))
+        finally:
+            shd.bind_row = real
+    (ls, _, gs), (ls2, _, gs2) = runs
+    assert abs(float(ls) - float(l1)) <= 1e-5 * abs(float(l1))
+    for name, g in zoo.flatten(gs):
+        want = g1[name].double()
+        err = (g.full().double() - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-5, (name, float(err))
+        assert torch.equal(g.full(), dict(zoo.flatten(gs2))[name].full())
+    default = torch.cuda.default_stream().cuda_stream
+    assert sorted(streams) == [0, 1]
+    assert all(len(v) == 1 for v in streams.values())   # one a row
+    assert len(streams[0] | streams[1]) == 2
+    assert default not in streams[0] | streams[1]
+    before = fa.launches
+    step = steps.build_train_step(model)
+    sp, opt, met = step(sp, adam.init(sp), batch)
+    torch.cuda.synchronize()
+    assert fa.launches == before and np.isfinite(float(met["loss"]))

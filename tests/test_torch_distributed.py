@@ -19,9 +19,20 @@ errors the reference's test holds to its own tolerances.  The parent test
 asserts the counters and kernels exactly equal and the errors within the
 reference test's tolerances.  ``test_mesh_parity_grid`` is the
 reference's grid for ndev 1, 2 and 8 (its batch, spill and interrupted-
-shard cases included); ``test_multidevice_equivalence`` its part 1 on a
-(4, 2) ``data × model`` mesh.  Part 2 (a sharded train step) and
-``test_dryrun_smoke_subprocess`` wait for the LM stack (ROADMAP A14).
+shard cases included); ``test_multidevice_equivalence`` both its parts
+on a (4, 2) ``data × model`` mesh: data-parallel GenOps, and a sharded
+train step of reduced llama3.2-3b (batch 8 × 64) against the reference's
+8-device loss and the port's one-device loss and gradients.
+``test_dryrun_smoke_subprocess`` waits for the dry-run tools (ROADMAP
+A14b).
+
+The LM half, in process: ``zoo.Model.abstract_params`` axes equal to the
+reference's ``tree_unbox`` axes for all ten configs; ``tree_shardings``
+and ``train_specs`` specs leaf by leaf equal to the reference's
+``resolve`` on stand-in (4, 2), (16, 16) and (2, 16, 16) meshes; the
+sharded step of every family on a (2, 2) mesh of repeated CPU devices
+against the port's one-device step, bit for bit run to run, each
+position holding only its block of every parameter and moment.
 """
 import json
 import os
@@ -33,12 +44,23 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from repro.configs import ARCH_IDS
+from repro.configs import get_config as jget_config
+from repro.configs.base import ShapeSpec as JShapeSpec
 from repro.core import fusion as jfusion
 from repro.distributed import sharding as jshd
+from repro.models import zoo as jzoo
+from repro_torch.configs import get_config, reduced_for_smoke
+from repro_torch.configs.base import ShapeSpec
 from repro_torch.core import fusion as tfusion
 from repro_torch.distributed import sharding as tshd
 from repro_torch.distributed.sharding import resolve
+from repro_torch.launch import steps
 from repro_torch.launch.mesh import Mesh
+from repro_torch.models import zoo
+from repro_torch.optim import adam
 
 pytestmark = pytest.mark.slow  # subprocess mesh runs, as the reference's
 
@@ -160,6 +182,261 @@ def test_shard_ranges_grid(n_shards):
             for (lo, hi), (lo2, _) in zip(got, got[1:]):
                 assert hi == lo2 and lo <= hi
                 assert lo % rows == 0 or lo == long_dim
+
+
+# ---------------------------------------------------------------------------
+# The LM half: logical axes, shardings, the sharded train step
+# ---------------------------------------------------------------------------
+
+_REF_TREES = {}
+
+
+def _ref_tree(arch):
+    """The reference's (shapes, axes) of ``arch``'s full parameter tree,
+    flattened to dotted names, without allocating."""
+    if arch not in _REF_TREES:
+        import jax
+        shapes, axes = jzoo.build(jget_config(arch)).abstract_params()
+
+        def flat(tree):
+            return {".".join(str(k.key) for k in path): v for path, v in
+                    jax.tree_util.tree_flatten_with_path(tree)[0]}
+        _REF_TREES[arch] = ({k: tuple(v.shape) for k, v in
+                             flat(shapes).items()}, flat(axes))
+    return _REF_TREES[arch]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_abstract_params_axes_match_reference(arch):
+    """``Model.abstract_params``: meta tensors only, with the reference's
+    shapes and '|'-joined logical axes leaf by leaf."""
+    shapes, axes = zoo.build(get_config(arch), "cpu").abstract_params()
+    ref_shapes, ref_axes = _ref_tree(arch)
+    assert {t.device.type for _, t in zoo.flatten(shapes)} == {"meta"}
+    assert dict(zoo.flatten(axes)) == ref_axes
+    assert {k: tuple(t.shape) for k, t in zoo.flatten(shapes)} == ref_shapes
+
+
+STAND_INS = {"4x2": _FakeMesh((4, 2), ("data", "model")),
+             "16x16": MESH1, "2x16x16": MESH2}
+
+
+@pytest.mark.parametrize("mesh_name", sorted(STAND_INS))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_specs_match_reference_resolve(arch, mesh_name):
+    """``train_specs`` at train_4k: every parameter's, moment's and batch
+    input's spec equal to the reference's ``resolve`` of its axes and
+    shape, the step and the metrics replicated."""
+    mesh = STAND_INS[mesh_name]
+    model = zoo.build(get_config(arch), "cpu")
+    sp = steps.train_specs(model, ShapeSpec("train_4k", 4096, 256, "train"),
+                           mesh)
+    p_sh, o_sh, b_sh = sp["in_shardings"]
+    assert sp["out_shardings"][:2] == (p_sh, o_sh)
+    ref_shapes, ref_axes = _ref_tree(arch)
+    want = {k: tuple(jshd.resolve(ref_axes[k], ref_shapes[k], mesh))
+            for k in ref_axes}
+    for tree in (p_sh, o_sh["m"], o_sh["v"]):
+        got = {k: v.spec for k, v in zoo.flatten(tree)}
+        assert got == want
+    assert o_sh["step"].spec == () and o_sh["step"].mesh is mesh
+    assert {v.spec for v in sp["out_shardings"][2].values()} == {()}
+    jspec = jzoo.input_specs(jget_config(arch),
+                             JShapeSpec("train_4k", 4096, 256, "train"))
+    for k, v in b_sh.items():
+        assert v.spec == tuple(jshd.resolve(jspec["axes"][k],
+                                            jspec["batch"][k].shape, mesh))
+    # tree_shardings over the same trees gives the same layout
+    shapes, axes = model.abstract_params()
+    assert tshd.tree_shardings(axes, shapes, mesh) == p_sh
+
+
+def _cpu_mesh(shape, names=("data", "model")):
+    return Mesh(np.array([torch.device("cpu")] * int(np.prod(shape)),
+                         dtype=object).reshape(shape), names)
+
+
+def _reduced_batch(cfg, B, S, seed=0):
+    rng = np.random.default_rng(seed)
+    text = S - cfg.n_patches
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, text))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    if cfg.family == "vlm":
+        batch["patch_embs"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(B, cfg.enc_len, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.mark.parametrize("arch,accum", [
+    ("llama3.2-3b", 1), ("qwen2-0.5b", 2), ("qwen3-moe-30b-a3b", 1),
+    ("arctic-480b", 2), ("paligemma-3b", 1), ("mamba2-1.3b", 2),
+    ("zamba2-7b", 2), ("whisper-medium", 1)])
+def test_sharded_step_matches_one_device(arch, accum):
+    """Every family's gradients over a (2, 2) mesh of repeated CPU devices
+    against the port's one-device ``loss_and_grads`` of the same config on
+    the same batch (8 rows in ``grad_accum`` microbatches; a MoE's
+    load-balancing term over each whole microbatch on both sides): the
+    loss within 1e-5 relative, each gradient leaf within 1e-5 of its
+    largest entry (2e-2 for arctic-480b's bf16 masters and gradients), the
+    hybrid's empty tail an empty gradient."""
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)),
+                              grad_accum=accum)
+    model = zoo.build(cfg, "cpu")
+    params = model.init(0)
+    batch = _reduced_batch(cfg, 8, 64 if cfg.family != "vlm"
+                           else cfg.n_patches + 32)
+    l1, _, g1 = steps.loss_and_grads(model, params, batch)
+    g1 = {k: v.clone() for k, v in zoo.flatten(g1)}
+    shapes, axes = model.abstract_params()
+    sp = tshd.place_tree(params, tshd.tree_shardings(
+        axes, shapes, _cpu_mesh((2, 2))))
+    ls, _, gs = steps.sharded_loss_and_grads(model, sp, batch)
+    tol = 2e-2 if cfg.param_dtype == "bfloat16" else 1e-5
+    assert abs(float(ls) - float(l1)) <= tol * abs(float(l1))
+    for name, g in zoo.flatten(gs):
+        want = g1[name]
+        assert g.shape == want.shape and g.dtype == want.dtype, name
+        if want.numel() == 0:
+            continue
+        got = g.full().double()
+        err = (got - want.double()).abs().max() / want.double().abs().max()
+        assert float(err) <= tol, (name, float(err))
+
+
+def test_sharded_moe_balance_term_is_global():
+    """A MoE layer's load-balancing term over a (2, 2) mesh takes the whole
+    batch's first-choice shares, as the reference's SPMD step does: the
+    loss of reduced qwen3-moe-30b-a3b (batch 8 × 64 in one microbatch,
+    parameters carried from the reference) equals the reference's
+    forward's within 1e-5 with the term
+    and without it — a term over each data row's tokens alone is off by
+    more than that, which the loss with the term must not be."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import reduced_for_smoke as jreduced
+    from repro.models import moe as jmoe
+    from repro.models.base import tree_unbox
+    from repro_torch.models import moe as tmoe
+    arch = "qwen3-moe-30b-a3b"
+    jcfg = dataclasses.replace(jreduced(jget_config(arch)), grad_accum=1)
+    cfg = dataclasses.replace(reduced_for_smoke(get_config(arch)),
+                              grad_accum=1)
+    jparams, _ = tree_unbox(jzoo.build(jcfg).init(jax.random.PRNGKey(0)))
+    host = jax.tree_util.tree_map(np.asarray, jparams)
+    batch = _reduced_batch(cfg, 8, 64)
+    model = zoo.build(cfg, "cpu")
+    shapes, axes = model.abstract_params()
+    p_sh = tshd.tree_shardings(axes, shapes, _cpu_mesh((2, 2)))
+
+    def losses():
+        jloss, _ = jzoo.build(jcfg).forward(
+            jparams, {k: jnp.asarray(v.numpy()) for k, v in batch.items()})
+        sp = tshd.place_tree(zoo.params_from_numpy(cfg, host, "cpu"), p_sh)
+        ls, _, _ = steps.sharded_loss_and_grads(model, sp, batch)
+        return float(jloss), float(ls)
+    ref, port = losses()
+    assert abs(port - ref) <= 1e-5 * abs(ref), (ref, port)
+    real = tshd.Row.gather_sum
+    try:                           # each row's own shares: a local term
+        tshd.Row.gather_sum = lambda self, value: value
+        _, local = losses()
+    finally:
+        tshd.Row.gather_sum = real
+    assert abs(local - ref) > 1e-5 * abs(ref), (ref, local)
+    real = jmoe._aux_loss, tmoe.balance_loss
+    try:
+        jmoe._aux_loss = lambda gates, sel, E: jnp.zeros((), jnp.float32)
+        tmoe.balance_loss = lambda bal, pe=None: bal.me.sum() * 0.0
+        ref, port = losses()
+    finally:
+        jmoe._aux_loss, tmoe.balance_loss = real
+    assert abs(port - ref) <= 1e-5 * abs(ref), (ref, port)
+
+
+def test_sharded_train_step_layout_and_bit_for_bit():
+    """Reduced llama3.2-3b, batch 8 × 64, two AdamW steps on a (4, 2) mesh
+    of repeated CPU devices, twice from the same start: the runs equal bit
+    for bit, and every position of every parameter and moment holds its
+    spec's block and nothing more."""
+    cfg = reduced_for_smoke(get_config("llama3.2-3b"))
+    model = zoo.build(cfg, "cpu")
+    shapes, axes = model.abstract_params()
+    mesh = _cpu_mesh((4, 2))
+    p_sh = tshd.tree_shardings(axes, shapes, mesh)
+    batch = _reduced_batch(cfg, 8, 64)
+    rows = tshd.sharding_for("batch|seq", (8, 64), mesh)
+    assert rows.spec == ("data", None)
+    sbatch = {k: tshd.place(v, rows) for k, v in batch.items()}
+    step = steps.build_train_step(model)
+    runs = []
+    for _ in range(2):
+        params = tshd.place_tree(model.init(0), p_sh)
+        opt = adam.init(params)
+        for _ in range(2):
+            params, opt, met = step(params, opt, sbatch)
+        runs.append((params, opt, float(met["loss"])))
+    (p1, o1, l1), (p2, o2, l2) = runs
+    assert l1 == l2 and np.isfinite(l1)
+    for t1, t2 in ((p1, p2), (o1["m"], o2["m"]), (o1["v"], o2["v"])):
+        for (name, a), (_, b) in zip(zoo.flatten(t1), zoo.flatten(t2)):
+            assert torch.equal(a.full(), b.full()), name
+            block = a.sharding.shard_shape(a.shape)
+            assert a.sharding.mesh == mesh
+            for pos in a.sharding.positions():
+                loc = a.local(pos)
+                assert tuple(loc.shape) == block, (name, pos)
+                assert loc.untyped_storage().nbytes() == \
+                    loc.numel() * loc.element_size(), (name, pos)
+    wq = p1["layers"]["attn"]["wq"]
+    assert wq.sharding.spec == (None, "data", "model")
+    assert o1["m"]["layers"]["attn"]["wq"].dtype == torch.bfloat16
+    assert int(o1["step"].full()) == 2
+
+
+def test_sharded_row_gradients_are_position_blocks():
+    """Reduced llama3.2-3b, batch 8 × 64 on a (4, 2) mesh of repeated CPU
+    devices: after the data rows' backward (``steps.row_grads``), each
+    row's gradient of every leaf is one tensor per position holding a
+    block's first copy, of that block's shape and storage, on the
+    position's device — no whole-leaf gradient anywhere — so a position
+    holds 4 rows × its blocks, half of one whole gradient here, not the
+    whole; reduced in row order they are ``sharded_loss_and_grads``'s
+    gradients bit for bit."""
+    cfg = reduced_for_smoke(get_config("llama3.2-3b"))
+    model = zoo.build(cfg, "cpu")
+    shapes, axes = model.abstract_params()
+    mesh = _cpu_mesh((4, 2))
+    sp = tshd.place_tree(model.init(0),
+                         tshd.tree_shardings(axes, shapes, mesh))
+    batch = _reduced_batch(cfg, 8, 64)
+    rows, weights, loss = steps.row_grads(model, sp, batch)
+    assert len(rows) == 4 and sum(weights) == pytest.approx(1.0)
+    held = {pos: 0 for pos in np.ndindex(4, 2)}
+    whole = 0
+    for name, p in zoo.flatten(sp):
+        sh, block = p.sharding, p.sharding.shard_shape(p.shape)
+        whole += p.numel() * p.dtype.itemsize
+        firsts = [pos for pos in sh.positions() if sh.is_first_copy(pos)]
+        for row in rows:
+            bufs = row.grads[name]
+            assert sorted(bufs) == sorted(firsts), name
+            for pos, g in bufs.items():
+                assert tuple(g.shape) == block, (name, pos)
+                assert g.device == sh.device(pos)
+                nbytes = g.untyped_storage().nbytes()
+                assert nbytes == g.numel() * g.element_size(), (name, pos)
+                held[pos] += nbytes
+    assert max(held.values()) <= whole // 2 + whole // 50, (held, whole)
+    mine = steps._reduce_grads(sp, rows, weights)
+    ls, _, gs = steps.sharded_loss_and_grads(model, sp, batch)
+    assert float(ls) == float(loss)
+    for (name, a), (_, b) in zip(zoo.flatten(mine), zoo.flatten(gs)):
+        for pos in a.sharding.positions():
+            assert torch.equal(a.local(pos), b.local(pos)), (name, pos)
 
 
 # ---------------------------------------------------------------------------
@@ -437,16 +714,92 @@ _EQUIV = _PRELUDE + textwrap.dedent("""
             "gram_ok": bool(np.allclose(g, Xn.T @ Xn, rtol=1e-3)),
             "sums_ok": bool(np.allclose(s, Xn.sum(0), rtol=1e-3)),
             "gram": g.tolist()}
+
+    # 2) a sharded train step against one device (reduced llama3.2-3b)
+    import jax.numpy as jnp
+    from repro.configs import get_config as jget, reduced_for_smoke as jred
+    from repro.models import zoo as jzoo
+    from repro.models.base import tree_unbox
+    from repro.distributed import sharding as jshd
+    from repro.launch.steps import build_train_step as jbuild
+    from repro.optim import adam as jadam
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.distributed import sharding as tshd
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import zoo as tzoo
+    from repro_torch.optim import adam as tadam
+
+    mesh = make_host_mesh(8, model=2)
+    jcfg = jred(jget("llama3.2-3b"))
+    jmodel = jzoo.build(jcfg)
+    params, axes = tree_unbox(jmodel.init(jax.random.PRNGKey(0)))
+    toks = rng.integers(0, jcfg.vocab, (8, 64)).astype(np.int32)
+    labs = rng.integers(0, jcfg.vocab, (8, 64)).astype(np.int32)
+    batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labs)}
+    jstep = jbuild(jmodel)
+    loss_1dev = jax.jit(jstep)(params, jadam.init(params), batch)[2]["loss"]
+    with jshd.use_mesh(mesh):
+        shapes = jax.tree_util.tree_map(
+            lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), params)
+        p_sh = jshd.tree_shardings(axes, shapes, mesh)
+        params_s = jax.tree_util.tree_map(jax.device_put, params, p_sh)
+        b_sh = {k: jshd.sharding_for("batch|seq", v.shape, mesh)
+                for k, v in batch.items()}
+        batch_s = {k: jax.device_put(v, b_sh[k]) for k, v in batch.items()}
+        loss_8dev = jax.jit(jstep)(params_s, jadam.init(params_s),
+                                   batch_s)[2]["loss"]
+    train = {"repro": {"loss_1dev": float(loss_1dev),
+                       "loss_8dev": float(loss_8dev)}}
+
+    cfg = reduced_for_smoke(get_config("llama3.2-3b"))
+    model = tzoo.build(cfg, "cpu")
+    host = jax.tree_util.tree_map(np.asarray, params)
+    tparams = tzoo.params_from_numpy(cfg, host, "cpu")
+    tbatch = {"tokens": torch.from_numpy(toks),
+              "labels": torch.from_numpy(labs)}
+    l1, _, g1 = tsteps.loss_and_grads(model, tparams, tbatch)
+    g1 = {k: v.clone() for k, v in tzoo.flatten(g1)}
+    tmesh = port_mesh((4, 2))
+    shapes_t, axes_t = model.abstract_params()
+    sparams = tshd.place_tree(tzoo.params_from_numpy(cfg, host, "cpu"),
+                              tshd.tree_shardings(axes_t, shapes_t, tmesh))
+    rows = tshd.sharding_for("batch|seq", (8, 64), tmesh)
+    sbatch = {k: tshd.place(v, rows) for k, v in tbatch.items()}
+    l8, _, g8 = tsteps.sharded_loss_and_grads(model, sparams, sbatch)
+    err = max(float((g.full() - g1[k]).abs().max() / g1[k].abs().max())
+              for k, g in tzoo.flatten(g8))
+    step = tsteps.build_train_step(model)
+    _, _, met = step(sparams, tadam.init(sparams), sbatch)
+    train["repro_torch"] = {
+        "loss_1dev": float(l1), "loss_8dev": float(met["loss"]),
+        "grads_loss": float(l8), "grad_rel_err": err,
+        "on_mesh": all(v.sharding.mesh == tmesh
+                       for _, v in tzoo.flatten(sparams))}
+    out["train"] = train
     print(json.dumps(out))
 """)
 
 
 def test_multidevice_equivalence():
-    """Part 1 of the reference's test: data-parallel GenOps in whole mode
-    over an 8-device (4, 2) data × model mesh equal the host reference;
-    the port over ``[cpu] × 8`` with the same shape shards its rows 4 ways
-    (the model axis replicates) with the reference's counters."""
+    """The reference's test in both packages.  Part 1: data-parallel GenOps
+    in whole mode over an 8-device (4, 2) data × model mesh equal the host
+    reference; the port over ``[cpu] × 8`` with the same shape shards its
+    rows 4 ways (the model axis replicates) with the reference's counters.
+    Part 2: one train step of reduced llama3.2-3b, batch 8 × 64, on the
+    (4, 2) mesh: the port's loss within 1e-3 relative of the reference's
+    8-device loss and of its own one-device loss (the reference test's
+    bound), its gradients within 1e-5 of each leaf's largest entry of the
+    one-device ones, and the reference's two losses within its own 1e-3."""
     got = _run(_EQUIV, 8)
+    train = got.pop("train")
+    for name in ("repro", "repro_torch"):
+        one, mesh = train[name]["loss_1dev"], train[name]["loss_8dev"]
+        assert abs(one - mesh) / abs(one) < 1e-3, (name, one, mesh)
+    port_mesh_loss = train["repro_torch"]["loss_8dev"]
+    ref_mesh_loss = train["repro"]["loss_8dev"]
+    assert abs(port_mesh_loss - ref_mesh_loss) / abs(ref_mesh_loss) < 1e-3
+    assert train["repro_torch"]["grad_rel_err"] <= 1e-5, train
+    assert train["repro_torch"]["on_mesh"]
     ref, port = got["repro"], got["repro_torch"]
     assert port["counters"] == ref["counters"], (port, ref)
     assert port["counters"]["shards"] == 4

@@ -192,3 +192,38 @@ def test_train_forward_through_blockwise_matches_reference(pair,
     want = dict(zoo.flatten(jax.tree_util.tree_map(np.asarray, jg)))
     for name, t in zoo.flatten(p):
         assert _rel(t.grad.numpy(), want[name]) < 1e-4, name
+
+
+def test_prefill_and_decode_below_enc_len_match_reference(pair):
+    """C7: a prefill of 20 frames where the config's enc_len is 32 — the
+    reference sizes its cross K/V by the encoder's output and serves it —
+    then two decode steps: (B, 5) tokens, max_len 16, the logits of every
+    step and every cache leaf within 1e-4 of the largest |entry|."""
+    jcfg, tree, cfg, params, rng = pair
+    F_, S_, max_len = 20, 5, 16
+    frames = rng.normal(size=(B, F_, cfg.d_model)).astype(np.float32)
+    toks = rng.integers(0, cfg.vocab, (B, S_ + 2)).astype(np.int32)
+    jm, m = jzoo.build(jcfg), zoo.build(cfg, "cpu")
+    jp = _j(tree)
+    jcache, jlog = jm.prefill(jp, {"frames": jnp.asarray(frames),
+                                   "tokens": jnp.asarray(toks[:, :S_])},
+                              max_len)
+    cache, log = m.prefill(params, {"frames": torch.from_numpy(frames),
+                                    "tokens": torch.from_numpy(toks[:, :S_])},
+                           max_len)
+    assert tuple(cache["cross_k"].shape) == jcache["cross_k"].shape == \
+        (cfg.n_layers, B, F_, cfg.n_kv_heads, cfg.hd)
+    steps_ = [(log, jlog)]
+    for t in range(S_, S_ + 2):
+        jcache, jl = jm.decode(jp, jcache, jnp.asarray(toks[:, t:t + 1]))
+        cache, lg = m.decode(params, cache, torch.from_numpy(toks[:, t:t + 1]))
+        steps_.append((lg, jl))
+    for got, want in steps_:
+        assert _rel(got.numpy(), want) < 1e-4
+    want = dict(zoo.flatten(jax.tree_util.tree_map(np.asarray, jcache)))
+    for name, t in zoo.flatten(cache):
+        if t.ndim == 0:
+            assert int(t) == int(want[name]) == S_ + 2
+        else:
+            assert tuple(t.shape) == want[name].shape, name
+            assert _rel(t.numpy(), want[name]) < 1e-4, name

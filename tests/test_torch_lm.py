@@ -367,8 +367,11 @@ def test_input_specs_match_reference(arch):
 
 def test_unported_families_and_bad_inputs_raise():
     """Every architecture of the reference is ported; an unknown family, a
-    prompt shorter than the SSM's conv window, a prompt past max_len and
-    an enc-dec prefill of another frame count than ``enc_len`` raise."""
+    prompt shorter than the SSM's conv window and a prompt past max_len
+    raise.  An enc-dec prefill of another frame count than ``enc_len``
+    raised too until C7 was closed: it now sizes the cross K/V by the
+    frames, as the reference does (test_torch_encdec.py holds it to the
+    reference)."""
     assert set(ARCH_IDS) == set(PORTED_IDS)
     for arch in ARCH_IDS:
         assert get_config(arch).family in zoo.FAMILIES
@@ -394,12 +397,12 @@ def test_unported_families_and_bad_inputs_raise():
     cfg = reduced_for_smoke(get_config("whisper-medium"))
     model = zoo.build(cfg, device="cpu")
     toks = torch.zeros(1, 4, dtype=torch.int32)
-    for frames, max_len, what in ((cfg.enc_len + 1, 8, "enc_len"),
-                                  (cfg.enc_len, 3, "max_len")):
-        with pytest.raises(ValueError, match=what):
-            model.prefill(model.init(0), {"tokens": toks, "frames":
-                                          torch.zeros(1, frames, cfg.d_model)},
-                          max_len)
+    frames = torch.zeros(1, cfg.enc_len, cfg.d_model)
+    with pytest.raises(ValueError, match="max_len"):
+        model.prefill(model.init(0), {"tokens": toks, "frames": frames}, 3)
+    cache, _ = model.prefill(model.init(0), {"tokens": toks, "frames":
+                             torch.zeros(1, cfg.enc_len + 1, cfg.d_model)}, 8)
+    assert cache["cross_k"].shape[2] == cfg.enc_len + 1
 
 
 def test_building_without_asking_for_the_cpu_raises_without_a_card():

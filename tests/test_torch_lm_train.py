@@ -344,7 +344,8 @@ def test_launcher_batch_carries_the_stub_frontends(arch, monkeypatch):
     tokens and labels, and zero float32 ``patch_embs`` (B, n_patches,
     d_model) for a VLM or ``frames`` (B, enc_len, d_model) for an enc-dec
     model, as the reference's launcher adds them — and those stand-ins
-    are zeros."""
+    are zeros.  The port's batch is laid out on the launcher's mesh
+    (``ShardedTensor`` inputs), read back whole."""
     from repro.launch import steps as jsteps_mod
     from repro.launch import train as jtrain
     from repro_torch.core import fm
@@ -365,7 +366,7 @@ def test_launcher_batch_carries_the_stub_frontends(arch, monkeypatch):
     record(jsteps_mod, "ref", lambda v: (tuple(v.shape), str(v.dtype)))
     record(steps, "port", lambda v: (tuple(v.shape),
                                      str(v.dtype).replace("torch.", ""),
-                                     v.clone()))
+                                     v.full()))
     argv = ["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
             "--seq", "16", "--log-every", "100"]
     jtrain.main(argv)
@@ -452,8 +453,11 @@ def test_a_leaf_the_loss_never_reaches_raises(accum):
 
 def test_other_families_still_raise_with_a14():
     """``transformer.forward`` refuses the SSM, hybrid and enc-dec families,
-    naming ``zoo.module_for``; the sharded train step (``--model-parallel``
-    > 1) names A14."""
+    naming ``zoo.module_for``.  The launcher's ``--model-parallel`` > 1
+    raised naming A14 until the sharded train step came (A14a); now it
+    builds ``make_host_mesh(model=2)``, which one CPU cannot make, and
+    raises that mesh's ``ValueError`` as the reference's launcher fails on
+    one device."""
     from repro_torch.models import transformer
     for family in ("ssm", "hybrid", "encdec"):
         cfg = dataclasses.replace(
@@ -461,7 +465,8 @@ def test_other_families_still_raise_with_a14():
         with pytest.raises(ValueError, match="module_for"):
             transformer.forward(cfg, {}, {})
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="A14"):
+    from repro_torch.core import fm
+    with fm.conf(device="cpu"), pytest.raises(ValueError, match="model=2"):
         train.main(["--arch", "qwen2-0.5b", "--reduced",
                     "--model-parallel", "2"])
 

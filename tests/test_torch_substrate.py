@@ -2,13 +2,11 @@
 optimizer and fault runtime, each test the reference's on the port, and
 the cells that hold the port to the reference: checkpoints written by
 each package restored by the other (bf16 leaves included) and equal byte
-for byte, and token windows equal to the reference's bit for bit.
-
-Cells still owed to ROADMAP A14 (they need the LM half of the sharding
-policy): ``replan_mesh`` (here it raises naming A14), the elastic restore
-onto new shardings (``test_elastic_restore_resharded``; the cross-package
-restore stands in its place) and gradient compression
-(``test_compression_error_feedback_unbiased``).
+for byte, token windows equal to the reference's bit for bit, the elastic
+restore onto a new sharding, and the error-feedback int8 compression
+equal to the reference's round by round.  The multi-device halves (a
+(4, 2) mesh, the cross-pod reduction) are in
+tests/test_torch_fault_tolerance_multidevice.py.
 """
 import json
 import pathlib
@@ -22,9 +20,13 @@ import torch
 from repro.checkpoint import Checkpointer as JCheckpointer
 from repro.data import DataConfig as JDataConfig
 from repro.data import DataIterator as JDataIterator
+from repro.optim import compression as jcompression
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.core import fm
 from repro_torch.data import DataConfig, DataIterator, TokenSource
-from repro_torch.optim import adam, schedule
+from repro_torch.distributed.sharding import NamedSharding, ShardedTensor
+from repro_torch.launch.mesh import Mesh
+from repro_torch.optim import adam, compression, schedule
 from repro_torch.runtime import (StragglerMonitor, StepTimer, replan_mesh,
                                  rescale_grad_accum)
 
@@ -109,11 +111,32 @@ def test_checkpoint_files_are_the_references_byte_for_byte(tmp_path):
         "nested/b"]["dtype"] == "bfloat16"
 
 
+def test_elastic_restore_resharded(tmp_path):
+    """Save, then restore with explicit (new-mesh) shardings: the leaf
+    laid out by the new sharding, equal bit for bit, in its stored dtype
+    (the f32 template of a bf16 leaf does not cast it)."""
+    mesh = Mesh([torch.device("cpu")], ("data",))
+    ck = Checkpointer(tmp_path)
+    tree = {"w": torch.arange(16.0).reshape(4, 4),
+            "b": torch.arange(4.0).bfloat16()}
+    ck.save(1, tree, blocking=True)
+    sh = {"w": NamedSharding(mesh, ("data", None)),
+          "b": NamedSharding(mesh, (None,))}
+    out, _, _ = ck.restore({"w": tree["w"], "b": torch.zeros(4)},
+                           shardings=sh)
+    assert isinstance(out["w"], ShardedTensor)
+    assert out["w"].sharding == sh["w"]
+    np.testing.assert_array_equal(np.asarray(out["w"]),
+                                  np.asarray(tree["w"]))
+    assert out["b"].dtype == torch.bfloat16
+    assert torch.equal(out["b"].full(), tree["b"])
+
+
 @pytest.mark.parametrize("writer", ["port", "reference"])
 def test_checkpoint_restored_across_packages(tmp_path, writer):
-    """In place of the elastic resharded restore: a checkpoint of the
-    other package restored, bf16 leaves included, each leaf in the
-    template's dtype (an f32 template over a bf16 leaf casts)."""
+    """A checkpoint of the other package restored, bf16 leaves included,
+    each leaf in the template's dtype (an f32 template over a bf16 leaf
+    casts)."""
     rng = np.random.default_rng(0)
     w = rng.normal(size=(4, 6)).astype(np.float32)
     b = rng.normal(size=(7,)).astype(ml_dtypes.bfloat16)
@@ -261,7 +284,44 @@ def test_straggler_monitor_flags():
 
 
 def test_replan_mesh_and_accum():
-    with pytest.raises(NotImplementedError, match="A14"):
-        replan_mesh(1, prefer_model=16)
+    with fm.conf(device="cpu"):
+        mesh = replan_mesh(1, prefer_model=16)
+    assert mesh.devices.size == 1
+    assert mesh.axis_names == ("data", "model")
+    # the survivors given, repeats allowed: model halves until it divides
+    mesh = replan_mesh(6, prefer_model=16,
+                       devices=[torch.device("cpu")] * 6)
+    assert mesh.devices.shape == (3, 2)
+    with pytest.raises(ValueError, match="survivors"):
+        replan_mesh(4, devices=[torch.device("cpu")] * 2)
     assert rescale_grad_accum(4, old_data=16, new_data=8) == 8
     assert rescale_grad_accum(1, old_data=16, new_data=16) == 1
+
+
+# -- gradient compression ------------------------------------------------------
+
+def test_compression_error_feedback_unbiased():
+    """The reference's test on the port, and each of its 50 rounds held to
+    the reference's: payload, scale and carried error within 1e-6."""
+    g_np = np.random.default_rng(0).normal(size=(64,)) * 1e-3
+    g = {"w": torch.tensor(g_np, dtype=torch.float32)}
+    jg = {"w": jnp.asarray(g_np, jnp.float32)}
+    err, jerr = compression.init_error_state(g), \
+        jcompression.init_error_state(jg)
+    assert err["w"].dtype == torch.bfloat16
+    total = np.zeros(64)
+    for _ in range(50):
+        payload, err = compression.compress_with_feedback(g, err)
+        jpayload, jerr = jcompression.compress_with_feedback(jg, jerr)
+        q, s = payload["w"]
+        jq, js = jpayload["w"]
+        assert q.dtype == torch.int8
+        np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+        assert abs(float(s) - float(js)) <= 1e-6 * abs(float(js))
+        np.testing.assert_allclose(err["w"].float().numpy(),
+                                   np.asarray(jerr["w"], np.float32),
+                                   rtol=0, atol=1e-6)
+        total += compression.dequantize(q, s).numpy()
+    # error feedback: accumulated dequantized sum ~ accumulated true sum
+    np.testing.assert_allclose(total / 50, g["w"].numpy(), rtol=0.05,
+                               atol=1e-5)
