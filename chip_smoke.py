@@ -26,8 +26,8 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — paths a–p: a–c and e–i through ``repro_torch.core.fm``, d
-             and j–p through the LM stack, each with the
+4. main    — paths a–q: a–c and e–i through ``repro_torch.core.fm``, d
+             and j–q through the LM stack, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -379,6 +379,31 @@ Phases, each printing one JSON line:
                 AdamW takes it (clipped to global norm 1; the position k
                 copy scaled by (k + 1)/4), 30 rounds, the mean within rtol
                 0.05, atol 2e-5 of the exact sum, ms a round.
+             q. then serving over a mesh and the dry-run's account: q1,
+                llama3.2-3b at full width and depth with path lm's bf16
+                weights and prompts (seed 2016) over ``[cuda:0] × 4`` as
+                (data 2, model 2) — ``build_prefill_step`` /
+                ``build_decode_step`` on ``ShardedTensor`` parameters, one
+                thread and CUDA stream a data row, the flash kernel inside
+                the rows — one warm prefill, then counted: the prefill of
+                4 × 4096 with the parameters laid out by ``prefill_specs``'
+                shardings, the parameters re-laid out by ``decode_specs``'
+                under ``serve_mode`` (weights resident over ``data``), 32
+                greedy decode steps; then each data row's 2 prompts run
+                alone, unsharded, through the same greedy tokens: every
+                step's logits and the final cache's rows bit for bit
+                (checked), 28 flash launches a row in the prefill and none
+                in decode, each position holding exactly its blocks of the
+                parameters and the cache; prefill ms, decode ms a step and
+                each cell's peak over what was resident before its
+                arguments beside path lm's, the greedy tokens of row 0
+                beside lm's (printed, not checked); q2, the account
+                (``steps.lower_cell(..., one_device=True)`` on meta
+                tensors, in this process) of p0's, p1's and q1's prefill
+                and decode cells: its peak for positions sharing the card
+                within ``ACCOUNT_TOL`` of the measured peak, the positions'
+                summed ``peak_device_bytes`` and the roofline's terms
+                (``launch/roofline.py``) printed beside the measured times.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the paths), the card's name and power
@@ -466,6 +491,8 @@ TRAIN_MAIN_ARCH = "qwen2-0.5b"  # j4's launcher run, full width and depth
 SHARD_MESH = (2, 2)      # path p's (data, model) positions on the one card
 SHARD_STEPS = 3          # p0's and p1's timed steps, after one warm step
 SHARD_CHECK_LAYERS = 2   # p2's depth at full width (a cut of depth)
+SERVE_MESH = (2, 2)      # path q's (data, model) positions on the one card
+ACCOUNT_TOL = 0.10       # q2: the account's peak bytes against the card's
 #: Path p2's limit on the sharded loss against the unsharded one, relative
 #: (the JAX package's test_multidevice_equivalence bound).
 SHARD_LOSS_TOL = 1e-3
@@ -3831,7 +3858,7 @@ def lm_phase(torch, flash_ms):
                  {"tokens": toks}, max_len, outs)
     del params, outs
     torch.cuda.empty_cache()
-    return launches
+    return launches, line
 
 
 def moe_phase(torch):
@@ -4606,6 +4633,7 @@ def shard_step_phase(torch, j2, shape=SHARD_MESH, arm="p1"):
     B, S = TRAIN_BATCH, TRAIN_SEQ
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
     model = zoo.build(cfg, DEVICE)
     t0 = time.perf_counter()
     p_shapes, p_axes = model.abstract_params()
@@ -4665,6 +4693,7 @@ def shard_step_phase(torch, j2, shape=SHARD_MESH, arm="p1"):
            "mean_tokens_s": sum(r["tokens_s"] for r in timed) / len(timed),
            "j2_mean_ms": j2["mean_ms"], "vs_j2": mean_ms / j2["mean_ms"],
            "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
+           "resident_before": resident, "step_peak_bytes": peak - resident,
            "j2_max_memory_gib": j2["max_memory_gib"],
            "layout": {"leaves": layout["leaves"],
                       "bytes_held": layout["bytes"],
@@ -4856,8 +4885,8 @@ def shard_int8_phase(torch, gs):
 def shard_path(torch, j2):
     """Path p: sharded training over positions of the one card."""
     t0 = time.perf_counter()
-    shard_step_phase(torch, j2, (1, 1), "p0")
-    shard_step_phase(torch, j2)
+    p0 = shard_step_phase(torch, j2, (1, 1), "p0")
+    p1 = shard_step_phase(torch, j2)
     model, sparams, gs = shard_grads_phase(torch)
     shard_restore_phase(torch, model, sparams, gs)
     del model, sparams
@@ -4868,6 +4897,230 @@ def shard_path(torch, j2):
     gc.collect()
     torch.cuda.empty_cache()
     emit({"phase": "train", "path": "p", "seconds": time.perf_counter() - t0})
+    return p0, p1
+
+
+def held_bytes(tree) -> tuple:
+    """(bytes each position holds of a tree of ``ShardedTensor``, the
+    leaves' positions holding other than their spec's block)."""
+    from repro_torch.models import zoo
+    held, off = {}, []
+    for name, leaf in zoo.flatten(tree):
+        want = leaf.sharding.shard_shape(leaf.shape)
+        for pos in leaf.sharding.positions():
+            t = leaf.local(pos)
+            nb = t.untyped_storage().nbytes()
+            held[pos] = held.get(pos, 0) + nb
+            if tuple(t.shape) != want or nb != math.prod(want) * \
+                    t.element_size():
+                off.append(f"{name}@{pos}")
+    return held, off
+
+
+def mesh_serve_phase(torch, lm):
+    """q1: llama3.2-3b served over (data, model) = ``SERVE_MESH`` positions
+    of the card, path lm's weights and prompts (seed 2016): one warm
+    prefill, then the counted run — the prefill with the parameters laid
+    out by ``prefill_specs``' shardings (FSDP), the parameters re-laid out
+    by ``decode_specs``' under ``serve_mode`` (weights resident over
+    ``data``), ``LM_DECODE`` greedy decode steps — then each data row's
+    prompts run alone, unsharded, through the same greedy tokens: every
+    step's logits and the final cache's rows bit for bit.  Returns the
+    path's launches and its line (with the cell's measured peaks)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg, model, params, gen, init = serve_init(torch, LM_ARCH)
+    B, S = LM_BATCH, LM_PROMPT
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + LM_DECODE
+    batch = {"tokens": toks[:, :S]}
+    mesh = shard_mesh(torch, SERVE_MESH, ("data", "model"))
+    p_shapes, p_axes = model.abstract_params()
+    p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    with shd.serve_mode():
+        d_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    prefill = steps.build_prefill_step(model, max_len)
+    decode = steps.build_decode_step(model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sp = shd.place_tree(params, p_sh)
+    prefill(sp, batch)                       # warm: the rows' streams, cuBLAS
+    gc.collect()
+    torch.cuda.synchronize()
+
+    def run():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cache, lg = prefill(sp, batch)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        pre_peak = torch.cuda.max_memory_allocated() - base
+        pre_launches = read_counts()["flash_attention"]
+        sd = shd.place_tree(params, d_sh)
+        torch.cuda.synchronize()
+        dec_base = (torch.cuda.memory_allocated() - sum(held_bytes(sd)[0]
+                                                        .values())
+                    - sum(held_bytes(cache)[0].values()))
+        torch.cuda.reset_peak_memory_stats()
+        outs, greedy = [lg], []
+        t1 = time.perf_counter()
+        for _ in range(LM_DECODE):
+            greedy.append(outs[-1].full().argmax(-1).to(torch.int32))
+            cache, lg = decode(sd, cache, greedy[-1])
+            outs.append(lg)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t1
+        dec_peak = torch.cuda.max_memory_allocated() - dec_base
+        return (sd, cache, outs, greedy, pre_s, dec_s, pre_peak, dec_peak,
+                pre_launches)
+
+    (sd, cache, outs, greedy, pre_s, dec_s, pre_peak, dec_peak,
+     pre_launches), launches = counted(torch, "q1", ("flash_attention",),
+                                       run)
+    del sp
+    apps = attention_apps(cfg) * SERVE_MESH[0]
+    c_axes = dict(zoo.flatten(model.cache_axes()))
+    same, n_rows = [], SERVE_MESH[0]
+    b = B // n_rows
+    for r in range(n_rows):
+        span = slice(r * b, (r + 1) * b)
+        c1, l1 = prefill(params, {"tokens": toks[span, :S]})
+        ok = torch.equal(l1, outs[0].full()[span])
+        for i, tok in enumerate(greedy):
+            c1, l1 = decode(params, c1, tok[span])
+            ok = ok and torch.equal(l1, outs[i + 1].full()[span])
+        for name, leaf in zoo.flatten(cache):
+            want = dict(zoo.flatten(c1))[name]
+            if name == "len":
+                ok = ok and all(torch.equal(leaf.local(p), want)
+                                for p in leaf.sharding.positions())
+                continue
+            dim = c_axes[name].split("|").index("batch")
+            ok = ok and torch.equal(leaf.full().narrow(dim, span.start, b),
+                                    want)
+        same.append(bool(ok))
+        del c1, l1
+    held_p, off_p = held_bytes(sd)
+    held_c, off_c = held_bytes(cache)
+    tokens = torch.stack([g[:, 0] for g in greedy], 1)
+    line = {"phase": "main", "path": "q", "arm": "q1", "arch": LM_ARCH,
+            "mesh": dict(zip(mesh.axis_names, mesh.devices.shape)),
+            "devices": f"[{DEVICE}:0] x {mesh.devices.size}",
+            "batch": B, "prompt": S, "decode_steps": LM_DECODE,
+            "prefill_ms": pre_s * 1e3, "lm_prefill_ms": lm["prefill_ms"],
+            "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
+            "lm_decode_ms_per_step": lm["decode_ms_per_step"],
+            "prefill_peak_bytes": pre_peak, "decode_peak_bytes": dec_peak,
+            "prefill_peak_gib": pre_peak / 2**30,
+            "decode_peak_gib": dec_peak / 2**30,
+            "lm_max_memory_gib": lm["max_memory_gib"],
+            "held_by_position": {str(p): held_p[p] + held_c[p]
+                                 for p in held_p},
+            "params_held_by_position": {str(p): v for p, v in held_p.items()},
+            "positions_off": (off_p + off_c)[:8],
+            "flash_launches": launches["flash_attention"],
+            "flash_launches_prefill": pre_launches,
+            "rows_bit_for_bit": same,
+            "greedy_tokens_row0": tokens[0].tolist(),
+            "lm_greedy_tokens_row0": lm["greedy_tokens_row0"],
+            "greedy_row0_as_lm": tokens[0].tolist() ==
+            lm["greedy_tokens_row0"][:LM_DECODE],
+            **{k: init[k] for k in ("init_s", "weights_gib")}}
+    emit(line)
+    check(pre_launches == apps and launches["flash_attention"] == apps,
+          f"q1: flash_attention launched {pre_launches} times in the "
+          f"prefill and {launches['flash_attention']} in all, not "
+          f"{apps} (a layer a data row) and none in decode")
+    check(all(same), f"q1: a data row differs from its rows run alone "
+          f"{same}")
+    check(not off_p and not off_c, f"q1: positions hold other than their "
+          f"blocks {(off_p + off_c)[:8]}")
+    check(all(bool(torch.isfinite(o.full()).all()) for o in outs),
+          "q1: a logit is not finite")
+    del params, sd, cache, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def account_phase(torch, p0, p1, q1):
+    """q2: the dry-run's account (``steps.lower_cell`` on meta tensors,
+    ``one_device``: the positions share this card) of p0's, p1's and q1's
+    cells against the card's peak over what was resident before the
+    cell's arguments were laid out, each within ``ACCOUNT_TOL``; the
+    positions' summed ``peak_device_bytes`` printed beside it, and the
+    roofline's terms beside the measured times."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import roofline, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import zoo
+    cfg = get_config(TRAIN_ARCH)
+    train = ShapeSpec("j2", TRAIN_SEQ, TRAIN_BATCH, "train")
+    cells = [
+        ("p0", (1, 1), p0["grad_accum"], train, p0["step_peak_bytes"],
+         {"step_ms": p0["mean_ms"]}),
+        ("p1", SHARD_MESH, p1["grad_accum"], train, p1["step_peak_bytes"],
+         {"step_ms": p1["mean_ms"]}),
+        ("q1-prefill", SERVE_MESH, 1,
+         ShapeSpec("q1p", LM_PROMPT, LM_BATCH, "prefill"),
+         q1["prefill_peak_bytes"], {"prefill_ms": q1["prefill_ms"]}),
+        ("q1-decode", SERVE_MESH, 1,
+         ShapeSpec("q1d", LM_PROMPT + LM_DECODE, LM_BATCH, "decode"),
+         q1["decode_peak_bytes"],
+         {"decode_ms_per_step": q1["decode_ms_per_step"]})]
+    bad = []
+    for name, shape, accum, spec, measured, ms in cells:
+        n = math.prod(shape)
+        mesh = Mesh(np.array([torch.device("meta")] * n,
+                             dtype=object).reshape(shape), ("data", "model"))
+        model = zoo.build(dataclasses.replace(cfg, grad_accum=accum), "meta")
+        t0 = time.perf_counter()
+        rec = steps.lower_cell(model, spec, mesh, one_device=True).record
+        trace_s = time.perf_counter() - t0
+        pred = rec["device_peak_bytes"]
+        summed = sum(p["peak_device_bytes"] for p in rec["positions"])
+        err = pred / measured - 1
+        per = [roofline.terms(p) for p in rec["positions"]]
+        slowest = max(per, key=lambda t: max(t.values()))
+        coll = sum(p["collective_bytes_total"] for p in rec["positions"])
+        one_card = {"compute_s": sum(t["compute"] for t in per),
+                    "memory_s": sum(t["memory"] for t in per),
+                    "copies_s": 2 * coll / roofline.HBM_BW}
+        emit({"phase": "account", "path": "q", "arm": "q2", "cell": name,
+              "mesh": dict(zip(mesh.axis_names, shape)),
+              "shape": [spec.global_batch, spec.seq_len, spec.kind],
+              "grad_accum": accum, "trace_s": trace_s,
+              "predicted_device_peak_bytes": pred,
+              "summed_position_peak_bytes": summed,
+              "measured_peak_bytes": measured, "rel_err": err,
+              "tol": ACCOUNT_TOL,
+              "position_peak_bytes": {str(tuple(p["pos"])):
+                                      p["peak_device_bytes"]
+                                      for p in rec["positions"]},
+              "roofline_slowest_position_s": slowest,
+              "roofline_one_card_s": one_card,
+              "dot_flops_by_dtype": rec["loop_aware"]["dot_flops_by_dtype"],
+              "kernels": rec["kernels"],
+              "collectives": rec["collectives"], "measured": ms})
+        if abs(err) > ACCOUNT_TOL:
+            bad.append((name, err))
+    check(not bad, f"q2: the account's peak is off the card's by more than "
+          f"{ACCOUNT_TOL}: {bad}")
+
+
+def mesh_serve_path(torch, lm, p0, p1):
+    """Path q: serving over a mesh of the card's positions (q1) and the
+    dry-run's account against the card (q2)."""
+    t0 = time.perf_counter()
+    launches, q1 = mesh_serve_phase(torch, lm)
+    account_phase(torch, p0, p1, q1)
+    emit({"phase": "serve", "path": "q", "seconds": time.perf_counter() - t0})
+    return launches
 
 
 def main() -> int:
@@ -4925,7 +5178,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     rows.append(flash_row(torch))
-    paths.append(lm_phase(torch, rows[-1]["ms"]))
+    lm_launches, lm_line = lm_phase(torch, rows[-1]["ms"])
+    paths.append(lm_launches)
     gc.collect()
     torch.cuda.empty_cache()
     j2 = train_path(torch)
@@ -4946,7 +5200,10 @@ def main() -> int:
     paths.append(encdec_phase(torch))
     gc.collect()
     torch.cuda.empty_cache()
-    shard_path(torch, j2)
+    p0, p1 = shard_path(torch, j2)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(mesh_serve_path(torch, lm_line, p0, p1))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -22,16 +22,30 @@ LAUNCH_LOCK = threading.Lock()
 SM_COUNT = 132
 
 
-def route(*tensors: torch.Tensor) -> str:
+#: The account of a traced step (``launch.hlo_analysis.Account``) while one
+#: is active, else None.  A wrapper that takes meta tensors reports its
+#: kernel's work to it: ``METER.kernel(name, flops, bytes, dtype)``.
+METER = None
+
+
+def route(*tensors: torch.Tensor, meta: bool = False) -> str:
     """'cpu' when every tensor lies on the CPU (the wrapper then runs its
     plain version), 'cuda' when every tensor lies on one CUDA device (the
-    wrapper launches its kernel); anything else raises."""
+    wrapper launches its kernel), and — for a wrapper that passes
+    ``meta=True`` — 'meta' when every tensor is a meta tensor and an
+    account is active (the wrapper returns an empty output of its
+    kernel's shape and reports the kernel's work: meta tensors hold no
+    data, so nothing is computed); anything else raises."""
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"kernel operands on several devices: {devs}")
     dev = devs.pop()
+    if dev.type == "meta" and meta and METER is not None:
+        return "meta"
     if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {dev}")
+        raise ValueError(f"no kernel for device {dev}" + (
+            " outside an account (launch.hlo_analysis)"
+            if dev.type == "meta" else ""))
     return dev.type
 
 

@@ -31,6 +31,10 @@ Both: masks by absolute id (after the scale, so any scale), GQA by reading
 K/V head h // g (never repeating KV), kv tiles above the causal diagonal
 skipped, heaviest q tiles first, 64-bit offsets.
 
+On meta tensors under an account (``launch.hlo_analysis``) the wrapper
+returns an empty output and reports ``tile_work``'s FLOPs and bytes; it
+counts no launch.
+
 Layout: q (B, nh, S, D) with k, v (B, nkv, T, D), nh a multiple of nkv, or
 the Pallas kernel's (BH, S, D) with k, v (BH, T, D); all contiguous.  Both
 bodies read 16 bytes at a time and TMA takes no other base, so an operand
@@ -42,7 +46,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build, ref
+from . import build, common, ref
 from .common import LAUNCH_LOCK, aligned, route
 
 #: Head dims the kernel is built for (tests 16, reduced configs 32, qwen2
@@ -95,6 +99,32 @@ def body_for(dtype: torch.dtype, d: int) -> str:
     return "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "fma"
 
 
+def tile_work(bh: int, S: int, T: int, d: int, dtype: torch.dtype,
+              causal: bool) -> tuple[float, float]:
+    """(FLOPs, HBM bytes) of one launch, from the tiles it visits: one
+    block per (q head, q tile) of ``body_for``'s geometry (wgmma: 128-row
+    q tiles over 128-key kv tiles; FMA: 64 × 64), each reading its q tile
+    once, the kv tiles up to its last query's when causal (all T keys
+    otherwise) and writing its output once.  A visited (query, key) pair
+    costs QKᵀ's 2·d and P·V's 2·d operations, P·V twice on the wgmma body
+    (P as bf16 hi + lo terms).  What is past S or T in a tile is not
+    counted."""
+    wg = body_for(dtype, d) == "wgmma"
+    bq = bk = 128 if wg else BQ
+    per_pair = (6 if wg else 4) * d
+    es = torch.finfo(dtype).bits // 8
+    pairs = keys_read = 0
+    for q0 in range(0, S, bq):
+        rows = min(bq, S - q0)
+        end = min(q0 + rows, T) if causal else T
+        keys = min(-(-end // bk) * bk, T)
+        pairs += rows * keys
+        keys_read += keys
+    flops = float(bh) * pairs * per_pair
+    nbytes = float(bh) * (2 * S * d + 2 * keys_read * d) * es
+    return flops, nbytes
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None
                     ) -> torch.Tensor:
@@ -104,17 +134,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bh, nh, group, S, T = _check(q, k, v)
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else float(scale)
-    if route(q, k, v) == "cpu":
+    where = route(q, k, v, meta=True)
+    if where == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
     if d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {d}; the kernel takes "
                          f"{HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    q, k, v = (aligned(t) for t in (q, k, v))
     if -(-S // BQ) > 65535:
         raise ValueError(f"flash_attention: S = {S} exceeds the grid "
                          f"({65535 * BQ} rows)")
+    if where == "meta":
+        flops, nbytes = tile_work(bh, S, T, d, q.dtype, causal)
+        common.METER.kernel("flash_attention", flops, nbytes,
+                            "bfloat16" if body_for(q.dtype, d) == "wgmma"
+                            else "float32")
+        return torch.empty_like(q)
+    q, k, v = (aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if S == 0 or bh == 0:
         return out

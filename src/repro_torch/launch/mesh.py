@@ -10,8 +10,10 @@ four shards on the CPU, and ``Mesh([torch.device("cuda", 0)] * 2,
 
 Two meshes are equal when their axis names and device arrays are, as
 ``jax.sharding.Mesh`` compares (``distributed.sharding.NamedSharding``
-equality reads it).  ``make_production_mesh`` (the reference's 256- and
-512-chip pod meshes) comes with the dry-run tools (ROADMAP A14b).
+equality reads it).  ``make_production_mesh`` lays the reference's pod
+meshes — (data 16, model 16) and (pod 2, data 16, model 16) — over one
+repeated device: ``device="meta"`` for the dry-run (``launch.dryrun``),
+the twin of the reference's 512 placeholder host devices.
 """
 from __future__ import annotations
 
@@ -44,6 +46,16 @@ class Mesh:
 
     def __hash__(self):
         return hash(self._key())
+
+
+def make_production_mesh(*, multi_pod: bool = False, device) -> Mesh:
+    """The reference's production mesh over ``device`` repeated: (16, 16)
+    on ("data", "model"), or (2, 16, 16) on ("pod", "data", "model")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    devs = np.array([torch.device(device)] * int(np.prod(shape)),
+                    dtype=object)
+    return Mesh(devs.reshape(shape), axes)
 
 
 def visible_devices() -> list:

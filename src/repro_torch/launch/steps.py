@@ -19,15 +19,22 @@ sharded step (``sharded_loss_and_grads``): one thread and, on a card, one
 CUDA stream per data row, each on its rows of the batch with layers
 gathered from the shards and each layer's gradient added into the row's
 gradient of every position's block; then the rows' blocks reduced in row
-order; then ``adam.update`` block by block.
-``train_specs`` gives the step's meta-device arguments and shardings, the
-twin of the reference's.  The reference's ``prefill_specs``,
-``decode_specs`` and ``lower_cell`` come with the dry-run tools (ROADMAP
-A14b).
+order; then ``adam.update`` block by block.  ``build_prefill_step`` and
+``build_decode_step`` serve over a mesh the same way (``sharded_prefill``,
+``sharded_decode``): a thread and CUDA stream a data row on its batch rows,
+layers gathered one at a time, the cache a tree of ``ShardedTensor`` laid
+out by the family's ``cache_axes`` that each row reads from and writes
+back into (``sharding.RowCache``).
+
+``train_specs``, ``prefill_specs`` and ``decode_specs`` give each step's
+meta-device arguments and shardings, the twins of the reference's;
+``lower_cell`` runs a cell's step on them under the account of
+``launch.hlo_analysis`` (the dry-run, ``launch.dryrun``).
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import threading
 
@@ -37,6 +44,7 @@ import torch
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed import sharding as shd
 from ..models import zoo
+from ..models.layers import dtype_of
 from ..optim import adam
 
 
@@ -83,6 +91,11 @@ def loss_and_grads(model: zoo.Model, params: dict, batch: dict):
 def is_sharded(params) -> bool:
     """Whether ``params`` is laid out on a mesh (``ShardedTensor`` leaves)."""
     return isinstance(next(adam.leaves(params))[1], shd.ShardedTensor)
+
+
+def _mesh_of(params):
+    """The mesh a tree of ``ShardedTensor`` parameters is laid out on."""
+    return next(adam.leaves(params))[1].sharding.mesh
 
 
 _ROW_STREAMS: dict = {}
@@ -145,7 +158,8 @@ def _row_batch(batch: dict, pos, dev, r: int, n_rows: int,
     microbatch: its share of each of the ``accum`` microbatches one device
     would take (rows i·B/accum + r·b .. + b, b = B/(accum·n_rows)), so a
     microbatch over the rows is one device's.  A sharded input's local
-    block is taken as it is where it holds exactly those rows (accum 1)."""
+    block is taken as it is where it holds exactly those rows (accum 1);
+    else the whole input is gathered first (an all-gather to ``pos``)."""
     out = {}
     for k, v in batch.items():
         B = v.shape[0]
@@ -161,6 +175,8 @@ def _row_batch(batch: dict, pos, dev, r: int, n_rows: int,
                         s == slice(0, d) for s, d in zip(sl[1:], v.shape[1:])):
                 out[k] = local
                 continue
+            shd.note("all-gather", v.numel() * v.dtype.itemsize,
+                     [p for p, _ in v.block_slices()], pos, r)
             v = v.full(dev)
         rows = [v[i * B // accum + r * b:i * B // accum + (r + 1) * b]
                 for i in range(accum)]
@@ -173,7 +189,8 @@ def _reduce_grads(params: dict, rows: list, weights: list) -> dict:
     gradient of the block), summed in row order into row 0's block on the
     position's device — bit for bit the same every run.  A position
     holding a copy of a block takes the first copy's tensor, or a copy of
-    it on another device.  Rows' blocks are released as they are added."""
+    it on another device (a copy between positions, which the account
+    counts).  Rows' blocks are released as they are added."""
     missing = []
 
     def leaf(name, p):
@@ -192,8 +209,11 @@ def _reduce_grads(params: dict, rows: list, weights: list) -> dict:
         sh = p.sharding
         out = np.empty(p.shards.shape, dtype=object)
         for pos in sh.positions():
-            blk, dev = acc[sh.first_copy(pos)], sh.device(pos)
+            first = sh.first_copy(pos)
+            blk, dev = acc[first], sh.device(pos)
             out[pos] = blk if blk.device == dev else blk.to(dev)
+            if first != pos:
+                shd.note("broadcast", blk.nbytes, [first], pos)
         return shd.ShardedTensor(out, sh, p.shape, p.dtype)
 
     grads = zoo.tree_map(leaf, params)
@@ -202,28 +222,44 @@ def _reduce_grads(params: dict, rows: list, weights: list) -> dict:
     return grads
 
 
+def _param_axes(model: zoo.Model) -> dict:
+    """The parameters' logical axes (from meta shapes, which hold no
+    device memory: not an account's temporaries)."""
+    with shd.untracked(on_device=False):
+        return model.abstract_params()[1]
+
+
+def _first_row_only() -> bool:
+    """Whether a traced step runs its first data row and first microbatch
+    alone (``launch.hlo_analysis``: every row has the same shapes)."""
+    acc = shd.ACCOUNT
+    return acc is not None and acc.first_row
+
+
 def row_grads(model: zoo.Model, params: dict, batch: dict):
     """The data rows' part of ``sharded_loss_and_grads``: (rows, weights,
     loss), each ``sharding.Row`` holding its gradient of every block in
     ``Row.grads``, ``weights`` what ``_reduce_grads`` scales row r's by
-    and ``loss`` the global batch's."""
-    first = next(adam.leaves(params))[1]
-    mesh = first.sharding.mesh
-    _, axes = model.abstract_params()
-    positions = shd.shard_positions(mesh)
-    n_rows = len(positions)
-    group = shd.RowGroup(n_rows)
-    rows = [shd.Row(r, mesh.devices[pos], group)
-            for r, pos in enumerate(positions)]
+    and ``loss`` the global batch's.  A step traced on its first row alone
+    runs row 0's first microbatch only, weighting the rows equally."""
+    mesh = _mesh_of(params)
+    axes = _param_axes(model)
+    alone = _first_row_only()
+    rows = shd.mesh_rows(mesh, run=1 if alone else None)
+    n_rows = len(rows)
+    run = rows[:1] if alone else rows
     accum = max(1, model.cfg.grad_accum)
-    parts = [_row_batch(batch, pos, row.device, r, n_rows, accum)
-             for r, (pos, row) in enumerate(zip(positions, rows))]
-    if "loss_mask" in batch:
+    parts = [_row_batch(batch, row.pos, row.device, row.index, n_rows, accum)
+             for row in run]
+    if alone:
+        counts = [1.0] * n_rows
+    elif "loss_mask" in batch:
         counts = [float(pt["loss_mask"].float().sum()) for pt in parts]
     else:
         counts = [float(pt["tokens"].shape[0]) for pt in parts]
     weights = [c / sum(counts) for c in counts]
     losses = [None] * n_rows
+    group = rows[0].group
 
     def body(r):
         row, part = rows[r], parts[r]
@@ -231,18 +267,22 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
                  for k, v in part.items()}
         total = 0.0
         try:
-            for i in range(accum):
-                loss, _ = model.forward(shd.bind_row(params, axes, row),
-                                        {k: v[i] for k, v in micro.items()})
-                loss.backward()
-                total = total + loss.detach()
+            with shd.row_scope(row):
+                for i in range(1 if alone else accum):
+                    loss, _ = model.forward(
+                        shd.bind_row(params, axes, row),
+                        {k: v[i] for k, v in micro.items()})
+                    with shd.backward_scope():
+                        loss.backward()
+                    total = total + loss.detach()
         except BaseException:
             group.abort()
             raise
         losses[r] = total / accum
 
-    drive_rows([row.device for row in rows], body)
-    loss = sum(w * lo.to(rows[0].device) for w, lo in zip(weights, losses))
+    drive_rows([row.device for row in run], body)
+    loss = sum(w * lo.to(rows[0].device)
+               for w, lo in zip(weights, losses) if lo is not None)
     return rows, [w / accum for w in weights], loss
 
 
@@ -320,23 +360,241 @@ def train_specs(model: zoo.Model, shape: ShapeSpec, mesh,
 
 def serving_model(cfg: ArchConfig, *, serve_dtype: str = "bfloat16",
                   device=None) -> zoo.Model:
-    """The model of cfg with every parameter in ``serve_dtype``."""
+    """The model of cfg with every parameter in ``serve_dtype``: the
+    reference's ``_bf16_init`` (``lower_cell``'s serving parameters) in
+    one call, since the port's ``init`` draws in ``cfg.param_dtype``."""
     return zoo.build(dataclasses.replace(cfg, param_dtype=serve_dtype), device)
+
+
+def _serve_batch(batch: dict, mesh, row) -> dict:
+    """The data row's batch rows (``sharding.row_rows``) of every input on
+    its device: a sharded input's local block where it holds exactly
+    them, else gathered (an all-gather to the row's position)."""
+    out = {}
+    for k, v in batch.items():
+        span = shd.row_rows(mesh, v.shape[0], row.pos)
+        if isinstance(v, shd.ShardedTensor):
+            sl = v.sharding.slices(v.shape, row.pos)
+            local = v.local(row.pos)
+            if sl[0] == span and local.device == row.device and all(
+                    s == slice(0, d) for s, d in zip(sl[1:], v.shape[1:])):
+                out[k] = local
+                continue
+            shd.note("all-gather", v.numel() * v.dtype.itemsize,
+                     [p for p, _ in v.block_slices()], row.pos, row.index)
+            v = v.full(row.device)
+        out[k] = v[span].to(row.device)
+    return out
+
+
+def _serve_rows(mesh, body):
+    """``body(row)`` for every data row of ``mesh`` (the first alone in a
+    traced step), each under no autograd and the account's row scope."""
+    alone = _first_row_only()
+    run = shd.mesh_rows(mesh, run=1 if alone else None)[:1 if alone else None]
+
+    def drive(r):
+        with torch.no_grad(), shd.row_scope(run[r]):
+            body(run[r])
+    drive_rows([row.device for row in run], drive)
+
+
+def _logits_out(model: zoo.Model, mesh, B: int) -> shd.ShardedTensor:
+    """Zeros for the step's logits, laid out on ``batch|seq|vocab``."""
+    shape = (B, 1, model.cfg.vocab)
+    with shd.untracked():
+        return shd.zeros(shape, dtype_of(model.cfg.dtype),
+                         shd.sharding_for("batch|seq|vocab", shape, mesh))
+
+
+def cache_shapes(model: zoo.Model, batch: dict, max_len: int) -> dict:
+    """Meta tensors of the cache a prefill of ``batch`` fills: the
+    reference's ``abstract_cache``, an enc-dec's cross K/V sized by the
+    frames it encodes."""
+    B = batch["tokens"].shape[0]
+    if model.cfg.family == "encdec":
+        return model.module.init_cache(model.cfg, B, max_len, "meta",
+                                       enc_len=batch["frames"].shape[1])
+    return model.abstract_cache(B, max_len)
+
+
+def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
+                    max_len: int, *, attn_impl: str = "auto"):
+    """``model.prefill`` over the mesh ``params`` are laid out on: (cache,
+    logits), the cache a tree of ``ShardedTensor`` laid out by
+    ``model.cache_axes()`` and the last position's logits on
+    ``batch|seq|vocab``.  Each data row runs on its thread and CUDA stream
+    (``drive_rows``) over its batch rows (``sharding.row_rows``: every row
+    computes a batch that does not split, as the reference replicates
+    it), gathering one layer at a time (``bind_row`` / ``hint_tree``), and
+    writes each layer's cache and its logits into the blocks of the
+    positions it owns (``sharding.RowCache``)."""
+    mesh = _mesh_of(params)
+    c_axes = model.cache_axes()
+    with shd.untracked(on_device=False):
+        shapes = cache_shapes(model, batch, max_len)
+    with shd.untracked():
+        cache = shd.tree_map(
+            lambda t, sh: shd.zeros(tuple(t.shape), t.dtype, sh), shapes,
+            shd.tree_shardings(c_axes, shapes, mesh))
+    B = batch["tokens"].shape[0]
+    logits = _logits_out(model, mesh, B)
+    p_axes = _param_axes(model)
+
+    def body(row):
+        span = shd.row_rows(mesh, B, row.pos)
+        _, lg = model.prefill(shd.bind_row(params, p_axes, row),
+                              _serve_batch(batch, mesh, row), max_len,
+                              attn_impl=attn_impl,
+                              cache=shd.bind_cache(cache, c_axes, row, span))
+        shd.RowCache(logits, row, 0, span, kind="output").copy_(lg)
+
+    _serve_rows(mesh, body)
+    S = batch["tokens"].shape[1]
+    if "patch_embs" in batch:
+        S += batch["patch_embs"].shape[1]
+    for pos in cache["len"].sharding.positions():
+        cache["len"].local(pos).fill_(S)
+    return cache, logits
+
+
+def sharded_decode(model: zoo.Model, params: dict, cache: dict, token):
+    """``model.decode`` over the mesh ``params`` are laid out on: (cache,
+    logits).  Each data row reads its batch rows of a layer's cache from
+    the positions holding them, decodes them (``bind_row`` gathers the
+    layer) and writes what it changed back into its positions' blocks in
+    place — the token's K/V at ``len`` (a masked ``index_copy_`` into
+    every owned block), the SSM state and conv window whole.  The cache
+    returned holds the same blocks and ``len`` + 1 on every position."""
+    mesh = _mesh_of(params)
+    c_axes = model.cache_axes()
+    B = token.shape[0]
+    logits = _logits_out(model, mesh, B)
+    p_axes = _param_axes(model)
+
+    def body(row):
+        span = shd.row_rows(mesh, B, row.pos)
+        tok = _serve_batch({"token": token}, mesh, row)["token"]
+        _, lg = model.decode(shd.bind_row(params, p_axes, row),
+                             shd.bind_cache(cache, c_axes, row, span), tok)
+        shd.RowCache(logits, row, 0, span, kind="output").copy_(lg)
+
+    _serve_rows(mesh, body)
+    with shd.untracked():
+        return dict(cache, len=cache["len"].map(lambda t: t + 1)), logits
 
 
 def build_prefill_step(model: zoo.Model, max_len: int, *,
                        attn_impl: str = "auto"):
     """(params, batch) -> (cache, last-position logits); batch: tokens
-    (B, S) [, patch_embs (B, P, d) | frames (B, enc_len, d)]."""
+    (B, S) [, patch_embs (B, P, d) | frames (B, enc_len, d)].  Over a mesh
+    (``ShardedTensor`` parameters) ``sharded_prefill``."""
     def prefill_step(params, batch):
+        if is_sharded(params):
+            return sharded_prefill(model, params, batch, max_len,
+                                   attn_impl=attn_impl)
         with torch.no_grad():
             return model.prefill(params, batch, max_len, attn_impl=attn_impl)
     return prefill_step
 
 
 def build_decode_step(model: zoo.Model):
-    """(params, cache, token) -> (cache, logits)."""
+    """(params, cache, token) -> (cache, logits).  Over a mesh
+    ``sharded_decode``."""
     def decode_step(params, cache, token):
+        if is_sharded(params):
+            return sharded_decode(model, params, cache, token)
         with torch.no_grad():
             return model.decode(params, cache, token)
     return decode_step
+
+
+def prefill_specs(model: zoo.Model, shape: ShapeSpec, mesh):
+    """Meta-device arguments and shardings of the prefill step on
+    ``mesh``, the twin of the reference's: ``args`` (params, batch),
+    ``out_shardings`` (the cache laid out by ``cache_axes``, the logits on
+    ``batch|seq|vocab``) and ``max_len``."""
+    p_shapes, p_axes = model.abstract_params()
+    spec = zoo.input_specs(model.cfg, shape)
+    assert spec["kind"] == "prefill"
+    p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    b_sh = shd.tree_shardings(spec["axes"], spec["batch"], mesh)
+    cache_shapes_ = model.abstract_cache(shape.global_batch, spec["max_len"])
+    cache_sh = shd.tree_shardings(model.cache_axes(), cache_shapes_, mesh)
+    B = shape.global_batch
+    logits_sh = shd.sharding_for("batch|seq|vocab", (B, 1, model.cfg.vocab),
+                                 mesh)
+    return dict(args=(p_shapes, spec["batch"]),
+                in_shardings=(p_sh, b_sh),
+                out_shardings=(cache_sh, logits_sh),
+                max_len=spec["max_len"], donate_argnums=())
+
+
+def decode_specs(model: zoo.Model, shape: ShapeSpec, mesh):
+    """Meta-device arguments and shardings of the decode step on ``mesh``,
+    the twin of the reference's: ``args`` (params, cache, token), the
+    cache in and out laid out by ``cache_axes``.  Call it under
+    ``sharding.serve_mode()`` for weights-resident serving."""
+    p_shapes, p_axes = model.abstract_params()
+    spec = zoo.input_specs(model.cfg, shape)
+    assert spec["kind"] == "decode"
+    B, max_len = spec["cache_batch"], spec["max_len"]
+    c_shapes = model.abstract_cache(B, max_len)
+    cache_sh = shd.tree_shardings(model.cache_axes(), c_shapes, mesh)
+    p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
+    tok_sh = shd.sharding_for("batch|seq", (B, 1), mesh)
+    logits_sh = shd.sharding_for("batch|seq|vocab", (B, 1, model.cfg.vocab),
+                                 mesh)
+    return dict(args=(p_shapes, c_shapes, spec["batch"]["token"]),
+                in_shardings=(p_sh, cache_sh, tok_sh),
+                out_shardings=(cache_sh, logits_sh),
+                donate_argnums=(1,))
+
+
+def cell_specs(model: zoo.Model, shape: ShapeSpec, mesh, *,
+               serve_dtype: str = "bfloat16"):
+    """(the model the cell runs, its specs, its step) for one (arch ×
+    shape) cell on ``mesh``: ``train_specs`` and the train step, or — with
+    ``serve_dtype`` parameters (``serving_model``) — ``prefill_specs`` or,
+    under ``sharding.serve_mode()`` where ``cfg.serve_weights_resident``,
+    ``decode_specs``, as the reference's ``lower_cell`` picks them."""
+    cfg = model.cfg
+    if shape.kind == "train":
+        return model, train_specs(model, shape, mesh), build_train_step(model)
+    smodel = serving_model(cfg, serve_dtype=serve_dtype, device=model.device)
+    if shape.kind == "prefill":
+        sp = prefill_specs(smodel, shape, mesh)
+        return smodel, sp, build_prefill_step(smodel, sp["max_len"])
+    ctx = (shd.serve_mode() if cfg.serve_weights_resident
+           else contextlib.nullcontext())
+    with ctx:
+        sp = decode_specs(smodel, shape, mesh)
+    return smodel, sp, build_decode_step(smodel)
+
+
+def lower_cell(model: zoo.Model, shape: ShapeSpec, mesh, *,
+               serve_dtype: str = "bfloat16", every_row: bool = False,
+               one_device: bool = False):
+    """The account of one (arch × shape) cell on ``mesh`` — the port's
+    counterpart of the reference's lowering: the cell's meta arguments
+    (``cell_specs``) laid out by their shardings with ``place_tree``, its
+    step run once on them under a ``launch.hlo_analysis.Account``, which is
+    returned with its record made.  ``mesh`` is a mesh of ``meta`` devices
+    (``launch.mesh.make_production_mesh(device="meta")``).  By default the
+    step runs its first data row and first microbatch alone and the
+    account scales them (every row has the same shapes); ``every_row``
+    runs them all.  ``one_device`` accounts for a mesh whose positions
+    share one card as well (``hlo_analysis.Account``'s ``one_device``)."""
+    from . import hlo_analysis
+    smodel, sp, step = cell_specs(model, shape, mesh, serve_dtype=serve_dtype)
+    args = tuple(shd.place_tree(a, sh) if isinstance(a, dict) else
+                 shd.place(a, sh)
+                 for a, sh in zip(sp["args"], sp["in_shardings"]))
+    acc = hlo_analysis.Account(
+        mesh, first_row=not (every_row or one_device), one_device=one_device,
+        micro=max(1, smodel.cfg.grad_accum) if shape.kind == "train" else 1)
+    acc.lay_out(args)
+    with acc:
+        out = step(*args)
+    acc.finish(out, shape.kind)
+    return acc

@@ -92,8 +92,8 @@ def encode(cfg, params, frames, *, attn_impl: str = "auto"):
     x, pos = _enc_input(cfg, frames)
     attend = _serve_attention(attn_impl)
     for i in range(cfg.n_enc_layers):
-        x, _ = _enc_block(cfg, T.layer(params["enc_layers"], i), x, pos,
-                          attend)
+        x, _ = _enc_block(cfg, T.serve_layer(params["enc_layers"], i), x,
+                          pos, attend)
     return L.apply_norm(cfg, params["enc_norm"], x)
 
 
@@ -149,6 +149,15 @@ def forward(cfg, params, batch):
 # Serving
 # ---------------------------------------------------------------------------
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of ``init_cache``'s tree, the reference's."""
+    del cfg
+    return {"kv": {k: "layers|" + v for k, v in L.KV_CACHE_AXES.items()},
+            "cross_k": "layers|batch|kv_seq|kv_heads|head_dim",
+            "cross_v": "layers|batch|kv_seq|kv_heads|head_dim",
+            "len": ""}
+
+
 def init_cache(cfg, batch: int, max_len: int, device,
                enc_len: int = 0) -> dict:
     """Zeros: the decoder's self-attention K/V of ``max_len`` positions and
@@ -166,11 +175,13 @@ def init_cache(cfg, batch: int, max_len: int, device,
 
 
 def prefill(cfg, params, frames, tokens, max_len: int, *,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", cache=None):
     """Encode ``frames`` (B, F, d) — any number F of frames, ``cfg.enc_len``
     at full size — run the prompt (B, S) and return (cache, last-position
     logits (B, 1, vocab)); the cache's cross K/V hold the F encoder
-    positions, as the reference sizes them by the encoder's output."""
+    positions, as the reference sizes them by the encoder's output.
+    ``cache`` is the cache to fill, sized so (as ``transformer.prefill``);
+    a new one by default."""
     B, S = tokens.shape
     if S > max_len:
         raise ValueError(f"prefill: {S} tokens exceed max_len {max_len}")
@@ -179,13 +190,14 @@ def prefill(cfg, params, frames, tokens, max_len: int, *,
     pos = _positions(B, S, enc_out.device)
     enc_pos = _positions(B, F_, enc_out.device)
     x = _dec_input(cfg, params, tokens, pos)
-    cache = init_cache(cfg, B, max_len, x.device, enc_len=F_)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, x.device, enc_len=F_)
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     attend = _serve_attention(attn_impl)
     for i in range(cfg.n_layers):
         x, (k, v), (ck, cv) = _dec_block(
-            cfg, T.layer(params["dec_layers"], i), x, pos, enc_out, enc_pos,
-            attend)
+            cfg, T.serve_layer(params["dec_layers"], i), x, pos, enc_out,
+            enc_pos, attend)
         kc[i, :, :S] = k
         vc[i, :, :S] = v
         cache["cross_k"][i] = ck
@@ -198,22 +210,28 @@ def prefill(cfg, params, frames, tokens, max_len: int, *,
 
 def decode(cfg, params, cache, token):
     """One decode step for token (B, 1): its self-attention K/V written
-    into the cache in place, cross-attention over the cached encoder K/V;
-    returns (cache with len + 1, logits (B, 1, vocab))."""
+    into the cache in place, cross-attention over the cached encoder K/V
+    (a data row's view of a sharded cache read and written back, as
+    ``transformer.decode``); returns (cache with len + 1, logits (B, 1,
+    vocab))."""
     cur = cache["len"]
     pos = cur.reshape(1, 1).expand(token.shape[0], 1)
     x = _dec_input(cfg, params, token, pos)
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     for i in range(cfg.n_layers):
-        blk = T.layer(params["dec_layers"], i)
+        blk = T.serve_layer(params["dec_layers"], i)
+        ki, vi = kc[i], vc[i]
+        kv = {"k": L.cache_view(ki), "v": L.cache_view(vi)}
         a, _ = L.apply_attention_decode(cfg, blk["self"],
                                         L.apply_norm(cfg, blk["ln1"], x),
-                                        {"k": kc[i], "v": vc[i]}, cur,
-                                        use_rope=False)
+                                        kv, cur, use_rope=False)
+        L.cache_commit(ki, kv["k"], dim=1, at=cur)
+        L.cache_commit(vi, kv["v"], dim=1, at=cur)
         x = x + a
         x = x + L.apply_cross_attention_decode(
             cfg, blk["cross"], L.apply_norm(cfg, blk["ln2"], x),
-            cache["cross_k"][i], cache["cross_v"][i])
+            L.cache_view(cache["cross_k"][i]),
+            L.cache_view(cache["cross_v"][i]))
         x = x + L.apply_mlp(cfg, blk["mlp"], L.apply_norm(cfg, blk["ln3"], x))
     h = L.apply_norm(cfg, params["dec_norm"], x)
     logits = L.logits_out(cfg, params["embed"], h)

@@ -86,6 +86,18 @@ def forward(cfg, params, batch):
 # Serving
 # ---------------------------------------------------------------------------
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of ``init_cache``'s tree, the reference's: each
+    application's KV on ``apps``."""
+    del cfg
+    return {"ssm_groups": {k: "apps|layers|" + v
+                           for k, v in S.SSM_CACHE_AXES.items()},
+            "ssm_tail": {k: "layers|" + v
+                         for k, v in S.SSM_CACHE_AXES.items()},
+            "kv": {k: "apps|" + v for k, v in L.KV_CACHE_AXES.items()},
+            "len": ""}
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     """{"ssm_groups": conv / state (n_groups, every, B, …), "ssm_tail":
     (tail, B, …), "kv": k / v (n_groups, B, max_len, nkv, hd), "len"}."""
@@ -100,11 +112,12 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 
 def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", cache=None):
     """Run the prompt (B, S) and return (cache, last-position logits (B, 1,
-    vocab)).  The shared block attends through ``ops.attention(impl=
-    attn_impl)`` at every application, with the same positions.
-    ``patch_embs`` is ignored (no patches)."""
+    vocab)), into ``cache`` when given (as ``transformer.prefill``).  The
+    shared block attends through ``ops.attention(impl=attn_impl)`` at
+    every application, with the same positions.  ``patch_embs`` is
+    ignored (no patches)."""
     del patch_embs
     B, Sq = tokens.shape
     if Sq > max_len:
@@ -114,12 +127,14 @@ def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
     positions = torch.arange(Sq, dtype=torch.int32,
                              device=x.device)[None].expand(B, Sq)
     n_groups, every, tail = group_shape(cfg)
-    cache = init_cache(cfg, B, max_len, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, x.device)
     shared = params["shared"]
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     for g in range(n_groups):
         for e in range(every):
-            x = SL.ssm_prefill(cfg, T.layer(params["groups"], (g, e)), x,
+            x = SL.ssm_prefill(cfg, T.serve_layer(params["groups"], (g, e)),
+                               x,
                                SL.layer_cache(cache["ssm_groups"], (g, e)))
         a, (k, v) = L.apply_attention(cfg, shared["attn"],
                                       L.apply_norm(cfg, shared["ln1"], x),
@@ -128,7 +143,7 @@ def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
         kc[g, :, :Sq] = k
         vc[g, :, :Sq] = v
     for t in range(tail):
-        x = SL.ssm_prefill(cfg, T.layer(params["tail"], t), x,
+        x = SL.ssm_prefill(cfg, T.serve_layer(params["tail"], t), x,
                            SL.layer_cache(cache["ssm_tail"], t))
     h = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = L.logits_out(cfg, params["embed"], h)
@@ -138,8 +153,9 @@ def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
 
 def decode(cfg, params, cache, token):
     """One decode step for token (B, 1): the SSM states, conv windows and
-    each application's K/V updated in place; returns (cache with len + 1,
-    logits (B, 1, vocab))."""
+    each application's K/V updated in place (a data row's view of a
+    sharded cache read and written back, as ``transformer.decode``);
+    returns (cache with len + 1, logits (B, 1, vocab))."""
     cur = cache["len"]
     x = L.embed_tokens(cfg, params["embed"], token.to(torch.int32))
     n_groups, every, tail = group_shape(cfg)
@@ -147,14 +163,18 @@ def decode(cfg, params, cache, token):
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     for g in range(n_groups):
         for e in range(every):
-            x = SL.ssm_decode(cfg, T.layer(params["groups"], (g, e)), x,
-                              SL.layer_cache(cache["ssm_groups"], (g, e)))
+            x = SL.ssm_decode(cfg, T.serve_layer(params["groups"], (g, e)),
+                              x, SL.layer_cache(cache["ssm_groups"], (g, e)))
+        kg, vg = kc[g], vc[g]
+        kv = {"k": L.cache_view(kg), "v": L.cache_view(vg)}
         a, _ = L.apply_attention_decode(cfg, shared["attn"],
                                         L.apply_norm(cfg, shared["ln1"], x),
-                                        {"k": kc[g], "v": vc[g]}, cur)
+                                        kv, cur)
+        L.cache_commit(kg, kv["k"], dim=1, at=cur)
+        L.cache_commit(vg, kv["v"], dim=1, at=cur)
         x = _shared_mlp(cfg, shared, x + a)
     for t in range(tail):
-        x = SL.ssm_decode(cfg, T.layer(params["tail"], t), x,
+        x = SL.ssm_decode(cfg, T.serve_layer(params["tail"], t), x,
                           SL.layer_cache(cache["ssm_tail"], t))
     h = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.logits_out(cfg, params["embed"], h)

@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as shd
 from ..kernels import ops
 from .base import param
 
@@ -347,6 +348,26 @@ def apply_attention_train(cfg, p, x, positions, *, causal: bool = True,
                            device=x.device))
         out = _grouped_attention(q, k, v, mask)
     return out @ p["wo"].to(out.dtype), (k, v)
+
+
+#: The logical axes of a layer's KV cache, the reference's.
+KV_CACHE_AXES = {"k": "batch|kv_seq|kv_heads|head_dim",
+                 "v": "batch|kv_seq|kv_heads|head_dim"}
+
+
+def cache_view(c):
+    """A layer's cache for a decode step to read and update in place: the
+    view itself, or a data row's ``sharding.RowCache`` gathered onto the
+    row's device."""
+    return c.read() if isinstance(c, shd.RowCache) else c
+
+
+def cache_commit(c, value, **slot):
+    """After a decode step updated ``value`` (``cache_view(c)``) in place:
+    nothing for a view; a ``RowCache`` writes it back (``slot``: only the
+    ``at`` index along ``dim``)."""
+    if isinstance(c, shd.RowCache):
+        c.commit(value, **slot)
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype, device) -> dict:

@@ -221,6 +221,11 @@ def apply_ssm(cfg, p, x, *, init_state=None):
 # Decode (O(1) state recurrence)
 # ---------------------------------------------------------------------------
 
+#: The logical axes of a layer's SSM cache, the reference's.
+SSM_CACHE_AXES = {"conv": "batch|seq|d_inner",
+                  "state": "batch|heads|head_dim|state"}
+
+
 def init_ssm_cache(cfg, batch: int, dtype, device) -> dict:
     """{"conv": (B, K - 1, C) in ``dtype``, "state": (B, H, P, N) f32}."""
     d_in, H, P, N, G = dims(cfg)

@@ -59,6 +59,13 @@ def stacked_ssm_cache(cfg, lead: tuple, batch: int, device) -> dict:
             for k, v in one.items()}
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of ``init_cache``'s tree, the reference's."""
+    del cfg
+    return {"ssm": {k: "layers|" + v for k, v in S.SSM_CACHE_AXES.items()},
+            "len": ""}
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     """{"ssm": {"conv": (L, B, K - 1, C), "state": (L, B, H, P, N)},
     "len"}; ``max_len`` is ignored: the state is O(1)."""
@@ -78,8 +85,14 @@ def ssm_prefill(cfg, blk, x, cache: dict):
 
 
 def ssm_decode(cfg, blk, x, cache: dict):
+    """One SSM block of a decode step: the layer's conv window and state
+    (``cache``'s views, or a data row's ``RowCache`` leaves read and
+    written back whole) updated in place."""
+    got = {k: L.cache_view(v) for k, v in cache.items()}
     y, _ = S.apply_ssm_decode(cfg, blk["ssm"],
-                              L.apply_norm(cfg, blk["ln"], x), cache)
+                              L.apply_norm(cfg, blk["ln"], x), got)
+    for k, v in cache.items():
+        L.cache_commit(v, got[k])
     return x + y
 
 
@@ -89,18 +102,20 @@ def layer_cache(cache: dict, i) -> dict:
 
 
 def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", cache=None):
     """Run the prompt (B, S) and return (cache, last-position logits (B, 1,
-    vocab)): each layer's final SSM state and the last K - 1 conv inputs.
-    ``max_len``, ``patch_embs`` and ``attn_impl`` are ignored (no
-    attention, no KV, no patches)."""
+    vocab)): each layer's final SSM state and the last K - 1 conv inputs,
+    into ``cache`` when given (as ``transformer.prefill``).  ``max_len``,
+    ``patch_embs`` and ``attn_impl`` are ignored (no attention, no KV, no
+    patches)."""
     del max_len, patch_embs, attn_impl
     B, Sq = tokens.shape
     S.check_prompt(cfg, Sq)
     x = L.embed_tokens(cfg, params["embed"], tokens.to(torch.int32))
-    cache = init_cache(cfg, B, 0, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, 0, x.device)
     for i in range(cfg.n_layers):
-        x = ssm_prefill(cfg, T.layer(params["layers"], i), x,
+        x = ssm_prefill(cfg, T.serve_layer(params["layers"], i), x,
                         layer_cache(cache["ssm"], i))
     h = L.apply_norm(cfg, params["final_norm"], x[:, -1:])
     logits = L.logits_out(cfg, params["embed"], h)
@@ -114,7 +129,7 @@ def decode(cfg, params, cache, token):
     len + 1, logits (B, 1, vocab))."""
     x = L.embed_tokens(cfg, params["embed"], token.to(torch.int32))
     for i in range(cfg.n_layers):
-        x = ssm_decode(cfg, T.layer(params["layers"], i), x,
+        x = ssm_decode(cfg, T.serve_layer(params["layers"], i), x,
                        layer_cache(cache["ssm"], i))
     h = L.apply_norm(cfg, params["final_norm"], x)
     logits = L.logits_out(cfg, params["embed"], h)

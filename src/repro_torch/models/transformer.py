@@ -69,6 +69,13 @@ def layer(stacked: dict, i) -> dict:
             for k, v in stacked.items()}
 
 
+def serve_layer(stacked: dict, i) -> dict:
+    """Layer i's parameters for a serving step: ``layer``'s views, or under
+    a mesh the layer gathered onto the data row's device from its
+    ``sharding.RowLeaf`` leaves (``hint_tree``)."""
+    return shd.hint_tree(layer(stacked, i))
+
+
 class _LayerSlice(torch.autograd.Function):
     """Layer i of a stacked leaf, whose gradient is added into slice i of
     the leaf's ``.grad`` (zeros at first use, the leaf's dtype).
@@ -221,6 +228,13 @@ def forward(cfg, params, batch):
     return loss, {"loss": loss}
 
 
+def cache_axes(cfg) -> dict:
+    """The logical axes of ``init_cache``'s tree, the reference's."""
+    del cfg
+    return {"kv": {k: "layers|" + v for k, v in L.KV_CACHE_AXES.items()},
+            "len": ""}
+
+
 def init_cache(cfg, batch: int, max_len: int, device) -> dict:
     one = L.init_kv_cache(cfg, batch, max_len, L.dtype_of(cfg.dtype), "meta")
     return {"kv": {k: torch.zeros((cfg.n_layers,) + v.shape, dtype=v.dtype,
@@ -229,20 +243,23 @@ def init_cache(cfg, batch: int, max_len: int, device) -> dict:
 
 
 def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", cache=None):
     """Run the prompt — the patch embeddings (B, P, d) when given, then the
     tokens (B, S) — and return (cache, last-position logits (B, 1,
-    vocab)); the cache holds P + S positions."""
+    vocab)); the cache holds P + S positions.  ``cache`` is the cache to
+    fill (zeros of ``init_cache``'s tree, or a data row's view of a
+    sharded one: ``sharding.bind_cache``); a new one by default."""
     x = _embed(cfg, params, tokens, patch_embs)
     B, S = x.shape[:2]
     if S > max_len:
         raise ValueError(f"prefill: {S} tokens exceed max_len {max_len}")
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device)[None].expand(B, S)
-    cache = init_cache(cfg, B, max_len, x.device)
+    if cache is None:
+        cache = init_cache(cfg, B, max_len, x.device)
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     for i in range(cfg.n_layers):
-        blk = layer(params["layers"], i)
+        blk = serve_layer(params["layers"], i)
         h = L.apply_norm(cfg, blk["ln1"], x)
         a, (k, v) = L.apply_attention(cfg, blk["attn"], h, positions,
                                       causal=True, impl=attn_impl)
@@ -259,15 +276,20 @@ def prefill(cfg, params, tokens, max_len: int, *, patch_embs=None,
 def decode(cfg, params, cache, token):
     """One decode step for token (B, 1): writes the token's K/V into the
     cache tensors in place and returns (cache with len + 1, logits
-    (B, 1, vocab))."""
+    (B, 1, vocab)).  A data row's view of a sharded cache
+    (``sharding.bind_cache``) reads each layer's cache and writes the
+    token's K/V back (``layers.cache_view`` / ``cache_commit``)."""
     x = L.embed_tokens(cfg, params["embed"], token.to(torch.int32))
     cur = cache["len"]
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     for i in range(cfg.n_layers):
-        blk = layer(params["layers"], i)
+        blk = serve_layer(params["layers"], i)
         h = L.apply_norm(cfg, blk["ln1"], x)
-        a, _ = L.apply_attention_decode(cfg, blk["attn"], h,
-                                        {"k": kc[i], "v": vc[i]}, cur)
+        ki, vi = kc[i], vc[i]
+        kv = {"k": L.cache_view(ki), "v": L.cache_view(vi)}
+        a, _ = L.apply_attention_decode(cfg, blk["attn"], h, kv, cur)
+        L.cache_commit(ki, kv["k"], dim=1, at=cur)
+        L.cache_commit(vi, kv["v"], dim=1, at=cur)
         x = x + a
         x = x + _ffn(cfg, blk, L.apply_norm(cfg, blk["ln2"], x))[0]
     h = L.apply_norm(cfg, params["final_norm"], x)

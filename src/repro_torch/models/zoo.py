@@ -7,6 +7,8 @@ signatures:
 
     init(gen)                                   -> params
     abstract_params()                           -> (meta params, axes)
+    cache_axes()                                -> the cache's axes tree
+    abstract_cache(batch, max_len)              -> meta cache
     forward(params, batch)                      -> (loss, metrics)
     prefill(params, batch, max_len)             -> (cache, logits)
     decode(params, cache, token)                -> (cache, logits)
@@ -93,19 +95,31 @@ class Model:
         shapes = self.module.init(self.cfg, None)
         return shapes, tree_map(lambda _, t: axes_of(t), shapes)
 
+    def cache_axes(self) -> dict:
+        """The logical axes of ``init_cache``'s tree: the twin of the
+        reference's ``Model.cache_axes``."""
+        return self.module.cache_axes(self.cfg)
+
+    def abstract_cache(self, batch: int, max_len: int) -> dict:
+        """``init_cache``'s tree as ``meta`` tensors, allocating nothing:
+        the twin of the reference's ``abstract_cache`` (an enc-dec's
+        cross K/V at ``cfg.enc_len``)."""
+        return self.module.init_cache(self.cfg, batch, max_len, "meta")
+
     def prefill(self, params, batch: dict, max_len: int, *,
-                attn_impl: str = "auto"):
+                attn_impl: str = "auto", cache=None):
         """``attn_impl`` picks the attention of the families that attend
         in a prefill (the SSM ignores it).  An enc-dec prefill encodes
         ``batch["frames"]`` first, as the reference's ``build`` passes
-        them."""
+        them.  ``cache`` is the cache to fill (the family's
+        ``prefill``)."""
         if self.cfg.family == "encdec":
             return self.module.prefill(self.cfg, params, batch["frames"],
                                        batch["tokens"], max_len,
-                                       attn_impl=attn_impl)
+                                       attn_impl=attn_impl, cache=cache)
         return self.module.prefill(self.cfg, params, batch["tokens"],
                                    max_len, patch_embs=batch.get("patch_embs"),
-                                   attn_impl=attn_impl)
+                                   attn_impl=attn_impl, cache=cache)
 
     def decode(self, params, cache, token):
         return self.module.decode(self.cfg, params, cache, token)

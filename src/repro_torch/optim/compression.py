@@ -19,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..distributed.sharding import ShardedTensor, tree_map
+from ..distributed.sharding import ShardedTensor, note, tree_map
 
 
 def quantize(x, *, bits: int = 8):
@@ -114,10 +114,12 @@ def cross_pod_psum_int8(grads, err, axis_name: str = "pod"):
                 s = scale.to(c.device)
                 q = torch.clamp(torch.round(c / s), -127, 127)
                 res[p] = _residual(c, q, s)
+                note("all-reduce-int8", q.numel(), [p], group[0])
                 qi = q.to(torch.int32).to(dev)
                 total = qi if total is None else total + qi
             value = total.float() * scale
             for p in group:
+                note("all-reduce-int8", value.nbytes, [group[0]], p)
                 red[p] = value.to(g.local(p).device, copy=True)
         return (ShardedTensor(red, g.sharding, g.shape, torch.float32),
                 ShardedTensor(res, g.sharding, g.shape, torch.bfloat16))

@@ -70,7 +70,9 @@ injected staging fault in one shard with the leak audit, and
 ``Engine(mesh=)`` opening no mid-stream gate.  Then the sharded train
 step over ``[cuda:0] × 4`` as (data 2, model 2): gradients against the
 unsharded step's, bit for bit run to run, a CUDA stream a data row, no
-kernel launched.
+kernel launched; and sharded serving over the same positions: each data
+row bit for bit with its prompts served alone, the flash kernel once a
+layer a row in the prefill and on CUDA tensors under an account too.
 """
 import threading
 
@@ -2141,3 +2143,70 @@ def test_sharded_train_step_on_the_card(dev):
     sp, opt, met = step(sp, adam.init(sp), batch)
     torch.cuda.synchronize()
     assert fa.launches == before and np.isfinite(float(met["loss"]))
+
+
+def test_sharded_serving_on_the_card(dev):
+    """Reduced llama3.2-3b in bf16 served over ``[cuda:0] × 4`` as (data 2,
+    model 2): the prefill launches the flash kernel once a layer a data
+    row, each on its row's CUDA stream, decode launches none, and each
+    data row's logits of the prefill and two greedy steps and its rows of
+    the cache equal, bit for bit, the unsharded steps run on its prompts
+    alone on the card; under an account the same CUDA tensors still
+    launch the kernel (the meta route takes meta tensors only)."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced_for_smoke
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import hlo_analysis, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                              dtype="bfloat16")
+    model = steps.serving_model(cfg, device=dev)
+    params = model.init(0)
+    rng = np.random.default_rng(4)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 64))
+                            .astype(np.int32)).to(dev)
+    mesh = Mesh(np.array([torch.device("cuda", 0)] * 4,
+                         dtype=object).reshape(2, 2), ("data", "model"))
+    shapes, axes = model.abstract_params()
+    sp = shd.place_tree(params, shd.tree_shardings(axes, shapes, mesh))
+    pre = steps.build_prefill_step(model, 72)
+    dec = steps.build_decode_step(model)
+    streams = set()
+    real = shd.bind_row
+
+    def spy(p, a, row, prefix=""):
+        streams.add(torch.cuda.current_stream().cuda_stream)
+        return real(p, a, row, prefix)
+    before = fa.launches
+    shd.bind_row = spy
+    try:
+        cache, lg = pre(sp, {"tokens": toks})
+        torch.cuda.synchronize()
+        assert fa.launches - before == 2 * cfg.n_layers
+        outs, greedy = [lg.full()], []
+        for _ in range(2):
+            greedy.append(outs[-1].argmax(-1).to(torch.int32))
+            cache, lg = dec(sp, cache, greedy[-1])
+            outs.append(lg.full())
+        torch.cuda.synchronize()
+    finally:
+        shd.bind_row = real
+    assert fa.launches - before == 2 * cfg.n_layers
+    assert len(streams) == 2
+    assert torch.cuda.default_stream().cuda_stream not in streams
+    for span in (slice(0, 2), slice(2, 4)):
+        c1, l1 = pre(params, {"tokens": toks[span]})
+        assert torch.equal(l1, outs[0][span])
+        for i, tok in enumerate(greedy):
+            c1, l1 = dec(params, c1, tok[span])
+            assert torch.equal(l1, outs[i + 1][span])
+        for k in ("k", "v"):
+            assert torch.equal(cache["kv"][k].full()[:, span],
+                               c1["kv"][k])
+    q = torch.zeros(1, 2, 16, 32, dtype=torch.bfloat16, device=dev)
+    mark = fa.launches
+    with hlo_analysis.Account(mesh):
+        out = fa.flash_attention(q, q, q, causal=True)
+    torch.cuda.synchronize()
+    assert fa.launches == mark + 1 and out.device.type == "cuda"

@@ -23,8 +23,10 @@ shard cases included); ``test_multidevice_equivalence`` both its parts
 on a (4, 2) ``data × model`` mesh: data-parallel GenOps, and a sharded
 train step of reduced llama3.2-3b (batch 8 × 64) against the reference's
 8-device loss and the port's one-device loss and gradients.
-``test_dryrun_smoke_subprocess`` waits for the dry-run tools (ROADMAP
-A14b).
+``test_dryrun_smoke_subprocess`` is the reference's smoke cell in both
+packages: reduced llama3.2-3b's train step on a (4, 2) mesh, lowered by
+the reference over 8 forced host devices and traced by the port's
+``lower_cell`` over meta devices.
 
 The LM half, in process: ``zoo.Model.abstract_params`` axes equal to the
 reference's ``tree_unbox`` axes for all ten configs; ``tree_shardings``
@@ -32,7 +34,11 @@ and ``train_specs`` specs leaf by leaf equal to the reference's
 ``resolve`` on stand-in (4, 2), (16, 16) and (2, 16, 16) meshes; the
 sharded step of every family on a (2, 2) mesh of repeated CPU devices
 against the port's one-device step, bit for bit run to run, each
-position holding only its block of every parameter and moment.
+position holding only its block of every parameter and moment; the
+sharded prefill and decode of every family on a (2, 2) mesh against each
+data row's rows run alone, bit for bit, and against the reference, a
+batch of 1 replicated; ``prefill_specs`` and ``decode_specs`` leaf by
+leaf against the reference's ``resolve``.
 """
 import json
 import os
@@ -437,6 +443,300 @@ def test_sharded_row_gradients_are_position_blocks():
     for (name, a), (_, b) in zip(zoo.flatten(mine), zoo.flatten(gs)):
         for pos in a.sharding.positions():
             assert torch.equal(a.local(pos), b.local(pos)), (name, pos)
+
+
+def test_dryrun_smoke_subprocess():
+    """The reference's tiny end-to-end dry-run in both packages: reduced
+    llama3.2-3b with ``grad_accum`` 2, ``ShapeSpec("t", 128, 8, "train")``
+    on a (4, 2) mesh — the reference lowered and compiled over 8 forced
+    host devices in a subprocess (its loop-aware ``analyze``), the port
+    traced on a mesh of 8 meta devices (``steps.lower_cell``).  Both end
+    ``ok`` with dot FLOPs; the port's summed over its 8 positions is
+    within 15% of 8 × the reference's per-device count.  What may differ:
+    the attention's dots (both count QKᵀ and P·V in full here, S·T under
+    the blockwise threshold), the embedding (a gather in both, no dot),
+    and remat (off in the reduced configs; on, the port counts the
+    recomputed forward, which XLA may merge)."""
+    code = textwrap.dedent("""
+        import os
+        os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+        import json, jax
+        from repro.configs import get_config, reduced_for_smoke
+        from repro.configs.base import ShapeSpec
+        from repro.models import zoo
+        from repro.launch.mesh import make_host_mesh
+        from repro.launch.steps import lower_cell
+        from repro.launch.hlo_analysis import analyze
+        import dataclasses as dc
+        cfg = dc.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                         grad_accum=2)
+        model = zoo.build(cfg)
+        mesh = make_host_mesh(8, model=2)
+        shape = ShapeSpec("t", 128, 8, "train")
+        compiled = lower_cell(model, shape, mesh).compile()
+        la = analyze(compiled.as_text())
+        assert la["dot_flops"] > 0
+        print(json.dumps({"ok": True, "flops": la["dot_flops"]}))
+    """)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = "src"
+    proc = subprocess.run([sys.executable, "-c", code],
+                          capture_output=True, text=True, env=env,
+                          timeout=600, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    ref = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert ref["ok"] is True
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                              grad_accum=2)
+    mesh = Mesh(np.array([torch.device("meta")] * 8,
+                         dtype=object).reshape(4, 2), ("data", "model"))
+    acc = steps.lower_cell(zoo.build(cfg, "meta"),
+                           ShapeSpec("t", 128, 8, "train"), mesh)
+    rec = acc.record
+    assert rec["loop_aware"]["dot_flops"] > 0
+    total = sum(p["dot_flops"] for p in rec["positions"])
+    want = 8 * ref["flops"]
+    assert abs(total - want) <= 0.15 * want, (total, want)
+
+
+def _jflat(tree):
+    import jax
+    return {".".join(str(k.key) for k in path): v for path, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
+
+
+@pytest.mark.parametrize("mesh_name", sorted(STAND_INS))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_and_decode_specs_match_reference_resolve(arch, mesh_name):
+    """``prefill_specs`` and ``decode_specs`` (under ``serve_mode`` where
+    the config serves weights-resident, as ``lower_cell`` calls it) at the
+    config's serving shapes: the arguments' shapes the reference's, and
+    every parameter's, input's, cache leaf's and the logits' spec equal to
+    the reference's ``resolve`` of its axes and shape — the cache laid
+    out by the reference's ``cache_axes`` — in and out."""
+    import contextlib
+    from repro_torch.configs.base import SHAPES
+    mesh = STAND_INS[mesh_name]
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    smodel = steps.serving_model(cfg, device="cpu")
+    jm = jzoo.build(jcfg)
+    ref_shapes, ref_axes = _ref_tree(arch)
+    for name in SERVE_SHAPES:
+        if name not in cfg.shapes():
+            continue
+        shape = SHAPES[name]
+        jshape = JShapeSpec(name, shape.seq_len, shape.global_batch,
+                            shape.kind)
+        jspec = jzoo.input_specs(jcfg, jshape)
+        B, max_len = shape.global_batch, shape.seq_len
+        resident = shape.kind == "decode" and cfg.serve_weights_resident
+        ctx = (tshd.serve_mode, jshd.serve_mode) if resident else \
+            (contextlib.nullcontext, contextlib.nullcontext)
+        with ctx[0]():
+            sp = (steps.prefill_specs if shape.kind == "prefill"
+                  else steps.decode_specs)(smodel, shape, mesh)
+        with ctx[1]():
+            want_p = {k: tuple(jshd.resolve(ref_axes[k], ref_shapes[k],
+                                            mesh)) for k in ref_axes}
+            c_axes = _jflat(jm.cache_axes())
+            c_shapes = {k: tuple(v.shape) for k, v in
+                        _jflat(jm.abstract_cache(B, max_len)).items()}
+            want_c = {k: tuple(jshd.resolve(c_axes[k], c_shapes[k], mesh))
+                      for k in c_axes}
+            want_l = tuple(jshd.resolve("batch|seq|vocab",
+                                        (B, 1, cfg.vocab), mesh))
+            want_b = {k: tuple(jshd.resolve(jspec["axes"][k],
+                                            jspec["batch"][k].shape, mesh))
+                      for k in jspec["axes"]}
+        p_sh = sp["in_shardings"][0]
+        assert {k: v.spec for k, v in zoo.flatten(p_sh)} == want_p, name
+        cache_sh, logits_sh = sp["out_shardings"]
+        assert {k: v.spec for k, v in zoo.flatten(cache_sh)} == want_c
+        assert logits_sh.spec == want_l
+        if shape.kind == "prefill":
+            assert {k: v.spec for k, v in
+                    sp["in_shardings"][1].items()} == want_b
+            assert sp["max_len"] == jspec["max_len"]
+        else:
+            assert sp["in_shardings"][1] == cache_sh
+            assert sp["in_shardings"][2].spec == want_b["token"]
+            assert {k: tuple(t.shape) for k, t in
+                    zoo.flatten(sp["args"][1])} == c_shapes
+            assert sp["donate_argnums"] == (1,)
+
+
+SERVE_ARCHS = ["llama3.2-3b", "qwen3-moe-30b-a3b", "paligemma-3b",
+               "mamba2-1.3b", "zamba2-7b:5", "whisper-medium"]
+
+
+def _serve_case(arch, B, S):
+    """Reduced ``arch`` (``name:layers`` for another depth), its reference
+    parameters carried across, a batch of B prompts of S positions."""
+    import jax
+    from repro.configs import reduced_for_smoke as jreduced
+    from repro.models.base import tree_unbox
+    arch, _, depth = arch.partition(":")
+    jcfg, cfg = jreduced(jget_config(arch)), reduced_for_smoke(
+        get_config(arch))
+    if depth:
+        jcfg = dataclasses.replace(jcfg, n_layers=int(depth))
+        cfg = dataclasses.replace(cfg, n_layers=int(depth))
+    jparams, _ = tree_unbox(jzoo.build(jcfg).init(jax.random.PRNGKey(0)))
+    tree = jax.tree_util.tree_map(np.asarray, jparams)
+    rng = np.random.default_rng(5)
+    batch = {"tokens": rng.integers(0, cfg.vocab, (B, S - cfg.n_patches))
+             .astype(np.int32)}
+    if cfg.family == "vlm":
+        batch["patch_embs"] = rng.normal(
+            size=(B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            size=(B, cfg.enc_len, cfg.d_model)).astype(np.float32)
+    return jcfg, tree, cfg, batch
+
+
+def _held_blocks(tree):
+    """Positions of ``tree``'s ``ShardedTensor`` leaves holding other than
+    their spec's block (shape or storage)."""
+    off = []
+    for name, t in zoo.flatten(tree):
+        block = t.sharding.shard_shape(t.shape)
+        for pos in t.sharding.positions():
+            loc = t.local(pos)
+            if tuple(loc.shape) != block or loc.untyped_storage().nbytes() \
+                    != loc.numel() * loc.element_size():
+                off.append((name, pos))
+    return off
+
+
+def _rel_max(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def _serve_mesh_run(arch, B, S, mesh_shape, steps_n=2):
+    """The sharded prefill and ``steps_n`` greedy decode steps of reduced
+    ``arch`` over a mesh of repeated CPU devices, and each data row's
+    batch rows run alone, unsharded; the reference's prefill and one
+    decode step on the whole batch."""
+    import jax
+    import jax.numpy as jnp
+    jcfg, tree, cfg, batch = _serve_case(arch, B, S)
+    model = zoo.build(cfg, "cpu")
+    params = zoo.params_from_numpy(cfg, tree, "cpu")
+    max_len = S + 4
+    mesh = _cpu_mesh(mesh_shape)
+    shapes, axes = model.abstract_params()
+    sp = tshd.place_tree(params, tshd.tree_shardings(axes, shapes, mesh))
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    pre = steps.build_prefill_step(model, max_len)
+    dec = steps.build_decode_step(model)
+    cache, lg = pre(sp, tbatch)
+    logits, toks = [lg], []
+    for _ in range(steps_n):
+        toks.append(logits[-1].full().argmax(-1).to(torch.int32))
+        cache, lg = dec(sp, cache, toks[-1])
+        logits.append(lg)
+    jm = jzoo.build(jcfg)
+    jp = jax.tree_util.tree_map(jnp.asarray, tree)
+    jcache, jlog = jm.prefill(jp, {k: jnp.asarray(v) for k, v in
+                                   batch.items()}, max_len)
+    _, jdec = jm.decode(jp, jcache, jnp.asarray(toks[0].numpy()))
+    return dict(cfg=cfg, model=model, params=params, sp=sp, mesh=mesh,
+                batch=tbatch, max_len=max_len, cache=cache, logits=logits,
+                toks=toks, jlog=np.asarray(jlog), jdec=np.asarray(jdec),
+                jcache=jax.tree_util.tree_map(np.asarray, jcache))
+
+
+def _rows_alone(run, spans):
+    """Each span of batch rows run alone on one device through the same
+    greedy tokens: (its logits of every step, its final cache)."""
+    model, pre = run["model"], steps.build_prefill_step(run["model"],
+                                                         run["max_len"])
+    dec = steps.build_decode_step(model)
+    out = []
+    for span in spans:
+        cache, lg = pre(run["params"], {k: v[span] for k, v in
+                                        run["batch"].items()})
+        logs = [lg]
+        for tok in run["toks"]:
+            cache, lg = dec(run["params"], cache, tok[span])
+            logs.append(lg)
+        out.append((logs, cache))
+    return out
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_prefill_and_decode_match_rows_alone(arch):
+    """Every family's prefill and two greedy decode steps over a (2, 2)
+    mesh of repeated CPU devices (``build_prefill_step`` /
+    ``build_decode_step`` on ``ShardedTensor`` parameters): each data
+    row's logits and its rows of every cache leaf equal, bit for bit, the
+    unsharded steps run on that row's batch rows alone; the prefill's
+    logits and cache and the first decode step's logits within 1e-4 of
+    the largest of the reference's (parameters carried across with
+    ``params_from_numpy``); every position holds exactly its blocks of the
+    parameters, the cache (laid out by ``cache_axes``) and the logits, and
+    ``len`` on every position."""
+    run = _serve_mesh_run(arch, 4, 24, (2, 2))
+    model, cache = run["model"], run["cache"]
+    c_axes = dict(zoo.flatten(model.cache_axes()))
+    spans = [slice(0, 2), slice(2, 4)]
+    for span, (logs, alone) in zip(spans, _rows_alone(run, spans)):
+        for got, want in zip(run["logits"], logs):
+            assert torch.equal(got.full()[span], want), (arch, span)
+        for name, leaf in zoo.flatten(cache):
+            full = leaf.full()
+            want = dict(zoo.flatten(alone))[name]
+            if name == "len":
+                assert torch.equal(full, want)
+                continue
+            dim = c_axes[name].split("|").index("batch")
+            assert torch.equal(full.narrow(dim, span.start, 2), want), name
+    assert _rel_max(run["logits"][0].numpy(), run["jlog"]) < 1e-4
+    assert _rel_max(run["logits"][1].numpy(), run["jdec"]) < 1e-4
+    jprefill = _serve_mesh_prefill_cache(run)
+    for name, want in zoo.flatten(run["jcache"]):
+        if name != "len" and want.size:
+            assert _rel_max(jprefill[name], want) < 1e-4, name
+    assert not _held_blocks(run["sp"]) and not _held_blocks(cache)
+    assert not _held_blocks({"logits": run["logits"][-1]})
+    n = run["batch"]["tokens"].shape[1] + run["cfg"].n_patches + 2
+    assert {int(cache["len"].local(p)) for p in
+            cache["len"].sharding.positions()} == {n}
+
+
+def _serve_mesh_prefill_cache(run):
+    """The sharded prefill's cache alone, as numpy leaves."""
+    cache, _ = steps.build_prefill_step(run["model"], run["max_len"])(
+        run["sp"], run["batch"])
+    return {k: v.numpy() for k, v in zoo.flatten(cache)}
+
+
+def test_sharded_serving_replicates_a_batch_that_does_not_split():
+    """Batch 1 over a (2, 2) mesh: the reference replicates the batch and
+    puts ``kv_seq`` on (data, model), so every data row computes the one
+    prompt and writes its data row's blocks of the cache; the logits and
+    the cache equal the unsharded steps' bit for bit and the reference's
+    within 1e-4, and each position holds a quarter of the cache's
+    positions."""
+    run = _serve_mesh_run("llama3.2-3b", 1, 28, (2, 2))
+    assert run["cache"]["kv"]["k"].sharding.spec == \
+        (None, None, ("data", "model"), None, None)
+    (logs, alone), = _rows_alone(run, [slice(0, 1)])
+    for got, want in zip(run["logits"], logs):
+        assert torch.equal(got.full(), want)
+    for (name, leaf), (_, want) in zip(zoo.flatten(run["cache"]),
+                                       zoo.flatten(alone)):
+        assert torch.equal(leaf.full(), want), name
+    assert _rel_max(run["logits"][0].numpy(), run["jlog"]) < 1e-4
+    assert _rel_max(run["logits"][1].numpy(), run["jdec"]) < 1e-4
+    k = run["cache"]["kv"]["k"]
+    assert k.local((1, 1)).shape[2] == run["max_len"] // 4
+    assert not _held_blocks(run["cache"])
 
 
 # ---------------------------------------------------------------------------
