@@ -26,28 +26,45 @@ counterpart of ``jax.device_put(x, sharding)``).  Parameter ``d_model``
 dims shard over ``data`` (FSDP: parameters and AdamW moments), vocab,
 heads, d_ff, d_inner and experts over ``model``.
 
-Compute.  The ``data`` axes (``pod`` × ``data``) split the batch rows:
-each data row computes on its first position's device (``shard_devices``)
-with whole layers, which ``hint_tree`` gathers from the shards one layer
-at a time (``RowLeaf``) — the reference's per-layer FSDP all-gather — and
-whose gradient the backward adds, a layer at a time, into the row's
-gradient of each position's block on that position's device (the
-reduce-scatter; the rows' blocks are summed in row order after).  The
-``model`` axis splits storage only: no matmul is split over it, so a
-position on it stores a slice of every leaf and the data row's device
-computes the whole layer.  Activations are never sharded (``hint`` is the
-identity): a data row's activations live on its own device.
+Compute.  The ``data`` axes (``pod`` × ``data``) split the batch rows: a
+data row is one thread that issues the work of its positions (``Row.tp``:
+the positions sharing its data coordinates, one a ``model`` coordinate).
+Two layouts of compute:
+
+* tensor-parallel (the transformer family's dense and VLM configs,
+  ``models.tensor_parallel``): position (d, m) computes with its block
+  along ``model`` of every leaf, whole along ``d_model`` — ``RowLeaf.at``
+  gathers it over the positions that share m (the FSDP all-gather over
+  ``data``; in ``serve_mode`` the position holds it whole and gathers
+  nothing) — and the sums over ``model`` are ordinary autograd ops on the
+  row's thread;
+* storage-only (every other family): the row computes on its first
+  position's device (``shard_devices``) with whole layers, which
+  ``hint_tree`` gathers from the shards one layer at a time.
+
+Either way a gathered leaf's gradient is added, a layer at a time, into
+the blocks of the positions it was gathered from (the reduce-scatter over
+``data``): each position holds one gradient block a leaf
+(``RowGroup.grads``), into which the rows' parts are added in row order —
+a part that arrives early waits in its slot, no backward waits; rows whose
+positions share a device take their backwards in turn.  Activations
+are never laid out (``hint`` is the identity): a row's residual stream
+lives on its own device.
 
 Serving.  A decode cache laid out by the family's ``cache_axes`` is bound
-to a data row as ``RowCache`` leaves: the row reads its batch rows of a
-layer from the positions holding them (nearest copies) and writes what it
-computes back into the blocks of the positions that share its data
-coordinates (``Row.owns``), so every block has one writer.
+to a data row as ``RowCache`` leaves: storage-only, the row reads its
+batch rows of a layer from the positions holding them (nearest copies)
+and writes what it computes back into the blocks of the positions that
+share its data coordinates (``Row.owns``), so every block has one writer;
+tensor-parallel, each position reads and writes its own block only
+(``RowCache.held``, ``put_slot``).
 
 ``ACCOUNT`` is the account of a traced step (``launch.hlo_analysis``) or
 None: every copy between two mesh positions is reported to it with
 ``note`` — positions that share a device still count, the mesh's positions
-being its devices — and each row runs under its ``row_scope``.
+being its devices — each row runs under its ``row_scope`` and each
+position's work under ``position`` (``mark`` carries the position into the
+backward).
 """
 from __future__ import annotations
 
@@ -134,6 +151,23 @@ def shard_positions(mesh) -> list:
         for i, k in zip(data, idx):
             pos[i] = k
         out.append(tuple(pos))
+    return out
+
+
+def tp_positions(mesh, pos) -> list:
+    """The positions that share ``pos``'s data coordinates, in row-major
+    order: a data row's positions, one for each coordinate of the other
+    axes (``model``)."""
+    names = list(mesh.axis_names)
+    sizes = np.shape(mesh.devices)
+    data = {names.index(a) for a in mesh_data_axes(mesh)}
+    rest = [i for i in range(len(names)) if i not in data]
+    out = []
+    for idx in np.ndindex(*[sizes[i] for i in rest]):
+        p = list(pos)
+        for i, k in zip(rest, idx):
+            p[i] = k
+        out.append(tuple(p))
     return out
 
 
@@ -487,12 +521,58 @@ def untracked(on_device: bool = True):
             else contextlib.nullcontext())
 
 
-def backward_scope():
-    """The context a data row's backward runs under: the account's, which
-    may run the rows' backwards one at a time (an account of positions
-    sharing one card, whose one autograd thread runs them)."""
+@contextlib.contextmanager
+def backward_scope(row):
+    """The context data row ``row``'s backward runs under: its turn where
+    the rows share a device (``RowGroup.backward_turn``), and the
+    account's, if any."""
     acc = ACCOUNT
-    return acc.backward() if acc is not None else contextlib.nullcontext()
+    with contextlib.ExitStack() as stack:
+        if row.group is not None and row.group.ordered:
+            stack.enter_context(row.group.backward_turn(row))
+        if acc is not None:
+            stack.enter_context(acc.backward())
+        yield
+
+
+@contextlib.contextmanager
+def position(row, j: int):
+    """The context position ``row.tp[j]``'s work runs under: its device
+    (on a card) and the account's scope of the position."""
+    acc = ACCOUNT
+    dev = row.tp_device(j)
+    with contextlib.ExitStack() as stack:
+        if dev.type == "cuda" and dev != row.device:
+            stack.enter_context(torch.cuda.device(dev))
+        if acc is not None:
+            stack.enter_context(acc.position(row, j))
+        yield
+
+
+class _Mark(torch.autograd.Function):
+    """The identity, whose backward tells the account that the ops after
+    it (in the backward) are position ``j``'s of ``row``."""
+
+    @staticmethod
+    def forward(ctx, x, row, j):
+        ctx.row, ctx.j = row, j
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        acc = ACCOUNT
+        if acc is not None:
+            acc.switch(ctx.row, ctx.j)
+        return grad, None, None
+
+
+def mark(x: torch.Tensor, row, j: int) -> torch.Tensor:
+    """``x``, marked so that the backward from this point is accounted to
+    position ``row.tp[j]`` (only under an account, and only where ``x``
+    carries a gradient)."""
+    if ACCOUNT is None or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Mark.apply(x, row, j)
 
 
 def _nbytes(shape, dtype) -> int:
@@ -508,11 +588,42 @@ def _extent(slices) -> tuple:
 # Per-layer gathers: a data row's view of sharded leaves
 # ---------------------------------------------------------------------------
 
+class _Chain:
+    """The parts of one gradient block's slice (a leaf, a position, a
+    stacked index) on their way in: ``next`` the ticket to add next (row r's
+    k-th part is ticket k·n + r), ``held`` the parts that came early, and on
+    a card the event after which the slice may be written."""
+
+    def __init__(self, n: int, event):
+        self.next = 0
+        self.held: dict = {}
+        self.counts = [0] * n
+        self.event = event
+
+
+def _event(t: torch.Tensor):
+    """An event recorded on the current stream of ``t``'s device, where it
+    is a card (else None)."""
+    if not t.is_cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return ev
+
+
 class RowGroup:
-    """The data rows of one sharded step, for the sums they take together
-    in the forward (``Row.gather_sum``): a barrier and one slot list a
-    call.  ``n`` rows run; ``positions`` are those of every row of the
-    step (more than ``n`` when a traced step runs its first row alone)."""
+    """The data rows of one sharded step: ``n`` rows run; ``positions`` are
+    those of every row of the step (more than ``n`` when a traced step runs
+    its first row alone).
+
+    The sums the rows take together in the forward (``Row.gather_sum``)
+    go through a barrier and one slot list a call.  The gradients go into
+    ``grads`` (the leaf's tree name -> {position: its one gradient block},
+    one entry a block's first copy, on that position's device in the
+    leaf's dtype, zeros at first use): ``add_grad`` adds row r's part of a
+    block, weighted by ``weights[r]``, in ticket order — a part that comes
+    before its turn waits in its slot, no row waits — so the sum is in row
+    order (microbatch by microbatch) and the same every run."""
 
     def __init__(self, n: int, positions=None):
         self.n = n
@@ -520,31 +631,128 @@ class RowGroup:
         self.barrier = threading.Barrier(n)
         self.lock = threading.Lock()
         self.slots: dict = {}
+        self.weights = [1.0] * n
+        self.grads: dict = {}
+        self._made: dict = {}
+        self._chains: dict = {}
+        self.ordered = False
+        self._turn = threading.Condition()
+        self._served = 0
+        self._tickets: dict = {}
+        self._aborted = False
 
     def abort(self):
-        """Release every row waiting in the barrier (a row failed)."""
+        """Release every row waiting in the barrier or for its backward's
+        turn (a row failed)."""
         self.barrier.abort()
+        with self._turn:
+            self._aborted = True
+            self._turn.notify_all()
+
+    @contextlib.contextmanager
+    def backward_turn(self, row: "Row"):
+        """Row ``row``'s backward, one at a time, in row order microbatch by
+        microbatch: rows whose positions share a device run their backwards
+        on its one autograd thread anyway, and in this order each part of
+        a gradient block arrives in its turn, none waiting in a slot and
+        no two rows' backward temporaries on the device at once."""
+        with self._turn:
+            k = self._tickets.get(row.index, 0)
+            self._tickets[row.index] = k + 1
+            ticket = k * self.n + row.index
+            self._turn.wait_for(lambda: self._aborted or
+                                self._served == ticket)
+        try:
+            yield
+        finally:
+            with self._turn:
+                self._served += 1
+                self._turn.notify_all()
+
+    def add_grad(self, name: str, leaf: "ShardedTensor", pos, index: tuple,
+                 sub: tuple, part: torch.Tensor, row: "Row"):
+        """Row ``row``'s part of the gradient of ``leaf``'s block at ``pos``
+        (its slice ``index`` of the stacked axes, and of that the slices
+        ``sub``), moved to the block's device: added into the block in
+        ticket order."""
+        with self.lock:
+            bufs = self.grads.get(name)
+            if bufs is None:
+                with untracked():
+                    bufs = self.grads[name] = {
+                        p: torch.zeros(t.shape, dtype=leaf.dtype,
+                                       device=t.device)
+                        for p, _, t in leaf.blocks()}
+                self._made[name] = _event(bufs[pos])
+            if part.is_meta:
+                return
+            key = (name, pos, index)
+            ch = self._chains.get(key)
+            if ch is None:
+                ch = self._chains[key] = _Chain(self.n, self._made[name])
+            k = ch.counts[row.index]
+            ch.counts[row.index] += 1
+            ch.held[k * self.n + row.index] = (sub, part,
+                                               self.weights[row.index],
+                                               _event(part))
+            ready = []
+            while ch.next in ch.held:
+                ready.append(ch.held.pop(ch.next))
+                ch.next += 1
+            self._add(bufs[pos], index, ch, ready)
+
+    @staticmethod
+    def _add(buf, index, ch, ready):
+        """Add ``ready``'s parts, in order, into ``buf[index]`` (after the
+        slice's last write and each part's event, on a card)."""
+        if not ready or buf.is_meta:
+            return
+        stream = torch.cuda.current_stream(buf.device) if buf.is_cuda \
+            else None
+        for sub, part, w, ev in ready:
+            if stream is not None:
+                for e in (ch.event, ev):
+                    if e is not None:
+                        stream.wait_event(e)
+            buf[index][sub].add_(part, alpha=w)
+            if stream is not None and part.is_cuda:
+                part.record_stream(stream)
+        if stream is not None:
+            ch.event = _event(buf)
+
+    def check_done(self):
+        """Raise if a part still waits in its slot: a row's loss reached a
+        block fewer times than another's, so the block misses a sum."""
+        held = [key for key, ch in self._chains.items() if ch.held]
+        if held:
+            raise RuntimeError(f"gradient parts never added: {held[:4]}")
 
 
 class Row:
     """One data row of a sharded step: its index, its device, its
-    ``group``, its mesh position ``pos`` (``shard_positions``) and the
-    mesh dims of its data axes, the gradients its backward accumulates
-    (``grads``: the leaf's tree name -> {position: the row's gradient of
-    the block that position holds}, one entry a block's first copy, on
-    that position's device in the leaf's dtype — ``RowLeaf.add_grad``) and
-    a 0-d ``anchor`` that makes every gather an autograd node."""
+    ``group``, its mesh position ``pos`` (``shard_positions``), the mesh
+    dims of its data axes, its positions ``tp`` (``tp_positions``: the
+    first is ``pos``) and their ``devices``, and a 0-d ``anchor`` that
+    makes every gather an autograd node."""
 
     def __init__(self, index: int, device, group: Optional[RowGroup] = None,
-                 pos: Optional[tuple] = None, data_dims: tuple = ()):
+                 pos: Optional[tuple] = None, data_dims: tuple = (),
+                 tp: Optional[list] = None, devices: Optional[list] = None):
         self.index = index
         self.device = torch.device(device)
         self.group = group
         self.pos = None if pos is None else tuple(pos)
         self.data_dims = tuple(data_dims)
+        self.tp = list(tp) if tp is not None else \
+            ([self.pos] if self.pos is not None else [])
+        self.devices = [torch.device(d) for d in devices] \
+            if devices is not None else [self.device] * len(self.tp)
         self.calls = 0
-        self.grads: dict = {}
         self.anchor = torch.zeros((), device=self.device, requires_grad=True)
+
+    def tp_device(self, j: int) -> torch.device:
+        """The device of position ``tp[j]``."""
+        return self.devices[j]
 
     def owns(self, pos) -> bool:
         """Whether this row writes position ``pos``'s blocks of what the
@@ -586,14 +794,22 @@ class Row:
 
 def mesh_rows(mesh, run: Optional[int] = None) -> list:
     """A ``Row`` for every data row of ``mesh`` (``shard_positions``
-    order) on its position's device; the first ``run`` of them (all by
-    default) share one ``RowGroup``, which knows every row's position."""
+    order) on its position's device, with its positions (``tp_positions``)
+    and their devices; the first ``run`` of them (all by default) share
+    one ``RowGroup``, which knows every row's position and takes their
+    backwards in turn where positions share a device."""
     positions = shard_positions(mesh)
     names = list(mesh.axis_names)
     data_dims = tuple(names.index(a) for a in mesh_data_axes(mesh))
     group = RowGroup(len(positions) if run is None else run, positions)
-    return [Row(r, mesh.devices[pos], group, pos, data_dims)
-            for r, pos in enumerate(positions)]
+    rows = []
+    for r, pos in enumerate(positions):
+        tp = tp_positions(mesh, pos)
+        rows.append(Row(r, mesh.devices[pos], group, pos, data_dims, tp,
+                        [mesh.devices[p] for p in tp]))
+    devs = [torch.device(d) for r in rows[:group.n] for d in r.devices]
+    group.ordered = len(set(devs)) < len(devs)
+    return rows
 
 
 def row_of(tree) -> Optional[Row]:
@@ -606,77 +822,171 @@ def row_of(tree) -> Optional[Row]:
     return None
 
 
+def _model_dims(leaf: "ShardedTensor", mesh) -> list:
+    """The dims of ``leaf`` sharded over an axis other than the data axes
+    (``model``); a dim sharded over data and ``model`` together raises."""
+    data = set(mesh_data_axes(mesh))
+    out = []
+    for i, e in enumerate(leaf.sharding.spec):
+        axes = _entry_axes(e)
+        if any(a not in data for a in axes):
+            if any(a in data for a in axes):
+                raise ValueError(f"dim {i} of {tuple(leaf.shape)} is "
+                                 f"sharded over data and model together "
+                                 f"({leaf.sharding.spec})")
+            out.append(i)
+    return out
+
+
 class RowLeaf:
     """A sharded leaf (or the slice ``index`` of its leading stacked axes)
     bound to a data row, not yet gathered: ``leaf[i]`` selects layer i,
-    ``hint_tree`` gathers it onto the row's device.  It carries its row, so
-    a gather works on whatever thread runs it — autograd recomputes a
-    remat block on its own device thread."""
+    ``hint_tree`` gathers it onto the row's device, whole; ``at(j)`` is
+    what position ``row.tp[j]`` computes with: its block along ``model``
+    (or the range ``span`` of the dim split over ``model``), whole along
+    every other dim.  It carries its row, so a gather works on whatever
+    thread runs it — autograd recomputes a remat block on its own device
+    thread."""
 
     def __init__(self, leaf: ShardedTensor, row: Row, name: str,
-                 index: tuple = ()):
+                 index: tuple = (), at: Optional[int] = None,
+                 span: Optional[tuple] = None):
         self.leaf, self.row, self.name, self.index = leaf, row, name, index
-        self.shape = leaf.shape[len(index):]
+        self.at_, self.span = at, span
         self.dtype = leaf.dtype
+        k = len(index)
+        shape = list(leaf.shape[k:])
+        if at is not None:
+            for d, (lo, hi) in self._ranges().items():
+                if d < k:
+                    raise ValueError(f"{name}: a stacked axis is sharded "
+                                     f"over model ({leaf.sharding.spec})")
+                shape[d - k] = hi - lo
+        self.shape = tuple(shape)
 
     def __getitem__(self, i) -> "RowLeaf":
         i = i if isinstance(i, tuple) else (i,)
-        return RowLeaf(self.leaf, self.row, self.name, self.index + i)
+        return RowLeaf(self.leaf, self.row, self.name, self.index + i,
+                       self.at_, self.span)
+
+    def at(self, j: int, span: Optional[tuple] = None) -> "RowLeaf":
+        """The leaf as position ``row.tp[j]`` computes with it: its own
+        block along ``model``, or ``span`` = (lo, hi) of the (last) dim —
+        a range of the dim ``model`` splits, or of a whole one."""
+        return RowLeaf(self.leaf, self.row, self.name, self.index, j, span)
+
+    @property
+    def target(self) -> tuple:
+        """The position the leaf is gathered to."""
+        row = self.row
+        return row.pos if self.at_ is None else row.tp[self.at_]
+
+    @property
+    def device(self) -> torch.device:
+        return self.row.device if self.at_ is None else \
+            self.row.tp_device(self.at_)
+
+    def model_split(self) -> bool:
+        """Whether ``model`` splits the leaf: each position holds a block of
+        it (else every position holds the same)."""
+        return bool(_model_dims(self.leaf, self.leaf.sharding.mesh))
+
+    def _ranges(self) -> dict:
+        """{leaf dim: (lo, hi)} the gather takes of the dims that are not
+        whole: the target's block of each dim split over ``model``, or
+        ``span`` of the last dim."""
+        leaf = self.leaf
+        out = {}
+        if self.span is not None:
+            out[leaf.ndim - 1] = tuple(self.span)
+            return out
+        mine = leaf.sharding.slices(leaf.shape, self.target)
+        for d in _model_dims(leaf, leaf.sharding.mesh):
+            out[d] = (mine[d].start, mine[d].stop)
+        return out
+
+    def _parts(self) -> list:
+        """(first-copy position, the block's slices it takes, where they go
+        in the gathered tensor, the position it is read from) of every
+        block the gather reads from; computed once a leaf, target and
+        range."""
+        leaf, k = self.leaf, len(self.index)
+        key = (self.target, self.at_ is None, self.span, k)
+        cache = leaf.__dict__.setdefault("_parts_cache", {})
+        got = cache.get(key)
+        if got is not None:
+            return got
+        ranges = self._ranges() if self.at_ is not None else {}
+        out = []
+        for pos, sl in leaf.block_slices():
+            blk, dst = [], []
+            for d, s in enumerate(sl):
+                lo, hi = ranges.get(d, (s.start, s.stop))
+                a, b = max(lo, s.start), min(hi, s.stop)
+                if a >= b:
+                    break
+                off = lo if d in ranges else 0
+                blk.append(slice(a - s.start, b - s.start))
+                dst.append(slice(a - off, b - off))
+            else:
+                if any(x != slice(0, n) for x, n in zip(blk[:k],
+                                                        leaf.shape)):
+                    raise ValueError(f"{self.name}: a stacked axis is "
+                                     f"sharded ({leaf.sharding.spec})")
+                out.append((pos, tuple(blk[k:]), tuple(dst[k:]),
+                            self._near(pos)))
+        cache[key] = out
+        return out
 
     def _near(self, pos) -> tuple:
         row = self.row
         return pos if row.pos is None else \
-            self.leaf.sharding.nearest_copy(pos, row.pos)
+            self.leaf.sharding.nearest_copy(pos, self.target)
 
     def assemble(self) -> torch.Tensor:
-        """The whole (layer of the) leaf on the row's device: a view of the
-        row's own copy when the leaf is replicated, else a new tensor
-        filled from the nearest copy of every block (the all-gather; its
-        gathered size is what the account counts)."""
-        leaf, dev, k = self.leaf, self.row.device, len(self.index)
+        """The (layer of the) leaf on the target's device: a view of the
+        target's own copy where that holds all it takes, else a new tensor
+        filled from the nearest copy of every block it takes (the
+        all-gather; its gathered size is what the account counts)."""
+        leaf, dev = self.leaf, self.device
         sh = leaf.sharding
-        if all(e is None for e in sh.spec):
+        if self.at_ is None and all(e is None for e in sh.spec):
             own = [self.row.pos] if self.row.pos is not None else []
             for pos in own + sh.positions():
                 if sh.device(pos) == dev:
                     return leaf.shards[pos][self.index]
+        parts = self._parts()
+        if self.at_ is not None and len(parts) == 1 and \
+                parts[0][3] == self.target:
+            return leaf.shards[self.target][self.index][parts[0][1]]
         out = torch.empty(self.shape, dtype=self.dtype, device=dev)
         srcs = []
-        for pos, sl in leaf.block_slices():
-            if any(s != slice(0, n) for s, n in zip(sl[:k], leaf.shape)):
-                raise ValueError(f"{self.name}: a stacked axis is sharded "
-                                 f"({leaf.sharding.spec})")
-            src = self._near(pos)
+        for pos, blk, dst, src in parts:
             srcs.append(src)
             if not out.is_meta:
-                out[sl[k:]] = leaf.shards[src][self.index]
+                out[dst] = leaf.shards[src][self.index][blk]
         if self.row.pos is not None:
-            note("all-gather", out.nbytes, srcs, self.row.pos,
+            note("all-gather", out.nbytes, srcs, self.target,
                  self.row.index)
         return out
 
     def add_grad(self, grad: torch.Tensor):
         """Add ``grad``, the gradient of the gathered (layer of the) leaf on
-        the row's device, into the row's gradient blocks at ``index``: each
-        block's part of it moved to the position holding the block's first
-        copy and added there (the reduce-scatter).  A position holds the
-        row's gradient of its block only, never of the whole leaf (zeros at
-        first use)."""
-        k = len(self.index)
-        bufs = self.row.grads.get(self.name)
-        if bufs is None:
-            with untracked():
-                bufs = self.row.grads[self.name] = {
-                    pos: torch.zeros(t.shape, dtype=self.dtype,
-                                     device=t.device)
-                    for pos, _, t in self.leaf.blocks()}
-        for pos, sl in self.leaf.block_slices():
+        the target's device, into the step's gradient blocks at ``index``:
+        each block's part of it moved to the position holding the block's
+        first copy and added there in row order (the reduce-scatter;
+        ``RowGroup.add_grad``).  A position holds one gradient block of its
+        block only, never of the whole leaf."""
+        group, src = self.row.group, self.target
+        for pos, blk, dst, _ in self._parts():
+            part = grad[dst]
             if not grad.is_meta:
-                buf = bufs[pos]
-                buf[self.index] += grad[sl[k:]].to(buf.device)
+                part = part.to(self.leaf.shards[pos].device)
+            group.add_grad(self.name, self.leaf, pos, self.index, blk, part,
+                           self.row)
             if self.row.pos is not None:
-                note("reduce-scatter", _nbytes(_extent(sl[k:]), grad.dtype),
-                     [self.row.pos], pos, self.row.index)
+                note("reduce-scatter", _nbytes(_extent(dst), grad.dtype),
+                     [src], pos, self.row.index)
 
     def gather(self) -> torch.Tensor:
         if not torch.is_grad_enabled():
@@ -685,9 +995,9 @@ class RowLeaf:
 
 
 class _Gather(torch.autograd.Function):
-    """A ``RowLeaf`` gathered onto its row's device; the backward adds each
-    position's part of the gradient into the row's gradient of that
-    position's block (``RowLeaf.add_grad``), one layer at a time, as
+    """A ``RowLeaf`` gathered onto its target's device; the backward adds
+    each position's part of the gradient into that position's gradient
+    block (``RowLeaf.add_grad``), one layer at a time, as
     ``transformer._LayerSlice`` adds into ``.grad``.  Nothing flows to the
     anchor."""
 
@@ -702,17 +1012,19 @@ class _Gather(torch.autograd.Function):
         return None, None
 
 
-def bind_row(params, axes, row: Row, prefix=""):
+def bind_row(params, axes, row: Row, prefix="", *, whole: bool = True):
     """A data row's view of a tree of ``ShardedTensor``: every stacked leaf
     (axes ``layers|…``) a ``RowLeaf`` for ``transformer.train_layer`` to
     gather a layer at a time; every other leaf (embedding, head, norms,
-    a hybrid's shared block) gathered now, whole."""
+    a hybrid's shared block) gathered now, whole — or, ``whole=False`` (the
+    tensor-parallel layout), left a ``RowLeaf`` too, for each position to
+    gather its block of."""
     out = {}
     for k, v in params.items():
         name = f"{prefix}{k}"
         if isinstance(v, dict):
-            out[k] = bind_row(v, axes[k], row, name + ".")
-        elif axes[k].split("|")[0] == "layers":
+            out[k] = bind_row(v, axes[k], row, name + ".", whole=whole)
+        elif axes[k].split("|")[0] == "layers" or not whole:
             out[k] = RowLeaf(v, row, name)
         else:
             out[k] = RowLeaf(v, row, name).gather()
@@ -824,11 +1136,18 @@ class RowCache:
         return out
 
     def __setitem__(self, key, value: torch.Tensor):
+        self.put(key, value)
+
+    def put(self, key, value: torch.Tensor, *, src=None,
+            kind: Optional[str] = None):
         """Write ``value`` into the row's view at ``key`` (leading ints for
-        stacked axes, then slices), on every position the row owns."""
+        stacked axes, then slices), on every position the row owns.  ``src``
+        is the position ``value`` lies on (the row's by default) and
+        ``kind`` names the account's entry (``<kind>-write`` by default)."""
         index, region = self._region(key)
         k, leaf, row = len(index), self.leaf, self.row
         sh = leaf.sharding
+        src = row.pos if src is None else tuple(src)
         for pos in sh.positions():
             if not row.owns(pos):
                 continue
@@ -837,8 +1156,8 @@ class RowCache:
                 continue
             if not value.is_meta:
                 leaf.shards[pos][cut[0]] = value[cut[1]].to(sh.device(pos))
-            note(f"{self.kind}-write", _nbytes(_extent(cut[1]), self.dtype),
-                 [row.pos], pos, row.index)
+            note(kind or f"{self.kind}-write",
+                 _nbytes(_extent(cut[1]), self.dtype), [src], pos, row.index)
 
     def copy_(self, value: torch.Tensor) -> "RowCache":
         self[()] = value
@@ -848,19 +1167,27 @@ class RowCache:
                at: Optional[torch.Tensor] = None):
         """Write back what the row changed in a view it ``read``: all of
         ``value``, or only its slot ``at`` (a 0-d int tensor) along view
-        dim ``dim`` — each owned block takes the slot where it holds that
-        index and keeps its own values elsewhere (a masked
-        ``index_copy_``: which block holds it is not read on the host)."""
+        dim ``dim`` (``put_slot``)."""
         if at is None:
             self[()] = value
             return
+        self.put_slot(value.index_select(dim, at.reshape(1).long()), dim, at)
+
+    def put_slot(self, new: torch.Tensor, dim: int, at: torch.Tensor, *,
+                 only=None, src=None):
+        """Write ``new`` — the row's view with one index along view dim
+        ``dim`` — at index ``at`` (a 0-d int tensor) of that dim: each owned
+        block (or position ``only``'s alone) takes the slot where it holds
+        that index and keeps its own values elsewhere (a masked
+        ``index_copy_``: which block holds it is not read on the host).
+        ``src``: the position ``new`` lies on (the row's by default)."""
         index, region = self._region(())
         k, leaf, row = len(index), self.leaf, self.row
         sh = leaf.sharding
-        new = value.index_select(dim, at.reshape(1).long())
+        src = row.pos if src is None else tuple(src)
         region[k + dim] = (0, 1)
         for pos in sh.positions():
-            if not row.owns(pos):
+            if not row.owns(pos) or (only is not None and pos != only):
                 continue
             sl = list(sh.slices(leaf.shape, pos))
             lo = sl[k + dim].start
@@ -879,8 +1206,37 @@ class RowCache:
             loc = loc.clamp(0, n - 1)
             blk.index_copy_(dim, loc, torch.where(
                 ok, part, blk.index_select(dim, loc)))
-            note(f"{self.kind}-write", part.nbytes, [row.pos], pos,
-                 row.index)
+            note(f"{self.kind}-write", part.nbytes, [src], pos, row.index)
+
+    def held(self, pos):
+        """(a view of position ``pos``'s own block over the row's view, the
+        global [lo, hi) of each view dim it covers), or None where the
+        block holds none of the row's view: what the position reads of it,
+        copying nothing."""
+        index, region = self._region(())
+        k, leaf = len(index), self.leaf
+        cut = self._cut(region, leaf.sharding.slices(leaf.shape, pos), k)
+        if cut is None:
+            return None
+        span = [(region[k + j][0] + s.start, region[k + j][0] + s.stop)
+                for j, s in enumerate(cut[1])]
+        return leaf.shards[pos][cut[0]], span
+
+    def local_to_row(self) -> bool:
+        """Whether every block holding part of the row's view has a copy on
+        one of the row's positions (``Row.tp``): the row's positions can
+        compute on the view with no block read by another."""
+        index, region = self._region(())
+        k, leaf, row = len(index), self.leaf, self.row
+        tp = set(row.tp)
+        for pos, sl in leaf.block_slices():
+            if self._cut(region, sl, k) is None:
+                continue
+            if not any(leaf.sharding.nearest_copy(pos, q) in tp and
+                       leaf.sharding.slices(leaf.shape, q) == sl
+                       for q in row.tp):
+                return False
+        return True
 
 
 def row_rows(mesh, batch: int, pos) -> slice:

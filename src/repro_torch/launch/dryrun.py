@@ -17,7 +17,10 @@ Outputs one JSON record per cell into
 ``<out>/<mesh>/<arch>/<shape>.json`` with the reference's keys where the
 meaning carries over (``status``, ``memory``, ``cost.flops``,
 ``collectives``, ``collective_bytes_total``, ``loop_aware.dot_flops``),
-``trace_s`` in place of ``lower_s`` and ``compile_s``, and ``positions``.
+``trace_s`` in place of ``lower_s`` and ``compile_s``, ``positions``, and
+``model_compute``: whether the cell's family computes over ``model``
+(``models.tensor_parallel``: dense and VLM) or only stores on it; the
+printed line says which (``model`` / ``storage``).
 A failing cell is written with its error.  ``launch/roofline.py`` turns
 the records into the roofline table.
 
@@ -43,12 +46,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     from .mesh import make_production_mesh
     from .steps import lower_cell
 
+    from ..models import tensor_parallel
     cfg = get_config(arch)
     shape = SHAPES[shape_name]
     mesh = make_production_mesh(multi_pod=multi_pod, device="meta")
     mesh_name = "x".join(map(str, mesh.devices.shape))
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
            "kind": shape.kind, "n_devices": int(mesh.devices.size),
+           "model_compute": cfg.family in tensor_parallel.FAMILIES,
            "status": "ok"}
     t0 = time.time()
     try:
@@ -66,8 +71,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if verbose:
         mem = rec.get("memory", {}).get("peak_device_bytes", 0) / 2**30
         flops = rec.get("cost", {}).get("flops", 0)
+        tp = "model" if rec["model_compute"] else "storage"
         print(f"[{rec['status']:5s}] {mesh_name:10s} {arch:20s} "
-              f"{shape_name:12s} trace={rec.get('trace_s', 0):6.1f}s"
+              f"{shape_name:12s} {tp:7s} trace={rec.get('trace_s', 0):6.1f}s"
               f" mem/dev={mem:7.2f}GiB flops/dev={flops:.3e}"
               f" coll={rec.get('collective_bytes_total', 0) / 2**30:8.3f}GiB",
               flush=True)

@@ -17,13 +17,19 @@ account counts what runs.  Per mesh position it records:
   account (``kernels.common.route``) returns an empty output and reports
   the FLOPs and HBM bytes of the tiles its kernel visits;
 * collectives by kind, with count and bytes: every copy between two
-  positions that ``distributed.sharding`` and the steps make
-  (``sharding.note``) — ``all-gather`` (a layer gathered onto a data row,
-  counted at its gathered size, the reference's convention; a gathered
-  input), ``reduce-scatter`` (each block's part of a row's gradient, at
-  the block's position), ``all-reduce`` (``Row.gather_sum``),
-  ``broadcast`` (a reduced gradient block copied to a replicated block's
-  other positions), ``cache-read`` / ``cache-write`` (a row's reads and
+  positions that ``distributed.sharding``, the steps and
+  ``models.tensor_parallel`` make (``sharding.note``) — ``all-gather`` (a
+  layer, or a position's block of it, gathered onto the position that
+  computes with it, counted at its gathered size, the reference's
+  convention; a gathered input; in a tensor-parallel decode the token's
+  Q/K/V columns and the heads' partials), ``reduce-scatter`` (each
+  block's part of a row's gradient, at the block's position),
+  ``all-reduce`` (``Row.gather_sum``; a sum over ``model`` and the loss's
+  max and sums, each position receiving the partial's bytes),
+  ``all-to-all`` (a tensor-parallel prefill's K/V moved from the
+  position computing a KV head into the sequence-split cache blocks),
+  ``broadcast`` (a gradient block copied to a replicated block's other
+  positions), ``cache-read`` / ``cache-write`` (a row's reads and
   write-backs of the decode cache), ``output-write`` (its logits into
   their positions) and ``all-reduce-int8`` (``optim.compression``'s round
   over ``pod``).  Positions that share a device still count: the mesh's
@@ -32,12 +38,13 @@ account counts what runs.  Per mesh position it records:
   8 consecutive positions (``inter_node_bytes``);
 * bytes: ``argument_bytes`` and ``output_bytes`` are the blocks a position
   holds (``NamedSharding.shard_shape``): parameters, moments, batch and
-  cache in; gradient blocks (every data row's, as the sharded train step
-  lays them out), a prefill's cache, logits and ``len`` out.
-  ``temp_bytes`` is the peak of the live bytes of the storages the
-  position's data row creates (each counted until a finalizer sees it
-  freed); the calling thread's (the gradients' reduction, AdamW's slices)
-  count at position 0.  ``peak_device_bytes``
+  cache in; the gradient blocks (one a parameter block), a prefill's
+  cache, logits and ``len`` out.  ``temp_bytes`` is the peak of the live
+  bytes of the storages created for the position's work (each counted
+  until a finalizer sees it freed): a data row's thread works for its
+  first position and, under ``sharding.position`` (or in the backward
+  after a ``sharding.mark``), for each of its others; the calling
+  thread's (the gradients' layout, AdamW's slices) count at position 0.  ``peak_device_bytes``
   is their sum, the reference's, whose ``alias_bytes`` is 0 here: the
   port donates nothing, and what a step updates in place (parameters,
   moments, a decode cache) is not an output.
@@ -47,10 +54,13 @@ on the calling thread and in each data row's thread (``sharding.row_scope``);
 on meta, autograd's backward runs on the calling thread, a checkpointed
 block's recompute included.  Every data row has the same shapes
 (``steps._row_batch`` splits evenly, a served batch splits or replicates),
-so by default (``first_row``) the step runs row 0 and one microbatch, the
-account scales them by ``micro`` (``grad_accum``) and gives every data
-row's position what row 0's had, its copies translated along the data
-axes; the record says so (``rows_traced``).
+so by default (``first_row``) the step runs row 0 — which issues the work
+of all its positions — and one microbatch, the account scales them by
+``micro`` (``grad_accum``) and gives every position what the position of
+row 0 with its ``model`` coordinate had, its copies translated along the
+data axes; the record says so (``rows_traced``).  Where every row is
+traced, their backwards run one at a time in row order, as the rows of
+one device's positions do (``sharding.RowGroup.backward_turn``).
 
 Positions sharing one card.  Each position's ``peak_device_bytes`` is its
 own device's, whose rows peak together.  Where every position lies on one
@@ -101,18 +111,22 @@ class _Slot:
 
 
 class _Meter(TorchDispatchMode):
-    """Counts each dispatched op into the thread's slot."""
+    """Counts each dispatched op into the thread's current slot (a
+    position's, under ``Account.position`` or after a ``sharding.mark``
+    in the backward); of meters nested on one thread the innermost
+    counts."""
 
-    def __init__(self, account, slot: _Slot):
+    def __init__(self, account):
         super().__init__()
-        self.account, self.slot = account, slot
+        self.account = account
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
-        slot = self.slot
-        if getattr(self.account._tls, "slot", None) is not slot:
+        tls = self.account._tls
+        if getattr(tls, "meter", None) is not self:
             return out        # a row scope nested on this thread counts it
+        slot = tls.slot
         packet = func._overloadpacket
         if packet in DOT_OPS:
             n = flop_registry[packet](*args, **kwargs, out_val=out)
@@ -144,7 +158,6 @@ class Account:
         self.record: dict = {}
         self._tls = threading.local()
         self._lock = threading.Lock()
-        self._backward = threading.Lock() if one_device else None
         self._row_positions = shd.shard_positions(mesh)
         names = list(mesh.axis_names)
         self._data_dims = [names.index(a) for a in shd.mesh_data_axes(mesh)]
@@ -168,24 +181,59 @@ class Account:
     def _pos0(self):
         return (0,) * len(self.shape)
 
-    @contextlib.contextmanager
-    def _scope(self, pos, scale):
+    def _slot(self, pos, scale) -> _Slot:
         slot = _Slot(tuple(pos), scale)
         with self._lock:
             self.slots.append(slot)
-        prev = getattr(self._tls, "slot", None), getattr(self._tls, "mode",
-                                                         None)
-        self._tls.slot, self._tls.mode = slot, None
+        return slot
+
+    @contextlib.contextmanager
+    def _scope(self, pos, scale):
+        slot = self._slot(pos, scale)
+        tls = self._tls
+        prev = (getattr(tls, "slot", None), getattr(tls, "mode", None),
+                getattr(tls, "meter", None), getattr(tls, "positions", None))
+        meter = _Meter(self)
+        tls.slot, tls.mode, tls.meter, tls.positions = slot, None, meter, \
+            {0: slot}
         try:
-            with _Meter(self, slot):
+            with meter:
                 yield slot
         finally:
-            self._tls.slot, self._tls.mode = prev
+            tls.slot, tls.mode, tls.meter, tls.positions = prev
 
     def row(self, row):
         """The context a data row runs under: its thread's meter, its work
-        scaled by ``micro`` when it stands for every microbatch."""
+        scaled by ``micro`` when it stands for every microbatch; its
+        position 0's slot."""
         return self._scope(row.pos, self.micro if self.first_row else 1)
+
+    def _position_slot(self, row, j) -> _Slot:
+        """The slot of the row's position j (the row scope's own for j =
+        0), one for the row's scope."""
+        got = self._tls.positions.get(j)
+        if got is None:
+            got = self._tls.positions[j] = self._slot(
+                row.tp[j], self._tls.positions[0].scale)
+        return got
+
+    @contextlib.contextmanager
+    def position(self, row, j: int):
+        """The context position ``row.tp[j]``'s work runs under: its slot
+        (its FLOPs, kernels and live bytes)."""
+        tls = self._tls
+        prev = tls.slot
+        tls.slot = self._position_slot(row, j)
+        try:
+            yield
+        finally:
+            tls.slot = prev
+
+    def switch(self, row, j: int):
+        """From here on the thread's work is position ``row.tp[j]``'s (a
+        ``sharding.mark`` reached in the backward)."""
+        if getattr(self._tls, "positions", None):
+            self._tls.slot = self._position_slot(row, j)
 
     @contextlib.contextmanager
     def untracked(self, on_device: bool = True):
@@ -199,10 +247,16 @@ class Account:
         finally:
             self._tls.mode = prev
 
+    @contextlib.contextmanager
     def backward(self):
-        """A data row's backward: one at a time under ``one_device``."""
-        return self._backward if self._backward is not None else \
-            contextlib.nullcontext()
+        """A data row's backward, after which the thread's work is its
+        position 0's again."""
+        tls = self._tls
+        try:
+            yield
+        finally:
+            if getattr(tls, "positions", None):
+                tls.slot = tls.positions[0]
 
     def moved(self, kind, nbytes, srcs, dst, row):
         slot = getattr(self._tls, "slot", None)
@@ -313,8 +367,7 @@ class Account:
         """Make the record from the step's output ``out`` and the events."""
         n_rows = len(self._row_positions)
         if kind == "train":
-            self._add_blocks(self.outs, out[0], times=lambda sh, pos: (
-                n_rows if sh.is_first_copy(pos) else 1))
+            self._add_blocks(self.outs, out[0])      # one gradient block
         elif kind == "prefill":
             self._add_blocks(self.outs, out)
         else:

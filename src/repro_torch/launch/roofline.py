@@ -16,6 +16,13 @@ the mesh in row-major order (``hlo_analysis.NODE_POSITIONS``): a copy whose
 positions all lie in one node takes NVLink, one that crosses nodes
 InfiniBand.  On (16, 16) the ``model`` axis spans two nodes.
 
+The collective term prices every kind of copy the account counts alike:
+``all-gather``, ``reduce-scatter``, ``all-reduce`` (counted at the
+operand's bytes a receiving position, the reference's convention),
+``all-to-all`` (a tensor-parallel prefill's K/V moved into the
+sequence-split cache), ``broadcast``, the cache's and the output's reads
+and writes, ``all-reduce-int8``.
+
 The records come from ``launch/dryrun.py`` (``results/dryrun/...``): an
 account of the shapes on a CPU, not a measurement.  The memory term is
 the reference's analytic lower bound — every argument read once, every

@@ -16,15 +16,18 @@ enc_len, d_model).
 Over a mesh (parameters and moments ``distributed.sharding.ShardedTensor``
 leaves, as ``train_specs`` lays them out), ``build_train_step`` runs the
 sharded step (``sharded_loss_and_grads``): one thread and, on a card, one
-CUDA stream per data row, each on its rows of the batch with layers
-gathered from the shards and each layer's gradient added into the row's
-gradient of every position's block; then the rows' blocks reduced in row
+CUDA stream per data row, each on its rows of the batch — for the dense
+and VLM families each of the row's positions computing its ``model``
+share with its block of every layer (``models.tensor_parallel``), for the
+others the row's device computing layers gathered whole — and each
+layer's gradient added into the gradient blocks, one a position, in row
 order; then ``adam.update`` block by block.  ``build_prefill_step`` and
 ``build_decode_step`` serve over a mesh the same way (``sharded_prefill``,
-``sharded_decode``): a thread and CUDA stream a data row on its batch rows,
-layers gathered one at a time, the cache a tree of ``ShardedTensor`` laid
-out by the family's ``cache_axes`` that each row reads from and writes
-back into (``sharding.RowCache``).
+``sharded_decode``): a thread and CUDA stream a data row on its batch
+rows, the cache a tree of ``ShardedTensor`` laid out by the family's
+``cache_axes`` — read and written by each position where it lies
+(tensor-parallel), or read from and written back into by the row
+(``sharding.RowCache``).
 
 ``train_specs``, ``prefill_specs`` and ``decode_specs`` give each step's
 meta-device arguments and shardings, the twins of the reference's;
@@ -43,6 +46,7 @@ import torch
 
 from ..configs.base import ArchConfig, ShapeSpec
 from ..distributed import sharding as shd
+from ..models import tensor_parallel as TP
 from ..models import zoo
 from ..models.layers import dtype_of
 from ..optim import adam
@@ -111,25 +115,28 @@ def _row_stream(dev, r):
 def drive_rows(devices, body):
     """``body(r)`` for every data row r, on a thread each (one row runs on
     the calling thread); on a card under the row's device and a CUDA
-    stream of its own that first waits for the caller's stream, which
-    waits for every row's stream once all are joined.  The first error is
-    re-raised."""
-    callers = {d: torch.cuda.current_stream(d) for d in set(devices)
-               if d.type == "cuda"}
-    done = {}
+    stream of its own on each device of the row (``devices[r]``: a device,
+    or a list of them, the row's first) that first waits for the caller's
+    stream there, which waits for every row's streams once all are joined.
+    The first error is re-raised."""
+    devices = [d if isinstance(d, (list, tuple)) else [d] for d in devices]
+    cards = {d for ds in devices for d in ds if d.type == "cuda"}
+    callers = {d: torch.cuda.current_stream(d) for d in cards}
+    done = []
 
     def drive(r):
-        dev = devices[r]
+        dev = devices[r][0]
         if dev.type != "cuda":
             body(r)
             return
-        stream = _row_stream(dev, r)
-        stream.wait_stream(callers[dev])
-        try:
-            with torch.cuda.device(dev), torch.cuda.stream(stream):
-                body(r)
-        finally:
-            done[r] = stream
+        with contextlib.ExitStack() as stack:
+            for d in dict.fromkeys(devices[r]):
+                stream = _row_stream(d, r)
+                stream.wait_stream(callers[d])
+                done.append((d, stream))
+                stack.enter_context(torch.cuda.stream(stream))
+            stack.enter_context(torch.cuda.device(dev))
+            body(r)
 
     errors = []
     if len(devices) == 1:
@@ -143,8 +150,8 @@ def drive_rows(devices, body):
                 thread_name_prefix="train-row") as pool:
             futures = [pool.submit(drive, r) for r in range(len(devices))]
             errors = [f.exception() for f in futures]
-    for r, stream in done.items():
-        callers[devices[r]].wait_stream(stream)
+    for d, stream in done:
+        callers[d].wait_stream(stream)
     errors = [e for e in errors if e is not None]
     # a row that failed breaks the others' barrier: raise its error
     errors.sort(key=lambda e: isinstance(e, threading.BrokenBarrierError))
@@ -184,28 +191,21 @@ def _row_batch(batch: dict, pos, dev, r: int, n_rows: int,
     return out
 
 
-def _reduce_grads(params: dict, rows: list, weights: list) -> dict:
-    """Each position's block of every gradient: Σ_r weights[r] · (row r's
-    gradient of the block), summed in row order into row 0's block on the
-    position's device — bit for bit the same every run.  A position
-    holding a copy of a block takes the first copy's tensor, or a copy of
-    it on another device (a copy between positions, which the account
-    counts).  Rows' blocks are released as they are added."""
+def _grad_tree(params: dict, blocks: dict) -> dict:
+    """The gradients as a tree of ``ShardedTensor`` in the parameters'
+    layout from ``blocks`` (``RowGroup.grads``: each position's one block
+    of every leaf): a position holding a copy of a block takes the first
+    copy's tensor, or a copy of it on another device (a copy between
+    positions, which the account counts).  A zero-length leaf no loss
+    reached gets its empty gradient; any other leaf raises."""
     missing = []
 
     def leaf(name, p):
-        bufs = [(row.grads.pop(name), w) for row, w in zip(rows, weights)
-                if name in row.grads]
-        if not bufs:
+        acc = blocks.get(name)
+        if acc is None:
             if p.numel():
                 missing.append(name)
             return p.map(torch.zeros_like)
-        (acc, w0), rest = bufs[0], bufs[1:]
-        for pos, blk in acc.items():
-            if w0 != 1.0:
-                blk.mul_(w0)
-            for b, w in rest:
-                blk.add_(b.pop(pos), alpha=w)
         sh = p.sharding
         out = np.empty(p.shards.shape, dtype=object)
         for pos in sh.positions():
@@ -236,12 +236,18 @@ def _first_row_only() -> bool:
     return acc is not None and acc.first_row
 
 
+def _row_devices(row) -> list:
+    """The devices a data row's thread issues work on: its own first."""
+    return [row.device] + [d for d in row.devices if d != row.device]
+
+
 def row_grads(model: zoo.Model, params: dict, batch: dict):
-    """The data rows' part of ``sharded_loss_and_grads``: (rows, weights,
-    loss), each ``sharding.Row`` holding its gradient of every block in
-    ``Row.grads``, ``weights`` what ``_reduce_grads`` scales row r's by
-    and ``loss`` the global batch's.  A step traced on its first row alone
-    runs row 0's first microbatch only, weighting the rows equally."""
+    """The data rows' part of ``sharded_loss_and_grads``: (blocks, loss),
+    ``blocks`` the step's gradient blocks (``RowGroup.grads``: each
+    position's one block of every leaf it was gathered from, the rows'
+    parts weighted and added in row order) and ``loss`` the global
+    batch's.  A step traced on its first row alone runs row 0's first
+    microbatch only, weighting the rows equally."""
     mesh = _mesh_of(params)
     axes = _param_axes(model)
     alone = _first_row_only()
@@ -260,6 +266,10 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
     weights = [c / sum(counts) for c in counts]
     losses = [None] * n_rows
     group = rows[0].group
+    group.weights = [w / accum for w in weights[:group.n]]
+    tp = TP.active(model.cfg, rows[0])
+    forward = (lambda p, b: TP.forward(model.cfg, p, b)) if tp else \
+        model.forward
 
     def body(r):
         row, part = rows[r], parts[r]
@@ -269,10 +279,10 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
         try:
             with shd.row_scope(row):
                 for i in range(1 if alone else accum):
-                    loss, _ = model.forward(
-                        shd.bind_row(params, axes, row),
+                    loss, _ = forward(
+                        shd.bind_row(params, axes, row, whole=not tp),
                         {k: v[i] for k, v in micro.items()})
-                    with shd.backward_scope():
+                    with shd.backward_scope(row):
                         loss.backward()
                     total = total + loss.detach()
         except BaseException:
@@ -280,10 +290,11 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
             raise
         losses[r] = total / accum
 
-    drive_rows([row.device for row in run], body)
+    drive_rows([_row_devices(row) for row in run], body)
+    group.check_done()
     loss = sum(w * lo.to(rows[0].device)
                for w, lo in zip(weights, losses) if lo is not None)
-    return rows, [w / accum for w in weights], loss
+    return group.grads, loss
 
 
 def sharded_loss_and_grads(model: zoo.Model, params: dict, batch: dict):
@@ -292,24 +303,25 @@ def sharded_loss_and_grads(model: zoo.Model, params: dict, batch: dict):
     layout.
 
     The batch rows split evenly over the data rows (``pod`` × ``data``);
-    row r runs on ``shard_devices(mesh)[r]``, on a thread and a CUDA stream
-    of its own, ``cfg.grad_accum`` microbatches of its rows in order, each
-    a forward over ``sharding.bind_row``'s view of the parameters (every
-    layer gathered from the shards as it runs) and a ``backward()`` that
-    adds each gathered layer's gradient into the row's gradient of each
-    position's block, on that position's device (``row_grads``).  Row r's
+    row r is a thread, on a CUDA stream of its own on each of its devices,
+    that runs ``cfg.grad_accum`` microbatches of its rows in order, each a
+    forward over ``sharding.bind_row``'s view of the parameters — for a
+    tensor-parallel family (``models.tensor_parallel``) each of its
+    positions computing its ``model`` share with its block of every layer,
+    else the row's device computing whole layers — and a ``backward()``
+    that adds each gathered layer's gradient into the gradient blocks of
+    the positions it was gathered from (``row_grads``).  Row r's
     microbatch i is its share of one device's microbatch i
     (``_row_batch``), and a MoE layer's load-balancing term takes the
     first-choice shares of all rows' tokens (``sharding.Row.gather_sum``,
     where the rows wait for one another in the forward), so a microbatch
-    over the rows computes what one device's does.  Then the rows' blocks
-    are reduced in row order (``_reduce_grads``), weighted so the result
-    is the gradient of the mean over the global batch — by rows, or by the
-    ``loss_mask`` tokens when the batch carries one — which is the loss
-    returned.  A position holds the rows' gradients of its own block only:
-    n_rows blocks a leaf, never a whole leaf's gradient."""
-    rows, weights, loss = row_grads(model, params, batch)
-    grads = _reduce_grads(params, rows, weights)
+    over the rows computes what one device's does.  The rows' parts are
+    weighted so the result is the gradient of the mean over the global
+    batch — by rows, or by the ``loss_mask`` tokens when the batch carries
+    one — which is the loss returned, and added in row order: a position
+    holds one gradient block a leaf, never a whole leaf's gradient."""
+    blocks, loss = row_grads(model, params, batch)
+    grads = _grad_tree(params, blocks)
     return loss, {"loss": loss}, grads
 
 
@@ -396,7 +408,27 @@ def _serve_rows(mesh, body):
     def drive(r):
         with torch.no_grad(), shd.row_scope(run[r]):
             body(run[r])
-    drive_rows([row.device for row in run], drive)
+    drive_rows([_row_devices(row) for row in run], drive)
+
+
+def _write_logits(logits: shd.ShardedTensor, row, span: slice, lg):
+    """A row's logits into their positions' blocks: one tensor, the row's
+    whole vocab, into every position it owns; or (a tensor-parallel
+    step's) each position's over its vocab block into that position's
+    block, where it lies (position 0's alone where the vocab is not
+    split, into every owned block)."""
+    out = shd.RowCache(logits, row, 0, span, kind="output")
+    if isinstance(lg, torch.Tensor):
+        out.copy_(lg)
+        return
+    for j, t in enumerate(lg):
+        if t is None:
+            continue
+        if lg.count(None):
+            out.put((), t, src=row.tp[j])
+            continue
+        vocab = logits.sharding.slices(logits.shape, row.tp[j])[2]
+        out.put((slice(None), slice(None), vocab), t, src=row.tp[j])
 
 
 def _logits_out(model: zoo.Model, mesh, B: int) -> shd.ShardedTensor:
@@ -426,9 +458,13 @@ def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
     ``batch|seq|vocab``.  Each data row runs on its thread and CUDA stream
     (``drive_rows``) over its batch rows (``sharding.row_rows``: every row
     computes a batch that does not split, as the reference replicates
-    it), gathering one layer at a time (``bind_row`` / ``hint_tree``), and
-    writes each layer's cache and its logits into the blocks of the
-    positions it owns (``sharding.RowCache``)."""
+    it) — for a tensor-parallel family each of its positions computing its
+    ``model`` share (``models.tensor_parallel.prefill``, its K/V moved
+    into the sequence-split cache blocks), else the row gathering whole
+    layers one at a time (``bind_row`` / ``hint_tree``) — and writes each
+    layer's cache and its logits into the blocks of the positions it owns
+    (``sharding.RowCache``; each position's logits over its vocab block
+    straight into its own)."""
     mesh = _mesh_of(params)
     c_axes = model.cache_axes()
     with shd.untracked(on_device=False):
@@ -443,11 +479,18 @@ def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
 
     def body(row):
         span = shd.row_rows(mesh, B, row.pos)
-        _, lg = model.prefill(shd.bind_row(params, p_axes, row),
-                              _serve_batch(batch, mesh, row), max_len,
-                              attn_impl=attn_impl,
-                              cache=shd.bind_cache(cache, c_axes, row, span))
-        shd.RowCache(logits, row, 0, span, kind="output").copy_(lg)
+        rc = shd.bind_cache(cache, c_axes, row, span)
+        part = _serve_batch(batch, mesh, row)
+        if TP.serves(model.cfg, row, rc):
+            _, lg = TP.prefill(model.cfg,
+                               shd.bind_row(params, p_axes, row, whole=False),
+                               part["tokens"], max_len,
+                               patch_embs=part.get("patch_embs"),
+                               attn_impl=attn_impl, cache=rc)
+        else:
+            _, lg = model.prefill(shd.bind_row(params, p_axes, row), part,
+                                  max_len, attn_impl=attn_impl, cache=rc)
+        _write_logits(logits, row, span, lg)
 
     _serve_rows(mesh, body)
     S = batch["tokens"].shape[1]
@@ -460,12 +503,15 @@ def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
 
 def sharded_decode(model: zoo.Model, params: dict, cache: dict, token):
     """``model.decode`` over the mesh ``params`` are laid out on: (cache,
-    logits).  Each data row reads its batch rows of a layer's cache from
-    the positions holding them, decodes them (``bind_row`` gathers the
-    layer) and writes what it changed back into its positions' blocks in
-    place — the token's K/V at ``len`` (a masked ``index_copy_`` into
-    every owned block), the SSM state and conv window whole.  The cache
-    returned holds the same blocks and ``len`` + 1 on every position."""
+    logits).  For a tensor-parallel family each of a data row's positions
+    reads and writes its own cache block only
+    (``models.tensor_parallel.decode``); else each data row reads its
+    batch rows of a layer's cache from the positions holding them, decodes
+    them (``bind_row`` gathers the layer) and writes what it changed back
+    into its positions' blocks in place — the token's K/V at ``len`` (a
+    masked ``index_copy_`` into every owned block), the SSM state and conv
+    window whole.  The cache returned holds the same blocks and ``len`` +
+    1 on every position."""
     mesh = _mesh_of(params)
     c_axes = model.cache_axes()
     B = token.shape[0]
@@ -475,9 +521,14 @@ def sharded_decode(model: zoo.Model, params: dict, cache: dict, token):
     def body(row):
         span = shd.row_rows(mesh, B, row.pos)
         tok = _serve_batch({"token": token}, mesh, row)["token"]
-        _, lg = model.decode(shd.bind_row(params, p_axes, row),
-                             shd.bind_cache(cache, c_axes, row, span), tok)
-        shd.RowCache(logits, row, 0, span, kind="output").copy_(lg)
+        rc = shd.bind_cache(cache, c_axes, row, span)
+        if TP.serves(model.cfg, row, rc):
+            _, lg = TP.decode(model.cfg,
+                              shd.bind_row(params, p_axes, row, whole=False),
+                              rc, tok)
+        else:
+            _, lg = model.decode(shd.bind_row(params, p_axes, row), rc, tok)
+        _write_logits(logits, row, span, lg)
 
     _serve_rows(mesh, body)
     with shd.untracked():

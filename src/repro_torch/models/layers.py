@@ -179,16 +179,11 @@ def _grouped_attention(q, k, v, mask):
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, nh * hd)
 
 
-def apply_attention(cfg, p, x, positions, *, causal: bool = True,
-                    use_rope: bool = True, xkv=None, kv_positions=None,
-                    impl: str = "auto"):
-    """Full-sequence attention (prefill, encoder, cross) through
-    ``ops.attention``: self-attention over x, or cross-attention of x over
-    ``xkv`` (B, T, d) at ``kv_positions`` (``positions`` by default);
-    returns (out, (k, v)) with k and v (roped under ``use_rope``) as (B, T,
-    nkv, hd).  The causal mask is by index, so causal attention needs T ==
-    S and ``positions`` 0 .. S-1 per row (a prefill's); non-causal
-    attention masks nothing but the keys past T, at any S and T."""
+def attend(cfg, p, x, positions, *, causal: bool = True,
+           use_rope: bool = True, xkv=None, kv_positions=None,
+           impl: str = "auto"):
+    """``apply_attention`` up to ``wo``: (the heads' output (B, S, nh·hd),
+    (k, v))."""
     q, k, v, _ = _qkv_roped(cfg, p, x, positions, use_rope, xkv,
                             kv_positions)
     if causal and k.shape[1] != q.shape[1]:
@@ -200,8 +195,22 @@ def apply_attention(cfg, p, x, positions, *, causal: bool = True,
                         k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(), causal=causal,
                         impl=impl)                            # (B,nh,S,hd)
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd)
-    return out @ p["wo"].to(out.dtype), (k, v)
+    return out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.hd), (k, v)
+
+
+def apply_attention(cfg, p, x, positions, *, causal: bool = True,
+                    use_rope: bool = True, xkv=None, kv_positions=None,
+                    impl: str = "auto"):
+    """Full-sequence attention (prefill, encoder, cross) through
+    ``ops.attention``: self-attention over x, or cross-attention of x over
+    ``xkv`` (B, T, d) at ``kv_positions`` (``positions`` by default);
+    returns (out, (k, v)) with k and v (roped under ``use_rope``) as (B, T,
+    nkv, hd).  The causal mask is by index, so causal attention needs T ==
+    S and ``positions`` 0 .. S-1 per row (a prefill's); non-causal
+    attention masks nothing but the keys past T, at any S and T."""
+    out, kv = attend(cfg, p, x, positions, causal=causal, use_rope=use_rope,
+                     xkv=xkv, kv_positions=kv_positions, impl=impl)
+    return out @ p["wo"].to(out.dtype), kv
 
 
 def causal_mask(positions_q, positions_k):
@@ -328,15 +337,10 @@ def blockwise_attention(q, k, v, q_pos, k_pos, causal, bk: int = 1024):
     return _BlockwiseAttention.apply(q, k, v, q_pos, k_pos, causal, bk)
 
 
-def apply_attention_train(cfg, p, x, positions, *, causal: bool = True,
-                          use_rope: bool = True, xkv=None,
-                          kv_positions=None):
-    """Full-sequence attention of the train forward (self, or cross over
-    ``xkv`` at ``kv_positions``), the reference's ``apply_attention``: the
-    grouped softmax under a position mask while S·T <=
-    ``_BLOCKWISE_THRESHOLD``² (read at call time), else
-    ``blockwise_attention``.  Never ``ops.attention``.  Returns (out,
-    (k, v))."""
+def attend_train(cfg, p, x, positions, *, causal: bool = True,
+                 use_rope: bool = True, xkv=None, kv_positions=None):
+    """``apply_attention_train`` up to ``wo``: (the heads' output (B, S,
+    nh·hd), (k, v))."""
     q, k, v, kv_positions = _qkv_roped(cfg, p, x, positions, use_rope, xkv,
                                        kv_positions)
     S, T = q.shape[1], k.shape[1]
@@ -347,7 +351,22 @@ def apply_attention_train(cfg, p, x, positions, *, causal: bool = True,
                 torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
                            device=x.device))
         out = _grouped_attention(q, k, v, mask)
-    return out @ p["wo"].to(out.dtype), (k, v)
+    return out, (k, v)
+
+
+def apply_attention_train(cfg, p, x, positions, *, causal: bool = True,
+                          use_rope: bool = True, xkv=None,
+                          kv_positions=None):
+    """Full-sequence attention of the train forward (self, or cross over
+    ``xkv`` at ``kv_positions``), the reference's ``apply_attention``: the
+    grouped softmax under a position mask while S·T <=
+    ``_BLOCKWISE_THRESHOLD``² (read at call time), else
+    ``blockwise_attention``.  Never ``ops.attention``.  Returns (out,
+    (k, v))."""
+    out, kv = attend_train(cfg, p, x, positions, causal=causal,
+                           use_rope=use_rope, xkv=xkv,
+                           kv_positions=kv_positions)
+    return out @ p["wo"].to(out.dtype), kv
 
 
 #: The logical axes of a layer's KV cache, the reference's.
