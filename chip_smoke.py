@@ -388,7 +388,7 @@ Phases, each printing one JSON line:
                 the rows — one warm prefill, then counted: the prefill of
                 4 × 4096 with the parameters laid out by ``prefill_specs``'
                 shardings, the parameters re-laid out by ``decode_specs``'
-                under ``serve_mode`` (weights resident over ``data``), 32
+                under ``serve_mode`` (weights resident over ``data``), 8
                 greedy decode steps; then each data row's 2 prompts run
                 alone, unsharded, through the same greedy tokens: every
                 step's logits and the final cache's rows bit for bit
@@ -404,6 +404,32 @@ Phases, each printing one JSON line:
                 within ``ACCOUNT_TOL`` of the measured peak, the positions'
                 summed ``peak_device_bytes`` and the roofline's terms
                 (``launch/roofline.py``) printed beside the measured times.
+             r. then the MoE and the enc-dec computing over ``model``: r1,
+                qwen3-moe-30b-a3b at full width and depth, bf16, over
+                ``[cuda:0] × 2`` as (data 1, model 2) — one copy of the
+                weights, laid out a layer at a time (never a whole stacked
+                leaf beside its blocks; the init's transient printed),
+                each position its 64 experts and 16 heads — the flash
+                kernel at a position's shape, then 4 × 4096 prompts
+                prefilled once warm and counted with 4 greedy steps: ms
+                beside path k's, each position's bytes, the peak, 48 flash
+                launches a position in the prefill and none in decode, the
+                dropped pairs a layer; r2, qwen3-moe at full width and
+                depth 2 in float32 over (data 2, model 2): a capacity-
+                bound train step (4 × 640 tokens) against the unsharded one
+                within 1e-5, one gradient block a position, bit for bit
+                run to run, then a prefill and 4 decode steps against each
+                data row served alone within 1e-5, the route flips
+                printed; r3, whisper-medium at full width and depth over
+                (data 2, model 2): the flash kernel at a position's three
+                shapes, bf16 serving of path o's shape (4 × 1500 frames,
+                416 tokens, 4 greedy steps; 72 flash launches a position,
+                the cross cache split by sequence) beside path o's ms,
+                o-train's step over the positions beside o's, then float32
+                at full depth: a train step against the unsharded one and
+                serving against the rows alone, within 1e-5; r4, the
+                account of r1's prefill and decode cells and r3's train
+                cell against the card, as q2.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the paths), the card's name and power
@@ -494,8 +520,15 @@ SHARD_CHECK_LAYERS = 2   # p2's depth at full width (a cut of depth)
 SERVE_MESH = (2, 2)      # path q's (data, model) positions on the one card
 SERVE_F32_LAYERS = 2     # q1's float32 arm's depth at full width (a cut)
 SERVE_F32_STEPS = 8      # q1's float32 arm's greedy decode steps
+SERVE_DECODE = 8         # q1's greedy decode steps (a cut of path lm's 32)
 TP_TOL = 1e-5            # p2, q1 float32: against one device, of the largest
 ACCOUNT_TOL = 0.10       # q2: the account's peak bytes against the card's
+MOE_TP_MESH = (1, 2)     # r1's (data, model) positions: one copy of the weights
+MOE_TP_DECODE = 4        # r1's and r2's greedy decode steps
+MOE_TP_CHECK_LAYERS = 2  # r2's depth at full width (a cut of depth)
+MOE_TP_TRAIN_SEQ = 640   # r2's tokens a row: 640 · 8 pairs > 4096 (capacity)
+ENCDEC_TP_MESH = (2, 2)  # r3's (data, model) positions
+ENCDEC_TP_DECODE = 4     # r3's greedy decode steps
 #: Path p2's limit on the sharded loss against the unsharded one, relative
 #: (the JAX package's test_multidevice_equivalence bound).
 SHARD_LOSS_TOL = 1e-3     # p0, p1 (bf16) against j2's loss
@@ -1315,10 +1348,12 @@ def ooc_phase(torch, x, y, xk, res_a):
     check(not diffs, f"prefetched results differ from the synchronous "
           f"run's: {diffs}")
     # Untraced, outside the counted runs: the pipeline's own pace, with no
-    # step waiting for the compute stream, synchronous then prefetched.
+    # step waiting for the compute stream, synchronous then prefetched, on
+    # the one-pass calls (summary, correlation; glm's and kmeans' passes
+    # are the same sweep, and the traced runs above time them).
     for prefetch in (False, True):
         with fm.conf(backend="cuda", prefetch=prefetch):
-            _, uinfo = run_ooc(torch, ooc_calls, rates, traced=False)
+            _, uinfo = run_ooc(torch, ooc_calls[:2], rates, traced=False)
         for name, d in uinfo.items():
             emit({"phase": "main", "path": "ooc", "traced": False,
                   "staging": "prefetched" if prefetch else "synchronous",
@@ -3890,11 +3925,12 @@ def moe_phase(torch):
         torch, "moe", cfg, model, params, batch, max_len,
         attention_apps(cfg) * row["ms"])
     dropped = [int((~keep).sum()) for _, keep in warm]
-    emit({"phase": "main", "path": "moe", **init, **line,
+    dropped_line = {
           "capacity": moe._capacity(cfg, S),
           "pairs_per_layer": B * S * cfg.top_k,
           "dropped_pairs_per_layer": dropped,
-          "dropped_share": sum(dropped) / (len(dropped) * B * S * cfg.top_k)})
+          "dropped_share": sum(dropped) / (len(dropped) * B * S * cfg.top_k)}
+    emit({"phase": "main", "path": "moe", **init, **line, **dropped_line})
     check_launches("moe", cfg, launches)
     check(init["init_transient_gib"] <= 2.0, "moe: the init's peak is "
           f"{init['init_transient_gib']} GiB over the weights, not <= 2")
@@ -3936,7 +3972,7 @@ def moe_phase(torch):
     del params32, la, lb
     torch.cuda.empty_cache()
     emit({"phase": "moe", "path": "k", "seconds": time.perf_counter() - t_path})
-    return launches
+    return launches, dict(line, **dropped_line)
 
 
 def vlm_phase(torch):
@@ -4135,46 +4171,70 @@ def encdec_floors(cfg, B, S, max_len) -> dict:
             "self_kv_bytes_expected": self_kv}
 
 
-def encdec_train(torch, cfg, gen):
+def encdec_train(torch, cfg, gen, o=None):
     """o-train: whisper-medium's train step at full width and depth, f32
     masters, bf16 activations and AdamW moments, remat, path j's learning
     rate; one warm step and ``ENCDEC_TRAIN_STEPS`` timed ones on batches of
     ``ENCDEC_TRAIN_BATCH`` × 448 tokens from the token stream and normal
     frames; no kernel may launch (the train attention never reaches
-    ``ops.attention``)."""
+    ``ops.attention``).  Given path o's line ``o``, r3-train: the same over
+    ``ENCDEC_TP_MESH`` positions of the card, each its ``model`` share,
+    the warm step's gradients one block a position, the timed steps' peak
+    over what was resident before the parameters (the account's cell)."""
     from repro_torch.data import DataConfig, DataIterator
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.models import zoo
     from repro_torch.optim import adam, schedule
     B, S = ENCDEC_TRAIN_BATCH, ENCDEC_PROMPT + LM_DECODE
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
     model = zoo.build(cfg, DEVICE)
     params = model.init(gen)
+    if o is not None:
+        mesh = shard_mesh(torch, ENCDEC_TP_MESH, ("data", "model"))
+        p_shapes, p_axes = model.abstract_params()
+        params = shd.place_tree(params,
+                                shd.tree_shardings(p_axes, p_shapes, mesh))
+        gc.collect()
+        torch.cuda.empty_cache()
     opt = adam.init(params)
     it = DataIterator(DataConfig(seq_len=S, global_batch=B, vocab=cfg.vocab,
                                  seed=SEED), device=DEVICE)
     zero_counts()
-    rows, losses = [], []
+    rows, losses, blocks = [], [], {}
     torch.cuda.reset_peak_memory_stats()
     for i in range(1 + ENCDEC_TRAIN_STEPS):
+        if i == 1 and o is not None:
+            torch.cuda.reset_peak_memory_stats()
         batch = dict(next(it), frames=torch.randn(
             (B, cfg.enc_len, cfg.d_model), generator=gen,
             device=DEVICE))
         lr = adam.AdamConfig().lr * float(
             schedule.warmup_cosine(i, warmup=TRAIN_WARMUP))
         step = steps.build_train_step(model, adam.AdamConfig(lr=lr))
+        real = grad_blocks_spy(torch, steps, blocks) \
+            if i == 0 and o is not None else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, opt, met = step(params, opt, batch)
+        try:
+            params, opt, met = step(params, opt, batch)
+        finally:
+            if real is not None:
+                steps._grad_tree = real
         loss = float(met["loss"])
         ms = (time.perf_counter() - t0) * 1e3
         losses.append(loss)
         rows.append({"step": i, "warm": i == 0, "ms": ms, "lr": lr,
                      "loss": loss, "grad_norm": float(met["grad_norm"])})
+    torch.cuda.synchronize()
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
-    out = {"phase": "main", "path": "o", "arm": "train", "arch": cfg.name,
+    whole = sum(t.numel() * t.dtype.itemsize for _, t in zoo.flatten(params))
+    arm = "train" if o is None else "r3-train"
+    out = {"phase": "main", "path": "o" if o is None else "r", "arm": arm,
+           "arch": cfg.name,
            "n_params": sum(t.numel() for _, t in zoo.flatten(params)),
            "dtype": cfg.dtype, "param_dtype": cfg.param_dtype,
            "moment_dtype": "bfloat16", "remat": cfg.remat, "global_batch": B,
@@ -4182,11 +4242,22 @@ def encdec_train(torch, cfg, gen):
            "mean_ms": sum(r["ms"] for r in rows[1:]) / ENCDEC_TRAIN_STEPS,
            "max_memory_allocated": peak, "max_memory_gib": peak / 2**30,
            "kernel_launches": launches}
+    if o is not None:
+        out.update(mesh=dict(zip(("data", "model"), ENCDEC_TP_MESH)),
+                   o_train_mean_ms=o["train_mean_ms"],
+                   vs_o=out["mean_ms"] / o["train_mean_ms"],
+                   o_train_max_memory_gib=o["train_max_memory_gib"],
+                   step_peak_bytes=peak - resident,
+                   grad_blocks=grad_blocks_line(blocks, whole))
     emit(out)
     check(all(map(math.isfinite, losses)),
-          f"o-train: a loss is not finite {losses}")
+          f"{arm}: a loss is not finite {losses}")
     check(not any(launches.values()),
-          f"o-train: the train step launched a kernel {launches}")
+          f"{arm}: the train step launched a kernel {launches}")
+    check(o is None or (blocks.get("held") and blocks["held"] ==
+                        blocks["want"] and not blocks["off"]),
+          f"{arm}: the gradients are not one block a position: "
+          f"{out.get('grad_blocks')}")
     del params, opt, it, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -4252,10 +4323,11 @@ def encdec_phase(torch):
     del params, outs, model
     gc.collect()
     torch.cuda.empty_cache()
-    encdec_train(torch, get_config(ENCDEC_ARCH), gen)
+    train = encdec_train(torch, get_config(ENCDEC_ARCH), gen)
     emit({"phase": "encdec", "path": "o",
           "seconds": time.perf_counter() - t_path})
-    return launches
+    return launches, dict(line, encoder_ms=enc_ms, train_mean_ms=train[
+        "mean_ms"], train_max_memory_gib=train["max_memory_gib"])
 
 
 def max_rel(torch, a: dict, b: dict) -> float:
@@ -4731,17 +4803,12 @@ def shard_step_phase(torch, j2, shape=SHARD_MESH, arm="p1"):
 def shard_grads_phase(torch):
     """p2 at full width and a depth of SHARD_CHECK_LAYERS, float32: one
     sharded step over (data 2, model 2) — each position its ``model``
-    share — against the unsharded one (the loss within ``TP_TOL``
-    relative, each gradient leaf within ``TP_TOL`` of its largest entry),
-    run to run bit for bit, its gradients one block a position.  Returns
-    the model, its sharded parameters and their sharded gradients."""
+    share — against the unsharded one (``tp_grads_arm``).  Returns the
+    model, its sharded parameters and their sharded gradients."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, DataIterator
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import steps
     from repro_torch.models import zoo
-    mesh = shard_mesh(torch, SHARD_MESH, ("data", "model"))
     cfg = dataclasses.replace(get_config(TRAIN_ARCH),
                               n_layers=SHARD_CHECK_LAYERS, dtype="float32")
     model = zoo.build(cfg, DEVICE)
@@ -4752,55 +4819,8 @@ def shard_grads_phase(torch):
                                          global_batch=TRAIN_BATCH,
                                          vocab=cfg.vocab, seed=SEED),
                               device=DEVICE))
-    p_shapes, p_axes = model.abstract_params()
-    sparams = shd.place_tree(params,
-                             shd.tree_shardings(p_axes, p_shapes, mesh))
-    whole = sum(p.numel() * p.dtype.itemsize for _, p in zoo.flatten(params))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    l1, _, g1 = steps.loss_and_grads(model, params, batch)
-    torch.cuda.synchronize()
-    ms1 = (time.perf_counter() - t0) * 1e3
-    g1 = {k: v.detach().clone() for k, v in zoo.flatten(g1)}
-    del params
-    runs, seen = [], {}
-    for i in range(2):
-        real = grad_blocks_spy(torch, steps, seen) if i == 0 else None
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            ls, _, gs = steps.sharded_loss_and_grads(model, sparams, batch)
-        finally:
-            if real is not None:
-                steps._grad_tree = real
-        torch.cuda.synchronize()
-        runs.append((float(ls), gs, (time.perf_counter() - t0) * 1e3))
-    (ls, gs, ms_s), (ls2, gs2, ms_s2) = runs
-    del runs
-    errs = {k: rel_err(torch, g.full(), g1[k]) for k, g in zoo.flatten(gs)}
-    same = ls == ls2 and all(
-        torch.equal(a.full(), b.full())
-        for (_, a), (_, b) in zip(zoo.flatten(gs), zoo.flatten(gs2)))
-    loss_rel = abs(ls - float(l1)) / abs(float(l1))
-    del g1, gs2
-    blocks = grad_blocks_line(seen, whole)
-    out = {"phase": "compare", "path": "p", "arm": "p2", "arch": TRAIN_ARCH,
-           "n_layers": SHARD_CHECK_LAYERS, "dtype": "float32",
-           "mesh": dict(zip(mesh.axis_names, mesh.devices.shape)),
-           "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
-           "loss_unsharded": float(l1), "loss_sharded": ls,
-           "loss_rel": loss_rel, "loss_tol": TP_TOL,
-           "grad_rel_err_max": max(errs.values()),
-           "grad_worst_leaf": max(errs, key=errs.get), "tol": TP_TOL,
-           "bit_for_bit_run_to_run": same, "grad_blocks": blocks,
-           "ms": {"unsharded": ms1, "sharded": ms_s, "sharded_again": ms_s2}}
-    emit(out)
-    check(loss_rel <= TP_TOL, f"p2: loss {ls} against {float(l1)} "
-          f"unsharded")
-    check(max(errs.values()) <= TP_TOL, f"p2: gradients differ {errs}")
-    check(same, "p2: two sharded runs differ")
-    check(blocks["as_spec"] and not seen.get("off"),
-          f"p2: the gradients are not one block a position: {blocks}")
+    _, sparams, gs = tp_grads_arm(torch, "p", "p2", model, params, batch,
+                                  SHARD_MESH)
     return model, sparams, gs
 
 
@@ -4936,28 +4956,38 @@ def held_bytes(tree) -> tuple:
     return held, off
 
 
-def mesh_serve_run(torch, model, params, toks, max_len, steps_n):
-    """A prefill of ``toks`` and ``steps_n`` greedy decode steps over
-    ``SERVE_MESH`` positions of the card: the parameters laid out by
+def mesh_serve_run(torch, model, params, toks, max_len, steps_n,
+                   shape=SERVE_MESH, placed=None):
+    """A prefill of ``toks`` (the prompts' tokens, or a batch with an
+    enc-dec's frames) and ``steps_n`` greedy decode steps over (data,
+    model) = ``shape`` positions of the card: the parameters laid out by
     ``prefill_specs``' shardings (FSDP) for the prefill, re-laid out by
     ``decode_specs``' under ``serve_mode`` (weights resident over
-    ``data``) for the decode; one warm prefill first.  Returns (decode
-    parameters, cache, every step's logits, the greedy tokens, prefill s,
-    decode s, prefill peak, decode peak, the prefill's flash launches);
-    the launch counts are set to 0 after the warm prefill."""
+    ``data``) for the decode — or ``placed``, parameters already laid out,
+    for both where the two layouts agree; one warm prefill first.  Returns
+    (decode parameters, cache, every step's logits, the greedy tokens,
+    prefill s, decode s, prefill peak, decode peak, the prefill's flash
+    launches); the launch counts are set to 0 after the warm prefill."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps
-    mesh = shard_mesh(torch, SERVE_MESH, ("data", "model"))
+    mesh = shard_mesh(torch, shape, ("data", "model"))
     p_shapes, p_axes = model.abstract_params()
     p_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
     with shd.serve_mode():
         d_sh = shd.tree_shardings(p_axes, p_shapes, mesh)
     prefill = steps.build_prefill_step(model, max_len)
     decode = steps.build_decode_step(model)
-    batch = {"tokens": toks}
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
     torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    sp = shd.place_tree(params, p_sh)
+    if placed is None:
+        base = torch.cuda.memory_allocated()
+        sp = shd.place_tree(params, p_sh)
+    else:
+        check(p_sh == d_sh and shd.tree_map(
+            lambda t: t.sharding, placed) == p_sh,
+              "the prefill's and the decode's layouts differ")
+        sp = placed
+        base = torch.cuda.memory_allocated() - sum(held_bytes(sp)[0].values())
     prefill(sp, batch)                       # warm: the rows' streams, cuBLAS
     gc.collect()
     torch.cuda.synchronize()
@@ -4969,8 +4999,11 @@ def mesh_serve_run(torch, model, params, toks, max_len, steps_n):
     pre_s = time.perf_counter() - t0
     pre_peak = torch.cuda.max_memory_allocated() - base
     pre_launches = read_counts()["flash_attention"]
-    del sp
-    sd = shd.place_tree(params, d_sh)
+    if placed is None:
+        del sp
+        sd = shd.place_tree(params, d_sh)
+    else:
+        sd = sp
     torch.cuda.synchronize()
     dec_base = (torch.cuda.memory_allocated()
                 - sum(held_bytes(sd)[0].values())
@@ -4989,23 +5022,25 @@ def mesh_serve_run(torch, model, params, toks, max_len, steps_n):
             pre_launches)
 
 
-def rows_alone_devs(torch, model, params, toks, max_len, cache, outs, greedy):
-    """Each data row's prompts run alone, unsharded, through the mesh run's
-    greedy tokens: per step the largest logit deviation relative to the
-    largest logit, the cache rows' largest relative deviation, and the
-    share of steps whose greedy token the rows alone pick too."""
+def rows_alone_devs(torch, model, params, toks, max_len, cache, outs, greedy,
+                    n_rows=SERVE_MESH[0], path="q1"):
+    """Each data row's prompts (of ``toks``: tokens, or a batch) run alone,
+    unsharded, through the mesh run's greedy tokens: per step the largest
+    logit deviation relative to the largest logit, the cache rows' largest
+    relative deviation, and the share of steps whose greedy token the rows
+    alone pick too."""
     from repro_torch.launch import steps
     from repro_torch.models import zoo
     prefill = steps.build_prefill_step(model, max_len)
     decode = steps.build_decode_step(model)
     c_axes = dict(zoo.flatten(model.cache_axes()))
-    n_rows = SERVE_MESH[0]
-    b = toks.shape[0] // n_rows
+    batch = toks if isinstance(toks, dict) else {"tokens": toks}
+    b = batch["tokens"].shape[0] // n_rows
     by_step = [0.0] * len(outs)
     cache_dev, agree, n = 0.0, 0, 0
     for r in range(n_rows):
         span = slice(r * b, (r + 1) * b)
-        c1, l1 = prefill(params, {"tokens": toks[span]})
+        c1, l1 = prefill(params, {k: v[span] for k, v in batch.items()})
         by_step[0] = max(by_step[0], rel_err(torch, outs[0].full()[span], l1))
         for i, tok in enumerate(greedy):
             agree += int(torch.equal(l1.argmax(-1).to(torch.int32),
@@ -5019,7 +5054,7 @@ def rows_alone_devs(torch, model, params, toks, max_len, cache, outs, greedy):
             if name == "len":
                 check(all(torch.equal(leaf.local(p), want)
                           for p in leaf.sharding.positions()),
-                      f"q1: len differs from the rows alone")
+                      f"{path}: len differs from the rows alone")
                 continue
             dim = c_axes[name].split("|").index("batch")
             cache_dev = max(cache_dev, rel_err(
@@ -5030,10 +5065,9 @@ def rows_alone_devs(torch, model, params, toks, max_len, cache, outs, greedy):
 
 def mesh_serve_f32(torch):
     """q1's float32 arm: llama3.2-3b at full width, depth
-    ``SERVE_F32_LAYERS``, float32 weights and activations from seed 2016,
+    ``SERVE_F32_LAYERS``, float32 weights and activations from seed 2026,
     served over ``SERVE_MESH`` positions (``SERVE_F32_STEPS`` greedy
-    steps): every step's logits and the cache rows within ``TP_TOL`` of
-    the largest entry of the rows run alone."""
+    steps) against the rows alone (``tp_serve_f32_arm``)."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import zoo
@@ -5046,25 +5080,9 @@ def mesh_serve_f32(torch):
     params = model.init(gen)
     toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
                          device=DEVICE, dtype=torch.int32)
-    max_len = LM_PROMPT + SERVE_F32_STEPS
-    (_, cache, outs, greedy, pre_s, dec_s, _, _, _) = mesh_serve_run(
-        torch, model, params, toks, max_len, SERVE_F32_STEPS)
-    by_step, cache_dev, agree = rows_alone_devs(
-        torch, model, params, toks, max_len, cache, outs, greedy)
-    line = {"phase": "compare", "path": "q", "arm": "q1-f32",
-            "arch": LM_ARCH, "n_layers": SERVE_F32_LAYERS,
-            "dtype": "float32", "batch": LM_BATCH, "prompt": LM_PROMPT,
-            "decode_steps": SERVE_F32_STEPS,
-            "mesh": dict(zip(("data", "model"), SERVE_MESH)),
-            "logits_rel_dev_by_step": by_step,
-            "cache_rel_dev": cache_dev, "greedy_agreement": agree,
-            "tol": TP_TOL, "prefill_ms": pre_s * 1e3,
-            "decode_ms_per_step": dec_s * 1e3 / SERVE_F32_STEPS}
-    emit(line)
-    check(max(by_step) <= TP_TOL and cache_dev <= TP_TOL,
-          f"q1 float32: the mesh's logits or cache differ from the rows "
-          f"alone by more than {TP_TOL}: {by_step}, {cache_dev}")
-    del params, cache, outs
+    line = tp_serve_f32_arm(torch, "q", "q1-f32", model, params,
+                            {"tokens": toks}, SERVE_F32_STEPS, SERVE_MESH)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return line
@@ -5093,12 +5111,12 @@ def mesh_serve_phase(torch, lm):
     B, S = LM_BATCH, LM_PROMPT
     toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
                          device=DEVICE, dtype=torch.int32)
-    max_len = S + LM_DECODE
+    max_len = S + SERVE_DECODE
     (sd, cache, outs, greedy, pre_s, dec_s, pre_peak, dec_peak,
      pre_launches), launches = counted(
         torch, "q1", ("flash_attention",),
         lambda: mesh_serve_run(torch, model, params, toks[:, :S], max_len,
-                               LM_DECODE))
+                               SERVE_DECODE))
     apps = attention_apps(cfg) * n_rows * n_model
     by_step, cache_dev, agree = rows_alone_devs(
         torch, model, params, toks[:, :S], max_len, cache, outs, greedy)
@@ -5109,11 +5127,11 @@ def mesh_serve_phase(torch, lm):
             "mesh": dict(zip(("data", "model"), SERVE_MESH)),
             "devices": f"[{DEVICE}:0] x {n_rows * n_model}",
             "tensor_parallel": True,
-            "batch": B, "prompt": S, "decode_steps": LM_DECODE,
+            "batch": B, "prompt": S, "decode_steps": SERVE_DECODE,
             "prefill_ms": pre_s * 1e3, "lm_prefill_ms": lm["prefill_ms"],
-            "decode_ms_per_step": dec_s * 1e3 / LM_DECODE,
+            "decode_ms_per_step": dec_s * 1e3 / SERVE_DECODE,
             "lm_decode_ms_per_step": lm["decode_ms_per_step"],
-            "decode_vs_lm": dec_s * 1e3 / LM_DECODE
+            "decode_vs_lm": dec_s * 1e3 / SERVE_DECODE
             / lm["decode_ms_per_step"],
             "prefill_peak_bytes": pre_peak, "decode_peak_bytes": dec_peak,
             "prefill_peak_gib": pre_peak / 2**30,
@@ -5131,7 +5149,7 @@ def mesh_serve_phase(torch, lm):
             "greedy_tokens_row0": tokens[0].tolist(),
             "lm_greedy_tokens_row0": lm["greedy_tokens_row0"],
             "greedy_row0_as_lm": tokens[0].tolist() ==
-            lm["greedy_tokens_row0"][:LM_DECODE],
+            lm["greedy_tokens_row0"][:SERVE_DECODE],
             **{k: init[k] for k in ("init_s", "weights_gib")}}
     emit(line)
     check(pre_launches == apps and launches["flash_attention"] == apps,
@@ -5150,22 +5168,10 @@ def mesh_serve_phase(torch, lm):
 
 
 def account_phase(torch, p0, p1, q1):
-    """q2: the dry-run's account (``steps.lower_cell`` on meta tensors,
-    ``one_device``: the positions share this card) of p0's, p1's and q1's
-    cells against the card's peak over what was resident before the
-    cell's arguments were laid out, each within ``ACCOUNT_TOL``; the
-    positions' summed ``peak_device_bytes`` printed beside it, and the
-    roofline's terms beside the measured times."""
-    import dataclasses
-    import numpy as np
-    from repro_torch.configs import get_config
+    """q2: the account of p0's, p1's and q1's cells (``account_cells``)."""
     from repro_torch.configs.base import ShapeSpec
-    from repro_torch.launch import roofline, steps
-    from repro_torch.launch.mesh import Mesh
-    from repro_torch.models import zoo
-    cfg = get_config(TRAIN_ARCH)
     train = ShapeSpec("j2", TRAIN_SEQ, TRAIN_BATCH, "train")
-    cells = [
+    account_cells(torch, "q", "q2", TRAIN_ARCH, [
         ("p0", (1, 1), p0["grad_accum"], train, p0["step_peak_bytes"],
          {"step_ms": p0["mean_ms"]}),
         ("p1", SHARD_MESH, p1["grad_accum"], train, p1["step_peak_bytes"],
@@ -5174,9 +5180,26 @@ def account_phase(torch, p0, p1, q1):
          ShapeSpec("q1p", LM_PROMPT, LM_BATCH, "prefill"),
          q1["prefill_peak_bytes"], {"prefill_ms": q1["prefill_ms"]}),
         ("q1-decode", SERVE_MESH, 1,
-         ShapeSpec("q1d", LM_PROMPT + LM_DECODE, LM_BATCH, "decode"),
+         ShapeSpec("q1d", LM_PROMPT + SERVE_DECODE, LM_BATCH, "decode"),
          q1["decode_peak_bytes"],
-         {"decode_ms_per_step": q1["decode_ms_per_step"]})]
+         {"decode_ms_per_step": q1["decode_ms_per_step"]})])
+
+
+def account_cells(torch, path, arm, arch, cells):
+    """The dry-run's account (``steps.lower_cell`` on meta tensors,
+    ``one_device``: the positions share this card) of ``arch``'s cells —
+    (name, (data, model), grad_accum, shape, measured peak, measured ms) —
+    against the card's peak over what was resident before the cell's
+    arguments were laid out, each within ``ACCOUNT_TOL``; the positions'
+    summed ``peak_device_bytes`` printed beside it, and the roofline's
+    terms beside the measured times."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import roofline, steps
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import zoo
+    cfg = get_config(arch)
     bad = []
     for name, shape, accum, spec, measured, ms in cells:
         n = math.prod(shape)
@@ -5195,7 +5218,8 @@ def account_phase(torch, p0, p1, q1):
         one_card = {"compute_s": sum(t["compute"] for t in per),
                     "memory_s": sum(t["memory"] for t in per),
                     "copies_s": 2 * coll / roofline.HBM_BW}
-        emit({"phase": "account", "path": "q", "arm": "q2", "cell": name,
+        emit({"phase": "account", "path": path, "arm": arm, "cell": name,
+              "arch": arch,
               "mesh": dict(zip(mesh.axis_names, shape)),
               "shape": [spec.global_batch, spec.seq_len, spec.kind],
               "grad_accum": accum, "trace_s": trace_s,
@@ -5213,8 +5237,8 @@ def account_phase(torch, p0, p1, q1):
               "collectives": rec["collectives"], "measured": ms})
         if abs(err) > ACCOUNT_TOL:
             bad.append((name, err))
-    check(not bad, f"q2: the account's peak is off the card's by more than "
-          f"{ACCOUNT_TOL}: {bad}")
+    check(not bad, f"{arm}: the account's peak is off the card's by more "
+          f"than {ACCOUNT_TOL}: {bad}")
 
 
 def mesh_serve_path(torch, lm, p0, p1):
@@ -5225,6 +5249,450 @@ def mesh_serve_path(torch, lm, p0, p1):
     account_phase(torch, p0, p1, q1)
     emit({"phase": "serve", "path": "q", "seconds": time.perf_counter() - t0})
     return launches
+
+
+# ---------------------------------------------------------------------------
+# Path r: tensor-parallel compute over `model` for the MoE and enc-dec
+# ---------------------------------------------------------------------------
+
+def place_by_layer(torch, model, mesh, gen):
+    """``model``'s parameters laid out on ``mesh`` by the decode cell's
+    shardings (``serve_mode``) without a whole stacked leaf ever on the
+    card: every position's blocks made as zeros, then layer by layer a
+    one-layer model's draw from ``gen`` copied into them (the other
+    leaves drawn with the first layer and placed).  Returns (the tree,
+    the init's line: seconds, weight bytes, its peak over the weights)."""
+    import dataclasses
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import zoo
+    cfg = model.cfg
+    shapes, axes = model.abstract_params()
+    with shd.serve_mode():
+        sh = dict(zoo.flatten(shd.tree_shardings(axes, shapes, mesh)))
+    axes, shapes = dict(zoo.flatten(axes)), dict(zoo.flatten(shapes))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    one = zoo.build(dataclasses.replace(cfg, n_layers=1), DEVICE)
+    placed = {}
+    for i in range(cfg.n_layers):
+        for name, t in zoo.flatten(one.init(gen)):
+            if not axes[name].startswith("layers"):
+                if i == 0:
+                    placed[name] = shd.place(t, sh[name])
+                continue
+            if name not in placed:
+                placed[name] = shd.zeros(tuple(shapes[name].shape), t.dtype,
+                                         sh[name])
+            leaf = placed[name]
+            for pos in sh[name].positions():
+                sl = sh[name].slices(leaf.shape, pos)
+                check(sl[0] == slice(0, cfg.n_layers),
+                      f"{name}: its layers are sharded")
+                leaf.shards[pos][i].copy_(t[0][sl[1:]])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights = sum(sum(held_bytes({"x": leaf})[0].values())
+                  for leaf in placed.values())
+    whole = sum(t.numel() * t.element_size() for t in shapes.values())
+    peak = torch.cuda.max_memory_allocated() - resident
+    tree = zoo.tree_map(lambda name, _: placed[name],
+                        model.abstract_params()[0])
+    return tree, {"init_s": init_s, "weights_gib": whole / 2**30,
+                  "weights_held_bytes": weights, "weights_bytes": whole,
+                  "weight_copies": weights / whole,
+                  "init_peak_gib": peak / 2**30,
+                  "init_transient_gib": (peak - weights) / 2**30}
+
+
+def rows_route_flips(torch, mesh_routes, alone, n_layers):
+    """Route flips of a mesh prefill's MoE layers against one device's
+    prefill of the whole batch (``alone``: its (B, S, k) a layer): the
+    mesh's routes (thread, sel (b, S, k)) taken a thread's ``n_layers`` at
+    a time — one data row's prefill — each held against the rows of the
+    one-device batch it flips least against (the rows' prompts differ)."""
+    by_thread = {}
+    for ident, sel in mesh_routes:
+        by_thread.setdefault(ident, []).append(sel)
+    flips = 0
+    for sels in by_thread.values():
+        for c in range(0, len(sels), n_layers):
+            chunk = sels[c:c + n_layers]
+            b = chunk[0].shape[0]
+            flips += min(route_flips(torch, chunk,
+                                     [a[r:r + b] for a in alone])
+                         for r in range(0, alone[0].shape[0], b))
+    return flips
+
+
+@contextlib.contextmanager
+def thread_routes():
+    """The (thread, sel) of every MoE layer run inside, in order."""
+    from repro_torch.models import moe
+    got = []
+    moe.route_hook = lambda sel, keep: got.append(
+        (threading.get_ident(), sel))
+    try:
+        yield got
+    finally:
+        moe.route_hook = None
+
+
+def moe_tp_serve(torch, k):
+    """r1: qwen3-moe-30b-a3b at full width and depth, bf16, over (data,
+    model) = ``MOE_TP_MESH`` positions of the card — one copy of the
+    weights, each position its 64 experts and 16 of the 32 heads: the
+    flash kernel at a position's shape against its plain version; the
+    parameters laid out a layer at a time (``place_by_layer``); path k's
+    4 × 4096 prompts' shape (seed 2016) prefilled once warm, then counted
+    with ``MOE_TP_DECODE`` greedy steps: ms beside path k's, each
+    position's bytes, the peak, 48 flash launches a position in the
+    prefill and none in decode, the dropped pairs a layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import moe
+    cfg = get_config(MOE_ARCH)
+    n_rows, n_model = MOE_TP_MESH
+    kernel = flash_case(torch, LM_BATCH // n_rows, cfg.n_heads // n_model,
+                        cfg.n_kv_heads // n_model, LM_PROMPT, cfg.hd,
+                        SEED + 12)
+    emit({"phase": "kernel", "path": "r", "arm": "r1", **kernel})
+    check_flash_case("r1", kernel)
+    model = steps.serving_model(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    mesh = shard_mesh(torch, MOE_TP_MESH, ("data", "model"))
+    sp, init = place_by_layer(torch, model, mesh, gen)
+    emit({"phase": "init", "path": "r", "arm": "r1", "arch": MOE_ARCH,
+          **init})
+    check(init["weight_copies"] < 1.01, f"r1: the positions hold "
+          f"{init['weight_copies']} copies of the weights, not one")
+    B, S = LM_BATCH, LM_PROMPT
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    max_len = S + MOE_TP_DECODE
+    with routes() as got:
+        (sd, cache, outs, greedy, pre_s, dec_s, pre_peak, dec_peak,
+         pre_launches), launches = counted(
+            torch, "r1", ("flash_attention",),
+            lambda: mesh_serve_run(torch, model, None, toks, max_len,
+                                   MOE_TP_DECODE, MOE_TP_MESH, placed=sp))
+    L_ = cfg.n_layers
+    dropped = [int((~keep).sum()) for _, keep in got[L_:2 * L_]]
+    apps = attention_apps(cfg) * n_rows * n_model
+    held_p, off_p = held_bytes(sd)
+    held_c, off_c = held_bytes(cache)
+    line = {"phase": "main", "path": "r", "arm": "r1", "arch": MOE_ARCH,
+            "mesh": dict(zip(("data", "model"), MOE_TP_MESH)),
+            "devices": f"[{DEVICE}:0] x {n_rows * n_model}",
+            "tensor_parallel": True, "batch": B, "prompt": S,
+            "decode_steps": MOE_TP_DECODE,
+            "prefill_ms": pre_s * 1e3, "k_prefill_ms": k["prefill_ms"],
+            "prefill_vs_k": pre_s * 1e3 / k["prefill_ms"],
+            "decode_ms_per_step": dec_s * 1e3 / MOE_TP_DECODE,
+            "k_decode_ms_per_step": k["decode_ms_per_step"],
+            "decode_vs_k": dec_s * 1e3 / MOE_TP_DECODE
+            / k["decode_ms_per_step"],
+            "prefill_peak_bytes": pre_peak, "decode_peak_bytes": dec_peak,
+            "prefill_peak_gib": pre_peak / 2**30,
+            "decode_peak_gib": dec_peak / 2**30,
+            "k_max_memory_gib": k["max_memory_gib"],
+            "held_by_position": {str(p): held_p[p] + held_c[p]
+                                 for p in held_p},
+            "params_held_by_position": {str(p): v for p, v in held_p.items()},
+            "positions_off": (off_p + off_c)[:8],
+            "flash_launches": launches["flash_attention"],
+            "flash_launches_prefill": pre_launches,
+            "capacity": moe._capacity(cfg, S),
+            "dropped_pairs_per_layer": dropped,
+            "k_dropped_pairs_per_layer": k["dropped_pairs_per_layer"],
+            "dropped_share": sum(dropped) / (L_ * B * S * cfg.top_k),
+            "greedy_tokens_row0": [int(g[0, 0]) for g in greedy]}
+    emit(line)
+    check(pre_launches == apps and launches["flash_attention"] == apps,
+          f"r1: flash_attention launched {pre_launches} times in the "
+          f"prefill and {launches['flash_attention']} in all, not {apps} "
+          f"(a layer a position) and none in decode")
+    check(len(got) == L_ * (2 + MOE_TP_DECODE), f"r1: {len(got)} routes")
+    check(not off_p and not off_c, f"r1: positions hold other than their "
+          f"blocks {(off_p + off_c)[:8]}")
+    check(all(bool(torch.isfinite(o.full()).all()) for o in outs),
+          "r1: a logit is not finite")
+    del sp, sd, cache, outs, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def tp_grads_arm(torch, path, arm, model, params, batch, shape):
+    """One sharded step over (data, model) = ``shape`` positions — each
+    its ``model`` share — against the unsharded one (the loss within
+    ``TP_TOL`` relative, each gradient leaf within ``TP_TOL`` of its
+    largest entry), run to run bit for bit, its gradients one block a
+    position (``grad_blocks_spy``); the line printed and checked.
+    Returns (the line, the sharded parameters, their gradients)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    mesh = shard_mesh(torch, shape, ("data", "model"))
+    p_shapes, p_axes = model.abstract_params()
+    sparams = shd.place_tree(params,
+                             shd.tree_shardings(p_axes, p_shapes, mesh))
+    whole = sum(p.numel() * p.dtype.itemsize for _, p in zoo.flatten(params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l1, _, g1 = steps.loss_and_grads(model, params, batch)
+    torch.cuda.synchronize()
+    ms1 = (time.perf_counter() - t0) * 1e3
+    g1 = {k: v.detach().clone() for k, v in zoo.flatten(g1)}
+    for _, p in zoo.flatten(params):
+        p.grad = None
+        p.requires_grad_(False)
+    runs, seen = [], {}
+    for i in range(2):
+        real = grad_blocks_spy(torch, steps, seen) if i == 0 else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            ls, _, gs = steps.sharded_loss_and_grads(model, sparams, batch)
+        finally:
+            if real is not None:
+                steps._grad_tree = real
+        torch.cuda.synchronize()
+        runs.append((float(ls), gs, (time.perf_counter() - t0) * 1e3))
+    (ls, gs, ms_s), (ls2, gs2, ms_s2) = runs
+    del runs
+    errs = {k: rel_err(torch, g.full(), g1[k]) for k, g in zoo.flatten(gs)}
+    same = ls == ls2 and all(
+        torch.equal(a.full(), b.full())
+        for (_, a), (_, b) in zip(zoo.flatten(gs), zoo.flatten(gs2)))
+    loss_rel = abs(ls - float(l1)) / abs(float(l1))
+    del g1, gs2
+    blocks = grad_blocks_line(seen, whole)
+    out = {"phase": "compare", "path": path, "arm": arm,
+           "arch": model.cfg.name, "n_layers": model.cfg.n_layers,
+           "dtype": model.cfg.dtype,
+           "mesh": dict(zip(mesh.axis_names, mesh.devices.shape)),
+           "batch": {k: list(v.shape) for k, v in batch.items()},
+           "loss_unsharded": float(l1), "loss_sharded": ls,
+           "loss_rel": loss_rel, "loss_tol": TP_TOL,
+           "grad_rel_err_max": max(errs.values()),
+           "grad_worst_leaf": max(errs, key=errs.get), "tol": TP_TOL,
+           "bit_for_bit_run_to_run": same, "grad_blocks": blocks,
+           "ms": {"unsharded": ms1, "sharded": ms_s, "sharded_again": ms_s2}}
+    emit(out)
+    check(loss_rel <= TP_TOL, f"{arm}: loss {ls} against {float(l1)} "
+          f"unsharded")
+    check(max(errs.values()) <= TP_TOL, f"{arm}: gradients differ {errs}")
+    check(same, f"{arm}: two sharded runs differ")
+    check(blocks["as_spec"] and not seen.get("off"),
+          f"{arm}: the gradients are not one block a position: {blocks}")
+    return out, sparams, gs
+
+
+def tp_serve_f32_arm(torch, path, arm, model, params, batch, steps_n, shape,
+                     extra=None):
+    """A float32 prefill of ``batch`` and ``steps_n`` greedy decode steps
+    over (data, model) = ``shape`` positions against each data row's
+    prompts served alone, unsharded (``rows_alone_devs``): every step's
+    logits and the cache rows within ``TP_TOL`` of the largest entry."""
+    S = batch["tokens"].shape[1]
+    (_, cache, outs, greedy, pre_s, dec_s, _, _, _) = mesh_serve_run(
+        torch, model, params, batch, S + steps_n, steps_n, shape)
+    by_step, cache_dev, agree = rows_alone_devs(
+        torch, model, params, batch, S + steps_n, cache, outs, greedy,
+        shape[0], arm)
+    line = {"phase": "compare", "path": path, "arm": arm,
+            "arch": model.cfg.name, "n_layers": model.cfg.n_layers,
+            "dtype": "float32",
+            "batch": {k: list(v.shape) for k, v in batch.items()},
+            "decode_steps": steps_n,
+            "mesh": dict(zip(("data", "model"), shape)),
+            "logits_rel_dev_by_step": by_step,
+            "cache_rel_dev": cache_dev, "greedy_agreement": agree,
+            "tol": TP_TOL, "prefill_ms": pre_s * 1e3,
+            "decode_ms_per_step": dec_s * 1e3 / steps_n, **(extra or {})}
+    emit(line)
+    check(max(by_step) <= TP_TOL and cache_dev <= TP_TOL,
+          f"{arm}: the mesh's logits or cache differ from the rows alone "
+          f"by more than {TP_TOL}: {by_step}, {cache_dev}")
+    del cache, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def moe_tp_checks(torch):
+    """r2: qwen3-moe-30b-a3b at full width, depth ``MOE_TP_CHECK_LAYERS``,
+    float32 from seed 2029, over (data 2, model 2): a train step of 4 ×
+    ``MOE_TP_TRAIN_SEQ`` tokens (capacity-bound: more than 4096 pairs a
+    row) against the unsharded one (``tp_grads_arm``), then a prefill of
+    4 × ``MOE_TP_TRAIN_SEQ`` and ``MOE_TP_DECODE`` greedy steps against
+    each row served alone (``tp_serve_f32_arm``), the prefill's route
+    flips against one device's printed."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import zoo
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=MOE_TP_CHECK_LAYERS, dtype="float32",
+                              param_dtype="float32", grad_accum=1)
+    model = zoo.build(cfg, DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 13)
+    params = model.init(gen)
+    B, S = LM_BATCH, MOE_TP_TRAIN_SEQ
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    tp_grads_arm(torch, "r", "r2-train", model, params,
+                 {"tokens": toks[:, :S], "labels": toks[:, 1:]}, (2, 2))
+    prompt = {"tokens": toks[:, :S]}
+    with routes() as one:
+        steps.build_prefill_step(model, S)(params, prompt)
+    mesh = shard_mesh(torch, (2, 2), ("data", "model"))
+    from repro_torch.distributed import sharding as shd
+    p_shapes, p_axes = model.abstract_params()
+    sp = shd.place_tree(params, shd.tree_shardings(p_axes, p_shapes, mesh))
+    with thread_routes() as two:
+        steps.build_prefill_step(model, S)(sp, prompt)
+    del sp
+    flips = rows_route_flips(torch, two, [sel for sel, _ in one], cfg.n_layers)
+    dropped = [int((~keep).sum()) for _, keep in one]
+    tp_serve_f32_arm(torch, "r", "r2-serve", model, params, prompt,
+                     MOE_TP_DECODE, (2, 2),
+                     {"route_flips": flips,
+                      "routed_tokens": cfg.n_layers * B * S,
+                      "dropped_pairs_per_layer_one_device": dropped})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def encdec_tp_phase(torch, o):
+    """r3: whisper-medium over (data, model) = ``ENCDEC_TP_MESH`` positions
+    of the card, each its 8 of the 16 heads of every encoder, decoder and
+    cross-attention and its half of ``d_ff``: the flash kernel at a
+    position's three shapes; bf16 serving at full width and depth (path
+    o's shape: 4 × 1500 frames, 4 prompts of 416 tokens, seed 2016, one
+    warm prefill, then counted with ``ENCDEC_TP_DECODE`` greedy steps) —
+    ms beside path o's, 72 flash launches a position in the prefill and
+    none in decode, the cross cache split by sequence; o-train's step
+    over the positions (f32 masters, bf16 activations, remat, one warm
+    and ``ENCDEC_TRAIN_STEPS`` timed steps, its peak); then float32 at
+    full depth: a train step against the unsharded one and serving
+    against the rows alone, within ``TP_TOL``.  Returns (launches, the
+    train line)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    cfg = get_config(ENCDEC_ARCH)
+    n_rows, n_model = ENCDEC_TP_MESH
+    B, S, E = LM_BATCH, ENCDEC_PROMPT, cfg.enc_len
+    b, h = B // n_rows, cfg.n_heads // n_model
+    for i, (name, s_, t_, causal) in enumerate((
+            ("encoder", E, E, False), ("cross", S, E, False),
+            ("decoder", S, S, True))):
+        row = flash_case(torch, b, h, cfg.n_kv_heads // n_model, s_, cfg.hd,
+                         SEED + 14 + i, T=t_, causal=causal)
+        emit({"phase": "kernel", "path": "r", "arm": "r3", "attention": name,
+              **row})
+        check_flash_case("r3", row)
+    cfg, model, params, gen, init = serve_init(torch, ENCDEC_ARCH)
+    frames = torch.randn((B, E, cfg.d_model), generator=gen, device=DEVICE,
+                         dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                         device=DEVICE, dtype=torch.int32)
+    batch = {"tokens": toks, "frames": frames}
+    max_len = S + ENCDEC_TP_DECODE
+    (sd, cache, outs, greedy, pre_s, dec_s, pre_peak, dec_peak,
+     pre_launches), launches = counted(
+        torch, "r3", ("flash_attention",),
+        lambda: mesh_serve_run(torch, model, params, batch, max_len,
+                               ENCDEC_TP_DECODE, ENCDEC_TP_MESH))
+    apps = attention_apps(cfg) * n_rows * n_model
+    held_p, off_p = held_bytes(sd)
+    held_c, off_c = held_bytes(cache)
+    line = {"phase": "main", "path": "r", "arm": "r3-serve",
+            "arch": ENCDEC_ARCH,
+            "mesh": dict(zip(("data", "model"), ENCDEC_TP_MESH)),
+            "devices": f"[{DEVICE}:0] x {n_rows * n_model}",
+            "tensor_parallel": True, "batch": B, "frames": E, "prompt": S,
+            "decode_steps": ENCDEC_TP_DECODE,
+            "cross_cache_spec": str(cache["cross_k"].sharding.spec),
+            "prefill_ms": pre_s * 1e3, "o_prefill_ms": o["prefill_ms"],
+            "prefill_vs_o": pre_s * 1e3 / o["prefill_ms"],
+            "decode_ms_per_step": dec_s * 1e3 / ENCDEC_TP_DECODE,
+            "o_decode_ms_per_step": o["decode_ms_per_step"],
+            "decode_vs_o": dec_s * 1e3 / ENCDEC_TP_DECODE
+            / o["decode_ms_per_step"],
+            "prefill_peak_gib": pre_peak / 2**30,
+            "decode_peak_gib": dec_peak / 2**30,
+            "held_by_position": {str(p): held_p[p] + held_c[p]
+                                 for p in held_p},
+            "positions_off": (off_p + off_c)[:8],
+            "flash_launches": launches["flash_attention"],
+            "flash_launches_prefill": pre_launches,
+            "greedy_tokens_row0": [int(g[0, 0]) for g in greedy],
+            **{k: init[k] for k in ("init_s", "weights_gib")}}
+    emit(line)
+    check(pre_launches == apps and launches["flash_attention"] == apps,
+          f"r3: flash_attention launched {pre_launches} times in the "
+          f"prefill and {launches['flash_attention']} in all, not {apps}")
+    check(cache["cross_k"].sharding.spec[2] == "model",
+          f"r3: the cross cache is laid out {cache['cross_k'].sharding.spec}")
+    check(not off_p and not off_c, f"r3: positions hold other than their "
+          f"blocks {(off_p + off_c)[:8]}")
+    check(all(bool(torch.isfinite(t.full()).all()) for t in outs),
+          "r3: a logit is not finite")
+    del params, sd, cache, outs, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = encdec_train(torch, cfg, gen, o)
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    model32 = zoo.build(cfg32, DEVICE)
+    params32 = model32.init(gen)
+    bt = ENCDEC_TRAIN_BATCH
+    tr = torch.randint(0, cfg.vocab, (bt, S + 1), generator=gen,
+                       device=DEVICE, dtype=torch.int32)
+    f32 = torch.randn((bt, E, cfg.d_model), generator=gen, device=DEVICE)
+    tp_grads_arm(torch, "r", "r3-train-f32", model32, params32,
+                 {"tokens": tr[:, :S], "labels": tr[:, 1:], "frames": f32},
+                 ENCDEC_TP_MESH)
+    tp_serve_f32_arm(torch, "r", "r3-serve-f32", model32, params32,
+                     {"tokens": toks, "frames": frames.float()},
+                     ENCDEC_TP_DECODE, ENCDEC_TP_MESH)
+    del params32, model32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, line, train
+
+
+def tp_families_path(torch, k, o):
+    """Path r: the MoE (r1, r2) and the enc-dec (r3) computing over
+    ``model``, and the account of r1's and r3's cells against the card
+    (r4).  Returns the path's launches."""
+    from repro_torch.configs.base import ShapeSpec
+    t0 = time.perf_counter()
+    r1_launches, r1 = moe_tp_serve(torch, k)
+    moe_tp_checks(torch)
+    r3_launches, r3, r3_train = encdec_tp_phase(torch, o)
+    account_cells(torch, "r", "r4", MOE_ARCH, [
+        ("r1-prefill", MOE_TP_MESH, 1,
+         ShapeSpec("r1p", LM_PROMPT, LM_BATCH, "prefill"),
+         r1["prefill_peak_bytes"], {"prefill_ms": r1["prefill_ms"]}),
+        ("r1-decode", MOE_TP_MESH, 1,
+         ShapeSpec("r1d", LM_PROMPT + MOE_TP_DECODE, LM_BATCH, "decode"),
+         r1["decode_peak_bytes"],
+         {"decode_ms_per_step": r1["decode_ms_per_step"]})])
+    account_cells(torch, "r", "r4", ENCDEC_ARCH, [
+        ("r3-train", ENCDEC_TP_MESH, 1,
+         ShapeSpec("r3t", ENCDEC_PROMPT + LM_DECODE, ENCDEC_TRAIN_BATCH,
+                   "train"),
+         r3_train["step_peak_bytes"], {"step_ms": r3_train["mean_ms"]})])
+    emit({"phase": "tp_families", "path": "r",
+          "seconds": time.perf_counter() - t0})
+    return {k_: r1_launches[k_] + r3_launches[k_] for k_ in r1_launches}
 
 
 def main() -> int:
@@ -5289,7 +5757,8 @@ def main() -> int:
     j2 = train_path(torch)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.append(moe_phase(torch))
+    k_launches, k_line = moe_phase(torch)
+    paths.append(k_launches)
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(vlm_phase(torch))
@@ -5301,13 +5770,17 @@ def main() -> int:
     paths.append(hybrid_phase(torch))
     gc.collect()
     torch.cuda.empty_cache()
-    paths.append(encdec_phase(torch))
+    o_launches, o_line = encdec_phase(torch)
+    paths.append(o_launches)
     gc.collect()
     torch.cuda.empty_cache()
     p0, p1 = shard_path(torch, j2)
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(mesh_serve_path(torch, lm_line, p0, p1))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(tp_families_path(torch, k_line, o_line))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -31,14 +31,14 @@ data row is one thread that issues the work of its positions (``Row.tp``:
 the positions sharing its data coordinates, one a ``model`` coordinate).
 Two layouts of compute:
 
-* tensor-parallel (the transformer family's dense and VLM configs,
+* tensor-parallel (the dense, MoE, VLM and enc-dec families,
   ``models.tensor_parallel``): position (d, m) computes with its block
   along ``model`` of every leaf, whole along ``d_model`` — ``RowLeaf.at``
   gathers it over the positions that share m (the FSDP all-gather over
   ``data``; in ``serve_mode`` the position holds it whole and gathers
   nothing) — and the sums over ``model`` are ordinary autograd ops on the
   row's thread;
-* storage-only (every other family): the row computes on its first
+* storage-only (the SSM and hybrid families): the row computes on its first
   position's device (``shard_devices``) with whole layers, which
   ``hint_tree`` gathers from the shards one layer at a time.
 

@@ -19,8 +19,8 @@ meaning carries over (``status``, ``memory``, ``cost.flops``,
 ``collectives``, ``collective_bytes_total``, ``loop_aware.dot_flops``),
 ``trace_s`` in place of ``lower_s`` and ``compile_s``, ``positions``, and
 ``model_compute``: whether the cell's family computes over ``model``
-(``models.tensor_parallel``: dense and VLM) or only stores on it; the
-printed line says which (``model`` / ``storage``).
+(``models.tensor_parallel``: dense, MoE, VLM, enc-dec) or only stores on
+it (SSM, hybrid); the printed line says which (``model`` / ``storage``).
 A failing cell is written with its error.  ``launch/roofline.py`` turns
 the records into the roofline table.
 

@@ -16,10 +16,11 @@ enc_len, d_model).
 Over a mesh (parameters and moments ``distributed.sharding.ShardedTensor``
 leaves, as ``train_specs`` lays them out), ``build_train_step`` runs the
 sharded step (``sharded_loss_and_grads``): one thread and, on a card, one
-CUDA stream per data row, each on its rows of the batch — for the dense
-and VLM families each of the row's positions computing its ``model``
-share with its block of every layer (``models.tensor_parallel``), for the
-others the row's device computing layers gathered whole — and each
+CUDA stream per data row, each on its rows of the batch — for the dense,
+MoE, VLM and enc-dec families each of the row's positions computing its
+``model`` share with its block of every layer
+(``models.tensor_parallel``), for the SSM and hybrid the row's device
+computing layers gathered whole — and each
 layer's gradient added into the gradient blocks, one a position, in row
 order; then ``adam.update`` block by block.  ``build_prefill_step`` and
 ``build_decode_step`` serve over a mesh the same way (``sharded_prefill``,
@@ -459,8 +460,9 @@ def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
     (``drive_rows``) over its batch rows (``sharding.row_rows``: every row
     computes a batch that does not split, as the reference replicates
     it) — for a tensor-parallel family each of its positions computing its
-    ``model`` share (``models.tensor_parallel.prefill``, its K/V moved
-    into the sequence-split cache blocks), else the row gathering whole
+    ``model`` share (``models.tensor_parallel.prefill``, its K/V — an
+    enc-dec's cross K/V too — moved into the cache's blocks, split by
+    sequence or by heads), else the row gathering whole
     layers one at a time (``bind_row`` / ``hint_tree``) — and writes each
     layer's cache and its logits into the blocks of the positions it owns
     (``sharding.RowCache``; each position's logits over its vocab block
@@ -484,9 +486,7 @@ def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
         if TP.serves(model.cfg, row, rc):
             _, lg = TP.prefill(model.cfg,
                                shd.bind_row(params, p_axes, row, whole=False),
-                               part["tokens"], max_len,
-                               patch_embs=part.get("patch_embs"),
-                               attn_impl=attn_impl, cache=rc)
+                               part, max_len, attn_impl=attn_impl, cache=rc)
         else:
             _, lg = model.prefill(shd.bind_row(params, p_axes, row), part,
                                   max_len, attn_impl=attn_impl, cache=rc)

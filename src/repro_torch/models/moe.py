@@ -24,10 +24,16 @@ the port spells them out:
 The buffers are laid out (E, B·C, d) — expert-major, then the batch row,
 then the slot — so each expert's FFN is one batched matmul over all rows'
 slots; the reference's (B, E, C, d) einsums compute the same products.
+``route`` / ``route_logits`` and ``apply_experts`` (a block of experts'
+dispatch, FFN and combine) are the steps ``apply_moe`` takes; over a
+mesh's ``model`` axis each position runs ``apply_experts`` on its own
+block from the data row's one route (``tensor_parallel``): GShard
+positions count each expert's pairs alone, so no block needs another's.
 
 Decode (one token a row) is dropless and, in this formulation, runs every
 expert over its C = 8 slots, reading every expert's weights each step, as
-the reference's function does.
+the reference's function does (over a mesh, every expert of a position's
+block).
 
 ``route_hook``, when set, is called with (sel, keep) of every call — the
 selected experts (B, S, k) and the keep mask (B, S·k) — for instrumentation
@@ -80,10 +86,15 @@ def _capacity(cfg, tokens: int) -> int:
 
 
 def route(cfg, p, x):
-    """(gates (B,S,E) f32, weights (B,S,k) f32, sel (B,S,k) int64): the
-    softmax over the router's f32 logits, its top k in descending order
-    with ties to the lower expert, and their weights renormalized."""
-    logits = x.float() @ p["router"].float()
+    """(gates (B,S,E) f32, weights (B,S,k) f32, sel (B,S,k) int64) of the
+    router's f32 logits (``route_logits``)."""
+    return route_logits(cfg, x.float() @ p["router"].float())
+
+
+def route_logits(cfg, logits):
+    """(gates, weights, sel) of the router's f32 logits (B,S,E): the
+    softmax, its top k in descending order with ties to the lower expert,
+    and their weights renormalized."""
     gates = torch.softmax(logits, dim=-1)
     vals, idx = torch.sort(gates, dim=-1, descending=True, stable=True)
     weights, sel = vals[..., :cfg.top_k], idx[..., :cfg.top_k]
@@ -117,34 +128,50 @@ class Balance(NamedTuple):
 def apply_moe(cfg, p, x, *, stats: bool = False):
     """x: (B, S, d) -> ((B, S, d), the load-balancing auxiliary loss), or
     with ``stats`` its ``Balance`` in place of the loss."""
-    B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
+    gates, weights, sel = route(cfg, p, x)
+    y, keep = apply_experts(cfg, p, x, sel, weights, 0, E)
+    if route_hook is not None:
+        route_hook(sel, keep)
+    if "dense" in p:
+        y = y + L.apply_mlp(cfg, p["dense"], x)
+    bal = _balance(gates.reshape(-1, E), sel.reshape(-1, k), E)
+    return y, (bal if stats else balance_loss(bal))
+
+
+def apply_experts(cfg, p, x, sel, weights, lo: int, hi: int):
+    """The routed experts [lo, hi) of x (B, S, d), ``p``'s ``wi`` / ``wg`` /
+    ``wo`` those experts' (E' = hi - lo of them): (each token's sum of its
+    slots in those experts, in ascending expert order (B, S, d); the keep
+    mask (B, S·k) of its pairs in them).  GShard positions count each
+    expert's pairs on their own, so a block of experts computes its
+    pairs' positions, slots and outputs as all E experts would."""
+    B, S, d = x.shape
+    k, n = cfg.top_k, hi - lo
     C = _capacity(cfg, S)
     dev = x.device
 
-    gates, weights, sel = route(cfg, p, x)
-
     # Per-row capacity positions: the pair's rank among the row's earlier
     # pairs (token-major, then choice) that chose the same expert.  The
-    # one-hot is laid out (B, E, S·k) so that the cumsum runs along the
+    # one-hot is laid out (B, E', S·k) so that the cumsum runs along the
     # innermost axis: along the middle one of (B, S·k, E), as the reference
     # writes it, torch's scan took 12.0 of a 19.5 ms qwen3-moe layer on an
     # H100 (examples/torch_moe_probe.py).
     sel_flat = sel.reshape(B, S * k)
-    onehot = (sel_flat[:, None, :] == torch.arange(E, device=dev)[:, None]
-              ).to(torch.int32)                                 # (B,E,S·k)
+    mine = (sel_flat >= lo) & (sel_flat < hi)
+    loc = (sel_flat - lo).clamp(0, n - 1)
+    onehot = (sel_flat[:, None, :] == torch.arange(lo, hi, device=dev)[:, None]
+              ).to(torch.int32)                                 # (B,E',S·k)
     pos_all = torch.cumsum(onehot, dim=2, dtype=torch.int32) - onehot
-    pos = pos_all.gather(1, sel_flat[:, None, :])[:, 0]         # (B, S·k)
+    pos = pos_all.gather(1, loc[:, None, :])[:, 0]              # (B, S·k)
     del onehot, pos_all
-    keep = pos < C
-    if route_hook is not None:
-        route_hook(sel, keep)
+    keep = mine & (pos < C)
 
-    # Slot of each kept pair in the (E, B·C) buffer; a dropped pair's goes
-    # to the spare slot E·B·C.
-    n_slots = E * B * C
+    # Slot of each kept pair in the (E', B·C) buffer; a dropped pair's (or
+    # another block's) goes to the spare slot E'·B·C.
+    n_slots = n * B * C
     row = torch.arange(B, device=dev)[:, None]
-    slot = torch.where(keep, sel_flat * (B * C) + row * C + pos,
+    slot = torch.where(keep, loc * (B * C) + row * C + pos,
                        n_slots)                                 # (B, S·k)
 
     # Dispatch: the token row of every slot (B·S, a zero row, for an empty
@@ -154,7 +181,7 @@ def apply_moe(cfg, p, x, *, stats: bool = False):
                           device=dev)
     slot_tok.scatter_(0, slot.reshape(-1), tok.reshape(-1))
     xs = torch.cat([x.reshape(B * S, d), x.new_zeros(1, d)])
-    buf = xs[slot_tok[:n_slots]].reshape(E, B * C, d)
+    buf = xs[slot_tok[:n_slots]].reshape(n, B * C, d)
 
     out_buf = _expert_ffn(cfg, p, buf)
     del buf
@@ -171,10 +198,7 @@ def apply_moe(cfg, p, x, *, stats: bool = False):
     for j in range(k):
         term = outs[slot[..., j]] * w[..., j, None]
         y = term if y is None else y + term
-    if "dense" in p:
-        y = y + L.apply_mlp(cfg, p["dense"], x)
-    bal = _balance(gates.reshape(-1, E), sel.reshape(-1, k), E)
-    return y, (bal if stats else balance_loss(bal))
+    return y, keep
 
 
 def _balance(gates, sel, E) -> Balance:

@@ -1,8 +1,9 @@
 """Tensor-parallel compute over the mesh's ``model`` axis for the
-transformer family's dense and VLM configs — what the reference's GSPMD
-step does with the parameters' ``heads``, ``kv_heads``, ``d_ff`` and
-``vocab`` on ``model`` and its activations hinted there (``act_heads``,
-``act_ff``): each mesh position computes its share of every matmul.
+transformer family (dense, MoE, VLM) and the enc-dec family — what the
+reference's GSPMD step does with the parameters' ``heads``, ``kv_heads``,
+``d_ff``, ``experts`` and ``vocab`` on ``model`` and its activations hinted
+there (``act_heads``, ``act_ff``, the expert buffers' ``experts``): each
+mesh position computes its share of every matmul.
 
 A data row (``sharding.Row``) is one thread; its positions ``row.tp`` are
 the positions that share its data coordinates, one a ``model``
@@ -20,36 +21,50 @@ part       what position j computes                         over ``model``
 attention  Q/K/V of its heads (the KV heads its Q heads     one sum
            read), the flash kernel on them in a prefill
            (``blockwise_attention`` or the grouped softmax
-           in training), then its rows of ``wo``
+           in training), then its rows of ``wo``; the
+           enc-dec's encoder and cross-attention are not
+           causal, and none of its attentions has RoPE
 MLP        ``wi`` / ``wg`` on its ``d_ff`` columns, its     one sum
            rows of ``wo``
+MoE        the router's logits of its block of experts;     a gather of
+           the row computes the one route (softmax, top-k)  the logits,
+           from all of them and gives it to every           one sum
+           position; each dispatches, runs and combines
+           its own experts' pairs (``moe.apply_experts``)
 embedding  the ids in its vocab block, zeros elsewhere      one sum
 logits     its vocab block                                  none
 loss       its block's max and sum of exp, the gold logit   max and sums
            where it holds it
 =========  ===============================================  ==============
 
-Norms, RoPE and the residual stream stay whole on the row's device.  A
-part whose leaves ``resolve`` left replicated over ``model`` (heads that do
-not divide it, a ``d_ff`` or vocab that does not) is computed whole by
-every position, as GSPMD does, and position 0's result is the part's; KV
-heads that do not divide ``model`` while the Q heads do are sliced to those
-each position's Q heads read.  A replicated leaf that ``data`` shards is
-gathered once, at position 0, and broadcast to the others.
+Norms, RoPE, the enc-dec's sinusoids and the residual stream stay whole on
+the row's device.  A part whose leaves ``resolve`` left replicated over
+``model`` (heads that do not divide it, a ``d_ff``, vocab or expert count
+that does not) is computed whole by every position, as GSPMD does, and
+position 0's result is the part's; KV heads that do not divide ``model``
+while the Q heads do are sliced to those each position's Q heads read.  A
+replicated leaf that ``data`` shards is gathered once, at position 0, and
+broadcast to the others.  Experts are contiguous blocks by position, so
+the sum in model order adds a token's slots in ascending expert order, as
+one device does.
 
-Decode reads the cache where the reference lays it out (``batch`` on
-``data``, ``kv_seq`` on ``model``): the token's Q and K/V are gathered over
-``model`` (small), each position writes the token's K/V into its own block
-where it holds slot ``len`` and attends over its own block for all heads,
-and each position combines its heads' partials (max, sum, accumulator)
-over ``model`` — the softmax over a sharded ``kv_seq`` — into its rows of
-``wo``.  No position reads another's cache block.  A prefill computes K/V
-by heads and moves them into that layout (``all-to-all``).
+Decode reads each cache where ``resolve`` lays it out (``batch`` on
+``data``; ``kv_seq`` on ``model`` where it divides, else ``kv_heads``):
+the token's Q (and K/V) are gathered over ``model`` (small), each position
+writes the token's K/V into its own block where it holds slot ``len``,
+attends over its own block for the heads it holds, and each position
+combines its heads' partials (max, sum, accumulator) over ``model`` — the
+softmax over a sharded ``kv_seq``; nothing to combine where the block
+holds all of its heads' keys.  The enc-dec's cross-attention reads the
+cross cache the same way, writing nothing and masking nothing.  No position
+reads another's cache block.  A prefill computes K/V by heads and moves
+them into that layout (``all-to-all`` where it is split by sequence, a
+position's own write where by heads).
 
 Copies between positions are reported to the account (``sharding.note``):
 the sums (``all-reduce``), the decode's Q, token K/V and partial gathers
-(``all-gather``), the prefill's K/V move (``all-to-all``) and a replicated
-leaf's broadcast (``broadcast``).
+and the router's logits (``all-gather``), the prefill's K/V move
+(``all-to-all``), the route and a replicated leaf (``broadcast``).
 """
 from __future__ import annotations
 
@@ -60,12 +75,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..distributed import sharding as shd
+from . import encdec
 from . import layers as L
+from . import moe as M
 from . import transformer
 
 #: Families whose steps compute over ``model``; every other family runs
 #: the storage-only layout.
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe", "encdec")
 
 
 def active(cfg, row) -> bool:
@@ -76,9 +93,13 @@ def active(cfg, row) -> bool:
 
 def serves(cfg, row, cache) -> bool:
     """``active``, with every block of the row's part of the bound decode
-    cache (``sharding.bind_cache``) on the row's own positions."""
-    return active(cfg, row) and all(
-        c.local_to_row() for c in (cache["kv"]["k"][0], cache["kv"]["v"][0]))
+    cache (``sharding.bind_cache``) — its K/V and an enc-dec's cross K/V —
+    on the row's own positions."""
+    if not active(cfg, row):
+        return False
+    leaves = [cache["kv"]["k"], cache["kv"]["v"]] + [
+        cache[k] for k in ("cross_k", "cross_v") if k in cache]
+    return all(c[0].local_to_row() for c in leaves)
 
 
 # ---------------------------------------------------------------------------
@@ -252,56 +273,165 @@ def _kv_runs(plans: list) -> list:
 # The parts of a layer
 # ---------------------------------------------------------------------------
 
-def _layer_at(cfg, row, stacked: dict, i: int, decode: bool = False) -> dict:
-    """Layer i's tensors: the norms whole on the row's device, each
-    position's attention and MLP tensors, the attention's ``HeadPlan``s,
-    and whether ``model`` splits ``wo``'s rows and the MLP (else position
-    0's result is the part's).  A decode step takes each position's own
-    block of Q, K and V (``own``, unread until projected) and its ``wo``:
-    it gathers the token's projections, not the parameters."""
-    lay = transformer.layer(stacked, i)
-    attn, mlp = lay["attn"], lay["mlp"]
+#: The attention parts of a layer: the transformer's, the enc-dec
+#: decoder's self- and cross-attention.
+_ATTENTION = ("attn", "self", "cross")
+
+
+def _attn_part(cfg, row, attn: dict, decode: bool) -> dict:
+    """An attention's ``HeadPlan``s, whether ``model`` splits ``wo``'s rows
+    (else position 0's result is the part's) and each position's tensors
+    (``p``).  A decode step takes each position's own block of Q, K and V
+    (``own``, unread until projected) and its ``wo``: it gathers the
+    token's projections, not the parameters."""
     plans = head_plans(cfg, row, attn)
+    part = {"plans": plans, "split": attn["wo"].model_split()}
     if decode:
-        parts = {"own": attn,
-                 "attn": _leaves_at(row, {"wo": attn["wo"]}, _all(row))}
+        part["own"] = attn
+        part["p"] = _leaves_at(row, {"wo": attn["wo"]}, _all(row))
     else:
-        parts = {"attn": _attn_leaves(cfg, row, attn, plans)}
-    return {"ln1": shd.hint_tree(lay["ln1"]),
-            "ln2": shd.hint_tree(lay["ln2"]), **parts,
-            "mlp": _leaves_at(row, mlp, _all(row)),
-            "plans": plans,
-            "split": attn["wo"].model_split(),
-            "ff_split": mlp["wi"].model_split()}
+        part["p"] = _attn_leaves(cfg, row, attn, plans)
+    return part
 
 
-def _attention(cfg, row, blk: dict, h, positions, *, train: bool,
-               attn_impl: str = "auto"):
+def _mlp_part(row, mlp: dict) -> dict:
+    return {"p": _leaves_at(row, mlp, _all(row)),
+            "split": mlp["wi"].model_split()}
+
+
+def _moe_part(row, moe: dict) -> dict:
+    """Each position's router columns and experts (``p``), its experts
+    [lo, hi) (``spans``) and whether ``model`` splits them; where it does
+    not, every position holds all of them whole (and the router only
+    position 0, whose logits are the route's).  Arctic's dense residual
+    MLP is a part of its own."""
+    wi = moe["wi"]
+    E = wi.shape[0]
+    split = _range(wi, row, 0, 0) != (0, E)
+    ps = [None] * len(row.tp)
+    for j in _all(row):
+        with shd.position(row, j):
+            ps[j] = {k: (v.at(j) if split else
+                         v.at(j, (0, v.shape[-1]))).gather()
+                     for k, v in moe.items()
+                     if k != "dense" and (k != "router" or split or not j)}
+    part = {"p": ps, "split": split,
+            "spans": [_range(wi, row, j, 0) if split else (0, E)
+                      for j in _all(row)]}
+    if "dense" in moe:
+        part["dense"] = _mlp_part(row, moe["dense"])
+    return part
+
+
+def _layer_at(cfg, row, stacked: dict, i: int, decode: bool = False) -> dict:
+    """Layer i's tensors: the norms (``ln*``) whole on the row's device,
+    each attention's, MLP's and MoE's part (``_attn_part``, ``_mlp_part``,
+    ``_moe_part``)."""
+    blk = {}
+    for k, v in transformer.layer(stacked, i).items():
+        if k.startswith("ln"):
+            blk[k] = shd.hint_tree(v)
+        elif k in _ATTENTION:
+            blk[k] = _attn_part(cfg, row, v, decode)
+        elif k == "mlp":
+            blk[k] = _mlp_part(row, v)
+        elif k == "moe":
+            blk[k] = _moe_part(row, v)
+    return blk
+
+
+def _attention(cfg, row, part: dict, h, positions, *, train: bool,
+               attn_impl: str = "auto", causal: bool = True,
+               use_rope: bool = True, xkv=None, kv_positions=None):
     """The attention's output (summed over ``model``) and each position's
-    (k, v) of its KV heads, (B, S, n, hd)."""
+    (k, v) of its KV heads, (B, T, n, hd): self-attention over h, or
+    cross-attention over ``xkv`` at ``kv_positions``."""
     outs, kvs = [], []
-    for j, plan in enumerate(blk["plans"]):
-        with shd.position(row, j), _maybe_no_grad(blk["split"], j):
-            cj, pj = _attn_at(cfg, plan, blk["attn"][j])
+    for j, plan in enumerate(part["plans"]):
+        with shd.position(row, j), _maybe_no_grad(part["split"], j):
+            cj, pj = _attn_at(cfg, plan, part["p"][j])
             hj = _to(row, h, j)
+            kw = dict(causal=causal, use_rope=use_rope,
+                      xkv=None if xkv is None else _to(row, xkv, j),
+                      kv_positions=None if kv_positions is None else
+                      kv_positions.to(hj.device))
             pos = positions.to(hj.device)
             if train:
-                o, kv = L.attend_train(cj, pj, hj, pos, causal=True)
+                o, kv = L.attend_train(cj, pj, hj, pos, **kw)
             else:
-                o, kv = L.attend(cj, pj, hj, pos, causal=True,
-                                 impl=attn_impl)
+                o, kv = L.attend(cj, pj, hj, pos, impl=attn_impl, **kw)
             outs.append(shd.mark(_wo(plan, o, pj["wo"]), row, j))
             kvs.append(kv)
-    return _combine(row, outs, blk["split"]), kvs
+    return _combine(row, outs, part["split"]), kvs
 
 
-def _mlp(cfg, row, blk: dict, h) -> torch.Tensor:
+def _mlp(cfg, row, part: dict, h) -> torch.Tensor:
     parts = []
     for j in _all(row):
-        with shd.position(row, j), _maybe_no_grad(blk["ff_split"], j):
-            parts.append(shd.mark(L.apply_mlp(cfg, blk["mlp"][j],
+        with shd.position(row, j), _maybe_no_grad(part["split"], j):
+            parts.append(shd.mark(L.apply_mlp(cfg, part["p"][j],
                                               _to(row, h, j)), row, j))
-    return _combine(row, parts, blk["ff_split"])
+    return _combine(row, parts, part["split"])
+
+
+def _route(cfg, row, part: dict, h):
+    """``moe.route_logits`` of the positions' router logits (each its block
+    of experts' columns, or position 0's of all of them), gathered onto
+    the row's device: one route a row, which no two positions can
+    compute differently."""
+    pieces = []
+    for j in (_all(row) if part["split"] else [0]):
+        with shd.position(row, j):
+            lg = _to(row, h, j).float() @ part["p"][j]["router"].float()
+            pieces.append((j, shd.mark(lg, row, j)))
+    return M.route_logits(cfg, _assemble(row, pieces, 0, dim=-1))
+
+
+def _moe(cfg, row, part: dict, h):
+    """The MoE layer: (its output summed over ``model``, its
+    ``moe.Balance`` from the row's route).  Each position takes the route
+    (a ``broadcast``) and computes its experts' pairs; the keep mask of
+    every pair goes to ``moe.route_hook`` when set."""
+    E, k = cfg.n_experts, cfg.top_k
+    gates, weights, sel = _route(cfg, row, part, h)
+    ys, keeps = [], []
+    for j in _all(row):
+        with shd.position(row, j), _maybe_no_grad(part["split"], j):
+            dev = row.tp_device(j)
+            if j:
+                for t in (sel, weights):
+                    shd.note("broadcast", t.nbytes, [row.pos], row.tp[j],
+                             row.index)
+            lo, hi = part["spans"][j]
+            y, keep = M.apply_experts(cfg, part["p"][j], _to(row, h, j),
+                                      sel.to(dev), weights.to(dev), lo, hi)
+            ys.append(shd.mark(y, row, j))
+            keeps.append(keep)
+    if M.route_hook is not None:
+        keep = keeps[0].to(row.device)
+        for kp in keeps[1:] if part["split"] else []:
+            keep = keep | kp.to(row.device)
+        M.route_hook(sel, keep)
+    y = _combine(row, ys, part["split"])
+    if "dense" in part:
+        y = y + _mlp(cfg, row, part["dense"], h)
+    return y, M._balance(gates.reshape(-1, E), sel.reshape(-1, k), E)
+
+
+def _ffn(cfg, row, blk: dict, h):
+    """The block's second half: (the MoE layer or the MLP of h, the MoE's
+    ``Balance`` or None)."""
+    if "moe" in blk:
+        return _moe(cfg, row, blk["moe"], h)
+    return _mlp(cfg, row, blk["mlp"], h), None
+
+
+def _balance_loss(row, bal):
+    """A MoE layer's load-balancing term with the first-choice shares of
+    every data row's tokens (``Row.gather_sum``), as
+    ``transformer._scan_blocks`` takes it."""
+    return M.balance_loss(bal, row.gather_sum(bal.pe * bal.n)
+                          / row.gather_sum(bal.n))
 
 
 def _vocab_lo(leaf, row, j: int) -> int:
@@ -391,55 +521,77 @@ def _xent(row, params: dict, parts: list, labels, mask=None):
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
+def _loss(cfg, row, params: dict, embs: list, h, labels, mask=None):
+    """The LM loss of the final hidden states h: ``_xent`` over the
+    positions' vocab blocks, or ``layers.xent_loss`` of position 0's
+    whole-vocab logits where the vocab is not split."""
+    if params["embed"]["tok"].model_split():
+        return _xent(row, params, _logits(cfg, row, params, embs, h),
+                     labels, mask)
+    return L.xent_loss(L.logits_out(cfg, embs[0], h), labels, mask)
+
+
+def _final(cfg, row, tree: dict, x):
+    """A final norm (``final_norm``, ``enc_norm``, ``dec_norm``) of x on the
+    row's device."""
+    return L.apply_norm(cfg, _leaves_at(row, tree, [0])[0], x)
+
+
+def _run(cfg, fn, *args):
+    """``fn(*args)``, under ``cfg.remat`` inside ``torch.utils.checkpoint``
+    (the layer gathered inside it, so the backward gathers it again)."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _positions(x, n: int):
+    B = x.shape[0]
+    return torch.arange(n, dtype=torch.int32, device=x.device)[None].expand(
+        B, n)
+
+
 # ---------------------------------------------------------------------------
-# The steps
+# The steps: the transformer family
 # ---------------------------------------------------------------------------
 
 def _block(cfg, row, stacked: dict, i: int, x, positions):
     blk = _layer_at(cfg, row, stacked, i)
-    a, _ = _attention(cfg, row, blk, L.apply_norm(cfg, blk["ln1"], x),
-                      positions, train=True)
+    a, _ = _attention(cfg, row, blk["attn"],
+                      L.apply_norm(cfg, blk["ln1"], x), positions,
+                      train=True)
     x = x + a
-    return x + _mlp(cfg, row, blk, L.apply_norm(cfg, blk["ln2"], x))
+    m, bal = _ffn(cfg, row, blk, L.apply_norm(cfg, blk["ln2"], x))
+    return x + m, bal
 
 
-def forward(cfg, params: dict, batch: dict):
-    """``transformer.forward`` of a data row over its positions: params a
-    tree of ``sharding.RowLeaf`` (``bind_row(..., whole=False)``).  Under
-    ``cfg.remat`` each block runs under ``torch.utils.checkpoint``, the
-    layer gathered inside it."""
+def _forward_lm(cfg, params: dict, batch: dict):
     row = shd.row_of(params)
     patch = batch.get("patch_embs")
     embs = _embed_leaves(row, params)
     x = _embed(cfg, row, params, embs, batch["tokens"], patch)
-    B, S = x.shape[:2]
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
-    stacked = params["layers"]
+    positions = _positions(x, x.shape[1])
+    aux = 0.0
     for i in range(cfg.n_layers):
-        if cfg.remat:
-            x = checkpoint(
-                lambda x_, p_, i=i: _block(cfg, row, stacked, i, x_, p_),
-                x, positions, use_reentrant=False)
-        else:
-            x = _block(cfg, row, stacked, i, x, positions)
-    fin = _leaves_at(row, params["final_norm"], [0])[0]
-    h = L.apply_norm(cfg, fin, x)
+        x, bal = _run(cfg, lambda x_, p_, i=i: _block(
+            cfg, row, params["layers"], i, x_, p_), x, positions)
+        if bal is not None:
+            aux = aux + _balance_loss(row, bal)
+    h = _final(cfg, row, params["final_norm"], x)
     if patch is not None:
         h = h[:, patch.shape[1]:]            # the text span only (VLM)
-    labels, mask = batch["labels"], batch.get("loss_mask")
-    if params["embed"]["tok"].model_split():
-        loss = _xent(row, params, _logits(cfg, row, params, embs, h),
-                     labels, mask)
-    else:
-        loss = L.xent_loss(L.logits_out(cfg, embs[0], h), labels, mask)
+    loss = _loss(cfg, row, params, embs, h, batch["labels"],
+                 batch.get("loss_mask"))
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"loss": loss}
 
 
 def _write_kv(row, plans: list, kc, vc, kvs: list, S: int):
     """Each KV head's K and V of a prefill into the row's blocks of a
     layer's cache (``RowCache``), from the first position computing it: an
-    ``all-to-all`` into the sequence-split layout."""
+    ``all-to-all`` into the sequence-split layout, a position's own write
+    into the head-split one."""
     for j, c0, c1, l0 in _kv_runs(plans):
         k, v = kvs[j]
         key = (slice(None), slice(0, S), slice(c0, c1))
@@ -448,33 +600,166 @@ def _write_kv(row, plans: list, kc, vc, kvs: list, S: int):
                       kind="all-to-all")
 
 
-def prefill(cfg, params: dict, tokens, max_len: int, *, patch_embs=None,
-            attn_impl: str = "auto", cache=None):
-    """``transformer.prefill`` of a data row over its positions: params a
-    tree of ``RowLeaf``, ``cache`` the row's ``RowCache`` view of the
-    sharded cache.  Returns (cache, each position's last-position logits
-    over its vocab block)."""
+def _prefill_lm(cfg, params: dict, batch: dict, max_len: int, attn_impl,
+                cache):
     row = shd.row_of(params)
     embs = _embed_leaves(row, params)
-    x = _embed(cfg, row, params, embs, tokens, patch_embs)
-    B, S = x.shape[:2]
+    x = _embed(cfg, row, params, embs, batch["tokens"],
+               batch.get("patch_embs"))
+    S = x.shape[1]
     if S > max_len:
         raise ValueError(f"prefill: {S} tokens exceed max_len {max_len}")
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device)[None].expand(B, S)
+    positions = _positions(x, S)
     kc, vc = cache["kv"]["k"], cache["kv"]["v"]
     for i in range(cfg.n_layers):
         blk = _layer_at(cfg, row, params["layers"], i)
-        a, kvs = _attention(cfg, row, blk, L.apply_norm(cfg, blk["ln1"], x),
-                            positions, train=False, attn_impl=attn_impl)
+        a, kvs = _attention(cfg, row, blk["attn"],
+                            L.apply_norm(cfg, blk["ln1"], x), positions,
+                            train=False, attn_impl=attn_impl)
         x = x + a
-        _write_kv(row, blk["plans"], kc[i], vc[i], kvs, S)
-        x = x + _mlp(cfg, row, blk, L.apply_norm(cfg, blk["ln2"], x))
-    fin = _leaves_at(row, params["final_norm"], [0])[0]
-    h = L.apply_norm(cfg, fin, x[:, -1:])
+        _write_kv(row, blk["attn"]["plans"], kc[i], vc[i], kvs, S)
+        x = x + _ffn(cfg, row, blk, L.apply_norm(cfg, blk["ln2"], x))[0]
+    h = _final(cfg, row, params["final_norm"], x[:, -1:])
     cache["len"].fill_(S)
     return cache, _logits(cfg, row, params, embs, h)
 
+
+def _decode_lm(cfg, params: dict, cache: dict, token):
+    row = shd.row_of(params)
+    embs = _embed_leaves(row, params)
+    x = _embed(cfg, row, params, embs, token)
+    cur = cache["len"]
+    kc, vc = cache["kv"]["k"], cache["kv"]["v"]
+    for i in range(cfg.n_layers):
+        blk = _layer_at(cfg, row, params["layers"], i, decode=True)
+        x = x + _decode_attention(cfg, row, blk["attn"],
+                                  L.apply_norm(cfg, blk["ln1"], x),
+                                  kc[i], vc[i], cur)
+        x = x + _ffn(cfg, row, blk, L.apply_norm(cfg, blk["ln2"], x))[0]
+    h = _final(cfg, row, params["final_norm"], x)
+    return ({"kv": cache["kv"], "len": cur + 1},
+            _logits(cfg, row, params, embs, h))
+
+
+# ---------------------------------------------------------------------------
+# The steps: the enc-dec family
+# ---------------------------------------------------------------------------
+
+def _enc_block(cfg, row, stacked: dict, i: int, x, pos, *, train: bool,
+               attn_impl: str = "auto"):
+    blk = _layer_at(cfg, row, stacked, i)
+    a, _ = _attention(cfg, row, blk["attn"],
+                      L.apply_norm(cfg, blk["ln1"], x), pos, train=train,
+                      attn_impl=attn_impl, causal=False, use_rope=False)
+    x = x + a
+    return x + _mlp(cfg, row, blk["mlp"], L.apply_norm(cfg, blk["ln2"], x))
+
+
+def _encode(cfg, row, params: dict, frames, *, train: bool,
+            attn_impl: str = "auto"):
+    """(the normed encoder output, its positions): each position its heads
+    of every encoder block."""
+    x, pos = encdec._enc_input(cfg, frames)
+    for i in range(cfg.n_enc_layers):
+        def body(x_, p_, i=i):
+            return _enc_block(cfg, row, params["enc_layers"], i, x_, p_,
+                              train=train, attn_impl=attn_impl)
+        x = _run(cfg, body, x, pos) if train else body(x, pos)
+    return _final(cfg, row, params["enc_norm"], x), pos
+
+
+def _dec_block(cfg, row, blk: dict, x, pos, enc_out, enc_pos, *,
+               train: bool, attn_impl: str = "auto"):
+    """One decoder block: (x', each position's (k, v) of its
+    self-attention, of its cross-attention over ``enc_out``)."""
+    a, kvs = _attention(cfg, row, blk["self"],
+                        L.apply_norm(cfg, blk["ln1"], x), pos, train=train,
+                        attn_impl=attn_impl, use_rope=False)
+    x = x + a
+    c, cross = _attention(cfg, row, blk["cross"],
+                          L.apply_norm(cfg, blk["ln2"], x), pos,
+                          train=train, attn_impl=attn_impl, causal=False,
+                          use_rope=False, xkv=enc_out, kv_positions=enc_pos)
+    x = x + c
+    x = x + _mlp(cfg, row, blk["mlp"], L.apply_norm(cfg, blk["ln3"], x))
+    return x, kvs, cross
+
+
+def _dec_input(cfg, row, params: dict, embs: list, tokens, pos):
+    """``encdec._dec_input`` over the positions' vocab blocks."""
+    x = _embed(cfg, row, params, embs, tokens)
+    return x + L.sinusoidal(pos.to(x.device), cfg.d_model).to(x.dtype)
+
+
+def _forward_encdec(cfg, params: dict, batch: dict):
+    row = shd.row_of(params)
+    enc_out, epos = _encode(cfg, row, params, batch["frames"], train=True)
+    tokens = batch["tokens"]
+    pos = _positions(enc_out, tokens.shape[1])
+    embs = _embed_leaves(row, params)
+    x = _dec_input(cfg, row, params, embs, tokens, pos)
+    for i in range(cfg.n_layers):
+        def body(x_, p_, e_, ep_, i=i):
+            blk = _layer_at(cfg, row, params["dec_layers"], i)
+            return _dec_block(cfg, row, blk, x_, p_, e_, ep_, train=True)[0]
+        x = _run(cfg, body, x, pos, enc_out, epos)
+    h = _final(cfg, row, params["dec_norm"], x)
+    loss = _loss(cfg, row, params, embs, h, batch["labels"])
+    return loss, {"loss": loss}
+
+
+def _prefill_encdec(cfg, params: dict, batch: dict, max_len: int,
+                    attn_impl, cache):
+    row = shd.row_of(params)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    if S > max_len:
+        raise ValueError(f"prefill: {S} tokens exceed max_len {max_len}")
+    enc_out, epos = _encode(cfg, row, params, batch["frames"], train=False,
+                            attn_impl=attn_impl)
+    F_ = enc_out.shape[1]
+    pos = _positions(enc_out, S)
+    embs = _embed_leaves(row, params)
+    x = _dec_input(cfg, row, params, embs, tokens, pos)
+    kc, vc = cache["kv"]["k"], cache["kv"]["v"]
+    for i in range(cfg.n_layers):
+        blk = _layer_at(cfg, row, params["dec_layers"], i)
+        x, kvs, cross = _dec_block(cfg, row, blk, x, pos, enc_out, epos,
+                                   train=False, attn_impl=attn_impl)
+        _write_kv(row, blk["self"]["plans"], kc[i], vc[i], kvs, S)
+        _write_kv(row, blk["cross"]["plans"], cache["cross_k"][i],
+                  cache["cross_v"][i], cross, F_)
+    h = _final(cfg, row, params["dec_norm"], x[:, -1:])
+    cache["len"].fill_(S)
+    return cache, _logits(cfg, row, params, embs, h)
+
+
+def _decode_encdec(cfg, params: dict, cache: dict, token):
+    row = shd.row_of(params)
+    cur = cache["len"]
+    embs = _embed_leaves(row, params)
+    x = _dec_input(cfg, row, params, embs, token,
+                   cur.reshape(1, 1).expand(token.shape[0], 1))
+    kc, vc = cache["kv"]["k"], cache["kv"]["v"]
+    for i in range(cfg.n_layers):
+        blk = _layer_at(cfg, row, params["dec_layers"], i, decode=True)
+        x = x + _decode_attention(cfg, row, blk["self"],
+                                  L.apply_norm(cfg, blk["ln1"], x),
+                                  kc[i], vc[i], cur, rope=False)
+        x = x + _decode_attention(cfg, row, blk["cross"],
+                                  L.apply_norm(cfg, blk["ln2"], x),
+                                  cache["cross_k"][i], cache["cross_v"][i],
+                                  cur, rope=False, cross=True)
+        x = x + _mlp(cfg, row, blk["mlp"], L.apply_norm(cfg, blk["ln3"], x))
+    h = _final(cfg, row, params["dec_norm"], x)
+    return ({"kv": cache["kv"], "cross_k": cache["cross_k"],
+             "cross_v": cache["cross_v"], "len": cur + 1},
+            _logits(cfg, row, params, embs, h))
+
+
+# ---------------------------------------------------------------------------
+# Decode attention over the row's cache blocks
+# ---------------------------------------------------------------------------
 
 def _assemble(row, pieces: list, j: int, dim: int = 2) -> torch.Tensor:
     """Pieces (position, tensor) concatenated along ``dim`` on position
@@ -491,10 +776,10 @@ def _assemble(row, pieces: list, j: int, dim: int = 2) -> torch.Tensor:
 
 def _partial(q, k, v, mask):
     """Softmax attention of q (B, 1, H, hd) over one block's keys k / v
-    (B, T, nkv, hd) at the valid positions ``mask`` (T,): the block's max
-    and sum of exp (B, 1, H) and its unnormalized output (B, 1, H, hd), in
-    f32, the probabilities cast to v's dtype before the product as
-    ``layers._grouped_attention`` does."""
+    (B, T, nkv, hd) at the valid positions ``mask`` (T,; None: all): the
+    block's max and sum of exp (B, 1, H) and its unnormalized output (B,
+    1, H, hd), in f32, the probabilities cast to v's dtype before the
+    product as ``layers._grouped_attention`` does."""
     B, S, H, hd = q.shape
     nkv = k.shape[2]
     g = H // nkv
@@ -502,20 +787,24 @@ def _partial(q, k, v, mask):
     kg = k.permute(0, 2, 1, 3).unsqueeze(2)
     vg = v.permute(0, 2, 1, 3).unsqueeze(2)
     s = (qg.float() @ kg.float().transpose(-1, -2)) * (hd ** -0.5)
-    s = torch.where(mask, s, -1e30)
+    if mask is not None:
+        s = torch.where(mask, s, -1e30)
     m = s.amax(-1)
-    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    p = torch.exp(s - m[..., None])
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
     acc = (p.to(v.dtype) @ vg).float()                     # (B,kv,g,S,hd)
     return (m.permute(0, 3, 1, 2).reshape(B, S, H),
             p.sum(-1).permute(0, 3, 1, 2).reshape(B, S, H),
             acc.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd))
 
 
-def _own_cols(row, attn: dict, h) -> dict:
+def _own_cols(row, attn: dict, h, names) -> dict:
     """Each position's projection of the token onto its own block of the
-    Q, K and V columns: {name: [(lo, hi, tensor (B, 1, hi - lo)) a
-    position]}, the parameters read where they lie."""
-    out = {"q": [], "k": [], "v": []}
+    columns of each of ``names`` (of ``q``, ``k``, ``v``): {name: [(lo,
+    hi, tensor (B, 1, hi - lo)) a position]}, the parameters read where
+    they lie."""
+    out = {name: [] for name in names}
     for j in _all(row):
         with shd.position(row, j):
             hj = h.to(row.tp_device(j))
@@ -545,16 +834,22 @@ def _cols_at(row, pieces: list, j: int, n: int) -> torch.Tensor:
     return _assemble(row, parts, j)
 
 
-def _decode_attention(cfg, row, blk: dict, h, kc, vc, cur):
-    """One token's attention over the row's blocks of a layer's cache, each
-    block read where it lies, each position projecting onto its own
-    columns; returns the output summed over ``model``."""
-    plans, hd, nh = blk["plans"], cfg.hd, cfg.n_heads
+def _decode_attention(cfg, row, part: dict, h, kc, vc, cur, *,
+                      rope: bool = True, cross: bool = False):
+    """One token's attention over the row's blocks of a layer's cache
+    (``RowCache``), each block read where it lies — split by sequence or
+    by heads — each position projecting onto its own columns; returns the
+    output summed over ``model``.  Self-attention writes the token's K/V
+    at ``cur`` (with RoPE under ``rope``) and attends over positions <=
+    ``cur``; cross-attention (``cross``) projects the token's Q alone and
+    attends over every key of the cross cache, writing nothing."""
+    plans, hd, nh = part["plans"], cfg.hd, cfg.n_heads
     g = nh // cfg.n_kv_heads
     B = h.shape[0]
-    proj = _own_cols(row, blk["own"], h)
+    proj = _own_cols(row, part["own"], h,
+                     ("q",) if cross else ("q", "k", "v"))
     need = [(pl.r_lo // hd, -(-pl.r_hi // hd)) for pl in plans]
-    qs, kvs, regions = {}, {}, {}
+    qs, regions = {}, {}
     for j in _all(row):
         hk, hv = kc.held(row.tp[j]), vc.held(row.tp[j])
         if hk is None:
@@ -565,13 +860,15 @@ def _decode_attention(cfg, row, blk: dict, h, kc, vc, cur):
         with shd.position(row, j):
             pos = cur.to(row.tp_device(j)).reshape(1, 1).expand(B, 1)
             q = _cols_at(row, proj["q"], j, nh * hd).reshape(B, 1, nh, hd)
-            qs[j] = L.rope(q, pos, cfg.rope_theta)
-            k, v = (_cols_at(row, proj[w], j, cfg.n_kv_heads * hd)
-                    .reshape(B, 1, -1, hd) for w in ("k", "v"))
-            kvs[j] = (L.rope(k, pos, cfg.rope_theta), v)
-            for cache, t in ((kc, kvs[j][0]), (vc, kvs[j][1])):
-                cache.put_slot(t.to(cache.dtype), 1, cur.to(t.device),
-                               only=row.tp[j], src=row.tp[j])
+            qs[j] = L.rope(q, pos, cfg.rope_theta) if rope else q
+            if not cross:
+                k, v = (_cols_at(row, proj[w], j, cfg.n_kv_heads * hd)
+                        .reshape(B, 1, -1, hd) for w in ("k", "v"))
+                if rope:
+                    k = L.rope(k, pos, cfg.rope_theta)
+                for cache, t in ((kc, k), (vc, v)):
+                    cache.put_slot(t.to(cache.dtype), 1, cur.to(t.device),
+                                   only=row.tp[j], src=row.tp[j])
         regions.setdefault((hk[1][1], hk[1][2]), []).append((j, hk[0],
                                                              hv[0]))
     partials = []            # (position, [a, b) of Q heads, m, l, acc)
@@ -590,9 +887,10 @@ def _decode_attention(cfg, row, blk: dict, h, kc, vc, cur):
                 else:
                     kb, vb = kb[:, :, kv[0]:kv[-1] + 1], \
                         vb[:, :, kv[0]:kv[-1] + 1]
-                kpos = torch.arange(s_lo, s_hi, device=kb.device)
-                m, l, acc = _partial(qs[j][:, :, a:b], kb, vb,
-                                     kpos <= cur.to(kb.device))
+                mask = None if cross else \
+                    torch.arange(s_lo, s_hi, device=kb.device) <= \
+                    cur.to(kb.device)
+                m, l, acc = _partial(qs[j][:, :, a:b], kb, vb, mask)
             partials.append((j, a, b, m, l, acc))
     outs = []
     for j, plan in enumerate(plans):
@@ -615,27 +913,42 @@ def _decode_attention(cfg, row, blk: dict, h, kc, vc, cur):
             out = (num / den[..., None]).to(kc.dtype).reshape(
                 B, 1, (hi - lo) * hd)
             out = out[..., plan.r_lo - lo * hd:plan.r_hi - lo * hd]
-            outs.append(out @ blk["attn"][j]["wo"].to(out.dtype))
-    return _combine(row, outs, blk["split"])
+            outs.append(out @ part["p"][j]["wo"].to(out.dtype))
+    return _combine(row, outs, part["split"])
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def forward(cfg, params: dict, batch: dict):
+    """The family's train forward (``transformer.forward``,
+    ``encdec.forward``) of a data row over its positions: params a tree of
+    ``sharding.RowLeaf`` (``bind_row(..., whole=False)``), returning (loss,
+    {"loss": loss}); a MoE's loss takes each layer's load-balancing term
+    over every data row's first-choice shares.  Under ``cfg.remat`` each
+    block runs under ``torch.utils.checkpoint``, the layer gathered inside
+    it."""
+    if cfg.family == "encdec":
+        return _forward_encdec(cfg, params, batch)
+    return _forward_lm(cfg, params, batch)
+
+
+def prefill(cfg, params: dict, batch: dict, max_len: int, *,
+            attn_impl: str = "auto", cache=None):
+    """The family's prefill of a data row over its positions (batch:
+    tokens [, patch_embs | frames]): params a tree of ``RowLeaf``,
+    ``cache`` the row's ``RowCache`` view of the sharded cache.  Returns
+    (cache, each position's last-position logits over its vocab block,
+    None for a position past 0 where the vocab is not split)."""
+    fn = _prefill_encdec if cfg.family == "encdec" else _prefill_lm
+    return fn(cfg, params, batch, max_len, attn_impl, cache)
 
 
 def decode(cfg, params: dict, cache: dict, token):
-    """``transformer.decode`` of a data row over its positions: params a
+    """The family's decode step of a data row over its positions: params a
     tree of ``RowLeaf``, ``cache`` the row's ``RowCache`` view, each
     position reading and writing its own blocks.  Returns (cache with len
     + 1, each position's logits over its vocab block)."""
-    row = shd.row_of(params)
-    embs = _embed_leaves(row, params)
-    x = _embed(cfg, row, params, embs, token)
-    cur = cache["len"]
-    kc, vc = cache["kv"]["k"], cache["kv"]["v"]
-    for i in range(cfg.n_layers):
-        blk = _layer_at(cfg, row, params["layers"], i, decode=True)
-        x = x + _decode_attention(cfg, row, blk,
-                                  L.apply_norm(cfg, blk["ln1"], x),
-                                  kc[i], vc[i], cur)
-        x = x + _mlp(cfg, row, blk, L.apply_norm(cfg, blk["ln2"], x))
-    fin = _leaves_at(row, params["final_norm"], [0])[0]
-    h = L.apply_norm(cfg, fin, x)
-    return ({"kv": cache["kv"], "len": cur + 1},
-            _logits(cfg, row, params, embs, h))
+    fn = _decode_encdec if cfg.family == "encdec" else _decode_lm
+    return fn(cfg, params, cache, token)
