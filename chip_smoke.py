@@ -26,8 +26,8 @@ Phases, each printing one JSON line:
              is printed before its checks are applied.
 3. small   — summary, correlation, SVD, PCA and naive Bayes on a 4096-row
              slice against numpy.
-4. main    — paths a–q: a–c and e–i through ``repro_torch.core.fm``, d
-             and j–q through the LM stack, each with the
+4. main    — paths a–s: a–c and e–i through ``repro_torch.core.fm``, d
+             and j–s through the LM stack, each with the
              kernel launch counters set to 0 just before it and read just
              after (every kernel of the path must have launched):
              a. ``summary``, ``correlation``, ``glm(family="logistic",
@@ -85,8 +85,9 @@ Phases, each printing one JSON line:
                 ``posix_fadvise(DONTNEED)`` — and warm rates of a 1 GiB
                 sequential read, through the memory map and through
                 ``readinto``); summary, correlation and glm ``ooc`` from
-                disk through the prefetcher warm, cold (``direct_io``) and,
-                for correlation, cold with ``prefetch=False``, each line
+                disk through the prefetcher warm, summary and correlation
+                cold (``direct_io``) and, for correlation, cold with
+                ``prefetch=False``, each line
                 as path e's plus ``disk_read_floor_ms`` (a pass's staged
                 bytes over the faster cold rate) and each result equal to
                 path e's prefetched host-tier result bit for bit with the
@@ -155,7 +156,7 @@ Phases, each printing one JSON line:
                 beside its unsharded twin: i1, ``correlation``,
                 ``summary``, ``glm(max_iter=3)``, ``kmeans(k=10,
                 max_iter=2)`` and ``crossprod`` in ``stream`` mode over the
-                device X unsharded and under k = 1, 2, 4, twice each — k
+                device X unsharded and under k = 1, 2, twice each — k
                 shards and k − 1 merges a pass, ``shard_bytes_in`` k
                 entries summing to the pass's bytes, the unsharded
                 passes, steps and launches, k = 1 bit for bit with
@@ -388,7 +389,7 @@ Phases, each printing one JSON line:
                 the rows — one warm prefill, then counted: the prefill of
                 4 × 4096 with the parameters laid out by ``prefill_specs``'
                 shardings, the parameters re-laid out by ``decode_specs``'
-                under ``serve_mode`` (weights resident over ``data``), 8
+                under ``serve_mode`` (weights resident over ``data``), 4
                 greedy decode steps; then each data row's 2 prompts run
                 alone, unsharded, through the same greedy tokens: every
                 step's logits and the final cache's rows bit for bit
@@ -430,6 +431,32 @@ Phases, each printing one JSON line:
                 serving against the rows alone, within 1e-5; r4, the
                 account of r1's prefill and decode cells and r3's train
                 cell against the card, as q2.
+             s. then the SSM and the hybrid computing over ``model``: s1,
+                zamba2-7b at full width and depth, bf16, over ``[cuda:0] ×
+                2`` as (data 1, model 2) — one copy of the weights laid out
+                a layer at a time (a group of six SSM layers and a tail
+                layer a draw; the init's transient printed), each position
+                its 56 of the 112 SSM heads of every layer and 16 of the
+                shared block's 32 attention heads — the flash kernel at a
+                position's shape, then 4 × 4096 prompts prefilled once
+                warm and counted with 4 greedy steps: ms beside path n's,
+                each position's bytes, the peaks, 13 flash launches a
+                position in the prefill and none in decode; s2,
+                mamba2-1.3b at full width and depth over (data 2, model 2)
+                with path m's shape, beside path m's, no flash launch;
+                each position holding exactly its blocks of every
+                parameter and cache leaf; s3, float32 at full width,
+                mamba2 at depth 2 and zamba2 at depth 7 over (2, 2), 4 ×
+                520-token prompts (the scan's pad path): a train step
+                against the unsharded one (one gradient block a position,
+                bit for bit run to run) and a prefill and 4 decode steps
+                against each data row served alone, each leaf, step and
+                cache within 1e-5 or, where the unsharded step's own
+                float32 floor passes that, within ``FLOOR_FACTOR`` × the
+                floor (printed beside it); then zamba2's train step with
+                AdamW over (2, 2), its peak; s4, the account of s1's
+                prefill and decode cells and s3's zamba2 train cell
+                against the card, as q2.
 
 Then the run's seconds, one ``{"kernels": [...]}`` line (launches summed
 over the counted runs of the paths), the card's name and power
@@ -515,12 +542,12 @@ TRAIN_CHECK_LAYERS = 2   # j3's depth at full width (a cut of depth)
 TRAIN_TOL = 1e-4
 TRAIN_MAIN_ARCH = "qwen2-0.5b"  # j4's launcher run, full width and depth
 SHARD_MESH = (2, 2)      # path p's (data, model) positions on the one card
-SHARD_STEPS = 3          # p0's and p1's timed steps, after one warm step
+SHARD_STEPS = 2          # p0's and p1's timed steps, after one warm step
 SHARD_CHECK_LAYERS = 2   # p2's depth at full width (a cut of depth)
 SERVE_MESH = (2, 2)      # path q's (data, model) positions on the one card
 SERVE_F32_LAYERS = 2     # q1's float32 arm's depth at full width (a cut)
-SERVE_F32_STEPS = 8      # q1's float32 arm's greedy decode steps
-SERVE_DECODE = 8         # q1's greedy decode steps (a cut of path lm's 32)
+SERVE_F32_STEPS = 4      # q1's float32 arm's greedy decode steps
+SERVE_DECODE = 4         # q1's greedy decode steps (a cut of path lm's 32)
 TP_TOL = 1e-5            # p2, q1 float32: against one device, of the largest
 ACCOUNT_TOL = 0.10       # q2: the account's peak bytes against the card's
 MOE_TP_MESH = (1, 2)     # r1's (data, model) positions: one copy of the weights
@@ -529,6 +556,17 @@ MOE_TP_CHECK_LAYERS = 2  # r2's depth at full width (a cut of depth)
 MOE_TP_TRAIN_SEQ = 640   # r2's tokens a row: 640 · 8 pairs > 4096 (capacity)
 ENCDEC_TP_MESH = (2, 2)  # r3's (data, model) positions
 ENCDEC_TP_DECODE = 4     # r3's greedy decode steps
+HYBRID_TP_MESH = (1, 2)  # s1's (data, model) positions: one weight copy
+SSM_TP_MESH = (2, 2)     # s2's and s3's (data, model) positions
+SSM_TP_DECODE = 4        # s1's, s2's and s3's greedy decode steps
+SSM_TP_PROMPT = 520      # s3's tokens: four chunks of 128 and 8 (the pad path)
+#: s3's depths at full width (cuts): zamba2's one group of six SSM layers,
+#: the shared block and a tail of one
+SSM_TP_CHECK_LAYERS = {"mamba2-1.3b": 2, "zamba2-7b": 7}
+#: s3's bounds: a leaf, step or cache whose float32 floor — the unsharded
+#: step's distance from itself computed in another order — passes
+#: ``TP_TOL`` is held within this many times its floor instead
+FLOOR_FACTOR = 2.0
 #: Path p2's limit on the sharded loss against the unsharded one, relative
 #: (the JAX package's test_multidevice_equivalence bound).
 SHARD_LOSS_TOL = 1e-3     # p0, p1 (bf16) against j2's loss
@@ -2059,8 +2097,9 @@ def disk_dense_phase(torch, x, y, XH, YH, XKH, pres, pinfo, rates):
     disk with ``fm.save_dense_matrix`` (the ``disk`` line: mount, file
     system, free bytes, write rate, cold and warm 1 GiB read rates) and
     reopened with ``fm.get_dense_matrix``; summary, correlation and glm run
-    ``ooc`` from them through the prefetcher warm and cold (``direct_io``,
-    after fsync + drop), and correlation cold with ``prefetch=False``; each
+    ``ooc`` from them through the prefetcher warm, summary and correlation
+    cold (``direct_io``, after fsync + drop), and correlation cold with
+    ``prefetch=False``; each
     result equal to path e's prefetched host-tier result ``pres`` bit for
     bit with its counters (``pinfo``), each pass beside its disk read
     floor.  Then ``scale(X, save="disk")`` spills pass 2 to a file,
@@ -2103,7 +2142,7 @@ def disk_dense_phase(torch, x, y, XH, YH, XKH, pres, pinfo, rates):
                                       disk_rate=cold_rate)
                 cold()
                 with fm.conf(direct_io=True):
-                    out["cold"] = run_ooc(torch, calls, rates,
+                    out["cold"] = run_ooc(torch, calls[:2], rates,
                                           disk_rate=cold_rate)
                 cold()
                 with fm.conf(direct_io=True, prefetch=False):
@@ -3025,7 +3064,7 @@ def shard_run(torch, calls):
 
 def shard_stream_arm(torch, x, y, g64):
     """i1: path i1's calls in ``stream`` mode unsharded, then under
-    ``[cuda:0] × 1, × 2, × 4`` twice each (the first run builds the
+    ``[cuda:0] × 1, × 2`` twice each (the first run builds the
     mesh's plans; the lines are the second's).  Checked: k shards and
     k − 1 merges a pass, ``shard_bytes_in`` k entries summing to the last
     pass's bytes, the unsharded run's passes, steps and launches; k = 1
@@ -3039,7 +3078,7 @@ def shard_stream_arm(torch, x, y, g64):
     with fm.conf(mesh=False):
         base, binfo = shard_run(torch, calls)
     lines, checks = [], []
-    for k in (1, 2, 4):
+    for k in (1, 2):
         with fm.conf(mesh=card_mesh(torch, k)):
             runs = [shard_run(torch, calls) for _ in range(2)]
         (res, _), (res2, info) = runs
@@ -4053,8 +4092,9 @@ def ssm_phase(torch):
     batch = {"tokens": toks[:, :S]}
     outs, line, launches, _ = serve_timed(torch, "ssm", cfg, model, params,
                                           batch, max_len, None)
-    emit({"phase": "main", "path": "ssm", **init, **line,
-          "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30})
+    line = {"phase": "main", "path": "ssm", **init, **line,
+            "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30}
+    emit(line)
     check_launches("ssm", cfg, launches)
     finite = all(bool(torch.isfinite(t).all()) for t in outs)
     cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
@@ -4083,7 +4123,7 @@ def ssm_phase(torch):
     del params32, lb
     torch.cuda.empty_cache()
     emit({"phase": "ssm", "path": "m", "seconds": time.perf_counter() - t_path})
-    return launches
+    return launches, line
 
 
 def hybrid_phase(torch):
@@ -4113,9 +4153,10 @@ def hybrid_phase(torch):
     outs, line, launches, _ = serve_timed(
         torch, "hybrid", cfg, model, params, batch, max_len,
         attention_apps(cfg) * row["ms"])
-    emit({"phase": "main", "path": "hybrid", **init, **line,
-          "groups_every_tail": list(hybrid.group_shape(cfg)),
-          "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30})
+    line = {"phase": "main", "path": "hybrid", **init, **line,
+            "groups_every_tail": list(hybrid.group_shape(cfg)),
+            "ssm_cache_gib": line["ssm_cache_bytes"] / 2**30}
+    emit(line)
     check_launches("hybrid", cfg, launches)
     longer = {"tokens": toks}
     n = HYBRID_SHALLOW_LAYERS
@@ -4140,7 +4181,7 @@ def hybrid_phase(torch):
     torch.cuda.empty_cache()
     emit({"phase": "hybrid", "path": "n",
           "seconds": time.perf_counter() - t_path})
-    return launches
+    return launches, line
 
 
 def encdec_floors(cfg, B, S, max_len) -> dict:
@@ -5022,13 +5063,19 @@ def mesh_serve_run(torch, model, params, toks, max_len, steps_n,
             pre_launches)
 
 
+def _full(t):
+    """A ``ShardedTensor`` gathered whole; a tensor as it is."""
+    return t.full() if hasattr(t, "full") else t
+
+
 def rows_alone_devs(torch, model, params, toks, max_len, cache, outs, greedy,
                     n_rows=SERVE_MESH[0], path="q1"):
     """Each data row's prompts (of ``toks``: tokens, or a batch) run alone,
     unsharded, through the mesh run's greedy tokens: per step the largest
     logit deviation relative to the largest logit, the cache rows' largest
     relative deviation, and the share of steps whose greedy token the rows
-    alone pick too."""
+    alone pick too.  ``cache`` and ``outs`` may also be one device's run
+    of the whole batch (plain tensors)."""
     from repro_torch.launch import steps
     from repro_torch.models import zoo
     prefill = steps.build_prefill_step(model, max_len)
@@ -5041,24 +5088,25 @@ def rows_alone_devs(torch, model, params, toks, max_len, cache, outs, greedy,
     for r in range(n_rows):
         span = slice(r * b, (r + 1) * b)
         c1, l1 = prefill(params, {k: v[span] for k, v in batch.items()})
-        by_step[0] = max(by_step[0], rel_err(torch, outs[0].full()[span], l1))
+        by_step[0] = max(by_step[0], rel_err(torch, _full(outs[0])[span], l1))
         for i, tok in enumerate(greedy):
             agree += int(torch.equal(l1.argmax(-1).to(torch.int32),
                                      tok[span]))
             n += 1
             c1, l1 = decode(params, c1, tok[span])
             by_step[i + 1] = max(by_step[i + 1],
-                                 rel_err(torch, outs[i + 1].full()[span], l1))
+                                 rel_err(torch, _full(outs[i + 1])[span], l1))
         for name, leaf in zoo.flatten(cache):
             want = dict(zoo.flatten(c1))[name]
             if name == "len":
-                check(all(torch.equal(leaf.local(p), want)
-                          for p in leaf.sharding.positions()),
+                check(all(torch.equal(t, want) for t in (
+                    [leaf.local(p) for p in leaf.sharding.positions()]
+                    if hasattr(leaf, "sharding") else [leaf])),
                       f"{path}: len differs from the rows alone")
                 continue
             dim = c_axes[name].split("|").index("batch")
             cache_dev = max(cache_dev, rel_err(
-                torch, leaf.full().narrow(dim, span.start, b), want))
+                torch, _full(leaf).narrow(dim, span.start, b), want))
         del c1, l1
     return by_step, cache_dev, agree / max(n, 1)
 
@@ -5185,9 +5233,10 @@ def account_phase(torch, p0, p1, q1):
          {"decode_ms_per_step": q1["decode_ms_per_step"]})])
 
 
-def account_cells(torch, path, arm, arch, cells):
+def account_cells(torch, path, arm, arch, cells, over=None):
     """The dry-run's account (``steps.lower_cell`` on meta tensors,
-    ``one_device``: the positions share this card) of ``arch``'s cells —
+    ``one_device``: the positions share this card) of ``arch``'s cells
+    (with ``over`` replacing fields of its config) —
     (name, (data, model), grad_accum, shape, measured peak, measured ms) —
     against the card's peak over what was resident before the cell's
     arguments were laid out, each within ``ACCOUNT_TOL``; the positions'
@@ -5199,7 +5248,7 @@ def account_cells(torch, path, arm, arch, cells):
     from repro_torch.launch import roofline, steps
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import zoo
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(over or {}))
     bad = []
     for name, shape, accum, spec, measured, ms in cells:
         n = math.prod(shape)
@@ -5260,8 +5309,10 @@ def place_by_layer(torch, model, mesh, gen):
     shardings (``serve_mode``) without a whole stacked leaf ever on the
     card: every position's blocks made as zeros, then layer by layer a
     one-layer model's draw from ``gen`` copied into them (the other
-    leaves drawn with the first layer and placed).  Returns (the tree,
-    the init's line: seconds, weight bytes, its peak over the weights)."""
+    leaves drawn with the first layer and placed); a hybrid's draw is one
+    group of SSM layers and a tail layer, copied into group i and tail
+    layer i.  Returns (the tree, the init's line: seconds, weight bytes,
+    its peak over the weights)."""
     import dataclasses
     from repro_torch.distributed import sharding as shd
     from repro_torch.models import zoo
@@ -5274,21 +5325,30 @@ def place_by_layer(torch, model, mesh, gen):
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    one = zoo.build(dataclasses.replace(cfg, n_layers=1), DEVICE)
+    one = zoo.build(dataclasses.replace(
+        cfg, n_layers=cfg.shared_attn_every + 1 if cfg.family == "hybrid"
+        else 1), DEVICE)
+    draws = max(shapes[name].shape[0] for name in shapes
+                if axes[name].startswith("layers"))
     placed = {}
-    for i in range(cfg.n_layers):
+    for i in range(draws):
         for name, t in zoo.flatten(one.init(gen)):
             if not axes[name].startswith("layers"):
                 if i == 0:
                     placed[name] = shd.place(t, sh[name])
                 continue
+            lead = shapes[name].shape[0]
+            if i >= lead:
+                continue
             if name not in placed:
                 placed[name] = shd.zeros(tuple(shapes[name].shape), t.dtype,
                                          sh[name])
             leaf = placed[name]
+            k = axes[name].split("|").count("layers")
             for pos in sh[name].positions():
                 sl = sh[name].slices(leaf.shape, pos)
-                check(sl[0] == slice(0, cfg.n_layers),
+                check(all(s_ == slice(0, n) for s_, n in
+                          zip(sl[:k], leaf.shape)),
                       f"{name}: its layers are sharded")
                 leaf.shards[pos][i].copy_(t[0][sl[1:]])
     torch.cuda.synchronize()
@@ -5425,13 +5485,18 @@ def moe_tp_serve(torch, k):
     return launches, line
 
 
-def tp_grads_arm(torch, path, arm, model, params, batch, shape):
+def tp_grads_arm(torch, path, arm, model, params, batch, shape,
+                 floor=False):
     """One sharded step over (data, model) = ``shape`` positions — each
     its ``model`` share — against the unsharded one (the loss within
     ``TP_TOL`` relative, each gradient leaf within ``TP_TOL`` of its
     largest entry), run to run bit for bit, its gradients one block a
-    position (``grad_blocks_spy``); the line printed and checked.
-    Returns (the line, the sharded parameters, their gradients)."""
+    position (``grad_blocks_spy``); the line printed and checked.  With
+    ``floor``, the unsharded step is also run as two microbatches (the same
+    gradient, its sums in another order): each leaf's distance between the
+    two is its float32 floor, and the leaf's bound is the larger of
+    ``TP_TOL`` and ``FLOOR_FACTOR`` × its floor.  Returns (the line, the
+    sharded parameters, their gradients)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.models import zoo
@@ -5449,6 +5514,17 @@ def tp_grads_arm(torch, path, arm, model, params, batch, shape):
     for _, p in zoo.flatten(params):
         p.grad = None
         p.requires_grad_(False)
+    bounds = {k: TP_TOL for k in g1}
+    if floor:
+        import dataclasses
+        two = zoo.build(dataclasses.replace(model.cfg, grad_accum=2), DEVICE)
+        _, _, g2 = steps.loss_and_grads(two, params, batch)
+        floor = {k: rel_err(torch, v, g1[k]) for k, v in zoo.flatten(g2)}
+        for _, p in zoo.flatten(params):
+            p.grad = None
+            p.requires_grad_(False)
+        del g2
+        bounds = {k: max(TP_TOL, FLOOR_FACTOR * floor[k]) for k in g1}
     runs, seen = [], {}
     for i in range(2):
         real = grad_blocks_spy(torch, steps, seen) if i == 0 else None
@@ -5479,12 +5555,16 @@ def tp_grads_arm(torch, path, arm, model, params, batch, shape):
            "loss_rel": loss_rel, "loss_tol": TP_TOL,
            "grad_rel_err_max": max(errs.values()),
            "grad_worst_leaf": max(errs, key=errs.get), "tol": TP_TOL,
+           "grad_rel_err_by_leaf": errs,
+           **({"grad_floor_by_leaf": floor, "floor_factor": FLOOR_FACTOR,
+               "grad_bound_by_leaf": bounds} if floor else {}),
            "bit_for_bit_run_to_run": same, "grad_blocks": blocks,
            "ms": {"unsharded": ms1, "sharded": ms_s, "sharded_again": ms_s2}}
     emit(out)
     check(loss_rel <= TP_TOL, f"{arm}: loss {ls} against {float(l1)} "
           f"unsharded")
-    check(max(errs.values()) <= TP_TOL, f"{arm}: gradients differ {errs}")
+    over = {k: (e, bounds[k]) for k, e in errs.items() if e > bounds[k]}
+    check(not over, f"{arm}: gradients differ beyond their bounds {over}")
     check(same, f"{arm}: two sharded runs differ")
     check(blocks["as_spec"] and not seen.get("off"),
           f"{arm}: the gradients are not one block a position: {blocks}")
@@ -5492,17 +5572,41 @@ def tp_grads_arm(torch, path, arm, model, params, batch, shape):
 
 
 def tp_serve_f32_arm(torch, path, arm, model, params, batch, steps_n, shape,
-                     extra=None):
+                     extra=None, floor=False):
     """A float32 prefill of ``batch`` and ``steps_n`` greedy decode steps
     over (data, model) = ``shape`` positions against each data row's
     prompts served alone, unsharded (``rows_alone_devs``): every step's
-    logits and the cache rows within ``TP_TOL`` of the largest entry."""
+    logits and the cache rows within ``TP_TOL`` of the largest entry.
+    With ``floor``, one device's run of the whole batch through the same
+    tokens is held against the rows alone too (the same function at
+    another batch shape): its deviations are the float32 floor, and each
+    bound is the larger of ``TP_TOL`` and ``FLOOR_FACTOR`` × its floor."""
+    from repro_torch.launch import steps
     S = batch["tokens"].shape[1]
     (_, cache, outs, greedy, pre_s, dec_s, _, _, _) = mesh_serve_run(
         torch, model, params, batch, S + steps_n, steps_n, shape)
     by_step, cache_dev, agree = rows_alone_devs(
         torch, model, params, batch, S + steps_n, cache, outs, greedy,
         shape[0], arm)
+    step_bounds, cache_bound, extra = [TP_TOL] * len(by_step), TP_TOL, \
+        dict(extra or {})
+    if floor:
+        one_c, lg = steps.build_prefill_step(model, S + steps_n)(params,
+                                                                  batch)
+        one = [lg]
+        for tok in greedy:
+            one_c, lg = steps.build_decode_step(model)(params, one_c, tok)
+            one.append(lg)
+        f_step, f_cache, _ = rows_alone_devs(
+            torch, model, params, batch, S + steps_n, one_c, one, greedy,
+            shape[0], arm)
+        del one_c, one
+        step_bounds = [max(TP_TOL, FLOOR_FACTOR * f) for f in f_step]
+        cache_bound = max(TP_TOL, FLOOR_FACTOR * f_cache)
+        extra.update(logits_floor_by_step=f_step, cache_floor=f_cache,
+                     floor_factor=FLOOR_FACTOR,
+                     logits_bound_by_step=step_bounds,
+                     cache_bound=cache_bound)
     line = {"phase": "compare", "path": path, "arm": arm,
             "arch": model.cfg.name, "n_layers": model.cfg.n_layers,
             "dtype": "float32",
@@ -5512,11 +5616,13 @@ def tp_serve_f32_arm(torch, path, arm, model, params, batch, steps_n, shape,
             "logits_rel_dev_by_step": by_step,
             "cache_rel_dev": cache_dev, "greedy_agreement": agree,
             "tol": TP_TOL, "prefill_ms": pre_s * 1e3,
-            "decode_ms_per_step": dec_s * 1e3 / steps_n, **(extra or {})}
+            "decode_ms_per_step": dec_s * 1e3 / steps_n, **extra}
     emit(line)
-    check(max(by_step) <= TP_TOL and cache_dev <= TP_TOL,
+    check(all(d <= b for d, b in zip(by_step, step_bounds))
+          and cache_dev <= cache_bound,
           f"{arm}: the mesh's logits or cache differ from the rows alone "
-          f"by more than {TP_TOL}: {by_step}, {cache_dev}")
+          f"by more than {step_bounds}, {cache_bound}: {by_step}, "
+          f"{cache_dev}")
     del cache, outs
     gc.collect()
     torch.cuda.empty_cache()
@@ -5695,6 +5801,239 @@ def tp_families_path(torch, k, o):
     return {k_: r1_launches[k_] + r3_launches[k_] for k_ in r1_launches}
 
 
+# ---------------------------------------------------------------------------
+# Path s: tensor-parallel compute over `model` for the SSM and hybrid
+# ---------------------------------------------------------------------------
+
+def ssm_tp_serve(torch, arm, arch, model, params, base, shape, placed=None,
+                 init=None):
+    """A served arm of path s: ``arch`` (bf16, full width and depth) over
+    (data, model) = ``shape`` positions of the card, 4 × 4096 prompts
+    prefilled once warm, then counted with ``SSM_TP_DECODE`` greedy steps
+    (``mesh_serve_run``; ``placed`` parameters already laid out, else
+    ``params`` laid out by the steps' shardings): ms beside the one-device
+    path's line ``base``, each position's bytes, the peaks; one flash
+    launch an application of attention a position in the prefill and none
+    in decode; every position holding exactly its blocks of every
+    parameter and cache leaf.  Returns (launches, the line)."""
+    from repro_torch.models import zoo
+    cfg = model.cfg
+    n_rows, n_model = shape
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED + 19)
+    B, S = LM_BATCH, LM_PROMPT
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=DEVICE,
+                         dtype=torch.int32)
+    (sd, cache, outs, greedy, pre_s, dec_s, pre_peak, dec_peak,
+     pre_launches), launches = counted(
+        torch, arm, ("flash_attention",) if attention_apps(cfg) else (),
+        lambda: mesh_serve_run(torch, model, params, toks,
+                               S + SSM_TP_DECODE, SSM_TP_DECODE, shape,
+                               placed=placed))
+    apps = attention_apps(cfg) * n_rows * n_model
+    held_p, off_p = held_bytes(sd)
+    held_c, off_c = held_bytes(cache)
+    dec_ms = dec_s * 1e3 / SSM_TP_DECODE
+    line = {"phase": "main", "path": "s", "arm": arm, "arch": arch,
+            "mesh": dict(zip(("data", "model"), shape)),
+            "devices": f"[{DEVICE}:0] x {n_rows * n_model}",
+            "tensor_parallel": True, "batch": B, "prompt": S,
+            "decode_steps": SSM_TP_DECODE,
+            "prefill_ms": pre_s * 1e3, "one_device_prefill_ms":
+            base["prefill_ms"], "prefill_vs_one_device":
+            pre_s * 1e3 / base["prefill_ms"],
+            "decode_ms_per_step": dec_ms, "one_device_decode_ms_per_step":
+            base["decode_ms_per_step"], "decode_vs_one_device":
+            dec_ms / base["decode_ms_per_step"],
+            "prefill_peak_bytes": pre_peak, "decode_peak_bytes": dec_peak,
+            "prefill_peak_gib": pre_peak / 2**30,
+            "decode_peak_gib": dec_peak / 2**30,
+            "one_device_max_memory_gib": base["max_memory_gib"],
+            "held_by_position": {str(p): held_p[p] + held_c[p]
+                                 for p in held_p},
+            "params_held_by_position": {str(p): v for p, v in held_p.items()},
+            "cache_specs": {k: str(v.sharding.spec)
+                            for k, v in zoo.flatten(cache) if k != "len"},
+            "positions_off": (off_p + off_c)[:8],
+            "flash_launches": launches["flash_attention"],
+            "flash_launches_prefill": pre_launches,
+            "greedy_tokens_row0": [int(g[0, 0]) for g in greedy],
+            **(init or {})}
+    emit(line)
+    check(pre_launches == apps and launches["flash_attention"] == apps,
+          f"{arm}: flash_attention launched {pre_launches} times in the "
+          f"prefill and {launches['flash_attention']} in all, not {apps} "
+          f"(an application of attention a position) and none in decode")
+    check(not off_p and not off_c, f"{arm}: positions hold other than "
+          f"their blocks {(off_p + off_c)[:8]}")
+    check(all(bool(torch.isfinite(o.full()).all()) for o in outs),
+          f"{arm}: a logit is not finite")
+    del sd, cache, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, line
+
+
+def hybrid_tp_serve(torch, n):
+    """s1: zamba2-7b at full width and depth, bf16, over (data, model) =
+    ``HYBRID_TP_MESH`` positions of the card — one copy of the weights
+    laid out a layer at a time (``place_by_layer``; the init's transient
+    printed), each position its 56 of the 112 SSM heads of every layer
+    and 16 of the shared block's 32 attention heads — the flash kernel at
+    a position's shape against its plain version, then path n's serving
+    shape (``ssm_tp_serve``): 13 flash launches a position in the
+    prefill, none in decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    cfg = get_config(HYBRID_ARCH)
+    n_rows, n_model = HYBRID_TP_MESH
+    kernel = flash_case(torch, LM_BATCH // n_rows, cfg.n_heads // n_model,
+                        cfg.n_kv_heads // n_model, LM_PROMPT, cfg.hd,
+                        SEED + 17)
+    emit({"phase": "kernel", "path": "s", "arm": "s1", **kernel})
+    check_flash_case("s1", kernel)
+    model = steps.serving_model(cfg, device=DEVICE)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SEED)
+    mesh = shard_mesh(torch, HYBRID_TP_MESH, ("data", "model"))
+    sp, init = place_by_layer(torch, model, mesh, gen)
+    emit({"phase": "init", "path": "s", "arm": "s1", "arch": HYBRID_ARCH,
+          **init})
+    check(init["weight_copies"] < 1.01, f"s1: the positions hold "
+          f"{init['weight_copies']} copies of the weights, not one")
+    out = ssm_tp_serve(torch, "s1", HYBRID_ARCH, model, None, n,
+                       HYBRID_TP_MESH, placed=sp,
+                       init={k: init[k] for k in ("init_s", "weights_gib",
+                                                  "init_transient_gib")})
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mamba_tp_serve(torch, m):
+    """s2: mamba2-1.3b at full width and depth, bf16 weights from seed
+    2016, over (data, model) = ``SSM_TP_MESH`` positions, path m's serving
+    shape (``ssm_tp_serve``): no flash launch (no attention)."""
+    cfg, model, params, _, init = serve_init(torch, SSM_ARCH)
+    out = ssm_tp_serve(torch, "s2", SSM_ARCH, model, params, m, SSM_TP_MESH,
+                       init={k: init[k] for k in ("init_s", "weights_gib")})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_peak(torch, path, arm, model, params, batch, shape):
+    """The train step (``build_train_step``: the sharded gradients and
+    AdamW) over (data, model) = ``shape`` positions of the card, one warm
+    step then one measured: its ms and its peak over what was resident
+    before the parameters were laid out (the account's train cell)."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    mesh = shard_mesh(torch, shape, ("data", "model"))
+    p_shapes, p_axes = model.abstract_params()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    sp = shd.place_tree(params, shd.tree_shardings(p_axes, p_shapes, mesh))
+    opt = adam.init(sp)
+    step = steps.build_train_step(model)
+    sp, opt, _ = step(sp, opt, batch)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sp, opt, met = step(sp, opt, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - resident
+    line = {"phase": "main", "path": path, "arm": arm,
+            "arch": model.cfg.name, "n_layers": model.cfg.n_layers,
+            "dtype": model.cfg.dtype,
+            "mesh": dict(zip(("data", "model"), shape)),
+            "batch": {k: list(v.shape) for k, v in batch.items()},
+            "step_ms": ms, "loss": float(met["loss"]),
+            "step_peak_bytes": peak, "step_peak_gib": peak / 2**30}
+    emit(line)
+    check(math.isfinite(line["loss"]), f"{arm}: the loss is not finite")
+    del sp, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def ssm_tp_checks(torch):
+    """s3: mamba2-1.3b and zamba2-7b at full width, depths
+    ``SSM_TP_CHECK_LAYERS``, float32 from seeds 2034 and 2035, over (data
+    2, model 2), prompts of ``SSM_TP_PROMPT`` tokens (the scan's pad
+    path): a train step against the unsharded one (``tp_grads_arm``: one
+    gradient block a position, bit for bit run to run), a prefill and
+    ``SSM_TP_DECODE`` greedy steps against each data row served alone
+    (``tp_serve_f32_arm``), each within ``TP_TOL`` or, where the
+    unsharded float32 step's own floor passes it (these random models at
+    full width: up to 7.6e-5, ``examples/torch_ssm_tp_probe.py``),
+    ``FLOOR_FACTOR`` × that floor; then zamba2's train step with AdamW
+    measured for the account (``tp_train_peak``).  Returns that line."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    train = None
+    for i, arch in enumerate((SSM_ARCH, HYBRID_ARCH)):
+        cfg = dataclasses.replace(
+            get_config(arch), n_layers=SSM_TP_CHECK_LAYERS[arch],
+            dtype="float32", param_dtype="float32", grad_accum=1)
+        model = zoo.build(cfg, DEVICE)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(SEED + 18 + i)
+        params = model.init(gen)
+        B, S = LM_BATCH, SSM_TP_PROMPT
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                             device=DEVICE, dtype=torch.int32)
+        batch = {"tokens": toks[:, :S], "labels": toks[:, 1:]}
+        tp_grads_arm(torch, "s", f"s3-train-{cfg.family}", model, params,
+                     batch, SSM_TP_MESH, floor=True)
+        tp_serve_f32_arm(torch, "s", f"s3-serve-{cfg.family}", model, params,
+                         {"tokens": toks[:, :S]}, SSM_TP_DECODE, SSM_TP_MESH,
+                         floor=True)
+        if cfg.family == "hybrid":
+            train = tp_train_peak(torch, "s", "s3-train-step", model, params,
+                                  batch, SSM_TP_MESH)
+        del params, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return train
+
+
+def ssm_tp_path(torch, m, n):
+    """Path s: the hybrid (s1) and the SSM (s2) served over positions,
+    each computing its ``model`` share, their float32 checks (s3) and the
+    account of s1's cells and s3's zamba2 train cell against the card
+    (s4).  Returns the path's launches."""
+    from repro_torch.configs.base import ShapeSpec
+    t0 = time.perf_counter()
+    s1_launches, s1 = hybrid_tp_serve(torch, n)
+    s2_launches, _ = mamba_tp_serve(torch, m)
+    train = ssm_tp_checks(torch)
+    account_cells(torch, "s", "s4", HYBRID_ARCH, [
+        ("s1-prefill", HYBRID_TP_MESH, 1,
+         ShapeSpec("s1p", LM_PROMPT, LM_BATCH, "prefill"),
+         s1["prefill_peak_bytes"], {"prefill_ms": s1["prefill_ms"]}),
+        ("s1-decode", HYBRID_TP_MESH, 1,
+         ShapeSpec("s1d", LM_PROMPT + SSM_TP_DECODE, LM_BATCH, "decode"),
+         s1["decode_peak_bytes"],
+         {"decode_ms_per_step": s1["decode_ms_per_step"]})])
+    account_cells(torch, "s", "s4", HYBRID_ARCH, [
+        ("s3-train", SSM_TP_MESH, 1,
+         ShapeSpec("s3t", SSM_TP_PROMPT, LM_BATCH, "train"),
+         train["step_peak_bytes"], {"step_ms": train["step_ms"]})],
+        over=dict(n_layers=SSM_TP_CHECK_LAYERS[HYBRID_ARCH],
+                  dtype="float32", param_dtype="float32"))
+    emit({"phase": "ssm_tp", "path": "s",
+          "seconds": time.perf_counter() - t0})
+    return {k_: s1_launches[k_] + s2_launches[k_] for k_ in s1_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5764,10 +6103,12 @@ def main() -> int:
     paths.append(vlm_phase(torch))
     gc.collect()
     torch.cuda.empty_cache()
-    paths.append(ssm_phase(torch))
+    m_launches, m_line = ssm_phase(torch)
+    paths.append(m_launches)
     gc.collect()
     torch.cuda.empty_cache()
-    paths.append(hybrid_phase(torch))
+    n_launches, n_line = hybrid_phase(torch)
+    paths.append(n_launches)
     gc.collect()
     torch.cuda.empty_cache()
     o_launches, o_line = encdec_phase(torch)
@@ -5781,6 +6122,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths.append(tp_families_path(torch, k_line, o_line))
+    gc.collect()
+    torch.cuda.empty_cache()
+    paths.append(ssm_tp_path(torch, m_line, n_line))
     for r in rows:
         r["launches"] = sum(p[r["name"]] for p in paths)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

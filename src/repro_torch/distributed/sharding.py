@@ -46,8 +46,9 @@ Either way a gathered leaf's gradient is added, a layer at a time, into
 the blocks of the positions it was gathered from (the reduce-scatter over
 ``data``): each position holds one gradient block a leaf
 (``RowGroup.grads``), into which the rows' parts are added in row order —
-a part that arrives early waits in its slot, no backward waits; rows whose
-positions share a device take their backwards in turn.  Activations
+rows whose positions share a device take their backwards in turn and a
+part is added as it comes; elsewhere a part that arrives early waits in
+its slot, and no backward waits.  Activations
 are never laid out (``hint`` is the identity): a row's residual stream
 lives on its own device.
 
@@ -621,9 +622,12 @@ class RowGroup:
     ``grads`` (the leaf's tree name -> {position: its one gradient block},
     one entry a block's first copy, on that position's device in the
     leaf's dtype, zeros at first use): ``add_grad`` adds row r's part of a
-    block, weighted by ``weights[r]``, in ticket order — a part that comes
-    before its turn waits in its slot, no row waits — so the sum is in row
-    order (microbatch by microbatch) and the same every run."""
+    block, weighted by ``weights[r]``, in row order (microbatch by
+    microbatch), the same every run.  Where the rows take their backwards
+    in turn (``ordered``) the parts come in that order and each is added
+    as it comes; else in ticket order — a part that comes before its turn
+    waits in its slot, no row waits (a row's k-th part of a block is
+    ticket k·n + r)."""
 
     def __init__(self, n: int, positions=None):
         self.n = n
@@ -690,11 +694,13 @@ class RowGroup:
             ch = self._chains.get(key)
             if ch is None:
                 ch = self._chains[key] = _Chain(self.n, self._made[name])
+            entry = (sub, part, self.weights[row.index], _event(part))
+            if self.ordered:
+                self._add(bufs[pos], index, ch, [entry])
+                return
             k = ch.counts[row.index]
             ch.counts[row.index] += 1
-            ch.held[k * self.n + row.index] = (sub, part,
-                                               self.weights[row.index],
-                                               _event(part))
+            ch.held[k * self.n + row.index] = entry
             ready = []
             while ch.next in ch.held:
                 ready.append(ch.held.pop(ch.next))

@@ -19,8 +19,12 @@ meaning carries over (``status``, ``memory``, ``cost.flops``,
 ``collectives``, ``collective_bytes_total``, ``loop_aware.dot_flops``),
 ``trace_s`` in place of ``lower_s`` and ``compile_s``, ``positions``, and
 ``model_compute``: whether the cell's family computes over ``model``
-(``models.tensor_parallel``: dense, MoE, VLM, enc-dec) or only stores on
-it (SSM, hybrid); the printed line says which (``model`` / ``storage``).
+(``models.tensor_parallel``: every family, the SSM and hybrid through
+``models.tensor_parallel_ssm``) or only stores on it; the printed line
+says which (``model`` / ``storage``).  A serving cell whose cache holds
+a data row's rows on other data rows (zamba2's ``long_500k``: a batch of
+one puts its K/V's ``kv_seq`` on ``data`` too) runs the storage-only
+path all the same (``tensor_parallel.serves``).
 A failing cell is written with its error.  ``launch/roofline.py`` turns
 the records into the roofline table.
 

@@ -16,11 +16,11 @@ enc_len, d_model).
 Over a mesh (parameters and moments ``distributed.sharding.ShardedTensor``
 leaves, as ``train_specs`` lays them out), ``build_train_step`` runs the
 sharded step (``sharded_loss_and_grads``): one thread and, on a card, one
-CUDA stream per data row, each on its rows of the batch — for the dense,
-MoE, VLM and enc-dec families each of the row's positions computing its
-``model`` share with its block of every layer
-(``models.tensor_parallel``), for the SSM and hybrid the row's device
-computing layers gathered whole — and each
+CUDA stream per data row, each on its rows of the batch — each of the
+row's positions computing its ``model`` share with its block of every
+layer (``models.tensor_parallel``; the SSM's and hybrid's heads in
+``models.tensor_parallel_ssm``), a row of one position computing layers
+gathered whole — and each
 layer's gradient added into the gradient blocks, one a position, in row
 order; then ``adam.update`` block by block.  ``build_prefill_step`` and
 ``build_decode_step`` serve over a mesh the same way (``sharded_prefill``,

@@ -1,5 +1,6 @@
 """Tensor-parallel compute over the mesh's ``model`` axis for the
-transformer family (dense, MoE, VLM) and the enc-dec family — what the
+transformer family (dense, MoE, VLM) and the enc-dec family — and, through
+``tensor_parallel_ssm``, the SSM and hybrid families — what the
 reference's GSPMD step does with the parameters' ``heads``, ``kv_heads``,
 ``d_ff``, ``experts`` and ``vocab`` on ``model`` and its activations hinted
 there (``act_heads``, ``act_ff``, the expert buffers' ``experts``): each
@@ -80,9 +81,10 @@ from . import layers as L
 from . import moe as M
 from . import transformer
 
-#: Families whose steps compute over ``model``; every other family runs
-#: the storage-only layout.
-FAMILIES = ("dense", "vlm", "moe", "encdec")
+#: Families whose steps compute over ``model`` (the SSM and hybrid in
+#: ``tensor_parallel_ssm``); a row of one position runs the storage-only
+#: layout.
+FAMILIES = ("dense", "vlm", "moe", "encdec", "ssm", "hybrid")
 
 
 def active(cfg, row) -> bool:
@@ -91,15 +93,21 @@ def active(cfg, row) -> bool:
     return row is not None and cfg.family in FAMILIES and len(row.tp) > 1
 
 
+def _cache_leaves(cache: dict):
+    for v in cache.values():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v)
+        elif isinstance(v, shd.RowCache):
+            yield v
+
+
 def serves(cfg, row, cache) -> bool:
     """``active``, with every block of the row's part of the bound decode
-    cache (``sharding.bind_cache``) — its K/V and an enc-dec's cross K/V —
-    on the row's own positions."""
-    if not active(cfg, row):
-        return False
-    leaves = [cache["kv"]["k"], cache["kv"]["v"]] + [
-        cache[k] for k in ("cross_k", "cross_v") if k in cache]
-    return all(c[0].local_to_row() for c in leaves)
+    cache (``sharding.bind_cache``) — the family's leaves: K/V, an
+    enc-dec's cross K/V, the SSM's conv windows and states, the hybrid's
+    of its groups, its tail and its K/V — on the row's own positions."""
+    return active(cfg, row) and all(
+        c.local_to_row() for c in _cache_leaves(cache))
 
 
 # ---------------------------------------------------------------------------
@@ -801,9 +809,9 @@ def _partial(q, k, v, mask):
 
 def _own_cols(row, attn: dict, h, names) -> dict:
     """Each position's projection of the token onto its own block of the
-    columns of each of ``names`` (of ``q``, ``k``, ``v``): {name: [(lo,
-    hi, tensor (B, 1, hi - lo)) a position]}, the parameters read where
-    they lie."""
+    columns of each of ``names`` (of ``q``, ``k``, ``v``): {name:
+    [(position, lo, hi, tensor (B, 1, hi - lo))]}, the parameters read
+    where they lie."""
     out = {name: [] for name in names}
     for j in _all(row):
         with shd.position(row, j):
@@ -815,23 +823,25 @@ def _own_cols(row, attn: dict, h, names) -> dict:
                 if "b" + name in attn:
                     y = y + attn["b" + name].at(j).gather().to(hj.dtype)
                 lo, hi = _range(leaf, row, j, 1)
-                out[name].append((lo, hi, y))
+                out[name].append((j, lo, hi, y))
     return out
 
 
-def _cols_at(row, pieces: list, j: int, n: int) -> torch.Tensor:
-    """Columns [0, n) of a projection on position j's device from the
-    positions' pieces (its own where it covers them): an ``all-gather`` of
-    the token's activations, never of a parameter."""
-    lo, hi, own = pieces[j]
-    if (lo, hi) == (0, n):
-        return own
-    parts, at = [], 0
-    for src, (a, b, t) in enumerate(pieces):
-        if a == at and b > at:
-            parts.append((src, t))
-            at = b
-    return _assemble(row, parts, j)
+def _take(row, pieces: list, j: int, lo: int, hi: int) -> torch.Tensor:
+    """Columns [lo, hi) of a token's activations on position j's device
+    from the pieces (position, lo, hi, tensor) the positions hold: its
+    own where they cover a column, else the first that does (an
+    ``all-gather`` of activations, never of a parameter)."""
+    parts, at = [], lo
+    while at < hi:
+        got = [pc for pc in pieces if pc[1] <= at < pc[2]]
+        if not got:
+            raise ValueError(f"no position holds column {at}")
+        src, a, b, t = next((pc for pc in got if pc[0] == j), got[0])
+        end = min(b, hi)
+        parts.append((src, t[..., at - a:end - a]))
+        at = end
+    return _assemble(row, parts, j, dim=-1)
 
 
 def _decode_attention(cfg, row, part: dict, h, kc, vc, cur, *,
@@ -859,10 +869,10 @@ def _decode_attention(cfg, row, part: dict, h, kc, vc, cur, *,
                                       "row's batch rows")
         with shd.position(row, j):
             pos = cur.to(row.tp_device(j)).reshape(1, 1).expand(B, 1)
-            q = _cols_at(row, proj["q"], j, nh * hd).reshape(B, 1, nh, hd)
+            q = _take(row, proj["q"], j, 0, nh * hd).reshape(B, 1, nh, hd)
             qs[j] = L.rope(q, pos, cfg.rope_theta) if rope else q
             if not cross:
-                k, v = (_cols_at(row, proj[w], j, cfg.n_kv_heads * hd)
+                k, v = (_take(row, proj[w], j, 0, cfg.n_kv_heads * hd)
                         .reshape(B, 1, -1, hd) for w in ("k", "v"))
                 if rope:
                     k = L.rope(k, pos, cfg.rope_theta)
@@ -929,6 +939,9 @@ def forward(cfg, params: dict, batch: dict):
     over every data row's first-choice shares.  Under ``cfg.remat`` each
     block runs under ``torch.utils.checkpoint``, the layer gathered inside
     it."""
+    if cfg.family in ("ssm", "hybrid"):
+        from . import tensor_parallel_ssm
+        return tensor_parallel_ssm.forward(cfg, params, batch)
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, batch)
     return _forward_lm(cfg, params, batch)
@@ -941,6 +954,10 @@ def prefill(cfg, params: dict, batch: dict, max_len: int, *,
     ``cache`` the row's ``RowCache`` view of the sharded cache.  Returns
     (cache, each position's last-position logits over its vocab block,
     None for a position past 0 where the vocab is not split)."""
+    if cfg.family in ("ssm", "hybrid"):
+        from . import tensor_parallel_ssm
+        return tensor_parallel_ssm.prefill(cfg, params, batch, max_len,
+                                           attn_impl=attn_impl, cache=cache)
     fn = _prefill_encdec if cfg.family == "encdec" else _prefill_lm
     return fn(cfg, params, batch, max_len, attn_impl, cache)
 
@@ -950,5 +967,8 @@ def decode(cfg, params: dict, cache: dict, token):
     tree of ``RowLeaf``, ``cache`` the row's ``RowCache`` view, each
     position reading and writing its own blocks.  Returns (cache with len
     + 1, each position's logits over its vocab block)."""
+    if cfg.family in ("ssm", "hybrid"):
+        from . import tensor_parallel_ssm
+        return tensor_parallel_ssm.decode(cfg, params, cache, token)
     fn = _decode_encdec if cfg.family == "encdec" else _decode_lm
     return fn(cfg, params, cache, token)
