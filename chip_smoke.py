@@ -379,7 +379,16 @@ Phases, each printing one JSON line:
                 axis of the card's 4 positions on p2's gradient tree as
                 AdamW takes it (clipped to global norm 1; the position k
                 copy scaled by (k + 1)/4), 30 rounds, the mean within rtol
-                0.05, atol 2e-5 of the exact sum, ms a round.
+                0.05, atol 2e-5 of the exact sum, ms a round; p5, p2's
+                model, parameters and batch with ``grad_accum`` 2 over
+                (data 3, model 2): neither the batch of 2 rows nor a
+                microbatch of 1 splits over the 3 data rows, so every row
+                computes each microbatch whole and weighs it 1/3, as the
+                reference's GSPMD step replicates such a batch; held to
+                the one-device step at ``grad_accum`` 2 (the loss within
+                ``TP_TOL`` relative, each leaf within the larger of
+                ``TP_TOL`` and ``FLOOR_FACTOR`` × its floor), one
+                gradient block a position, bit for bit run to run.
              q. then serving over a mesh and the dry-run's account: q1,
                 llama3.2-3b at full width and depth with path lm's bf16
                 weights and prompts (seed 2016) over ``[cuda:0] × 4`` as
@@ -544,6 +553,10 @@ TRAIN_MAIN_ARCH = "qwen2-0.5b"  # j4's launcher run, full width and depth
 SHARD_MESH = (2, 2)      # path p's (data, model) positions on the one card
 SHARD_STEPS = 2          # p0's and p1's timed steps, after one warm step
 SHARD_CHECK_LAYERS = 2   # p2's depth at full width (a cut of depth)
+#: p5's (data, model) positions and microbatches: TRAIN_BATCH's 2 rows and
+#: a microbatch's 1 row both fail to split over its 3 data rows
+SHARD_REPLICATED_MESH = (3, 2)
+SHARD_REPLICATED_ACCUM = 2
 SERVE_MESH = (2, 2)      # path q's (data, model) positions on the one card
 SERVE_F32_LAYERS = 2     # q1's float32 arm's depth at full width (a cut)
 SERVE_F32_STEPS = 4      # q1's float32 arm's greedy decode steps
@@ -4845,7 +4858,8 @@ def shard_grads_phase(torch):
     """p2 at full width and a depth of SHARD_CHECK_LAYERS, float32: one
     sharded step over (data 2, model 2) — each position its ``model``
     share — against the unsharded one (``tp_grads_arm``).  Returns the
-    model, its sharded parameters and their sharded gradients."""
+    model, its parameters, the batch, the sharded parameters and their
+    sharded gradients."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, DataIterator
@@ -4862,7 +4876,30 @@ def shard_grads_phase(torch):
                               device=DEVICE))
     _, sparams, gs = tp_grads_arm(torch, "p", "p2", model, params, batch,
                                   SHARD_MESH)
-    return model, sparams, gs
+    return model, params, batch, sparams, gs
+
+
+def shard_replicated_arm(torch, model, params, batch):
+    """p5: p2's model, parameters and batch with ``grad_accum``
+    SHARD_REPLICATED_ACCUM over SHARD_REPLICATED_MESH positions, where
+    neither the batch nor a microbatch splits over the data rows: every
+    row computes each microbatch whole and weighs it 1/n_rows, as the
+    reference's GSPMD step replicates such a batch.  Held to the unsharded
+    step at the same ``grad_accum``, each leaf within the larger of
+    ``TP_TOL`` and ``FLOOR_FACTOR`` × its floor (``tp_grads_arm``)."""
+    import dataclasses
+    from repro_torch.models import zoo
+    accum, rows = SHARD_REPLICATED_ACCUM, SHARD_REPLICATED_MESH[0]
+    B = batch["tokens"].shape[0]
+    check(B % rows and (B // accum) % rows,
+          f"p5: a batch of {B} in {accum} microbatches splits over {rows}")
+    replicated = zoo.build(dataclasses.replace(model.cfg, grad_accum=accum),
+                           DEVICE)
+    out, _, _ = tp_grads_arm(torch, "p", "p5", replicated, params, batch,
+                             SHARD_REPLICATED_MESH, floor=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def shard_restore_phase(torch, model, sparams, gs):
@@ -4967,7 +5004,9 @@ def shard_path(torch, j2):
     t0 = time.perf_counter()
     p0 = shard_step_phase(torch, j2, (1, 1), "p0")
     p1 = shard_step_phase(torch, j2)
-    model, sparams, gs = shard_grads_phase(torch)
+    model, params, batch, sparams, gs = shard_grads_phase(torch)
+    shard_replicated_arm(torch, model, params, batch)
+    del params, batch
     shard_restore_phase(torch, model, sparams, gs)
     del model, sparams
     gc.collect()
@@ -5492,11 +5531,12 @@ def tp_grads_arm(torch, path, arm, model, params, batch, shape,
     ``TP_TOL`` relative, each gradient leaf within ``TP_TOL`` of its
     largest entry), run to run bit for bit, its gradients one block a
     position (``grad_blocks_spy``); the line printed and checked.  With
-    ``floor``, the unsharded step is also run as two microbatches (the same
-    gradient, its sums in another order): each leaf's distance between the
-    two is its float32 floor, and the leaf's bound is the larger of
-    ``TP_TOL`` and ``FLOOR_FACTOR`` × its floor.  Returns (the line, the
-    sharded parameters, their gradients)."""
+    ``floor``, the unsharded step is also run at another ``grad_accum`` —
+    2, or 1 where the model's is more — (the same gradient, its sums in
+    another order): each leaf's distance between the two is its float32
+    floor, and the leaf's bound is the larger of ``TP_TOL`` and
+    ``FLOOR_FACTOR`` × its floor.  Returns (the line, the sharded
+    parameters, their gradients)."""
     from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.models import zoo
@@ -5517,7 +5557,9 @@ def tp_grads_arm(torch, path, arm, model, params, batch, shape,
     bounds = {k: TP_TOL for k in g1}
     if floor:
         import dataclasses
-        two = zoo.build(dataclasses.replace(model.cfg, grad_accum=2), DEVICE)
+        other = 1 if model.cfg.grad_accum > 1 else 2
+        two = zoo.build(dataclasses.replace(model.cfg, grad_accum=other),
+                        DEVICE)
         _, _, g2 = steps.loss_and_grads(two, params, batch)
         floor = {k: rel_err(torch, v, g1[k]) for k, v in zoo.flatten(g2)}
         for _, p in zoo.flatten(params):

@@ -53,7 +53,7 @@ A dispatch mode does not follow a thread, so the account enters its mode
 on the calling thread and in each data row's thread (``sharding.row_scope``);
 on meta, autograd's backward runs on the calling thread, a checkpointed
 block's recompute included.  Every data row has the same shapes
-(``steps._row_batch`` splits evenly, a served batch splits or replicates),
+(``steps._row_batch``: a batch splits evenly or every row computes it whole),
 so by default (``first_row``) the step runs row 0 — which issues the work
 of all its positions — and one microbatch, the account scales them by
 ``micro`` (``grad_accum``) and gives every position what the position of

@@ -160,35 +160,41 @@ def drive_rows(devices, body):
         raise errors[0]
 
 
-def _row_batch(batch: dict, pos, dev, r: int, n_rows: int,
-               accum: int) -> dict:
-    """Data row r's rows of every input on ``dev``, microbatch by
-    microbatch: its share of each of the ``accum`` microbatches one device
-    would take (rows i·B/accum + r·b .. + b, b = B/(accum·n_rows)), so a
-    microbatch over the rows is one device's.  A sharded input's local
-    block is taken as it is where it holds exactly those rows (accum 1);
-    else the whole input is gathered first (an all-gather to ``pos``)."""
+def _row_batch(batch: dict, mesh, row, accum: int = 1) -> dict:
+    """Data row ``row``'s rows of every input on its device, microbatch by
+    microbatch — the train step's and the serving steps' one rule: of each
+    of the ``accum`` microbatches one device would take (B/accum rows
+    each, in order) the row's block where the microbatch splits evenly
+    over the data rows (``pod`` × ``data``), and the whole microbatch
+    where it does not (``sharding.row_rows``: the reference replicates a
+    batch dimension that does not divide the data axis, so every row
+    computes it).  A microbatch over the rows is then one device's, once
+    or on every row.  A sharded input's local block is taken as it is
+    where it holds exactly those rows; else the whole input is gathered
+    first (an all-gather to the row's position), once a step."""
     out = {}
     for k, v in batch.items():
         B = v.shape[0]
-        if B % (n_rows * accum):
-            raise ValueError(f"{k}: a batch of {B} rows does not split into "
-                             f"grad_accum={accum} microbatches over "
-                             f"{n_rows} data rows")
-        b = B // (n_rows * accum)
+        if B % accum:
+            raise ValueError(f"{k}: a batch of {B} rows does not reshape "
+                             f"into grad_accum={accum} microbatches")
+        m = B // accum
+        span = shd.row_rows(mesh, m, row.pos)
+        want = [slice(i * m + span.start, i * m + span.stop)
+                for i in range(accum)]
         if isinstance(v, shd.ShardedTensor):
-            sl, local = v.sharding.slices(v.shape, pos), v.local(pos)
-            if accum == 1 and sl[0] == slice(r * b, (r + 1) * b) and \
-                    local.device == dev and all(
+            sl, local = v.sharding.slices(v.shape, row.pos), v.local(row.pos)
+            joined = all(a.stop == b.start for a, b in zip(want, want[1:]))
+            if joined and sl[0] == slice(want[0].start, want[-1].stop) and \
+                    local.device == row.device and all(
                         s == slice(0, d) for s, d in zip(sl[1:], v.shape[1:])):
                 out[k] = local
                 continue
             shd.note("all-gather", v.numel() * v.dtype.itemsize,
-                     [p for p, _ in v.block_slices()], pos, r)
-            v = v.full(dev)
-        rows = [v[i * B // accum + r * b:i * B // accum + (r + 1) * b]
-                for i in range(accum)]
-        out[k] = torch.cat(rows).to(dev) if accum > 1 else rows[0].to(dev)
+                     [p for p, _ in v.block_slices()], row.pos, row.index)
+            v = v.full(row.device)
+        out[k] = v[want[0]].to(row.device) if accum == 1 else \
+            torch.cat([v[w] for w in want]).to(row.device)
     return out
 
 
@@ -242,13 +248,32 @@ def _row_devices(row) -> list:
     return [row.device] + [d for d in row.devices if d != row.device]
 
 
+def _count(micro: dict, i: int) -> float:
+    """What a row's microbatch ``i`` weighs in the mean: its ``loss_mask``
+    tokens where the batch carries one, else its rows."""
+    if "loss_mask" in micro:
+        return float(micro["loss_mask"][i].float().sum())
+    return float(micro["tokens"].shape[1])
+
+
+def _weights(counts: list) -> list:
+    """The rows' weights in one microbatch's mean from their ``counts``
+    (equal where nothing counts: every loss is then 0)."""
+    total = sum(counts)
+    return [c / total if total else 1.0 / len(counts) for c in counts]
+
+
 def row_grads(model: zoo.Model, params: dict, batch: dict):
     """The data rows' part of ``sharded_loss_and_grads``: (blocks, loss),
     ``blocks`` the step's gradient blocks (``RowGroup.grads``: each
     position's one block of every leaf it was gathered from, the rows'
     parts weighted and added in row order) and ``loss`` the global
-    batch's.  A step traced on its first row alone runs row 0's first
-    microbatch only, weighting the rows equally."""
+    batch's.  Row r's part of microbatch i weighs its share of the rows
+    (or ``loss_mask`` tokens) of the rows' parts of that microbatch, over
+    ``grad_accum`` — the mean of the microbatches' means, as one device
+    takes it; where every row computes a microbatch whole, each weighs
+    1/n_rows, so it is counted once.  A step traced on its first row alone
+    runs row 0's first microbatch only, weighting the rows equally."""
     mesh = _mesh_of(params)
     axes = _param_axes(model)
     alone = _first_row_only()
@@ -256,36 +281,31 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
     n_rows = len(rows)
     run = rows[:1] if alone else rows
     accum = max(1, model.cfg.grad_accum)
-    parts = [_row_batch(batch, row.pos, row.device, row.index, n_rows, accum)
-             for row in run]
-    if alone:
-        counts = [1.0] * n_rows
-    elif "loss_mask" in batch:
-        counts = [float(pt["loss_mask"].float().sum()) for pt in parts]
-    else:
-        counts = [float(pt["tokens"].shape[0]) for pt in parts]
-    weights = [c / sum(counts) for c in counts]
+    parts = [_row_batch(batch, mesh, row, accum) for row in run]
+    micro = [{k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
+              for k, v in part.items()} for part in parts]
+    weights = [[1.0 / n_rows] * n_rows] if alone else \
+        [_weights([_count(mb, i) for mb in micro]) for i in range(accum)]
     losses = [None] * n_rows
     group = rows[0].group
-    group.weights = [w / accum for w in weights[:group.n]]
     tp = TP.active(model.cfg, rows[0])
     forward = (lambda p, b: TP.forward(model.cfg, p, b)) if tp else \
         model.forward
 
     def body(r):
-        row, part = rows[r], parts[r]
-        micro = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
-                 for k, v in part.items()}
+        row = rows[r]
         total = 0.0
         try:
             with shd.row_scope(row):
                 for i in range(1 if alone else accum):
+                    # set before the row's backward adds a part with it
+                    group.weights[r] = weights[i][r] / accum
                     loss, _ = forward(
                         shd.bind_row(params, axes, row, whole=not tp),
-                        {k: v[i] for k, v in micro.items()})
+                        {k: v[i] for k, v in micro[r].items()})
                     with shd.backward_scope(row):
                         loss.backward()
-                    total = total + loss.detach()
+                    total = total + weights[i][r] * loss.detach()
         except BaseException:
             group.abort()
             raise
@@ -293,8 +313,7 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
 
     drive_rows([_row_devices(row) for row in run], body)
     group.check_done()
-    loss = sum(w * lo.to(rows[0].device)
-               for w, lo in zip(weights, losses) if lo is not None)
+    loss = sum(lo.to(rows[0].device) for lo in losses if lo is not None)
     return group.grads, loss
 
 
@@ -303,24 +322,32 @@ def sharded_loss_and_grads(model: zoo.Model, params: dict, batch: dict):
     metrics, grads), grads a tree of ``ShardedTensor`` in the parameters'
     layout.
 
-    The batch rows split evenly over the data rows (``pod`` × ``data``);
-    row r is a thread, on a CUDA stream of its own on each of its devices,
-    that runs ``cfg.grad_accum`` microbatches of its rows in order, each a
-    forward over ``sharding.bind_row``'s view of the parameters — for a
+    Each of the ``cfg.grad_accum`` microbatches (B/grad_accum rows; a
+    batch that does not reshape into them raises) splits evenly over the
+    data rows (``pod`` × ``data``) where it can, and is computed whole by
+    every row where it cannot, as the reference's GSPMD step replicates a
+    batch dimension that does not divide the data axis
+    (``_row_batch``, the serving steps' rule too).  Row r is a thread, on
+    a CUDA stream of its own on each of its devices, that runs
+    ``cfg.grad_accum`` microbatches of its rows in order, each a forward
+    over ``sharding.bind_row``'s view of the parameters — for a
     tensor-parallel family (``models.tensor_parallel``) each of its
     positions computing its ``model`` share with its block of every layer,
     else the row's device computing whole layers — and a ``backward()``
     that adds each gathered layer's gradient into the gradient blocks of
     the positions it was gathered from (``row_grads``).  Row r's
-    microbatch i is its share of one device's microbatch i
-    (``_row_batch``), and a MoE layer's load-balancing term takes the
-    first-choice shares of all rows' tokens (``sharding.Row.gather_sum``,
-    where the rows wait for one another in the forward), so a microbatch
+    microbatch i is its share of one device's microbatch i, its block or
+    all of it (``_row_batch``), and a MoE layer's load-balancing term
+    takes the first-choice shares of all rows' tokens
+    (``sharding.Row.gather_sum``, where the rows wait for one another in
+    the forward; where the rows replicate a microbatch both of its sums
+    grow n_rows-fold and their ratio is one device's), so a microbatch
     over the rows computes what one device's does.  The rows' parts are
     weighted so the result is the gradient of the mean over the global
     batch — by rows, or by the ``loss_mask`` tokens when the batch carries
-    one — which is the loss returned, and added in row order: a position
-    holds one gradient block a leaf, never a whole leaf's gradient."""
+    one, a replicated microbatch 1/n_rows on each row — which is the loss
+    returned, and added in row order: a position holds one gradient block
+    a leaf, never a whole leaf's gradient."""
     blocks, loss = row_grads(model, params, batch)
     grads = _grad_tree(params, blocks)
     return loss, {"loss": loss}, grads
@@ -377,27 +404,6 @@ def serving_model(cfg: ArchConfig, *, serve_dtype: str = "bfloat16",
     reference's ``_bf16_init`` (``lower_cell``'s serving parameters) in
     one call, since the port's ``init`` draws in ``cfg.param_dtype``."""
     return zoo.build(dataclasses.replace(cfg, param_dtype=serve_dtype), device)
-
-
-def _serve_batch(batch: dict, mesh, row) -> dict:
-    """The data row's batch rows (``sharding.row_rows``) of every input on
-    its device: a sharded input's local block where it holds exactly
-    them, else gathered (an all-gather to the row's position)."""
-    out = {}
-    for k, v in batch.items():
-        span = shd.row_rows(mesh, v.shape[0], row.pos)
-        if isinstance(v, shd.ShardedTensor):
-            sl = v.sharding.slices(v.shape, row.pos)
-            local = v.local(row.pos)
-            if sl[0] == span and local.device == row.device and all(
-                    s == slice(0, d) for s, d in zip(sl[1:], v.shape[1:])):
-                out[k] = local
-                continue
-            shd.note("all-gather", v.numel() * v.dtype.itemsize,
-                     [p for p, _ in v.block_slices()], row.pos, row.index)
-            v = v.full(row.device)
-        out[k] = v[span].to(row.device)
-    return out
 
 
 def _serve_rows(mesh, body):
@@ -482,7 +488,7 @@ def sharded_prefill(model: zoo.Model, params: dict, batch: dict,
     def body(row):
         span = shd.row_rows(mesh, B, row.pos)
         rc = shd.bind_cache(cache, c_axes, row, span)
-        part = _serve_batch(batch, mesh, row)
+        part = _row_batch(batch, mesh, row)
         if TP.serves(model.cfg, row, rc):
             _, lg = TP.prefill(model.cfg,
                                shd.bind_row(params, p_axes, row, whole=False),
@@ -520,7 +526,7 @@ def sharded_decode(model: zoo.Model, params: dict, cache: dict, token):
 
     def body(row):
         span = shd.row_rows(mesh, B, row.pos)
-        tok = _serve_batch({"token": token}, mesh, row)["token"]
+        tok = _row_batch({"token": token}, mesh, row)["token"]
         rc = shd.bind_cache(cache, c_axes, row, span)
         if TP.serves(model.cfg, row, rc):
             _, lg = TP.decode(model.cfg,

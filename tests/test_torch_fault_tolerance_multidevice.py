@@ -18,7 +18,12 @@ package where the two compute the same thing.
 4. Sharded checkpoints across packages: a state sharded over a (4, 2)
    mesh saved by either package restores in the other onto its (4, 2)
    mesh, bit for bit, bf16 leaves included.
+5. Elastic restore onto a mesh whose data rows do not divide the batch:
+   reduced llama3.2-3b's training state saved over 16 positions restores
+   onto ``replan_mesh(12, prefer_model=16)`` = (3, 4), and one train step
+   on 8 rows (every data row computing them whole) holds to one device.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -31,11 +36,14 @@ import pytest
 import torch
 
 from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config, reduced_for_smoke
 from repro_torch.core import fm
+from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.sharding import NamedSharding, ShardedTensor, place
-from repro_torch.launch import train
+from repro_torch.launch import steps, train
 from repro_torch.launch.mesh import Mesh
-from repro_torch.optim import compression
+from repro_torch.models import zoo
+from repro_torch.optim import adam, compression
 from repro_torch.runtime import replan_mesh, rescale_grad_accum
 
 pytestmark = pytest.mark.slow  # subprocess multi-device runs, as the reference's
@@ -80,6 +88,70 @@ def test_elastic_remesh_restore(tmp_path):
     np.testing.assert_array_equal(np.asarray(out["w"]), w.numpy())
     assert int(out["step"].full()) == 7
     assert rescale_grad_accum(2, old_data=4, new_data=2) == 4
+
+
+def test_elastic_restore_onto_twelve_then_step(tmp_path):
+    """Reduced llama3.2-3b's parameters and AdamW state (float32 moments)
+    saved over (4, 4) positions; 4 of 16 hosts lost: restored onto
+    ``replan_mesh(12, prefer_model=16)`` = (3, 4), where 8 rows do not
+    split over the 3 data rows.  One train step there against the same
+    step on one device: the loss and the gradient norm within 1e-5
+    relative; each leaf's first and second moments — (1 - b1) × its
+    gradient and (1 - b2) × its square — within 1e-5 of their largest
+    entry; and each parameter's entries whose first moment is above 1e-4
+    of its largest within 1e-6 of the parameter's largest entry (a step
+    moves an entry by about ``lr``, 3e-4, so a step of the wrong size or
+    sign shows).  AdamW's first step divides each gradient entry by its
+    size, so an entry whose gradient is near 0 may move by up to ``lr``
+    on the least difference: the rest of a leaf is held only to that,
+    and the moments carry the check there."""
+    cfg = dataclasses.replace(reduced_for_smoke(get_config("llama3.2-3b")),
+                              grad_accum=1)
+    model = zoo.build(cfg, "cpu")
+    opt_cfg = adam.AdamConfig(moment_dtype="float32")
+    shapes, axes = model.abstract_params()
+    sp = shd.place_tree(model.init(0), shd.tree_shardings(
+        axes, shapes, _mesh((4, 4))))
+    state = {"params": sp, "opt": adam.init(sp, opt_cfg)}
+    ck = Checkpointer(tmp_path)
+    ck.save(3, state, blocking=True)
+
+    mesh = replan_mesh(12, prefer_model=16, devices=[CPU] * 12)
+    assert mesh.devices.shape == (3, 4)
+    sh = {"params": shd.tree_shardings(axes, shapes, mesh),
+          "opt": shd.tree_shardings(adam.opt_state_axes(axes),
+                                    state["opt"], mesh)}
+    got, step, _ = ck.restore(state, shardings=sh)
+    assert step == 3
+    rng = np.random.default_rng(9)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 24))
+                                 .astype(np.int32))
+             for k in ("tokens", "labels")}
+    train_step = steps.build_train_step(model, opt_cfg)
+    before = {k: v.full().clone() for k, v in zoo.flatten(got["params"])}
+    p2, o2, m2 = train_step(got["params"], got["opt"], batch)
+    p1 = model.init(0)
+    p1, o1, m1 = train_step(p1, adam.init(p1, opt_cfg), batch)
+    for k in ("loss", "grad_norm"):
+        assert abs(float(m2[k]) - float(m1[k])) <= 1e-5 * abs(float(m1[k])), k
+    for mom in ("m", "v"):
+        for (name, a), (_, b) in zip(zoo.flatten(o1[mom]),
+                                     zoo.flatten(o2[mom])):
+            if a.numel():
+                err = (b.full().double() - a.double()).abs().max()
+                assert float(err) <= 1e-5 * float(a.double().abs().max()), \
+                    (mom, name)
+    m1 = dict(zoo.flatten(o1["m"]))
+    for (name, a), (_, b) in zip(zoo.flatten(p1), zoo.flatten(p2)):
+        if a.numel():
+            b = b.full()
+            assert not torch.equal(b, before[name]), name
+            diff = (b.double() - a.detach().double()).abs()
+            assert float(diff.max()) <= opt_cfg.lr, name
+            m = m1[name].double().abs()
+            sure = m > 1e-4 * m.max()
+            assert float(diff[sure].max()) <= \
+                1e-6 * float(a.detach().double().abs().max()), name
 
 
 _INT8 = textwrap.dedent("""
