@@ -428,7 +428,10 @@ Phases, each printing one JSON line:
                 depth 2 in float32 over (data 2, model 2): a capacity-
                 bound train step (4 × 640 tokens) against the unsharded one
                 within 1e-5, one gradient block a position, bit for bit
-                run to run, then a prefill and 4 decode steps against each
+                run to run, the same step under a ``loss_mask`` of ~60%
+                of the tokens with data row 1's two rows masked out
+                (r2-mask: its seconds printed), then a prefill and 4
+                decode steps against each
                 data row served alone within 1e-5, the route flips
                 printed; r3, whisper-medium at full width and depth over
                 (data 2, model 2): the flash kernel at a position's three
@@ -567,6 +570,8 @@ MOE_TP_MESH = (1, 2)     # r1's (data, model) positions: one copy of the weights
 MOE_TP_DECODE = 4        # r1's and r2's greedy decode steps
 MOE_TP_CHECK_LAYERS = 2  # r2's depth at full width (a cut of depth)
 MOE_TP_TRAIN_SEQ = 640   # r2's tokens a row: 640 · 8 pairs > 4096 (capacity)
+MOE_TP_MASK_SHARE = 0.6  # r2-mask: the share of tokens its loss_mask keeps
+MOE_TP_MASK_ROW = 1      # r2-mask: the data row whose rows it masks out
 ENCDEC_TP_MESH = (2, 2)  # r3's (data, model) positions
 ENCDEC_TP_DECODE = 4     # r3's greedy decode steps
 HYBRID_TP_MESH = (1, 2)  # s1's (data, model) positions: one weight copy
@@ -5675,8 +5680,12 @@ def moe_tp_checks(torch):
     """r2: qwen3-moe-30b-a3b at full width, depth ``MOE_TP_CHECK_LAYERS``,
     float32 from seed 2029, over (data 2, model 2): a train step of 4 ×
     ``MOE_TP_TRAIN_SEQ`` tokens (capacity-bound: more than 4096 pairs a
-    row) against the unsharded one (``tp_grads_arm``), then a prefill of
-    4 × ``MOE_TP_TRAIN_SEQ`` and ``MOE_TP_DECODE`` greedy steps against
+    row) against the unsharded one (``tp_grads_arm``); the same under a
+    ``loss_mask`` of about ``MOE_TP_MASK_SHARE`` of the tokens with data
+    row ``MOE_TP_MASK_ROW``'s two rows masked out (r2-mask: each row's
+    cross-entropy weighs its share of the mask, its load-balancing term
+    its share of the tokens — the masked-out row's 0 and 1/2); then a
+    prefill of 4 × ``MOE_TP_TRAIN_SEQ`` and ``MOE_TP_DECODE`` greedy steps against
     each row served alone (``tp_serve_f32_arm``), the prefill's route
     flips against one device's printed."""
     import dataclasses
@@ -5695,6 +5704,18 @@ def moe_tp_checks(torch):
                          device=DEVICE, dtype=torch.int32)
     tp_grads_arm(torch, "r", "r2-train", model, params,
                  {"tokens": toks[:, :S], "labels": toks[:, 1:]}, (2, 2))
+    t_arm = time.perf_counter()
+    mask = (torch.rand((B, S), generator=gen, device=DEVICE)
+            < MOE_TP_MASK_SHARE).float()
+    empty = slice(MOE_TP_MASK_ROW * B // 2, (MOE_TP_MASK_ROW + 1) * B // 2)
+    mask[empty] = 0
+    tp_grads_arm(torch, "r", "r2-mask", model, params,
+                 {"tokens": toks[:, :S], "labels": toks[:, 1:],
+                  "loss_mask": mask}, (2, 2))
+    emit({"phase": "arm", "path": "r", "arm": "r2-mask",
+          "mask_share": float(mask.mean()),
+          "rows_masked_out": list(range(B))[empty],
+          "seconds": time.perf_counter() - t_arm})
     prompt = {"tokens": toks[:, :S]}
     with routes() as one:
         steps.build_prefill_step(model, S)(params, prompt)

@@ -248,10 +248,11 @@ def _row_devices(row) -> list:
     return [row.device] + [d for d in row.devices if d != row.device]
 
 
-def _count(micro: dict, i: int) -> float:
+def _count(micro: dict, i: int, by_mask: bool = True) -> float:
     """What a row's microbatch ``i`` weighs in the mean: its ``loss_mask``
-    tokens where the batch carries one, else its rows."""
-    if "loss_mask" in micro:
+    tokens where the batch carries one (and ``by_mask``), else its rows —
+    its share of the tokens, every row being as long."""
+    if by_mask and "loss_mask" in micro:
         return float(micro["loss_mask"][i].float().sum())
     return float(micro["tokens"].shape[1])
 
@@ -272,8 +273,16 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
     (or ``loss_mask`` tokens) of the rows' parts of that microbatch, over
     ``grad_accum`` — the mean of the microbatches' means, as one device
     takes it; where every row computes a microbatch whole, each weighs
-    1/n_rows, so it is counted once.  A step traced on its first row alone
-    runs row 0's first microbatch only, weighting the rows equally."""
+    1/n_rows, so it is counted once.  A MoE's load-balancing term is a
+    mean over every token, masked or not: it weighs the row's share of the
+    rows, w_t, and the cross-entropy its share of the mask, w_x (the
+    forward hands the two apart).  The row's backward runs on
+    (w_x / w_t) · xent + balance with its gradient parts weighed w_t —
+    w_t is never 0, so a row whose mask is empty still adds its gates'
+    part — and where the two shares are equal, as without a mask, that is
+    the loss as the forward sums it.  A step traced on its first row
+    alone runs row 0's first microbatch only, weighting the rows
+    equally."""
     mesh = _mesh_of(params)
     axes = _param_axes(model)
     alone = _first_row_only()
@@ -284,13 +293,21 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
     parts = [_row_batch(batch, mesh, row, accum) for row in run]
     micro = [{k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])
               for k, v in part.items()} for part in parts]
-    weights = [[1.0 / n_rows] * n_rows] if alone else \
-        [_weights([_count(mb, i) for mb in micro]) for i in range(accum)]
+
+    def shares(by_mask):
+        if alone:
+            return [[1.0 / n_rows] * n_rows]
+        return [_weights([_count(mb, i, by_mask) for mb in micro])
+                for i in range(accum)]
+    moe = bool(model.cfg.n_experts)
+    w_x = shares(True)
+    w_t = shares(False) if moe else w_x
     losses = [None] * n_rows
     group = rows[0].group
     tp = TP.active(model.cfg, rows[0])
-    forward = (lambda p, b: TP.forward(model.cfg, p, b)) if tp else \
-        model.forward
+    kw = {"terms": True} if moe else {}
+    forward = (lambda p, b: TP.forward(model.cfg, p, b, **kw)) if tp else \
+        (lambda p, b: model.forward(p, b, **kw))
 
     def body(r):
         row = rows[r]
@@ -299,13 +316,16 @@ def row_grads(model: zoo.Model, params: dict, batch: dict):
             with shd.row_scope(row):
                 for i in range(1 if alone else accum):
                     # set before the row's backward adds a part with it
-                    group.weights[r] = weights[i][r] / accum
-                    loss, _ = forward(
+                    group.weights[r] = w_t[i][r] / accum
+                    # aux: a MoE's balance term, else the metrics
+                    loss, aux = forward(
                         shd.bind_row(params, axes, row, whole=not tp),
                         {k: v[i] for k, v in micro[r].items()})
+                    if moe:
+                        loss = (w_x[i][r] / w_t[i][r]) * loss + aux
                     with shd.backward_scope(row):
                         loss.backward()
-                    total = total + weights[i][r] * loss.detach()
+                    total = total + w_t[i][r] * loss.detach()
         except BaseException:
             group.abort()
             raise
@@ -345,9 +365,10 @@ def sharded_loss_and_grads(model: zoo.Model, params: dict, batch: dict):
     over the rows computes what one device's does.  The rows' parts are
     weighted so the result is the gradient of the mean over the global
     batch — by rows, or by the ``loss_mask`` tokens when the batch carries
-    one, a replicated microbatch 1/n_rows on each row — which is the loss
-    returned, and added in row order: a position holds one gradient block
-    a leaf, never a whole leaf's gradient."""
+    one (a MoE's balance term by rows whatever the mask), a replicated
+    microbatch 1/n_rows on each row — which is the loss returned, and
+    added in row order: a position holds one gradient block a leaf, never
+    a whole leaf's gradient."""
     blocks, loss = row_grads(model, params, batch)
     grads = _grad_tree(params, blocks)
     return loss, {"loss": loss}, grads

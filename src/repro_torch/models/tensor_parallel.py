@@ -573,7 +573,7 @@ def _block(cfg, row, stacked: dict, i: int, x, positions):
     return x + m, bal
 
 
-def _forward_lm(cfg, params: dict, batch: dict):
+def _forward_lm(cfg, params: dict, batch: dict, terms: bool = False):
     row = shd.row_of(params)
     patch = batch.get("patch_embs")
     embs = _embed_leaves(row, params)
@@ -591,6 +591,8 @@ def _forward_lm(cfg, params: dict, batch: dict):
     loss = _loss(cfg, row, params, embs, h, batch["labels"],
                  batch.get("loss_mask"))
     if cfg.n_experts:
+        if terms:
+            return loss, 0.01 * aux / cfg.n_layers
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"loss": loss}
 
@@ -931,20 +933,21 @@ def _decode_attention(cfg, row, part: dict, h, kc, vc, cur, *,
 # Entry points
 # ---------------------------------------------------------------------------
 
-def forward(cfg, params: dict, batch: dict):
+def forward(cfg, params: dict, batch: dict, *, terms: bool = False):
     """The family's train forward (``transformer.forward``,
     ``encdec.forward``) of a data row over its positions: params a tree of
     ``sharding.RowLeaf`` (``bind_row(..., whole=False)``), returning (loss,
     {"loss": loss}); a MoE's loss takes each layer's load-balancing term
-    over every data row's first-choice shares.  Under ``cfg.remat`` each
-    block runs under ``torch.utils.checkpoint``, the layer gathered inside
-    it."""
+    over every data row's first-choice shares, and with ``terms`` comes as
+    its two terms apart (``transformer.forward``).  Under ``cfg.remat``
+    each block runs under ``torch.utils.checkpoint``, the layer gathered
+    inside it."""
     if cfg.family in ("ssm", "hybrid"):
         from . import tensor_parallel_ssm
         return tensor_parallel_ssm.forward(cfg, params, batch)
     if cfg.family == "encdec":
         return _forward_encdec(cfg, params, batch)
-    return _forward_lm(cfg, params, batch)
+    return _forward_lm(cfg, params, batch, terms)
 
 
 def prefill(cfg, params: dict, batch: dict, max_len: int, *,

@@ -210,9 +210,12 @@ def hidden_states(cfg, params, tokens, *, patch_embs=None):
     return L.apply_norm(cfg, params["final_norm"], x), aux
 
 
-def forward(cfg, params, batch):
+def forward(cfg, params, batch, *, terms: bool = False):
     """Causal-LM loss.  batch: tokens (B,S), labels (B,S) [, loss_mask]
-    [, patch_embs (B, P, d)]."""
+    [, patch_embs (B, P, d)].  With ``terms`` a MoE returns its loss's two
+    terms apart, (the cross-entropy, 0.01 · aux / n_layers), in place of
+    (loss, metrics): the sharded step weighs them apart
+    (``launch.steps.row_grads``)."""
     if cfg.family not in FAMILIES:
         raise ValueError(
             f"transformer.forward trains the {', '.join(FAMILIES)} families, "
@@ -224,6 +227,8 @@ def forward(cfg, params, batch):
     logits = L.logits_out(cfg, params["embed"], h)
     loss = L.xent_loss(logits, batch["labels"], batch.get("loss_mask"))
     if cfg.n_experts:
+        if terms:
+            return loss, 0.01 * aux / cfg.n_layers
         loss = loss + 0.01 * aux / cfg.n_layers
     return loss, {"loss": loss}
 

@@ -127,8 +127,8 @@ class Model:
     def init_cache(self, batch: int, max_len: int) -> dict:
         return self.module.init_cache(self.cfg, batch, max_len, self.device)
 
-    def forward(self, params, batch):
-        return self.module.forward(self.cfg, params, batch)
+    def forward(self, params, batch, **kw):
+        return self.module.forward(self.cfg, params, batch, **kw)
 
 
 def build(cfg: ArchConfig, device=None) -> Model:

@@ -18,10 +18,17 @@ not is computed whole by every row, each row's part weighed 1/n_rows.
   parameters (``zoo.params_from_numpy``) over meshes of repeated CPU
   devices of the same shapes: the loss within 1e-5 relative and every
   gradient leaf within 1e-5 of its largest entry.
+  A masked MoE case (``MASKED``), qwen3-moe-30b-a3b on 6 rows over
+  (3, 2), splits 2 rows a data row under a ``loss_mask`` of about 60% of
+  the tokens with data row 1's rows masked out.
 * The port's one-device step, at the same ``grad_accum``: the same within
   1e-5, where the whole batch does not split, where it splits but a
-  microbatch does not, and with a ``loss_mask``; a MoE layer's
-  load-balancing term on every row equal to one device's.
+  microbatch does not, and with a ``loss_mask`` — the MoE families' too
+  on rows that split a microbatch, a data row's rows masked out or not;
+  a MoE layer's load-balancing term on every row equal to one device's,
+  and on split rows under a mask, each row's weighed by its share of the
+  tokens, summing to one device's, a row whose mask is empty adding its
+  part.
 * A batch that does not reshape into ``grad_accum`` microbatches raises in
   both packages; each position holds one gradient block a leaf, bit for
   bit run to run; a traced step of such a cell counts row 0's whole batch.
@@ -54,7 +61,11 @@ FAMILIES = ["llama3.2-3b", "paligemma-3b", "qwen3-moe-30b-a3b",
 S = 24                 # positions a row (the SSM's chunks stay in range)
 #: case -> (config, batch rows, the reference's mesh)
 CASES = {"c8": ("llama3.2-3b", 8, "replan12"),
-         **{arch: (arch, 4, "host6") for arch in FAMILIES}}
+         **{arch: (arch, 4, "host6") for arch in FAMILIES},
+         "c9": ("qwen3-moe-30b-a3b", 6, "host6")}
+#: case -> the data row whose rows its ``loss_mask`` masks out (a mask of
+#: about 60% of the tokens elsewhere)
+MASKED = {"c9": 1}
 TOL = 1e-5
 
 _REF = textwrap.dedent("""
@@ -72,7 +83,7 @@ _REF = textwrap.dedent("""
     from repro.optim import adam
     from repro.runtime import replan_mesh
 
-    cases, S, out = json.loads(sys.argv[1])
+    cases, masked, S, out = json.loads(sys.argv[1])
     meshes = {"replan12": replan_mesh(12, prefer_model=16),
               "host6": make_host_mesh(6, model=2)}
     res = {}
@@ -101,6 +112,11 @@ _REF = textwrap.dedent("""
         if cfg.family == "encdec":
             batch["frames"] = rng.normal(
                 size=(rows, cfg.enc_len, cfg.d_model)).astype(np.float32)
+        if name in masked:
+            mask = (rng.random((rows, text)) < 0.6).astype(np.float32)
+            n = mesh.shape["data"]
+            mask[masked[name] * rows // n:(masked[name] + 1) * rows // n] = 0
+            batch["loss_mask"] = mask
         for k, v in batch.items():
             res[f"{name}:batch:{k}"] = v
         flat(params, f"{name}:params")
@@ -142,7 +158,7 @@ def ref(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("batch") / "ref.npz")
     env = dict(os.environ, PYTHONPATH="src", JAX_PLATFORMS="cpu")
     proc = subprocess.run(
-        [sys.executable, "-c", _REF, json.dumps([CASES, S, out])],
+        [sys.executable, "-c", _REF, json.dumps([CASES, MASKED, S, out])],
         capture_output=True, text=True, env=env, timeout=600, cwd=ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     head = json.loads(proc.stdout.strip().splitlines()[-1])
@@ -192,9 +208,10 @@ def _case(ref, name, accum=1):
             batch)
 
 
-def _seeded(arch, rows, accum=1, mask=False, seed=7):
+def _seeded(arch, rows, accum=1, mask=False, seed=7, empty=()):
     """(model, seeded parameters, a batch of ``rows``) of reduced
-    ``arch``, with a ``loss_mask`` of about 60% of the tokens if asked."""
+    ``arch``, with a ``loss_mask`` of about 60% of the tokens if asked,
+    0 on the batch rows ``empty``."""
     cfg = _cfg(arch, accum)
     model = zoo.build(cfg, "cpu")
     rng = np.random.default_rng(seed)
@@ -210,9 +227,19 @@ def _seeded(arch, rows, accum=1, mask=False, seed=7):
     if cfg.family == "encdec":
         batch["frames"] = draw(rows, cfg.enc_len, cfg.d_model)
     if mask:
-        batch["loss_mask"] = torch.from_numpy(
-            (rng.random((rows, text)) < 0.6).astype(np.float32))
+        m = (rng.random((rows, text)) < 0.6).astype(np.float32)
+        m[list(empty)] = 0
+        batch["loss_mask"] = torch.from_numpy(m)
     return model, model.init(0), batch
+
+
+def _row_rows(rows, accum, data_row, n_data) -> list:
+    """The batch rows data row ``data_row`` of ``n_data`` computes where
+    every microbatch splits over them: its block of each microbatch."""
+    m = rows // accum
+    per = m // n_data
+    return [i * m + data_row * per + j for i in range(accum)
+            for j in range(per)]
 
 
 def _sharded(model, params, mesh):
@@ -290,20 +317,51 @@ def test_families_match_reference_and_one_device(ref, arch):
     ("qwen3-moe-30b-a3b", 12, 2, (4, 1), False),
     ("llama3.2-3b", 8, 2, (3, 2), True),
     ("zamba2-7b", 12, 2, (4, 1), True),
-    ("llama3.2-3b", 8, 2, (2, 2), True)])
+    ("llama3.2-3b", 8, 2, (2, 2), True),
+    ("qwen3-moe-30b-a3b", 8, 2, (2, 2), True),
+    ("qwen3-moe-30b-a3b", 8, 1, (4, 1), True),
+    ("arctic-480b", 8, 2, (2, 2), True),
+    ("arctic-480b", 8, 1, (4, 1), True),
+    ("qwen3-moe-30b-a3b", 8, 2, (2, 2), "row0"),
+    ("qwen3-moe-30b-a3b", 8, 1, (4, 1), "row0")])
 def test_grad_accum_matches_one_device(arch, rows, accum, shape, mask):
-    """``grad_accum`` 2 against one device at the same ``grad_accum``: 8
-    rows over 3 data rows (neither the batch nor a microbatch splits); 12
-    over 4 with microbatches of 6 (the batch splits, a microbatch does
-    not: every row computes both whole); with a ``loss_mask``; and a
-    masked batch whose microbatches do split over (2, 2), where each row's
-    part weighs its share of its microbatch's tokens."""
+    """Against one device at the same ``grad_accum``: 8 rows over 3 data
+    rows (neither the batch nor a microbatch splits); 12 over 4 with
+    microbatches of 6 (the batch splits, a microbatch does not: every row
+    computes both whole); with a ``loss_mask``; and masked batches whose
+    microbatches do split, over (2, 2) at ``grad_accum`` 2 and (4, 1) at 1,
+    where each row's cross-entropy weighs its share of its microbatch's
+    mask tokens and a MoE's load-balancing term its share of the tokens —
+    with data row 0's rows masked out too (``"row0"``: its cross-entropy
+    weighs 0, its balance term still counts)."""
     mesh = _cpu_mesh(shape)
     assert _splits(rows, accum, mesh) == {
-        (3, 2): (False, False), (4, 1): (True, False),
-        (2, 2): (True, True)}[shape]
-    model, params, batch = _seeded(arch, rows, accum, mask)
+        ((3, 2), 4): (False, False), ((4, 1), 6): (True, False),
+        ((2, 2), 4): (True, True), ((4, 1), 8): (True, True),
+    }[shape, rows // accum]
+    empty = _row_rows(rows, accum, 0, shape[0]) if mask == "row0" else ()
+    model, params, batch = _seeded(arch, rows, accum, bool(mask),
+                                   empty=empty)
     _close(_grads(model, params, batch, mesh), _grads(model, params, batch))
+
+
+def test_masked_moe_split_matches_reference(ref):
+    """Fault C9's semantics against the reference: reduced
+    qwen3-moe-30b-a3b, 6 rows over (3, 2) positions (2 rows a data row),
+    a ``loss_mask`` of about 60% of the tokens with data row 1's rows
+    masked out, against the reference's GSPMD step over 6 forced host
+    devices and the port's one-device step: the cross-entropy is the mask's
+    mean, the load-balancing term every token's."""
+    model, params, batch = _case(ref, "c9")
+    mesh = _cpu_mesh((3, 2))
+    assert tuple(ref["c9:mesh"]) == (3, 2)
+    assert _splits(6, 1, mesh) == (True, True)
+    mask = batch["loss_mask"]
+    assert not mask[2:4].any() and mask[:2].any() and mask[4:].any()
+    got = _grads(model, params, batch, mesh)
+    want = {name: ref[f"c9:grad:{name}"] for name, _ in zoo.flatten(params)}
+    _close(got, (float(ref["c9:loss"]), want))
+    _close(got, _grads(model, params, batch))
 
 
 @pytest.mark.parametrize("shape", [(3, 2), (3, 1)])
@@ -332,6 +390,55 @@ def test_moe_balance_term_on_replicated_rows(shape, monkeypatch):
         assert len(row) == len(one)
         for got, want in zip(row, one):
             assert abs(got - want) <= 1e-6 * abs(want), (row, one)
+
+
+@pytest.mark.parametrize("shape", [(4, 1), (2, 2)])
+def test_moe_balance_term_by_token_share(shape, monkeypatch):
+    """Reduced qwen3-moe-30b-a3b, 8 rows split over ``shape``'s data rows
+    under a ``loss_mask`` with data row 1's rows masked out: each row's
+    load-balancing term of each layer, weighed by the row's share of the
+    tokens, sums over the rows to one device's within 1e-6; and the row
+    whose mask is empty adds its part of the router's gradient, with a
+    weight above 0."""
+    n = shape[0]
+    model, params, batch = _seeded("qwen3-moe-30b-a3b", 8, mask=True,
+                                   empty=_row_rows(8, 1, 1, n))
+    terms, of_thread, router = {}, {}, {}
+    real_loss, real_scope = moe.balance_loss, shd.row_scope
+    real_add = shd.RowGroup.add_grad
+
+    def spy_loss(bal, pe=None):
+        out = real_loss(bal, pe)
+        terms.setdefault(threading.current_thread().name, []).append(
+            float(out.detach()))
+        return out
+
+    def spy_scope(row):
+        of_thread[threading.current_thread().name] = row.index
+        return real_scope(row)
+
+    def spy_add(self, name, leaf, pos, index, sub, part, row):
+        if name == "layers.moe.router":
+            router.setdefault(row.index, []).append(
+                (self.weights[row.index], float(part.abs().max())))
+        return real_add(self, name, leaf, pos, index, sub, part, row)
+    monkeypatch.setattr(moe, "balance_loss", spy_loss)
+    _grads(model, params, batch)
+    (one,) = terms.values()
+    terms.clear()
+    monkeypatch.setattr(shd, "row_scope", spy_scope)
+    monkeypatch.setattr(shd.RowGroup, "add_grad", spy_add)
+    _grads(model, params, batch, _cpu_mesh(shape))
+    by_row = {of_thread[t]: v for t, v in terms.items()}
+    assert sorted(by_row) == list(range(n))
+    share = (8 // n) / 8
+    for layer, want in enumerate(one):
+        got = sum(share * by_row[r][layer] for r in range(n))
+        assert abs(got - want) <= 1e-6 * abs(want), (layer, got, want)
+    assert not batch["loss_mask"][_row_rows(8, 1, 1, n)].any()
+    assert all(t > 0 for t in by_row[1])
+    assert router[1] and all(w > 0 and g > 0 for w, g in router[1]), \
+        router[1]
 
 
 def test_batch_not_in_microbatches_raises_in_both(ref):
